@@ -1,0 +1,151 @@
+"""The simulation engine (counterpart of ``fluidsim_tpu/engine.py``).
+
+The host-side equivalent of the reference's ``Update()`` loop
+(FluidSim.cs:390-450): emitter injection then one solver step, per step, in
+a Python loop; pause, reset, source repositioning and an optional NaN guard.
+The SQLite metrics store, mouse drag and checkpoints are not ported yet and
+raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .config import SimConfig
+from .models import stable3d
+from .models.stable3d import HAND_KERNELS, StepKernels, simulate_step_3d
+from .scene.obstacles import build_obstacle_mask
+from .scene.sources import apply_custom_source, source_params
+from .state import FluidState, zeros_state
+
+
+class Engine:
+    """Steps a 3D fluid simulation on ``device`` from the host."""
+
+    def __init__(self, cfg: SimConfig, device, nan_guard: bool = False,
+                 store=None, crash_snapshot_path: Optional[str] = None,
+                 kernels: StepKernels = HAND_KERNELS):
+        """``kernels`` replaces the kernel path's two calls (see
+        ``models.stable3d.simulate_step_3d``)."""
+        if store is not None:
+            raise NotImplementedError("the SQLite metrics store is not ported")
+        if crash_snapshot_path is not None:
+            raise NotImplementedError("crash snapshots (checkpoints) are not ported")
+        self.device = torch.device(device)
+        self.kernels = kernels
+        self.nan_guard = nan_guard
+        self.paused = False
+        self._clock = time.perf_counter  # swappable for tests
+        self.cfg = self._checked(cfg)
+        self.reset()
+
+    def _checked(self, cfg: SimConfig) -> SimConfig:
+        cfg = cfg.validate()
+        stable3d.check_supported(cfg, stable3d._kernels_usable(cfg, self.device))
+        return cfg
+
+    # -- lifecycle ------------------------------------------------------
+
+    def reset(self) -> None:
+        """``ResetSimulation`` (FluidSim.cs:213-300): reallocate fields and
+        re-rasterize obstacles from the current config."""
+        obst = build_obstacle_mask(self.cfg)
+        self.state = zeros_state(self.cfg, self.device, obstacles=obst)
+        self._src_params = source_params(self.cfg)
+        self._host_step = 0
+        # Wall-clock elapsedTime for pulse_clock="wall" (FluidSim.cs:394):
+        # accumulates frame deltas only while unpaused.
+        self._elapsed = 0.0
+        self._wall_prev: Optional[float] = None
+
+    def set_config(self, cfg: SimConfig) -> None:
+        """``OnValidate`` analog (FluidSim.cs:154-180): grid-shape changes
+        reset state; parameter-only changes re-rasterize obstacles."""
+        old_shape = self.cfg.grid_shape
+        self.cfg = self._checked(cfg)
+        if cfg.grid_shape != old_shape:
+            self.reset()
+        else:
+            obst = torch.as_tensor(build_obstacle_mask(cfg), device=self.device)
+            self.state = self.state.replace(obstacles=obst)
+            self._src_params = source_params(self.cfg)
+
+    def set_paused(self, paused: bool) -> None:
+        """FluidSim.cs:149-153."""
+        if self.paused and not paused:
+            # Resume: drop the pause gap from the wall-clock accumulator.
+            self._wall_prev = None
+        self.paused = paused
+
+    # -- stepping -------------------------------------------------------
+
+    def _one_step(self, state: FluidState) -> FluidState:
+        t = state.time + self.cfg.effective_params()[0]
+        density, velocity = apply_custom_source(
+            state.density, state.velocity, self.cfg, t, params=self._src_params
+        )
+        state = state.replace(density=density, velocity=velocity)
+        return simulate_step_3d(state, self.cfg, self.kernels)
+
+    def step(self, n: int = 1, substeps_per_dispatch: int = 1) -> FluidState:
+        """Advance ``n`` steps (no-op while paused, FluidSim.cs:392).  The NaN
+        guard checks once every ``substeps_per_dispatch`` steps."""
+        now = self._clock()
+        delta = (now - self._wall_prev) if self._wall_prev is not None else 0.0
+        # Unity clamps a frame's deltaTime to its maximum allowed timestep.
+        delta = min(delta, 0.33333334)
+        self._wall_prev = now
+        if self.paused:
+            return self.state
+        if self.cfg.pulse_clock == "wall":
+            self._elapsed += delta
+            self._src_params = self._src_params._replace(
+                pulse_t=np.float32(self._elapsed)
+            )
+        dispatches, rem = divmod(n, substeps_per_dispatch)
+        for size in [substeps_per_dispatch] * dispatches + [1] * rem:
+            for _ in range(size):
+                self.state = self._one_step(self.state)
+            self._after_dispatch(size)
+        return self.state
+
+    def _after_dispatch(self, n_steps: int) -> None:
+        # The step count is known on the host; reading state.step would
+        # synchronise with the device after every dispatch.
+        self._host_step += n_steps
+        if self.nan_guard and bool(torch.isnan(self.state.density).any()):
+            raise FloatingPointError(
+                f"NaN detected in density at step {self._host_step}"
+            )
+
+    # -- interaction (FluidSim.cs:390-483, 979-988) ---------------------
+
+    def get_source_position(self) -> Tuple[float, ...]:
+        """Grid-coordinate source position (FluidSim.cs:979-982)."""
+        n = self.cfg.current_size
+        return tuple(p * n for p in self.cfg.source_position)
+
+    def set_source_position(self, *coords: float) -> None:
+        """Clamped normalized reposition (FluidSim.cs:984-988)."""
+        n = self.cfg.current_size
+        pos = tuple(float(np.clip(c / n, 0.0, 1.0)) for c in coords)
+        self.cfg = self.cfg.replace(source_position=pos)
+        self._src_params = self._src_params._replace(
+            position=np.asarray(pos[: self.cfg.ndim], np.float32)
+        )
+
+    def drag(self, prev_pos: Sequence[float], cur_pos: Sequence[float]) -> None:
+        raise NotImplementedError("mouse drag (scene/interact) is not ported")
+
+    # -- persistence ----------------------------------------------------
+
+    def save_checkpoint(self, path: str) -> None:
+        raise NotImplementedError("checkpoints (io/checkpoint) are not ported")
+
+    @classmethod
+    def from_checkpoint(cls, path: str, **kw) -> "Engine":
+        raise NotImplementedError("checkpoints (io/checkpoint) are not ported")

@@ -1,0 +1,130 @@
+"""Builds the CUDA sources in ``fluidsim_tpu_torch/csrc/`` and loads them.
+
+``nvcc`` compiles every ``*.cu`` file into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), which is loaded
+with ``ctypes``.  The library goes into ``fluidsim_tpu_torch/_build/`` under a
+name keyed by a hash of the sources and flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is.  ``-Xptxas -v`` reports each
+kernel's registers and spills into a log file beside the library.
+
+``-fmad=false`` keeps nvcc from contracting a multiply and an add into one
+FMA, so each kernel performs the same float32 operations, in the same order,
+as its plain PyTorch twin and the two compare bitwise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C entry points: name -> argument types (every one returns a cudaError_t).
+SIGNATURES = {
+    # fields, vel, dens, out, n, n_fields, b0, b1, b2, dt0,
+    # has_buoy, buoy_dt, buoyancy, ambient, gravity, stream
+    "fs_advect_k1": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                     _I, _F, _F, _F, _F, _P),
+    # vel, dens, vel_out, p_out, dens_out, p_a, p_b, rhs,
+    # n, iters, solve_bf16, dt0, damp, dens_damp, stream
+    "fs_project_advect_density": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _F, _F, _F, _P),
+}
+
+
+class BuildError(RuntimeError):
+    """The CUDA sources could not be compiled or loaded."""
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: on ``PATH``, else under ``$CUDA_HOME/bin`` (default
+    ``/usr/local/cuda``).  Raises ``BuildError`` when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise BuildError(
+        "nvcc not found (searched PATH and "
+        f"{candidate}); the CUDA toolkit is needed to build the kernels"
+    )
+
+
+def _sources(csrc_dir: Path):
+    return sorted(csrc_dir.glob("*.cu")) + sorted(csrc_dir.glob("*.cuh"))
+
+
+def library_path(csrc_dir: Path = CSRC_DIR, build_dir: Path = BUILD_DIR) -> Path:
+    """Where the library built from the current sources lives."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(csrc_dir):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return build_dir / f"libfluidsim_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build(csrc_dir: Path = CSRC_DIR, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile the sources unless the library for them exists; return its
+    path.  Raises ``BuildError`` with the compiler's output on failure."""
+    so = library_path(csrc_dir, build_dir)
+    if so.exists():
+        return so
+    nvcc = find_nvcc()
+    build_dir.mkdir(parents=True, exist_ok=True)
+    units = [str(p) for p in sorted(csrc_dir.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc_dir), "-o", tmp, *units]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise BuildError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every entry
+    point's argument and return types declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.fs_error_string.argtypes = [ctypes.c_int]
+    lib.fs_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = lib.fs_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,136 @@
+"""K2: the fused projection + density advection kernel, its plain twin and
+its wrapper.
+
+Counterpart of ``fluidsim_tpu/pallas/resident.py``
+(``project_advect_density_3d_resident`` → ``_project_advect_kernel``, phases
+``_project_body``, ``_solve_loop`` and ``_density_phase``).  The CUDA kernels
+are ``csrc/project_advect.cu``; ``project_advect_density_3d_plain`` is the
+same arithmetic in plain PyTorch: the ``inv6`` multiply, the rhs and every
+iterate rounded to the solve dtype, then ``damp`` and ``dens_damp`` after the
+faces.  It serves CPU tensors and is the reference the kernel is checked
+against.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.boundary import apply_faces_3d
+from ..ops.linsolve import _nbr_sum_3d
+from . import _build
+from .advect import _check_volume, advect_multi_3d_plain
+
+INV6 = float(np.float32(1.0) / np.float32(6.0))
+
+
+def solve_torch_dtype(solve_dtype) -> torch.dtype:
+    """The storage dtype of the solve buffers for ``solve_dtype`` None,
+    "float32" or "bfloat16" (as in ``SimConfig.solve_dtype``)."""
+    if solve_dtype in (None, "float32"):
+        return torch.float32
+    if solve_dtype == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"unsupported solve_dtype {solve_dtype!r}")
+
+
+def project_advect_density_3d_plain(vel, density, iters: int, dt: float, *,
+                                    solve_dtype=None, damp: float = 1.0,
+                                    dens_damp: float = 1.0):
+    """Plain PyTorch twin of the K2 kernel.  Returns ``(vel', p, density')``,
+    ``p`` being the float32 upcast of the final iterate."""
+    n = vel.shape[-1]
+    sdt = solve_torch_dtype(solve_dtype)
+    f32 = torch.float32
+    core = (slice(1, -1),) * 3
+    nf = float(n)
+    vx, vy, vz = vel[0], vel[1], vel[2]
+    # A tensor divisor: on CUDA, PyTorch divides by a Python scalar by
+    # multiplying with its reciprocal, which is not the kernel's division.
+    div = (
+        -0.5
+        * (
+            (vx[1:-1, 1:-1, 2:] - vx[1:-1, 1:-1, :-2])
+            + (vy[1:-1, 2:, 1:-1] - vy[1:-1, :-2, 1:-1])
+            + (vz[2:, 1:-1, 1:-1] - vz[:-2, 1:-1, 1:-1])
+        )
+        / torch.tensor(nf, dtype=f32, device=vel.device)
+    )
+    rhs = div.to(sdt).to(f32)
+
+    p = torch.zeros((n, n, n), dtype=sdt, device=vel.device)
+    for _ in range(iters):
+        upd = ((rhs + _nbr_sum_3d(p.to(f32))) * INV6).to(sdt)
+        p = apply_faces_3d(0, F.pad(upd, (1, 1, 1, 1, 1, 1)))
+    p = p.to(f32)
+
+    grads = (
+        0.5 * (p[1:-1, 1:-1, 2:] - p[1:-1, 1:-1, :-2]) * nf,
+        0.5 * (p[1:-1, 2:, 1:-1] - p[1:-1, :-2, 1:-1]) * nf,
+        0.5 * (p[2:, 1:-1, 1:-1] - p[:-2, 1:-1, 1:-1]) * nf,
+    )
+    comps = []
+    for c, g in enumerate(grads):
+        comp = vel[c].clone()
+        comp[core] = vel[c][core] - g
+        comps.append(apply_faces_3d(c + 1, comp) * damp)
+    vel_out = torch.stack(comps)
+    dens_out = advect_multi_3d_plain((0,), density[None], vel_out, dt)[0]
+    return vel_out, p, dens_out * dens_damp
+
+
+def project_advect_density_3d(vel, density, iters: int, dt: float, *,
+                              window: int = 1, n_sub: int = 1,
+                              solve_dtype=None, damp: float = 1.0,
+                              dens_damp: float = 1.0):
+    """Project ``vel`` with ``iters`` Jacobi sweeps and advect ``density``
+    through the damped projected velocity, with the K2 kernel.
+
+    CUDA tensors launch ``csrc/project_advect.cu``; CPU tensors run
+    ``project_advect_density_3d_plain``.  Returns ``(vel', p, density')``.
+    ``project_advect_density_3d.launches`` counts launches."""
+    if window != 1 or n_sub != 1:
+        raise NotImplementedError(
+            f"fused projection with window={window}, n_sub={n_sub}: only "
+            "window=1, n_sub=1 is ported")
+    if int(iters) != iters or iters < 1:
+        raise ValueError(f"iters must be a positive integer, got {iters}")
+    sdt = solve_torch_dtype(solve_dtype)
+    n = vel.shape[-1]
+    if n < 3:
+        raise ValueError(f"grid too small: {n}")
+    _check_volume("vel", vel, (3, n, n, n))
+    _check_volume("density", density, (n, n, n))
+    if density.device != vel.device:
+        raise ValueError("vel and density must be on one device")
+
+    if vel.device.type == "cpu":
+        return project_advect_density_3d_plain(
+            vel, density, iters, dt, solve_dtype=solve_dtype, damp=damp,
+            dens_damp=dens_damp)
+    if vel.device.type != "cuda":
+        raise ValueError(f"unsupported device {vel.device}")
+
+    lib = _build.load_library()
+    vel_out = torch.empty_like(vel)
+    p = torch.empty_like(density)
+    dens_out = torch.empty_like(density)
+    p_a, p_b, rhs = (torch.empty((n, n, n), dtype=sdt, device=vel.device)
+                     for _ in range(3))
+    dt0 = float(np.float32(dt) * np.float32(n - 2))
+    with torch.cuda.device(vel.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fs_project_advect_density(
+            vel.data_ptr(), density.data_ptr(), vel_out.data_ptr(),
+            p.data_ptr(), dens_out.data_ptr(), p_a.data_ptr(),
+            p_b.data_ptr(), rhs.data_ptr(), n, int(iters),
+            int(sdt == torch.bfloat16), dt0, float(damp), float(dens_damp),
+            stream,
+        )
+    _build.check(lib, err, "fused projection kernel launch")
+    project_advect_density_3d.launches += 1
+    return vel_out, p, dens_out
+
+
+project_advect_density_3d.launches = 0

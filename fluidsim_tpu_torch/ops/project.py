@@ -1,0 +1,54 @@
+"""Pressure projection (Helmholtz-Hodge), 3D plain path.
+
+Counterpart of ``fluidsim_tpu/ops/project.py::project_3d`` (the reference's
+``ProjectWithJobs``, FluidSim.cs:1417-1521): divergence ``−0.5·Σ∂v/N``,
+a float32 Jacobi solve with ``a=1, c=6`` (dividing by ``c``), then
+``v −= 0.5·N·∂p`` with ``set_bnd`` per component.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .boundary import set_bnd_3d
+from .linsolve import jacobi_3d
+
+
+def project_3d(vel: torch.Tensor, obst=None, iters: int = 20):
+    """Projection of a ``(3, N, N, N)`` velocity on a ``[z, y, x]`` grid.
+    Returns ``(vel, p)``."""
+    n = vel.shape[-1]
+    in_dtype = vel.dtype
+    vel = vel.to(torch.float32)
+    nf = float(n)
+    core = (slice(1, -1),) * 3
+    vx, vy, vz = vel[0], vel[1], vel[2]
+
+    div_int = (
+        -0.5
+        * (
+            (vx[1:-1, 1:-1, 2:] - vx[1:-1, 1:-1, :-2])
+            + (vy[1:-1, 2:, 1:-1] - vy[1:-1, :-2, 1:-1])
+            + (vz[2:, 1:-1, 1:-1] - vz[:-2, 1:-1, 1:-1])
+        )
+        / nf
+    )
+    div = torch.zeros_like(vx)
+    div[core] = div_int
+    div = set_bnd_3d(0, div, obst)
+    p = set_bnd_3d(0, torch.zeros_like(vx), obst)
+    p = jacobi_3d(0, p, div, 1.0, 6.0, obst, iters)
+
+    grads = (
+        0.5 * (p[1:-1, 1:-1, 2:] - p[1:-1, 1:-1, :-2]) * nf,
+        0.5 * (p[1:-1, 2:, 1:-1] - p[1:-1, :-2, 1:-1]) * nf,
+        0.5 * (p[2:, 1:-1, 1:-1] - p[:-2, 1:-1, 1:-1]) * nf,
+    )
+    out = []
+    for c, (comp, g) in enumerate(zip((vx, vy, vz), grads)):
+        if obst is not None:
+            g = torch.where(obst[core], 0.0, g)
+        comp = comp.clone()
+        comp[core] = comp[core] - g
+        out.append(set_bnd_3d(c + 1, comp, obst))
+    return torch.stack(out).to(in_dtype), p.to(in_dtype)

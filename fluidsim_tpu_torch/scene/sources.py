@@ -1,0 +1,136 @@
+"""Continuous emitters.
+
+Counterpart of ``fluidsim_tpu/scene/sources.py`` (the reference's
+``UpdateCustomSource``, FluidSim.cs:485-533): a full-grid masked add with a
+radial linear falloff, optional pulsing and optional directional velocity.
+Coordinates and falloff are float32; the add happens in the field dtype.
+Scalar parameters are float32 host values, so moving the emitter costs
+nothing on the device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import SimConfig, SourceSpec
+
+
+def pulse_scale(t: torch.Tensor, rate: float) -> torch.Tensor:
+    """|sin(t · rate · π)| (FluidSim.cs:492-494), float32."""
+    return torch.abs(torch.sin(t * float(np.float32(rate))
+                               * float(np.float32(np.pi))))
+
+
+class SourceParams(NamedTuple):
+    """Scene-dynamic emitter values (float32 host scalars and vectors)."""
+
+    position: np.ndarray   # (ndim,) normalized [0, 1], (x, y[, z]) order
+    strength: np.float32   # base strength (pre resolution scaling)
+    radius: np.float32     # base radius in cells (pre resolution scaling)
+    velocity: np.float32   # emitted |v| (pre resolution scaling)
+    dir_vec: np.ndarray    # (ndim,) unit emission direction
+    pulse_t: np.float32    # wall-clock elapsedTime (pulse_clock="wall")
+
+
+def _dir_vec(ndim: int, direction_deg: float, velocity_dir) -> np.ndarray:
+    if ndim == 2:
+        ang = np.float32(np.deg2rad(np.float32(direction_deg)))
+        return np.array([np.cos(ang), np.sin(ang)], dtype=np.float32)
+    d = np.asarray(velocity_dir, dtype=np.float32)
+    return (d / max(np.linalg.norm(d), 1e-8)).astype(np.float32)
+
+
+def source_params(cfg: SimConfig) -> SourceParams:
+    """The main emitter's values from the current config."""
+    return SourceParams(
+        position=np.asarray(cfg.source_position[: cfg.ndim], np.float32),
+        strength=np.float32(cfg.source_strength),
+        radius=np.float32(cfg.source_radius),
+        velocity=np.float32(cfg.source_velocity),
+        dir_vec=_dir_vec(cfg.ndim, cfg.source_direction,
+                         cfg.source_velocity_dir),
+        pulse_t=np.float32(0.0),
+    )
+
+
+def _spec_params(spec: SourceSpec, ndim: int) -> SourceParams:
+    """``SourceParams`` for an ``extra_sources`` entry."""
+    return SourceParams(
+        position=np.asarray(spec.position[:ndim], np.float32),
+        strength=np.float32(spec.strength),
+        radius=np.float32(spec.radius),
+        velocity=np.float32(spec.velocity),
+        dir_vec=_dir_vec(ndim, spec.direction, spec.velocity_dir),
+        pulse_t=np.float32(0.0),
+    )
+
+
+def _cell_centers(shape, device):
+    """Per-axis float32 coordinate grids in (x, y[, z]) order."""
+    ranges = [torch.arange(s, dtype=torch.float32, device=device)
+              for s in shape]
+    return tuple(reversed(torch.meshgrid(*ranges, indexing="ij")))
+
+
+def _apply_one(density, vel, cfg: SimConfig, t, params: SourceParams, *,
+               emits_velocity: bool, pulsing: bool, pulse_rate: float):
+    """One emitter, resolution-scaled, in the JAX package's float32 op order:
+    ``dist = sqrt((dx² + dy²) + dz²)``, ``falloff = 1 − dist/r`` inside the
+    ball, ``density += strength·falloff``."""
+    nf = np.float32(cfg.current_size)
+    res_mult = np.float32(cfg.resolution_multiplier)
+    radius_cells = float(np.float32(params.radius) * res_mult)
+    base = np.float32(params.strength)
+    if pulsing:
+        eff_strength = (float(base) * pulse_scale(t, pulse_rate)) * float(res_mult)
+    else:
+        eff_strength = float(base * np.float32(1.0) * res_mult)
+
+    coords = _cell_centers(density.shape, density.device)
+    d2 = None
+    for i, c in enumerate(coords):
+        d = c - float(np.float32(params.position[i]) * nf)
+        d2 = d * d if d2 is None else d2 + d * d
+    dist = torch.sqrt(d2)
+    falloff = torch.where(dist <= radius_cells, 1.0 - dist / radius_cells, 0.0)
+
+    density = density + (eff_strength * falloff).to(density.dtype)
+
+    if emits_velocity:
+        vmag = np.float32(params.velocity) * res_mult
+        vel = vel.clone()
+        for c in range(cfg.ndim):
+            scale = float(np.float32(params.dir_vec[c]) * vmag)
+            vel[c] = vel[c] + (scale * falloff).to(vel.dtype)
+    return density, vel
+
+
+def apply_custom_source(density, vel, cfg: SimConfig, t,
+                        params: SourceParams = None):
+    """One frame of all continuous emitters; no-op config ⇒ identity.
+
+    ``t`` (a 0-d float32 tensor) is the elapsed time used for pulsing; with
+    ``cfg.pulse_clock == "wall"`` and ``params`` given, ``params.pulse_t`` is
+    used instead.  Returns (density, vel)."""
+    if cfg.pulse_clock == "wall" and params is not None:
+        t = torch.tensor(params.pulse_t, dtype=torch.float32,
+                         device=density.device)
+    if cfg.enable_custom_source:
+        density, vel = _apply_one(
+            density, vel, cfg, t,
+            params if params is not None else source_params(cfg),
+            emits_velocity=cfg.source_emits_velocity,
+            pulsing=cfg.source_pulsing,
+            pulse_rate=cfg.source_pulse_rate,
+        )
+    for spec in cfg.extra_sources:
+        density, vel = _apply_one(
+            density, vel, cfg, t, _spec_params(spec, cfg.ndim),
+            emits_velocity=spec.emits_velocity,
+            pulsing=spec.pulsing,
+            pulse_rate=spec.pulse_rate,
+        )
+    return density, vel

@@ -1,0 +1,93 @@
+"""fluidsim_tpu_torch's CUDA kernels against their plain twins, on a card.
+
+Every test here needs a CUDA device and skips without one.  The module
+imports neither JAX nor the JAX package, so it runs where only PyTorch is
+installed:  python -m pytest tests/test_torch_cuda.py -q -m cuda
+
+The kernels are built with -fmad=false and do the twins' float32 operations
+in the twins' order, so they are held to bitwise equality.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fluidsim_tpu_torch.config import preset_bench_128
+from fluidsim_tpu_torch.engine import Engine
+from fluidsim_tpu_torch.kernels.advect import (
+    advect_multi_3d_kernel,
+    advect_multi_3d_plain,
+)
+from fluidsim_tpu_torch.kernels.resident import (
+    project_advect_density_3d,
+    project_advect_density_3d_plain,
+)
+from fluidsim_tpu_torch.models.stable3d import PLAIN_TWINS
+
+pytestmark = pytest.mark.cuda
+
+CFG = preset_bench_128()
+DT = CFG.effective_params()[0]
+DAMP = float(1.0 / (1.0 + np.float32(DT) * np.float32(CFG.velocity_damping)))
+DDAMP = float(1.0 / (1.0 + np.float32(DT) * np.float32(CFG.density_dissipation)))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def fields(n, seed, device):
+    rng = np.random.default_rng(seed)
+    vel = (rng.standard_normal((3, n, n, n)) * 5.0).astype(np.float32)
+    dens = (np.abs(rng.standard_normal((n, n, n))) * 10.0).astype(np.float32)
+    return torch.from_numpy(vel).to(device), torch.from_numpy(dens).to(device)
+
+
+@pytest.mark.parametrize("n", [17, 128])
+def test_k1_matches_twin(cuda, n):
+    vel, dens = fields(n, n, cuda)
+    for bs, f, buoy in (((1, 2, 3), vel, (dens, 0.2, 0.1, 0.05)),
+                        ((1, 2, 3), vel, None),
+                        ((0,), dens[None], None)):
+        got = advect_multi_3d_kernel(bs, f, vel, DT, buoy=buoy)
+        ref = advect_multi_3d_plain(bs, f, vel, DT, buoy=buoy)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("n", [17, 128])
+def test_k2_matches_twin(cuda, n, solve_dtype):
+    vel, dens = fields(n, 100 + n, cuda)
+    got = project_advect_density_3d(vel, dens, 60, DT, solve_dtype=solve_dtype,
+                                    damp=DAMP, dens_damp=DDAMP)
+    ref = project_advect_density_3d_plain(vel, dens, 60, DT,
+                                          solve_dtype=solve_dtype, damp=DAMP,
+                                          dens_damp=DDAMP)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r), float((g - r).abs().max())
+
+
+def test_engine_kernel_path_matches_twin_path(cuda):
+    cfg = CFG.replace(size=48)
+    kern, twin = Engine(cfg, cuda), Engine(cfg, cuda, kernels=PLAIN_TWINS)
+    before = (advect_multi_3d_kernel.launches, project_advect_density_3d.launches)
+    kern.step(5)
+    twin.step(5)
+    assert advect_multi_3d_kernel.launches == before[0] + 5
+    assert project_advect_density_3d.launches == before[1] + 5
+    for name in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(kern.state, name), getattr(twin.state, name)), name
+
+
+def test_wrapper_raises_for_cuda_tensors_it_cannot_take(cuda):
+    vel, dens = fields(16, 1, cuda)
+    with pytest.raises(TypeError):
+        advect_multi_3d_kernel((1, 2, 3), vel.double(), vel.double(), DT)
+    with pytest.raises(ValueError, match="one device"):
+        advect_multi_3d_kernel((1, 2, 3), vel, vel, DT,
+                               buoy=(dens.cpu(), 0.2, 0.0, 0.0))
