@@ -6,18 +6,31 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which ends the run with a non-zero exit code on failure:
   1. require a CUDA device (no CPU fallback) and print the card's name and
      power limit;
-  2. build the hand kernels (K1, K2) from ``fluidsim_tpu_torch/csrc``;
-  3. hold each kernel against its plain PyTorch twin on the card at 128³
-     on bench128-scale inputs made with NumPy from a seed;
+  2. build the hand kernels (K1, K2, K3) from ``fluidsim_tpu_torch/csrc``;
+  3. hold each kernel against its plain PyTorch twin on the card at 128³ on
+     inputs made with NumPy from a seed: K1 with buoyancy and K2 on
+     bench128-scale fields, K1 with three substeps and the vortex128 mask
+     (F = 3 and F = 1) and K3 with and without the mask on vortex128-scale
+     fields;
   4. step bench128 at 128³ through ``Engine(cfg, device="cuda")`` for
-     ``STEPS`` steps with the launch counters reset just before: every
-     kernel of the path must have launched, the fields stay finite, the
-     emitted mass grows, the plume rises, and the first 10 steps stay
-     within the bf16-solve bound of a rollout of the kernels' twins;
-  5. time the kernel path and the twin path (steps/s), the p50
-     step+raymarch frame, and each kernel beside its twin, with CUDA events
-     after warm-up.
-The line before last is a JSON object describing each kernel; the last line
+     ``STEPS`` steps with the launch counters reset just before: K1 and K2
+     must have launched, the fields stay finite, the emitted mass grows, the
+     plume rises, and the first 10 steps stay within the bf16-solve bound of
+     a rollout of the kernels' twins;
+  5. step bench128 with the projection unfused (``fuse_project_advect=False``,
+     the arrangement the JAX package's bench.py keeps as its tripwire) for
+     10 steps: K1 and K3 (without a mask) must have launched and K2 not, and
+     the state must equal the fused run's after 10 steps;
+  6. step vortex128 at 128³ through ``Engine`` for ``VORTEX_STEPS`` steps
+     with the counters reset just before: K1 and K3 must have launched and
+     K2 not, the fields stay finite, the mass grows, the plume rises over
+     the first 40 steps, interior obstacle cells hold exactly zero velocity,
+     and the first 10 steps stay within the bf16-solve bound of the twins;
+  7. time both paths (steps/s), bench128's p50 step+raymarch frame and each
+     kernel beside its twin, with CUDA events after warm-up, and break a
+     step of each path down by device time with ``torch.profiler``.
+The line before last is a JSON object describing each kernel (with the
+least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -31,7 +44,24 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 STEPS = 200
+VORTEX_STEPS = 100
 SEED = 128
+
+# NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s, 67 TFLOP/s float32 outside
+# the tensor cores (both at the full 700 W power limit).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+# Float32 operations per interior cell, counted from the kernels' code
+# (csrc/advect.cuh, csrc/project.cuh); the walls copy interior cells.
+FRAC_OPS = 3 * 9      # per axis: dt0*v, sub, 2 bounds, 2 clip bounds (+2 adds), sub
+RELU_OPS = 3 * 3      # per axis: negate, two max
+COMB_OPS = 13 * 6     # per field: 9 x-, 3 y-, 1 z-combination of 6 operations
+BUOY_OPS = 6          # per buoyant value: sub, 2 mul, sub, mul, add
+MIRROR_OPS = 6        # per solid cell and component: 2 negates, 3 adds, div
+DIV_OPS = 7
+SWEEP_OPS = 7         # 5 neighbour adds, the rhs add, the coefficient multiply
+GRAD_OPS = 3 * 5      # per component: sub, 2 mul, sub, damp
 
 
 def fail(msg: str) -> None:
@@ -60,6 +90,31 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profile_ms(fn, reps: int) -> dict:
+    """Device milliseconds per call of ``fn()``, by kernel name, from
+    ``torch.profiler`` over ``reps`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        name = evt.key.replace("(anonymous namespace)::", "").replace("void ", "")
+        name = name.split("(")[0][:90]
+        out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
+
+
 def smooth(n, rng, modes=6):
     """A sum of random low-wavenumber plane waves, unit amplitude."""
     import numpy as np
@@ -82,6 +137,46 @@ def worst(got, ref, rtol: float, atol: float):
     diff = (got - ref).abs()
     ok = bool(torch.all(diff <= atol + rtol * ref.abs()))
     return float(diff.max()), ok
+
+
+def bound(nbytes: float, nops: float):
+    """(least milliseconds for the work on an H100, the resource that sets it)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mass_and_com_y(state):
+    import torch
+
+    d = state.density.double()
+    ys = torch.arange(d.shape[1], dtype=torch.float64, device=d.device)[None, :, None]
+    m = d.sum()
+    return float(m), float((d * ys).sum() / m)
+
+
+def check_state(st, steps, n, what):
+    import torch
+
+    if int(st.step) != steps or tuple(st.velocity.shape) != (3, n, n, n) \
+            or tuple(st.density.shape) != (n, n, n):
+        fail(f"{what}: unexpected state shape or step count")
+    for name in ("density", "velocity", "pressure"):
+        if not bool(torch.isfinite(getattr(st, name)).all()):
+            fail(f"{what}: non-finite {name}")
+
+
+def near_twin(at10, twin_state, what):
+    """The bf16-solve bound of tests/test_torch_step.py after 10 steps;
+    ``at10`` holds the kernel path's fields after 10 steps."""
+    for name, bnd in (("density", 1e-5), ("velocity", 1e-3)):
+        r = getattr(twin_state, name)
+        err = float((at10[name] - r).abs().max())
+        scale = float(r.abs().max())
+        say(f"# {what}: kernel path vs twin path, 10 steps, {name}: max abs diff "
+            f"{err!r} (bound {bnd} x {scale!r})")
+        if err > bnd * scale:
+            fail(f"{what}: kernel path drifts from the twin path in {name}")
 
 
 def main() -> None:
@@ -111,7 +206,7 @@ def main() -> None:
         f"device {torch.cuda.get_device_name(0)}")
 
     # -- 2. build --------------------------------------------------------
-    from fluidsim_tpu_torch.config import preset_bench_128
+    from fluidsim_tpu_torch.config import preset_bench_128, preset_vortex_128
     from fluidsim_tpu_torch.engine import Engine
     from fluidsim_tpu_torch.kernels import _build
     from fluidsim_tpu_torch.kernels.advect import (
@@ -119,11 +214,20 @@ def main() -> None:
         advect_multi_3d_plain,
     )
     from fluidsim_tpu_torch.kernels.resident import (
+        project_3d_resident,
+        project_3d_resident_plain,
         project_advect_density_3d,
         project_advect_density_3d_plain,
     )
     from fluidsim_tpu_torch.models.stable3d import PLAIN_TWINS, sink_factor
+    from fluidsim_tpu_torch.ops.boundary import interior_mask
+    from fluidsim_tpu_torch.ops.forces import (
+        buoyancy_force,
+        enforce_obstacle_boundaries_3d,
+        vorticity_confinement_3d,
+    )
     from fluidsim_tpu_torch.render.raymarch import render_frame_3d
+    from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
     from fluidsim_tpu_torch.scene.sources import apply_custom_source
 
     t0 = time.perf_counter()
@@ -136,9 +240,21 @@ def main() -> None:
                     or "spill" in line or "Compiling entry" in line:
                 say(f"# ptxas: {line.strip()}")
 
+    def counters_to_zero():
+        for fn in (advect_multi_3d_kernel, project_advect_density_3d,
+                   project_3d_resident):
+            fn.launches = 0
+
+    def counts():
+        return {"K1": advect_multi_3d_kernel.launches,
+                "K2": project_advect_density_3d.launches,
+                "K3": project_3d_resident.launches}
+
     # -- 3. each kernel against its twin at 128³ -------------------------
     cfg = preset_bench_128()
     n = cfg.current_size
+    vol = n ** 3
+    interior = (n - 2) ** 3
     dt = cfg.effective_params()[0]
     damp = sink_factor(dt, cfg.velocity_damping)
     ddamp = sink_factor(dt, cfg.density_dissipation)
@@ -185,41 +301,84 @@ def main() -> None:
         if not ok or g.shape != r.shape:
             fail(f"K2 {name} disagrees with its twin")
 
-    # -- 4. the main path through Engine -----------------------------------
+    # vortex128: three substeps, the preset's sphere, 20 bf16 sweeps.
+    vcfg = preset_vortex_128()
+    vdt = vcfg.effective_params()[0]
+    n_sub = vcfg.advect_substeps
+    obst = torch.from_numpy(build_obstacle_mask(vcfg)).to(dev)
+    solid = obst & interior_mask(obst.shape, dev)
+    n_solid = int(solid.sum())
+    say(f"# vortex128 mask: {int(obst.sum())} solid cells, {n_solid} interior")
+    # |v| up to about 30 cells per unit time: a backtrace of up to ~1.3
+    # cells per substep.
+    vvel = torch.from_numpy(np.stack([smooth(n, rng) for _ in range(3)]) * 12.0).to(dev)
+    vdens = torch.from_numpy(np.maximum(20.0 * (1.0 + smooth(n, rng)), 0.0)).to(dev)
+
+    def k1v(f=vvel, bs=(1, 2, 3)):
+        return advect_multi_3d_kernel(bs, f, vvel, vdt, obst=obst, n_sub=n_sub)
+
+    def k1v_plain(f=vvel, bs=(1, 2, 3)):
+        return advect_multi_3d_plain(bs, f, vvel, vdt, obst=obst, n_sub=n_sub)
+
+    def k1v_dens():
+        return k1v(vdens[None], (0,))
+
+    def k1v_dens_plain():
+        return k1v_plain(vdens[None], (0,))
+
+    def k3(mask=obst):
+        return project_3d_resident(vvel, vcfg.jacobi_iters, obst=mask,
+                                   solve_dtype=vcfg.solve_dtype)
+
+    def k3_plain(mask=obst):
+        return project_3d_resident_plain(vvel, vcfg.jacobi_iters, obst=mask,
+                                         solve_dtype=vcfg.solve_dtype)
+
+    k1v_err = 0.0
+    for what, fn, plain in (("F=3", k1v, k1v_plain), ("F=1", k1v_dens, k1v_dens_plain)):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err, ok = worst(got, ref, 1e-5, 1e-6)
+        k1v_err = max(k1v_err, err)
+        say(f"# K1 (n_sub={n_sub}, mask, {what}) vs twin at {n}^3: max abs err "
+            f"{err!r} (bitwise {torch.equal(got, ref)}; bound rtol 1e-5, atol 1e-6)")
+        if not ok:
+            fail(f"K1 with substeps and the mask ({what}) disagrees with its twin")
+        if what == "F=1" and bool((got[0][solid] != 0).any()):
+            fail("K1 left a nonzero density in an interior obstacle cell")
+    k3_err = {}
+    for what, mask in (("mask", obst), ("no mask", None)):
+        got, ref = k3(mask), k3_plain(mask)
+        torch.cuda.synchronize()
+        k3_err[what] = 0.0
+        for name, g, r in zip(("velocity", "pressure"), got, ref):
+            err, ok = worst(g, r, 0.0, 2e-2 * float(r.abs().max()))
+            k3_err[what] = max(k3_err[what], err)
+            say(f"# K3 ({what}) vs twin at {n}^3 ({name}): max abs err {err!r} "
+                f"(bitwise {torch.equal(g, r)}; bound 2e-2 x max|ref|)")
+            if not ok or g.shape != r.shape:
+                fail(f"K3 ({what}) {name} disagrees with its twin")
+
+    # -- 4. bench128 through Engine ------------------------------------------
     eng = Engine(cfg, device="cuda")
-    ys = torch.arange(n, dtype=torch.float64, device=dev)[None, :, None]
-
-    def mass_and_com_y(state):
-        d = state.density.double()
-        m = d.sum()
-        return float(m), float((d * ys).sum() / m)
-
-    advect_multi_3d_kernel.launches = 0
-    project_advect_density_3d.launches = 0
+    counters_to_zero()
     eng.step(1)
     mass1, com1 = mass_and_com_y(eng.state)
     eng.step(9)
-    at10 = {k: getattr(eng.state, k).clone() for k in ("density", "velocity")}
+    at10 = {k: getattr(eng.state, k).clone() for k in ("density", "velocity", "pressure")}
     eng.step(30)
     mass40, com40 = mass_and_com_y(eng.state)
     eng.step(STEPS - 40)
     torch.cuda.synchronize()
-    launches = {"K1": advect_multi_3d_kernel.launches,
-                "K2": project_advect_density_3d.launches}
+    bench_launches = counts()
     mass_end, com_end = mass_and_com_y(eng.state)
-    say(f"# main path: {STEPS} steps at {n}^3, launches {launches}")
+    say(f"# main path: {STEPS} steps at {n}^3, launches {bench_launches}")
     say(f"# density mass: step 1 {mass1!r}, step 40 {mass40!r}, step {STEPS} {mass_end!r}")
     say(f"# density y centre of mass: step 1 {com1!r}, step 40 {com40!r}, "
         f"step {STEPS} {com_end!r}")
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the path never launched: {launches}")
-    st = eng.state
-    if int(st.step) != STEPS or tuple(st.velocity.shape) != (3, n, n, n) \
-            or tuple(st.density.shape) != (n, n, n):
-        fail("unexpected state shape or step count")
-    for name in ("density", "velocity", "pressure"):
-        if not bool(torch.isfinite(getattr(st, name)).all()):
-            fail(f"non-finite {name}")
+    if bench_launches["K1"] <= 0 or bench_launches["K2"] <= 0:
+        fail(f"a kernel of the bench128 path never launched: {bench_launches}")
+    check_state(eng.state, STEPS, n, "bench128")
     if not (mass_end > mass40 > mass1 > 0.0):
         fail("density mass does not grow")
     if not com40 > com1:
@@ -227,16 +386,62 @@ def main() -> None:
 
     twin = Engine(cfg, device="cuda", kernels=PLAIN_TWINS)
     twin.step(10)
-    for name, bound in (("density", 1e-5), ("velocity", 1e-3)):
-        r = getattr(twin.state, name)
-        err = float((at10[name] - r).abs().max())
-        scale = float(r.abs().max())
-        say(f"# kernel path vs twin path, 10 steps, {name}: max abs diff {err!r} "
-            f"(bound {bound} x {scale!r})")
-        if err > bound * scale:
-            fail(f"kernel path drifts from the twin path in {name}")
+    near_twin(at10, twin.state, "bench128")
 
-    # -- 5. timing -------------------------------------------------------
+    # -- 5. bench128 with the projection unfused (K3 without a mask) ---------
+    ucfg = cfg.replace(fuse_project_advect=False)
+    ueng = Engine(ucfg, device="cuda")
+    counters_to_zero()
+    ueng.step(10)
+    torch.cuda.synchronize()
+    unfused_launches = counts()
+    say(f"# bench128 unfused: 10 steps, launches {unfused_launches}")
+    if unfused_launches["K1"] <= 0 or unfused_launches["K3"] <= 0 \
+            or unfused_launches["K2"] != 0:
+        fail(f"the unfused bench128 path did not run K1 and K3 alone: {unfused_launches}")
+    for name, ref in at10.items():
+        err = float((getattr(ueng.state, name) - ref).abs().max())
+        say(f"# bench128 unfused vs fused, 10 steps, {name}: max abs diff {err!r}")
+        if err != 0.0:
+            fail(f"the unfused bench128 step differs from the fused one in {name}")
+
+    # -- 6. vortex128 through Engine -----------------------------------------
+    veng = Engine(vcfg, device="cuda")
+    counters_to_zero()
+    veng.step(1)
+    vmass1, vcom1 = mass_and_com_y(veng.state)
+    vsolid_after_1 = bool((veng.state.velocity[:, solid] == 0).all())
+    veng.step(9)
+    vat10 = {k: getattr(veng.state, k).clone() for k in ("density", "velocity")}
+    veng.step(30)
+    vmass40, vcom40 = mass_and_com_y(veng.state)
+    veng.step(VORTEX_STEPS - 40)
+    torch.cuda.synchronize()
+    vortex_launches = counts()
+    vmass_end, vcom_end = mass_and_com_y(veng.state)
+    say(f"# vortex128: {VORTEX_STEPS} steps at {n}^3, launches {vortex_launches}")
+    say(f"# vortex128 density mass: step 1 {vmass1!r}, step 40 {vmass40!r}, "
+        f"step {VORTEX_STEPS} {vmass_end!r}")
+    say(f"# vortex128 density y centre of mass: step 1 {vcom1!r}, step 40 {vcom40!r}, "
+        f"step {VORTEX_STEPS} {vcom_end!r}")
+    if vortex_launches["K1"] <= 0 or vortex_launches["K3"] <= 0 \
+            or vortex_launches["K2"] != 0:
+        fail(f"the vortex128 path did not run K1 and K3 alone: {vortex_launches}")
+    check_state(veng.state, VORTEX_STEPS, n, "vortex128")
+    if not (vmass_end > vmass1 > 0.0 and vmass40 > vmass1):
+        fail("vortex128: density mass does not grow")
+    if not vcom40 > vcom1:
+        fail("vortex128: the plume does not rise over the first 40 steps")
+    vsolid_end = bool((veng.state.velocity[:, solid] == 0).all())
+    say(f"# vortex128 interior obstacle cells at zero velocity: after step 1 "
+        f"{vsolid_after_1}, after step {VORTEX_STEPS} {vsolid_end}")
+    if not (vsolid_after_1 and vsolid_end):
+        fail("vortex128: an interior obstacle cell holds a nonzero velocity")
+    vtwin = Engine(vcfg, device="cuda", kernels=PLAIN_TWINS)
+    vtwin.step(10)
+    near_twin(vat10, vtwin.state, "vortex128")
+
+    # -- 7. timing -------------------------------------------------------
     say(f"# timing on {card}")
     step_ms = cuda_ms(lambda: eng.step(1), reps=200, warmup=20)
     twin_ms = cuda_ms(lambda: twin.step(1), reps=10, warmup=2)
@@ -257,25 +462,100 @@ def main() -> None:
     emitter_ms = cuda_ms(lambda: apply_custom_source(
         eng.state.density, eng.state.velocity, cfg, t), reps=50)
     say(f"emitter (plain torch) at {n}^3: {emitter_ms!r} ms [{card}]")
+
+    vstep_ms = cuda_ms(lambda: veng.step(1), reps=100, warmup=10)
+    vtwin_ms = cuda_ms(lambda: vtwin.step(1), reps=5, warmup=1)
+    say(f"vortex128 steps/s kernel path: {1e3 / vstep_ms!r} ({vstep_ms!r} ms/step) [{card}]")
+    say(f"vortex128 steps/s twin path: {1e3 / vtwin_ms!r} ({vtwin_ms!r} ms/step) [{card}]")
+    vs = veng.state
+    plain_passes = {
+        "buoyancy_force": lambda: buoyancy_force(vs.velocity, vs.density, vdt,
+                                                 vcfg.buoyancy, vcfg.ambient_density,
+                                                 vcfg.gravity),
+        "vorticity_confinement_3d": lambda: vorticity_confinement_3d(
+            vs.velocity, vdt, vcfg.vorticity_confinement),
+        "enforce_obstacle_boundaries_3d": lambda: enforce_obstacle_boundaries_3d(
+            vs.velocity, vs.obstacles, vcfg.cell_size, vcfg.viscosity),
+    }
+    for name, fn in plain_passes.items():
+        say(f"vortex128 {name} (plain torch) at {n}^3: {cuda_ms(fn, reps=20)!r} ms "
+            f"[{card}]")
+
     times = {
         "K1": (cuda_ms(k1, reps=100), cuda_ms(k1_plain, reps=10)),
         "K2": (cuda_ms(k2, reps=50), cuda_ms(k2_plain, reps=3)),
+        "K1v": (cuda_ms(k1v, reps=50), cuda_ms(k1v_plain, reps=3)),
+        "K1v density": (cuda_ms(k1v_dens, reps=50), cuda_ms(k1v_dens_plain, reps=3)),
+        "K3": (cuda_ms(k3, reps=50), cuda_ms(k3_plain, reps=3)),
+        "K3 no mask": (cuda_ms(lambda: k3(None), reps=50),
+                       cuda_ms(lambda: k3_plain(None), reps=3)),
     }
     for name, (ms, plain_ms) in times.items():
         say(f"{name} at {n}^3: kernel {ms!r} ms, twin {plain_ms!r} ms [{card}]")
 
-    report = [
-        {"name": "K1 advect_multi_3d_kernel (self-advection, buoyancy folded)",
-         "route": "cuda", "source": "fluidsim_tpu_torch/csrc/advect.cu",
-         "replaces": "fluidsim_tpu/pallas/advect.py:256",
-         "launches": launches["K1"], "max_abs_err": k1_err,
-         "ms": times["K1"][0], "plain_ms": times["K1"][1]},
-        {"name": "K2 project_advect_density_3d (projection + density advection)",
-         "route": "cuda", "source": "fluidsim_tpu_torch/csrc/project_advect.cu",
-         "replaces": "fluidsim_tpu/pallas/resident.py:1155",
-         "launches": launches["K2"], "max_abs_err": k2_err,
-         "ms": times["K2"][0], "plain_ms": times["K2"][1]},
+    # Where a step's device time goes, by kernel.
+    for what, engine in (("bench128", eng), ("vortex128", veng)):
+        by_kernel = profile_ms(lambda: engine.step(1), reps=20)
+        total = sum(by_kernel.values())
+        say(f"# profile {what}: device time {total!r} ms/step [{card}]")
+        for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:14]:
+            say(f"#   {ms!r} ms/step  {name}")
+    for name, fn in plain_passes.items():
+        by_kernel = profile_ms(fn, reps=10)
+        say(f"# profile vortex128 {name}: device time {sum(by_kernel.values())!r} "
+            f"ms/call in {len(by_kernel)} kernel names [{card}]")
+
+    # -- the kernels line ---------------------------------------------------
+    f32 = 4
+    fluid = interior - n_solid
+    entries = [
+        ("K1", "K1 advect_multi_3d_kernel (n_sub=1, buoyancy folded; bench128 self-advection)",
+         "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
+         bench_launches["K1"], k1_err,
+         bound(7 * vol * f32,
+               interior * (FRAC_OPS + RELU_OPS + 3 * COMB_OPS + 28 * BUOY_OPS))),
+        # vortex128 launches K1 twice a step, once for each of these two.
+        ("K1v", f"K1 advect_multi_3d_kernel (n_sub={n_sub}, obstacle mask; vortex128 "
+                "self-advection, F=3)",
+         "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
+         vortex_launches["K1"], k1v_err,
+         bound(6 * vol * f32 + vol,
+               n_sub * (fluid * (FRAC_OPS + RELU_OPS + 3 * COMB_OPS)
+                        + n_solid * 3 * MIRROR_OPS))),
+        ("K1v density", f"K1 advect_multi_3d_kernel (n_sub={n_sub}, obstacle mask; "
+                        "vortex128 density, F=1)",
+         "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
+         vortex_launches["K1"], k1v_err,
+         bound(5 * vol * f32 + vol, n_sub * fluid * (FRAC_OPS + RELU_OPS + COMB_OPS))),
+        ("K2", "K2 project_advect_density_3d (projection + density advection; bench128)",
+         "fluidsim_tpu_torch/csrc/project_advect.cu",
+         "fluidsim_tpu/pallas/resident.py:1155", bench_launches["K2"], k2_err,
+         bound(9 * vol * f32,
+               interior * (DIV_OPS + cfg.jacobi_iters * SWEEP_OPS + GRAD_OPS
+                           + FRAC_OPS + RELU_OPS + COMB_OPS + 1))),
+        ("K3", "K3 project_3d_resident (obstacle mask; vortex128 projection)",
+         "fluidsim_tpu_torch/csrc/project.cu", "fluidsim_tpu/pallas/resident.py:907",
+         vortex_launches["K3"], k3_err["mask"],
+         bound(7 * vol * f32 + vol,
+               interior * (DIV_OPS + vcfg.jacobi_iters * SWEEP_OPS + GRAD_OPS)
+               + n_solid * 3 * MIRROR_OPS)),
+        ("K3 no mask", "K3 project_3d_resident (no mask; bench128 with the projection "
+                       "unfused)",
+         "fluidsim_tpu_torch/csrc/project.cu", "fluidsim_tpu/pallas/resident.py:894",
+         unfused_launches["K3"], k3_err["no mask"],
+         bound(7 * vol * f32,
+               interior * (DIV_OPS + vcfg.jacobi_iters * SWEEP_OPS + GRAD_OPS))),
     ]
+    report = []
+    for key, name, source, replaces, launches, err, (bound_ms, bound_by) in entries:
+        ms, plain_ms = times[key]
+        say(f"{name}: {ms!r} ms, bound {bound_ms!r} ms ({bound_by}) [{card}]")
+        # No single PyTorch call computes any of these functions.
+        report.append({"name": name, "route": "cuda", "source": source,
+                       "replaces": replaces, "launches": launches,
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": None})
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 // Device code shared by the K=1 semi-Lagrangian backtrace kernels: the
 // self-advection kernel (advect.cu) and the density phase of the fused
 // projection (project_advect.cu).  It is the counterpart of
-// fluidsim_tpu/pallas/advect.py::_substep_window_vals with k_win = 1 and
-// n_sub = 1, which the TPU kernels share the same way.
+// fluidsim_tpu/pallas/advect.py::_substep_window_vals with k_win = 1 (one
+// substep of it; the caller loops over the substeps), which the TPU kernels
+// share the same way.
 //
 // Arithmetic follows the TPU kernel operation by operation (the build uses
 // -fmad=false, so nothing is contracted into an FMA):
@@ -10,14 +11,12 @@
 //          t = clip(t, coord-1, coord+1); f = t - coord
 //   comb:  (g0 + wp*(gp - g0)) + wm*(gm - g0), with wp = relu(f) and
 //          wm = relu(-f), nested x innermost, then y, then z.
-// The value of a border cell is computed at its interior cell (coordinates
-// clamped to [1, n-2]): the fresh-zero-then-set_bnd output contract makes a
-// border cell a signed copy of exactly that cell.  So only interior cells are
-// ever interpolated and every tap (at most one cell away) lies inside the
-// grid: no wrapped or clamped reads are needed.
+// Only interior cells are ever interpolated (border cells copy theirs, see
+// boundary.cuh), so every tap (at most one cell away) lies inside the grid:
+// no wrapped or clamped reads are needed.
 #pragma once
 
-#include <cuda_runtime.h>
+#include "boundary.cuh"
 
 namespace fsk {
 
@@ -25,18 +24,6 @@ namespace fsk {
 // through unchanged, as it does in JAX.
 __device__ __forceinline__ float max_to(float t, float lo) { return t < lo ? lo : t; }
 __device__ __forceinline__ float min_to(float t, float hi) { return t > hi ? hi : t; }
-
-__device__ __forceinline__ int clamp_interior(int i, int n) {
-  return i < 1 ? 1 : (i > n - 2 ? n - 2 : i);
-}
-
-// True when the set_bnd face rule negates field code b at a border cell whose
-// interior cell is (cz, cy, cx): b = 1 negates across x walls, 2 across y
-// walls, 3 across z walls, 0 never.
-__device__ __forceinline__ bool face_negates(int b, int z, int y, int x,
-                                             int cz, int cy, int cx) {
-  return (b == 1 && x != cx) || (b == 2 && y != cy) || (b == 3 && z != cz);
-}
 
 // Buoyancy folded into the y velocity: ops/forces.buoyancy_force, per cell.
 struct Buoyancy {
@@ -61,10 +48,11 @@ __device__ __forceinline__ float comb(float gm, float g0, float gp, float wp, fl
 }
 
 // The F advected fields at interior cell (z, y, x) of an n^3 grid.  fields is
-// (F, n, n, n) and vel (3, n, n, n), both [z, y, x].  With BUOY the fields are
-// the velocity itself (self-advection) and every read of the y component,
-// at the cell and at each tap, gets the buoyancy of the density there.
-template <int F, bool BUOY>
+// (F, n, n, n) and vel (3, n, n, n), both [z, y, x].  BUOY_VEL adds the
+// buoyancy of the density at the cell to the y velocity of the backtrace;
+// BUOY_TAPS (self-advection: the fields are the velocity itself) also adds
+// it to every tap of the y component, from the density at that tap.
+template <int F, bool BUOY_VEL, bool BUOY_TAPS>
 __device__ __forceinline__ void advect_cell_k1(const float* __restrict__ fields,
                                                const float* __restrict__ vel,
                                                const float* __restrict__ dens,
@@ -75,7 +63,7 @@ __device__ __forceinline__ void advect_cell_k1(const float* __restrict__ fields,
   const float vx = vel[c0];
   float vy = vel[vol + c0];
   const float vz = vel[2 * vol + c0];
-  if (BUOY) vy = buoyant_vy(vy, dens[c0], bp);
+  if (BUOY_VEL) vy = buoyant_vy(vy, dens[c0], bp);
   const float hi = float(n) - 1.5f;
   const float fx = frac_k1(float(x), vx, dt0, hi);
   const float fy = frac_k1(float(y), vy, dt0, hi);
@@ -98,7 +86,7 @@ __device__ __forceinline__ void advect_cell_k1(const float* __restrict__ fields,
 #pragma unroll
         for (int dx = -1; dx <= 1; ++dx) {
           g[dx + 1] = f[r + dx];
-          if (BUOY && c == 1) g[dx + 1] = buoyant_vy(g[dx + 1], dens[r + dx], bp);
+          if (BUOY_TAPS && c == 1) g[dx + 1] = buoyant_vy(g[dx + 1], dens[r + dx], bp);
         }
         yc[dy + 1] = comb(g[0], g[1], g[2], fxp, fxm);
       }
@@ -106,17 +94,6 @@ __device__ __forceinline__ void advect_cell_k1(const float* __restrict__ fields,
     }
     out[c] = comb(zc[0], zc[1], zc[2], fzp, fzm);
   }
-}
-
-// One thread per cell, x across threadIdx.x so that each tap row is one
-// coalesced load per warp.
-constexpr int kBlockX = 32, kBlockY = 4, kBlockZ = 2;
-
-inline dim3 cell_block() { return dim3(kBlockX, kBlockY, kBlockZ); }
-
-inline dim3 cell_grid(int n) {
-  return dim3((n + kBlockX - 1) / kBlockX, (n + kBlockY - 1) / kBlockY,
-              (n + kBlockZ - 1) / kBlockZ);
 }
 
 }  // namespace fsk

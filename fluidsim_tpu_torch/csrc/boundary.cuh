@@ -1,0 +1,101 @@
+// The thread layout and the boundary rules shared by every kernel.
+//
+// One thread per cell of an n^3 grid stored [z, y, x], x across threadIdx.x
+// so that each row of taps is one coalesced load per warp.
+//
+// Walls: the TPU kernels write a fresh buffer and then the set_bnd faces
+// z->y->x (later write wins at shared edges and corners).  That makes every
+// border cell a signed copy of the cell with its coordinates clamped to
+// [1, n-2], negated when the field's normal axis is one of the border axes.
+// So a border thread computes its interior cell and applies the sign: no
+// second pass over the faces.
+//
+// Obstacles: the set_bnd obstacle mirror (ops/boundary._mirror_obstacles_axis)
+// writes each interior solid cell of a velocity component from its fluid
+// neighbours along the component's own axis, as total / max(count, 1), after
+// the faces.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace fsk {
+
+constexpr int kBlockX = 32, kBlockY = 4, kBlockZ = 2;
+constexpr int kThreads = kBlockX * kBlockY * kBlockZ;
+
+inline dim3 cell_block() { return dim3(kBlockX, kBlockY, kBlockZ); }
+
+inline dim3 cell_grid(int n) {
+  return dim3((n + kBlockX - 1) / kBlockX, (n + kBlockY - 1) / kBlockY,
+              (n + kBlockZ - 1) / kBlockZ);
+}
+
+__device__ __forceinline__ int clamp_interior(int i, int n) {
+  return i < 1 ? 1 : (i > n - 2 ? n - 2 : i);
+}
+
+// True when the set_bnd face rule negates field code b at a border cell whose
+// interior cell is (cz, cy, cx): b = 1 negates across x walls, 2 across y
+// walls, 3 across z walls, 0 never.
+__device__ __forceinline__ bool face_negates(int b, int z, int y, int x,
+                                             int cz, int cy, int cx) {
+  return (b == 1 && x != cx) || (b == 2 && y != cy) || (b == 3 && z != cz);
+}
+
+struct Cell {
+  int x, y, z, cx, cy, cz;
+  long long idx, c;  // flat index of the cell and of its interior cell
+};
+
+__device__ __forceinline__ bool cell_of_thread(int n, Cell& k) {
+  k.x = blockIdx.x * blockDim.x + threadIdx.x;
+  k.y = blockIdx.y * blockDim.y + threadIdx.y;
+  k.z = blockIdx.z * blockDim.z + threadIdx.z;
+  if (k.x >= n || k.y >= n || k.z >= n) return false;
+  k.cx = clamp_interior(k.x, n);
+  k.cy = clamp_interior(k.y, n);
+  k.cz = clamp_interior(k.z, n);
+  const long long sn = n;
+  k.idx = (k.z * sn + k.y) * sn + k.x;
+  k.c = (k.cz * sn + k.cy) * sn + k.cx;
+  return true;
+}
+
+// Internal linkage: every translation unit that launches these kernels gets
+// its own copy, so the launch stubs of separately compiled units never clash.
+namespace {
+
+// The obstacle mirror, in place, on the n_fields components of v whose codes
+// b0, b1, b2 are velocity codes (b = 1: x axis, 2: y, 3: z; 0: no mirror).
+// mask is one byte per cell, nonzero = solid.  A thread writes only its own
+// cell, and only if that cell is interior and solid; it reads a neighbour
+// only if the neighbour is fluid.  No cell is both written and read, so the
+// pass has no race.
+__global__ void __launch_bounds__(kThreads)
+    mirror_obstacles_kernel(float* __restrict__ v, const uint8_t* __restrict__ mask,
+                            int n, int n_fields, int b0, int b1, int b2) {
+  Cell k;
+  if (!cell_of_thread(n, k) || k.idx != k.c || mask[k.idx] == 0) return;
+  const long long sn = n, vol = sn * sn * sn;
+  const int bs[3] = {b0, b1, b2};
+  for (int c = 0; c < n_fields; ++c) {
+    const int b = bs[c];
+    if (b < 1 || b > 3) continue;
+    const long long step = b == 1 ? 1 : (b == 2 ? sn : sn * sn);
+    float* f = v + c * vol;
+    const bool prev_fluid = mask[k.idx - step] == 0;
+    const bool next_fluid = mask[k.idx + step] == 0;
+    float lo = 0.0f, hi = 0.0f;
+    if (prev_fluid) lo = -f[k.idx - step];
+    if (next_fluid) hi = -f[k.idx + step];
+    const float total = lo + hi;
+    const float count = float(prev_fluid) + float(next_fluid);
+    f[k.idx] = count > 0.0f ? total / (count < 1.0f ? 1.0f : count) : 0.0f;
+  }
+}
+
+}  // namespace
+
+}  // namespace fsk

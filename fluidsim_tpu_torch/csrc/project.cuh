@@ -1,0 +1,154 @@
+// The pressure projection's phases, shared by K2 (project_advect.cu, which
+// adds the density advection) and K3 (project.cu):
+//   1. divergence  -0.5*((dvx + dvy) + dvz) / n, rounded to the solve dtype;
+//      the iterate starts at zero;
+//   2. `iters` Jacobi sweeps  p <- round_sd((rhs + nbr(p)) * coef), with
+//      nbr = ((x+ + x-) + (y+ + y-)) + (z+ + z-) and coef = inv6 = f32(1)/f32(6)
+//      in fluid cells and 0 in solid ones (the TPU kernel's (1 - m)*inv6:
+//      a solid cell holds +-0, its copy-through of the zero start), ping-ponging
+//      two solve-dtype buffers; the b=0 faces hold after every sweep;
+//   3. per component  v - (0.5*(p[+1] - p[-1]))*n  from the float32 upcast of
+//      the final iterate (v itself in solid cells), the component's set_bnd
+//      faces, the obstacle mirror when there is a mask, then * damp.
+// Counterpart of fluidsim_tpu/pallas/resident.py::_project_body with
+// _solve_loop at sweep_block = 1.  One launch per phase and per sweep: the
+// launch boundary is the grid-wide barrier between sweeps.  Border cells
+// recompute their interior cell (boundary.cuh), which is bitwise the TPU
+// kernel's face writes, including its deferred x faces, so no sweep needs a
+// separate faces pass.
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include <utility>
+
+#include "boundary.cuh"
+
+namespace fsk {
+
+__device__ __forceinline__ float ld(float v) { return v; }
+__device__ __forceinline__ float ld(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T st(float v);
+template <>
+__device__ __forceinline__ float st<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 st<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
+
+// Internal linkage, as in boundary.cuh: K2 and K3 each get their own copy.
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    divergence_kernel(const float* __restrict__ vel, T* __restrict__ rhs,
+                      T* __restrict__ p0, int n) {
+  Cell k;
+  if (!cell_of_thread(n, k)) return;
+  p0[k.idx] = st<T>(0.0f);
+  // The rhs is only ever read at interior cells.
+  if (k.idx != k.c) return;
+  const long long sn = n, plane = sn * sn, vol = plane * sn;
+  const long long i = k.idx;
+  const float dx = vel[i + 1] - vel[i - 1];
+  const float dy = vel[vol + i + sn] - vel[vol + i - sn];
+  const float dz = vel[2 * vol + i + plane] - vel[2 * vol + i - plane];
+  rhs[i] = st<T>((-0.5f * ((dx + dy) + dz)) / float(n));
+}
+
+template <typename T, bool MASK>
+__global__ void __launch_bounds__(kThreads)
+    jacobi_sweep_kernel(const T* __restrict__ src, const T* __restrict__ rhs,
+                        const uint8_t* __restrict__ mask, T* __restrict__ dst, int n,
+                        float inv6) {
+  Cell k;
+  if (!cell_of_thread(n, k)) return;
+  const long long sn = n, plane = sn * sn, c = k.c;
+  const float coef = (MASK && mask[c] != 0) ? 0.0f : inv6;
+  const float xs = ld(src[c + 1]) + ld(src[c - 1]);
+  const float ys = ld(src[c + sn]) + ld(src[c - sn]);
+  const float zs = ld(src[c + plane]) + ld(src[c - plane]);
+  dst[k.idx] = st<T>((ld(rhs[c]) + ((xs + ys) + zs)) * coef);
+}
+
+template <typename T, bool MASK>
+__global__ void __launch_bounds__(kThreads)
+    gradient_kernel(const float* __restrict__ vel, const T* __restrict__ p,
+                    const uint8_t* __restrict__ mask, float* __restrict__ vel_out,
+                    float* __restrict__ p_out, int n, float damp) {
+  Cell k;
+  if (!cell_of_thread(n, k)) return;
+  const long long sn = n, plane = sn * sn, vol = plane * sn, c = k.c;
+  const float nf = float(n);
+  p_out[k.idx] = ld(p[k.idx]);
+  const bool solid = MASK && mask[c] != 0;
+  const long long step[3] = {1, sn, plane};
+  const bool negate[3] = {k.x != k.cx, k.y != k.cy, k.z != k.cz};
+#pragma unroll
+  for (int comp = 0; comp < 3; ++comp) {
+    const float g = (0.5f * (ld(p[c + step[comp]]) - ld(p[c - step[comp]]))) * nf;
+    const float u = solid ? vel[comp * vol + c] : vel[comp * vol + c] - g;
+    vel_out[comp * vol + k.idx] = (negate[comp] ? -u : u) * damp;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    scale_kernel(float* __restrict__ v, long long count, float s) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < count) v[i] = v[i] * s;
+}
+
+// Phases 1-3 on `stream`; mask (one byte per cell, nonzero = solid) may be
+// null.  Returns the first cudaError_t.
+template <typename T>
+cudaError_t project_phases(const float* vel, const uint8_t* mask, float* vel_out,
+                           float* p_out, T* pa, T* pb, T* rhs, int n, int iters,
+                           float damp, cudaStream_t s) {
+  const dim3 grid = cell_grid(n), block = cell_block();
+  const float inv6 = 1.0f / 6.0f;
+  divergence_kernel<T><<<grid, block, 0, s>>>(vel, rhs, pa, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  T* src = pa;
+  T* dst = pb;
+  for (int it = 0; it < iters; ++it) {
+    if (mask != nullptr) {
+      jacobi_sweep_kernel<T, true><<<grid, block, 0, s>>>(src, rhs, mask, dst, n, inv6);
+    } else {
+      jacobi_sweep_kernel<T, false><<<grid, block, 0, s>>>(src, rhs, mask, dst, n, inv6);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    std::swap(src, dst);
+  }
+  if (mask == nullptr) {
+    gradient_kernel<T, false><<<grid, block, 0, s>>>(vel, src, mask, vel_out, p_out, n, damp);
+    return cudaGetLastError();
+  }
+  // The mirror reads the post-face values of its neighbours, so it follows
+  // the gradient as its own launch; damp comes after the mirror.
+  gradient_kernel<T, true><<<grid, block, 0, s>>>(vel, src, mask, vel_out, p_out, n, 1.0f);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mirror_obstacles_kernel<<<grid, block, 0, s>>>(vel_out, mask, n, 3, 1, 2, 3);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (damp != 1.0f) {
+    const long long count = 3LL * n * n * n;
+    scale_kernel<<<static_cast<unsigned>((count + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+        vel_out, count, damp);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
+// fs_project_* take the solve buffers as void*; this picks their dtype.
+template <typename F>
+cudaError_t with_solve_dtype(int solve_bf16, void* pa, void* pb, void* rhs, F&& run) {
+  if (solve_bf16) {
+    return run(static_cast<__nv_bfloat16*>(pa), static_cast<__nv_bfloat16*>(pb),
+               static_cast<__nv_bfloat16*>(rhs));
+  }
+  return run(static_cast<float*>(pa), static_cast<float*>(pb), static_cast<float*>(rhs));
+}
+
+}  // namespace
+
+}  // namespace fsk

@@ -1,6 +1,7 @@
 """Builds the CUDA sources in ``fluidsim_tpu_torch/csrc/`` and loads them.
 
-``nvcc`` compiles every ``*.cu`` file into one shared library with a plain C
+``nvcc`` compiles every ``*.cu`` file, one process per file, all started
+together, and links the objects into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds), which is loaded
 with ``ctypes``.  The library goes into ``fluidsim_tpu_torch/_build/`` under a
 name keyed by a hash of the sources and flags, so an edited source is rebuilt
@@ -27,10 +28,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -39,10 +40,13 @@ _F = ctypes.c_float
 
 # C entry points: name -> argument types (every one returns a cudaError_t).
 SIGNATURES = {
-    # fields, vel, dens, out, n, n_fields, b0, b1, b2, dt0,
-    # has_buoy, buoy_dt, buoyancy, ambient, gravity, stream
-    "fs_advect_k1": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                     _I, _F, _F, _F, _F, _P),
+    # fields, vel, dens, mask, out, tmp, n, n_fields, b0, b1, b2, dt0_sub,
+    # n_sub, has_buoy, buoy_dt, buoyancy, ambient, gravity, stream
+    "fs_advect_k1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                     _I, _I, _F, _F, _F, _F, _P),
+    # vel, mask, vel_out, p_out, p_a, p_b, rhs, n, iters, solve_bf16, damp,
+    # stream
+    "fs_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # vel, dens, vel_out, p_out, dens_out, p_a, p_b, rhs,
     # n, iters, solve_bf16, dt0, damp, dens_damp, stream
     "fs_project_advect_density": (_P, _P, _P, _P, _P, _P, _P, _P,
@@ -91,16 +95,28 @@ def build(csrc_dir: Path = CSRC_DIR, build_dir: Path = BUILD_DIR) -> Path:
         return so
     nvcc = find_nvcc()
     build_dir.mkdir(parents=True, exist_ok=True)
-    units = [str(p) for p in sorted(csrc_dir.glob("*.cu"))]
+    units = sorted(csrc_dir.glob("*.cu"))
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc_dir), "-o", tmp, *units]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise BuildError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        with tempfile.TemporaryDirectory(dir=build_dir) as obj_dir:
+            objs = [str(Path(obj_dir) / f"{u.stem}.o") for u in units]
+            procs = [
+                subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-I", str(csrc_dir), "-c", str(u), "-o", o],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for u, o in zip(units, objs)
+            ]
+            logs = [p.communicate()[0] for p in procs]
+            log = "".join(f"== {u.name}\n{text}" for u, text in zip(units, logs))
+            failed = [u.name for u, p in zip(units, procs) if p.returncode != 0]
+            if failed:
+                raise BuildError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise BuildError(f"nvcc failed ({proc.returncode}):\n"
+                                 f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         so.with_suffix(".log").write_text(log)
         os.replace(tmp, so)
     finally:

@@ -5,6 +5,9 @@ Counterpart of ``fluidsim_tpu/pallas/advect.py`` (``advect_multi_3d_pallas``
 ``csrc/advect.cu``; ``advect_multi_3d_plain`` is the same arithmetic in plain
 PyTorch (the two-tap form, not the 27-term hat sum of ``ops/advect.py``),
 used for CPU tensors and as the reference the kernel is checked against.
+
+The obstacle mask is a ``torch.bool`` tensor (one byte per cell, which the
+kernel reads as ``uint8``, nonzero = solid).
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.boundary import apply_faces_3d
+from ..ops.boundary import set_bnd_3d
 from ..ops.forces import buoyancy_force
 from . import _build
 
@@ -22,22 +25,38 @@ def _comb(gm, g0, gp, wp, wm):
     return g0 + wp * (gp - g0) + wm * (gm - g0)
 
 
-def advect_multi_3d_plain(bs, fields, vel, dt: float, buoy=None):
+def substep_dt0(dt: float, n: int, n_sub: int) -> float:
+    """The backtrace scale of one substep as the TPU kernel computes it:
+    ``dt0 = f32(dt)·f32(n−2)`` as a Python float, divided by ``n_sub`` in
+    double and rounded to float32 (not the XLA path's
+    ``f32(f32(dt)/f32(n_sub))·f32(n−2)``; the two can differ in the last
+    bit)."""
+    dt0 = float(np.float32(dt) * np.float32(n - 2))
+    return float(np.float32(dt0 / n_sub))
+
+
+def advect_multi_3d_plain(bs, fields, vel, dt: float, buoy=None, obst=None,
+                          n_sub: int = 1):
     """Plain PyTorch twin of the K1 kernel: advect the ``(F, N, N, N)``
     ``fields`` (boundary codes ``bs``) through ``vel`` with the clamped K=1
-    backtrace, then the fresh-zero + ``set_bnd`` face contract.
+    backtrace in ``n_sub`` substeps of ``dt/n_sub``.  After every substep
+    comes the output contract: the fresh-zero + ``set_bnd`` faces, and with
+    the bool mask ``obst`` the solid cells zeroed before the faces and the
+    obstacle mirror of the velocity codes after them
+    (``ops/advect._mask_and_bnd_3d``).
 
     ``buoy = (density, buoyancy, ambient, gravity)`` (self-advection only)
     adds the buoyancy force to the y velocity first, at the cell and at
     every tap, exactly as the kernel does."""
     n = fields.shape[-1]
-    dt0 = float(np.float32(dt) * np.float32(n - 2))
+    dt0 = substep_dt0(dt, n, n_sub)
     if buoy is not None:
         dens, b_f, amb, grav = buoy
         vel = buoyancy_force(vel, dens, dt, b_f, amb, grav)
         fields = vel
     f32 = torch.float32
     inner = slice(1, n - 1)
+    core = (inner,) * 3
     coord = torch.arange(1, n - 1, dtype=f32, device=fields.device)
 
     def frac(c, v):
@@ -47,7 +66,7 @@ def advect_multi_3d_plain(bs, fields, vel, dt: float, buoy=None):
         t = torch.minimum(torch.maximum(t, c - 1.0), c + 1.0)
         return t - c
 
-    v = vel[:, inner, inner, inner]
+    v = vel[(slice(None),) + core]
     fx = frac(coord[None, None, :], v[0])
     fy = frac(coord[None, :, None], v[1])
     fz = frac(coord[:, None, None], v[2])
@@ -58,27 +77,32 @@ def advect_multi_3d_plain(bs, fields, vel, dt: float, buoy=None):
     def sl(d):
         return slice(1 + d, n - 1 + d)
 
-    planes = []
-    for dz in (-1, 0, 1):
-        rows = []
-        for dy in (-1, 0, 1):
-            g = fields[:, sl(dz), sl(dy)]
-            rows.append(_comb(g[..., sl(-1)], g[..., sl(0)], g[..., sl(1)],
-                              fxp, fxm))
-        planes.append(_comb(*rows, fyp, fym))
-    vals = _comb(*planes, fzp, fzm)
+    for _ in range(n_sub):
+        planes = []
+        for dz in (-1, 0, 1):
+            rows = []
+            for dy in (-1, 0, 1):
+                g = fields[:, sl(dz), sl(dy)]
+                rows.append(_comb(g[..., sl(-1)], g[..., sl(0)], g[..., sl(1)],
+                                  fxp, fxm))
+            planes.append(_comb(*rows, fyp, fym))
+        vals = _comb(*planes, fzp, fzm)
 
-    out = []
-    for c, b in enumerate(bs):
-        field = torch.zeros((n, n, n), dtype=fields.dtype, device=fields.device)
-        field[inner, inner, inner] = vals[c]
-        out.append(apply_faces_3d(b, field))
-    return torch.stack(out)
+        out = []
+        for c, b in enumerate(bs):
+            field = torch.zeros((n, n, n), dtype=fields.dtype,
+                                device=fields.device)
+            field[core] = (vals[c] if obst is None
+                           else torch.where(obst[core], 0.0, vals[c]))
+            out.append(set_bnd_3d(b, field, obst))
+        fields = torch.stack(out)
+    return fields
 
 
-def _check_volume(name: str, t: torch.Tensor, shape) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+def _check_volume(name: str, t: torch.Tensor, shape,
+                  dtype: torch.dtype = torch.float32) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -87,23 +111,28 @@ def _check_volume(name: str, t: torch.Tensor, shape) -> None:
 
 def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 1,
                            n_sub: int = 1, buoy=None):
-    """Advect ``fields`` (F = 1 or 3) through ``vel`` with the K1 kernel.
+    """Advect ``fields`` (F = 1 or 3) through ``vel`` with the K1 kernel, in
+    ``n_sub`` substeps, with the obstacle contract after each when the bool
+    mask ``obst`` is given.
 
     CUDA tensors launch ``csrc/advect.cu``; CPU tensors run
     ``advect_multi_3d_plain``.  ``buoy = (density, buoyancy, ambient,
     gravity)`` folds the buoyancy force into a self-advection call
-    (``fields is vel``, ``bs == (1, 2, 3)``).  Raises for what the kernel
-    does not take.  ``advect_multi_3d_kernel.launches`` counts launches."""
+    (``fields is vel``, ``bs == (1, 2, 3)``) without a mask.  Raises for what
+    the kernel does not take.  ``advect_multi_3d_kernel.launches`` counts
+    calls that launched the kernel."""
     bs = tuple(bs)
-    if obst is not None:
+    if window != 1:
         raise NotImplementedError(
-            "obstacle masks in the advection kernel are not ported")
-    if window != 1 or n_sub != 1:
-        raise NotImplementedError(
-            f"advection kernel with window={window}, n_sub={n_sub}: only "
-            "window=1, n_sub=1 is ported")
+            f"advection kernel with window={window}: only window=1 is ported")
+    if int(n_sub) != n_sub or n_sub < 1:
+        raise ValueError(f"n_sub must be a positive integer, got {n_sub}")
+    n_sub = int(n_sub)
     if buoy is not None and not (fields is vel and bs == (1, 2, 3)):
         raise ValueError("buoy folding requires a self-advect call")
+    if buoy is not None and obst is not None:
+        raise NotImplementedError(
+            "the buoyancy fold with an obstacle mask is not ported")
     n_fields, n = fields.shape[0], fields.shape[-1]
     if n_fields not in (1, 3) or len(bs) != n_fields:
         raise ValueError(f"unsupported fields {tuple(fields.shape)} with bs={bs}")
@@ -115,17 +144,20 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
     if buoy is not None:
         _check_volume("buoy density", buoy[0], (n, n, n))
         tensors.append(buoy[0])
+    if obst is not None:
+        _check_volume("obst", obst, (n, n, n), torch.bool)
+        tensors.append(obst)
     if any(t.device != fields.device for t in tensors):
         raise ValueError("all tensors must be on one device")
 
     if fields.device.type == "cpu":
-        return advect_multi_3d_plain(bs, fields, vel, dt, buoy)
+        return advect_multi_3d_plain(bs, fields, vel, dt, buoy, obst, n_sub)
     if fields.device.type != "cuda":
         raise ValueError(f"unsupported device {fields.device}")
 
     lib = _build.load_library()
     out = torch.empty_like(fields)
-    dt0 = float(np.float32(dt) * np.float32(n - 2))
+    tmp = torch.empty_like(fields) if n_sub > 1 else None
     if buoy is None:
         dens_ptr, bp = None, (0.0, 0.0, 0.0, 0.0)
     else:
@@ -135,8 +167,10 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
     with torch.cuda.device(fields.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_advect_k1(
-            fields.data_ptr(), vel.data_ptr(), dens_ptr, out.data_ptr(),
-            n, n_fields, b[0], b[1], b[2], dt0,
+            fields.data_ptr(), vel.data_ptr(), dens_ptr,
+            None if obst is None else obst.data_ptr(), out.data_ptr(),
+            None if tmp is None else tmp.data_ptr(),
+            n, n_fields, b[0], b[1], b[2], substep_dt0(dt, n, n_sub), n_sub,
             int(buoy is not None), *bp, stream,
         )
     _build.check(lib, err, "advect kernel launch")

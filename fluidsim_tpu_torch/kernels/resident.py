@@ -1,14 +1,19 @@
-"""K2: the fused projection + density advection kernel, its plain twin and
-its wrapper.
+"""K2, the fused projection + density advection kernel, and K3, the
+projection on its own with an optional obstacle mask: their plain twins and
+their wrappers.
 
-Counterpart of ``fluidsim_tpu/pallas/resident.py``
-(``project_advect_density_3d_resident`` → ``_project_advect_kernel``, phases
-``_project_body``, ``_solve_loop`` and ``_density_phase``).  The CUDA kernels
-are ``csrc/project_advect.cu``; ``project_advect_density_3d_plain`` is the
-same arithmetic in plain PyTorch: the ``inv6`` multiply, the rhs and every
-iterate rounded to the solve dtype, then ``damp`` and ``dens_damp`` after the
-faces.  It serves CPU tensors and is the reference the kernel is checked
-against.
+Counterpart of ``fluidsim_tpu/pallas/resident.py``: K2 is
+``project_advect_density_3d_resident`` → ``_project_advect_kernel`` (phases
+``_project_body``, ``_solve_loop`` and ``_density_phase``), K3 is
+``project_3d_resident`` → ``_project_kernel`` / ``_project_obst_kernel``.
+The CUDA kernels are ``csrc/project_advect.cu`` and ``csrc/project.cu``,
+which share the projection's phases (``csrc/project.cuh``).  The twins are
+the same arithmetic in plain PyTorch: the ``inv6`` multiply (``(1 − m)·inv6``
+with a mask), the rhs and every iterate rounded to the solve dtype, the
+gradient held in solid cells, the faces, the obstacle mirror, then ``damp``
+(and ``dens_damp`` after the density faces).  They serve CPU tensors and are
+the references the kernels are checked against.  The obstacle mask is a
+``torch.bool`` tensor, one byte per cell.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.boundary import apply_faces_3d
+from ..ops.boundary import apply_faces_3d, set_bnd_3d
 from ..ops.linsolve import _nbr_sum_3d
 from . import _build
 from .advect import _check_volume, advect_multi_3d_plain
@@ -35,11 +40,10 @@ def solve_torch_dtype(solve_dtype) -> torch.dtype:
     raise ValueError(f"unsupported solve_dtype {solve_dtype!r}")
 
 
-def project_advect_density_3d_plain(vel, density, iters: int, dt: float, *,
-                                    solve_dtype=None, damp: float = 1.0,
-                                    dens_damp: float = 1.0):
-    """Plain PyTorch twin of the K2 kernel.  Returns ``(vel', p, density')``,
-    ``p`` being the float32 upcast of the final iterate."""
+def project_3d_resident_plain(vel, iters: int, obst=None, solve_dtype=None,
+                              damp: float = 1.0):
+    """Plain PyTorch twin of the K3 kernel.  Returns ``(vel', p)``, ``p``
+    being the float32 upcast of the final iterate."""
     n = vel.shape[-1]
     sdt = solve_torch_dtype(solve_dtype)
     f32 = torch.float32
@@ -58,10 +62,12 @@ def project_advect_density_3d_plain(vel, density, iters: int, dt: float, *,
         / torch.tensor(nf, dtype=f32, device=vel.device)
     )
     rhs = div.to(sdt).to(f32)
+    # (1 − m)·inv6: inv6 in fluid cells, 0 in solid ones.
+    coef = INV6 if obst is None else (1.0 - obst[core].to(f32)) * INV6
 
     p = torch.zeros((n, n, n), dtype=sdt, device=vel.device)
     for _ in range(iters):
-        upd = ((rhs + _nbr_sum_3d(p.to(f32))) * INV6).to(sdt)
+        upd = ((rhs + _nbr_sum_3d(p.to(f32))) * coef).to(sdt)
         p = apply_faces_3d(0, F.pad(upd, (1, 1, 1, 1, 1, 1)))
     p = p.to(f32)
 
@@ -73,11 +79,39 @@ def project_advect_density_3d_plain(vel, density, iters: int, dt: float, *,
     comps = []
     for c, g in enumerate(grads):
         comp = vel[c].clone()
-        comp[core] = vel[c][core] - g
-        comps.append(apply_faces_3d(c + 1, comp) * damp)
-    vel_out = torch.stack(comps)
+        upd = vel[c][core] - g
+        comp[core] = upd if obst is None else torch.where(obst[core], vel[c][core], upd)
+        comps.append(set_bnd_3d(c + 1, comp, obst) * damp)
+    return torch.stack(comps), p
+
+
+def project_advect_density_3d_plain(vel, density, iters: int, dt: float, *,
+                                    solve_dtype=None, damp: float = 1.0,
+                                    dens_damp: float = 1.0):
+    """Plain PyTorch twin of the K2 kernel.  Returns ``(vel', p, density')``,
+    ``p`` being the float32 upcast of the final iterate."""
+    vel_out, p = project_3d_resident_plain(vel, iters, solve_dtype=solve_dtype,
+                                           damp=damp)
     dens_out = advect_multi_3d_plain((0,), density[None], vel_out, dt)[0]
     return vel_out, p, dens_out * dens_damp
+
+
+def _checked_projection(vel, iters: int, solve_dtype):
+    """Check the arguments both projection kernels take; returns ``(n,
+    solve storage dtype)``."""
+    if int(iters) != iters or iters < 1:
+        raise ValueError(f"iters must be a positive integer, got {iters}")
+    sdt = solve_torch_dtype(solve_dtype)
+    n = vel.shape[-1]
+    if n < 3:
+        raise ValueError(f"grid too small: {n}")
+    _check_volume("vel", vel, (3, n, n, n))
+    return n, sdt
+
+
+def _solve_scratch(n: int, sdt: torch.dtype, device):
+    """The two iterates and the rhs of the solve, in its storage dtype."""
+    return tuple(torch.empty((n, n, n), dtype=sdt, device=device) for _ in range(3))
 
 
 def project_advect_density_3d(vel, density, iters: int, dt: float, *,
@@ -94,13 +128,7 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
         raise NotImplementedError(
             f"fused projection with window={window}, n_sub={n_sub}: only "
             "window=1, n_sub=1 is ported")
-    if int(iters) != iters or iters < 1:
-        raise ValueError(f"iters must be a positive integer, got {iters}")
-    sdt = solve_torch_dtype(solve_dtype)
-    n = vel.shape[-1]
-    if n < 3:
-        raise ValueError(f"grid too small: {n}")
-    _check_volume("vel", vel, (3, n, n, n))
+    n, sdt = _checked_projection(vel, iters, solve_dtype)
     _check_volume("density", density, (n, n, n))
     if density.device != vel.device:
         raise ValueError("vel and density must be on one device")
@@ -116,8 +144,7 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
     vel_out = torch.empty_like(vel)
     p = torch.empty_like(density)
     dens_out = torch.empty_like(density)
-    p_a, p_b, rhs = (torch.empty((n, n, n), dtype=sdt, device=vel.device)
-                     for _ in range(3))
+    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device)
     dt0 = float(np.float32(dt) * np.float32(n - 2))
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -134,3 +161,42 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
 
 
 project_advect_density_3d.launches = 0
+
+
+def project_3d_resident(vel, iters: int, obst=None, solve_dtype=None,
+                        damp: float = 1.0):
+    """Project ``vel`` with ``iters`` Jacobi sweeps with the K3 kernel, with
+    the obstacle contract when the bool mask ``obst`` is given.
+
+    CUDA tensors launch ``csrc/project.cu``; CPU tensors run
+    ``project_3d_resident_plain``.  Returns ``(vel', p)``.
+    ``project_3d_resident.launches`` counts calls that launched the kernel."""
+    n, sdt = _checked_projection(vel, iters, solve_dtype)
+    if obst is not None:
+        _check_volume("obst", obst, (n, n, n), torch.bool)
+        if obst.device != vel.device:
+            raise ValueError("vel and obst must be on one device")
+
+    if vel.device.type == "cpu":
+        return project_3d_resident_plain(vel, iters, obst, solve_dtype, damp)
+    if vel.device.type != "cuda":
+        raise ValueError(f"unsupported device {vel.device}")
+
+    lib = _build.load_library()
+    vel_out = torch.empty_like(vel)
+    p = torch.empty((n, n, n), dtype=torch.float32, device=vel.device)
+    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device)
+    with torch.cuda.device(vel.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fs_project(
+            vel.data_ptr(), None if obst is None else obst.data_ptr(),
+            vel_out.data_ptr(), p.data_ptr(), p_a.data_ptr(), p_b.data_ptr(),
+            rhs.data_ptr(), n, int(iters), int(sdt == torch.bfloat16),
+            float(damp), stream,
+        )
+    _build.check(lib, err, "projection kernel launch")
+    project_3d_resident.launches += 1
+    return vel_out, p
+
+
+project_3d_resident.launches = 0

@@ -1,17 +1,21 @@
 """3D stable-fluids step (counterpart of ``fluidsim_tpu/models/stable3d.py``).
 
-Two branches, as in the JAX package:
+Step order, as in the JAX package: buoyancy → vorticity confinement →
+self-advect velocity → pressure projection → velocity damping → advect
+density → density dissipation → obstacle enforcement.  Two branches:
 
 * the kernel path (``_kernels_usable``: a CUDA device and
-  ``kernel_backend != "xla"``): buoyancy folded into the K1 self-advection
-  kernel, then the K2 kernel (projection + density advection, with the
-  velocity and density sinks folded in);
-* the plain path (``kernel_backend="xla"`` or a CPU device): buoyancy force,
-  windowed advection, float32 Jacobi projection, sinks, density advection —
-  the JAX package's XLA composition.
+  ``kernel_backend != "xla"``): K1 for the self-advection (with the
+  buoyancy folded in where ``fold_buoyancy`` allows), then either K2
+  (projection + density advection, the sinks folded in;
+  ``fuse_project_advect``) or K3 (projection) followed by K1 for the
+  density; K1 runs the substeps and the obstacle contract in the kernel;
+* the plain path (``kernel_backend="xla"`` or a CPU device): the JAX
+  package's XLA composition of the ``ops`` functions.
 
-Configurations the port does not cover yet raise ``NotImplementedError``
-naming the missing piece (``check_supported``).
+Buoyancy (when not folded), vorticity confinement and obstacle enforcement
+are plain PyTorch on both paths.  Configurations the port does not cover yet
+raise ``NotImplementedError`` naming the missing piece (``check_supported``).
 """
 
 from __future__ import annotations
@@ -24,28 +28,38 @@ import torch
 from ..config import SimConfig
 from ..kernels.advect import advect_multi_3d_kernel, advect_multi_3d_plain
 from ..kernels.resident import (
+    project_3d_resident,
+    project_3d_resident_plain,
     project_advect_density_3d,
     project_advect_density_3d_plain,
 )
 from ..ops.advect import advect_multi_3d, advect_substep_3d
-from ..ops.forces import buoyancy_force
+from ..ops.forces import (
+    buoyancy_force,
+    enforce_obstacle_boundaries_3d,
+    vorticity_confinement_3d,
+)
 from ..ops.project import project_3d
 from ..state import FluidState
 
 
 class StepKernels(NamedTuple):
-    """The two calls of the kernel path: ``advect(bs, fields, vel, dt,
-    buoy=...)`` and ``project_advect(vel, density, iters, dt, solve_dtype=,
-    damp=, dens_damp=)``."""
+    """The calls of the kernel path: ``advect(bs, fields, vel, dt, obst=,
+    n_sub=, buoy=)``, ``project_advect(vel, density, iters, dt,
+    solve_dtype=, damp=, dens_damp=)`` and ``project(vel, iters, obst=,
+    solve_dtype=)``."""
 
     advect: Callable
     project_advect: Callable
+    project: Callable
 
 
-HAND_KERNELS = StepKernels(advect_multi_3d_kernel, project_advect_density_3d)
+HAND_KERNELS = StepKernels(advect_multi_3d_kernel, project_advect_density_3d,
+                           project_3d_resident)
 # The kernels' plain twins, for running the kernel path's arithmetic on a
 # card without the kernels (the reference ``chip_smoke.py`` compares with).
-PLAIN_TWINS = StepKernels(advect_multi_3d_plain, project_advect_density_3d_plain)
+PLAIN_TWINS = StepKernels(advect_multi_3d_plain, project_advect_density_3d_plain,
+                          project_3d_resident_plain)
 
 
 def _kernels_usable(cfg: SimConfig, device) -> bool:
@@ -73,10 +87,6 @@ def check_supported(cfg: SimConfig, use_kernels: bool) -> None:
         _unported("the 2D reference-parity mode (ndim=2)")
     if cfg.dtype != "float32":
         _unported(f"field dtype {cfg.dtype!r}")
-    if cfg.enable_obstacle:
-        _unported("obstacles (enable_obstacle)")
-    if cfg.vorticity_confinement != 0.0:
-        _unported("vorticity confinement")
     if visc > 0.0:
         _unported("viscous diffusion (viscosity > 0)")
     if diff > 0.0:
@@ -93,18 +103,45 @@ def check_supported(cfg: SimConfig, use_kernels: bool) -> None:
         _unported("turbulent noise")
     if not use_kernels:
         return
-    if cfg.advection_scheme != "substep" or not cfg.fuse_project_advect:
-        _unported("the unfused projection kernel (K3, needed without "
-                  "advection_scheme='substep' and fuse_project_advect)")
+    if cfg.advection_scheme != "substep":
+        _unported(f"kernel-path advection with advection_scheme="
+                  f"{cfg.advection_scheme!r} (only 'substep' runs on the kernels)")
     if cfg.fuse_self_advect:
         _unported("the full-step kernel (K8, fuse_self_advect)")
     if cfg.fuse_emitter:
         _unported("the emitter-folded projection kernel (K2s, fuse_emitter)")
     if cfg.jacobi_sweep_block > 1:
         _unported("sweep-blocked Jacobi (K5, jacobi_sweep_block > 1)")
-    if cfg.advect_window != 1 or cfg.advect_substeps != 1:
-        _unported("kernel advection with advect_window != 1 or "
-                  "advect_substeps != 1")
+    if cfg.advect_window != 1:
+        _unported("kernel advection with advect_window != 1")
+    if cfg.fuse_project_advect and cfg.enable_obstacle:
+        _unported("the obstacle variant of the fused projection kernel (K2o, "
+                  "enable_obstacle with fuse_project_advect)")
+    if cfg.fuse_project_advect and cfg.advect_substeps != 1:
+        _unported("the fused projection kernel's density phase with "
+                  "advect_substeps != 1 (K2 with n_sub > 1)")
+
+
+def fold_buoyancy(cfg: SimConfig, use_kernels: bool) -> bool:
+    """Whether the buoyancy force folds into the self-advection kernel: the
+    JAX package's gate (``fluidsim_tpu/models/stable3d.py``), valid only
+    when nothing acts on the velocity between the force and the advection
+    (no obstacle, vorticity, viscosity or pre-projection) and the kernel
+    path runs the substep scheme."""
+    _, _, visc = cfg.effective_params()
+    has_force = cfg.buoyancy != 0.0 or cfg.gravity != 0.0
+    return (
+        has_force
+        and cfg.fuse_buoyancy
+        and use_kernels
+        and not cfg.enable_obstacle
+        and cfg.vorticity_confinement == 0.0
+        and visc <= 0.0
+        and not cfg.double_project
+        and cfg.advection_scheme == "substep"
+        and not cfg.fuse_self_advect
+        and cfg.dtype == "float32"
+    )
 
 
 def sink_factor(dt: float, rate: float) -> float:
@@ -115,47 +152,64 @@ def sink_factor(dt: float, rate: float) -> float:
 
 def simulate_step_3d(state: FluidState, cfg: SimConfig,
                      kernels: StepKernels = HAND_KERNELS) -> FluidState:
-    """One product step.  ``kernels`` replaces the two calls of the kernel
-    path (``PLAIN_TWINS`` runs their plain twins instead)."""
+    """One product step.  ``kernels`` replaces the calls of the kernel path
+    (``PLAIN_TWINS`` runs their plain twins instead)."""
     dt = cfg.effective_params()[0]
     use_kernels = _kernels_usable(cfg, state.density.device)
     check_supported(cfg, use_kernels)
+    obst = state.obstacles if cfg.enable_obstacle else None
     vel = state.velocity
     density = state.density
 
     has_force = cfg.buoyancy != 0.0 or cfg.gravity != 0.0
-    fold_buoy = has_force and cfg.fuse_buoyancy and use_kernels
+    fold_buoy = fold_buoyancy(cfg, use_kernels)
     if has_force and not fold_buoy:
         vel = buoyancy_force(vel, density, dt, cfg.buoyancy,
                              cfg.ambient_density, cfg.gravity)
+    if cfg.vorticity_confinement != 0.0:
+        vel = vorticity_confinement_3d(vel, dt, cfg.vorticity_confinement)
     damp = sink_factor(dt, cfg.velocity_damping) if cfg.velocity_damping else 1.0
     ddamp = (sink_factor(dt, cfg.density_dissipation)
              if cfg.density_dissipation else 1.0)
 
     if use_kernels:
-        buoy = ((density, cfg.buoyancy, cfg.ambient_density, cfg.gravity)
-                if fold_buoy else None)
-        vel = kernels.advect((1, 2, 3), vel, vel, dt, buoy=buoy)
+        def advect(bs, fields, velocity, buoy=None):
+            return kernels.advect(bs, fields, velocity, dt, obst=obst,
+                                  n_sub=cfg.advect_substeps, buoy=buoy)
+    else:
+        def advect(bs, fields, velocity, buoy=None):
+            if cfg.advection_scheme == "substep":
+                return advect_substep_3d(bs, fields, velocity, dt, obst,
+                                         cfg.advect_window,
+                                         n_sub=cfg.advect_substeps)
+            return advect_multi_3d(bs, fields, velocity, dt, obst,
+                                   cfg.advect_window)
+
+    buoy = ((density, cfg.buoyancy, cfg.ambient_density, cfg.gravity)
+            if fold_buoy else None)
+    vel = advect((1, 2, 3), vel, vel, buoy)
+    fused = use_kernels and cfg.fuse_project_advect
+    if fused:
         vel, pressure, density = kernels.project_advect(
             vel, density, cfg.jacobi_iters, dt,
             solve_dtype=cfg.solve_dtype, damp=damp, dens_damp=ddamp,
         )
+    elif use_kernels:
+        vel, pressure = kernels.project(vel, cfg.jacobi_iters, obst=obst,
+                                        solve_dtype=cfg.solve_dtype)
     else:
-        win = cfg.advect_window
+        vel, pressure = project_3d(vel, obst, cfg.jacobi_iters)
 
-        def advect_fields(bs, fields, velocity):
-            if cfg.advection_scheme == "substep":
-                return advect_substep_3d(bs, fields, velocity, dt, None, win,
-                                         n_sub=cfg.advect_substeps)
-            return advect_multi_3d(bs, fields, velocity, dt, None, win)
-
-        vel = advect_fields((1, 2, 3), vel, vel)
-        vel, pressure = project_3d(vel, None, cfg.jacobi_iters)
+    if not fused:
         if cfg.velocity_damping != 0.0:
             vel = vel * damp
-        density = advect_fields((0,), density[None], vel)[0]
+        density = advect((0,), density[None], vel)[0]
         if cfg.density_dissipation != 0.0:
             density = density * ddamp
+
+    if cfg.enable_obstacle:
+        vel = enforce_obstacle_boundaries_3d(vel, state.obstacles,
+                                             cfg.cell_size, cfg.viscosity)
 
     return state.replace(
         density=density,

@@ -12,6 +12,14 @@ from __future__ import annotations
 import torch
 
 
+def interior_mask(shape, device=None) -> torch.Tensor:
+    """Bool mask of the cells with all coordinates in [1, N-2] (the solver
+    interior)."""
+    m = torch.zeros(shape, dtype=torch.bool, device=device)
+    m[(slice(1, -1),) * len(shape)] = True
+    return m
+
+
 def apply_faces_3d(b: int, x: torch.Tensor) -> torch.Tensor:
     """Wall faces of a ``[z, y, x]`` tensor, written z→y→x (later write wins
     at shared edges/corners); ``b`` = 0 scalar, 1 = vx (x-walls negate),

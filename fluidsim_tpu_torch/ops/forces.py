@@ -1,9 +1,24 @@
-"""Body forces (counterpart of ``fluidsim_tpu/ops/forces.py``; only the
-buoyancy force is ported so far)."""
+"""Body forces and obstacle interaction, 3D (counterpart of
+``fluidsim_tpu/ops/forces.py``; the 2D forces and the Perlin turbulence are
+not ported yet).
+
+These are plain PyTorch elementwise passes, as the JAX package leaves them
+to XLA.  Each keeps the JAX operation order, so the two differ only where
+XLA on the CPU contracts a multiply-add into one FMA.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+from .boundary import interior_mask
+
+
+def _shift_no_wrap(mask: torch.Tensor, delta: int, axis: int) -> torch.Tensor:
+    """result[t] = mask[t + delta] along ``axis``; out-of-range = False."""
+    return _shift_arr(mask, delta, axis)
 
 
 def buoyancy_force(vel: torch.Tensor, density: torch.Tensor, dt: float,
@@ -15,3 +30,77 @@ def buoyancy_force(vel: torch.Tensor, density: torch.Tensor, dt: float,
     out = vel.clone()
     out[1] = vel[1] + dt * accel
     return out
+
+
+def vorticity_confinement_3d(vel: torch.Tensor, dt: float,
+                             eps: float) -> torch.Tensor:
+    """Fedkiw-style vorticity confinement: v += dt·ε·(N̂ × ω) with
+    ω = ∇×v and N = ∇|ω| (central differences, zero-padded borders)."""
+
+    def ddx(f, axis):
+        return 0.5 * (_shift_arr(f, 1, axis) - _shift_arr(f, -1, axis))
+
+    in_dtype = vel.dtype
+    vel = vel.to(torch.float32)
+    vx, vy, vz = vel[0], vel[1], vel[2]
+    # ω = ∇×v on the [z, y, x] grid: x derivative = axis 2, y = 1, z = 0.
+    wx = ddx(vz, 1) - ddx(vy, 0)
+    wy = ddx(vx, 0) - ddx(vz, 2)
+    wz = ddx(vy, 2) - ddx(vx, 1)
+    wmag = torch.sqrt(wx * wx + wy * wy + wz * wz)
+
+    nx = ddx(wmag, 2)
+    ny = ddx(wmag, 1)
+    nz = ddx(wmag, 0)
+    nlen = torch.sqrt(nx * nx + ny * ny + nz * nz) + 1e-5
+    nx, ny, nz = nx / nlen, ny / nlen, nz / nlen
+
+    fx = ny * wz - nz * wy
+    fy = nz * wx - nx * wz
+    fz = nx * wy - ny * wx
+
+    scale = dt * eps
+    return torch.stack(
+        [vx + scale * fx, vy + scale * fy, vz + scale * fz]
+    ).to(in_dtype)
+
+
+def _shift_arr(f: torch.Tensor, delta: int, axis: int) -> torch.Tensor:
+    """result[t] = f[t + delta]; zero beyond the border."""
+    pad = [0, 0] * f.ndim
+    # F.pad lists (before, after) pairs from the last axis backwards.
+    k = 2 * (f.ndim - 1 - axis)
+    pad[k + (1 if delta > 0 else 0)] = abs(delta)
+    padded = F.pad(f, pad)
+    start = delta if delta > 0 else 0
+    return padded.narrow(axis, start, f.shape[axis])
+
+
+def enforce_obstacle_boundaries_3d(vel: torch.Tensor, obst: torch.Tensor,
+                                   cell_size: float,
+                                   viscosity: float) -> torch.Tensor:
+    """3D generalization of FluidSim.cs:617-673: zero velocity inside
+    interior obstacle cells, Reynolds-adaptive drag on the 6 face-adjacent
+    fluid neighbours (one masked pass per direction)."""
+    interior = interior_mask(obst.shape, obst.device)
+    obst_int = obst & interior
+    vel = torch.where(obst_int[None], 0.0, vel)
+
+    length = float(np.float32(cell_size))
+    # A tensor divisor: on CUDA, PyTorch divides by a Python scalar by
+    # multiplying with its reciprocal, which is not XLA's division.
+    visc = torch.tensor(max(np.float32(viscosity), np.float32(1e-5)),
+                        dtype=vel.dtype, device=vel.device)
+    lo = float(np.float32(0.8))
+    span = float(np.float32(0.98) - np.float32(0.8))
+
+    for axis in (2, 1, 0):
+        for delta in (-1, 1):
+            obst_nbr = _shift_no_wrap(obst_int, delta, axis)
+            mask = interior & (~obst) & obst_nbr
+            u = torch.sqrt(torch.sum(vel * vel, dim=0))
+            re = (u * length) / visc
+            factor = lo + span * (1.0 - torch.exp(-re * 0.01))
+            factor = torch.where(mask, factor, 1.0)
+            vel = vel * factor[None]
+    return vel

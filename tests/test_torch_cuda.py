@@ -12,16 +12,19 @@ import numpy as np
 import pytest
 import torch
 
-from fluidsim_tpu_torch.config import preset_bench_128
+from fluidsim_tpu_torch.config import preset_bench_128, preset_vortex_128
 from fluidsim_tpu_torch.engine import Engine
 from fluidsim_tpu_torch.kernels.advect import (
     advect_multi_3d_kernel,
     advect_multi_3d_plain,
 )
 from fluidsim_tpu_torch.kernels.resident import (
+    project_3d_resident,
+    project_3d_resident_plain,
     project_advect_density_3d,
     project_advect_density_3d_plain,
 )
+from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
 from fluidsim_tpu_torch.models.stable3d import PLAIN_TWINS
 
 pytestmark = pytest.mark.cuda
@@ -91,3 +94,68 @@ def test_wrapper_raises_for_cuda_tensors_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="one device"):
         advect_multi_3d_kernel((1, 2, 3), vel, vel, DT,
                                buoy=(dens.cpu(), 0.2, 0.0, 0.0))
+
+
+def vortex_mask(n, device):
+    return torch.from_numpy(build_obstacle_mask(preset_vortex_128().replace(size=n))).to(device)
+
+
+@pytest.mark.parametrize("n_sub", [1, 3])
+def test_k1_substeps_and_mask_match_twin(cuda, n_sub):
+    n = 64
+    vel, dens = fields(n, 200 + n_sub, cuda)
+    vel = vel * 0.1  # a backtrace of up to about a cell per substep
+    obst = vortex_mask(n, cuda)
+    for bs, f in (((1, 2, 3), vel), ((0,), dens[None])):
+        for mask in (obst, None):
+            got = advect_multi_3d_kernel(bs, f, vel, DT, obst=mask, n_sub=n_sub)
+            ref = advect_multi_3d_plain(bs, f, vel, DT, obst=mask, n_sub=n_sub)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (bs, mask is None, float((got - ref).abs().max()))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+def test_k3_matches_twin(cuda, solve_dtype, masked):
+    n = 64
+    vel, _ = fields(n, 300, cuda)
+    obst = vortex_mask(n, cuda) if masked else None
+    for damp in (1.0, DAMP):
+        got = project_3d_resident(vel, 20, obst=obst, solve_dtype=solve_dtype, damp=damp)
+        ref = project_3d_resident_plain(vel, 20, obst=obst, solve_dtype=solve_dtype,
+                                        damp=damp)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r), float((g - r).abs().max())
+
+
+def test_k3_without_mask_equals_k2_projection(cuda):
+    n = 64
+    vel, dens = fields(n, 400, cuda)
+    vel3, p3 = project_3d_resident(vel, 60, solve_dtype="bfloat16", damp=DAMP)
+    vel2, p2, _ = project_advect_density_3d(vel, dens, 60, DT, solve_dtype="bfloat16",
+                                            damp=DAMP, dens_damp=DDAMP)
+    torch.cuda.synchronize()
+    assert torch.equal(vel3, vel2) and torch.equal(p3, p2)
+
+
+def test_vortex128_kernel_path_matches_twin_path(cuda):
+    cfg = preset_vortex_128().replace(size=64)
+    kern, twin = Engine(cfg, cuda), Engine(cfg, cuda, kernels=PLAIN_TWINS)
+    before = (advect_multi_3d_kernel.launches, project_3d_resident.launches,
+              project_advect_density_3d.launches)
+    kern.step(10)
+    twin.step(10)
+    assert advect_multi_3d_kernel.launches == before[0] + 20
+    assert project_3d_resident.launches == before[1] + 10
+    assert project_advect_density_3d.launches == before[2]
+    for name in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(kern.state, name), getattr(twin.state, name)), name
+    solid = kern.state.obstacles.clone()
+    solid[[0, -1]] = False
+    solid[:, [0, -1]] = False
+    solid[:, :, [0, -1]] = False
+    assert bool((kern.state.velocity[:, solid] == 0).all())
+    kern.set_config(cfg.replace(obstacle_radius=0.12))
+    assert kern.state.obstacles.device.type == "cuda"
+    assert int(kern.state.obstacles.sum()) > int(solid.sum())

@@ -139,9 +139,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     tv, td = torch.from_numpy(vel), torch.from_numpy(dens)
     with pytest.raises(NotImplementedError):
         advect_multi_3d_kernel((1, 2, 3), tv, tv, DT_ADV, window=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="buoyancy fold"):
         advect_multi_3d_kernel((1, 2, 3), tv, tv, DT_ADV,
-                               obst=torch.zeros(td.shape, dtype=torch.bool))
+                               obst=torch.zeros(td.shape, dtype=torch.bool),
+                               buoy=(td, 0.2, 0.0, 0.0))
     with pytest.raises(ValueError, match="self-advect"):
         advect_multi_3d_kernel((1, 2, 3), tv.clone(), tv, DT_ADV,
                                buoy=(td, 0.2, 0.0, 0.0))

@@ -199,8 +199,8 @@ def test_make_step_3d_is_a_loop_of_steps():
 @pytest.mark.parametrize("change,missing", [
     (dict(ndim=2, size=64, source_position=(0.5, 0.5),
           obstacle_position=(0.5, 0.5)), "2D"),
-    (dict(enable_obstacle=True), "obstacles"),
-    (dict(vorticity_confinement=1.0), "vorticity"),
+    (dict(diffusion=1e-4), "density diffusion"),
+    (dict(apply_turbulent_noise=True), "turbulent noise"),
     (dict(viscosity=1e-4), "viscous"),
     (dict(pressure_solver="fft"), "FFT"),
     (dict(advection_scheme="maccormack"), "MacCormack"),
@@ -217,7 +217,8 @@ def test_unported_configs_raise(change, missing):
     (dict(fuse_emitter=True), "K2s"),
     (dict(jacobi_sweep_block=2), "K5"),
     (dict(advect_substeps=2), "advect_substeps"),
-    (dict(fuse_project_advect=False), "K3"),
+    (dict(enable_obstacle=True), "K2o"),
+    (dict(advect_window=2), "advect_window"),
 ])
 def test_unported_kernel_variants_raise(monkeypatch, change, missing):
     monkeypatch.setattr(t_s3, "_kernels_usable", lambda cfg, device: True)
