@@ -6,12 +6,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which ends the run with a non-zero exit code on failure:
   1. require a CUDA device (no CPU fallback) and print the card's name and
      power limit;
-  2. build the hand kernels (K1, K2, K3) from ``fluidsim_tpu_torch/csrc``;
-  3. hold each kernel against its plain PyTorch twin on the card at 128³ on
-     inputs made with NumPy from a seed: K1 with buoyancy and K2 on
+  2. build the hand kernels (K1, K2, K3, K6, K7) from
+     ``fluidsim_tpu_torch/csrc``;
+  3. hold each kernel against its plain PyTorch twin on the card on inputs
+     made with NumPy from a seed: at 128³ K1 with buoyancy and K2 on
      bench128-scale fields, K1 with three substeps and the vortex128 mask
      (F = 3 and F = 1) and K3 with and without the mask on vortex128-scale
-     fields;
+     fields; at 256³ K6 (the projection's solve, and a b = 3 solve with
+     diffusion coefficients), K7's divergence and gradient, K1 with two
+     substeps (F = 3 and F = 1) and with the buoyancy folded in, and the
+     slab route K7 → K6 → K7 against K3 (float32, no mask: bitwise);
   4. step bench128 at 128³ through ``Engine(cfg, device="cuda")`` for
      ``STEPS`` steps with the launch counters reset just before: K1 and K2
      must have launched, the fields stay finite, the emitted mass grows, the
@@ -26,9 +30,17 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      K2 not, the fields stay finite, the mass grows, the plume rises over
      the first 40 steps, interior obstacle cells hold exactly zero velocity,
      and the first 10 steps stay within the bf16-solve bound of the twins;
-  7. time both paths (steps/s), bench128's p50 step+raymarch frame and each
-     kernel beside its twin, with CUDA events after warm-up, and break a
-     step of each path down by device time with ``torch.profiler``.
+  7. step multi256 at 256³ through ``Engine`` for ``MULTI_STEPS`` steps with
+     the counters reset just before: K1, K6 and K7 must have launched and K2
+     and K3 not, the fields stay finite, the mass grows, the plume rises
+     over the first 40 steps, and the first 10 steps equal a rollout of the
+     twins bitwise;
+  8. step sharded512 at 512³ (unsharded, one card) for ``SHARDED_STEPS``
+     steps the same way (no twin at 512³) and report the peak device memory;
+  9. time every path (steps/s), the p50 step+raymarch frame of bench128 and
+     multi256 and each kernel beside its twin, with CUDA events after
+     warm-up, K3 beside the slab route at 256³, and break a step of each
+     path down by device time with ``torch.profiler``.
 The line before last is a JSON object describing each kernel (with the
 least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -45,6 +57,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 STEPS = 200
 VORTEX_STEPS = 100
+MULTI_STEPS = 100
+SHARDED_STEPS = 15
 SEED = 128
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s, 67 TFLOP/s float32 outside
@@ -61,6 +75,7 @@ BUOY_OPS = 6          # per buoyant value: sub, 2 mul, sub, mul, add
 MIRROR_OPS = 6        # per solid cell and component: 2 negates, 3 adds, div
 DIV_OPS = 7
 SWEEP_OPS = 7         # 5 neighbour adds, the rhs add, the coefficient multiply
+JACOBI_OPS = 8        # K6: 5 neighbour adds, a*nbr, the x0 add, the inv_c multiply
 GRAD_OPS = 3 * 5      # per component: sub, 2 mul, sub, damp
 
 
@@ -166,6 +181,13 @@ def check_state(st, steps, n, what):
             fail(f"{what}: non-finite {name}")
 
 
+def ran_only(launches, ran, what):
+    """Fail unless exactly the kernels ``ran`` launched."""
+    if any(launches[k] <= 0 for k in ran) or any(
+            v != 0 for k, v in launches.items() if k not in ran):
+        fail(f"{what} did not run {', '.join(ran)} alone: {launches}")
+
+
 def near_twin(at10, twin_state, what):
     """The bf16-solve bound of tests/test_torch_step.py after 10 steps;
     ``at10`` holds the kernel path's fields after 10 steps."""
@@ -206,12 +228,27 @@ def main() -> None:
         f"device {torch.cuda.get_device_name(0)}")
 
     # -- 2. build --------------------------------------------------------
-    from fluidsim_tpu_torch.config import preset_bench_128, preset_vortex_128
+    import torch.nn.functional as F
+
+    from fluidsim_tpu_torch.config import (
+        preset_bench_128,
+        preset_multi_emitter_256,
+        preset_sharded_512,
+        preset_vortex_128,
+    )
     from fluidsim_tpu_torch.engine import Engine
     from fluidsim_tpu_torch.kernels import _build
     from fluidsim_tpu_torch.kernels.advect import (
         advect_multi_3d_kernel,
         advect_multi_3d_plain,
+    )
+    from fluidsim_tpu_torch.kernels.jacobi import jacobi_3d_kernel, jacobi_3d_plain
+    from fluidsim_tpu_torch.kernels.project import (
+        divergence_3d_kernel,
+        divergence_3d_plain,
+        gradient_3d_kernel,
+        gradient_3d_plain,
+        project_3d_slab_kernel,
     )
     from fluidsim_tpu_torch.kernels.resident import (
         project_3d_resident,
@@ -240,15 +277,16 @@ def main() -> None:
                     or "spill" in line or "Compiling entry" in line:
                 say(f"# ptxas: {line.strip()}")
 
+    counters = {"K1": advect_multi_3d_kernel, "K2": project_advect_density_3d,
+                "K3": project_3d_resident, "K6": jacobi_3d_kernel,
+                "K7 div": divergence_3d_kernel, "K7 grad": gradient_3d_kernel}
+
     def counters_to_zero():
-        for fn in (advect_multi_3d_kernel, project_advect_density_3d,
-                   project_3d_resident):
+        for fn in counters.values():
             fn.launches = 0
 
     def counts():
-        return {"K1": advect_multi_3d_kernel.launches,
-                "K2": project_advect_density_3d.launches,
-                "K3": project_3d_resident.launches}
+        return {k: fn.launches for k, fn in counters.items()}
 
     # -- 3. each kernel against its twin at 128³ -------------------------
     cfg = preset_bench_128()
@@ -359,6 +397,59 @@ def main() -> None:
             if not ok or g.shape != r.shape:
                 fail(f"K3 ({what}) {name} disagrees with its twin")
 
+    # -- 3 (cont.). the slab route's kernels at 256³ ---------------------------
+    mcfg = preset_multi_emitter_256()
+    scfg = preset_sharded_512()
+    mn = mcfg.current_size
+    mvol, minterior = mn ** 3, (mn - 2) ** 3
+    mdt = mcfg.effective_params()[0]
+    sdt = scfg.effective_params()[0]
+    m_sub = mcfg.advect_substeps
+    iters = mcfg.jacobi_iters
+    # |v| up to about 0.5: a backtrace of up to ~1.3 cells per substep at
+    # multi256's dt, so the window clamp is exercised.
+    mvel = torch.from_numpy(np.stack([smooth(mn, rng) for _ in range(3)]) * 0.5).to(dev)
+    mdens = torch.from_numpy(np.maximum(20.0 * (1.0 + smooth(mn, rng)), 0.0)).to(dev)
+    mdiv = divergence_3d_plain(mvel)
+    mzero = torch.zeros_like(mdiv)
+    mp = jacobi_3d_plain(0, mzero, mdiv, 1.0, 6.0, iters)
+    diff_coef = (0.13, 1.0 + 6 * 0.13)
+    sbuoy = (mdens, scfg.buoyancy, scfg.ambient_density, scfg.gravity)
+    slab_fns = {
+        "K6": (lambda: jacobi_3d_kernel(0, mzero, mdiv, 1.0, 6.0, iters),
+               lambda: jacobi_3d_plain(0, mzero, mdiv, 1.0, 6.0, iters)),
+        "K6 b=3": (lambda: jacobi_3d_kernel(3, mvel[2], mvel[2], *diff_coef, iters),
+                   lambda: jacobi_3d_plain(3, mvel[2], mvel[2], *diff_coef, iters)),
+        "K7 div": (lambda: divergence_3d_kernel(mvel), lambda: divergence_3d_plain(mvel)),
+        "K7 grad": (lambda: gradient_3d_kernel(mvel, mp), lambda: gradient_3d_plain(mvel, mp)),
+        "K1m": (lambda: advect_multi_3d_kernel((1, 2, 3), mvel, mvel, mdt, n_sub=m_sub),
+                lambda: advect_multi_3d_plain((1, 2, 3), mvel, mvel, mdt, n_sub=m_sub)),
+        "K1m density": (
+            lambda: advect_multi_3d_kernel((0,), mdens[None], mvel, mdt, n_sub=m_sub),
+            lambda: advect_multi_3d_plain((0,), mdens[None], mvel, mdt, n_sub=m_sub)),
+        "K1s": (lambda: advect_multi_3d_kernel((1, 2, 3), mvel, mvel, sdt, buoy=sbuoy,
+                                               n_sub=scfg.advect_substeps),
+                lambda: advect_multi_3d_plain((1, 2, 3), mvel, mvel, sdt, buoy=sbuoy,
+                                              n_sub=scfg.advect_substeps)),
+    }
+    slab_err = {}
+    for key, (fn, plain) in slab_fns.items():
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        slab_err[key], ok = worst(got, ref, 1e-5, 1e-6 * float(ref.abs().max()))
+        say(f"# {key} vs twin at {mn}^3: max abs err {slab_err[key]!r} (bitwise "
+            f"{torch.equal(got, ref)}; bound rtol 1e-5, atol 1e-6 x max|ref|)")
+        if not ok or got.shape != ref.shape:
+            fail(f"{key} disagrees with its twin at {mn}^3")
+    got, ref = project_3d_slab_kernel(mvel, iters), project_3d_resident(mvel, iters)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("velocity", "pressure"), got, ref):
+        say(f"# slab route vs K3 (float32, no mask) at {mn}^3 ({name}): max abs diff "
+            f"{float((g - r).abs().max())!r}, bitwise {torch.equal(g, r)}")
+        if not torch.equal(g, r):
+            fail(f"the slab route differs from K3 in {name}")
+    del got, ref
+
     # -- 4. bench128 through Engine ------------------------------------------
     eng = Engine(cfg, device="cuda")
     counters_to_zero()
@@ -376,8 +467,7 @@ def main() -> None:
     say(f"# density mass: step 1 {mass1!r}, step 40 {mass40!r}, step {STEPS} {mass_end!r}")
     say(f"# density y centre of mass: step 1 {com1!r}, step 40 {com40!r}, "
         f"step {STEPS} {com_end!r}")
-    if bench_launches["K1"] <= 0 or bench_launches["K2"] <= 0:
-        fail(f"a kernel of the bench128 path never launched: {bench_launches}")
+    ran_only(bench_launches, ("K1", "K2"), "the bench128 path")
     check_state(eng.state, STEPS, n, "bench128")
     if not (mass_end > mass40 > mass1 > 0.0):
         fail("density mass does not grow")
@@ -396,9 +486,7 @@ def main() -> None:
     torch.cuda.synchronize()
     unfused_launches = counts()
     say(f"# bench128 unfused: 10 steps, launches {unfused_launches}")
-    if unfused_launches["K1"] <= 0 or unfused_launches["K3"] <= 0 \
-            or unfused_launches["K2"] != 0:
-        fail(f"the unfused bench128 path did not run K1 and K3 alone: {unfused_launches}")
+    ran_only(unfused_launches, ("K1", "K3"), "the unfused bench128 path")
     for name, ref in at10.items():
         err = float((getattr(ueng.state, name) - ref).abs().max())
         say(f"# bench128 unfused vs fused, 10 steps, {name}: max abs diff {err!r}")
@@ -424,9 +512,7 @@ def main() -> None:
         f"step {VORTEX_STEPS} {vmass_end!r}")
     say(f"# vortex128 density y centre of mass: step 1 {vcom1!r}, step 40 {vcom40!r}, "
         f"step {VORTEX_STEPS} {vcom_end!r}")
-    if vortex_launches["K1"] <= 0 or vortex_launches["K3"] <= 0 \
-            or vortex_launches["K2"] != 0:
-        fail(f"the vortex128 path did not run K1 and K3 alone: {vortex_launches}")
+    ran_only(vortex_launches, ("K1", "K3"), "the vortex128 path")
     check_state(veng.state, VORTEX_STEPS, n, "vortex128")
     if not (vmass_end > vmass1 > 0.0 and vmass40 > vmass1):
         fail("vortex128: density mass does not grow")
@@ -441,7 +527,66 @@ def main() -> None:
     vtwin.step(10)
     near_twin(vat10, vtwin.state, "vortex128")
 
-    # -- 7. timing -------------------------------------------------------
+    # -- 7. multi256 through Engine -------------------------------------------
+    slab_kernels = ("K1", "K6", "K7 div", "K7 grad")
+    meng = Engine(mcfg, device="cuda")
+    counters_to_zero()
+    meng.step(1)
+    mmass1, mcom1 = mass_and_com_y(meng.state)
+    meng.step(9)
+    mat10 = {k: getattr(meng.state, k).clone() for k in ("density", "velocity", "pressure")}
+    meng.step(30)
+    mmass40, mcom40 = mass_and_com_y(meng.state)
+    meng.step(MULTI_STEPS - 40)
+    torch.cuda.synchronize()
+    multi_launches = counts()
+    mmass_end, mcom_end = mass_and_com_y(meng.state)
+    say(f"# multi256: {MULTI_STEPS} steps at {mn}^3, launches {multi_launches}")
+    say(f"# multi256 density mass: step 1 {mmass1!r}, step 40 {mmass40!r}, "
+        f"step {MULTI_STEPS} {mmass_end!r}")
+    say(f"# multi256 density y centre of mass: step 1 {mcom1!r}, step 40 {mcom40!r}, "
+        f"step {MULTI_STEPS} {mcom_end!r}")
+    ran_only(multi_launches, slab_kernels, "the multi256 path")
+    check_state(meng.state, MULTI_STEPS, mn, "multi256")
+    if not (mmass_end > mmass1 > 0.0 and mmass40 > mmass1):
+        fail("multi256: density mass does not grow")
+    if not mcom40 > mcom1:
+        fail("multi256: the plume does not rise over the first 40 steps")
+    mtwin = Engine(mcfg, device="cuda", kernels=PLAIN_TWINS)
+    mtwin.step(10)
+    for name, got in mat10.items():
+        ref = getattr(mtwin.state, name)
+        say(f"# multi256: kernel path vs twin path, 10 steps, {name}: max abs diff "
+            f"{float((got - ref).abs().max())!r} (bitwise {torch.equal(got, ref)})")
+        if not torch.equal(got, ref):
+            fail(f"multi256: the kernel path differs from the twin path in {name}")
+    del mat10
+
+    # -- 8. sharded512 on one card --------------------------------------------
+    sn = scfg.current_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    seng = Engine(scfg, device="cuda")
+    counters_to_zero()
+    seng.step(1)
+    smass1, scom1 = mass_and_com_y(seng.state)
+    seng.step(SHARDED_STEPS - 1)
+    torch.cuda.synchronize()
+    sharded_launches = counts()
+    smass_end, scom_end = mass_and_com_y(seng.state)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"# sharded512: {SHARDED_STEPS} steps at {sn}^3, launches {sharded_launches}")
+    say(f"# sharded512 density mass: step 1 {smass1!r}, step {SHARDED_STEPS} "
+        f"{smass_end!r}; y centre of mass {scom1!r} -> {scom_end!r}")
+    say(f"sharded512 peak device memory: {peak!r} bytes allocated, of which "
+        f"{peak - mem_before!r} above what earlier phases hold [{card}]")
+    ran_only(sharded_launches, slab_kernels, "the sharded512 path")
+    check_state(seng.state, SHARDED_STEPS, sn, "sharded512")
+    if not smass_end > smass1 > 0.0:
+        fail("sharded512: density mass does not grow")
+
+    # -- 9. timing -------------------------------------------------------
     say(f"# timing on {card}")
     step_ms = cuda_ms(lambda: eng.step(1), reps=200, warmup=20)
     twin_ms = cuda_ms(lambda: twin.step(1), reps=10, warmup=2)
@@ -481,7 +626,62 @@ def main() -> None:
         say(f"vortex128 {name} (plain torch) at {n}^3: {cuda_ms(fn, reps=20)!r} ms "
             f"[{card}]")
 
+    mstep_ms = cuda_ms(lambda: meng.step(1), reps=30, warmup=5)
+    mtwin_ms = cuda_ms(lambda: mtwin.step(1), reps=3, warmup=1)
+    say(f"multi256 steps/s kernel path: {1e3 / mstep_ms!r} ({mstep_ms!r} ms/step) [{card}]")
+    say(f"multi256 steps/s twin path: {1e3 / mtwin_ms!r} ({mtwin_ms!r} ms/step) [{card}]")
+
+    def mframe():
+        meng.step(1)
+        return render_frame_3d(meng.state, mcfg).mean()
+
+    chunks = [cuda_ms(mframe, reps=20, warmup=0 if i else 3) for i in range(7)]
+    say(f"multi256 p50 step+raymarch frame: {float(np.percentile(chunks, 50))!r} ms "
+        f"(7 chunks of 20 frames: {chunks}) [{card}]")
+    mt = meng.state.time + mdt
+    memit_ms = cuda_ms(lambda: apply_custom_source(meng.state.density, meng.state.velocity,
+                                                   mcfg, mt), reps=20)
+    say(f"multi256 emitters (plain torch) at {mn}^3: {memit_ms!r} ms [{card}]")
+    sstep_ms = cuda_ms(lambda: seng.step(1), reps=10, warmup=2)
+    say(f"sharded512 steps/s kernel path: {1e3 / sstep_ms!r} ({sstep_ms!r} ms/step) [{card}]")
+    sv, sd = seng.state.velocity, seng.state.density
+    s_sub = scfg.advect_substeps
+
+    def k1s_512():
+        return advect_multi_3d_kernel((1, 2, 3), sv, sv, sdt, n_sub=s_sub,
+                                      buoy=(sd, scfg.buoyancy, scfg.ambient_density,
+                                            scfg.gravity))
+
+    for sweeps in (1, 2, 3):
+        k6_ms = cuda_ms(lambda: jacobi_3d_kernel(0, mzero, mdiv, 1.0, 6.0, iters,
+                                                 block_iters=sweeps), reps=10)
+        say(f"K6 at {mn}^3 with block_iters={sweeps}: {k6_ms!r} ms [{card}]")
+    k3_256 = cuda_ms(lambda: project_3d_resident(mvel, iters), reps=10)
+    slab_256 = cuda_ms(lambda: project_3d_slab_kernel(mvel, iters), reps=10)
+    say(f"projection at {mn}^3 (float32, no mask, {iters} sweeps): K3 {k3_256!r} ms, "
+        f"slab route K7 -> K6 -> K7 {slab_256!r} ms [{card}]")
+    # The divergence is one float32 convolution of the three components.
+    div_w = torch.zeros((1, 3, 3, 3, 3), dtype=torch.float32, device=dev)
+    for c, (kz, ky, kx) in enumerate(((1, 1, 2), (1, 2, 1), (2, 1, 1))):
+        div_w[0, c, kz, ky, kx] = -0.5 / mn
+        div_w[0, c, 2 - kz, 2 - ky, 2 - kx] = 0.5 / mn
+    conv = F.conv3d(mvel[None], div_w)[0, 0]
+    say(f"# K7 div vs its library yardstick (conv3d) at {mn}^3: max abs diff "
+        f"{float((conv - divergence_3d_kernel(mvel)[1:-1, 1:-1, 1:-1]).abs().max())!r}")
+    library = {"K7 div": cuda_ms(lambda: F.conv3d(mvel[None], div_w), reps=20)}
+
     times = {
+        "K6": (cuda_ms(slab_fns["K6"][0], reps=20), cuda_ms(slab_fns["K6"][1], reps=3)),
+        "K7 div": (cuda_ms(slab_fns["K7 div"][0], reps=50),
+                   cuda_ms(slab_fns["K7 div"][1], reps=5)),
+        "K7 grad": (cuda_ms(slab_fns["K7 grad"][0], reps=50),
+                    cuda_ms(slab_fns["K7 grad"][1], reps=5)),
+        "K1m": (cuda_ms(slab_fns["K1m"][0], reps=20), cuda_ms(slab_fns["K1m"][1], reps=3)),
+        "K1m density": (cuda_ms(slab_fns["K1m density"][0], reps=20),
+                        cuda_ms(slab_fns["K1m density"][1], reps=3)),
+        # The fold's kernel time at 512³ (sharded512's shapes); no twin runs
+        # at 512³, so its twin is timed at 256³.
+        "K1s": (cuda_ms(k1s_512, reps=10), cuda_ms(slab_fns["K1s"][1], reps=3)),
         "K1": (cuda_ms(k1, reps=100), cuda_ms(k1_plain, reps=10)),
         "K2": (cuda_ms(k2, reps=50), cuda_ms(k2_plain, reps=3)),
         "K1v": (cuda_ms(k1v, reps=50), cuda_ms(k1v_plain, reps=3)),
@@ -491,11 +691,12 @@ def main() -> None:
                        cuda_ms(lambda: k3_plain(None), reps=3)),
     }
     for name, (ms, plain_ms) in times.items():
-        say(f"{name} at {n}^3: kernel {ms!r} ms, twin {plain_ms!r} ms [{card}]")
+        say(f"{name}: kernel {ms!r} ms, twin {plain_ms!r} ms [{card}]")
 
     # Where a step's device time goes, by kernel.
-    for what, engine in (("bench128", eng), ("vortex128", veng)):
-        by_kernel = profile_ms(lambda: engine.step(1), reps=20)
+    for what, engine, reps in (("bench128", eng, 20), ("vortex128", veng, 20),
+                               ("multi256", meng, 5), ("sharded512", seng, 2)):
+        by_kernel = profile_ms(lambda: engine.step(1), reps=reps)
         total = sum(by_kernel.values())
         say(f"# profile {what}: device time {total!r} ms/step [{card}]")
         for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:14]:
@@ -508,6 +709,7 @@ def main() -> None:
     # -- the kernels line ---------------------------------------------------
     f32 = 4
     fluid = interior - n_solid
+    svol, sinterior = sn ** 3, (sn - 2) ** 3
     entries = [
         ("K1", "K1 advect_multi_3d_kernel (n_sub=1, buoyancy folded; bench128 self-advection)",
          "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
@@ -545,17 +747,48 @@ def main() -> None:
          unfused_launches["K3"], k3_err["no mask"],
          bound(7 * vol * f32,
                interior * (DIV_OPS + vcfg.jacobi_iters * SWEEP_OPS + GRAD_OPS))),
+        # multi256 launches K1 twice a step, once for each of these two.
+        ("K1m", f"K1 advect_multi_3d_kernel (n_sub={m_sub}, no mask; multi256 "
+                "self-advection, F=3, 256^3)",
+         "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
+         multi_launches["K1"], slab_err["K1m"],
+         bound(6 * mvol * f32, m_sub * minterior * (FRAC_OPS + RELU_OPS + 3 * COMB_OPS))),
+        ("K1m density", f"K1 advect_multi_3d_kernel (n_sub={m_sub}, no mask; multi256 "
+                        "density, F=1, 256^3)",
+         "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
+         multi_launches["K1"], slab_err["K1m density"],
+         bound(5 * mvol * f32, m_sub * minterior * (FRAC_OPS + RELU_OPS + COMB_OPS))),
+        ("K1s", f"K1 advect_multi_3d_kernel (n_sub={s_sub}, buoyancy folded; sharded512 "
+                "self-advection at 512^3; held against its twin and the twin timed "
+                "at 256^3)",
+         "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
+         sharded_launches["K1"], slab_err["K1s"],
+         bound(7 * svol * f32, sinterior * (s_sub * (FRAC_OPS + RELU_OPS + 3 * COMB_OPS)
+                                            + 29 * BUOY_OPS))),
+        ("K6", f"K6 jacobi_3d_kernel ({iters} sweeps, b=0, a=1, c=6; multi256 "
+               "projection solve, 256^3)",
+         "fluidsim_tpu_torch/csrc/jacobi.cu", "fluidsim_tpu/pallas/jacobi.py:127",
+         multi_launches["K6"], slab_err["K6"],
+         bound(3 * mvol * f32, iters * minterior * JACOBI_OPS)),
+        ("K7 div", "K7 divergence_3d_kernel (multi256 projection, 256^3)",
+         "fluidsim_tpu_torch/csrc/project_slab.cu", "fluidsim_tpu/pallas/project.py:43",
+         multi_launches["K7 div"], slab_err["K7 div"],
+         bound(4 * mvol * f32, minterior * DIV_OPS)),
+        ("K7 grad", "K7 gradient_3d_kernel (multi256 projection, 256^3)",
+         "fluidsim_tpu_torch/csrc/project_slab.cu", "fluidsim_tpu/pallas/project.py:85",
+         multi_launches["K7 grad"], slab_err["K7 grad"],
+         bound(7 * mvol * f32, minterior * GRAD_OPS)),
     ]
     report = []
     for key, name, source, replaces, launches, err, (bound_ms, bound_by) in entries:
         ms, plain_ms = times[key]
         say(f"{name}: {ms!r} ms, bound {bound_ms!r} ms ({bound_by}) [{card}]")
-        # No single PyTorch call computes any of these functions.
+        # Only K7's divergence is one PyTorch call (a convolution).
         report.append({"name": name, "route": "cuda", "source": source,
                        "replaces": replaces, "launches": launches,
                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
-                       "library_ms": None})
+                       "library_ms": library.get(key)})
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,9 @@
 //      the final iterate (v itself in solid cells), the component's set_bnd
 //      faces, the obstacle mirror when there is a mask, then * damp.
 // Counterpart of fluidsim_tpu/pallas/resident.py::_project_body with
-// _solve_loop at sweep_block = 1.  One launch per phase and per sweep: the
+// _solve_loop at sweep_block = 1.  The divergence and gradient kernels also
+// serve K7 (project_slab.cu), with float32 buffers, no zero start (p0 null)
+// and no pressure copy (p_out null).  One launch per phase and per sweep: the
 // launch boundary is the grid-wide barrier between sweeps.  Border cells
 // recompute their interior cell (boundary.cuh), which is bitwise the TPU
 // kernel's face writes, including its deferred x faces, so no sweep needs a
@@ -45,9 +47,12 @@ __global__ void __launch_bounds__(kThreads)
                       T* __restrict__ p0, int n) {
   Cell k;
   if (!cell_of_thread(n, k)) return;
-  p0[k.idx] = st<T>(0.0f);
-  // The rhs is only ever read at interior cells.
-  if (k.idx != k.c) return;
+  if (p0 != nullptr) p0[k.idx] = st<T>(0.0f);
+  // The rhs is only ever read at interior cells; its faces hold zero.
+  if (k.idx != k.c) {
+    rhs[k.idx] = st<T>(0.0f);
+    return;
+  }
   const long long sn = n, plane = sn * sn, vol = plane * sn;
   const long long i = k.idx;
   const float dx = vel[i + 1] - vel[i - 1];
@@ -80,7 +85,7 @@ __global__ void __launch_bounds__(kThreads)
   if (!cell_of_thread(n, k)) return;
   const long long sn = n, plane = sn * sn, vol = plane * sn, c = k.c;
   const float nf = float(n);
-  p_out[k.idx] = ld(p[k.idx]);
+  if (p_out != nullptr) p_out[k.idx] = ld(p[k.idx]);
   const bool solid = MASK && mask[c] != 0;
   const long long step[3] = {1, sn, plane};
   const bool negate[3] = {k.x != k.cx, k.y != k.cy, k.z != k.cz};

@@ -24,18 +24,21 @@ from .state import FluidState, zeros_state
 
 
 class Engine:
-    """Steps a 3D fluid simulation on ``device`` from the host."""
+    """Steps a 3D fluid simulation on ``device`` (the card unless the
+    caller asks for ``"cpu"``) from the host."""
 
-    def __init__(self, cfg: SimConfig, device, nan_guard: bool = False,
+    def __init__(self, cfg: SimConfig, device="cuda", nan_guard: bool = False,
                  store=None, crash_snapshot_path: Optional[str] = None,
                  kernels: StepKernels = HAND_KERNELS):
-        """``kernels`` replaces the kernel path's two calls (see
+        """``kernels`` replaces the kernel path's calls (see
         ``models.stable3d.simulate_step_3d``)."""
         if store is not None:
             raise NotImplementedError("the SQLite metrics store is not ported")
         if crash_snapshot_path is not None:
             raise NotImplementedError("crash snapshots (checkpoints) are not ported")
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to step on the CPU")
         self.kernels = kernels
         self.nan_guard = nan_guard
         self.paused = False
@@ -45,7 +48,8 @@ class Engine:
 
     def _checked(self, cfg: SimConfig) -> SimConfig:
         cfg = cfg.validate()
-        stable3d.check_supported(cfg, stable3d._kernels_usable(cfg, self.device))
+        stable3d.check_supported(cfg, stable3d._kernels_usable(cfg, self.device),
+                                 self.device)
         return cfg
 
     # -- lifecycle ------------------------------------------------------

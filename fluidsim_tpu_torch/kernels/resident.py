@@ -40,37 +40,30 @@ def solve_torch_dtype(solve_dtype) -> torch.dtype:
     raise ValueError(f"unsupported solve_dtype {solve_dtype!r}")
 
 
-def project_3d_resident_plain(vel, iters: int, obst=None, solve_dtype=None,
-                              damp: float = 1.0):
-    """Plain PyTorch twin of the K3 kernel.  Returns ``(vel', p)``, ``p``
-    being the float32 upcast of the final iterate."""
+def divergence_interior(vel):
+    """``−0.5·((∂vx + ∂vy) + ∂vz)/N`` on the interior cells of a ``(3, N, N,
+    N)`` float32 velocity, the add order and the division of the kernels."""
     n = vel.shape[-1]
-    sdt = solve_torch_dtype(solve_dtype)
-    f32 = torch.float32
-    core = (slice(1, -1),) * 3
-    nf = float(n)
     vx, vy, vz = vel[0], vel[1], vel[2]
     # A tensor divisor: on CUDA, PyTorch divides by a Python scalar by
     # multiplying with its reciprocal, which is not the kernel's division.
-    div = (
+    return (
         -0.5
         * (
             (vx[1:-1, 1:-1, 2:] - vx[1:-1, 1:-1, :-2])
             + (vy[1:-1, 2:, 1:-1] - vy[1:-1, :-2, 1:-1])
             + (vz[2:, 1:-1, 1:-1] - vz[:-2, 1:-1, 1:-1])
         )
-        / torch.tensor(nf, dtype=f32, device=vel.device)
+        / torch.tensor(float(n), dtype=torch.float32, device=vel.device)
     )
-    rhs = div.to(sdt).to(f32)
-    # (1 − m)·inv6: inv6 in fluid cells, 0 in solid ones.
-    coef = INV6 if obst is None else (1.0 - obst[core].to(f32)) * INV6
 
-    p = torch.zeros((n, n, n), dtype=sdt, device=vel.device)
-    for _ in range(iters):
-        upd = ((rhs + _nbr_sum_3d(p.to(f32))) * coef).to(sdt)
-        p = apply_faces_3d(0, F.pad(upd, (1, 1, 1, 1, 1, 1)))
-    p = p.to(f32)
 
+def project_gradient(vel, p, obst=None, damp: float = 1.0):
+    """``v − 0.5·(p₊ − p₋)·N`` per component on the interior cells (``v``
+    itself in solid cells of the bool mask ``obst``), then the component's
+    ``set_bnd`` faces, the obstacle mirror, and ``· damp``."""
+    nf = float(vel.shape[-1])
+    core = (slice(1, -1),) * 3
     grads = (
         0.5 * (p[1:-1, 1:-1, 2:] - p[1:-1, 1:-1, :-2]) * nf,
         0.5 * (p[1:-1, 2:, 1:-1] - p[1:-1, :-2, 1:-1]) * nf,
@@ -82,7 +75,27 @@ def project_3d_resident_plain(vel, iters: int, obst=None, solve_dtype=None,
         upd = vel[c][core] - g
         comp[core] = upd if obst is None else torch.where(obst[core], vel[c][core], upd)
         comps.append(set_bnd_3d(c + 1, comp, obst) * damp)
-    return torch.stack(comps), p
+    return torch.stack(comps)
+
+
+def project_3d_resident_plain(vel, iters: int, obst=None, solve_dtype=None,
+                              damp: float = 1.0):
+    """Plain PyTorch twin of the K3 kernel.  Returns ``(vel', p)``, ``p``
+    being the float32 upcast of the final iterate."""
+    n = vel.shape[-1]
+    sdt = solve_torch_dtype(solve_dtype)
+    f32 = torch.float32
+    core = (slice(1, -1),) * 3
+    rhs = divergence_interior(vel).to(sdt).to(f32)
+    # (1 − m)·inv6: inv6 in fluid cells, 0 in solid ones.
+    coef = INV6 if obst is None else (1.0 - obst[core].to(f32)) * INV6
+
+    p = torch.zeros((n, n, n), dtype=sdt, device=vel.device)
+    for _ in range(iters):
+        upd = ((rhs + _nbr_sum_3d(p.to(f32))) * coef).to(sdt)
+        p = apply_faces_3d(0, F.pad(upd, (1, 1, 1, 1, 1, 1)))
+    p = p.to(f32)
+    return project_gradient(vel, p, obst, damp), p
 
 
 def project_advect_density_3d_plain(vel, density, iters: int, dt: float, *,

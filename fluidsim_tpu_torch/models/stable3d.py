@@ -7,9 +7,11 @@ density → density dissipation → obstacle enforcement.  Two branches:
 * the kernel path (``_kernels_usable``: a CUDA device and
   ``kernel_backend != "xla"``): K1 for the self-advection (with the
   buoyancy folded in where ``fold_buoyancy`` allows), then either K2
-  (projection + density advection, the sinks folded in;
-  ``fuse_project_advect``) or K3 (projection) followed by K1 for the
-  density; K1 runs the substeps and the obstacle contract in the kernel;
+  (projection + density advection, the sinks folded in; where
+  ``fuses_projection`` allows) or the projection alone followed by K1 for
+  the density; the projection is K3, or the slab route K7 → K6 → K7 when
+  the solve does not fit the card's L2 (``kernels/project.py``); K1 runs
+  the substeps and the obstacle contract in the kernel;
 * the plain path (``kernel_backend="xla"`` or a CPU device): the JAX
   package's XLA composition of the ``ops`` functions.
 
@@ -27,9 +29,8 @@ import torch
 
 from ..config import SimConfig
 from ..kernels.advect import advect_multi_3d_kernel, advect_multi_3d_plain
+from ..kernels.project import project_3d_kernel, project_3d_plain, resident_route
 from ..kernels.resident import (
-    project_3d_resident,
-    project_3d_resident_plain,
     project_advect_density_3d,
     project_advect_density_3d_plain,
 )
@@ -47,7 +48,7 @@ class StepKernels(NamedTuple):
     """The calls of the kernel path: ``advect(bs, fields, vel, dt, obst=,
     n_sub=, buoy=)``, ``project_advect(vel, density, iters, dt,
     solve_dtype=, damp=, dens_damp=)`` and ``project(vel, iters, obst=,
-    solve_dtype=)``."""
+    solve_dtype=)``, which picks K3 or the slab route itself."""
 
     advect: Callable
     project_advect: Callable
@@ -55,11 +56,11 @@ class StepKernels(NamedTuple):
 
 
 HAND_KERNELS = StepKernels(advect_multi_3d_kernel, project_advect_density_3d,
-                           project_3d_resident)
+                           project_3d_kernel)
 # The kernels' plain twins, for running the kernel path's arithmetic on a
 # card without the kernels (the reference ``chip_smoke.py`` compares with).
 PLAIN_TWINS = StepKernels(advect_multi_3d_plain, project_advect_density_3d_plain,
-                          project_3d_resident_plain)
+                          project_3d_plain)
 
 
 def _kernels_usable(cfg: SimConfig, device) -> bool:
@@ -80,8 +81,18 @@ def _unported(what: str):
     raise NotImplementedError(f"{what} is not ported to fluidsim_tpu_torch yet")
 
 
-def check_supported(cfg: SimConfig, use_kernels: bool) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot step."""
+def fuses_projection(cfg: SimConfig, use_kernels: bool, device) -> bool:
+    """Whether the step runs K2, the fused projection + density advection:
+    asked for (``fuse_project_advect``) on the kernel path, and the solve
+    fits the card's L2 (as the JAX step takes its fused kernel only where
+    it fits on chip)."""
+    return (use_kernels and cfg.fuse_project_advect
+            and resident_route(cfg.current_size, cfg.solve_dtype, device))
+
+
+def check_supported(cfg: SimConfig, use_kernels: bool, device=None) -> None:
+    """Raise ``NotImplementedError`` for a config the port cannot step on
+    ``device`` (None: the card the route is chosen for)."""
     _, diff, visc = cfg.effective_params()
     if cfg.ndim != 3:
         _unported("the 2D reference-parity mode (ndim=2)")
@@ -114,10 +125,12 @@ def check_supported(cfg: SimConfig, use_kernels: bool) -> None:
         _unported("sweep-blocked Jacobi (K5, jacobi_sweep_block > 1)")
     if cfg.advect_window != 1:
         _unported("kernel advection with advect_window != 1")
-    if cfg.fuse_project_advect and cfg.enable_obstacle:
+    if not fuses_projection(cfg, use_kernels, device):
+        return
+    if cfg.enable_obstacle:
         _unported("the obstacle variant of the fused projection kernel (K2o, "
                   "enable_obstacle with fuse_project_advect)")
-    if cfg.fuse_project_advect and cfg.advect_substeps != 1:
+    if cfg.advect_substeps != 1:
         _unported("the fused projection kernel's density phase with "
                   "advect_substeps != 1 (K2 with n_sub > 1)")
 
@@ -155,8 +168,9 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
     """One product step.  ``kernels`` replaces the calls of the kernel path
     (``PLAIN_TWINS`` runs their plain twins instead)."""
     dt = cfg.effective_params()[0]
-    use_kernels = _kernels_usable(cfg, state.density.device)
-    check_supported(cfg, use_kernels)
+    device = state.density.device
+    use_kernels = _kernels_usable(cfg, device)
+    check_supported(cfg, use_kernels, device)
     obst = state.obstacles if cfg.enable_obstacle else None
     vel = state.velocity
     density = state.density
@@ -188,7 +202,7 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
     buoy = ((density, cfg.buoyancy, cfg.ambient_density, cfg.gravity)
             if fold_buoy else None)
     vel = advect((1, 2, 3), vel, vel, buoy)
-    fused = use_kernels and cfg.fuse_project_advect
+    fused = fuses_projection(cfg, use_kernels, device)
     if fused:
         vel, pressure, density = kernels.project_advect(
             vel, density, cfg.jacobi_iters, dt,

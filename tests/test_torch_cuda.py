@@ -12,11 +12,25 @@ import numpy as np
 import pytest
 import torch
 
-from fluidsim_tpu_torch.config import preset_bench_128, preset_vortex_128
+from fluidsim_tpu_torch.config import (
+    preset_bench_128,
+    preset_multi_emitter_256,
+    preset_sharded_512,
+    preset_vortex_128,
+)
 from fluidsim_tpu_torch.engine import Engine
+from fluidsim_tpu_torch.kernels import project as kproject
 from fluidsim_tpu_torch.kernels.advect import (
     advect_multi_3d_kernel,
     advect_multi_3d_plain,
+)
+from fluidsim_tpu_torch.kernels.jacobi import jacobi_3d_kernel, jacobi_3d_plain
+from fluidsim_tpu_torch.kernels.project import (
+    divergence_3d_kernel,
+    divergence_3d_plain,
+    gradient_3d_kernel,
+    gradient_3d_plain,
+    project_3d_slab_kernel,
 )
 from fluidsim_tpu_torch.kernels.resident import (
     project_3d_resident,
@@ -49,16 +63,17 @@ def fields(n, seed, device):
     return torch.from_numpy(vel).to(device), torch.from_numpy(dens).to(device)
 
 
+@pytest.mark.parametrize("n_sub", [1, 2])
 @pytest.mark.parametrize("n", [17, 128])
-def test_k1_matches_twin(cuda, n):
+def test_k1_matches_twin(cuda, n, n_sub):
     vel, dens = fields(n, n, cuda)
     for bs, f, buoy in (((1, 2, 3), vel, (dens, 0.2, 0.1, 0.05)),
                         ((1, 2, 3), vel, None),
                         ((0,), dens[None], None)):
-        got = advect_multi_3d_kernel(bs, f, vel, DT, buoy=buoy)
-        ref = advect_multi_3d_plain(bs, f, vel, DT, buoy=buoy)
+        got = advect_multi_3d_kernel(bs, f, vel, DT, buoy=buoy, n_sub=n_sub)
+        ref = advect_multi_3d_plain(bs, f, vel, DT, buoy=buoy, n_sub=n_sub)
         torch.cuda.synchronize()
-        assert torch.equal(got, ref), float((got - ref).abs().max())
+        assert torch.equal(got, ref), (bs, buoy is None, float((got - ref).abs().max()))
 
 
 @pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
@@ -159,3 +174,61 @@ def test_vortex128_kernel_path_matches_twin_path(cuda):
     kern.set_config(cfg.replace(obstacle_radius=0.12))
     assert kern.state.obstacles.device.type == "cuda"
     assert int(kern.state.obstacles.sum()) > int(solid.sum())
+
+
+# -- the slab route: K6 and K7 -------------------------------------------------
+
+
+@pytest.mark.parametrize("iters", [5, 20])
+@pytest.mark.parametrize("n", [37, 64, 96])
+def test_k6_matches_twin(cuda, n, iters):
+    """The grids cut into several x-y tiles per axis (28 x 28 at two sweeps
+    a launch), the last one partial, and 96 into two z-ranges; 5 sweeps end
+    with a partial pass at two and three sweeps a launch."""
+    vel, _ = fields(n, 500 + n, cuda)
+    x, x0 = vel[0], vel[1]
+    for b, a, c, block_iters in ((0, 1.0, 6.0, 2), (1, 1.0, 6.0, 3), (2, 1.0, 6.0, 1),
+                                 (3, 0.13, 1.0 + 6 * 0.13, 2)):
+        got = jacobi_3d_kernel(b, x, x0, a, c, iters, block_iters=block_iters)
+        ref = jacobi_3d_plain(b, x, x0, a, c, iters)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (b, block_iters, float((got - ref).abs().max()))
+
+
+@pytest.mark.parametrize("n", [64, 97])
+def test_k7_matches_twins(cuda, n):
+    vel, dens = fields(n, 600 + n, cuda)
+    got = divergence_3d_kernel(vel)
+    torch.cuda.synchronize()
+    assert torch.equal(got, divergence_3d_plain(vel))
+    got = gradient_3d_kernel(vel, dens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gradient_3d_plain(vel, dens))
+
+
+def test_slab_route_equals_k3(cuda):
+    """The same adds in the same order, and a·Σ with a = 1 is exact."""
+    vel, _ = fields(96, 700, cuda)
+    got = project_3d_slab_kernel(vel, 20)
+    ref = project_3d_resident(vel, 20)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r), float((g - r).abs().max())
+
+
+@pytest.mark.parametrize("preset", [preset_multi_emitter_256, preset_sharded_512])
+def test_slab_step_kernel_path_matches_twin_path(cuda, monkeypatch, preset):
+    """multi256 and sharded512 cut to 64³ with the L2 gate shut, so that
+    they take the slab route as they do at full size."""
+    monkeypatch.setattr(kproject, "resident_fits", lambda *a: False)
+    cfg = preset().replace(size=64)
+    kern, twin = Engine(cfg, cuda), Engine(cfg, cuda, kernels=PLAIN_TWINS)
+    counters = (advect_multi_3d_kernel, jacobi_3d_kernel, divergence_3d_kernel,
+                gradient_3d_kernel, project_3d_resident, project_advect_density_3d)
+    before = [fn.launches for fn in counters]
+    kern.step(5)
+    twin.step(5)
+    added = [fn.launches - b for fn, b in zip(counters, before)]
+    assert added == [10, 5, 5, 5, 0, 0]
+    for name in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(kern.state, name), getattr(twin.state, name)), name

@@ -230,3 +230,15 @@ def test_unported_kernel_variants_raise(monkeypatch, change, missing):
 def test_pallas_backend_needs_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(t_bench128().replace(size=N, kernel_backend="pallas"), "cpu")
+
+
+def test_engine_runs_on_the_card_unless_asked_for_the_cpu():
+    """``Engine(cfg)`` without a device takes the card; without one it
+    raises rather than stepping on the CPU."""
+    cfg = t_bench128().replace(size=N)
+    if torch.cuda.is_available():
+        assert Engine(cfg).state.density.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Engine(cfg)
+    assert Engine(cfg, "cpu").state.density.device.type == "cpu"
