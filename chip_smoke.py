@@ -14,8 +14,8 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      (F = 3 and F = 1) and K3 with and without the mask on vortex128-scale
      fields; at 256³ K6 (the projection's solve, and a b = 3 solve with
      diffusion coefficients), K7's divergence and gradient, K1 with two
-     substeps (F = 3 and F = 1) and with the buoyancy folded in, and the
-     slab route K7 → K6 → K7 against K3 (float32, no mask: bitwise);
+     substeps (F = 3 and F = 1), and the slab route K7 → K6 → K7 against K3
+     (float32, no mask: bitwise);
   4. step bench128 at 128³ through ``Engine(cfg, device="cuda")`` for
      ``STEPS`` steps with the launch counters reset just before: K1 and K2
      must have launched, the fields stay finite, the emitted mass grows, the
@@ -36,11 +36,16 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      over the first 40 steps, and the first 10 steps equal a rollout of the
      twins bitwise;
   8. step sharded512 at 512³ (unsharded, one card) for ``SHARDED_STEPS``
-     steps the same way (no twin at 512³) and report the peak device memory;
+     steps the same way and report the peak device memory; then hold its
+     kernels against their twins at 512³ on seeded fields (K1 with the
+     buoyancy folded and two substeps, K1 density, K6, K7's divergence and
+     gradient) and its first ``SHARDED_TWIN_STEPS`` steps against a rollout
+     of the twins (bitwise);
   9. time every path (steps/s), the p50 step+raymarch frame of bench128 and
      multi256 and each kernel beside its twin, with CUDA events after
-     warm-up, K3 beside the slab route at 256³, and break a step of each
-     path down by device time with ``torch.profiler``.
+     warm-up, K3 (float32 and bfloat16) beside the slab route from 128³ to
+     256³, and break a step of each path down by device time with
+     ``torch.profiler``.
 The line before last is a JSON object describing each kernel (with the
 least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -59,6 +64,8 @@ STEPS = 200
 VORTEX_STEPS = 100
 MULTI_STEPS = 100
 SHARDED_STEPS = 15
+SHARDED_TWIN_STEPS = 3
+CROSSOVER_SIZES = (128, 160, 192, 224, 256)
 SEED = 128
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s, 67 TFLOP/s float32 outside
@@ -130,19 +137,32 @@ def profile_ms(fn, reps: int) -> dict:
     return out
 
 
-def smooth(n, rng, modes=6):
-    """A sum of random low-wavenumber plane waves, unit amplitude."""
+def smooth(n, rng, dev, modes=6):
+    """A float32 ``(n, n, n)`` tensor on ``dev``: a sum of plane waves of
+    low wavenumber and unit amplitude, drawn from the NumPy generator
+    ``rng``."""
     import numpy as np
+    import torch
 
-    ax = np.arange(n, dtype=np.float32)
-    out = np.zeros((n, n, n), np.float32)
+    ax = torch.arange(n, dtype=torch.float32, device=dev)
+    out = torch.zeros((n, n, n), dtype=torch.float32, device=dev)
     for _ in range(modes):
         k = rng.integers(-3, 4, size=3)
-        phase = np.float32(rng.uniform(0, 2 * np.pi))
-        w = (2 * np.pi / n) * k.astype(np.float32)
-        out += np.sin(w[0] * ax[:, None, None] + w[1] * ax[None, :, None]
-                      + w[2] * ax[None, None, :] + phase)
-    return out / np.float32(np.sqrt(modes))
+        phase = float(np.float32(rng.uniform(0, 2 * np.pi)))
+        w = [float(v) for v in (2 * np.pi / n) * k.astype(np.float32)]
+        out += torch.sin(w[0] * ax[:, None, None] + w[1] * ax[None, :, None]
+                         + w[2] * ax[None, None, :] + phase)
+    return out / float(np.sqrt(modes))
+
+
+def velocity_field(n, rng, dev, scale):
+    import torch
+
+    return torch.stack([smooth(n, rng, dev) for _ in range(3)]) * scale
+
+
+def density_field(n, rng, dev):
+    return (20.0 * (1.0 + smooth(n, rng, dev))).clamp(min=0.0)
 
 
 def worst(got, ref, rtol: float, atol: float):
@@ -247,12 +267,12 @@ def main() -> None:
         divergence_3d_kernel,
         divergence_3d_plain,
         gradient_3d_kernel,
-        gradient_3d_plain,
         project_3d_slab_kernel,
     )
     from fluidsim_tpu_torch.kernels.resident import (
         project_3d_resident,
         project_3d_resident_plain,
+        project_gradient,
         project_advect_density_3d,
         project_advect_density_3d_plain,
     )
@@ -300,8 +320,8 @@ def main() -> None:
     # Plume-scale fields: |v| up to about 10 cells per unit time (a
     # backtrace of up to ~1.3 cells, so the window clamp is exercised) and
     # a positive density.
-    vel = torch.from_numpy(np.stack([smooth(n, rng) for _ in range(3)]) * 4.0).to(dev)
-    dens = torch.from_numpy(np.maximum(20.0 * (1.0 + smooth(n, rng)), 0.0)).to(dev)
+    vel = velocity_field(n, rng, dev, 4.0)
+    dens = density_field(n, rng, dev)
     buoy = (dens, cfg.buoyancy, cfg.ambient_density, cfg.gravity)
     solve = cfg.solve_dtype
 
@@ -349,8 +369,8 @@ def main() -> None:
     say(f"# vortex128 mask: {int(obst.sum())} solid cells, {n_solid} interior")
     # |v| up to about 30 cells per unit time: a backtrace of up to ~1.3
     # cells per substep.
-    vvel = torch.from_numpy(np.stack([smooth(n, rng) for _ in range(3)]) * 12.0).to(dev)
-    vdens = torch.from_numpy(np.maximum(20.0 * (1.0 + smooth(n, rng)), 0.0)).to(dev)
+    vvel = velocity_field(n, rng, dev, 12.0)
+    vdens = density_field(n, rng, dev)
 
     def k1v(f=vvel, bs=(1, 2, 3)):
         return advect_multi_3d_kernel(bs, f, vvel, vdt, obst=obst, n_sub=n_sub)
@@ -408,29 +428,24 @@ def main() -> None:
     iters = mcfg.jacobi_iters
     # |v| up to about 0.5: a backtrace of up to ~1.3 cells per substep at
     # multi256's dt, so the window clamp is exercised.
-    mvel = torch.from_numpy(np.stack([smooth(mn, rng) for _ in range(3)]) * 0.5).to(dev)
-    mdens = torch.from_numpy(np.maximum(20.0 * (1.0 + smooth(mn, rng)), 0.0)).to(dev)
+    mvel = velocity_field(mn, rng, dev, 0.5)
+    mdens = density_field(mn, rng, dev)
     mdiv = divergence_3d_plain(mvel)
     mzero = torch.zeros_like(mdiv)
     mp = jacobi_3d_plain(0, mzero, mdiv, 1.0, 6.0, iters)
     diff_coef = (0.13, 1.0 + 6 * 0.13)
-    sbuoy = (mdens, scfg.buoyancy, scfg.ambient_density, scfg.gravity)
     slab_fns = {
         "K6": (lambda: jacobi_3d_kernel(0, mzero, mdiv, 1.0, 6.0, iters),
                lambda: jacobi_3d_plain(0, mzero, mdiv, 1.0, 6.0, iters)),
         "K6 b=3": (lambda: jacobi_3d_kernel(3, mvel[2], mvel[2], *diff_coef, iters),
                    lambda: jacobi_3d_plain(3, mvel[2], mvel[2], *diff_coef, iters)),
         "K7 div": (lambda: divergence_3d_kernel(mvel), lambda: divergence_3d_plain(mvel)),
-        "K7 grad": (lambda: gradient_3d_kernel(mvel, mp), lambda: gradient_3d_plain(mvel, mp)),
+        "K7 grad": (lambda: gradient_3d_kernel(mvel, mp), lambda: project_gradient(mvel, mp)),
         "K1m": (lambda: advect_multi_3d_kernel((1, 2, 3), mvel, mvel, mdt, n_sub=m_sub),
                 lambda: advect_multi_3d_plain((1, 2, 3), mvel, mvel, mdt, n_sub=m_sub)),
         "K1m density": (
             lambda: advect_multi_3d_kernel((0,), mdens[None], mvel, mdt, n_sub=m_sub),
             lambda: advect_multi_3d_plain((0,), mdens[None], mvel, mdt, n_sub=m_sub)),
-        "K1s": (lambda: advect_multi_3d_kernel((1, 2, 3), mvel, mvel, sdt, buoy=sbuoy,
-                                               n_sub=scfg.advect_substeps),
-                lambda: advect_multi_3d_plain((1, 2, 3), mvel, mvel, sdt, buoy=sbuoy,
-                                              n_sub=scfg.advect_substeps)),
     }
     slab_err = {}
     for key, (fn, plain) in slab_fns.items():
@@ -571,7 +586,9 @@ def main() -> None:
     counters_to_zero()
     seng.step(1)
     smass1, scom1 = mass_and_com_y(seng.state)
-    seng.step(SHARDED_STEPS - 1)
+    seng.step(SHARDED_TWIN_STEPS - 1)
+    sat = {k: getattr(seng.state, k).clone() for k in ("density", "velocity", "pressure")}
+    seng.step(SHARDED_STEPS - SHARDED_TWIN_STEPS)
     torch.cuda.synchronize()
     sharded_launches = counts()
     smass_end, scom_end = mass_and_com_y(seng.state)
@@ -585,6 +602,52 @@ def main() -> None:
     check_state(seng.state, SHARDED_STEPS, sn, "sharded512")
     if not smass_end > smass1 > 0.0:
         fail("sharded512: density mass does not grow")
+    stwin = Engine(scfg, device="cuda", kernels=PLAIN_TWINS)
+    stwin.step(SHARDED_TWIN_STEPS)
+    for name, got in sat.items():
+        ref = getattr(stwin.state, name)
+        say(f"# sharded512: kernel path vs twin path, {SHARDED_TWIN_STEPS} steps, {name}: "
+            f"max abs diff {float((got - ref).abs().max())!r} (bitwise {torch.equal(got, ref)})")
+        if not torch.equal(got, ref):
+            fail(f"sharded512: the kernel path differs from the twin path in {name}")
+    del sat, stwin, got, ref
+
+    # Its kernels against their twins at 512³ on seeded fields, each twin's
+    # result freed before the next.  sharded512's dt·N is multi256's, so the
+    # velocity's scale is the one at 256³ and the window clamp is exercised.
+    s_sub = scfg.advect_substeps
+    s_iters = scfg.jacobi_iters
+    svel = velocity_field(sn, rng, dev, 0.5)
+    sdens = density_field(sn, rng, dev)
+    sbuoy = (sdens, scfg.buoyancy, scfg.ambient_density, scfg.gravity)
+    sdiv = divergence_3d_plain(svel)
+    szero = torch.zeros_like(sdiv)
+    sp = jacobi_3d_plain(0, szero, sdiv, 1.0, 6.0, s_iters)
+    sharded_fns = {
+        "K1s": (lambda: advect_multi_3d_kernel((1, 2, 3), svel, svel, sdt, buoy=sbuoy,
+                                               n_sub=s_sub),
+                lambda: advect_multi_3d_plain((1, 2, 3), svel, svel, sdt, buoy=sbuoy,
+                                              n_sub=s_sub)),
+        "K1s density": (
+            lambda: advect_multi_3d_kernel((0,), sdens[None], svel, sdt, n_sub=s_sub),
+            lambda: advect_multi_3d_plain((0,), sdens[None], svel, sdt, n_sub=s_sub)),
+        "K6s": (lambda: jacobi_3d_kernel(0, szero, sdiv, 1.0, 6.0, s_iters),
+                lambda: jacobi_3d_plain(0, szero, sdiv, 1.0, 6.0, s_iters)),
+        "K7s div": (lambda: divergence_3d_kernel(svel), lambda: divergence_3d_plain(svel)),
+        "K7s grad": (lambda: gradient_3d_kernel(svel, sp),
+                     lambda: project_gradient(svel, sp)),
+    }
+    for key, (fn, plain) in sharded_fns.items():
+        got = fn()
+        ref = plain()
+        torch.cuda.synchronize()
+        slab_err[key], ok = worst(got, ref, 1e-5, 1e-6 * float(ref.abs().max()))
+        say(f"# {key} vs twin at {sn}^3: max abs err {slab_err[key]!r} (bitwise "
+            f"{torch.equal(got, ref)}; bound rtol 1e-5, atol 1e-6 x max|ref|)")
+        if not ok or got.shape != ref.shape:
+            fail(f"{key} disagrees with its twin at {sn}^3")
+        del got, ref
+    torch.cuda.empty_cache()
 
     # -- 9. timing -------------------------------------------------------
     say(f"# timing on {card}")
@@ -644,31 +707,45 @@ def main() -> None:
     say(f"multi256 emitters (plain torch) at {mn}^3: {memit_ms!r} ms [{card}]")
     sstep_ms = cuda_ms(lambda: seng.step(1), reps=10, warmup=2)
     say(f"sharded512 steps/s kernel path: {1e3 / sstep_ms!r} ({sstep_ms!r} ms/step) [{card}]")
-    sv, sd = seng.state.velocity, seng.state.density
-    s_sub = scfg.advect_substeps
 
-    def k1s_512():
-        return advect_multi_3d_kernel((1, 2, 3), sv, sv, sdt, n_sub=s_sub,
-                                      buoy=(sd, scfg.buoyancy, scfg.ambient_density,
-                                            scfg.gravity))
-
-    for sweeps in (1, 2, 3):
-        k6_ms = cuda_ms(lambda: jacobi_3d_kernel(0, mzero, mdiv, 1.0, 6.0, iters,
-                                                 block_iters=sweeps), reps=10)
-        say(f"K6 at {mn}^3 with block_iters={sweeps}: {k6_ms!r} ms [{card}]")
     k3_256 = cuda_ms(lambda: project_3d_resident(mvel, iters), reps=10)
     slab_256 = cuda_ms(lambda: project_3d_slab_kernel(mvel, iters), reps=10)
     say(f"projection at {mn}^3 (float32, no mask, {iters} sweeps): K3 {k3_256!r} ms, "
         f"slab route K7 -> K6 -> K7 {slab_256!r} ms [{card}]")
+    # Where the slab route overtakes K3: both at each size on one seeded
+    # velocity, K3 with a float32 and a bfloat16 solve, the slab route in
+    # float32, multi256's sweeps.
+    for cn in CROSSOVER_SIZES:
+        cvel = velocity_field(cn, rng, dev, 0.5)
+        k3_f32 = cuda_ms(lambda: project_3d_resident(cvel, iters), reps=20)
+        k3_bf16 = cuda_ms(lambda: project_3d_resident(cvel, iters, solve_dtype="bfloat16"),
+                          reps=20)
+        slab = cuda_ms(lambda: project_3d_slab_kernel(cvel, iters), reps=20)
+        say(f"crossover at {cn}^3 ({iters} sweeps, no mask): K3 float32 {k3_f32!r} ms, "
+            f"K3 bfloat16 {k3_bf16!r} ms, slab route {slab!r} ms [{card}]")
+    del cvel
+    # bench128's fused K2 beside what the slab route would put in its place.
+    k2_alt = cuda_ms(lambda: advect_multi_3d_kernel(
+        (0,), dens[None], project_3d_slab_kernel(vel, cfg.jacobi_iters)[0] * damp, dt),
+        reps=20)
+    say(f"bench128 at {n}^3: K2 {cuda_ms(k2, reps=20)!r} ms; slab route ({cfg.jacobi_iters} "
+        f"float32 sweeps) + damping + K1 density {k2_alt!r} ms [{card}]")
     # The divergence is one float32 convolution of the three components.
-    div_w = torch.zeros((1, 3, 3, 3, 3), dtype=torch.float32, device=dev)
-    for c, (kz, ky, kx) in enumerate(((1, 1, 2), (1, 2, 1), (2, 1, 1))):
-        div_w[0, c, kz, ky, kx] = -0.5 / mn
-        div_w[0, c, 2 - kz, 2 - ky, 2 - kx] = 0.5 / mn
+
+    def div_weights(size):
+        w = torch.zeros((1, 3, 3, 3, 3), dtype=torch.float32, device=dev)
+        for c, (kz, ky, kx) in enumerate(((1, 1, 2), (1, 2, 1), (2, 1, 1))):
+            w[0, c, kz, ky, kx] = -0.5 / size
+            w[0, c, 2 - kz, 2 - ky, 2 - kx] = 0.5 / size
+        return w
+
+    div_w, sdiv_w = div_weights(mn), div_weights(sn)
     conv = F.conv3d(mvel[None], div_w)[0, 0]
     say(f"# K7 div vs its library yardstick (conv3d) at {mn}^3: max abs diff "
         f"{float((conv - divergence_3d_kernel(mvel)[1:-1, 1:-1, 1:-1]).abs().max())!r}")
-    library = {"K7 div": cuda_ms(lambda: F.conv3d(mvel[None], div_w), reps=20)}
+    del conv
+    library = {"K7 div": cuda_ms(lambda: F.conv3d(mvel[None], div_w), reps=20),
+               "K7s div": cuda_ms(lambda: F.conv3d(svel[None], sdiv_w), reps=5)}
 
     times = {
         "K6": (cuda_ms(slab_fns["K6"][0], reps=20), cuda_ms(slab_fns["K6"][1], reps=3)),
@@ -679,9 +756,8 @@ def main() -> None:
         "K1m": (cuda_ms(slab_fns["K1m"][0], reps=20), cuda_ms(slab_fns["K1m"][1], reps=3)),
         "K1m density": (cuda_ms(slab_fns["K1m density"][0], reps=20),
                         cuda_ms(slab_fns["K1m density"][1], reps=3)),
-        # The fold's kernel time at 512³ (sharded512's shapes); no twin runs
-        # at 512³, so its twin is timed at 256³.
-        "K1s": (cuda_ms(k1s_512, reps=10), cuda_ms(slab_fns["K1s"][1], reps=3)),
+        **{key: (cuda_ms(fn, reps=10), cuda_ms(plain, reps=2, warmup=1))
+           for key, (fn, plain) in sharded_fns.items()},
         "K1": (cuda_ms(k1, reps=100), cuda_ms(k1_plain, reps=10)),
         "K2": (cuda_ms(k2, reps=50), cuda_ms(k2_plain, reps=3)),
         "K1v": (cuda_ms(k1v, reps=50), cuda_ms(k1v_plain, reps=3)),
@@ -758,13 +834,18 @@ def main() -> None:
          "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
          multi_launches["K1"], slab_err["K1m density"],
          bound(5 * mvol * f32, m_sub * minterior * (FRAC_OPS + RELU_OPS + COMB_OPS))),
+        # sharded512 launches K1 twice a step, once for each of these two.
         ("K1s", f"K1 advect_multi_3d_kernel (n_sub={s_sub}, buoyancy folded; sharded512 "
-                "self-advection at 512^3; held against its twin and the twin timed "
-                "at 256^3)",
+                "self-advection, F=3, 512^3)",
          "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
          sharded_launches["K1"], slab_err["K1s"],
          bound(7 * svol * f32, sinterior * (s_sub * (FRAC_OPS + RELU_OPS + 3 * COMB_OPS)
                                             + 29 * BUOY_OPS))),
+        ("K1s density", f"K1 advect_multi_3d_kernel (n_sub={s_sub}, no mask; sharded512 "
+                        "density, F=1, 512^3)",
+         "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
+         sharded_launches["K1"], slab_err["K1s density"],
+         bound(5 * svol * f32, s_sub * sinterior * (FRAC_OPS + RELU_OPS + COMB_OPS))),
         ("K6", f"K6 jacobi_3d_kernel ({iters} sweeps, b=0, a=1, c=6; multi256 "
                "projection solve, 256^3)",
          "fluidsim_tpu_torch/csrc/jacobi.cu", "fluidsim_tpu/pallas/jacobi.py:127",
@@ -778,6 +859,19 @@ def main() -> None:
          "fluidsim_tpu_torch/csrc/project_slab.cu", "fluidsim_tpu/pallas/project.py:85",
          multi_launches["K7 grad"], slab_err["K7 grad"],
          bound(7 * mvol * f32, minterior * GRAD_OPS)),
+        ("K6s", f"K6 jacobi_3d_kernel ({s_iters} sweeps, b=0, a=1, c=6; sharded512 "
+                "projection solve, 512^3)",
+         "fluidsim_tpu_torch/csrc/jacobi.cu", "fluidsim_tpu/pallas/jacobi.py:127",
+         sharded_launches["K6"], slab_err["K6s"],
+         bound(3 * svol * f32, s_iters * sinterior * JACOBI_OPS)),
+        ("K7s div", "K7 divergence_3d_kernel (sharded512 projection, 512^3)",
+         "fluidsim_tpu_torch/csrc/project_slab.cu", "fluidsim_tpu/pallas/project.py:43",
+         sharded_launches["K7 div"], slab_err["K7s div"],
+         bound(4 * svol * f32, sinterior * DIV_OPS)),
+        ("K7s grad", "K7 gradient_3d_kernel (sharded512 projection, 512^3)",
+         "fluidsim_tpu_torch/csrc/project_slab.cu", "fluidsim_tpu/pallas/project.py:85",
+         sharded_launches["K7 grad"], slab_err["K7s grad"],
+         bound(7 * svol * f32, sinterior * GRAD_OPS)),
     ]
     report = []
     for key, name, source, replaces, launches, err, (bound_ms, bound_by) in entries:

@@ -18,7 +18,7 @@
 // the 50 MB L2, so a sweep per launch costs at least 60 us from HBM.  The
 // solve's compulsory traffic is x and x0 in and the result out, once.
 //
-// What the design does about it: each launch runs up to T = block_iters
+// What the design does about it: each launch runs up to T = kBlockIters
 // sweeps out of shared memory, streaming the grid along z.  A block owns a
 // (32-2T) x (32-2T) tile of x-y columns and a z-range of 64 planes; it
 // reads a 32 x 32 window (the tile plus a T-deep halo) of x and x0 one
@@ -43,10 +43,10 @@
 // interior cells read their neighbours plainly (boundary.cuh's signed
 // copy).  In z the test is uniform across the block.  The steps are
 // unrolled by eight, so every ring slot is a constant offset; x0's ring
-// holds eight planes, which allows T <= 3.  HBM traffic per pass is x and
-// x0 over windows (32/(32-2T))^2 the tile in x-y and (64+2T)/64 the range
-// in z, and the result once: at T = 3 about 4.3 volumes per three sweeps
-// instead of 3 per sweep.  T = 3 (the wrapper's default) takes 20 planes
+// holds eight planes, which allows T <= 3, and T = 3 is used.  HBM
+// traffic per pass is x and x0 over windows (32/(32-2T))^2 the tile in x-y
+// and (64+2T)/64 the range in z, and the result once: at T = 3 about 4.3
+// volumes per three sweeps instead of 3 per sweep.  T = 3 takes 20 planes
 // (80 KB) of shared memory, so two blocks of 1024 threads run on each SM.
 // It is still bound by instruction issue rather than bytes (about 30
 // instructions per cell update by a count of the source, for 8
@@ -62,7 +62,8 @@ namespace {
 constexpr int kWX = 32, kWY = 32, kPlaneW = kWX * kWY;
 constexpr int kChunkZ = 64;
 constexpr int kX0Ring = 8;         // planes of x0 kept: 2T + 1 <= 8
-constexpr int kMaxBlockIters = 3;  // so that 2T + 1 <= kX0Ring
+constexpr int kBlockIters = 3;     // sweeps a launch: 2T + 1 <= kX0Ring;
+                                   // three beat one and two at 256^3 (PERF.md)
 
 // Shared memory of a pass of L levels: four planes for each level below
 // the last, and kX0Ring planes of x0.
@@ -184,10 +185,10 @@ cudaError_t launch_pass(const Pass& q, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// launch_pass<L> for L = 1 .. kMaxBlockIters.
+// launch_pass<L> for L = 1 .. kBlockIters (a last pass may run fewer).
 constexpr cudaError_t (*kLaunchPass[])(const Pass&, cudaStream_t) = {
     launch_pass<1>, launch_pass<2>, launch_pass<3>};
-static_assert(sizeof(kLaunchPass) / sizeof(kLaunchPass[0]) == kMaxBlockIters);
+static_assert(sizeof(kLaunchPass) / sizeof(kLaunchPass[0]) == kBlockIters);
 
 // set_bnd_3d(b) in place: every border cell becomes the signed copy of its
 // clamped interior cell (boundary.cuh).  blockIdx.z picks the wall (0, 1: z;
@@ -217,27 +218,25 @@ __global__ void faces_kernel(float* __restrict__ v, int n, int b) {
 }  // namespace
 }  // namespace fsk
 
-// x, x0 and out (n, n, n) float32; tmp like them (scratch; may be null when
-// iters <= block_iters); all contiguous on the current device, out and tmp
-// distinct from x and x0.  b in 0..3 is the field's set_bnd code, a and
-// inv_c = f32(1)/f32(c) the solve's coefficients, iters >= 1, block_iters in
-// 1..3 the sweeps per launch.  Launches every pass and the faces on `stream`
-// and returns the first cudaError_t.
+// x, x0, out and tmp (n, n, n) float32 (tmp is scratch), all contiguous on
+// the current device, out and tmp distinct from x and x0.  b in 0..3 is the
+// field's set_bnd code, a and inv_c = f32(1)/f32(c) the solve's
+// coefficients, iters >= 1.  Launches every pass of up to kBlockIters sweeps
+// and the faces on `stream` and returns the first cudaError_t.
 extern "C" int fs_jacobi(const float* x, const float* x0, float* out, float* tmp, int n, int b,
-                         float a, float inv_c, int iters, int block_iters, void* stream) {
+                         float a, float inv_c, int iters, void* stream) {
   using namespace fsk;
-  if (n < 3 || b < 0 || b > 3 || iters < 1 || block_iters < 1 ||
-      block_iters > kMaxBlockIters || (iters > block_iters && tmp == nullptr)) {
+  if (n < 3 || b < 0 || b > 3 || iters < 1 || tmp == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int passes = (iters + block_iters - 1) / block_iters;
-  Pass q{x, x0, nullptr, n, b, a, inv_c, block_iters};
+  const int passes = (iters + kBlockIters - 1) / kBlockIters;
+  Pass q{x, x0, nullptr, n, b, a, inv_c, kBlockIters};
   int remaining = iters;
   for (int pass = 0; pass < passes; ++pass) {
     // The last pass writes `out`; earlier ones alternate back from it.
     q.out = (passes - 1 - pass) % 2 == 0 ? out : tmp;
-    const int sweeps = remaining < block_iters ? remaining : block_iters;
+    const int sweeps = remaining < kBlockIters ? remaining : kBlockIters;
     const cudaError_t err = kLaunchPass[sweeps - 1](q, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     q.x = q.out;

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .config import SimConfig
+from .kernels.project import resident_route
 from .models import stable3d
 from .models.stable3d import HAND_KERNELS, StepKernels, simulate_step_3d
 from .scene.obstacles import build_obstacle_mask
@@ -47,9 +48,12 @@ class Engine:
         self.reset()
 
     def _checked(self, cfg: SimConfig) -> SimConfig:
+        """Validate ``cfg`` and decide its projection route on this device
+        once, for every step until the next ``set_config``."""
         cfg = cfg.validate()
+        self._resident = resident_route(cfg.current_size, cfg.solve_dtype, self.device)
         stable3d.check_supported(cfg, stable3d._kernels_usable(cfg, self.device),
-                                 self.device)
+                                 self._resident)
         return cfg
 
     # -- lifecycle ------------------------------------------------------
@@ -93,7 +97,7 @@ class Engine:
             state.density, state.velocity, self.cfg, t, params=self._src_params
         )
         state = state.replace(density=density, velocity=velocity)
-        return simulate_step_3d(state, self.cfg, self.kernels)
+        return simulate_step_3d(state, self.cfg, self.kernels, self._resident)
 
     def step(self, n: int = 1, substeps_per_dispatch: int = 1) -> FluidState:
         """Advance ``n`` steps (no-op while paused, FluidSim.cs:392).  The NaN

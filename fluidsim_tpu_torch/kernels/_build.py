@@ -51,8 +51,8 @@ SIGNATURES = {
     # n, iters, solve_bf16, dt0, damp, dens_damp, stream
     "fs_project_advect_density": (_P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _F, _F, _F, _P),
-    # x, x0, out, tmp, n, b, a, inv_c, iters, block_iters, stream
-    "fs_jacobi": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P),
+    # x, x0, out, tmp, n, b, a, inv_c, iters, stream
+    "fs_jacobi": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
     # vel, div, n, stream
     "fs_divergence": (_P, _P, _I, _P),
     # vel, p, vel_out, n, stream

@@ -3,9 +3,9 @@
 Counterpart of ``fluidsim_tpu/pallas/jacobi.py`` (``jacobi_3d_pallas`` →
 ``_jacobi_kernel``), the general no-obstacle solve ``x ← (x0 + a·Σ₆x)·inv_c``
 with ``inv_c = f32(1)/f32(c)``, the ``set_bnd_3d(b)`` faces written once at
-the end.  The CUDA kernel is ``csrc/jacobi.cu``: ``block_iters`` sweeps per
-launch out of shared memory, streamed along z, with corrected neighbour
-reads at the walls.
+the end.  The CUDA kernel is ``csrc/jacobi.cu``: three sweeps per launch
+out of shared memory, streamed along z, with corrected neighbour reads at
+the walls.
 ``jacobi_3d_plain`` is the same arithmetic in plain PyTorch: it writes the
 faces after every sweep instead, which gives every interior cell the same
 neighbour values as the corrected reads.  It serves CPU tensors and is the
@@ -22,12 +22,6 @@ from ..ops.boundary import apply_faces_3d, set_bnd_3d
 from ..ops.linsolve import _nbr_sum_3d
 from . import _build
 from .advect import _check_volume
-
-# Sweeps per launch: the halo depth of csrc/jacobi.cu's 32 x 32 window.
-# Three beat one and two on an H100 at 256³ (PERF.md, PR 3); x0's ring of
-# eight planes allows at most three.
-BLOCK_ITERS = 3
-MAX_BLOCK_ITERS = 3
 
 
 def solve_coefficients(a: float, c: float):
@@ -49,10 +43,9 @@ def jacobi_3d_plain(b: int, x, x0, a: float, c: float, iters: int):
     return x
 
 
-def jacobi_3d_kernel(b: int, x, x0, a: float, c: float, iters: int,
-                     block_iters: int = BLOCK_ITERS):
-    """Solve with the K6 kernel: ``iters`` Jacobi sweeps, ``block_iters`` of
-    them per launch, then the ``set_bnd_3d(b)`` faces.
+def jacobi_3d_kernel(b: int, x, x0, a: float, c: float, iters: int):
+    """Solve with the K6 kernel: ``iters`` Jacobi sweeps, then the
+    ``set_bnd_3d(b)`` faces.
 
     CUDA tensors launch ``csrc/jacobi.cu``; CPU tensors run
     ``jacobi_3d_plain``.  Returns a new float32 ``(N, N, N)`` tensor.
@@ -61,8 +54,6 @@ def jacobi_3d_kernel(b: int, x, x0, a: float, c: float, iters: int,
         raise ValueError(f"boundary code must be 0..3, got {b}")
     if int(iters) != iters or iters < 1:
         raise ValueError(f"iters must be a positive integer, got {iters}")
-    if int(block_iters) != block_iters or not 1 <= block_iters <= MAX_BLOCK_ITERS:
-        raise ValueError(f"block_iters must be in 1..{MAX_BLOCK_ITERS}, got {block_iters}")
     n = x.shape[-1]
     if n < 3:
         raise ValueError(f"grid too small: {n}")
@@ -78,14 +69,13 @@ def jacobi_3d_kernel(b: int, x, x0, a: float, c: float, iters: int,
 
     lib = _build.load_library()
     out = torch.empty_like(x)
-    tmp = torch.empty_like(x) if iters > block_iters else None
+    tmp = torch.empty_like(x)
     a32, inv_c = solve_coefficients(a, c)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_jacobi(
-            x.data_ptr(), x0.data_ptr(), out.data_ptr(),
-            None if tmp is None else tmp.data_ptr(), n, int(b), a32, inv_c,
-            int(iters), int(block_iters), stream,
+            x.data_ptr(), x0.data_ptr(), out.data_ptr(), tmp.data_ptr(), n,
+            int(b), a32, inv_c, int(iters), stream,
         )
     _build.check(lib, err, "Jacobi kernel launch")
     jacobi_3d_kernel.launches += 1

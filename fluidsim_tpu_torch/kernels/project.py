@@ -65,12 +65,6 @@ def divergence_3d_plain(vel):
     return F.pad(divergence_interior(vel), (1, 1, 1, 1, 1, 1))
 
 
-def gradient_3d_plain(vel, p):
-    """Plain PyTorch twin of K7's gradient: ``v − 0.5·(p₊ − p₋)·N`` on the
-    interior cells, then each component's ``set_bnd`` faces."""
-    return project_gradient(vel, p)
-
-
 def _slab_inputs(vel, p=None) -> int:
     n = vel.shape[-1]
     if n < 3:
@@ -106,12 +100,14 @@ divergence_3d_kernel.launches = 0
 
 
 def gradient_3d_kernel(vel, p):
-    """K7's gradient step and velocity faces: CUDA tensors launch
-    ``csrc/project_slab.cu``, CPU tensors run ``gradient_3d_plain``.
+    """K7's gradient step and velocity faces, ``v − 0.5·(p₊ − p₋)·N`` on the
+    interior cells, then each component's ``set_bnd`` faces: CUDA tensors
+    launch ``csrc/project_slab.cu``, CPU tensors run its twin
+    ``resident.project_gradient``.
     ``gradient_3d_kernel.launches`` counts launches."""
     n = _slab_inputs(vel, p)
     if vel.device.type == "cpu":
-        return gradient_3d_plain(vel, p)
+        return project_gradient(vel, p)
     lib = _build.load_library()
     out = torch.empty_like(vel)
     with torch.cuda.device(vel.device):
@@ -146,24 +142,30 @@ def project_3d_slab_kernel(vel, iters: int):
 def project_3d_slab_plain(vel, iters: int):
     """The slab route with the twins."""
     return _project_slab(vel, iters, divergence_3d_plain, jacobi_3d_plain,
-                         gradient_3d_plain)
+                         project_gradient)
 
 
-def _slab(vel, obst, solve_dtype) -> bool:
-    return obst is None and not resident_route(vel.shape[-1], solve_dtype, vel.device)
+def _slab(vel, obst, solve_dtype, resident) -> bool:
+    if obst is not None:
+        return False
+    if resident is None:
+        resident = resident_route(vel.shape[-1], solve_dtype, vel.device)
+    return not resident
 
 
-def project_3d_kernel(vel, iters: int, obst=None, solve_dtype=None):
+def project_3d_kernel(vel, iters: int, obst=None, solve_dtype=None, resident=None):
     """Project ``vel`` with ``iters`` Jacobi sweeps: K3 where the solve fits
     the card's L2 or there is an obstacle mask, else the slab route in
-    float32 (``solve_dtype`` is then ignored).  Returns ``(vel', p)``."""
-    if _slab(vel, obst, solve_dtype):
+    float32 (``solve_dtype`` is then ignored).  ``resident`` is
+    ``resident_route``'s answer where the caller has it.  Returns
+    ``(vel', p)``."""
+    if _slab(vel, obst, solve_dtype, resident):
         return project_3d_slab_kernel(vel, iters)
     return project_3d_resident(vel, iters, obst=obst, solve_dtype=solve_dtype)
 
 
-def project_3d_plain(vel, iters: int, obst=None, solve_dtype=None):
+def project_3d_plain(vel, iters: int, obst=None, solve_dtype=None, resident=None):
     """``project_3d_kernel``'s route with the kernels' twins."""
-    if _slab(vel, obst, solve_dtype):
+    if _slab(vel, obst, solve_dtype, resident):
         return project_3d_slab_plain(vel, iters)
     return project_3d_resident_plain(vel, iters, obst=obst, solve_dtype=solve_dtype)

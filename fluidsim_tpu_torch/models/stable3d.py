@@ -48,7 +48,7 @@ class StepKernels(NamedTuple):
     """The calls of the kernel path: ``advect(bs, fields, vel, dt, obst=,
     n_sub=, buoy=)``, ``project_advect(vel, density, iters, dt,
     solve_dtype=, damp=, dens_damp=)`` and ``project(vel, iters, obst=,
-    solve_dtype=)``, which picks K3 or the slab route itself."""
+    solve_dtype=, resident=)``, which takes K3 or the slab route."""
 
     advect: Callable
     project_advect: Callable
@@ -81,18 +81,18 @@ def _unported(what: str):
     raise NotImplementedError(f"{what} is not ported to fluidsim_tpu_torch yet")
 
 
-def fuses_projection(cfg: SimConfig, use_kernels: bool, device) -> bool:
+def fuses_projection(cfg: SimConfig, use_kernels: bool, resident: bool) -> bool:
     """Whether the step runs K2, the fused projection + density advection:
     asked for (``fuse_project_advect``) on the kernel path, and the solve
-    fits the card's L2 (as the JAX step takes its fused kernel only where
-    it fits on chip)."""
-    return (use_kernels and cfg.fuse_project_advect
-            and resident_route(cfg.current_size, cfg.solve_dtype, device))
+    fits the card's L2 (``resident``, from ``resident_route``; as the JAX
+    step takes its fused kernel only where it fits on chip)."""
+    return use_kernels and cfg.fuse_project_advect and resident
 
 
-def check_supported(cfg: SimConfig, use_kernels: bool, device=None) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot step on
-    ``device`` (None: the card the route is chosen for)."""
+def check_supported(cfg: SimConfig, use_kernels: bool, resident=None) -> None:
+    """Raise ``NotImplementedError`` for a config the port cannot step.
+    ``resident`` is ``resident_route``'s answer for the device (None: for
+    the card the route is chosen for)."""
     _, diff, visc = cfg.effective_params()
     if cfg.ndim != 3:
         _unported("the 2D reference-parity mode (ndim=2)")
@@ -125,7 +125,9 @@ def check_supported(cfg: SimConfig, use_kernels: bool, device=None) -> None:
         _unported("sweep-blocked Jacobi (K5, jacobi_sweep_block > 1)")
     if cfg.advect_window != 1:
         _unported("kernel advection with advect_window != 1")
-    if not fuses_projection(cfg, use_kernels, device):
+    if resident is None:
+        resident = resident_route(cfg.current_size, cfg.solve_dtype, None)
+    if not fuses_projection(cfg, use_kernels, resident):
         return
     if cfg.enable_obstacle:
         _unported("the obstacle variant of the fused projection kernel (K2o, "
@@ -164,13 +166,18 @@ def sink_factor(dt: float, rate: float) -> float:
 
 
 def simulate_step_3d(state: FluidState, cfg: SimConfig,
-                     kernels: StepKernels = HAND_KERNELS) -> FluidState:
+                     kernels: StepKernels = HAND_KERNELS,
+                     resident=None) -> FluidState:
     """One product step.  ``kernels`` replaces the calls of the kernel path
-    (``PLAIN_TWINS`` runs their plain twins instead)."""
+    (``PLAIN_TWINS`` runs their plain twins instead).  ``resident`` is
+    ``resident_route``'s answer for this grid and device where the caller
+    decided it once (``Engine`` does); None decides it here."""
     dt = cfg.effective_params()[0]
     device = state.density.device
     use_kernels = _kernels_usable(cfg, device)
-    check_supported(cfg, use_kernels, device)
+    if resident is None:
+        resident = resident_route(cfg.current_size, cfg.solve_dtype, device)
+    check_supported(cfg, use_kernels, resident)
     obst = state.obstacles if cfg.enable_obstacle else None
     vel = state.velocity
     density = state.density
@@ -202,7 +209,7 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
     buoy = ((density, cfg.buoyancy, cfg.ambient_density, cfg.gravity)
             if fold_buoy else None)
     vel = advect((1, 2, 3), vel, vel, buoy)
-    fused = fuses_projection(cfg, use_kernels, device)
+    fused = fuses_projection(cfg, use_kernels, resident)
     if fused:
         vel, pressure, density = kernels.project_advect(
             vel, density, cfg.jacobi_iters, dt,
@@ -210,7 +217,8 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
         )
     elif use_kernels:
         vel, pressure = kernels.project(vel, cfg.jacobi_iters, obst=obst,
-                                        solve_dtype=cfg.solve_dtype)
+                                        solve_dtype=cfg.solve_dtype,
+                                        resident=resident)
     else:
         vel, pressure = project_3d(vel, obst, cfg.jacobi_iters)
 

@@ -29,12 +29,12 @@ from fluidsim_tpu_torch.kernels.project import (
     divergence_3d_kernel,
     divergence_3d_plain,
     gradient_3d_kernel,
-    gradient_3d_plain,
     project_3d_slab_kernel,
 )
 from fluidsim_tpu_torch.kernels.resident import (
     project_3d_resident,
     project_3d_resident_plain,
+    project_gradient,
     project_advect_density_3d,
     project_advect_density_3d_plain,
 )
@@ -179,20 +179,20 @@ def test_vortex128_kernel_path_matches_twin_path(cuda):
 # -- the slab route: K6 and K7 -------------------------------------------------
 
 
-@pytest.mark.parametrize("iters", [5, 20])
+@pytest.mark.parametrize("iters", [2, 4, 5, 20])
 @pytest.mark.parametrize("n", [37, 64, 96])
 def test_k6_matches_twin(cuda, n, iters):
-    """The grids cut into several x-y tiles per axis (28 x 28 at two sweeps
-    a launch), the last one partial, and 96 into two z-ranges; 5 sweeps end
-    with a partial pass at two and three sweeps a launch."""
+    """The grids cut into several 26 x 26 x-y tiles per axis, the last one
+    partial, and 96 into two z-ranges; at three sweeps a launch, 2 sweeps
+    are one partial pass and 4, 5 and 20 end with a partial pass of one or
+    two sweeps."""
     vel, _ = fields(n, 500 + n, cuda)
     x, x0 = vel[0], vel[1]
-    for b, a, c, block_iters in ((0, 1.0, 6.0, 2), (1, 1.0, 6.0, 3), (2, 1.0, 6.0, 1),
-                                 (3, 0.13, 1.0 + 6 * 0.13, 2)):
-        got = jacobi_3d_kernel(b, x, x0, a, c, iters, block_iters=block_iters)
+    for b, a, c in ((0, 1.0, 6.0), (1, 1.0, 6.0), (2, 1.0, 6.0), (3, 0.13, 1.0 + 6 * 0.13)):
+        got = jacobi_3d_kernel(b, x, x0, a, c, iters)
         ref = jacobi_3d_plain(b, x, x0, a, c, iters)
         torch.cuda.synchronize()
-        assert torch.equal(got, ref), (b, block_iters, float((got - ref).abs().max()))
+        assert torch.equal(got, ref), (b, float((got - ref).abs().max()))
 
 
 @pytest.mark.parametrize("n", [64, 97])
@@ -203,7 +203,7 @@ def test_k7_matches_twins(cuda, n):
     assert torch.equal(got, divergence_3d_plain(vel))
     got = gradient_3d_kernel(vel, dens)
     torch.cuda.synchronize()
-    assert torch.equal(got, gradient_3d_plain(vel, dens))
+    assert torch.equal(got, project_gradient(vel, dens))
 
 
 def test_slab_route_equals_k3(cuda):

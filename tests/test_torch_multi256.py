@@ -190,9 +190,10 @@ def test_route_at_full_size_on_an_h100(preset, resident, fused):
     assert t_kp.resident_route(n, cfg.solve_dtype, "cpu") == resident
     assert t_kp.resident_fits(n, 2 if cfg.solve_dtype == "bfloat16" else 4,
                               50 * 1024 * 1024) == resident
-    assert t_s3.fuses_projection(cfg, True, None) == fused
-    assert not t_s3.fuses_projection(cfg, False, None)
+    assert t_s3.fuses_projection(cfg, True, resident) == fused
+    assert not t_s3.fuses_projection(cfg, False, resident)
     t_s3.check_supported(cfg, True)
+    t_s3.check_supported(cfg, True, resident)
 
 
 def test_k2_errors_fire_only_where_the_gate_picks_k2(monkeypatch):
@@ -249,3 +250,22 @@ def test_step_takes_the_slab_route_when_the_gate_shuts(monkeypatch):
     state = state_from_numpy(start_arrays(), "cpu")
     t_s3.simulate_step_3d(state, cfg, kernels)
     assert calls == ["slab"]
+
+
+def test_engine_decides_the_route_once(monkeypatch):
+    """``Engine`` decides the projection route when it takes a config, not
+    at every step, and its steps project on the route it decided."""
+    calls, seen = [], []
+    monkeypatch.setattr(t_kp, "resident_fits", lambda *a: calls.append(a) or False)
+    monkeypatch.setattr(t_s3, "_kernels_usable", lambda cfg, device: True)
+
+    def project(vel, iters, resident=None, **kw):
+        seen.append(resident)
+        return t_s3.PLAIN_TWINS.project(vel, iters, resident=resident, **kw)
+
+    _, cfg = presets("multi256")
+    eng = Engine(cfg, "cpu", kernels=t_s3.PLAIN_TWINS._replace(project=project))
+    eng.step(2)
+    assert len(calls) == 1 and seen == [False, False]
+    eng.set_config(cfg.replace(size=48))
+    assert len(calls) == 2

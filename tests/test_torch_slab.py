@@ -37,11 +37,10 @@ from fluidsim_tpu_torch.kernels.project import (
     divergence_3d_kernel,
     divergence_3d_plain,
     gradient_3d_kernel,
-    gradient_3d_plain,
     project_3d_kernel,
     project_3d_slab_plain,
 )
-from fluidsim_tpu_torch.kernels.resident import project_3d_resident_plain
+from fluidsim_tpu_torch.kernels.resident import project_3d_resident_plain, project_gradient
 
 torch.set_num_threads(1)
 
@@ -135,7 +134,7 @@ def test_k7_and_slab_route_match_project_3d_pallas(slab_only, monkeypatch, n,
     div = divergence_3d_plain(tv).numpy()
     np.testing.assert_array_equal(div[INTERIOR], seen["div"][INTERIOR])
     assert not div[0].any() and not div[:, :, -1].any()
-    grad = gradient_3d_plain(tv, torch.from_numpy(seen["p"])).numpy()
+    grad = project_gradient(tv, torch.from_numpy(seen["p"])).numpy()
     np.testing.assert_array_equal(grad, ref_vel)
     got_vel, got_p = project_3d_slab_plain(tv, 20)
     np.testing.assert_array_equal(got_p.numpy(), ref_p)
@@ -152,10 +151,10 @@ def test_wrappers_on_cpu_run_the_twins():
     for fn in counters:
         fn.launches = 0
     for b in (0, 2):
-        assert torch.equal(jacobi_3d_kernel(b, x, x0, 0.5, 4.0, 6, block_iters=3),
+        assert torch.equal(jacobi_3d_kernel(b, x, x0, 0.5, 4.0, 6),
                            jacobi_3d_plain(b, x, x0, 0.5, 4.0, 6))
     assert torch.equal(divergence_3d_kernel(tv), divergence_3d_plain(tv))
-    assert torch.equal(gradient_3d_kernel(tv, x), gradient_3d_plain(tv, x))
+    assert torch.equal(gradient_3d_kernel(tv, x), project_gradient(tv, x))
     assert all(fn.launches == 0 for fn in counters)
 
 
@@ -166,8 +165,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         jacobi_3d_kernel(4, x, x0, 1.0, 6.0, 5)
     with pytest.raises(ValueError, match="iters"):
         jacobi_3d_kernel(0, x, x0, 1.0, 6.0, 0)
-    with pytest.raises(ValueError, match="block_iters"):
-        jacobi_3d_kernel(0, x, x0, 1.0, 6.0, 5, block_iters=4)
     with pytest.raises(TypeError, match="x0"):
         jacobi_3d_kernel(0, x, x0.double(), 1.0, 6.0, 5)
     with pytest.raises(ValueError, match="x0"):
