@@ -6,21 +6,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which ends the run with a non-zero exit code on failure:
   1. require a CUDA device (no CPU fallback) and print the card's name and
      power limit;
-  2. build the hand kernels (K1, K2, K3, K6, K7) from
+  2. build the hand kernels (K1, K2, K3, K6, K7, K8) from
      ``fluidsim_tpu_torch/csrc``;
   3. hold each kernel against its plain PyTorch twin on the card on inputs
-     made with NumPy from a seed: at 128³ K1 with buoyancy and K2 on
+     made with NumPy from a seed, bitwise: at 128³ K1 with buoyancy and K2 on
      bench128-scale fields, K1 with three substeps and the vortex128 mask
      (F = 3 and F = 1) and K3 with and without the mask on vortex128-scale
-     fields; at 256³ K6 (the projection's solve, and a b = 3 solve with
-     diffusion coefficients), K7's divergence and gradient, K1 with two
+     fields; the fused variants at 128³: K1 with buoyancy and the folded
+     emitter, K2s, K2o (vortex128's mask, three substeps, bf16 solve), K2
+     with two substeps, K8 with one and two substeps, and K8 against the
+     launched K1 → K2; at 256³ K6 (the projection's solve, and a b = 3 solve
+     with diffusion coefficients), K7's divergence and gradient, K1 with two
      substeps (F = 3 and F = 1), and the slab route K7 → K6 → K7 against K3
-     (float32, no mask: bitwise);
+     (float32, no mask);
   4. step bench128 at 128³ through ``Engine(cfg, device="cuda")`` for
      ``STEPS`` steps with the launch counters reset just before: K1 and K2
-     must have launched, the fields stay finite, the emitted mass grows, the
-     plume rises, and the first 10 steps stay within the bf16-solve bound of
-     a rollout of the kernels' twins;
+     must have launched, the emitter ran once a step, the fields stay
+     finite, the emitted mass grows, the plume rises, and the first 10 steps
+     stay within the bf16-solve bound of a rollout of the kernels' twins;
   5. step bench128 with the projection unfused (``fuse_project_advect=False``,
      the arrangement the JAX package's bench.py keeps as its tripwire) for
      10 steps: K1 and K3 (without a mask) must have launched and K2 not, and
@@ -30,22 +33,30 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      K2 not, the fields stay finite, the mass grows, the plume rises over
      the first 40 steps, interior obstacle cells hold exactly zero velocity,
      and the first 10 steps stay within the bf16-solve bound of the twins;
-  7. step multi256 at 256³ through ``Engine`` for ``MULTI_STEPS`` steps with
+  7. step the fused variants at 128³ the same way: bench128 with
+     ``fuse_emitter`` for ``STEPS`` steps (K1 and K2s a step each, no
+     full-grid emitter pass; after 10 steps within rtol 1e-5, atol 1e-6 of
+     the composed run of phase 4), bench128 with ``fuse_self_advect`` for
+     ``STEPS`` steps (K8 alone; after 10 steps bitwise bench128 with
+     ``fuse_buoyancy=False``, since K8 does not fold the buoyancy) and
+     vortex128 with ``fuse_project_advect`` for ``VORTEX_STEPS`` steps (K1 and
+     K2o, never K3; after 10 steps bitwise the unfused run of phase 6);
+  8. step multi256 at 256³ through ``Engine`` for ``MULTI_STEPS`` steps with
      the counters reset just before: K1, K6 and K7 must have launched and K2
      and K3 not, the fields stay finite, the mass grows, the plume rises
      over the first 40 steps, and the first 10 steps equal a rollout of the
      twins bitwise;
-  8. step sharded512 at 512³ (unsharded, one card) for ``SHARDED_STEPS``
+  9. step sharded512 at 512³ (unsharded, one card) for ``SHARDED_STEPS``
      steps the same way and report the peak device memory; then hold its
      kernels against their twins at 512³ on seeded fields (K1 with the
      buoyancy folded and two substeps, K1 density, K6, K7's divergence and
      gradient) and its first ``SHARDED_TWIN_STEPS`` steps against a rollout
      of the twins (bitwise);
-  9. time every path (steps/s), the p50 step+raymarch frame of bench128 and
+ 10. time every path (steps/s), the p50 step+raymarch frame of bench128 and
      multi256 and each kernel beside its twin, with CUDA events after
-     warm-up, K3 (float32 and bfloat16) beside the slab route from 128³ to
-     256³, and break a step of each path down by device time with
-     ``torch.profiler``.
+     warm-up, K8 beside K1 + K2 and K2o beside K3 + K1 on the same inputs,
+     K3 (float32 and bfloat16) beside the slab route from 128³ to 256³, and
+     break a step of each path down by device time with ``torch.profiler``.
 The line before last is a JSON object describing each kernel (with the
 least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -84,6 +95,8 @@ DIV_OPS = 7
 SWEEP_OPS = 7         # 5 neighbour adds, the rhs add, the coefficient multiply
 JACOBI_OPS = 8        # K6: 5 neighbour adds, a*nbr, the x0 add, the inv_c multiply
 GRAD_OPS = 3 * 5      # per component: sub, 2 mul, sub, damp
+EMIT_OPS = 15         # per cell in the emitter's ball: 3 sub, 3 mul, 2 add, sqrt,
+#                       compare, div, sub, mul, add
 
 
 def fail(msg: str) -> None:
@@ -269,7 +282,11 @@ def main() -> None:
         gradient_3d_kernel,
         project_3d_slab_kernel,
     )
+    import fluidsim_tpu_torch.engine as engine_module
     from fluidsim_tpu_torch.kernels.resident import (
+        full_step_3d,
+        full_step_3d_plain,
+        full_step_blocks,
         project_3d_resident,
         project_3d_resident_plain,
         project_gradient,
@@ -285,7 +302,11 @@ def main() -> None:
     )
     from fluidsim_tpu_torch.render.raymarch import render_frame_3d
     from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
-    from fluidsim_tpu_torch.scene.sources import apply_custom_source
+    from fluidsim_tpu_torch.scene.sources import (
+        apply_custom_source,
+        emitter_fold_operand,
+        src_field_add,
+    )
 
     t0 = time.perf_counter()
     _build.load_library()
@@ -299,7 +320,8 @@ def main() -> None:
 
     counters = {"K1": advect_multi_3d_kernel, "K2": project_advect_density_3d,
                 "K3": project_3d_resident, "K6": jacobi_3d_kernel,
-                "K7 div": divergence_3d_kernel, "K7 grad": gradient_3d_kernel}
+                "K7 div": divergence_3d_kernel, "K7 grad": gradient_3d_kernel,
+                "K8": full_step_3d}
 
     def counters_to_zero():
         for fn in counters.values():
@@ -331,15 +353,28 @@ def main() -> None:
     def k1_plain():
         return advect_multi_3d_plain((1, 2, 3), vel, vel, dt, buoy=buoy)
 
-    def k2():
-        return project_advect_density_3d(vel, dens, cfg.jacobi_iters, dt,
+    def k2(v=vel, **kw):
+        return project_advect_density_3d(v, dens, cfg.jacobi_iters, dt,
                                          solve_dtype=solve, damp=damp,
-                                         dens_damp=ddamp)
+                                         dens_damp=ddamp, **kw)
 
-    def k2_plain():
+    def k2_plain(**kw):
         return project_advect_density_3d_plain(vel, dens, cfg.jacobi_iters, dt,
                                                solve_dtype=solve, damp=damp,
-                                               dens_damp=ddamp)
+                                               dens_damp=ddamp, **kw)
+
+    def k8(**kw):
+        return full_step_3d(vel, dens, cfg.jacobi_iters, dt, solve_dtype=solve,
+                            damp=damp, dens_damp=ddamp, **kw)
+
+    def k8_plain(**kw):
+        return full_step_3d_plain(vel, dens, cfg.jacobi_iters, dt, solve_dtype=solve,
+                                  damp=damp, dens_damp=ddamp, **kw)
+
+    def k1_then_k2(n_sub=1):
+        """K8's work as K1 (no buoyancy: K8 does not fold it) then K2."""
+        return k2(advect_multi_3d_kernel((1, 2, 3), vel, vel, dt, n_sub=n_sub),
+                  n_sub=n_sub)
 
     got, ref = k1(), k1_plain()
     torch.cuda.synchronize()
@@ -352,11 +387,11 @@ def main() -> None:
     torch.cuda.synchronize()
     k2_err = 0.0
     for name, g, r in zip(("velocity", "pressure", "density"), got, ref):
-        err, ok = worst(g, r, 0.0, 2e-2 * float(r.abs().max()))
+        err = float((g - r).abs().max())
         k2_err = max(k2_err, err)
         say(f"# K2 vs twin at {n}^3 ({name}): max abs err {err!r} "
-            f"(bitwise {torch.equal(g, r)}; bound 2e-2 x max|ref|)")
-        if not ok or g.shape != r.shape:
+            f"(bitwise {torch.equal(g, r)}; bound: bitwise)")
+        if not torch.equal(g, r):
             fail(f"K2 {name} disagrees with its twin")
 
     # vortex128: three substeps, the preset's sphere, 20 bf16 sweeps.
@@ -410,12 +445,71 @@ def main() -> None:
         torch.cuda.synchronize()
         k3_err[what] = 0.0
         for name, g, r in zip(("velocity", "pressure"), got, ref):
-            err, ok = worst(g, r, 0.0, 2e-2 * float(r.abs().max()))
+            err = float((g - r).abs().max())
             k3_err[what] = max(k3_err[what], err)
             say(f"# K3 ({what}) vs twin at {n}^3 ({name}): max abs err {err!r} "
-                f"(bitwise {torch.equal(g, r)}; bound 2e-2 x max|ref|)")
-            if not ok or g.shape != r.shape:
+                f"(bitwise {torch.equal(g, r)}; bound: bitwise)")
+            if not torch.equal(g, r):
                 fail(f"K3 ({what}) {name} disagrees with its twin")
+
+    # -- 3 (cont.). the fused variants at 128³ -----------------------------------
+    # bench128's emitter as the kernels read it; vortex128's sinks are off.
+    src = emitter_fold_operand(cfg, torch.full((), dt, device=dev))
+    vdamp = sink_factor(vdt, vcfg.velocity_damping) if vcfg.velocity_damping else 1.0
+    vddamp = (sink_factor(vdt, vcfg.density_dissipation)
+              if vcfg.density_dissipation else 1.0)
+
+    def k2o():
+        return project_advect_density_3d(vvel, vdens, vcfg.jacobi_iters, vdt, obst=obst,
+                                         n_sub=n_sub, solve_dtype=vcfg.solve_dtype,
+                                         damp=vdamp, dens_damp=vddamp)
+
+    def k2o_plain():
+        return project_advect_density_3d_plain(vvel, vdens, vcfg.jacobi_iters, vdt,
+                                               obst=obst, n_sub=n_sub,
+                                               solve_dtype=vcfg.solve_dtype, damp=vdamp,
+                                               dens_damp=vddamp)
+
+    def k3_then_k1():
+        """K2o's work as K3 then K1 on the density."""
+        v, _ = k3()
+        return advect_multi_3d_kernel((0,), vdens[None], v, vdt, obst=obst, n_sub=n_sub)
+
+    fused_fns = {
+        "K1 src": (lambda: advect_multi_3d_kernel((1, 2, 3), vel, vel, dt, buoy=buoy, src=src),
+                   lambda: advect_multi_3d_plain((1, 2, 3), vel, vel, dt, buoy=buoy, src=src)),
+        "K2s": (lambda: k2(src=src), lambda: k2_plain(src=src)),
+        "K2o": (k2o, k2o_plain),
+        "K2 n_sub=2": (lambda: k2(n_sub=2), lambda: k2_plain(n_sub=2)),
+        "K8": (k8, k8_plain),
+        "K8 n_sub=2": (lambda: k8(n_sub=2), lambda: k8_plain(n_sub=2)),
+    }
+    say(f"# K8 grid: {full_step_blocks(solve)} blocks of 256 threads (bf16 solve), "
+        f"{full_step_blocks(None)} (float32 solve), {torch.cuda.get_device_properties(dev).multi_processor_count} SMs")
+    fused_err = {}
+    for key, (fn, plain) in fused_fns.items():
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        got, ref = (got,) if torch.is_tensor(got) else got, (ref,) if torch.is_tensor(ref) else ref
+        fused_err[key] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        same = all(torch.equal(g, r) for g, r in zip(got, ref))
+        say(f"# {key} vs twin at {n}^3: max abs err {fused_err[key]!r} (bitwise {same}; "
+            "bound: bitwise)")
+        if not same:
+            fail(f"{key} disagrees with its twin")
+    for k8_sub in (1, 2):
+        got, ref = k8(n_sub=k8_sub), k1_then_k2(k8_sub)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, r) for g, r in zip(got, ref))
+        say(f"# K8 (n_sub={k8_sub}) vs launched K1 -> K2 at {n}^3: max abs diff "
+            f"{max(float((g - r).abs().max()) for g, r in zip(got, ref))!r}, bitwise {same}")
+        if not same:
+            fail(f"K8 (n_sub={k8_sub}) differs from K1 -> K2")
+    got, ref = k2o(), (*k3(), k3_then_k1()[0] * vddamp)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+        fail("K2o differs from K3 -> K1 density")
+    del got, ref
 
     # -- 3 (cont.). the slab route's kernels at 256³ ---------------------------
     mcfg = preset_multi_emitter_256()
@@ -466,8 +560,17 @@ def main() -> None:
     del got, ref
 
     # -- 4. bench128 through Engine ------------------------------------------
+    # Count the engine's full-grid emitter passes (the folded paths run none).
+    emitter_passes = [0]
+
+    def counted_source(*args, **kwargs):
+        emitter_passes[0] += 1
+        return apply_custom_source(*args, **kwargs)
+
+    engine_module.apply_custom_source = counted_source
     eng = Engine(cfg, device="cuda")
     counters_to_zero()
+    emitter_passes[0] = 0
     eng.step(1)
     mass1, com1 = mass_and_com_y(eng.state)
     eng.step(9)
@@ -478,7 +581,10 @@ def main() -> None:
     torch.cuda.synchronize()
     bench_launches = counts()
     mass_end, com_end = mass_and_com_y(eng.state)
-    say(f"# main path: {STEPS} steps at {n}^3, launches {bench_launches}")
+    say(f"# main path: {STEPS} steps at {n}^3, launches {bench_launches}, full-grid "
+        f"emitter passes {emitter_passes[0]}")
+    if emitter_passes[0] != STEPS:
+        fail("the bench128 path did not run its emitter once a step")
     say(f"# density mass: step 1 {mass1!r}, step 40 {mass40!r}, step {STEPS} {mass_end!r}")
     say(f"# density y centre of mass: step 1 {com1!r}, step 40 {com40!r}, "
         f"step {STEPS} {com_end!r}")
@@ -515,7 +621,7 @@ def main() -> None:
     vmass1, vcom1 = mass_and_com_y(veng.state)
     vsolid_after_1 = bool((veng.state.velocity[:, solid] == 0).all())
     veng.step(9)
-    vat10 = {k: getattr(veng.state, k).clone() for k in ("density", "velocity")}
+    vat10 = {k: getattr(veng.state, k).clone() for k in ("density", "velocity", "pressure")}
     veng.step(30)
     vmass40, vcom40 = mass_and_com_y(veng.state)
     veng.step(VORTEX_STEPS - 40)
@@ -542,7 +648,70 @@ def main() -> None:
     vtwin.step(10)
     near_twin(vat10, vtwin.state, "vortex128")
 
-    # -- 7. multi256 through Engine -------------------------------------------
+    # -- 7. the fused variants through Engine ------------------------------------
+    def run_fused(fcfg, steps, what):
+        """``steps`` steps of ``fcfg`` with the counters at zero before;
+        returns the engine, the launches, the state after 10 steps and the
+        mass at step 1 and at the end."""
+        feng = Engine(fcfg, device="cuda")
+        counters_to_zero()
+        emitter_passes[0] = 0
+        feng.step(1)
+        fmass1, fcom1 = mass_and_com_y(feng.state)
+        feng.step(9)
+        fat10 = {k: getattr(feng.state, k).clone() for k in ("density", "velocity", "pressure")}
+        feng.step(steps - 10)
+        torch.cuda.synchronize()
+        launches = counts()
+        fmass_end, fcom_end = mass_and_com_y(feng.state)
+        say(f"# {what}: {steps} steps at {n}^3, launches {launches}, full-grid emitter "
+            f"passes {emitter_passes[0]}")
+        say(f"# {what} density mass: step 1 {fmass1!r}, step {steps} {fmass_end!r}; "
+            f"y centre of mass {fcom1!r} -> {fcom_end!r}")
+        check_state(feng.state, steps, n, what)
+        if not fmass_end > fmass1 > 0.0:
+            fail(f"{what}: density mass does not grow")
+        return feng, launches, fat10
+
+    def exactly(launches, expected, what):
+        if launches != {k: expected.get(k, 0) for k in launches}:
+            fail(f"{what} launched {launches}, not {expected}")
+
+    def against(at10, ref10, what, rtol=0.0, atol=0.0):
+        for name, got in at10.items():
+            ref = ref10[name]
+            err, ok = worst(got, ref, rtol, atol)
+            say(f"# {what}, 10 steps, {name}: max abs diff {err!r} (bitwise "
+                f"{torch.equal(got, ref)}; bound rtol {rtol}, atol {atol})")
+            if not ok:
+                fail(f"{what} differs in {name}")
+
+    feng_emit, emit_launches, emit10 = run_fused(
+        cfg.replace(fuse_emitter=True), STEPS, "bench128 + fuse_emitter")
+    exactly(emit_launches, {"K1": STEPS, "K2": STEPS}, "bench128 + fuse_emitter")
+    if emitter_passes[0] != 0:
+        fail("bench128 + fuse_emitter ran a full-grid emitter pass")
+    against(emit10, at10, "bench128 + fuse_emitter vs composed", 1e-5, 1e-6)
+
+    feng_k8, k8_launches, k8at10 = run_fused(
+        cfg.replace(fuse_self_advect=True), STEPS, "bench128 + fuse_self_advect")
+    exactly(k8_launches, {"K8": STEPS}, "bench128 + fuse_self_advect")
+    nofold = Engine(cfg.replace(fuse_buoyancy=False), device="cuda")
+    nofold.step(10)
+    against(k8at10, {k: getattr(nofold.state, k) for k in k8at10},
+            "bench128 + fuse_self_advect vs fuse_buoyancy=False")
+    del nofold
+
+    feng_v, vfused_launches, vfat10 = run_fused(
+        vcfg.replace(fuse_project_advect=True), VORTEX_STEPS, "vortex128 + fuse_project_advect")
+    exactly(vfused_launches, {"K1": VORTEX_STEPS, "K2": VORTEX_STEPS},
+            "vortex128 + fuse_project_advect")
+    against(vfat10, vat10, "vortex128 + fuse_project_advect vs unfused")
+    if not bool((feng_v.state.velocity[:, solid] == 0).all()):
+        fail("vortex128 + fuse_project_advect: an interior obstacle cell holds a velocity")
+    engine_module.apply_custom_source = apply_custom_source
+
+    # -- 8. multi256 through Engine -------------------------------------------
     slab_kernels = ("K1", "K6", "K7 div", "K7 grad")
     meng = Engine(mcfg, device="cuda")
     counters_to_zero()
@@ -577,7 +746,7 @@ def main() -> None:
             fail(f"multi256: the kernel path differs from the twin path in {name}")
     del mat10
 
-    # -- 8. sharded512 on one card --------------------------------------------
+    # -- 9. sharded512 on one card --------------------------------------------
     sn = scfg.current_size
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -649,7 +818,7 @@ def main() -> None:
         del got, ref
     torch.cuda.empty_cache()
 
-    # -- 9. timing -------------------------------------------------------
+    # -- 10. timing ------------------------------------------------------
     say(f"# timing on {card}")
     step_ms = cuda_ms(lambda: eng.step(1), reps=200, warmup=20)
     twin_ms = cuda_ms(lambda: twin.step(1), reps=10, warmup=2)
@@ -707,6 +876,28 @@ def main() -> None:
     say(f"multi256 emitters (plain torch) at {mn}^3: {memit_ms!r} ms [{card}]")
     sstep_ms = cuda_ms(lambda: seng.step(1), reps=10, warmup=2)
     say(f"sharded512 steps/s kernel path: {1e3 / sstep_ms!r} ({sstep_ms!r} ms/step) [{card}]")
+    fused_paths = (("bench128 + fuse_emitter", feng_emit, 200),
+                   ("bench128 + fuse_self_advect", feng_k8, 200),
+                   ("vortex128 + fuse_project_advect", feng_v, 100))
+    for what, engine, reps in fused_paths:
+        ms = cuda_ms(lambda: engine.step(1), reps=reps, warmup=reps // 10)
+        say(f"{what} steps/s kernel path: {1e3 / ms!r} ({ms!r} ms/step) [{card}]")
+    # The persistent K8 beside the launches it replaces, and K2o beside K3 +
+    # K1 on the density, on the same inputs.
+    k8_ms, k1k2_ms = cuda_ms(k8, reps=50), cuda_ms(k1_then_k2, reps=50)
+    say(f"K8 at {n}^3: {k8_ms!r} ms; K1 + K2 on the same input {k1k2_ms!r} ms [{card}]")
+    # What a sweep costs inside K8 (a grid-stride pass and a grid barrier)
+    # and in K2 (a launch): each at 1 and at 61 sweeps on the same input.
+    for what, fn in (("K8", full_step_3d), ("K2", project_advect_density_3d)):
+        one = cuda_ms(lambda: fn(vel, dens, 1, dt, solve_dtype=solve, damp=damp,
+                                 dens_damp=ddamp), reps=50)
+        many = cuda_ms(lambda: fn(vel, dens, 61, dt, solve_dtype=solve, damp=damp,
+                                  dens_damp=ddamp), reps=20)
+        say(f"{what} per sweep at {n}^3 (bf16 solve): {(many - one) / 60 * 1e3!r} us "
+            f"(1 sweep {one!r} ms, 61 sweeps {many!r} ms) [{card}]")
+    k2o_ms, k3k1_ms = cuda_ms(k2o, reps=50), cuda_ms(k3_then_k1, reps=50)
+    say(f"K2o at {n}^3: {k2o_ms!r} ms; K3 + K1 density on the same input {k3k1_ms!r} ms "
+        f"[{card}]")
 
     k3_256 = cuda_ms(lambda: project_3d_resident(mvel, iters), reps=10)
     slab_256 = cuda_ms(lambda: project_3d_slab_kernel(mvel, iters), reps=10)
@@ -765,13 +956,19 @@ def main() -> None:
         "K3": (cuda_ms(k3, reps=50), cuda_ms(k3_plain, reps=3)),
         "K3 no mask": (cuda_ms(lambda: k3(None), reps=50),
                        cuda_ms(lambda: k3_plain(None), reps=3)),
+        "K1 src": (cuda_ms(fused_fns["K1 src"][0], reps=100),
+                   cuda_ms(fused_fns["K1 src"][1], reps=10)),
+        "K2s": (cuda_ms(fused_fns["K2s"][0], reps=50), cuda_ms(fused_fns["K2s"][1], reps=3)),
+        "K2o": (k2o_ms, cuda_ms(k2o_plain, reps=3)),
+        "K8": (k8_ms, cuda_ms(k8_plain, reps=3)),
     }
     for name, (ms, plain_ms) in times.items():
         say(f"{name}: kernel {ms!r} ms, twin {plain_ms!r} ms [{card}]")
 
     # Where a step's device time goes, by kernel.
     for what, engine, reps in (("bench128", eng, 20), ("vortex128", veng, 20),
-                               ("multi256", meng, 5), ("sharded512", seng, 2)):
+                               ("multi256", meng, 5), ("sharded512", seng, 2),
+                               *((what, engine, 20) for what, engine, _ in fused_paths)):
         by_kernel = profile_ms(lambda: engine.step(1), reps=reps)
         total = sum(by_kernel.values())
         say(f"# profile {what}: device time {total!r} ms/step [{card}]")
@@ -786,6 +983,11 @@ def main() -> None:
     f32 = 4
     fluid = interior - n_solid
     svol, sinterior = sn ** 3, (sn - 2) ** 3
+    # The cells the emitter's ball covers (falloff above zero) in this run.
+    ball = int((src_field_add(torch.zeros_like(dens), src) > 0).sum())
+    k1_ops = FRAC_OPS + RELU_OPS + 3 * COMB_OPS
+    k2_ops = (DIV_OPS + cfg.jacobi_iters * SWEEP_OPS + GRAD_OPS + FRAC_OPS + RELU_OPS
+              + COMB_OPS + 1)
     entries = [
         ("K1", "K1 advect_multi_3d_kernel (n_sub=1, buoyancy folded; bench128 self-advection)",
          "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
@@ -872,6 +1074,29 @@ def main() -> None:
          "fluidsim_tpu_torch/csrc/project_slab.cu", "fluidsim_tpu/pallas/project.py:85",
          sharded_launches["K7 grad"], slab_err["K7s grad"],
          bound(7 * svol * f32, sinterior * GRAD_OPS)),
+        ("K1 src", "K1 advect_multi_3d_kernel (n_sub=1, buoyancy and emitter folded; "
+                   "bench128 + fuse_emitter self-advection)",
+         "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
+         emit_launches["K1"], fused_err["K1 src"],
+         bound(7 * vol * f32 + 5 * f32, interior * (k1_ops + 28 * BUOY_OPS) + ball * EMIT_OPS)),
+        ("K2s", "K2s project_advect_density_3d (projection + density advection with the "
+                "emitter folded; bench128 + fuse_emitter)",
+         "fluidsim_tpu_torch/csrc/project_advect.cu", "fluidsim_tpu/pallas/resident.py:1219",
+         emit_launches["K2"], fused_err["K2s"],
+         bound(9 * vol * f32 + 5 * f32, interior * k2_ops + ball * EMIT_OPS)),
+        ("K2o", f"K2o project_advect_density_3d (obstacle mask, n_sub={n_sub}, bf16 solve; "
+                "vortex128 + fuse_project_advect)",
+         "fluidsim_tpu_torch/csrc/project_advect.cu", "fluidsim_tpu/pallas/resident.py:1226",
+         vfused_launches["K2"], fused_err["K2o"],
+         bound(9 * vol * f32 + vol,
+               interior * (DIV_OPS + vcfg.jacobi_iters * SWEEP_OPS + GRAD_OPS)
+               + n_solid * 3 * MIRROR_OPS
+               + n_sub * fluid * (FRAC_OPS + RELU_OPS + COMB_OPS) + interior)),
+        ("K8", "K8 full_step_3d (self-advection + projection + density advection in one "
+               "cooperative launch; bench128 + fuse_self_advect)",
+         "fluidsim_tpu_torch/csrc/full_step.cu", "fluidsim_tpu/pallas/resident.py:1531",
+         k8_launches["K8"], fused_err["K8"],
+         bound(9 * vol * f32, interior * (k1_ops + k2_ops))),
     ]
     report = []
     for key, name, source, replaces, launches, err, (bound_ms, bound_by) in entries:

@@ -1,11 +1,13 @@
 // K1: K=1 semi-Lagrangian advection of F fields (F = 3: velocity
-// self-advection, optionally with buoyancy folded in; F = 1: a scalar), in
-// n_sub substeps of dt0/n_sub through the same velocity, optionally with the
-// obstacle contract after every substep.
+// self-advection, optionally with buoyancy folded in, and the folded emitter
+// on the buoyancy's density; F = 1: a scalar), in n_sub substeps of
+// dt0/n_sub through the same velocity, optionally with the obstacle contract
+// after every substep.
 //
 // Replaces: fluidsim_tpu/pallas/advect.py::_advect_kernel (entry
 // advect_multi_3d_pallas, core _substep_window_vals), k_win = 1, with or
-// without the in-kernel obstacle mask, without a folded emitter.
+// without the in-kernel obstacle mask, with or without the folded emitter
+// (`src`, which rides the buoyancy's density reads: advect.py:415-428).
 //
 // Each substep is one launch, reading the previous substep's fields (the
 // input fields for the first) and writing a fresh buffer:
@@ -17,7 +19,8 @@
 //     a second launch that applies the obstacle mirror in place.
 // The launch boundary is the grid-wide barrier a substep needs: every cell
 // reads its neighbours' previous-substep values.  Two buffers ping-pong (the
-// output and one scratch), so the input velocity is never written.
+// output and one scratch), so the input velocity is never written
+// (advect.cuh's advect_substeps, which K2's density phase shares).
 //
 // What bounds it on an H100: each substep reads 27 taps of each field (plus
 // 27 density taps for the buoyant y component), and the backtrace, the 13
@@ -26,7 +29,10 @@
 // into an FMA.  The compulsory DRAM traffic is 7 f32 volumes for bench128's
 // buoyant self-advection and 6 volumes + the byte mask for vortex128's, so
 // one substep is bound by bytes, three substeps by operations; the taps of
-// neighbouring cells overlap, which L1 and L2 serve.
+// neighbouring cells overlap, which L1 and L2 serve.  The folded emitter
+// adds a distance, a square root and a division per density read inside
+// the ball's box (and three compares outside it) in place of a full-grid
+// pass over the density.
 //
 // What the design does about it: one thread per cell with x across
 // threadIdx.x, so each tap row is one coalesced 128-byte load per warp and
@@ -38,103 +44,29 @@
 
 #include "advect.cuh"
 
-namespace fsk {
-
-template <int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK>
-__global__ void __launch_bounds__(kThreads)
-    advect_k1_kernel(const float* __restrict__ fields, const float* __restrict__ vel,
-                     const float* __restrict__ dens, const uint8_t* __restrict__ mask,
-                     float* __restrict__ out, int n, int b0, int b1, int b2, float dt0,
-                     Buoyancy bp) {
-  Cell k;
-  if (!cell_of_thread(n, k)) return;
-  float v[F];
-  if (MASK && mask[k.c] != 0) {
-#pragma unroll
-    for (int c = 0; c < F; ++c) v[c] = 0.0f;
-  } else {
-    advect_cell_k1<F, BUOY_VEL, BUOY_TAPS>(fields, vel, dens, bp, n, dt0, k.cz, k.cy,
-                                            k.cx, v);
-  }
-  const long long vol = static_cast<long long>(n) * n * n;
-  const int bs[3] = {b0, b1, b2};
-#pragma unroll
-  for (int c = 0; c < F; ++c) {
-    out[c * vol + k.idx] = face_negates(bs[c], k.z, k.y, k.x, k.cz, k.cy, k.cx) ? -v[c] : v[c];
-  }
-}
-
-struct Substep {
-  const float *src, *vel, *dens;
-  const uint8_t* mask;
-  float* dst;
-  int n, b0, b1, b2;
-  float dt0;
-  Buoyancy bp;
-};
-
-template <int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK>
-cudaError_t launch(const Substep& a, cudaStream_t s) {
-  advect_k1_kernel<F, BUOY_VEL, BUOY_TAPS, MASK><<<cell_grid(a.n), cell_block(), 0, s>>>(
-      a.src, a.vel, a.dens, a.mask, a.dst, a.n, a.b0, a.b1, a.b2, a.dt0, a.bp);
-  return cudaGetLastError();
-}
-
-// The variants the port runs: buoyancy only in velocity self-advection and
-// only without a mask (the step folds it only then).
-cudaError_t launch_substep(const Substep& a, int n_fields, bool buoy_vel, bool buoy_taps,
-                           cudaStream_t s) {
-  const bool masked = a.mask != nullptr;
-  if (n_fields == 3 && buoy_vel && !masked) {
-    return buoy_taps ? launch<3, true, true, false>(a, s) : launch<3, true, false, false>(a, s);
-  }
-  if (buoy_vel) return cudaErrorInvalidValue;
-  if (n_fields == 3) return masked ? launch<3, false, false, true>(a, s) : launch<3, false, false, false>(a, s);
-  if (n_fields == 1) return masked ? launch<1, false, false, true>(a, s) : launch<1, false, false, false>(a, s);
-  return cudaErrorInvalidValue;
-}
-
-}  // namespace fsk
-
 extern "C" const char* fs_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 // fields (n_fields, n, n, n), vel (3, n, n, n), dens (n, n, n) or null, mask
-// (n, n, n) one byte per cell (nonzero = solid) or null, out like fields, tmp
-// like fields (scratch; may be null when n_sub == 1); all float32 apart from
-// the mask, contiguous, on the current device.  dt0_sub = f32(dt0 / n_sub)
-// with dt0 = f32(dt) * f32(n - 2).  With has_buoy the fields must be the
-// velocity and there must be no mask.  Launches on `stream` and returns the
-// first cudaError_t.
+// (n, n, n) one byte per cell (nonzero = solid) or null, emitter (5,) or
+// null, out like fields, tmp like fields (scratch; may be null when n_sub ==
+// 1); all float32 apart from the mask, contiguous, on the current device.
+// dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2).  With has_buoy
+// the fields must be the velocity and there must be no mask; the emitter
+// needs has_buoy.  Launches on `stream` and returns the first cudaError_t.
 extern "C" int fs_advect_k1(const float* fields, const float* vel, const float* dens,
-                            const unsigned char* mask, float* out, float* tmp, int n,
-                            int n_fields, int b0, int b1, int b2, float dt0_sub, int n_sub,
-                            int has_buoy, float buoy_dt, float buoyancy, float ambient,
-                            float gravity, void* stream) {
+                            const unsigned char* mask, const float* emitter, float* out,
+                            float* tmp, int n, int n_fields, int b0, int b1, int b2,
+                            float dt0_sub, int n_sub, int has_buoy, float buoy_dt,
+                            float buoyancy, float ambient, float gravity, void* stream) {
   using namespace fsk;
-  if (n < 3 || n_sub < 1 || (n_sub > 1 && tmp == nullptr) || (has_buoy && dens == nullptr)) {
+  if (n < 3 || (has_buoy && dens == nullptr) || (emitter != nullptr && !has_buoy)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bs[3] = {b0, b1, b2};
-  bool mirror = false;
-  for (int c = 0; c < n_fields && c < 3; ++c) {
-    mirror = mirror || (mask != nullptr && bs[c] >= 1 && bs[c] <= 3);
-  }
-  Substep a{fields, vel, dens, mask, nullptr, n, b0, b1, b2, dt0_sub,
-            Buoyancy{buoy_dt, buoyancy, ambient, gravity}};
-  for (int sub = 0; sub < n_sub; ++sub) {
-    // The last substep writes `out`; earlier ones alternate back from it.
-    a.dst = (n_sub - 1 - sub) % 2 == 0 ? out : tmp;
-    cudaError_t err = launch_substep(a, n_fields, has_buoy != 0, has_buoy != 0 && sub == 0, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (mirror) {
-      mirror_obstacles_kernel<<<cell_grid(n), cell_block(), 0, s>>>(a.dst, mask, n, n_fields,
-                                                                    b0, b1, b2);
-      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    }
-    a.src = a.dst;
-  }
-  return static_cast<int>(cudaSuccess);
+  const Substep a{fields, vel, dens, mask, emitter, nullptr, n, b0, b1, b2, dt0_sub, 1.0f,
+                  Buoyancy{buoy_dt, buoyancy, ambient, gravity}};
+  return static_cast<int>(advect_substeps(a, n_fields, n_sub, has_buoy != 0,
+                                          emitter != nullptr ? kSrcDensity : kSrcNone, out, tmp,
+                                          1.0f, static_cast<cudaStream_t>(stream)));
 }

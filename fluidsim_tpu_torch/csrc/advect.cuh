@@ -1,9 +1,9 @@
 // Device code shared by the K=1 semi-Lagrangian backtrace kernels: the
-// self-advection kernel (advect.cu) and the density phase of the fused
-// projection (project_advect.cu).  It is the counterpart of
-// fluidsim_tpu/pallas/advect.py::_substep_window_vals with k_win = 1 (one
-// substep of it; the caller loops over the substeps), which the TPU kernels
-// share the same way.
+// self-advection kernel (advect.cu), the density phase of the fused
+// projection (project_advect.cu) and the whole-step kernel (full_step.cu).
+// It is the counterpart of fluidsim_tpu/pallas/advect.py::_substep_window_vals
+// with k_win = 1 (one substep of it; the caller loops over the substeps),
+// which the TPU kernels share the same way.
 //
 // Arithmetic follows the TPU kernel operation by operation (the build uses
 // -fmad=false, so nothing is contracted into an FMA):
@@ -14,6 +14,11 @@
 // Only interior cells are ever interpolated (border cells copy theirs, see
 // boundary.cuh), so every tap (at most one cell away) lies inside the grid:
 // no wrapped or clamped reads are needed.
+//
+// The device functions take plain pointers: full_step.cu reads, in a later
+// phase of the same launch, buffers that an earlier phase wrote, which rules
+// out the read-only cache that __restrict__ lets the compiler use.  The
+// __global__ kernels mark their own arguments __restrict__.
 #pragma once
 
 #include "boundary.cuh"
@@ -35,6 +40,22 @@ __device__ __forceinline__ float buoyant_vy(float vy, float rho, const Buoyancy&
   return vy + bp.dt * accel;
 }
 
+// The folded emitter, scene/sources.src_field_add at cell (z, y, x):
+// e = [px, py, pz, strength, radius] (centre and radius in cells), and
+//   d = sqrt(((x-px)^2 + (y-py)^2) + (z-pz)^2),
+//   v + strength * (d <= r ? 1 - d/r : 0).
+// More than r + 1 from the centre along any axis the distance exceeds r
+// whatever its rounding, so the add is of a zero: skipped (as the TPU
+// kernels skip the windows the ball misses, src_window_hit).
+__device__ __forceinline__ float emitter_add(float v, const float* e, int z, int y, int x) {
+  const float dx = float(x) - e[0], dy = float(y) - e[1], dz = float(z) - e[2];
+  const float r = e[4], reach = r + 1.0f;
+  if (fabsf(dx) > reach || fabsf(dy) > reach || fabsf(dz) > reach) return v;
+  const float d = sqrtf((dx * dx + dy * dy) + dz * dz);
+  const float falloff = d <= r ? 1.0f - d / r : 0.0f;
+  return v + e[3] * falloff;
+}
+
 __device__ __forceinline__ float frac_k1(float coord, float v, float dt0, float hi) {
   float t = coord - dt0 * v;
   t = max_to(t, 0.5f);
@@ -47,15 +68,20 @@ __device__ __forceinline__ float comb(float gm, float g0, float gp, float wp, fl
   return (g0 + wp * (gp - g0)) + wm * (gm - g0);
 }
 
+// Where a folded emitter's add goes: nowhere, onto the buoyancy's density
+// (K1's self-advection, JAX advect_multi_3d_pallas(buoy=, src=)), or onto the
+// advected field itself (the fused projection's density phase, K2s).
+enum SrcOn { kSrcNone = 0, kSrcDensity = 1, kSrcFields = 2 };
+
 // The F advected fields at interior cell (z, y, x) of an n^3 grid.  fields is
 // (F, n, n, n) and vel (3, n, n, n), both [z, y, x].  BUOY_VEL adds the
 // buoyancy of the density at the cell to the y velocity of the backtrace;
 // BUOY_TAPS (self-advection: the fields are the velocity itself) also adds
-// it to every tap of the y component, from the density at that tap.
-template <int F, bool BUOY_VEL, bool BUOY_TAPS>
-__device__ __forceinline__ void advect_cell_k1(const float* __restrict__ fields,
-                                               const float* __restrict__ vel,
-                                               const float* __restrict__ dens,
+// it to every tap of the y component, from the density at that tap.  SRC
+// adds the emitter `e` to the density (or field) value at each point read.
+template <int F, bool BUOY_VEL, bool BUOY_TAPS, int SRC>
+__device__ __forceinline__ void advect_cell_k1(const float* fields, const float* vel,
+                                               const float* dens, const float* e,
                                                const Buoyancy bp, int n, float dt0,
                                                int z, int y, int x, float (&out)[F]) {
   const long long sn = n, plane = sn * sn, vol = plane * sn;
@@ -63,7 +89,11 @@ __device__ __forceinline__ void advect_cell_k1(const float* __restrict__ fields,
   const float vx = vel[c0];
   float vy = vel[vol + c0];
   const float vz = vel[2 * vol + c0];
-  if (BUOY_VEL) vy = buoyant_vy(vy, dens[c0], bp);
+  if (BUOY_VEL) {
+    float rho = dens[c0];
+    if (SRC == kSrcDensity) rho = emitter_add(rho, e, z, y, x);
+    vy = buoyant_vy(vy, rho, bp);
+  }
   const float hi = float(n) - 1.5f;
   const float fx = frac_k1(float(x), vx, dt0, hi);
   const float fy = frac_k1(float(y), vy, dt0, hi);
@@ -86,7 +116,12 @@ __device__ __forceinline__ void advect_cell_k1(const float* __restrict__ fields,
 #pragma unroll
         for (int dx = -1; dx <= 1; ++dx) {
           g[dx + 1] = f[r + dx];
-          if (BUOY_TAPS && c == 1) g[dx + 1] = buoyant_vy(g[dx + 1], dens[r + dx], bp);
+          if (SRC == kSrcFields) g[dx + 1] = emitter_add(g[dx + 1], e, z + dz, y + dy, x + dx);
+          if (BUOY_TAPS && c == 1) {
+            float rho = dens[r + dx];
+            if (SRC == kSrcDensity) rho = emitter_add(rho, e, z + dz, y + dy, x + dx);
+            g[dx + 1] = buoyant_vy(g[dx + 1], rho, bp);
+          }
         }
         yc[dy + 1] = comb(g[0], g[1], g[2], fxp, fxm);
       }
@@ -95,5 +130,134 @@ __device__ __forceinline__ void advect_cell_k1(const float* __restrict__ fields,
     out[c] = comb(zc[0], zc[1], zc[2], fzp, fzm);
   }
 }
+
+// One substep's operands.  src (F, n, n, n) is read and dst written; dens is
+// the buoyancy's density, mask one byte per cell (nonzero = solid) and
+// emitter the (5,) descriptor, each null when unused; b0..b2 the fields'
+// boundary codes; scale multiplies every output value after the faces.
+struct Substep {
+  const float *src, *vel, *dens;
+  const uint8_t* mask;
+  const float* emitter;
+  float* dst;
+  int n, b0, b1, b2;
+  float dt0, scale;
+  Buoyancy bp;
+};
+
+// One substep at cell k: the backtrace (a solid interior cell is zero
+// instead), then the set_bnd face sign of each field's code, then the scale.
+template <int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC>
+__device__ __forceinline__ void advect_store(const Substep& a, const Cell& k) {
+  float v[F];
+  if (MASK && a.mask[k.c] != 0) {
+#pragma unroll
+    for (int c = 0; c < F; ++c) v[c] = 0.0f;
+  } else {
+    advect_cell_k1<F, BUOY_VEL, BUOY_TAPS, SRC>(a.src, a.vel, a.dens, a.emitter, a.bp, a.n,
+                                                 a.dt0, k.cz, k.cy, k.cx, v);
+  }
+  const long long vol = static_cast<long long>(a.n) * a.n * a.n;
+  const int bs[3] = {a.b0, a.b1, a.b2};
+#pragma unroll
+  for (int c = 0; c < F; ++c) {
+    const float u = face_negates(bs[c], k.z, k.y, k.x, k.cz, k.cy, k.cx) ? -v[c] : v[c];
+    a.dst[c * vol + k.idx] = u * a.scale;
+  }
+}
+
+// Internal linkage, as in boundary.cuh: every source that launches K1's
+// kernel gets its own copy.
+namespace {
+
+template <int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC>
+__global__ void __launch_bounds__(kThreads)
+    advect_k1_kernel(const float* __restrict__ src, const float* __restrict__ vel,
+                     const float* __restrict__ dens, const uint8_t* __restrict__ mask,
+                     const float* __restrict__ emitter, float* __restrict__ dst, int n, int b0,
+                     int b1, int b2, float dt0, float scale, Buoyancy bp) {
+  Cell k;
+  if (!cell_of_thread(n, k)) return;
+  advect_store<F, BUOY_VEL, BUOY_TAPS, MASK, SRC>(
+      Substep{src, vel, dens, mask, emitter, dst, n, b0, b1, b2, dt0, scale, bp}, k);
+}
+
+template <int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC>
+cudaError_t launch(const Substep& a, cudaStream_t s) {
+  advect_k1_kernel<F, BUOY_VEL, BUOY_TAPS, MASK, SRC><<<cell_grid(a.n), cell_block(), 0, s>>>(
+      a.src, a.vel, a.dens, a.mask, a.emitter, a.dst, a.n, a.b0, a.b1, a.b2, a.dt0, a.scale,
+      a.bp);
+  return cudaGetLastError();
+}
+
+// The variants the port runs: buoyancy (with or without the emitter on its
+// density) only in velocity self-advection without a mask; the emitter on
+// the field only for a scalar without a mask (K2s's density phase).
+cudaError_t launch_substep(const Substep& a, int n_fields, bool buoy_vel, bool buoy_taps,
+                           int src, cudaStream_t s) {
+  const bool masked = a.mask != nullptr;
+  if (n_fields == 3 && buoy_vel && !masked) {
+    if (src == kSrcDensity) {
+      return buoy_taps ? launch<3, true, true, false, kSrcDensity>(a, s)
+                       : launch<3, true, false, false, kSrcDensity>(a, s);
+    }
+    if (src == kSrcNone) {
+      return buoy_taps ? launch<3, true, true, false, kSrcNone>(a, s)
+                       : launch<3, true, false, false, kSrcNone>(a, s);
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (buoy_vel) return cudaErrorInvalidValue;
+  if (n_fields == 1 && src == kSrcFields && !masked) {
+    return launch<1, false, false, false, kSrcFields>(a, s);
+  }
+  if (src != kSrcNone) return cudaErrorInvalidValue;
+  if (n_fields == 3) {
+    return masked ? launch<3, false, false, true, kSrcNone>(a, s)
+                  : launch<3, false, false, false, kSrcNone>(a, s);
+  }
+  if (n_fields == 1) {
+    return masked ? launch<1, false, false, true, kSrcNone>(a, s)
+                  : launch<1, false, false, false, kSrcNone>(a, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// n_sub substeps of a.src through a.vel, one launch each, the last into out
+// and the earlier ones alternating back from it with tmp (which may be null
+// when n_sub == 1), so the input is never written.  With a mask, velocity
+// codes get the obstacle mirror after every substep, as a second launch in
+// place.  The buoyancy (and the emitter on its density) enters every
+// substep's backtrace velocity and the first substep's taps; an emitter on
+// the fields enters the first substep only, whose input it is.  `scale`
+// multiplies the last substep's output (not with a mirror, which would have
+// to come first).  Returns the first cudaError_t.
+cudaError_t advect_substeps(Substep a, int n_fields, int n_sub, bool buoy, int src,
+                            float* out, float* tmp, float scale, cudaStream_t s) {
+  if (n_sub < 1 || (n_sub > 1 && tmp == nullptr)) return cudaErrorInvalidValue;
+  const int bs[3] = {a.b0, a.b1, a.b2};
+  bool mirror = false;
+  for (int c = 0; c < n_fields && c < 3; ++c) {
+    mirror = mirror || (a.mask != nullptr && bs[c] >= 1 && bs[c] <= 3);
+  }
+  if (mirror && scale != 1.0f) return cudaErrorInvalidValue;
+  for (int sub = 0; sub < n_sub; ++sub) {
+    a.dst = (n_sub - 1 - sub) % 2 == 0 ? out : tmp;
+    a.scale = sub == n_sub - 1 ? scale : 1.0f;
+    const int sub_src = (src == kSrcFields && sub > 0) ? kSrcNone : src;
+    cudaError_t err = launch_substep(a, n_fields, buoy, buoy && sub == 0, sub_src, s);
+    if (err != cudaSuccess) return err;
+    if (mirror) {
+      mirror_obstacles_kernel<<<cell_grid(a.n), cell_block(), 0, s>>>(a.dst, a.mask, a.n,
+                                                                      n_fields, a.b0, a.b1,
+                                                                      a.b2);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    a.src = a.dst;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
 
 }  // namespace fsk

@@ -49,18 +49,34 @@ struct Cell {
   long long idx, c;  // flat index of the cell and of its interior cell
 };
 
-__device__ __forceinline__ bool cell_of_thread(int n, Cell& k) {
-  k.x = blockIdx.x * blockDim.x + threadIdx.x;
-  k.y = blockIdx.y * blockDim.y + threadIdx.y;
-  k.z = blockIdx.z * blockDim.z + threadIdx.z;
-  if (k.x >= n || k.y >= n || k.z >= n) return false;
+__device__ __forceinline__ void fill_cell(int n, Cell& k) {
   k.cx = clamp_interior(k.x, n);
   k.cy = clamp_interior(k.y, n);
   k.cz = clamp_interior(k.z, n);
   const long long sn = n;
   k.idx = (k.z * sn + k.y) * sn + k.x;
   k.c = (k.cz * sn + k.cy) * sn + k.cx;
+}
+
+__device__ __forceinline__ bool cell_of_thread(int n, Cell& k) {
+  k.x = blockIdx.x * blockDim.x + threadIdx.x;
+  k.y = blockIdx.y * blockDim.y + threadIdx.y;
+  k.z = blockIdx.z * blockDim.z + threadIdx.z;
+  if (k.x >= n || k.y >= n || k.z >= n) return false;
+  fill_cell(n, k);
   return true;
+}
+
+// The cell at flat index i < n^3 < 2^31 (x fastest), for the grid-stride
+// loops of a persistent kernel (full_step.cu).
+__device__ __forceinline__ Cell cell_at(int n, int i) {
+  Cell k;
+  const int row = i / n;
+  k.x = i - row * n;
+  k.y = row % n;
+  k.z = row / n;
+  fill_cell(n, k);
+  return k;
 }
 
 // Internal linkage: every translation unit that launches these kernels gets

@@ -1,5 +1,6 @@
 // The pressure projection's phases, shared by K2 (project_advect.cu, which
-// adds the density advection) and K3 (project.cu):
+// adds the density advection), K3 (project.cu) and K8 (full_step.cu, which
+// runs their per-cell bodies in one launch):
 //   1. divergence  -0.5*((dvx + dvy) + dvz) / n, rounded to the solve dtype;
 //      the iterate starts at zero;
 //   2. `iters` Jacobi sweeps  p <- round_sd((rhs + nbr(p)) * coef), with
@@ -38,15 +39,15 @@ __device__ __forceinline__ float st<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 st<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
 
-// Internal linkage, as in boundary.cuh: K2 and K3 each get their own copy.
-namespace {
+// The phases' bodies at one cell, shared by the kernels below and by the
+// whole-step kernel (full_step.cu), which loops over cells.  Plain pointers,
+// as in advect.cuh.
 
+// Phase 1: the rhs at cell k, and the zero start of the iterate when p0 is
+// not null.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    divergence_kernel(const float* __restrict__ vel, T* __restrict__ rhs,
-                      T* __restrict__ p0, int n) {
-  Cell k;
-  if (!cell_of_thread(n, k)) return;
+__device__ __forceinline__ void divergence_cell(const float* vel, T* rhs, T* p0, int n,
+                                                const Cell& k) {
   if (p0 != nullptr) p0[k.idx] = st<T>(0.0f);
   // The rhs is only ever read at interior cells; its faces hold zero.
   if (k.idx != k.c) {
@@ -61,13 +62,11 @@ __global__ void __launch_bounds__(kThreads)
   rhs[i] = st<T>((-0.5f * ((dx + dy) + dz)) / float(n));
 }
 
+// Phase 2: one Jacobi sweep at cell k (a border cell recomputes its
+// interior cell, the b = 0 faces).
 template <typename T, bool MASK>
-__global__ void __launch_bounds__(kThreads)
-    jacobi_sweep_kernel(const T* __restrict__ src, const T* __restrict__ rhs,
-                        const uint8_t* __restrict__ mask, T* __restrict__ dst, int n,
-                        float inv6) {
-  Cell k;
-  if (!cell_of_thread(n, k)) return;
+__device__ __forceinline__ void sweep_cell(const T* src, const T* rhs, const uint8_t* mask,
+                                           T* dst, int n, float inv6, const Cell& k) {
   const long long sn = n, plane = sn * sn, c = k.c;
   const float coef = (MASK && mask[c] != 0) ? 0.0f : inv6;
   const float xs = ld(src[c + 1]) + ld(src[c - 1]);
@@ -76,13 +75,12 @@ __global__ void __launch_bounds__(kThreads)
   dst[k.idx] = st<T>((ld(rhs[c]) + ((xs + ys) + zs)) * coef);
 }
 
+// Phase 3 at cell k: the gradient step (held in solid cells), the faces,
+// the pressure's float32 copy when p_out is not null, then * damp.
 template <typename T, bool MASK>
-__global__ void __launch_bounds__(kThreads)
-    gradient_kernel(const float* __restrict__ vel, const T* __restrict__ p,
-                    const uint8_t* __restrict__ mask, float* __restrict__ vel_out,
-                    float* __restrict__ p_out, int n, float damp) {
-  Cell k;
-  if (!cell_of_thread(n, k)) return;
+__device__ __forceinline__ void gradient_cell(const float* vel, const T* p, const uint8_t* mask,
+                                              float* vel_out, float* p_out, int n, float damp,
+                                              const Cell& k) {
   const long long sn = n, plane = sn * sn, vol = plane * sn, c = k.c;
   const float nf = float(n);
   if (p_out != nullptr) p_out[k.idx] = ld(p[k.idx]);
@@ -95,6 +93,38 @@ __global__ void __launch_bounds__(kThreads)
     const float u = solid ? vel[comp * vol + c] : vel[comp * vol + c] - g;
     vel_out[comp * vol + k.idx] = (negate[comp] ? -u : u) * damp;
   }
+}
+
+// Internal linkage, as in boundary.cuh: K2 and K3 each get their own copy.
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    divergence_kernel(const float* __restrict__ vel, T* __restrict__ rhs,
+                      T* __restrict__ p0, int n) {
+  Cell k;
+  if (!cell_of_thread(n, k)) return;
+  divergence_cell<T>(vel, rhs, p0, n, k);
+}
+
+template <typename T, bool MASK>
+__global__ void __launch_bounds__(kThreads)
+    jacobi_sweep_kernel(const T* __restrict__ src, const T* __restrict__ rhs,
+                        const uint8_t* __restrict__ mask, T* __restrict__ dst, int n,
+                        float inv6) {
+  Cell k;
+  if (!cell_of_thread(n, k)) return;
+  sweep_cell<T, MASK>(src, rhs, mask, dst, n, inv6, k);
+}
+
+template <typename T, bool MASK>
+__global__ void __launch_bounds__(kThreads)
+    gradient_kernel(const float* __restrict__ vel, const T* __restrict__ p,
+                    const uint8_t* __restrict__ mask, float* __restrict__ vel_out,
+                    float* __restrict__ p_out, int n, float damp) {
+  Cell k;
+  if (!cell_of_thread(n, k)) return;
+  gradient_cell<T, MASK>(vel, p, mask, vel_out, p_out, n, damp, k);
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -2,7 +2,9 @@
 
 The host-side equivalent of the reference's ``Update()`` loop
 (FluidSim.cs:390-450): emitter injection then one solver step, per step, in
-a Python loop; pause, reset, source repositioning and an optional NaN guard.
+a Python loop (or, where ``stable3d.emitter_folds`` holds, the emitter
+folded into the step's kernels, as the JAX ``Engine`` does); pause, reset,
+source repositioning and an optional NaN guard.
 The SQLite metrics store, mouse drag and checkpoints are not ported yet and
 raise ``NotImplementedError``.
 """
@@ -20,7 +22,12 @@ from .kernels.project import resident_route
 from .models import stable3d
 from .models.stable3d import HAND_KERNELS, StepKernels, simulate_step_3d
 from .scene.obstacles import build_obstacle_mask
-from .scene.sources import apply_custom_source, source_params
+from .scene.sources import (
+    apply_custom_source,
+    emitter_fold_operand,
+    emitter_fold_values,
+    source_params,
+)
 from .state import FluidState, zeros_state
 
 
@@ -48,13 +55,23 @@ class Engine:
         self.reset()
 
     def _checked(self, cfg: SimConfig) -> SimConfig:
-        """Validate ``cfg`` and decide its projection route on this device
-        once, for every step until the next ``set_config``."""
+        """Validate ``cfg`` and decide its projection route and whether the
+        emitter folds into the kernels on this device once, for every step
+        until the next ``set_config``."""
         cfg = cfg.validate()
+        use_kernels = stable3d._kernels_usable(cfg, self.device)
         self._resident = resident_route(cfg.current_size, cfg.solve_dtype, self.device)
-        stable3d.check_supported(cfg, stable3d._kernels_usable(cfg, self.device),
-                                 self._resident)
+        stable3d.check_supported(cfg, use_kernels)
+        self._folds = stable3d.emitter_folds(cfg, use_kernels, self._resident)
         return cfg
+
+    def _set_src_params(self, params) -> None:
+        """The emitter's values, and (where it folds) their fixed part of
+        the kernels' descriptor on the device, copied once per change."""
+        self._src_params = params
+        self._fold_values = (
+            torch.from_numpy(emitter_fold_values(self.cfg, params)).to(self.device)
+            if self._folds else None)
 
     # -- lifecycle ------------------------------------------------------
 
@@ -63,7 +80,7 @@ class Engine:
         re-rasterize obstacles from the current config."""
         obst = build_obstacle_mask(self.cfg)
         self.state = zeros_state(self.cfg, self.device, obstacles=obst)
-        self._src_params = source_params(self.cfg)
+        self._set_src_params(source_params(self.cfg))
         self._host_step = 0
         # Wall-clock elapsedTime for pulse_clock="wall" (FluidSim.cs:394):
         # accumulates frame deltas only while unpaused.
@@ -80,7 +97,7 @@ class Engine:
         else:
             obst = torch.as_tensor(build_obstacle_mask(cfg), device=self.device)
             self.state = self.state.replace(obstacles=obst)
-            self._src_params = source_params(self.cfg)
+            self._set_src_params(source_params(self.cfg))
 
     def set_paused(self, paused: bool) -> None:
         """FluidSim.cs:149-153."""
@@ -93,6 +110,11 @@ class Engine:
 
     def _one_step(self, state: FluidState) -> FluidState:
         t = state.time + self.cfg.effective_params()[0]
+        if self._folds:
+            src = emitter_fold_operand(self.cfg, t, params=self._src_params,
+                                       values=self._fold_values)
+            return simulate_step_3d(state, self.cfg, self.kernels, self._resident,
+                                    src=src)
         density, velocity = apply_custom_source(
             state.density, state.velocity, self.cfg, t, params=self._src_params
         )
@@ -142,9 +164,9 @@ class Engine:
         n = self.cfg.current_size
         pos = tuple(float(np.clip(c / n, 0.0, 1.0)) for c in coords)
         self.cfg = self.cfg.replace(source_position=pos)
-        self._src_params = self._src_params._replace(
+        self._set_src_params(self._src_params._replace(
             position=np.asarray(pos[: self.cfg.ndim], np.float32)
-        )
+        ))
 
     def drag(self, prev_pos: Sequence[float], cur_pos: Sequence[float]) -> None:
         raise NotImplementedError("mouse drag (scene/interact) is not ported")

@@ -38,19 +38,26 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# C entry points: name -> argument types (every one returns a cudaError_t).
+# C entry points: name -> argument types (each returns an int: a cudaError_t,
+# or for fs_full_step_blocks a block count).
 SIGNATURES = {
-    # fields, vel, dens, mask, out, tmp, n, n_fields, b0, b1, b2, dt0_sub,
-    # n_sub, has_buoy, buoy_dt, buoyancy, ambient, gravity, stream
-    "fs_advect_k1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+    # fields, vel, dens, mask, emitter, out, tmp, n, n_fields, b0, b1, b2,
+    # dt0_sub, n_sub, has_buoy, buoy_dt, buoyancy, ambient, gravity, stream
+    "fs_advect_k1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                      _I, _I, _F, _F, _F, _F, _P),
     # vel, mask, vel_out, p_out, p_a, p_b, rhs, n, iters, solve_bf16, damp,
     # stream
     "fs_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
-    # vel, dens, vel_out, p_out, dens_out, p_a, p_b, rhs,
-    # n, iters, solve_bf16, dt0, damp, dens_damp, stream
-    "fs_project_advect_density": (_P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _F, _F, _F, _P),
+    # vel, dens, mask, emitter, vel_out, p_out, dens_out, dens_tmp, p_a, p_b,
+    # rhs, n, iters, solve_bf16, dt0_sub, n_sub, damp, dens_damp, stream
+    "fs_project_advect_density": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _F, _I, _F, _F, _P),
+    # vel, dens, adv, vel_out, p_out, dens_out, p_a, p_b, rhs, n, iters,
+    # solve_bf16, dt0_sub, n_sub, damp, dens_damp, stream
+    "fs_full_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                     _F, _F, _P),
+    # solve_bf16 (returns the cooperative grid's block count, or -error)
+    "fs_full_step_blocks": (_I,),
     # x, x0, out, tmp, n, b, a, inv_c, iters, stream
     "fs_jacobi": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
     # vel, div, n, stream

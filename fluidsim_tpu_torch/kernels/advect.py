@@ -1,7 +1,8 @@
 """K1: the K=1 semi-Lagrangian advection kernel, its plain twin and its wrapper.
 
 Counterpart of ``fluidsim_tpu/pallas/advect.py`` (``advect_multi_3d_pallas``
-→ ``_advect_kernel``, core ``_substep_window_vals``).  The CUDA kernel is
+→ ``_advect_kernel``, core ``_substep_window_vals``), with the buoyancy and
+the folded emitter (``src``) of its self-advection.  The CUDA kernel is
 ``csrc/advect.cu``; ``advect_multi_3d_plain`` is the same arithmetic in plain
 PyTorch (the two-tap form, not the 27-term hat sum of ``ops/advect.py``),
 used for CPU tensors and as the reference the kernel is checked against.
@@ -17,6 +18,7 @@ import torch
 
 from ..ops.boundary import set_bnd_3d
 from ..ops.forces import buoyancy_force
+from ..scene.sources import src_field_add
 from . import _build
 
 
@@ -36,7 +38,7 @@ def substep_dt0(dt: float, n: int, n_sub: int) -> float:
 
 
 def advect_multi_3d_plain(bs, fields, vel, dt: float, buoy=None, obst=None,
-                          n_sub: int = 1):
+                          n_sub: int = 1, src=None):
     """Plain PyTorch twin of the K1 kernel: advect the ``(F, N, N, N)``
     ``fields`` (boundary codes ``bs``) through ``vel`` with the clamped K=1
     backtrace in ``n_sub`` substeps of ``dt/n_sub``.  After every substep
@@ -47,11 +49,17 @@ def advect_multi_3d_plain(bs, fields, vel, dt: float, buoy=None, obst=None,
 
     ``buoy = (density, buoyancy, ambient, gravity)`` (self-advection only)
     adds the buoyancy force to the y velocity first, at the cell and at
-    every tap, exactly as the kernel does."""
+    every tap, exactly as the kernel does.  ``src``, the ``(5,)`` emitter
+    descriptor (``scene.sources.emitter_fold_operand``), is first added to
+    that density (``src_field_add``); it needs ``buoy``."""
     n = fields.shape[-1]
     dt0 = substep_dt0(dt, n, n_sub)
+    if src is not None and buoy is None:
+        raise ValueError("src folding rides the buoy density reads")
     if buoy is not None:
         dens, b_f, amb, grav = buoy
+        if src is not None:
+            dens = src_field_add(dens, src)
         vel = buoyancy_force(vel, dens, dt, b_f, amb, grav)
         fields = vel
     f32 = torch.float32
@@ -109,8 +117,22 @@ def _check_volume(name: str, t: torch.Tensor, shape,
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _check_substeps(n_sub) -> int:
+    if int(n_sub) != n_sub or n_sub < 1:
+        raise ValueError(f"n_sub must be a positive integer, got {n_sub}")
+    return int(n_sub)
+
+
+def _check_src(src, device) -> None:
+    """The emitter descriptor: a contiguous ``(5,)`` float32 tensor on
+    ``device``."""
+    _check_volume("src", src, (5,))
+    if src.device != device:
+        raise ValueError("src must be on the fields' device")
+
+
 def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 1,
-                           n_sub: int = 1, buoy=None):
+                           n_sub: int = 1, buoy=None, src=None):
     """Advect ``fields`` (F = 1 or 3) through ``vel`` with the K1 kernel, in
     ``n_sub`` substeps, with the obstacle contract after each when the bool
     mask ``obst`` is given.
@@ -118,21 +140,22 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
     CUDA tensors launch ``csrc/advect.cu``; CPU tensors run
     ``advect_multi_3d_plain``.  ``buoy = (density, buoyancy, ambient,
     gravity)`` folds the buoyancy force into a self-advection call
-    (``fields is vel``, ``bs == (1, 2, 3)``) without a mask.  Raises for what
-    the kernel does not take.  ``advect_multi_3d_kernel.launches`` counts
+    (``fields is vel``, ``bs == (1, 2, 3)``) without a mask; ``src`` (the
+    ``(5,)`` emitter descriptor) adds the emitter to that density.  Raises
+    for what the kernel does not take.  ``advect_multi_3d_kernel.launches`` counts
     calls that launched the kernel."""
     bs = tuple(bs)
     if window != 1:
         raise NotImplementedError(
             f"advection kernel with window={window}: only window=1 is ported")
-    if int(n_sub) != n_sub or n_sub < 1:
-        raise ValueError(f"n_sub must be a positive integer, got {n_sub}")
-    n_sub = int(n_sub)
+    n_sub = _check_substeps(n_sub)
     if buoy is not None and not (fields is vel and bs == (1, 2, 3)):
         raise ValueError("buoy folding requires a self-advect call")
     if buoy is not None and obst is not None:
         raise NotImplementedError(
             "the buoyancy fold with an obstacle mask is not ported")
+    if src is not None and buoy is None:
+        raise ValueError("src folding rides the buoy density reads")
     n_fields, n = fields.shape[0], fields.shape[-1]
     if n_fields not in (1, 3) or len(bs) != n_fields:
         raise ValueError(f"unsupported fields {tuple(fields.shape)} with bs={bs}")
@@ -149,9 +172,11 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
         tensors.append(obst)
     if any(t.device != fields.device for t in tensors):
         raise ValueError("all tensors must be on one device")
+    if src is not None:
+        _check_src(src, fields.device)
 
     if fields.device.type == "cpu":
-        return advect_multi_3d_plain(bs, fields, vel, dt, buoy, obst, n_sub)
+        return advect_multi_3d_plain(bs, fields, vel, dt, buoy, obst, n_sub, src)
     if fields.device.type != "cuda":
         raise ValueError(f"unsupported device {fields.device}")
 
@@ -168,7 +193,8 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_advect_k1(
             fields.data_ptr(), vel.data_ptr(), dens_ptr,
-            None if obst is None else obst.data_ptr(), out.data_ptr(),
+            None if obst is None else obst.data_ptr(),
+            None if src is None else src.data_ptr(), out.data_ptr(),
             None if tmp is None else tmp.data_ptr(),
             n, n_fields, b[0], b[1], b[2], substep_dt0(dt, n, n_sub), n_sub,
             int(buoy is not None), *bp, stream,

@@ -1,13 +1,17 @@
-"""K2, the fused projection + density advection kernel, and K3, the
-projection on its own with an optional obstacle mask: their plain twins and
-their wrappers.
+"""K2, the fused projection + density advection kernel (with its emitter
+and obstacle variants K2s and K2o), K3, the projection on its own with an
+optional obstacle mask, and K8, the whole step in one launch: their plain
+twins and their wrappers.
 
 Counterpart of ``fluidsim_tpu/pallas/resident.py``: K2 is
 ``project_advect_density_3d_resident`` → ``_project_advect_kernel`` (phases
-``_project_body``, ``_solve_loop`` and ``_density_phase``), K3 is
-``project_3d_resident`` → ``_project_kernel`` / ``_project_obst_kernel``.
-The CUDA kernels are ``csrc/project_advect.cu`` and ``csrc/project.cu``,
-which share the projection's phases (``csrc/project.cuh``).  The twins are
+``_project_body``, ``_solve_loop`` and ``_density_phase``; K2s is
+``_project_advect_src_kernel``, K2o ``_project_advect_obst_kernel``), K3 is
+``project_3d_resident`` → ``_project_kernel`` / ``_project_obst_kernel``, K8
+is ``full_step_3d_resident`` → ``_full_step_kernel``.  The CUDA kernels are
+``csrc/project_advect.cu``, ``csrc/project.cu`` and ``csrc/full_step.cu``,
+which share the projection's phases (``csrc/project.cuh``) and K1's
+backtrace (``csrc/advect.cuh``).  The twins are
 the same arithmetic in plain PyTorch: the ``inv6`` multiply (``(1 − m)·inv6``
 with a mask), the rhs and every iterate rounded to the solve dtype, the
 gradient held in solid cells, the faces, the obstacle mirror, then ``damp``
@@ -24,8 +28,15 @@ import torch.nn.functional as F
 
 from ..ops.boundary import apply_faces_3d, set_bnd_3d
 from ..ops.linsolve import _nbr_sum_3d
+from ..scene.sources import src_field_add
 from . import _build
-from .advect import _check_volume, advect_multi_3d_plain
+from .advect import (
+    _check_src,
+    _check_substeps,
+    _check_volume,
+    advect_multi_3d_plain,
+    substep_dt0,
+)
 
 INV6 = float(np.float32(1.0) / np.float32(6.0))
 
@@ -99,13 +110,20 @@ def project_3d_resident_plain(vel, iters: int, obst=None, solve_dtype=None,
 
 
 def project_advect_density_3d_plain(vel, density, iters: int, dt: float, *,
+                                    obst=None, n_sub: int = 1, src=None,
                                     solve_dtype=None, damp: float = 1.0,
                                     dens_damp: float = 1.0):
-    """Plain PyTorch twin of the K2 kernel.  Returns ``(vel', p, density')``,
-    ``p`` being the float32 upcast of the final iterate."""
-    vel_out, p = project_3d_resident_plain(vel, iters, solve_dtype=solve_dtype,
-                                           damp=damp)
-    dens_out = advect_multi_3d_plain((0,), density[None], vel_out, dt)[0]
+    """Plain PyTorch twin of the K2 kernel (K2o with the bool mask ``obst``,
+    K2s with the ``(5,)`` emitter descriptor ``src``): the K3 twin, then the
+    density (plus the emitter) advected through the damped projected
+    velocity in ``n_sub`` substeps with the mask's contract, then ``·
+    dens_damp``.  Returns ``(vel', p, density')``, ``p`` being the float32
+    upcast of the final iterate."""
+    vel_out, p = project_3d_resident_plain(vel, iters, obst, solve_dtype, damp)
+    if src is not None:
+        density = src_field_add(density, src)
+    dens_out = advect_multi_3d_plain((0,), density[None], vel_out, dt, obst=obst,
+                                     n_sub=n_sub)[0]
     return vel_out, p, dens_out * dens_damp
 
 
@@ -127,29 +145,44 @@ def _solve_scratch(n: int, sdt: torch.dtype, device):
     return tuple(torch.empty((n, n, n), dtype=sdt, device=device) for _ in range(3))
 
 
+def _check_mask(obst, n: int, device) -> None:
+    _check_volume("obst", obst, (n, n, n), torch.bool)
+    if obst.device != device:
+        raise ValueError("vel and obst must be on one device")
+
+
 def project_advect_density_3d(vel, density, iters: int, dt: float, *,
-                              window: int = 1, n_sub: int = 1,
-                              solve_dtype=None, damp: float = 1.0,
+                              window: int = 1, n_sub: int = 1, obst=None,
+                              src=None, solve_dtype=None, damp: float = 1.0,
                               dens_damp: float = 1.0):
     """Project ``vel`` with ``iters`` Jacobi sweeps and advect ``density``
-    through the damped projected velocity, with the K2 kernel.
+    through the damped projected velocity in ``n_sub`` substeps, with the
+    K2 kernel: K2o with the bool obstacle mask ``obst``, K2s with the
+    ``(5,)`` emitter descriptor ``src`` (added to the density the first
+    substep reads; not with a mask, as in the JAX package).
 
     CUDA tensors launch ``csrc/project_advect.cu``; CPU tensors run
     ``project_advect_density_3d_plain``.  Returns ``(vel', p, density')``.
     ``project_advect_density_3d.launches`` counts launches."""
-    if window != 1 or n_sub != 1:
+    if window != 1:
         raise NotImplementedError(
-            f"fused projection with window={window}, n_sub={n_sub}: only "
-            "window=1, n_sub=1 is ported")
+            f"fused projection with window={window}: only window=1 is ported")
+    n_sub = _check_substeps(n_sub)
+    if src is not None and obst is not None:
+        raise ValueError("src folding requires an obstacle-free config")
     n, sdt = _checked_projection(vel, iters, solve_dtype)
     _check_volume("density", density, (n, n, n))
     if density.device != vel.device:
         raise ValueError("vel and density must be on one device")
+    if obst is not None:
+        _check_mask(obst, n, vel.device)
+    if src is not None:
+        _check_src(src, vel.device)
 
     if vel.device.type == "cpu":
         return project_advect_density_3d_plain(
-            vel, density, iters, dt, solve_dtype=solve_dtype, damp=damp,
-            dens_damp=dens_damp)
+            vel, density, iters, dt, obst=obst, n_sub=n_sub, src=src,
+            solve_dtype=solve_dtype, damp=damp, dens_damp=dens_damp)
     if vel.device.type != "cuda":
         raise ValueError(f"unsupported device {vel.device}")
 
@@ -157,16 +190,19 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
     vel_out = torch.empty_like(vel)
     p = torch.empty_like(density)
     dens_out = torch.empty_like(density)
+    dens_tmp = torch.empty_like(density) if n_sub > 1 else None
     p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device)
-    dt0 = float(np.float32(dt) * np.float32(n - 2))
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_project_advect_density(
-            vel.data_ptr(), density.data_ptr(), vel_out.data_ptr(),
-            p.data_ptr(), dens_out.data_ptr(), p_a.data_ptr(),
+            vel.data_ptr(), density.data_ptr(),
+            None if obst is None else obst.data_ptr(),
+            None if src is None else src.data_ptr(), vel_out.data_ptr(),
+            p.data_ptr(), dens_out.data_ptr(),
+            None if dens_tmp is None else dens_tmp.data_ptr(), p_a.data_ptr(),
             p_b.data_ptr(), rhs.data_ptr(), n, int(iters),
-            int(sdt == torch.bfloat16), dt0, float(damp), float(dens_damp),
-            stream,
+            int(sdt == torch.bfloat16), substep_dt0(dt, n, n_sub), n_sub,
+            float(damp), float(dens_damp), stream,
         )
     _build.check(lib, err, "fused projection kernel launch")
     project_advect_density_3d.launches += 1
@@ -186,9 +222,7 @@ def project_3d_resident(vel, iters: int, obst=None, solve_dtype=None,
     ``project_3d_resident.launches`` counts calls that launched the kernel."""
     n, sdt = _checked_projection(vel, iters, solve_dtype)
     if obst is not None:
-        _check_volume("obst", obst, (n, n, n), torch.bool)
-        if obst.device != vel.device:
-            raise ValueError("vel and obst must be on one device")
+        _check_mask(obst, n, vel.device)
 
     if vel.device.type == "cpu":
         return project_3d_resident_plain(vel, iters, obst, solve_dtype, damp)
@@ -213,3 +247,79 @@ def project_3d_resident(vel, iters: int, obst=None, solve_dtype=None,
 
 
 project_3d_resident.launches = 0
+
+
+def full_step_3d_plain(vel, density, iters: int, dt: float, *, n_sub: int = 1,
+                       solve_dtype=None, damp: float = 1.0,
+                       dens_damp: float = 1.0):
+    """Plain PyTorch twin of the K8 kernel: the K1 twin's self-advection in
+    ``n_sub`` substeps, then the K2 twin with the same ``n_sub`` (the JAX
+    ``full_step_3d_resident``'s contract).  Returns ``(vel', p,
+    density')``."""
+    adv = advect_multi_3d_plain((1, 2, 3), vel, vel, dt, n_sub=n_sub)
+    return project_advect_density_3d_plain(
+        adv, density, iters, dt, n_sub=n_sub, solve_dtype=solve_dtype,
+        damp=damp, dens_damp=dens_damp)
+
+
+def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
+                 n_sub: int = 1, solve_dtype=None, damp: float = 1.0,
+                 dens_damp: float = 1.0):
+    """Self-advect ``vel``, project it with ``iters`` Jacobi sweeps and
+    advect ``density`` through the damped result, each advection in
+    ``n_sub`` substeps, with the K8 kernel: one cooperative launch
+    (obstacle-free).
+
+    CUDA tensors launch ``csrc/full_step.cu`` and raise if the launch fails
+    (there is no fallback to K1 + K2); CPU tensors run
+    ``full_step_3d_plain``.  Returns ``(vel', p, density')``.
+    ``full_step_3d.launches`` counts launches."""
+    if window != 1:
+        raise NotImplementedError(
+            f"full-step kernel with window={window}: only window=1 is ported")
+    n_sub = _check_substeps(n_sub)
+    n, sdt = _checked_projection(vel, iters, solve_dtype)
+    _check_volume("density", density, (n, n, n))
+    if density.device != vel.device:
+        raise ValueError("vel and density must be on one device")
+
+    if vel.device.type == "cpu":
+        return full_step_3d_plain(vel, density, iters, dt, n_sub=n_sub,
+                                  solve_dtype=solve_dtype, damp=damp,
+                                  dens_damp=dens_damp)
+    if vel.device.type != "cuda":
+        raise ValueError(f"unsupported device {vel.device}")
+
+    lib = _build.load_library()
+    adv = torch.empty_like(vel)
+    vel_out = torch.empty_like(vel)
+    p = torch.empty_like(density)
+    dens_out = torch.empty_like(density)
+    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device)
+    with torch.cuda.device(vel.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fs_full_step(
+            vel.data_ptr(), density.data_ptr(), adv.data_ptr(),
+            vel_out.data_ptr(), p.data_ptr(), dens_out.data_ptr(),
+            p_a.data_ptr(), p_b.data_ptr(), rhs.data_ptr(), n, int(iters),
+            int(sdt == torch.bfloat16), substep_dt0(dt, n, n_sub), n_sub,
+            float(damp), float(dens_damp), stream,
+        )
+    _build.check(lib, err, "full-step kernel launch")
+    full_step_3d.launches += 1
+    return vel_out, p, dens_out
+
+
+full_step_3d.launches = 0
+
+
+def full_step_blocks(solve_dtype=None, device=None) -> int:
+    """The blocks of 256 threads K8's cooperative grid has on ``device``
+    (the current card when None): as many as the card holds at once."""
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        blocks = lib.fs_full_step_blocks(
+            int(solve_torch_dtype(solve_dtype) == torch.bfloat16))
+    if blocks < 0:
+        _build.check(lib, -blocks, "full-step grid")
+    return blocks

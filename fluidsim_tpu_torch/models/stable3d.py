@@ -5,13 +5,17 @@ self-advect velocity → pressure projection → velocity damping → advect
 density → density dissipation → obstacle enforcement.  Two branches:
 
 * the kernel path (``_kernels_usable``: a CUDA device and
-  ``kernel_backend != "xla"``): K1 for the self-advection (with the
-  buoyancy folded in where ``fold_buoyancy`` allows), then either K2
-  (projection + density advection, the sinks folded in; where
+  ``kernel_backend != "xla"``): where ``fuses_projection`` allows and
+  ``fuse_self_advect`` asks for it without a mask, K8 (the whole step in
+  one launch); else K1 for the self-advection (with the buoyancy folded in
+  where ``fold_buoyancy`` allows), then either K2 (projection + density
+  advection, the sinks folded in; K2o with a mask; where
   ``fuses_projection`` allows) or the projection alone followed by K1 for
   the density; the projection is K3, or the slab route K7 → K6 → K7 when
-  the solve does not fit the card's L2 (``kernels/project.py``); K1 runs
-  the substeps and the obstacle contract in the kernel;
+  the solve does not fit the card's L2 (``kernels/project.py``); K1 and K2
+  run the substeps and the obstacle contract in the kernel.  Where
+  ``emitter_folds`` holds, the caller passes the emitter as ``src`` and K1
+  and K2 add it to the density they read (K2s);
 * the plain path (``kernel_backend="xla"`` or a CPU device): the JAX
   package's XLA composition of the ``ops`` functions.
 
@@ -31,6 +35,8 @@ from ..config import SimConfig
 from ..kernels.advect import advect_multi_3d_kernel, advect_multi_3d_plain
 from ..kernels.project import project_3d_kernel, project_3d_plain, resident_route
 from ..kernels.resident import (
+    full_step_3d,
+    full_step_3d_plain,
     project_advect_density_3d,
     project_advect_density_3d_plain,
 )
@@ -41,26 +47,30 @@ from ..ops.forces import (
     vorticity_confinement_3d,
 )
 from ..ops.project import project_3d
+from ..scene.sources import emitter_foldable
 from ..state import FluidState
 
 
 class StepKernels(NamedTuple):
     """The calls of the kernel path: ``advect(bs, fields, vel, dt, obst=,
-    n_sub=, buoy=)``, ``project_advect(vel, density, iters, dt,
-    solve_dtype=, damp=, dens_damp=)`` and ``project(vel, iters, obst=,
-    solve_dtype=, resident=)``, which takes K3 or the slab route."""
+    n_sub=, buoy=, src=)``, ``project_advect(vel, density, iters, dt, obst=,
+    n_sub=, src=, solve_dtype=, damp=, dens_damp=)``, ``project(vel, iters,
+    obst=, solve_dtype=, resident=)``, which takes K3 or the slab route, and
+    ``full_step(vel, density, iters, dt, n_sub=, solve_dtype=, damp=,
+    dens_damp=)``."""
 
     advect: Callable
     project_advect: Callable
     project: Callable
+    full_step: Callable
 
 
 HAND_KERNELS = StepKernels(advect_multi_3d_kernel, project_advect_density_3d,
-                           project_3d_kernel)
+                           project_3d_kernel, full_step_3d)
 # The kernels' plain twins, for running the kernel path's arithmetic on a
 # card without the kernels (the reference ``chip_smoke.py`` compares with).
 PLAIN_TWINS = StepKernels(advect_multi_3d_plain, project_advect_density_3d_plain,
-                          project_3d_plain)
+                          project_3d_plain, full_step_3d_plain)
 
 
 def _kernels_usable(cfg: SimConfig, device) -> bool:
@@ -82,17 +92,16 @@ def _unported(what: str):
 
 
 def fuses_projection(cfg: SimConfig, use_kernels: bool, resident: bool) -> bool:
-    """Whether the step runs K2, the fused projection + density advection:
-    asked for (``fuse_project_advect``) on the kernel path, and the solve
-    fits the card's L2 (``resident``, from ``resident_route``; as the JAX
-    step takes its fused kernel only where it fits on chip)."""
+    """Whether the step runs a fused kernel, K2 (the projection + density
+    advection) or, with ``fuse_self_advect`` and no mask, K8 (the whole
+    step): asked for (``fuse_project_advect``) on the kernel path, and the
+    solve fits the card's L2 (``resident``, from ``resident_route``; as the
+    JAX step takes its fused kernels only where they fit on chip)."""
     return use_kernels and cfg.fuse_project_advect and resident
 
 
-def check_supported(cfg: SimConfig, use_kernels: bool, resident=None) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot step.
-    ``resident`` is ``resident_route``'s answer for the device (None: for
-    the card the route is chosen for)."""
+def check_supported(cfg: SimConfig, use_kernels: bool) -> None:
+    """Raise ``NotImplementedError`` for a config the port cannot step."""
     _, diff, visc = cfg.effective_params()
     if cfg.ndim != 3:
         _unported("the 2D reference-parity mode (ndim=2)")
@@ -117,24 +126,38 @@ def check_supported(cfg: SimConfig, use_kernels: bool, resident=None) -> None:
     if cfg.advection_scheme != "substep":
         _unported(f"kernel-path advection with advection_scheme="
                   f"{cfg.advection_scheme!r} (only 'substep' runs on the kernels)")
-    if cfg.fuse_self_advect:
-        _unported("the full-step kernel (K8, fuse_self_advect)")
-    if cfg.fuse_emitter:
-        _unported("the emitter-folded projection kernel (K2s, fuse_emitter)")
     if cfg.jacobi_sweep_block > 1:
         _unported("sweep-blocked Jacobi (K5, jacobi_sweep_block > 1)")
     if cfg.advect_window != 1:
         _unported("kernel advection with advect_window != 1")
-    if resident is None:
-        resident = resident_route(cfg.current_size, cfg.solve_dtype, None)
-    if not fuses_projection(cfg, use_kernels, resident):
-        return
-    if cfg.enable_obstacle:
-        _unported("the obstacle variant of the fused projection kernel (K2o, "
-                  "enable_obstacle with fuse_project_advect)")
-    if cfg.advect_substeps != 1:
-        _unported("the fused projection kernel's density phase with "
-                  "advect_substeps != 1 (K2 with n_sub > 1)")
+
+
+def emitter_folds(cfg: SimConfig, use_kernels: bool, resident: bool) -> bool:
+    """Whether the main emitter's density add folds into the kernels'
+    density reads: the caller then skips ``apply_custom_source`` and passes
+    ``src=emitter_fold_operand(cfg, t)`` to ``simulate_step_3d``.  The JAX
+    package's gate (``fluidsim_tpu/models/stable3d.emitter_folds``) with its
+    kernel test replaced by the port's: a foldable emitter, the fused
+    projection (``fuses_projection``, so the solve fits the card's L2) and
+    not the full step, no obstacle, no density diffusion, and, with a body
+    force, the buoyancy fold (the force must see the emitted density)."""
+    if not (cfg.fuse_emitter and emitter_foldable(cfg)):
+        return False
+    _, diff, visc = cfg.effective_params()
+    has_force = cfg.buoyancy != 0.0 or cfg.gravity != 0.0
+    return (
+        fuses_projection(cfg, use_kernels, resident)
+        and cfg.advection_scheme == "substep"
+        and not cfg.fuse_self_advect
+        and not cfg.enable_obstacle
+        and cfg.pressure_solver != "fft"
+        and diff == 0.0
+        and (not has_force
+             or (cfg.fuse_buoyancy
+                 and cfg.vorticity_confinement == 0.0
+                 and visc <= 0.0
+                 and not cfg.double_project))
+    )
 
 
 def fold_buoyancy(cfg: SimConfig, use_kernels: bool) -> bool:
@@ -167,17 +190,24 @@ def sink_factor(dt: float, rate: float) -> float:
 
 def simulate_step_3d(state: FluidState, cfg: SimConfig,
                      kernels: StepKernels = HAND_KERNELS,
-                     resident=None) -> FluidState:
+                     resident=None, src=None) -> FluidState:
     """One product step.  ``kernels`` replaces the calls of the kernel path
     (``PLAIN_TWINS`` runs their plain twins instead).  ``resident`` is
     ``resident_route``'s answer for this grid and device where the caller
-    decided it once (``Engine`` does); None decides it here."""
+    decided it once (``Engine`` does); None decides it here.  ``src`` is
+    the folded emitter's descriptor (``scene.sources.emitter_fold_operand``),
+    only where ``emitter_folds`` holds: the caller has then skipped
+    ``apply_custom_source``."""
     dt = cfg.effective_params()[0]
     device = state.density.device
     use_kernels = _kernels_usable(cfg, device)
     if resident is None:
         resident = resident_route(cfg.current_size, cfg.solve_dtype, device)
-    check_supported(cfg, use_kernels, resident)
+    check_supported(cfg, use_kernels)
+    if src is not None and not emitter_folds(cfg, use_kernels, resident):
+        raise ValueError(
+            "src (folded emitter) passed but emitter_folds is False for this "
+            "config: the caller must apply apply_custom_source itself")
     obst = state.obstacles if cfg.enable_obstacle else None
     vel = state.velocity
     density = state.density
@@ -196,7 +226,8 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
     if use_kernels:
         def advect(bs, fields, velocity, buoy=None):
             return kernels.advect(bs, fields, velocity, dt, obst=obst,
-                                  n_sub=cfg.advect_substeps, buoy=buoy)
+                                  n_sub=cfg.advect_substeps, buoy=buoy,
+                                  src=src if buoy is not None else None)
     else:
         def advect(bs, fields, velocity, buoy=None):
             if cfg.advection_scheme == "substep":
@@ -206,21 +237,28 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
             return advect_multi_3d(bs, fields, velocity, dt, obst,
                                    cfg.advect_window)
 
-    buoy = ((density, cfg.buoyancy, cfg.ambient_density, cfg.gravity)
-            if fold_buoy else None)
-    vel = advect((1, 2, 3), vel, vel, buoy)
     fused = fuses_projection(cfg, use_kernels, resident)
-    if fused:
-        vel, pressure, density = kernels.project_advect(
-            vel, density, cfg.jacobi_iters, dt,
+    if fused and cfg.fuse_self_advect and obst is None:
+        vel, pressure, density = kernels.full_step(
+            vel, density, cfg.jacobi_iters, dt, n_sub=cfg.advect_substeps,
             solve_dtype=cfg.solve_dtype, damp=damp, dens_damp=ddamp,
         )
-    elif use_kernels:
-        vel, pressure = kernels.project(vel, cfg.jacobi_iters, obst=obst,
-                                        solve_dtype=cfg.solve_dtype,
-                                        resident=resident)
     else:
-        vel, pressure = project_3d(vel, obst, cfg.jacobi_iters)
+        buoy = ((density, cfg.buoyancy, cfg.ambient_density, cfg.gravity)
+                if fold_buoy else None)
+        vel = advect((1, 2, 3), vel, vel, buoy)
+        if fused:
+            vel, pressure, density = kernels.project_advect(
+                vel, density, cfg.jacobi_iters, dt, obst=obst,
+                n_sub=cfg.advect_substeps, src=src,
+                solve_dtype=cfg.solve_dtype, damp=damp, dens_damp=ddamp,
+            )
+        elif use_kernels:
+            vel, pressure = kernels.project(vel, cfg.jacobi_iters, obst=obst,
+                                            solve_dtype=cfg.solve_dtype,
+                                            resident=resident)
+        else:
+            vel, pressure = project_3d(vel, obst, cfg.jacobi_iters)
 
     if not fused:
         if cfg.velocity_damping != 0.0:

@@ -95,7 +95,11 @@ def _apply_one(density, vel, cfg: SimConfig, t, params: SourceParams, *,
         d = c - float(np.float32(params.position[i]) * nf)
         d2 = d * d if d2 is None else d2 + d * d
     dist = torch.sqrt(d2)
-    falloff = torch.where(dist <= radius_cells, 1.0 - dist / radius_cells, 0.0)
+    # A tensor divisor: on CUDA, PyTorch divides by a Python scalar by
+    # multiplying with its reciprocal, which is not the JAX package's division
+    # (nor the folded emitter's, src_field_add).
+    radius = torch.full((), radius_cells, dtype=torch.float32, device=density.device)
+    falloff = torch.where(dist <= radius, 1.0 - dist / radius, 0.0)
 
     density = density + (eff_strength * falloff).to(density.dtype)
 
@@ -106,6 +110,81 @@ def _apply_one(density, vel, cfg: SimConfig, t, params: SourceParams, *,
             scale = float(np.float32(params.dir_vec[c]) * vmag)
             vel[c] = vel[c] + (scale * falloff).to(vel.dtype)
     return density, vel
+
+
+def emitter_foldable(cfg: SimConfig) -> bool:
+    """True when the main emitter's density add can be deferred into the
+    kernels' density reads (the ``src`` operand of
+    ``models.stable3d.simulate_step_3d``): a single 3D density-only emitter
+    on float32 fields.  The step's half of the gate is
+    ``stable3d.emitter_folds``."""
+    return (
+        cfg.ndim == 3
+        and cfg.enable_custom_source
+        and not cfg.extra_sources
+        and not cfg.source_emits_velocity
+        and cfg.dtype == "float32"
+    )
+
+
+def emitter_fold_values(cfg: SimConfig, params: SourceParams = None) -> np.ndarray:
+    """The host half of ``emitter_fold_operand``: ``[px·n, py·n, pz·n,
+    strength·res, radius·res]`` float32, the strength without its pulse."""
+    if params is None:
+        params = source_params(cfg)
+    nf = np.float32(cfg.current_size)
+    res_mult = np.float32(cfg.resolution_multiplier)
+    pos = np.asarray(params.position, np.float32)
+    return np.array([
+        pos[0] * nf, pos[1] * nf, pos[2] * nf,
+        np.float32(params.strength) * np.float32(1.0) * res_mult,
+        np.float32(params.radius) * res_mult,
+    ], np.float32)
+
+
+def emitter_fold_operand(cfg: SimConfig, t, params: SourceParams = None,
+                         values: torch.Tensor = None) -> torch.Tensor:
+    """The ``(5,)`` float32 emitter descriptor ``[px, py, pz, strength,
+    radius]`` (centre and radius in cells, the pulsed and scaled strength)
+    on ``t``'s device, which the kernels' folded add (``src_field_add``)
+    reads: ``_apply_one``'s float32 operations, scalar for scalar.
+
+    ``t`` is the 0-d float32 time on the device; a pulsing strength is
+    computed from it there, so building the descriptor never waits for the
+    device.  ``values`` is ``emitter_fold_values`` already on that device
+    (``Engine`` keeps it there; None copies it from the host)."""
+    if params is None:
+        params = source_params(cfg)
+    if values is None:
+        values = torch.from_numpy(emitter_fold_values(cfg, params)).to(t.device)
+    if not cfg.source_pulsing:
+        return values
+    if cfg.pulse_clock == "wall":
+        t = torch.tensor(params.pulse_t, dtype=torch.float32, device=t.device)
+    res_mult = float(np.float32(cfg.resolution_multiplier))
+    strength = (float(np.float32(params.strength))
+                * pulse_scale(t, cfg.source_pulse_rate)) * res_mult
+    return torch.cat([values[:3], strength.reshape(1), values[4:]])
+
+
+def src_field_add(vals, src, z0: int = 0, y0: int = 0, x0: int = 0):
+    """Add the ``emitter_fold_operand`` source ``src`` to the float32
+    ``[z, y, x]`` block ``vals`` whose global origin is ``(z0, y0, x0)``:
+    ``dist = sqrt(((dx²) + (dy²)) + (dz²))``, ``where(dist ≤ r, 1 − dist/r,
+    0)``, ``vals + strength·falloff``, the float32 operations of
+    ``_apply_one`` and of the kernels' folded add."""
+    dev = vals.device
+    coords = [o + torch.arange(s, dtype=torch.float32, device=dev)
+              for o, s in zip((z0, y0, x0), vals.shape)]
+    zi, yi, xi = torch.meshgrid(*coords, indexing="ij")
+    src = src.to(torch.float32)
+    px, py, pz, strength, radius = src.unbind()
+    dx, dy, dz = xi - px, yi - py, zi - pz
+    dist = torch.sqrt((dx * dx + dy * dy) + dz * dz)
+    # A tensor divisor: on CUDA, PyTorch divides by a Python scalar by
+    # multiplying with its reciprocal, which is not the kernels' division.
+    falloff = torch.where(dist <= radius, 1.0 - dist / radius, 0.0)
+    return vals + strength * falloff
 
 
 def apply_custom_source(density, vel, cfg: SimConfig, t,

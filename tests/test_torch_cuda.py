@@ -1,4 +1,6 @@
-"""fluidsim_tpu_torch's CUDA kernels against their plain twins, on a card.
+"""fluidsim_tpu_torch's CUDA kernels against their plain twins, on a card
+(and K8 against K1 followed by K2, and the fused step paths against the
+unfused ones).
 
 Every test here needs a CUDA device and skips without one.  The module
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -32,6 +34,9 @@ from fluidsim_tpu_torch.kernels.project import (
     project_3d_slab_kernel,
 )
 from fluidsim_tpu_torch.kernels.resident import (
+    full_step_3d,
+    full_step_3d_plain,
+    full_step_blocks,
     project_3d_resident,
     project_3d_resident_plain,
     project_gradient,
@@ -39,6 +44,7 @@ from fluidsim_tpu_torch.kernels.resident import (
     project_advect_density_3d_plain,
 )
 from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
+from fluidsim_tpu_torch.scene.sources import emitter_fold_operand
 from fluidsim_tpu_torch.models.stable3d import PLAIN_TWINS
 
 pytestmark = pytest.mark.cuda
@@ -232,3 +238,100 @@ def test_slab_step_kernel_path_matches_twin_path(cuda, monkeypatch, preset):
     assert added == [10, 5, 5, 5, 0, 0]
     for name in ("density", "velocity", "pressure"):
         assert torch.equal(getattr(kern.state, name), getattr(twin.state, name)), name
+
+
+# -- the fused variants: K1 with the emitter, K2s, K2o, K8 ----------------------
+
+
+def emitter(n, device):
+    """bench128's emitter descriptor at n^3."""
+    cfg = CFG.replace(size=n)
+    return emitter_fold_operand(cfg, torch.zeros((), device=device))
+
+
+def assert_equal(got, ref, what):
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r), (what, float((g - r).abs().max()))
+
+
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("n", [17, 128])
+def test_k1_src_matches_twin(cuda, n, n_sub):
+    vel, dens = fields(n, 800 + n, cuda)
+    src = emitter(n, cuda)
+    buoy = (dens, 0.2, 0.1, 0.05)
+    got = advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, buoy=buoy, src=src, n_sub=n_sub)
+    ref = advect_multi_3d_plain((1, 2, 3), vel, vel, DT, buoy=buoy, src=src, n_sub=n_sub)
+    assert_equal((got,), (ref,), "K1 src")
+    plain = advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, buoy=buoy, n_sub=n_sub)
+    assert not torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("case", ["K2s", "K2o", "K2 n_sub=2"])
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+def test_k2_variants_match_twin(cuda, case, solve_dtype):
+    n = 64
+    vel, dens = fields(n, 900, cuda)
+    vel = vel * 0.1  # a backtrace of up to about a cell per substep
+    kw = {"K2s": {"src": emitter(n, cuda)},
+          "K2o": {"obst": vortex_mask(n, cuda), "n_sub": 3},
+          "K2 n_sub=2": {"n_sub": 2}}[case]
+    got = project_advect_density_3d(vel, dens, 20, DT, solve_dtype=solve_dtype, damp=DAMP,
+                                    dens_damp=DDAMP, **kw)
+    ref = project_advect_density_3d_plain(vel, dens, 20, DT, solve_dtype=solve_dtype,
+                                          damp=DAMP, dens_damp=DDAMP, **kw)
+    assert_equal(got, ref, case)
+
+
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("n", [33, 128])
+def test_k8_matches_twin_and_k1_then_k2(cuda, n, solve_dtype, n_sub):
+    vel, dens = fields(n, 1000 + n, cuda)
+    vel = vel * 0.1
+    kw = dict(n_sub=n_sub, solve_dtype=solve_dtype, damp=DAMP, dens_damp=DDAMP)
+    got = full_step_3d(vel, dens, 60, DT, **kw)
+    assert_equal(got, full_step_3d_plain(vel, dens, 60, DT, **kw), "K8 vs twin")
+    adv = advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, n_sub=n_sub)
+    assert_equal(got, project_advect_density_3d(adv, dens, 60, DT, **kw), "K8 vs K1 -> K2")
+
+
+def test_k8_grid_is_what_the_card_holds(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for solve_dtype in (None, "bfloat16"):
+        blocks = full_step_blocks(solve_dtype, cuda)
+        assert blocks > 0 and blocks % sms == 0
+
+
+@pytest.mark.parametrize("change,ran", [
+    ({"fuse_self_advect": True}, {"K8": 5}),
+    ({"fuse_emitter": True}, {"K1": 5, "K2": 5}),
+])
+def test_fused_bench_paths_match_twin_paths(cuda, change, ran):
+    cfg = CFG.replace(size=48, **change)
+    kern, twin = Engine(cfg, cuda), Engine(cfg, cuda, kernels=PLAIN_TWINS)
+    counters = {"K1": advect_multi_3d_kernel, "K2": project_advect_density_3d,
+                "K3": project_3d_resident, "K8": full_step_3d}
+    before = {k: fn.launches for k, fn in counters.items()}
+    kern.step(5)
+    twin.step(5)
+    added = {k: fn.launches - before[k] for k, fn in counters.items()}
+    assert added == {k: ran.get(k, 0) for k in counters}
+    for name in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(kern.state, name), getattr(twin.state, name)), name
+
+
+def test_vortex128_fused_path_equals_unfused(cuda):
+    cfg = preset_vortex_128().replace(size=64)
+    fused = Engine(cfg.replace(fuse_project_advect=True), cuda)
+    before = (advect_multi_3d_kernel.launches, project_advect_density_3d.launches,
+              project_3d_resident.launches)
+    fused.step(5)
+    assert (advect_multi_3d_kernel.launches - before[0],
+            project_advect_density_3d.launches - before[1],
+            project_3d_resident.launches - before[2]) == (5, 5, 0)
+    unfused = Engine(cfg, cuda)
+    unfused.step(5)
+    for name in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(fused.state, name), getattr(unfused.state, name)), name

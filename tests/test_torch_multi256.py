@@ -51,6 +51,7 @@ from fluidsim_tpu_torch.engine import Engine
 from fluidsim_tpu_torch.io.convert import state_from_numpy, state_to_numpy
 from fluidsim_tpu_torch.kernels import project as t_kp
 from fluidsim_tpu_torch.kernels.project import project_3d_kernel, project_3d_slab_plain
+from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
 from fluidsim_tpu_torch.scene.sources import apply_custom_source
 
 torch.set_num_threads(1)
@@ -193,21 +194,37 @@ def test_route_at_full_size_on_an_h100(preset, resident, fused):
     assert t_s3.fuses_projection(cfg, True, resident) == fused
     assert not t_s3.fuses_projection(cfg, False, resident)
     t_s3.check_supported(cfg, True)
-    t_s3.check_supported(cfg, True, resident)
 
 
 def test_k2_errors_fire_only_where_the_gate_picks_k2(monkeypatch):
     """multi256 asks for the fused kernel with two substeps: at 32³ the gate
-    picks K2, which has no substeps; with the gate shut it declines."""
+    picks K2, which takes the substeps (and, with an obstacle, the mask:
+    K2o), so nothing raises; with the gate shut it declines and the step
+    projects on the slab route.  The twins' calls are counted."""
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls.append((name, k.get("n_sub"), k.get("obst") is not None))
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(t_s3, "_kernels_usable", lambda cfg, device: True)
+    kernels = t_s3.PLAIN_TWINS._replace(
+        project_advect=spy("K2", t_s3.PLAIN_TWINS.project_advect),
+        project=spy("project", t_s3.PLAIN_TWINS.project))
     _, cfg = presets("multi256")
-    with pytest.raises(NotImplementedError, match="n_sub > 1"):
-        t_s3.check_supported(cfg, True)
-    with pytest.raises(NotImplementedError, match="K2o"):
-        t_s3.check_supported(cfg.replace(enable_obstacle=True,
-                                         advect_substeps=1), True)
+    arrays = start_arrays()
+    for change in ({}, {"enable_obstacle": True}):
+        t_s3.check_supported(cfg.replace(**change), True)
+        arrays["obstacles"] = build_obstacle_mask(cfg.replace(**change))
+        t_s3.simulate_step_3d(state_from_numpy(arrays, "cpu"),
+                              cfg.replace(**change), kernels)
+    assert calls == [("K2", 2, False), ("K2", 2, True)]
     monkeypatch.setattr(t_kp, "resident_fits", lambda *a: False)
-    t_s3.check_supported(cfg, True)
-    t_s3.check_supported(cfg.replace(enable_obstacle=True), True)
+    calls.clear()
+    t_s3.simulate_step_3d(state_from_numpy(arrays, "cpu"), cfg, kernels)
+    assert calls == [("project", None, False)]
 
 
 def test_slab_route_solves_in_float32(monkeypatch):

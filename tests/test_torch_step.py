@@ -28,6 +28,7 @@ import fluidsim_tpu.pallas.project as j_pp
 from fluidsim_tpu.config import preset_bench_128 as j_bench128
 from fluidsim_tpu.engine import Engine as JEngine
 from fluidsim_tpu.render.raymarch import render_frame_3d as j_render
+from fluidsim_tpu.scene.obstacles import build_obstacle_mask as j_build_mask
 from fluidsim_tpu.state import FluidState as JState
 
 import fluidsim_tpu_torch.models.stable3d as t_s3
@@ -213,11 +214,7 @@ def test_unported_configs_raise(change, missing):
 
 
 @pytest.mark.parametrize("change,missing", [
-    (dict(fuse_self_advect=True), "K8"),
-    (dict(fuse_emitter=True), "K2s"),
     (dict(jacobi_sweep_block=2), "K5"),
-    (dict(advect_substeps=2), "advect_substeps"),
-    (dict(enable_obstacle=True), "K2o"),
     (dict(advect_window=2), "advect_window"),
 ])
 def test_unported_kernel_variants_raise(monkeypatch, change, missing):
@@ -225,6 +222,48 @@ def test_unported_kernel_variants_raise(monkeypatch, change, missing):
     cfg = t_bench128().replace(size=N, **change)
     with pytest.raises(NotImplementedError, match=missing):
         Engine(cfg, "cpu")
+
+
+@pytest.mark.parametrize("change,kernel", [
+    (dict(fuse_self_advect=True), "full_step"),
+    (dict(fuse_emitter=True), "project_advect"),
+    (dict(advect_substeps=2), "project_advect"),
+    (dict(enable_obstacle=True), "project_advect"),
+], ids=["K8", "K2s", "advect_substeps", "K2o"])
+def test_fused_kernel_variants_step_like_jax(monkeypatch, change, kernel):
+    """These variants of bench128 step on the kernel path's twins (K8, K2s,
+    K2 with two substeps, K2o) and equal the JAX step with its interpret-mode
+    Pallas kernels after one step, within the bf16-solve class of the
+    20-step test (the pressure within one bf16 ulp of its largest value)."""
+    monkeypatch.setattr(j_s3, "_pallas_usable", lambda cfg: True)
+    for mod, name in ((j_pa, "advect_multi_3d_pallas"),
+                      (j_pp, "project_advect_density_3d_pallas"),
+                      (j_pp, "full_step_3d_pallas")):
+        monkeypatch.setattr(mod, name, functools.partial(getattr(mod, name),
+                                                         interpret=True))
+    monkeypatch.setattr(t_s3, "_kernels_usable", lambda cfg, device: True)
+    j_cfg = j_bench128().replace(size=N, **change)
+    arrays = start_arrays()
+    arrays["obstacles"] = np.asarray(j_build_mask(j_cfg))
+    eng = JEngine(j_cfg)
+    eng.state = JState(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    eng.step(1)
+    calls = []
+    kernels = t_s3.PLAIN_TWINS._replace(**{
+        kernel: lambda *a, **k: calls.append(kernel) or getattr(
+            t_s3.PLAIN_TWINS, kernel)(*a, **k)})
+    port = Engine(t_bench128().replace(size=N, **change), "cpu", kernels=kernels)
+    port.state = state_from_numpy(arrays, "cpu")
+    port.step(1)
+    assert calls == [kernel]
+    got = state_to_numpy(port.state)
+    for field, bound in (("density", 1e-5), ("velocity", 1e-3), ("pressure", 2.0 ** -8)):
+        ref = np.asarray(getattr(eng.state, field))
+        scale = float(np.abs(ref).max())
+        diff = max_diff(got[field], ref)
+        assert diff <= bound * scale, (
+            f"{field}: max abs diff {diff:.3e} > {bound} x max {scale:.3e}")
+    assert got["step"] == 1
 
 
 def test_pallas_backend_needs_the_card():
