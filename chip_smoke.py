@@ -6,7 +6,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which ends the run with a non-zero exit code on failure:
   1. require a CUDA device (no CPU fallback) and print the card's name and
      power limit;
-  2. build the hand kernels (K1, K2, K3, K6, K7, K8) from
+  2. build the hand kernels (K1, K2, K3, K4, K6, K7, K8) from
      ``fluidsim_tpu_torch/csrc``;
   3. hold each kernel against its plain PyTorch twin on the card on inputs
      made with NumPy from a seed, bitwise: at 128³ K1 with buoyancy and K2 on
@@ -52,11 +52,25 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      buoyancy folded and two substeps, K1 density, K6, K7's divergence and
      gradient) and its first ``SHARDED_TWIN_STEPS`` steps against a rollout
      of the twins (bitwise);
+ 9b. hold K1 with a window of K = 2 and 3 (F = 1 and 3, one and two
+     substeps, with and without vortex128's mask) and K4 with and without
+     the mask (20 sweeps from a non-zero start) against their twins at 64³
+     and 128³, bitwise; step plume64 at 64³ through ``Engine`` for
+     ``PLUME_STEPS`` steps (K1 with K = 3 twice a step, K3 once, nothing
+     else; mass grows, the plume rises; the first 3 steps bitwise the twin
+     path); step smoke32 at 32³ for 10 steps on the card (no hand kernel:
+     window 0 takes the plain path, as the JAX package takes XLA) and hold
+     it bitwise against the same ``Engine`` on the CPU; run the BASELINE 64³
+     density gate (tests/test_oracle3d_parity.py's config) on the kernel path
+     for 3 steps re-synced to tests/oracle3d.py (rtol 1e-4, atol
+     2e-5·scale); step plume64 and vortex128 with ``double_project`` (K4,
+     and K4 with the mask) for 10 steps each, bitwise their twin paths;
  10. time every path (steps/s), the p50 step+raymarch frame of bench128 and
      multi256 and each kernel beside its twin, with CUDA events after
      warm-up, K8 beside K1 + K2 and K2o beside K3 + K1 on the same inputs,
-     K3 (float32 and bfloat16) beside the slab route from 128³ to 256³, and
-     break a step of each path down by device time with ``torch.profiler``.
+     K3 (float32 and bfloat16) beside the slab route from 128³ to 256³, K4
+     per sweep, and break a step of each path down by device time with
+     ``torch.profiler``.
 The line before last is a JSON object describing each kernel (with the
 least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -64,6 +78,7 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import subprocess
 import sys
@@ -76,6 +91,7 @@ VORTEX_STEPS = 100
 MULTI_STEPS = 100
 SHARDED_STEPS = 15
 SHARDED_TWIN_STEPS = 3
+PLUME_STEPS = 100
 CROSSOVER_SIZES = (128, 160, 192, 224, 256)
 SEED = 128
 
@@ -95,6 +111,8 @@ DIV_OPS = 7
 SWEEP_OPS = 7         # 5 neighbour adds, the rhs add, the coefficient multiply
 JACOBI_OPS = 8        # K6: 5 neighbour adds, a*nbr, the x0 add, the inv_c multiply
 GRAD_OPS = 3 * 5      # per component: sub, 2 mul, sub, damp
+HAT_OPS = 4           # K1, K > 1: per axis and offset: sub, abs, sub, max
+K4_MASK_OPS = 11      # K4 with the mask: SWEEP_OPS, 1 - m, * inv_c, m * x_init, the add
 EMIT_OPS = 15         # per cell in the emitter's ball: 3 sub, 3 mul, 2 add, sqrt,
 #                       compare, div, sub, mul, add
 
@@ -264,9 +282,12 @@ def main() -> None:
     import torch.nn.functional as F
 
     from fluidsim_tpu_torch.config import (
+        SimConfig,
         preset_bench_128,
         preset_multi_emitter_256,
+        preset_plume_64,
         preset_sharded_512,
+        preset_smoke_box_32,
         preset_vortex_128,
     )
     from fluidsim_tpu_torch.engine import Engine
@@ -275,7 +296,12 @@ def main() -> None:
         advect_multi_3d_kernel,
         advect_multi_3d_plain,
     )
-    from fluidsim_tpu_torch.kernels.jacobi import jacobi_3d_kernel, jacobi_3d_plain
+    from fluidsim_tpu_torch.kernels.jacobi import (
+        jacobi_3d_kernel,
+        jacobi_3d_plain,
+        jacobi_3d_resident,
+        jacobi_3d_resident_plain,
+    )
     from fluidsim_tpu_torch.kernels.project import (
         divergence_3d_kernel,
         divergence_3d_plain,
@@ -293,7 +319,7 @@ def main() -> None:
         project_advect_density_3d,
         project_advect_density_3d_plain,
     )
-    from fluidsim_tpu_torch.models.stable3d import PLAIN_TWINS, sink_factor
+    from fluidsim_tpu_torch.models.stable3d import PLAIN_TWINS, simulate_step_3d, sink_factor
     from fluidsim_tpu_torch.ops.boundary import interior_mask
     from fluidsim_tpu_torch.ops.forces import (
         buoyancy_force,
@@ -307,6 +333,7 @@ def main() -> None:
         emitter_fold_operand,
         src_field_add,
     )
+    from fluidsim_tpu_torch.state import zeros_state
 
     t0 = time.perf_counter()
     _build.load_library()
@@ -321,7 +348,7 @@ def main() -> None:
     counters = {"K1": advect_multi_3d_kernel, "K2": project_advect_density_3d,
                 "K3": project_3d_resident, "K6": jacobi_3d_kernel,
                 "K7 div": divergence_3d_kernel, "K7 grad": gradient_3d_kernel,
-                "K8": full_step_3d}
+                "K8": full_step_3d, "K4": jacobi_3d_resident}
 
     def counters_to_zero():
         for fn in counters.values():
@@ -677,11 +704,11 @@ def main() -> None:
         if launches != {k: expected.get(k, 0) for k in launches}:
             fail(f"{what} launched {launches}, not {expected}")
 
-    def against(at10, ref10, what, rtol=0.0, atol=0.0):
+    def against(at10, ref10, what, rtol=0.0, atol=0.0, steps=10):
         for name, got in at10.items():
             ref = ref10[name]
             err, ok = worst(got, ref, rtol, atol)
-            say(f"# {what}, 10 steps, {name}: max abs diff {err!r} (bitwise "
+            say(f"# {what}, {steps} steps, {name}: max abs diff {err!r} (bitwise "
                 f"{torch.equal(got, ref)}; bound rtol {rtol}, atol {atol})")
             if not ok:
                 fail(f"{what} differs in {name}")
@@ -818,6 +845,157 @@ def main() -> None:
         del got, ref
     torch.cuda.empty_cache()
 
+    # -- 9b. plume64, smoke32, the 64³ gate and double_project -------------
+    # K1 with a window of K = 2 and 3, and K4 with and without the mask,
+    # against their twins at 64³ and 128³ on seeded fields.  At plume64's dt
+    # a backtrace reaches up to about 3 cells, so K = 2 clamps.
+    pcfg = preset_plume_64()
+    pn = pcfg.current_size
+    pdt = pcfg.effective_params()[0]
+    win_err = {}
+    for wn in (64, 128):
+        wvel = velocity_field(wn, rng, dev, 30.0 / (wn - 2))
+        wdens = density_field(wn, rng, dev)
+        wmask = torch.from_numpy(build_obstacle_mask(vcfg.replace(size=wn))).to(dev)
+        for k in (2, 3):
+            for what, bs, f in (("F=3", (1, 2, 3), wvel), ("F=1", (0,), wdens[None])):
+                for sub in (1, 2):
+                    for mname, m in (("no mask", None), ("mask", wmask)):
+                        got = advect_multi_3d_kernel(bs, f, wvel, pdt, obst=m, window=k,
+                                                     n_sub=sub)
+                        ref = advect_multi_3d_plain(bs, f, wvel, pdt, obst=m, window=k,
+                                                    n_sub=sub)
+                        torch.cuda.synchronize()
+                        err = float((got - ref).abs().max())
+                        key = (k, what)
+                        win_err[key] = max(win_err.get(key, 0.0), err)
+                        say(f"# K1 window={k} {what} n_sub={sub} {mname} vs twin at {wn}^3: "
+                            f"max abs err {err!r} (bitwise {torch.equal(got, ref)}; "
+                            "bound: bitwise)")
+                        if not torch.equal(got, ref):
+                            fail(f"K1 window={k} ({what}, n_sub={sub}, {mname}) disagrees "
+                                 f"with its twin at {wn}^3")
+        wx, wx0 = wvel[0].contiguous(), wvel[1].contiguous()
+        for mname, m in (("no mask", None), ("mask", wmask)):
+            got = jacobi_3d_resident(0, wx, wx0, 1.0, 6.0, 20, obst=m)
+            ref = jacobi_3d_resident_plain(0, wx, wx0, 1.0, 6.0, 20, obst=m)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            win_err[("K4", mname)] = max(win_err.get(("K4", mname), 0.0), err)
+            say(f"# K4 ({mname}, 20 sweeps from a non-zero start) vs twin at {wn}^3: max abs "
+                f"err {err!r} (bitwise {torch.equal(got, ref)}; bound: bitwise)")
+            if not torch.equal(got, ref):
+                fail(f"K4 ({mname}) disagrees with its twin at {wn}^3")
+    del wvel, wdens, wmask, wx, wx0, got, ref
+
+    # plume64 through Engine: K1 (K = 3) twice a step, K3 once, nothing else.
+    peng = Engine(pcfg, device="cuda")
+    counters_to_zero()
+    peng.step(1)
+    pmass1, pcom1 = mass_and_com_y(peng.state)
+    peng.step(2)
+    pat3 = {k: getattr(peng.state, k).clone() for k in ("density", "velocity", "pressure")}
+    peng.step(PLUME_STEPS - 3)
+    torch.cuda.synchronize()
+    plume_launches = counts()
+    pmass_end, pcom_end = mass_and_com_y(peng.state)
+    say(f"# plume64: {PLUME_STEPS} steps at {pn}^3, launches {plume_launches}")
+    say(f"# plume64 density mass: step 1 {pmass1!r}, step {PLUME_STEPS} {pmass_end!r}; "
+        f"y centre of mass {pcom1!r} -> {pcom_end!r}")
+    exactly(plume_launches, {"K1": 2 * PLUME_STEPS, "K3": PLUME_STEPS}, "plume64")
+    check_state(peng.state, PLUME_STEPS, pn, "plume64")
+    if not (pmass_end > pmass1 > 0.0 and pcom_end > pcom1):
+        fail("plume64: density mass does not grow or the plume does not rise")
+    ptwin = Engine(pcfg, device="cuda", kernels=PLAIN_TWINS)
+    ptwin.step(3)
+    against(pat3, {k: getattr(ptwin.state, k) for k in pat3},
+            "plume64 kernel path vs twin path", steps=3)
+
+    # smoke32: window 0 takes the plain path on the card, as the JAX package
+    # takes XLA; 10 steps against the same Engine on the CPU.
+    kcfg = preset_smoke_box_32()
+    keng = Engine(kcfg, device="cuda")
+    counters_to_zero()
+    keng.step(10)
+    torch.cuda.synchronize()
+    smoke_launches = counts()
+    say(f"# smoke32: 10 steps at {kcfg.current_size}^3 on the card, launches {smoke_launches} "
+        "(window 0: the plain path, the JAX package's routing)")
+    exactly(smoke_launches, {}, "smoke32")
+    check_state(keng.state, 10, kcfg.current_size, "smoke32")
+    kcpu = Engine(kcfg, device="cpu")
+    kcpu.step(10)
+    against({k: getattr(keng.state, k).cpu() for k in ("density", "velocity", "pressure")},
+            {k: getattr(kcpu.state, k) for k in ("density", "velocity", "pressure")},
+            "smoke32 card vs CPU")
+
+    # The BASELINE 64³ gate (tests/test_oracle3d_parity.py's plume_cfg) on
+    # the kernel path, re-synced to the NumPy oracle every step.
+    spec = importlib.util.spec_from_file_location("oracle3d", ROOT / "tests" / "oracle3d.py")
+    oracle3d = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle3d)
+    gcfg = SimConfig(
+        size=64, ndim=3, time_step=0.02, diffusion=1e-4, viscosity=1e-4, jacobi_iters=20,
+        buoyancy=1.0, ambient_density=0.0, vorticity_confinement=0.0, advect_window=2,
+        enable_custom_source=True, source_strength=60.0, source_radius=3.0,
+        source_position=(0.5, 0.15, 0.5), obstacle_position=(0.5, 0.5, 0.5),
+        enable_obstacle=False, double_project=False).validate()
+    gdt, gdiff, gvisc = gcfg.effective_params()
+    gn = gcfg.current_size
+    grng = np.random.default_rng(SEED)
+    gd = np.abs(grng.standard_normal((gn, gn, gn))).astype(np.float32)
+    gv = np.stack([oracle3d.set_bnd_3d(b, (0.2 * grng.standard_normal((gn, gn, gn))
+                                            ).astype(np.float32), None) for b in (1, 2, 3)])
+    gt = np.float32(0.0)
+    counters_to_zero()
+    gate_worst = 0.0
+    for k in range(3):
+        gt = gt + np.float32(gdt)
+        sd, sv = apply_custom_source(torch.from_numpy(gd).to(dev), torch.from_numpy(gv).to(dev),
+                                     gcfg, torch.tensor(gt, device=dev))
+        gstate = zeros_state(gcfg, dev).replace(
+            density=sd, velocity=sv, time=torch.tensor(gt - np.float32(gdt), device=dev))
+        gstate = simulate_step_3d(gstate, gcfg)
+        od, ov, op = oracle3d.simulate_step_3d(
+            sd.cpu().numpy(), sv.cpu().numpy(), gdt, gdiff, gvisc, gcfg.jacobi_iters,
+            buoy=gcfg.buoyancy, ambient=gcfg.ambient_density, advect_window=gcfg.advect_window)
+        for name, got, exp in (("density", gstate.density, od), ("velocity", gstate.velocity, ov),
+                               ("pressure", gstate.pressure, op)):
+            exp_t = torch.from_numpy(exp).to(dev)
+            scale = max(1.0, float(np.abs(exp).max()))
+            err, ok = worst(got, exp_t, 1e-4, 2e-5 * scale)
+            gate_worst = max(gate_worst, err / scale)
+            say(f"# 64^3 gate, kernel path, step {k}, {name}: max abs diff {err!r} against the "
+                f"oracle (scale {scale!r}; bound rtol 1e-4, atol 2e-5 x scale)")
+            if not ok:
+                fail(f"the 64^3 gate: {name} diverged from the oracle at step {k}")
+        gd, gv = od, ov
+    torch.cuda.synchronize()
+    gate_launches = counts()
+    say(f"# 64^3 gate: 3 re-synced steps, launches {gate_launches}")
+    exactly(gate_launches, {"K1": 6, "K3": 3}, "the 64^3 gate")
+
+    # double_project: plume64 (K4) and vortex128 (K4 with the mask), each
+    # 10 steps on the kernel path against the twin path, bitwise.
+    dp_engines, dp_launches = {}, {}
+    for what, dcfg in (("plume64 + double_project", pcfg.replace(double_project=True)),
+                       ("vortex128 + double_project", vcfg.replace(double_project=True))):
+        deng = Engine(dcfg, device="cuda")
+        counters_to_zero()
+        deng.step(10)
+        torch.cuda.synchronize()
+        dp_launches[what] = counts()
+        say(f"# {what}: 10 steps at {dcfg.current_size}^3, launches {dp_launches[what]}")
+        exactly(dp_launches[what], {"K1": 20, "K3": 10, "K4": 10}, what)
+        check_state(deng.state, 10, dcfg.current_size, what)
+        dtwin = Engine(dcfg, device="cuda", kernels=PLAIN_TWINS)
+        dtwin.step(10)
+        against({k: getattr(deng.state, k) for k in ("density", "velocity", "pressure")},
+                {k: getattr(dtwin.state, k) for k in ("density", "velocity", "pressure")},
+                f"{what} kernel path vs twin path")
+        dp_engines[what] = deng
+        del dtwin
+
     # -- 10. timing ------------------------------------------------------
     say(f"# timing on {card}")
     step_ms = cuda_ms(lambda: eng.step(1), reps=200, warmup=20)
@@ -876,6 +1054,13 @@ def main() -> None:
     say(f"multi256 emitters (plain torch) at {mn}^3: {memit_ms!r} ms [{card}]")
     sstep_ms = cuda_ms(lambda: seng.step(1), reps=10, warmup=2)
     say(f"sharded512 steps/s kernel path: {1e3 / sstep_ms!r} ({sstep_ms!r} ms/step) [{card}]")
+    new_paths = (("plume64", peng, 100), ("smoke32", keng, 100),
+                 *((what, engine, 20) for what, engine in dp_engines.items()))
+    for what, engine, reps in new_paths:
+        ms = cuda_ms(lambda: engine.step(1), reps=reps, warmup=reps // 10)
+        say(f"{what} steps/s kernel path: {1e3 / ms!r} ({ms!r} ms/step) [{card}]")
+    ptwin_ms = cuda_ms(lambda: ptwin.step(1), reps=5, warmup=1)
+    say(f"plume64 steps/s twin path: {1e3 / ptwin_ms!r} ({ptwin_ms!r} ms/step) [{card}]")
     fused_paths = (("bench128 + fuse_emitter", feng_emit, 200),
                    ("bench128 + fuse_self_advect", feng_k8, 200),
                    ("vortex128 + fuse_project_advect", feng_v, 100))
@@ -938,7 +1123,49 @@ def main() -> None:
     library = {"K7 div": cuda_ms(lambda: F.conv3d(mvel[None], div_w), reps=20),
                "K7s div": cuda_ms(lambda: F.conv3d(svel[None], sdiv_w), reps=5)}
 
+    # K1 with K = 3 (plume64) and K = 2 (the 64³ gate) and K4 (plume64's
+    # pre-projection; vortex128's with the mask) on the paths' shapes.
+    pvol, pint = pn ** 3, (pn - 2) ** 3
+    tvel = velocity_field(pn, rng, dev, 30.0 / (pn - 2))
+    tdens = density_field(pn, rng, dev)
+    tdiv, vdiv = divergence_3d_plain(tvel), divergence_3d_plain(vvel)
+    new_fns = {
+        "K1w3": (lambda: advect_multi_3d_kernel((1, 2, 3), tvel, tvel, pdt, window=3),
+                 lambda: advect_multi_3d_plain((1, 2, 3), tvel, tvel, pdt, window=3)),
+        "K1w3 density": (
+            lambda: advect_multi_3d_kernel((0,), tdens[None], tvel, pdt, window=3),
+            lambda: advect_multi_3d_plain((0,), tdens[None], tvel, pdt, window=3)),
+        "K1w2": (lambda: advect_multi_3d_kernel((1, 2, 3), tvel, tvel, gdt, window=2),
+                 lambda: advect_multi_3d_plain((1, 2, 3), tvel, tvel, gdt, window=2)),
+        "K1w2 density": (
+            lambda: advect_multi_3d_kernel((0,), tdens[None], tvel, gdt, window=2),
+            lambda: advect_multi_3d_plain((0,), tdens[None], tvel, gdt, window=2)),
+        "K4": (lambda: jacobi_3d_resident(0, torch.zeros_like(tdiv), tdiv, 1.0, 6.0,
+                                          pcfg.jacobi_iters),
+               lambda: jacobi_3d_resident_plain(0, torch.zeros_like(tdiv), tdiv, 1.0, 6.0,
+                                                pcfg.jacobi_iters)),
+        "K4 mask": (lambda: jacobi_3d_resident(0, torch.zeros_like(vdiv), vdiv, 1.0, 6.0,
+                                               vcfg.jacobi_iters, obst=obst),
+                    lambda: jacobi_3d_resident_plain(0, torch.zeros_like(vdiv), vdiv, 1.0,
+                                                     6.0, vcfg.jacobi_iters, obst=obst)),
+    }
+    for key, (fn, plain) in new_fns.items():
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"{key} disagrees with its twin on the timing inputs")
+    del got, ref
+    # What a sweep of K4 costs: 1 and 61 sweeps on plume64's input.
+    k4_one = cuda_ms(lambda: jacobi_3d_resident(0, torch.zeros_like(tdiv), tdiv, 1.0, 6.0, 1),
+                     reps=50)
+    k4_many = cuda_ms(lambda: jacobi_3d_resident(0, torch.zeros_like(tdiv), tdiv, 1.0, 6.0,
+                                                 61), reps=20)
+    say(f"K4 per sweep at {pn}^3: {(k4_many - k4_one) / 60 * 1e3!r} us (1 sweep {k4_one!r} "
+        f"ms, 61 sweeps {k4_many!r} ms) [{card}]")
+
     times = {
+        **{key: (cuda_ms(fn, reps=50), cuda_ms(plain, reps=3, warmup=1))
+           for key, (fn, plain) in new_fns.items()},
         "K6": (cuda_ms(slab_fns["K6"][0], reps=20), cuda_ms(slab_fns["K6"][1], reps=3)),
         "K7 div": (cuda_ms(slab_fns["K7 div"][0], reps=50),
                    cuda_ms(slab_fns["K7 div"][1], reps=5)),
@@ -968,7 +1195,8 @@ def main() -> None:
     # Where a step's device time goes, by kernel.
     for what, engine, reps in (("bench128", eng, 20), ("vortex128", veng, 20),
                                ("multi256", meng, 5), ("sharded512", seng, 2),
-                               *((what, engine, 20) for what, engine, _ in fused_paths)):
+                               *((what, engine, 20) for what, engine, _ in fused_paths),
+                               *((what, engine, 20) for what, engine, _ in new_paths)):
         by_kernel = profile_ms(lambda: engine.step(1), reps=reps)
         total = sum(by_kernel.values())
         say(f"# profile {what}: device time {total!r} ms/step [{card}]")
@@ -1097,6 +1325,49 @@ def main() -> None:
          "fluidsim_tpu_torch/csrc/full_step.cu", "fluidsim_tpu/pallas/resident.py:1531",
          k8_launches["K8"], fused_err["K8"],
          bound(9 * vol * f32, interior * (k1_ops + k2_ops))),
+    ]
+    def win_ops(n_fields):
+        """The float32 operations a cell that K1's function needs for a
+        window of K > 1 cells, whatever K: after the clamp only two hats per
+        axis are non-zero, so the backtrace, those six hats, the 4 + 8
+        products of the 8 taps' weights, and a multiply and an add a tap and
+        field."""
+        return FRAC_OPS + 3 * 2 * HAT_OPS + 4 + 8 + n_fields * 8 * 2
+
+    gate_k1 = gate_launches["K1"]
+    dp_plume = dp_launches["plume64 + double_project"]["K4"]
+    dp_vortex = dp_launches["vortex128 + double_project"]["K4"]
+    entries += [
+        # plume64 launches K1 twice a step, once for each of these two.
+        ("K1w3", "K1 advect_multi_3d_kernel (window K=3, n_sub=1; plume64 self-advection, "
+                 "F=3, 64^3)",
+         "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
+         plume_launches["K1"], win_err[(3, "F=3")],
+         bound(6 * pvol * f32, pint * win_ops(3))),
+        ("K1w3 density", "K1 advect_multi_3d_kernel (window K=3, n_sub=1; plume64 density, "
+                         "F=1, 64^3)",
+         "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
+         plume_launches["K1"], win_err[(3, "F=1")],
+         bound(5 * pvol * f32, pint * win_ops(1))),
+        # The 64³ gate launches K1 twice a step, once for each of these two.
+        ("K1w2", "K1 advect_multi_3d_kernel (window K=2, n_sub=1; the 64^3 gate's "
+                 "self-advection, F=3)",
+         "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
+         gate_k1, win_err[(2, "F=3")], bound(6 * pvol * f32, pint * win_ops(3))),
+        ("K1w2 density", "K1 advect_multi_3d_kernel (window K=2, n_sub=1; the 64^3 gate's "
+                         "density, F=1)",
+         "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
+         gate_k1, win_err[(2, "F=1")], bound(5 * pvol * f32, pint * win_ops(1))),
+        ("K4", f"K4 jacobi_3d_resident ({pcfg.jacobi_iters} sweeps, b=0, a=1, c=6; plume64 + "
+               "double_project pre-projection, 64^3)",
+         "fluidsim_tpu_torch/csrc/jacobi_resident.cu", "fluidsim_tpu/pallas/resident.py:618",
+         dp_plume, win_err[("K4", "no mask")],
+         bound(3 * pvol * f32, pcfg.jacobi_iters * pint * SWEEP_OPS)),
+        ("K4 mask", f"K4 jacobi_3d_resident (obstacle mask, {vcfg.jacobi_iters} sweeps; "
+                    "vortex128 + double_project pre-projection, 128^3)",
+         "fluidsim_tpu_torch/csrc/jacobi_resident.cu", "fluidsim_tpu/pallas/resident.py:638",
+         dp_vortex, win_err[("K4", "mask")],
+         bound(3 * vol * f32 + vol, vcfg.jacobi_iters * interior * K4_MASK_OPS)),
     ]
     report = []
     for key, name, source, replaces, launches, err, (bound_ms, bound_by) in entries:

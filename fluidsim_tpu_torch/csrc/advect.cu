@@ -1,13 +1,17 @@
-// K1: K=1 semi-Lagrangian advection of F fields (F = 3: velocity
-// self-advection, optionally with buoyancy folded in, and the folded emitter
-// on the buoyancy's density; F = 1: a scalar), in n_sub substeps of
+// K1: semi-Lagrangian advection of F fields (F = 3: velocity
+// self-advection, optionally with buoyancy folded in, and for K = 1 the
+// folded emitter on the buoyancy's density; F = 1: a scalar) with the
+// backtrace clamped to a window of K = 1, 2 or 3 cells, in n_sub substeps of
 // dt0/n_sub through the same velocity, optionally with the obstacle contract
 // after every substep.
 //
 // Replaces: fluidsim_tpu/pallas/advect.py::_advect_kernel (entry
-// advect_multi_3d_pallas, core _substep_window_vals), k_win = 1, with or
-// without the in-kernel obstacle mask, with or without the folded emitter
-// (`src`, which rides the buoyancy's density reads: advect.py:415-428).
+// advect_multi_3d_pallas, core _substep_window_vals: windowed_sum_k1 for
+// k_win = 1, windowed_sum for k_win > 1), with or without the in-kernel
+// obstacle mask, with or without the folded emitter (`src`, which rides the
+// buoyancy's density reads: advect.py:415-428).  For n_sub = 1 with a mask
+// the TPU entry applies the output contract on the host (advect.py:728-741);
+// this kernel applies the same contract in the launch.
 //
 // Each substep is one launch, reading the previous substep's fields (the
 // input fields for the first) and writing a fresh buffer:
@@ -22,9 +26,9 @@
 // output and one scratch), so the input velocity is never written
 // (advect.cuh's advect_substeps, which K2's density phase shares).
 //
-// What bounds it on an H100: each substep reads 27 taps of each field (plus
-// 27 density taps for the buoyant y component), and the backtrace, the 13
-// two-tap combinations per field and the buoyancy are about 270 float32
+// What bounds it on an H100, K = 1: each substep reads 27 taps of each field
+// (plus 27 density taps for the buoyant y component), and the backtrace, the
+// 13 two-tap combinations per field and the buoyancy are about 270 float32
 // operations per cell for F = 3 (438 with buoyancy), none of them contracted
 // into an FMA.  The compulsory DRAM traffic is 7 f32 volumes for bench128's
 // buoyant self-advection and 6 volumes + the byte mask for vortex128's, so
@@ -32,14 +36,21 @@
 // neighbouring cells overlap, which L1 and L2 serve.  The folded emitter
 // adds a distance, a square root and a division per density read inside
 // the ball's box (and three compares outside it) in place of a full-grid
-// pass over the density.
+// pass over the density.  K > 1: (2K+1)^3 taps a field (343 for plume64's
+// K = 3), each a multiply and an add, plus (2K+1)^2 + (2K+1)^3 weight
+// products: about 2,500 operations a cell for F = 3 at K = 3, so the hat
+// sum is bound by operations at any size.
 //
 // What the design does about it: one thread per cell with x across
 // threadIdx.x, so each tap row is one coalesced 128-byte load per warp and
-// the overlapping taps of a block hit in L1; the velocity at the cell and its
-// backtrace fractions are computed once and shared by all fields; a solid
-// cell skips the interpolation.  Keeping the substeps in shared memory (the
-// TPU kernel's halo of n_sub*(K+1) planes) is the next step.
+// the overlapping taps of a block hit in L1; the velocity at the cell, its
+// backtrace fractions and (K > 1) the per-axis hats and the weights are
+// computed once and shared by all fields; a solid cell skips the
+// interpolation.  Every tap of the hat sum is computed, zero weights too, so
+// the sum is the twin's operation for operation.  Keeping the substeps in
+// shared memory (the TPU kernel's halo of n_sub*(K+1) planes) and skipping
+// the taps that the clamp leaves at zero weight in the interior are the next
+// steps.
 #include <cuda_runtime.h>
 
 #include "advect.cuh"
@@ -52,21 +63,32 @@ extern "C" const char* fs_error_string(int err) {
 // (n, n, n) one byte per cell (nonzero = solid) or null, emitter (5,) or
 // null, out like fields, tmp like fields (scratch; may be null when n_sub ==
 // 1); all float32 apart from the mask, contiguous, on the current device.
-// dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2).  With has_buoy
-// the fields must be the velocity and there must be no mask; the emitter
-// needs has_buoy.  Launches on `stream` and returns the first cudaError_t.
+// dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2); window 1, 2 or
+// 3 (n >= 2 * window + 1).  With has_buoy the fields must be the velocity and
+// there must be no mask; the emitter needs has_buoy.  Launches on `stream`
+// and returns the first cudaError_t.
 extern "C" int fs_advect_k1(const float* fields, const float* vel, const float* dens,
                             const unsigned char* mask, const float* emitter, float* out,
                             float* tmp, int n, int n_fields, int b0, int b1, int b2,
-                            float dt0_sub, int n_sub, int has_buoy, float buoy_dt,
+                            float dt0_sub, int n_sub, int window, int has_buoy, float buoy_dt,
                             float buoyancy, float ambient, float gravity, void* stream) {
   using namespace fsk;
-  if (n < 3 || (has_buoy && dens == nullptr) || (emitter != nullptr && !has_buoy)) {
+  // A window of K reads taps K cells away, wrapped: the grid must hold 2K + 1.
+  if (window < 1 || window > 3 || n < 2 * window + 1 || (has_buoy && dens == nullptr) ||
+      (emitter != nullptr && !has_buoy)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Substep a{fields, vel, dens, mask, emitter, nullptr, n, b0, b1, b2, dt0_sub, 1.0f,
                   Buoyancy{buoy_dt, buoyancy, ambient, gravity}};
-  return static_cast<int>(advect_substeps(a, n_fields, n_sub, has_buoy != 0,
-                                          emitter != nullptr ? kSrcDensity : kSrcNone, out, tmp,
-                                          1.0f, static_cast<cudaStream_t>(stream)));
+  const int src = emitter != nullptr ? kSrcDensity : kSrcNone;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool buoy = has_buoy != 0;
+  switch (window) {
+    case 1:
+      return static_cast<int>(advect_substeps<1>(a, n_fields, n_sub, buoy, src, out, tmp, 1.0f, s));
+    case 2:
+      return static_cast<int>(advect_substeps<2>(a, n_fields, n_sub, buoy, src, out, tmp, 1.0f, s));
+    default:
+      return static_cast<int>(advect_substeps<3>(a, n_fields, n_sub, buoy, src, out, tmp, 1.0f, s));
+  }
 }

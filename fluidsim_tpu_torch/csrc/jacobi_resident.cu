@@ -1,0 +1,111 @@
+// K4: the whole-volume Jacobi solve of a general (b, x, x0, a, c) from a
+// given start x: `iters` sweeps  x <- (x0 + a*nbr) * inv_c  (x0 + nbr when
+// a == 1), with nbr = ((x+ + x-) + (y+ + y-)) + (z+ + z-) and
+// inv_c = f32(1)/f32(c), and the set_bnd_3d(b) faces after every sweep.
+// With an obstacle mask (b = 0 only) the sweep is
+//   x <- rhs * ((1 - m) * inv_c) + m * x_init,   m = 1.0 in solid cells,
+// which holds every solid cell at its start value (the copy-through of the
+// reference's skip rule) and decides the sign of a zero exactly as the TPU
+// kernel's `coef` and `frozen` volumes do.
+//
+// Replaces: fluidsim_tpu/pallas/resident.py::_jacobi_kernel (no mask) and
+// ::_jacobi_obst_kernel (mask), entry jacobi_3d_resident, solve _solve_loop
+// with sweep_block = 1.  Without a mask the TPU sweep substitutes the x face
+// rule into its x operands (_nbr_sum_selx: an interior cell next to an x wall
+// reads sx * itself) and writes the x faces once at the end; with a mask it
+// reads the maintained faces.  The two agree from the second sweep on; the
+// first reads the given start, so this kernel copies each variant's reads:
+// the substitution without a mask, the given x faces with one.
+//
+// What bounds it on an H100: each sweep reads the iterate (six neighbours),
+// x0 (and the mask byte and x_init) and writes the next iterate.  At 64^3
+// and 128^3 the float32 iterates and x0 (3 volumes: 3.1 MB at 64^3, 25 MB at
+// 128^3; x_init a fourth) stay in the 50 MB L2, so a sweep is bound by L2
+// bandwidth and by the fixed cost of a launch; each sweep needs the whole
+// previous iterate.  The compulsory DRAM traffic of the call is x, x0 (and
+// the mask) in and the result out, once.
+//
+// What the design does about it: one launch per sweep (the launch boundary
+// is the grid-wide barrier), one thread per cell with x across threadIdx.x,
+// as K3's sweeps (project.cuh's sweep_cell, here with a general a, a given
+// start and the frozen volume folded into the sweep).  Border cells recompute
+// their interior cell and store it with the face sign (boundary.cuh), which
+// is bitwise the TPU kernel's z->y->x face writes, deferred x faces
+// included, so no sweep needs a separate faces pass.  Two buffers
+// ping-pong (the output and one scratch), so the start is never written.
+#include <cuda_runtime.h>
+
+#include "boundary.cuh"
+
+namespace fsk {
+namespace {
+
+template <bool MASK>
+__global__ void __launch_bounds__(kThreads)
+    resident_sweep_kernel(const float* __restrict__ src, const float* __restrict__ x0,
+                          const float* __restrict__ x_init, const uint8_t* __restrict__ mask,
+                          float* __restrict__ dst, int n, int b, float a, int a_is_one,
+                          float inv_c) {
+  Cell k;
+  if (!cell_of_thread(n, k)) return;
+  const long long sn = n, plane = sn * sn, c = k.c;
+  float xs;
+  if (MASK) {
+    xs = src[c + 1] + src[c - 1];
+  } else {
+    const float own = src[c];
+    const float face = b == 1 ? -own : own;
+    const float hi = k.cx == n - 2 ? face : src[c + 1];
+    const float lo = k.cx == 1 ? face : src[c - 1];
+    xs = hi + lo;
+  }
+  const float ys = src[c + sn] + src[c - sn];
+  const float zs = src[c + plane] + src[c - plane];
+  const float nbr = (xs + ys) + zs;
+  const float rhs = x0[c] + (a_is_one ? nbr : a * nbr);
+  float u;
+  if (MASK) {
+    const float m = mask[c] != 0 ? 1.0f : 0.0f;
+    u = rhs * ((1.0f - m) * inv_c) + m * x_init[c];
+  } else {
+    u = rhs * inv_c;
+  }
+  dst[k.idx] = face_negates(b, k.z, k.y, k.x, k.cz, k.cy, k.cx) ? -u : u;
+}
+
+}  // namespace
+}  // namespace fsk
+
+// x, x0 (n, n, n) in; mask (n, n, n) one byte per cell (nonzero = solid) or
+// null (with a mask b must be 0); out (n, n, n) out and tmp (n, n, n)
+// scratch; all float32 apart from the mask, contiguous, on the current
+// device; a = f32(a), inv_c = f32(1)/f32(c).  Launches the `iters` sweeps on
+// `stream` without synchronising and returns the first cudaError_t.
+extern "C" int fs_jacobi_resident(const float* x, const float* x0, const unsigned char* mask,
+                                  float* out, float* tmp, int n, int b, float a, float inv_c,
+                                  int iters, void* stream) {
+  using namespace fsk;
+  if (n < 3 || b < 0 || b > 3 || iters < 1 || (mask != nullptr && b != 0) ||
+      (iters > 1 && tmp == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid = cell_grid(n), block = cell_block();
+  const int a_is_one = a == 1.0f;
+  const float* src = x;
+  for (int it = 0; it < iters; ++it) {
+    // The last sweep writes `out`; earlier ones alternate back from it.
+    float* dst = (iters - 1 - it) % 2 == 0 ? out : tmp;
+    if (mask != nullptr) {
+      resident_sweep_kernel<true><<<grid, block, 0, s>>>(src, x0, x, mask, dst, n, b, a,
+                                                         a_is_one, inv_c);
+    } else {
+      resident_sweep_kernel<false><<<grid, block, 0, s>>>(src, x0, x, mask, dst, n, b, a,
+                                                          a_is_one, inv_c);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    src = dst;
+  }
+  return static_cast<int>(cudaSuccess);
+}

@@ -61,7 +61,7 @@ class Engine:
         cfg = cfg.validate()
         use_kernels = stable3d._kernels_usable(cfg, self.device)
         self._resident = resident_route(cfg.current_size, cfg.solve_dtype, self.device)
-        stable3d.check_supported(cfg, use_kernels)
+        stable3d.check_supported(cfg, use_kernels, self._resident)
         self._folds = stable3d.emitter_folds(cfg, use_kernels, self._resident)
         return cfg
 

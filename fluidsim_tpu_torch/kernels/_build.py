@@ -42,9 +42,10 @@ _F = ctypes.c_float
 # or for fs_full_step_blocks a block count).
 SIGNATURES = {
     # fields, vel, dens, mask, emitter, out, tmp, n, n_fields, b0, b1, b2,
-    # dt0_sub, n_sub, has_buoy, buoy_dt, buoyancy, ambient, gravity, stream
+    # dt0_sub, n_sub, window, has_buoy, buoy_dt, buoyancy, ambient, gravity,
+    # stream
     "fs_advect_k1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                     _I, _I, _F, _F, _F, _F, _P),
+                     _I, _I, _I, _F, _F, _F, _F, _P),
     # vel, mask, vel_out, p_out, p_a, p_b, rhs, n, iters, solve_bf16, damp,
     # stream
     "fs_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
@@ -60,6 +61,8 @@ SIGNATURES = {
     "fs_full_step_blocks": (_I,),
     # x, x0, out, tmp, n, b, a, inv_c, iters, stream
     "fs_jacobi": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
+    # x, x0, mask, out, tmp, n, b, a, inv_c, iters, stream
+    "fs_jacobi_resident": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
     # vel, div, n, stream
     "fs_divergence": (_P, _P, _I, _P),
     # vel, p, vel_out, n, stream

@@ -1,11 +1,14 @@
-"""K1: the K=1 semi-Lagrangian advection kernel, its plain twin and its wrapper.
+"""K1: the windowed semi-Lagrangian advection kernel, its plain twin and its
+wrapper.
 
 Counterpart of ``fluidsim_tpu/pallas/advect.py`` (``advect_multi_3d_pallas``
 → ``_advect_kernel``, core ``_substep_window_vals``), with the buoyancy and
 the folded emitter (``src``) of its self-advection.  The CUDA kernel is
 ``csrc/advect.cu``; ``advect_multi_3d_plain`` is the same arithmetic in plain
-PyTorch (the two-tap form, not the 27-term hat sum of ``ops/advect.py``),
-used for CPU tensors and as the reference the kernel is checked against.
+PyTorch, used for CPU tensors and as the reference the kernel is checked
+against: for a window of K = 1 the two-tap form (``windowed_sum_k1``), for
+K = 2 and 3 the ``(2K+1)³``-term hat sum (``windowed_sum``, the same sum as
+``ops/advect.window_sum_3d``).
 
 The obstacle mask is a ``torch.bool`` tensor (one byte per cell, which the
 kernel reads as ``uint8``, nonzero = solid).
@@ -16,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.advect import _mask_and_bnd_3d, window_sum_3d
 from ..ops.boundary import set_bnd_3d
 from ..ops.forces import buoyancy_force
 from ..scene.sources import src_field_add
@@ -37,15 +41,19 @@ def substep_dt0(dt: float, n: int, n_sub: int) -> float:
     return float(np.float32(dt0 / n_sub))
 
 
+# The windows the kernel takes (csrc/advect.cuh instantiates these).
+WINDOWS = (1, 2, 3)
+
+
 def advect_multi_3d_plain(bs, fields, vel, dt: float, buoy=None, obst=None,
-                          n_sub: int = 1, src=None):
+                          n_sub: int = 1, src=None, window: int = 1):
     """Plain PyTorch twin of the K1 kernel: advect the ``(F, N, N, N)``
-    ``fields`` (boundary codes ``bs``) through ``vel`` with the clamped K=1
-    backtrace in ``n_sub`` substeps of ``dt/n_sub``.  After every substep
-    comes the output contract: the fresh-zero + ``set_bnd`` faces, and with
-    the bool mask ``obst`` the solid cells zeroed before the faces and the
-    obstacle mirror of the velocity codes after them
-    (``ops/advect._mask_and_bnd_3d``).
+    ``fields`` (boundary codes ``bs``) through ``vel`` with the backtrace
+    clamped to ``window`` cells in ``n_sub`` substeps of ``dt/n_sub``.
+    After every substep comes the output contract: the fresh-zero +
+    ``set_bnd`` faces, and with the bool mask ``obst`` the solid cells
+    zeroed before the faces and the obstacle mirror of the velocity codes
+    after them (``ops/advect._mask_and_bnd_3d``).
 
     ``buoy = (density, buoyancy, ambient, gravity)`` (self-advection only)
     adds the buoyancy force to the y velocity first, at the cell and at
@@ -62,6 +70,12 @@ def advect_multi_3d_plain(bs, fields, vel, dt: float, buoy=None, obst=None,
             dens = src_field_add(dens, src)
         vel = buoyancy_force(vel, dens, dt, b_f, amb, grav)
         fields = vel
+    if window != 1:
+        for _ in range(n_sub):
+            vals = window_sum_3d(fields, vel, dt0, window)
+            fields = torch.stack([_mask_and_bnd_3d(b, vals[c], fields[c], obst)
+                                  for c, b in enumerate(bs)])
+        return fields
     f32 = torch.float32
     inner = slice(1, n - 1)
     core = (inner,) * 3
@@ -133,21 +147,23 @@ def _check_src(src, device) -> None:
 
 def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 1,
                            n_sub: int = 1, buoy=None, src=None):
-    """Advect ``fields`` (F = 1 or 3) through ``vel`` with the K1 kernel, in
-    ``n_sub`` substeps, with the obstacle contract after each when the bool
-    mask ``obst`` is given.
+    """Advect ``fields`` (F = 1 or 3) through ``vel`` with the K1 kernel for
+    a ``window`` of 1, 2 or 3 cells, in ``n_sub`` substeps, with the obstacle
+    contract after each when the bool mask ``obst`` is given.
 
     CUDA tensors launch ``csrc/advect.cu``; CPU tensors run
     ``advect_multi_3d_plain``.  ``buoy = (density, buoyancy, ambient,
     gravity)`` folds the buoyancy force into a self-advection call
     (``fields is vel``, ``bs == (1, 2, 3)``) without a mask; ``src`` (the
-    ``(5,)`` emitter descriptor) adds the emitter to that density.  Raises
+    ``(5,)`` emitter descriptor, window 1 only) adds the emitter to that
+    density.  Raises
     for what the kernel does not take.  ``advect_multi_3d_kernel.launches`` counts
     calls that launched the kernel."""
     bs = tuple(bs)
-    if window != 1:
+    if window not in WINDOWS:
         raise NotImplementedError(
-            f"advection kernel with window={window}: only window=1 is ported")
+            f"advection kernel with window={window}: the kernel takes "
+            f"windows {WINDOWS}")
     n_sub = _check_substeps(n_sub)
     if buoy is not None and not (fields is vel and bs == (1, 2, 3)):
         raise ValueError("buoy folding requires a self-advect call")
@@ -156,11 +172,15 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
             "the buoyancy fold with an obstacle mask is not ported")
     if src is not None and buoy is None:
         raise ValueError("src folding rides the buoy density reads")
+    if src is not None and window != 1:
+        raise NotImplementedError(
+            "the emitter fold with window > 1 is not ported (it needs the fused "
+            "kernels, which take window=1)")
     n_fields, n = fields.shape[0], fields.shape[-1]
     if n_fields not in (1, 3) or len(bs) != n_fields:
         raise ValueError(f"unsupported fields {tuple(fields.shape)} with bs={bs}")
-    if n < 3:
-        raise ValueError(f"grid too small: {n}")
+    if n < 2 * window + 1:
+        raise ValueError(f"grid too small for window={window}: {n}")
     _check_volume("fields", fields, (n_fields, n, n, n))
     _check_volume("vel", vel, (3, n, n, n))
     tensors = [fields, vel]
@@ -176,7 +196,8 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
         _check_src(src, fields.device)
 
     if fields.device.type == "cpu":
-        return advect_multi_3d_plain(bs, fields, vel, dt, buoy, obst, n_sub, src)
+        return advect_multi_3d_plain(bs, fields, vel, dt, buoy, obst, n_sub, src,
+                                     window)
     if fields.device.type != "cuda":
         raise ValueError(f"unsupported device {fields.device}")
 
@@ -197,7 +218,7 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
             None if src is None else src.data_ptr(), out.data_ptr(),
             None if tmp is None else tmp.data_ptr(),
             n, n_fields, b[0], b[1], b[2], substep_dt0(dt, n, n_sub), n_sub,
-            int(buoy is not None), *bp, stream,
+            int(window), int(buoy is not None), *bp, stream,
         )
     _build.check(lib, err, "advect kernel launch")
     advect_multi_3d_kernel.launches += 1

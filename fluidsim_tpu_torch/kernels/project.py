@@ -1,6 +1,7 @@
 """K7, the slab route's divergence and gradient kernels, their plain twins
-and their wrappers; the slab route (K7 → K6 → K7); and the projection's
-route between it and the resident K3 kernel.
+and their wrappers; the slab route (K7 → K6 → K7); the projection's route
+between it and the resident K3 kernel; and the Jacobi solve's route between
+K4 and K6.
 
 Counterpart of ``fluidsim_tpu/pallas/project.py``: ``_div_kernel`` and
 ``_grad_kernel`` around ``jacobi_3d_pallas``, and ``project_3d_pallas``,
@@ -14,6 +15,11 @@ obstacle mask keeps K3 at any size: the slab kernels have none.
 
 The CUDA kernels are ``csrc/project_slab.cu`` (K7) and ``csrc/jacobi.cu``
 (K6).  The twins share the K3 twin's divergence and gradient.
+
+The solve's route (``jacobi_3d_solve``) is that of the JAX
+``jacobi_3d_pallas`` and ``project_3d(use_pallas=True)``: the resident K4
+where its float32 volumes fit (here the card's L2), else K6; with an
+obstacle mask K4 at any size.
 """
 
 from __future__ import annotations
@@ -23,7 +29,12 @@ import torch.nn.functional as F
 
 from . import _build
 from .advect import _check_volume
-from .jacobi import jacobi_3d_kernel, jacobi_3d_plain
+from .jacobi import (
+    jacobi_3d_kernel,
+    jacobi_3d_plain,
+    jacobi_3d_resident,
+    jacobi_3d_resident_plain,
+)
 from .resident import (
     divergence_interior,
     project_3d_resident,
@@ -169,3 +180,30 @@ def project_3d_plain(vel, iters: int, obst=None, solve_dtype=None, resident=None
     if _slab(vel, obst, solve_dtype, resident):
         return project_3d_slab_plain(vel, iters)
     return project_3d_resident_plain(vel, iters, obst=obst, solve_dtype=solve_dtype)
+
+
+def _resident_solve(x, obst, resident) -> bool:
+    if obst is not None:
+        return True
+    if resident is None:
+        resident = resident_route(x.shape[-1], "float32", x.device)
+    return resident
+
+
+def jacobi_3d_solve(b: int, x, x0, a: float, c: float, iters: int, obst=None,
+                    resident=None):
+    """``iters`` Jacobi sweeps from ``x``: K4 where the float32 solve fits
+    the card's L2 or there is an obstacle mask, else K6.  ``resident`` is
+    ``resident_route(n, "float32", device)``'s answer where the caller has
+    it."""
+    if _resident_solve(x, obst, resident):
+        return jacobi_3d_resident(b, x, x0, a, c, iters, obst)
+    return jacobi_3d_kernel(b, x, x0, a, c, iters)
+
+
+def jacobi_3d_solve_plain(b: int, x, x0, a: float, c: float, iters: int, obst=None,
+                          resident=None):
+    """``jacobi_3d_solve``'s route with the kernels' twins."""
+    if _resident_solve(x, obst, resident):
+        return jacobi_3d_resident_plain(b, x, x0, a, c, iters, obst)
+    return jacobi_3d_plain(b, x, x0, a, c, iters)

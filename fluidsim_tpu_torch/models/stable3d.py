@@ -1,26 +1,32 @@
 """3D stable-fluids step (counterpart of ``fluidsim_tpu/models/stable3d.py``).
 
 Step order, as in the JAX package: buoyancy → vorticity confinement →
-self-advect velocity → pressure projection → velocity damping → advect
-density → density dissipation → obstacle enforcement.  Two branches:
+[viscous diffusion] → [pre-projection] → self-advect velocity → pressure
+projection → velocity damping → [density diffusion] → advect density →
+density dissipation → obstacle enforcement.  Two branches:
 
-* the kernel path (``_kernels_usable``: a CUDA device and
-  ``kernel_backend != "xla"``): where ``fuses_projection`` allows and
+* the kernel path (``_kernels_usable``: a CUDA device, ``kernel_backend !=
+  "xla"`` and a windowed advection): where ``fuses_projection`` allows and
   ``fuse_self_advect`` asks for it without a mask, K8 (the whole step in
   one launch); else K1 for the self-advection (with the buoyancy folded in
-  where ``fold_buoyancy`` allows), then either K2 (projection + density
-  advection, the sinks folded in; K2o with a mask; where
-  ``fuses_projection`` allows) or the projection alone followed by K1 for
-  the density; the projection is K3, or the slab route K7 → K6 → K7 when
-  the solve does not fit the card's L2 (``kernels/project.py``); K1 and K2
-  run the substeps and the obstacle contract in the kernel.  Where
-  ``emitter_folds`` holds, the caller passes the emitter as ``src`` and K1
-  and K2 add it to the density they read (K2s);
-* the plain path (``kernel_backend="xla"`` or a CPU device): the JAX
-  package's XLA composition of the ``ops`` functions.
+  where ``fold_buoyancy`` allows; once with ``n_sub = 1`` for the
+  semi-Lagrangian scheme, as MacCormack's forward and backward step for
+  that scheme), then either K2 (projection + density advection, the sinks
+  folded in; K2o with a mask; where ``fuses_projection`` allows) or the
+  projection alone followed by K1 for the density; the projection is K3, or
+  the slab route K7 → K6 → K7 when the solve does not fit the card's L2
+  (``kernels/project.py``); K1 and K2 run the substeps and the obstacle
+  contract in the kernel.  The pre-projection (``double_project``) is the
+  plain divergence and gradient around K4 (or K6 above the L2 gate), as the
+  JAX ``project_3d(use_pallas=True)``.  Where ``emitter_folds`` holds, the
+  caller passes the emitter as ``src`` and K1 and K2 add it to the density
+  they read (K2s);
+* the plain path (``kernel_backend="xla"``, window 0, or a CPU device): the
+  JAX package's XLA composition of the ``ops`` functions.
 
-Buoyancy (when not folded), vorticity confinement and obstacle enforcement
-are plain PyTorch on both paths.  Configurations the port does not cover yet
+Buoyancy (when not folded), vorticity confinement, diffusion, MacCormack's
+limiter and obstacle enforcement are plain PyTorch on both paths, as the
+JAX package leaves them to XLA.  Configurations the port does not cover yet
 raise ``NotImplementedError`` naming the missing piece (``check_supported``).
 """
 
@@ -32,20 +38,27 @@ import numpy as np
 import torch
 
 from ..config import SimConfig
-from ..kernels.advect import advect_multi_3d_kernel, advect_multi_3d_plain
-from ..kernels.project import project_3d_kernel, project_3d_plain, resident_route
+from ..kernels.advect import WINDOWS, advect_multi_3d_kernel, advect_multi_3d_plain
+from ..kernels.project import (
+    jacobi_3d_solve,
+    jacobi_3d_solve_plain,
+    project_3d_kernel,
+    project_3d_plain,
+    resident_route,
+)
 from ..kernels.resident import (
     full_step_3d,
     full_step_3d_plain,
     project_advect_density_3d,
     project_advect_density_3d_plain,
 )
-from ..ops.advect import advect_multi_3d, advect_substep_3d
+from ..ops.advect import advect_maccormack_3d, advect_multi_3d, advect_substep_3d
 from ..ops.forces import (
     buoyancy_force,
     enforce_obstacle_boundaries_3d,
     vorticity_confinement_3d,
 )
+from ..ops.linsolve import diffuse_3d
 from ..ops.project import project_3d
 from ..scene.sources import emitter_foldable
 from ..state import FluidState
@@ -53,36 +66,40 @@ from ..state import FluidState
 
 class StepKernels(NamedTuple):
     """The calls of the kernel path: ``advect(bs, fields, vel, dt, obst=,
-    n_sub=, buoy=, src=)``, ``project_advect(vel, density, iters, dt, obst=,
-    n_sub=, src=, solve_dtype=, damp=, dens_damp=)``, ``project(vel, iters,
-    obst=, solve_dtype=, resident=)``, which takes K3 or the slab route, and
-    ``full_step(vel, density, iters, dt, n_sub=, solve_dtype=, damp=,
-    dens_damp=)``."""
+    window=, n_sub=, buoy=, src=)``, ``project_advect(vel, density, iters,
+    dt, obst=, n_sub=, src=, solve_dtype=, damp=, dens_damp=)``,
+    ``project(vel, iters, obst=, solve_dtype=, resident=)``, which takes K3
+    or the slab route, ``full_step(vel, density, iters, dt, n_sub=,
+    solve_dtype=, damp=, dens_damp=)`` and ``jacobi(b, x, x0, a, c, iters,
+    obst=, resident=)``, which takes K4 or K6."""
 
     advect: Callable
     project_advect: Callable
     project: Callable
     full_step: Callable
+    jacobi: Callable
 
 
 HAND_KERNELS = StepKernels(advect_multi_3d_kernel, project_advect_density_3d,
-                           project_3d_kernel, full_step_3d)
+                           project_3d_kernel, full_step_3d, jacobi_3d_solve)
 # The kernels' plain twins, for running the kernel path's arithmetic on a
 # card without the kernels (the reference ``chip_smoke.py`` compares with).
 PLAIN_TWINS = StepKernels(advect_multi_3d_plain, project_advect_density_3d_plain,
-                          project_3d_plain, full_step_3d_plain)
+                          project_3d_plain, full_step_3d_plain, jacobi_3d_solve_plain)
 
 
 def _kernels_usable(cfg: SimConfig, device) -> bool:
-    """Whether the hand kernels apply: a CUDA device, unless the config
-    forces the plain path.  ``kernel_backend="pallas"`` requires them."""
+    """Whether the hand kernels apply: a CUDA device and a windowed
+    advection (``advect_window > 0``: no kernel takes the exact gather, as
+    in the JAX package's ``_pallas_usable``), unless the config forces the
+    plain path.  ``kernel_backend="pallas"`` requires them."""
     if cfg.kernel_backend == "xla":
         return False
-    ok = torch.device(device).type == "cuda"
+    ok = torch.device(device).type == "cuda" and cfg.advect_window > 0
     if cfg.kernel_backend == "pallas" and not ok:
         raise RuntimeError(
             "kernel_backend='pallas' but the hand kernels are not usable "
-            "here (they need a CUDA device)"
+            "here (they need a CUDA device and advect_window > 0)"
         )
     return ok
 
@@ -94,42 +111,41 @@ def _unported(what: str):
 def fuses_projection(cfg: SimConfig, use_kernels: bool, resident: bool) -> bool:
     """Whether the step runs a fused kernel, K2 (the projection + density
     advection) or, with ``fuse_self_advect`` and no mask, K8 (the whole
-    step): asked for (``fuse_project_advect``) on the kernel path, and the
+    step): asked for (``fuse_project_advect``) on the kernel path with the
+    substep scheme and the Jacobi solver (the JAX ``fuse_ok``), and the
     solve fits the card's L2 (``resident``, from ``resident_route``; as the
     JAX step takes its fused kernels only where they fit on chip)."""
-    return use_kernels and cfg.fuse_project_advect and resident
+    return (
+        use_kernels
+        and cfg.fuse_project_advect
+        and cfg.advection_scheme == "substep"
+        and cfg.pressure_solver != "fft"
+        and resident
+    )
 
 
-def check_supported(cfg: SimConfig, use_kernels: bool) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot step."""
-    _, diff, visc = cfg.effective_params()
+def check_supported(cfg: SimConfig, use_kernels: bool, resident: bool = True) -> None:
+    """Raise ``NotImplementedError`` for a config the port cannot step
+    (``resident``: ``resident_route``'s answer, which decides whether the
+    fused kernels run)."""
     if cfg.ndim != 3:
         _unported("the 2D reference-parity mode (ndim=2)")
     if cfg.dtype != "float32":
         _unported(f"field dtype {cfg.dtype!r}")
-    if visc > 0.0:
-        _unported("viscous diffusion (viscosity > 0)")
-    if diff > 0.0:
-        _unported("density diffusion (diffusion > 0)")
-    if cfg.double_project:
-        _unported("double_project")
     if cfg.pressure_solver == "fft":
         _unported("the FFT pressure solver")
-    if cfg.advection_scheme == "maccormack":
-        _unported("MacCormack advection")
-    if cfg.advect_window == 0:
-        _unported("exact-gather advection (advect_window=0)")
     if cfg.apply_turbulent_noise:
         _unported("turbulent noise")
     if not use_kernels:
         return
-    if cfg.advection_scheme != "substep":
-        _unported(f"kernel-path advection with advection_scheme="
-                  f"{cfg.advection_scheme!r} (only 'substep' runs on the kernels)")
     if cfg.jacobi_sweep_block > 1:
         _unported("sweep-blocked Jacobi (K5, jacobi_sweep_block > 1)")
-    if cfg.advect_window != 1:
-        _unported("kernel advection with advect_window != 1")
+    if cfg.advect_window not in WINDOWS:
+        _unported(f"kernel advection with advect_window={cfg.advect_window} "
+                  f"(K1 takes windows {WINDOWS})")
+    if cfg.advect_window > 1 and fuses_projection(cfg, use_kernels, resident):
+        _unported(f"the fused kernels (K2, K2s, K2o, K8) with advect_window="
+                  f"{cfg.advect_window} (they take advect_window=1)")
 
 
 def emitter_folds(cfg: SimConfig, use_kernels: bool, resident: bool) -> bool:
@@ -198,17 +214,18 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
     the folded emitter's descriptor (``scene.sources.emitter_fold_operand``),
     only where ``emitter_folds`` holds: the caller has then skipped
     ``apply_custom_source``."""
-    dt = cfg.effective_params()[0]
+    dt, diff, visc = cfg.effective_params()
     device = state.density.device
     use_kernels = _kernels_usable(cfg, device)
     if resident is None:
         resident = resident_route(cfg.current_size, cfg.solve_dtype, device)
-    check_supported(cfg, use_kernels)
+    check_supported(cfg, use_kernels, resident)
     if src is not None and not emitter_folds(cfg, use_kernels, resident):
         raise ValueError(
             "src (folded emitter) passed but emitter_folds is False for this "
             "config: the caller must apply apply_custom_source itself")
     obst = state.obstacles if cfg.enable_obstacle else None
+    win = cfg.advect_window
     vel = state.velocity
     density = state.density
 
@@ -219,28 +236,59 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
                              cfg.ambient_density, cfg.gravity)
     if cfg.vorticity_confinement != 0.0:
         vel = vorticity_confinement_3d(vel, dt, cfg.vorticity_confinement)
+    if visc > 0.0:
+        vel = torch.stack([diffuse_3d(c + 1, vel[c], visc, dt, obst, cfg)
+                           for c in range(3)])
+    if cfg.double_project:
+        solve = None
+        if use_kernels:
+            # K4's route is the float32 solve's: the projection's where that
+            # solves in float32 too.
+            fits = resident if cfg.solve_dtype == "float32" else None
+
+            def solve(p, div, iters, mask):
+                return kernels.jacobi(0, p, div, 1.0, 6.0, iters, obst=mask,
+                                      resident=fits)
+        vel, _ = project_3d(vel, obst, cfg.jacobi_iters, jacobi_fn=solve)
     damp = sink_factor(dt, cfg.velocity_damping) if cfg.velocity_damping else 1.0
     ddamp = (sink_factor(dt, cfg.density_dissipation)
              if cfg.density_dissipation else 1.0)
 
     if use_kernels:
-        def advect(bs, fields, velocity, buoy=None):
-            return kernels.advect(bs, fields, velocity, dt, obst=obst,
-                                  n_sub=cfg.advect_substeps, buoy=buoy,
-                                  src=src if buoy is not None else None)
+        def base(bs, fields, velocity, d):
+            return kernels.advect(bs, fields, velocity, d, obst=obst, window=win)
+
+        if cfg.advection_scheme == "substep":
+            def advect(bs, fields, velocity, buoy=None):
+                return kernels.advect(bs, fields, velocity, dt, obst=obst,
+                                      window=win, n_sub=cfg.advect_substeps,
+                                      buoy=buoy,
+                                      src=src if buoy is not None else None)
+        elif cfg.advection_scheme == "maccormack":
+            def advect(bs, fields, velocity, buoy=None):
+                return advect_maccormack_3d(bs, fields, velocity, dt, obst, win,
+                                            advect_fn=base)
+        else:
+            def advect(bs, fields, velocity, buoy=None):
+                return base(bs, fields, velocity, dt)
     else:
         def advect(bs, fields, velocity, buoy=None):
             if cfg.advection_scheme == "substep":
-                return advect_substep_3d(bs, fields, velocity, dt, obst,
-                                         cfg.advect_window,
+                return advect_substep_3d(bs, fields, velocity, dt, obst, win,
                                          n_sub=cfg.advect_substeps)
-            return advect_multi_3d(bs, fields, velocity, dt, obst,
-                                   cfg.advect_window)
+            if cfg.advection_scheme == "maccormack":
+                return advect_maccormack_3d(bs, fields, velocity, dt, obst, win)
+            return advect_multi_3d(bs, fields, velocity, dt, obst, win)
 
     fused = fuses_projection(cfg, use_kernels, resident)
+    if fused:
+        # Density diffusion touches no velocity, so it runs before the fused
+        # kernel (as in the JAX package).
+        dens_in = (diffuse_3d(0, density, diff, dt, obst, cfg)
+                   if diff > 0.0 else density)
     if fused and cfg.fuse_self_advect and obst is None:
         vel, pressure, density = kernels.full_step(
-            vel, density, cfg.jacobi_iters, dt, n_sub=cfg.advect_substeps,
+            vel, dens_in, cfg.jacobi_iters, dt, n_sub=cfg.advect_substeps,
             solve_dtype=cfg.solve_dtype, damp=damp, dens_damp=ddamp,
         )
     else:
@@ -249,7 +297,7 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
         vel = advect((1, 2, 3), vel, vel, buoy)
         if fused:
             vel, pressure, density = kernels.project_advect(
-                vel, density, cfg.jacobi_iters, dt, obst=obst,
+                vel, dens_in, cfg.jacobi_iters, dt, obst=obst,
                 n_sub=cfg.advect_substeps, src=src,
                 solve_dtype=cfg.solve_dtype, damp=damp, dens_damp=ddamp,
             )
@@ -263,6 +311,8 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
     if not fused:
         if cfg.velocity_damping != 0.0:
             vel = vel * damp
+        if diff > 0.0:
+            density = diffuse_3d(0, density, diff, dt, obst, cfg)
         density = advect((0,), density[None], vel)[0]
         if cfg.density_dissipation != 0.0:
             density = density * ddamp

@@ -5,10 +5,11 @@ FluidSim.cs:1125-1186): backtrace ``x = i − dt0·u`` with ``dt0 = dt·(N−2)`
 clamp to ``[0.5, N−1.5]``, trilinear interpolation, written into a fresh
 zero buffer (walls come out 0) before ``set_bnd``.
 
-Only the windowed formulation (``window = K > 0``) is ported: the trilinear
-sample as a ``(2K+1)³``-term sum of shifted fields weighted by per-cell hat
-functions, with the displacement clamped to K cells.  The exact 8-tap
-gather (``window = 0``) and MacCormack advection are not ported yet.
+Two formulations, as in the JAX package: ``window = 0`` is the exact 8-tap
+gather; ``window = K > 0`` is the trilinear sample as a ``(2K+1)³``-term sum
+of shifted fields weighted by per-cell hat functions, with the displacement
+clamped to K cells.  ``advect_maccormack_3d`` and ``advect_substep_3d``
+compose either one.
 """
 
 from __future__ import annotations
@@ -17,6 +18,16 @@ import numpy as np
 import torch
 
 from .boundary import set_bnd_3d
+
+
+def _backtrace_1d(coord, vel, dt0: float, n: int):
+    """Clamped backtrace along one axis: ``(i0, frac)`` with
+    ``i0 = floor(clamp(coord − dt0·vel, 0.5, n−1.5))``."""
+    x = coord - float(dt0) * vel
+    x = torch.where(x < 0.5, 0.5, x)
+    x = torch.where(x > n - 1.5, n - 1.5, x)
+    i0 = torch.floor(x).to(torch.int32)
+    return i0, x - i0.to(x.dtype)
 
 
 def _mask_and_bnd_3d(b: int, val, d0, obst):
@@ -31,19 +42,22 @@ def _mask_and_bnd_3d(b: int, val, d0, obst):
     return set_bnd_3d(b, out, obst)
 
 
-def advect_multi_3d(bs, fields, vel, dt: float, obst=None, window: int = 1):
-    """Advect the ``(C, N, N, N)`` ``fields`` (boundary codes ``bs``) through
-    ``vel`` with one shared backtrace and hat weights.  Returns the stacked
-    advected fields."""
-    if window <= 0:
-        raise NotImplementedError(
-            "advect_window=0 (exact 8-tap gather advection) is not ported"
-        )
+def _coords(n: int, device):
+    ar = torch.arange(n, dtype=torch.float32, device=device)
+    return torch.meshgrid(ar, ar, ar, indexing="ij")
+
+
+def window_sum_3d(fields, vel, dt0: float, window: int):
+    """The windowed trilinear sample of the ``(C, N, N, N)`` ``fields`` at
+    every cell (before the output contract), for the backtrace scale
+    ``dt0``: ``Σ_{dz,dy,dx ∈ [−K, K]} ((hat(fz,dz)·hat(fy,dy))·hat(fx,dx))·
+    f[z+dz, y+dy, x+dx]`` accumulated in that order from zero, with
+    ``hat(f, d) = max(0, 1 − |f − d|)`` and the displacement ``f`` clamped to
+    ``[0.5, n−1.5]`` and then to ``coord ± K``.  Taps are read at wrapped
+    indices; the clamp gives every tap outside the grid zero weight."""
     n = fields.shape[-1]
-    dt0 = np.float32(dt) * np.float32(n - 2)
     f32 = torch.float32
-    ar = torch.arange(n, dtype=f32, device=fields.device)
-    kk, jj, ii = torch.meshgrid(ar, ar, ar, indexing="ij")
+    kk, jj, ii = _coords(n, fields.device)
 
     def frac_disp(v, coord):
         x = coord - float(dt0) * v
@@ -66,13 +80,84 @@ def advect_multi_3d(bs, fields, vel, dt: float, obst=None, window: int = 1):
             wzy = wz * hat(fy, dy)
             for dx in range(-window, window + 1):
                 w = wzy * hat(fx, dx)
-                # shifted[c] = fields[c + (dz, dy, dx)]; wrapped cells get
-                # zero weight (the clamp keeps targets in [0.5, n-1.5]).
+                # shifted[c] = fields[c + (dz, dy, dx)], wrapped.
                 shifted = torch.roll(fields, (-dz, -dy, -dx), (1, 2, 3))
                 out = out + w[None] * shifted
-    vals = out.to(fields.dtype)
+    return out
+
+
+def _gather_3d(fields, vel, dt0: float):
+    """The exact 8-tap trilinear sample of each of the ``(C, N, N, N)``
+    ``fields`` at every cell, in the JAX package's term order."""
+    n = fields.shape[-1]
+    f32 = torch.float32
+    kk, jj, ii = _coords(n, fields.device)
+    i0, s1 = _backtrace_1d(ii, vel[0].to(f32), dt0, n)
+    j0, t1 = _backtrace_1d(jj, vel[1].to(f32), dt0, n)
+    k0, u1 = _backtrace_1d(kk, vel[2].to(f32), dt0, n)
+    s0, t0, u0 = 1.0 - s1, 1.0 - t1, 1.0 - u1
+    i0, j0, k0 = i0.long(), j0.long(), k0.long()
+    i1, j1, k1 = i0 + 1, j0 + 1, k0 + 1
+
+    def tri(f):
+        return u0 * (
+            s0 * (t0 * f[k0, j0, i0] + t1 * f[k0, j1, i0])
+            + s1 * (t0 * f[k0, j0, i1] + t1 * f[k0, j1, i1])
+        ) + u1 * (
+            s0 * (t0 * f[k1, j0, i0] + t1 * f[k1, j1, i0])
+            + s1 * (t0 * f[k1, j0, i1] + t1 * f[k1, j1, i1])
+        )
+
+    return torch.stack([tri(fields[c]) for c in range(fields.shape[0])])
+
+
+def advect_multi_3d(bs, fields, vel, dt: float, obst=None, window: int = 0):
+    """Advect the ``(C, N, N, N)`` ``fields`` (boundary codes ``bs``) through
+    ``vel`` with one shared backtrace: the exact gather for ``window = 0``,
+    the windowed hat sum for ``window > 0``.  Returns the stacked advected
+    fields."""
+    n = fields.shape[-1]
+    dt0 = np.float32(dt) * np.float32(n - 2)
+    if window > 0:
+        vals = window_sum_3d(fields, vel, float(dt0), window)
+    else:
+        vals = _gather_3d(fields, vel, float(dt0))
+    vals = vals.to(fields.dtype)
     return torch.stack(
         [_mask_and_bnd_3d(b, vals[c], fields[c], obst) for c, b in enumerate(bs)]
+    )
+
+
+def advect_3d(b: int, d0, vel, dt: float, obst=None, window: int = 0):
+    """Advect one ``(N, N, N)`` field with boundary code ``b``."""
+    return advect_multi_3d((b,), d0[None], vel, dt, obst, window)[0]
+
+
+def advect_maccormack_3d(bs, fields, vel, dt: float, obst=None,
+                         window: int = 2, advect_fn=None):
+    """MacCormack advection (``advection_scheme='maccormack'``): forward
+    ``A(φ)``, backward ``A⁻¹(forward)`` through ``−vel``, ``forward +
+    0.5·(φ − backward)`` clamped to the extremes of forward over each cell
+    and its six (wrapped) face neighbours, then the output contract.
+    ``advect_fn(bs, fields, vel, dt)`` is the semi-Lagrangian step ``A``
+    (``advect_multi_3d`` with ``window`` by default)."""
+    if advect_fn is None:
+        def advect_fn(b_, f_, v_, d_):
+            return advect_multi_3d(b_, f_, v_, d_, obst, window)
+    forward = advect_fn(bs, fields, vel, dt)
+    backward = advect_fn(bs, forward, -vel, dt)
+    corrected = forward + 0.5 * (fields - backward)
+
+    lo = forward
+    hi = forward
+    for axis in (1, 2, 3):
+        for s in (-1, 1):
+            shifted = torch.roll(forward, s, axis)
+            lo = torch.minimum(lo, shifted)
+            hi = torch.maximum(hi, shifted)
+    limited = torch.clamp(corrected, lo, hi)
+    return torch.stack(
+        [_mask_and_bnd_3d(b, limited[c], fields[c], obst) for c, b in enumerate(bs)]
     )
 
 

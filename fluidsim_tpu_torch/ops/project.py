@@ -14,13 +14,18 @@ from .boundary import set_bnd_3d
 from .linsolve import jacobi_3d
 
 
-def project_3d(vel: torch.Tensor, obst=None, iters: int = 20):
+def project_3d(vel: torch.Tensor, obst=None, iters: int = 20, jacobi_fn=None):
     """Projection of a ``(3, N, N, N)`` velocity on a ``[z, y, x]`` grid.
-    Returns ``(vel, p)``."""
+    ``jacobi_fn(p, div, iters, obst)`` replaces the XLA-class solve (the
+    kernel route of the JAX ``project_3d(use_pallas=True)`` passes its
+    resident or slab Jacobi kernel here).  Returns ``(vel, p)``."""
     n = vel.shape[-1]
     in_dtype = vel.dtype
     vel = vel.to(torch.float32)
     nf = float(n)
+    # A tensor divisor: on CUDA, PyTorch divides by a Python scalar by
+    # multiplying with its reciprocal, which is not XLA's division.
+    nf_t = torch.tensor(nf, dtype=torch.float32, device=vel.device)
     core = (slice(1, -1),) * 3
     vx, vy, vz = vel[0], vel[1], vel[2]
 
@@ -31,13 +36,16 @@ def project_3d(vel: torch.Tensor, obst=None, iters: int = 20):
             + (vy[1:-1, 2:, 1:-1] - vy[1:-1, :-2, 1:-1])
             + (vz[2:, 1:-1, 1:-1] - vz[:-2, 1:-1, 1:-1])
         )
-        / nf
+        / nf_t
     )
     div = torch.zeros_like(vx)
     div[core] = div_int
     div = set_bnd_3d(0, div, obst)
     p = set_bnd_3d(0, torch.zeros_like(vx), obst)
-    p = jacobi_3d(0, p, div, 1.0, 6.0, obst, iters)
+    if jacobi_fn is not None:
+        p = jacobi_fn(p, div, iters, obst)
+    else:
+        p = jacobi_3d(0, p, div, 1.0, 6.0, obst, iters)
 
     grads = (
         0.5 * (p[1:-1, 1:-1, 2:] - p[1:-1, 1:-1, :-2]) * nf,

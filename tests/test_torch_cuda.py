@@ -1,6 +1,6 @@
 """fluidsim_tpu_torch's CUDA kernels against their plain twins, on a card
 (and K8 against K1 followed by K2, and the fused step paths against the
-unfused ones).
+unfused ones), and the plain ops that divide on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one.  The module
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -17,7 +17,9 @@ import torch
 from fluidsim_tpu_torch.config import (
     preset_bench_128,
     preset_multi_emitter_256,
+    preset_plume_64,
     preset_sharded_512,
+    preset_smoke_box_32,
     preset_vortex_128,
 )
 from fluidsim_tpu_torch.engine import Engine
@@ -26,7 +28,12 @@ from fluidsim_tpu_torch.kernels.advect import (
     advect_multi_3d_kernel,
     advect_multi_3d_plain,
 )
-from fluidsim_tpu_torch.kernels.jacobi import jacobi_3d_kernel, jacobi_3d_plain
+from fluidsim_tpu_torch.kernels.jacobi import (
+    jacobi_3d_kernel,
+    jacobi_3d_plain,
+    jacobi_3d_resident,
+    jacobi_3d_resident_plain,
+)
 from fluidsim_tpu_torch.kernels.project import (
     divergence_3d_kernel,
     divergence_3d_plain,
@@ -43,6 +50,9 @@ from fluidsim_tpu_torch.kernels.resident import (
     project_advect_density_3d,
     project_advect_density_3d_plain,
 )
+from fluidsim_tpu_torch.ops.forces import enforce_obstacle_boundaries_3d
+from fluidsim_tpu_torch.ops.linsolve import jacobi_3d as jacobi_3d_xla
+from fluidsim_tpu_torch.ops.project import project_3d as project_3d_xla
 from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
 from fluidsim_tpu_torch.scene.sources import emitter_fold_operand
 from fluidsim_tpu_torch.models.stable3d import PLAIN_TWINS
@@ -335,3 +345,108 @@ def test_vortex128_fused_path_equals_unfused(cuda):
     unfused.step(5)
     for name in ("density", "velocity", "pressure"):
         assert torch.equal(getattr(fused.state, name), getattr(unfused.state, name)), name
+
+
+# -- K1 with a window of K = 2, 3, K4, and the plume64 / smoke32 paths ----------
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("window", [2, 3])
+@pytest.mark.parametrize("n", [17, 64])
+def test_k1_window_matches_twin(cuda, n, window, n_sub, masked):
+    vel, dens = fields(n, 1100 + n + window, cuda)
+    vel = vel * 0.3  # a backtrace of up to about three cells
+    obst = vortex_mask(n, cuda) if masked else None
+    for bs, f in (((1, 2, 3), vel), ((0,), dens[None])):
+        got = advect_multi_3d_kernel(bs, f, vel, DT, obst=obst, window=window, n_sub=n_sub)
+        ref = advect_multi_3d_plain(bs, f, vel, DT, obst=obst, window=window, n_sub=n_sub)
+        assert_equal((got,), (ref,), f"K1 window={window} {bs}")
+
+
+@pytest.mark.parametrize("window", [2, 3])
+def test_k1_window_buoyancy_fold_matches_twin(cuda, window):
+    n = 33
+    vel, dens = fields(n, 1200 + window, cuda)
+    vel = vel * 0.3
+    buoy = (dens, 0.2, 0.1, 0.05)
+    for n_sub in (1, 2):
+        got = advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, window=window, buoy=buoy,
+                                     n_sub=n_sub)
+        ref = advect_multi_3d_plain((1, 2, 3), vel, vel, DT, window=window, buoy=buoy,
+                                    n_sub=n_sub)
+        assert_equal((got,), (ref,), f"K1 window={window} buoy n_sub={n_sub}")
+
+
+@pytest.mark.parametrize("case", ["b0", "b1", "b3", "b0-mask", "b0-diffusion"])
+@pytest.mark.parametrize("n", [17, 64])
+def test_k4_matches_twin(cuda, n, case):
+    """20 sweeps from a non-zero start whose faces are not set_bnd-consistent."""
+    b = int(case[1])
+    vel, dens = fields(n, 1300 + n, cuda)
+    obst = vortex_mask(n, cuda) if case.endswith("mask") else None
+    a, c = (0.13, 1.0 + 6 * 0.13) if case.endswith("diffusion") else (1.0, 6.0)
+    got = jacobi_3d_resident(b, vel[0], vel[1], a, c, 20, obst=obst)
+    ref = jacobi_3d_resident_plain(b, vel[0], vel[1], a, c, 20, obst=obst)
+    assert_equal((got,), (ref,), f"K4 {case}")
+
+
+def test_plain_ops_divide_as_on_the_cpu(cuda):
+    """The plain ops the card runs divide by a 0-d tensor on the operand's
+    device, so the card and the CPU give the same bits (PyTorch on CUDA
+    divides by a Python scalar as a reciprocal multiply)."""
+    n = 33
+    vel, dens = fields(n, 1400, cuda)
+    obst = vortex_mask(n, cuda)
+    cases = {
+        "jacobi_3d": lambda v, d, o: jacobi_3d_xla(0, d, d, 0.13, 1.0 + 6 * 0.13, None, 5),
+        "project_3d": lambda v, d, o: project_3d_xla(v, o, 5)[0],
+        "obstacle enforcement": lambda v, d, o: enforce_obstacle_boundaries_3d(
+            v, o, 0.1, 1e-4),
+    }
+    for name, fn in cases.items():
+        got = fn(vel, dens, obst).cpu()
+        ref = fn(vel.cpu(), dens.cpu(), obst.cpu())
+        assert torch.equal(got, ref), (name, float((got - ref).abs().max()))
+
+
+def test_plume64_kernel_path_matches_twin_path(cuda):
+    cfg = preset_plume_64().replace(size=48)
+    kern, twin = Engine(cfg, cuda), Engine(cfg, cuda, kernels=PLAIN_TWINS)
+    before = (advect_multi_3d_kernel.launches, project_3d_resident.launches,
+              project_advect_density_3d.launches, jacobi_3d_resident.launches)
+    kern.step(3)
+    twin.step(3)
+    assert (advect_multi_3d_kernel.launches - before[0], project_3d_resident.launches - before[1],
+            project_advect_density_3d.launches - before[2],
+            jacobi_3d_resident.launches - before[3]) == (6, 3, 0, 0)
+    for name in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(kern.state, name), getattr(twin.state, name)), name
+
+
+@pytest.mark.parametrize("preset", [preset_plume_64, preset_vortex_128],
+                         ids=["plume64-K4", "vortex128-K4-mask"])
+def test_double_project_kernel_path_matches_twin_path(cuda, preset):
+    cfg = preset().replace(size=48, double_project=True)
+    kern, twin = Engine(cfg, cuda), Engine(cfg, cuda, kernels=PLAIN_TWINS)
+    before = jacobi_3d_resident.launches
+    kern.step(3)
+    twin.step(3)
+    assert jacobi_3d_resident.launches - before == 3
+    for name in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(kern.state, name), getattr(twin.state, name)), name
+
+
+def test_smoke32_on_the_card_matches_the_cpu(cuda):
+    """smoke32 takes no kernel (window 0) and steps on the card as on the
+    CPU, bitwise."""
+    cfg = preset_smoke_box_32()
+    card, cpu = Engine(cfg, cuda), Engine(cfg, "cpu")
+    counters = (advect_multi_3d_kernel, project_3d_resident, project_advect_density_3d,
+                jacobi_3d_resident, jacobi_3d_kernel, full_step_3d)
+    before = [fn.launches for fn in counters]
+    card.step(5)
+    cpu.step(5)
+    assert [fn.launches for fn in counters] == before
+    for name in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(card.state, name).cpu(), getattr(cpu.state, name)), name

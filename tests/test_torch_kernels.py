@@ -137,8 +137,8 @@ def test_wrappers_on_cpu_run_the_twins():
 def test_wrappers_reject_what_the_kernels_do_not_take():
     vel, dens = inputs(16, 4)
     tv, td = torch.from_numpy(vel), torch.from_numpy(dens)
-    with pytest.raises(NotImplementedError):
-        advect_multi_3d_kernel((1, 2, 3), tv, tv, DT_ADV, window=2)
+    with pytest.raises(NotImplementedError, match="window=4"):
+        advect_multi_3d_kernel((1, 2, 3), tv, tv, DT_ADV, window=4)
     with pytest.raises(NotImplementedError, match="buoyancy fold"):
         advect_multi_3d_kernel((1, 2, 3), tv, tv, DT_ADV,
                                obst=torch.zeros(td.shape, dtype=torch.bool),

@@ -200,11 +200,8 @@ def test_make_step_3d_is_a_loop_of_steps():
 @pytest.mark.parametrize("change,missing", [
     (dict(ndim=2, size=64, source_position=(0.5, 0.5),
           obstacle_position=(0.5, 0.5)), "2D"),
-    (dict(diffusion=1e-4), "density diffusion"),
     (dict(apply_turbulent_noise=True), "turbulent noise"),
-    (dict(viscosity=1e-4), "viscous"),
     (dict(pressure_solver="fft"), "FFT"),
-    (dict(advection_scheme="maccormack"), "MacCormack"),
     (dict(dtype="bfloat16"), "dtype"),
 ])
 def test_unported_configs_raise(change, missing):
@@ -213,10 +210,51 @@ def test_unported_configs_raise(change, missing):
         Engine(cfg, "cpu")
 
 
+@pytest.mark.parametrize("change,calls", [
+    (dict(diffusion=1e-4), ["advect", "project_advect"]),
+    (dict(viscosity=1e-4), ["advect", "project_advect"]),
+    (dict(advection_scheme="maccormack"), ["advect"] * 2 + ["project"] + ["advect"] * 2),
+    (dict(advect_window=2, fuse_project_advect=False), ["advect", "project", "advect"]),
+], ids=["density diffusion", "viscous", "MacCormack", "advect_window=2"])
+def test_formerly_unported_configs_step_like_jax(monkeypatch, change, calls):
+    """bench128 (cut to 32³) with density diffusion (before the fused K2),
+    viscous diffusion, MacCormack advection (K1 with one substep as its
+    base step, then K3) and a K1 window of 2 cells (with the buoyancy
+    folded) steps on the kernel path's twins and equals the JAX step with
+    its interpret-mode Pallas kernels after one step, within the bf16-solve
+    class of the 20-step test."""
+    monkeypatch.setattr(j_s3, "_pallas_usable", lambda cfg: True)
+    for mod, name in ((j_pa, "advect_multi_3d_pallas"), (j_pp, "project_3d_pallas"),
+                      (j_pp, "project_advect_density_3d_pallas")):
+        monkeypatch.setattr(mod, name, functools.partial(getattr(mod, name),
+                                                         interpret=True))
+    monkeypatch.setattr(t_s3, "_kernels_usable", lambda cfg, device: True)
+    eng = JEngine(j_bench128().replace(size=N, **change))
+    eng.state = JState(**{k: jnp.asarray(v) for k, v in start_arrays().items()})
+    eng.step(1)
+    made = []
+    kernels = t_s3.StepKernels(*(
+        (lambda name, fn: lambda *a, **k: made.append(name) or fn(*a, **k))(name, fn)
+        for name, fn in t_s3.PLAIN_TWINS._asdict().items()))
+    port = Engine(t_bench128().replace(size=N, **change), "cpu", kernels=kernels)
+    port.state = state_from_numpy(start_arrays(), "cpu")
+    port.step(1)
+    assert made == calls
+    got = state_to_numpy(port.state)
+    for field, bound in (("density", 1e-5), ("velocity", 1e-3), ("pressure", 2.0 ** -8)):
+        ref = np.asarray(getattr(eng.state, field))
+        scale = float(np.abs(ref).max())
+        diff = max_diff(got[field], ref)
+        assert diff <= bound * scale, (
+            f"{field}: max abs diff {diff:.3e} > {bound} x max {scale:.3e}")
+
+
 @pytest.mark.parametrize("change,missing", [
     (dict(jacobi_sweep_block=2), "K5"),
     (dict(advect_window=2), "advect_window"),
-])
+    (dict(advect_window=2, fuse_self_advect=True), "K8"),
+    (dict(advect_window=4, fuse_project_advect=False), "advect_window=4"),
+], ids=["K5", "K2 advect_window=2", "K8 advect_window=2", "K1 advect_window=4"])
 def test_unported_kernel_variants_raise(monkeypatch, change, missing):
     monkeypatch.setattr(t_s3, "_kernels_usable", lambda cfg, device: True)
     cfg = t_bench128().replace(size=N, **change)

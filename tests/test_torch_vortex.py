@@ -339,7 +339,8 @@ def test_fold_buoyancy_gate_matches_jax(monkeypatch, preset, change):
     assert not t_s3.fold_buoyancy(t_cfg, use_kernels=False)
 
     # The port's step passes the same decision to its advection call.
-    def t_record(bs, fields, vel, dt, obst=None, n_sub=1, buoy=None, src=None):
+    def t_record(bs, fields, vel, dt, obst=None, window=1, n_sub=1, buoy=None,
+                 src=None):
         seen["port"] = buoy is not None
         raise _GateSeen
 
