@@ -6,7 +6,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which ends the run with a non-zero exit code on failure:
   1. require a CUDA device (no CPU fallback) and print the card's name and
      power limit;
-  2. build the hand kernels (K1, K2, K3, K4, K6, K7, K8) from
+  2. build the hand kernels (K1, K2, K3, K4, K6, K7, K8, K9) from
      ``fluidsim_tpu_torch/csrc``;
   3. hold each kernel against its plain PyTorch twin on the card on inputs
      made with NumPy from a seed, bitwise: at 128³ K1 with buoyancy and K2 on
@@ -65,12 +65,27 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      for 3 steps re-synced to tests/oracle3d.py (rtol 1e-4, atol
      2e-5·scale); step plume64 and vortex128 with ``double_project`` (K4,
      and K4 with the mask) for 10 steps each, bitwise their twin paths;
+ 9c. the 2D reference-parity mode: hold K9 against its twin at 192² with
+     scene_a's airfoil and at 128² with scene_b's circle (b = 0, 1, 2, both
+     modes, 20 and 21 sweeps), bitwise; step scene_a at 192² through
+     ``Engine`` for ``STEPS`` steps (exactly eight K9 launches a step, three
+     of them smoothing solves, and no 3D kernel; finite fields, the emitted mass builds up from step 1 to 40
+     and stays above step 1's, interior obstacle cells at zero velocity; the
+     first 10 steps bitwise the twin path) and hold 3 steps on the card
+     against the CPU port (rtol 1e-5, atol 2e-6·scale); step scene_b at 128²
+     from a seeded state for ``VORTEX_STEPS`` steps (eight K9 launches a
+     step, three smoothing); run
+     tests/test_parity_step.py::test_step_parity_resync_64's config on the
+     kernel path re-synced to tests/oracle2d.py (loaded by file path: NumPy
+     only) for 4 steps (rtol 1e-5, atol 2e-6·scale);
  10. time every path (steps/s), the p50 step+raymarch frame of bench128 and
      multi256 and each kernel beside its twin, with CUDA events after
      warm-up, K8 beside K1 + K2 and K2o beside K3 + K1 on the same inputs,
      K3 (float32 and bfloat16) beside the slab route from 128³ to 256³, K4
-     per sweep, and break a step of each path down by device time with
-     ``torch.profiler``.
+     per sweep, K9 a solve and a sweep (and on one block beside the 8-block
+     cluster), and break a step of each path down by
+     device time with ``torch.profiler`` (for scene_a and scene_b with the
+     host-idle share).
 The line before last is a JSON object describing each kernel (with the
 least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -143,9 +158,10 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_ms(fn, reps: int) -> dict:
+def profile_ms(fn, reps: int, launches: dict = None) -> dict:
     """Device milliseconds per call of ``fn()``, by kernel name, from
-    ``torch.profiler`` over ``reps`` calls."""
+    ``torch.profiler`` over ``reps`` calls (``launches``, when given, gets
+    the device launches per call by name)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -165,6 +181,8 @@ def profile_ms(fn, reps: int) -> dict:
         name = evt.key.replace("(anonymous namespace)::", "").replace("void ", "")
         name = name.split("(")[0][:90]
         out[name] = out.get(name, 0.0) + us / 1e3 / reps
+        if launches is not None:
+            launches[name] = launches.get(name, 0.0) + evt.count / reps
     return out
 
 
@@ -282,10 +300,13 @@ def main() -> None:
     import torch.nn.functional as F
 
     from fluidsim_tpu_torch.config import (
+        ObstacleShape,
         SimConfig,
         preset_bench_128,
         preset_multi_emitter_256,
         preset_plume_64,
+        preset_scene_a,
+        preset_scene_b,
         preset_sharded_512,
         preset_smoke_box_32,
         preset_vortex_128,
@@ -319,7 +340,13 @@ def main() -> None:
         project_advect_density_3d,
         project_advect_density_3d_plain,
     )
-    from fluidsim_tpu_torch.models.stable3d import PLAIN_TWINS, simulate_step_3d, sink_factor
+    from fluidsim_tpu_torch.kernels.resident2d import (
+        lin_solve_2d_resident,
+        lin_solve_2d_resident_plain,
+    )
+    from fluidsim_tpu_torch.models.stable2d import simulate_step_2d
+    from fluidsim_tpu_torch.models.stable3d import simulate_step_3d, sink_factor
+    from fluidsim_tpu_torch.models.step_kernels import PLAIN_TWINS
     from fluidsim_tpu_torch.ops.boundary import interior_mask
     from fluidsim_tpu_torch.ops.forces import (
         buoyancy_force,
@@ -348,11 +375,12 @@ def main() -> None:
     counters = {"K1": advect_multi_3d_kernel, "K2": project_advect_density_3d,
                 "K3": project_3d_resident, "K6": jacobi_3d_kernel,
                 "K7 div": divergence_3d_kernel, "K7 grad": gradient_3d_kernel,
-                "K8": full_step_3d, "K4": jacobi_3d_resident}
+                "K8": full_step_3d, "K4": jacobi_3d_resident, "K9": lin_solve_2d_resident}
 
     def counters_to_zero():
         for fn in counters.values():
             fn.launches = 0
+        lin_solve_2d_resident.smooth_launches = 0
 
     def counts():
         return {k: fn.launches for k, fn in counters.items()}
@@ -996,6 +1024,163 @@ def main() -> None:
         dp_engines[what] = deng
         del dtwin
 
+    # -- 9c. the 2D reference-parity mode: scene_a and scene_b (K9) ----------
+    # K9 against its twin on seeded fields: scene_a's airfoil at 192² and
+    # scene_b's circle at 128², b = 0, 1, 2 in both modes, 20 and 21 sweeps.
+    acfg, bcfg = preset_scene_a(), preset_scene_b()
+    an, bn = acfg.current_size, bcfg.current_size
+    amask = torch.from_numpy(build_obstacle_mask(acfg)).to(dev)
+    bmask = torch.from_numpy(build_obstacle_mask(bcfg)).to(dev)
+    say(f"# scene_a mask: {int(amask.sum())} solid cells at {an}^2; scene_b: "
+        f"{int(bmask.sum())} at {bn}^2")
+
+    def diffusion_coefficients(scfg):
+        sdt, _, svisc = scfg.effective_params()
+        m = scfg.current_size
+        a = float(np.float32(sdt) * np.float32(svisc) * np.float32(m - 2) * np.float32(m - 2))
+        return a, float(np.float32(1.0) + np.float32(6.0) * np.float32(a))
+
+    k9_err = {}
+    for what, m, mask, scfg in (("scene_a", an, amask, acfg), ("scene_b", bn, bmask, bcfg)):
+        a9, c9 = diffusion_coefficients(scfg)
+        k9_err[what] = 0.0
+        for b in (0, 1, 2):
+            x0 = (torch.from_numpy(rng.standard_normal((m, m)).astype(np.float32)) * 3.0).to(dev)
+            x = torch.from_numpy(rng.standard_normal((m, m)).astype(np.float32)).to(dev)
+            for smoothing in (True, False):
+                for it9 in (20, 21):
+                    start = x0 if smoothing else x
+                    got = lin_solve_2d_resident(b, start, x0, a9, c9, mask, it9, smooth=smoothing)
+                    ref = lin_solve_2d_resident_plain(b, start, x0, a9, c9, mask, it9,
+                                                      smooth=smoothing)
+                    torch.cuda.synchronize()
+                    err = float((got - ref).abs().max())
+                    k9_err[what] = max(k9_err[what], err)
+                    say(f"# K9 b={b} {'smooth' if smoothing else 'fixed-rhs'} {it9} sweeps, "
+                        f"{what}'s mask, vs twin at {m}^2: max abs err {err!r} (bitwise "
+                        f"{torch.equal(got, ref)}; bound: bitwise)")
+                    if not torch.equal(got, ref):
+                        fail(f"K9 (b={b}, smooth={smoothing}, {it9} sweeps) disagrees with its "
+                             f"twin at {m}^2")
+
+    def mass_2d(st):
+        return float(st.density.double().sum())
+
+    def check_2d(st, steps, m, what):
+        if int(st.step) != steps or tuple(st.velocity.shape) != (2, m, m) \
+                or tuple(st.density.shape) != (m, m):
+            fail(f"{what}: unexpected state shape or step count")
+        for name in ("density", "velocity", "pressure"):
+            if not bool(torch.isfinite(getattr(st, name)).all()):
+                fail(f"{what}: non-finite {name}")
+
+    # scene_a through Engine: eight K9 launches a step and nothing else.
+    aeng = Engine(acfg, device="cuda")
+    counters_to_zero()
+    aeng.step(1)
+    amass = [mass_2d(aeng.state)]
+    aeng.step(9)
+    aat10 = {k: getattr(aeng.state, k).clone() for k in ("density", "velocity", "pressure")}
+    aeng.step(30)
+    amass.append(mass_2d(aeng.state))
+    aeng.step(STEPS - 40)
+    torch.cuda.synchronize()
+    scene_a_launches = counts()
+    scene_a_smooth = lin_solve_2d_resident.smooth_launches
+    amass.append(mass_2d(aeng.state))
+    say(f"# scene_a: {STEPS} steps at {an}^2, launches {scene_a_launches}, of them "
+        f"{scene_a_smooth} K9 smoothing solves")
+    say(f"# scene_a density mass: step 1 {amass[0]!r}, step 40 {amass[1]!r}, step {STEPS} "
+        f"{amass[2]!r}")
+    exactly(scene_a_launches, {"K9": 8 * STEPS}, "scene_a")
+    # Three smoothing solves a step (vx, vy, density); the other five are
+    # fixed-rhs (double_diffuse's three and the two pressure solves).
+    if scene_a_smooth != 3 * STEPS:
+        fail(f"scene_a launched {scene_a_smooth} K9 smoothing solves, not {3 * STEPS}")
+    check_2d(aeng.state, STEPS, an, "scene_a")
+    # The mass builds up over the first 40 steps, then levels off: the
+    # reference's diffusion (c = 1 + 6a on a 2D grid) loses mass each sweep.
+    if not (amass[1] > amass[0] > 0.0 and amass[2] > amass[0]):
+        fail("scene_a: the emitted density mass does not build up")
+    asolid = amask & interior_mask(amask.shape, dev)
+    if bool((aeng.state.velocity[:, asolid] != 0).any()):
+        fail("scene_a: an interior obstacle cell holds a nonzero velocity")
+    atwin = Engine(acfg, device="cuda", kernels=PLAIN_TWINS)
+    atwin.step(10)
+    against(aat10, {k: getattr(atwin.state, k) for k in aat10},
+            "scene_a kernel path vs twin path")
+    # The card against the CPU port after 3 steps, in the re-synced step's
+    # class of tests/test_parity_step.py (rtol 1e-5, atol 2e-6·scale).
+    acard, acpu = Engine(acfg, device="cuda"), Engine(acfg, device="cpu")
+    acard.step(3)
+    acpu.step(3)
+    for name in ("density", "velocity", "pressure"):
+        got, ref = getattr(acard.state, name).cpu(), getattr(acpu.state, name)
+        scale = max(1.0, float(ref.abs().max()))
+        err, ok = worst(got, ref, 1e-5, 2e-6 * scale)
+        say(f"# scene_a card vs CPU, 3 steps, {name}: max abs diff {err!r} (scale {scale!r}; "
+            f"bound rtol 1e-5, atol 2e-6 x scale; bitwise {torch.equal(got, ref)})")
+        if not ok:
+            fail(f"scene_a on the card drifts from the CPU port in {name}")
+    del acard, acpu
+
+    # scene_b (the stock defaults) from a seeded velocity and density: its
+    # stock config has no emitter, so from zeros it stays zero.
+    beng = Engine(bcfg, device="cuda")
+    beng.state = beng.state.replace(
+        velocity=torch.stack([smooth(bn, rng, dev)[0] for _ in range(2)]) * 0.5,
+        density=density_field(bn, rng, dev)[0])
+    bmass0 = mass_2d(beng.state)
+    counters_to_zero()
+    beng.step(VORTEX_STEPS)
+    torch.cuda.synchronize()
+    scene_b_launches = counts()
+    scene_b_smooth = lin_solve_2d_resident.smooth_launches
+    say(f"# scene_b: {VORTEX_STEPS} steps at {bn}^2 from a seeded state, launches "
+        f"{scene_b_launches}, of them {scene_b_smooth} K9 smoothing solves; density mass "
+        f"{bmass0!r} -> {mass_2d(beng.state)!r}")
+    exactly(scene_b_launches, {"K9": 8 * VORTEX_STEPS}, "scene_b")
+    if scene_b_smooth != 3 * VORTEX_STEPS:
+        fail(f"scene_b launched {scene_b_smooth} K9 smoothing solves, not {3 * VORTEX_STEPS}")
+    check_2d(beng.state, VORTEX_STEPS, bn, "scene_b")
+
+    # The oracle gate (tests/test_parity_step.py::test_step_parity_resync_64's
+    # config) on the kernel path, re-synced to tests/oracle2d.py for 4 steps.
+    spec = importlib.util.spec_from_file_location("oracle2d", ROOT / "tests" / "oracle2d.py")
+    oracle2d = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle2d)
+    ocfg = SimConfig(
+        size=64, resolution_multiplier=1.0, time_step=0.05, diffusion=1e-4, viscosity=1e-4,
+        enable_custom_source=True, source_strength=80.0, source_emits_velocity=True,
+        source_direction=0.0, source_velocity=12.0, source_radius=2.5,
+        source_position=(0.2, 0.5), enable_obstacle=True, obstacle_shape=ObstacleShape.CIRCLE,
+        obstacle_position=(0.6, 0.5), obstacle_radius=0.12).validate()
+    on = ocfg.current_size
+    oobst = build_obstacle_mask(ocfg)
+    od, ovx, ovy = (np.zeros((on, on), np.float32) for _ in range(3))
+    ot, oframe = np.float32(0.0), np.float32(ocfg.effective_params()[0])
+    counters_to_zero()
+    for k in range(4):
+        ot = ot + oframe
+        oracle2d.custom_source(od, ovx, ovy, ocfg, ot)
+        ostate = zeros_state(ocfg, dev, obstacles=oobst).replace(
+            density=torch.from_numpy(od).to(dev),
+            velocity=torch.from_numpy(np.stack([ovx, ovy])).to(dev))
+        od, ovx, ovy, op = oracle2d.simulate_step(od, ovx, ovy, oobst, ocfg)
+        ostate = simulate_step_2d(ostate, ocfg)
+        for name, got, exp in (("density", ostate.density, od), ("vel_x", ostate.velocity[0], ovx),
+                               ("vel_y", ostate.velocity[1], ovy),
+                               ("pressure", ostate.pressure, op)):
+            scale = max(1.0, float(np.abs(exp).max()))
+            err, ok = worst(got, torch.from_numpy(exp).to(dev), 1e-5, 2e-6 * scale)
+            say(f"# 2D oracle gate, kernel path, step {k}, {name}: max abs diff {err!r} "
+                f"(scale {scale!r}; bound rtol 1e-5, atol 2e-6 x scale)")
+            if not ok:
+                fail(f"the 2D oracle gate: {name} diverged from the oracle at step {k}")
+    torch.cuda.synchronize()
+    gate2d_launches = counts()
+    exactly(gate2d_launches, {"K9": 32}, "the 2D oracle gate")
+
     # -- 10. timing ------------------------------------------------------
     say(f"# timing on {card}")
     step_ms = cuda_ms(lambda: eng.step(1), reps=200, warmup=20)
@@ -1163,9 +1348,75 @@ def main() -> None:
     say(f"K4 per sweep at {pn}^3: {(k4_many - k4_one) / 60 * 1e3!r} us (1 sweep {k4_one!r} "
         f"ms, 61 sweeps {k4_many!r} ms) [{card}]")
 
+    # The 2D mode: steps/s of both scenes and of scene_a's twin path, device
+    # time a step by kernel and the host's share, and K9 a solve and a sweep
+    # beside its twin on each scene's mask with its diffusion coefficients.
+    for what, engine, reps in (("scene_a", aeng, 200), ("scene_b", beng, 100)):
+        ms = cuda_ms(lambda: engine.step(1), reps=reps, warmup=reps // 10)
+        launched = {}
+        by_kernel = profile_ms(lambda: engine.step(1), reps=20, launches=launched)
+        device = sum(by_kernel.values())
+        k9_dev = sum(v for k, v in by_kernel.items() if "solve2d" in k)
+        n_launched = sum(launched.values())
+        say(f"{what} steps/s kernel path: {1e3 / ms!r} ({ms!r} ms/step) [{card}]")
+        say(f"# profile {what}: device time {device!r} ms/step in {n_launched!r} device "
+            f"launches ({len(by_kernel)} names, the 8 of K9 included), K9 {k9_dev!r} ms/step, "
+            f"host-idle share {1.0 - device / ms!r}, step time per device launch "
+            f"{ms / n_launched * 1e3!r} us [{card}]")
+        for name, kms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:14]:
+            say(f"#   {kms!r} ms/step  {name}")
+    atwin_ms = cuda_ms(lambda: atwin.step(1), reps=5, warmup=1)
+    say(f"scene_a steps/s twin path: {1e3 / atwin_ms!r} ({atwin_ms!r} ms/step) [{card}]")
+    k9_fns, k9_sweep = {}, {}
+    for what, m, mask, scfg in (("scene_a", an, amask, acfg), ("scene_b", bn, bmask, bcfg)):
+        a9, c9 = diffusion_coefficients(scfg)
+        x9 = (torch.from_numpy(rng.standard_normal((m, m)).astype(np.float32)) * 3.0).to(dev)
+        div9 = torch.from_numpy(rng.standard_normal((m, m)).astype(np.float32) * 1e-3).to(dev)
+        p9 = torch.zeros_like(div9)
+        # A viscous diffusion solve of vx (b = 1, smoothing) and a pressure
+        # solve (b = 0, fixed rhs, a = 1, c = 6), as the step launches them.
+        it9 = scfg.jacobi_iters
+        k9_fns[what + " smoothing"] = (
+            lambda x9=x9, mask=mask, a9=a9, c9=c9, it9=it9: lin_solve_2d_resident(
+                1, x9, x9, a9, c9, mask, it9, smooth=True),
+            lambda x9=x9, mask=mask, a9=a9, c9=c9, it9=it9: lin_solve_2d_resident_plain(
+                1, x9, x9, a9, c9, mask, it9, smooth=True))
+        k9_fns[what + " fixed-rhs"] = (
+            lambda p9=p9, div9=div9, mask=mask, it9=it9: lin_solve_2d_resident(
+                0, p9, div9, 1.0, 6.0, mask, it9),
+            lambda p9=p9, div9=div9, mask=mask, it9=it9: lin_solve_2d_resident_plain(
+                0, p9, div9, 1.0, 6.0, mask, it9))
+        one = cuda_ms(lambda: lin_solve_2d_resident(1, x9, x9, a9, c9, mask, 1, smooth=True),
+                      reps=100)
+        many = cuda_ms(lambda: lin_solve_2d_resident(1, x9, x9, a9, c9, mask, 61, smooth=True),
+                       reps=50)
+        k9_sweep[what] = (many - one) / 60 * 1e3
+        say(f"K9 per sweep at {m}^2 ({what}'s mask): {k9_sweep[what]!r} us (1 sweep {one!r} "
+            f"ms, 61 sweeps {many!r} ms) [{card}]")
+        # The one-block form (the simplest barrier) beside the 8-block cluster.
+        one1 = cuda_ms(lambda: lin_solve_2d_resident(1, x9, x9, a9, c9, mask, 1, smooth=True,
+                                                     blocks=1), reps=100)
+        many1 = cuda_ms(lambda: lin_solve_2d_resident(1, x9, x9, a9, c9, mask, 61, smooth=True,
+                                                      blocks=1), reps=20)
+        solve1 = cuda_ms(lambda: lin_solve_2d_resident(1, x9, x9, a9, c9, mask, it9, smooth=True,
+                                                       blocks=1), reps=50)
+        got1 = lin_solve_2d_resident(1, x9, x9, a9, c9, mask, it9, smooth=True, blocks=1)
+        if not torch.equal(got1, k9_fns[what + " smoothing"][1]()):
+            fail(f"K9 on one block disagrees with its twin at {m}^2")
+        say(f"K9 on one block of 1024 threads at {m}^2: {(many1 - one1) / 60 * 1e3!r} "
+            f"us a sweep (1 sweep {one1!r} ms, 61 sweeps {many1!r} ms), {solve1!r} ms a "
+            f"{it9}-sweep smoothing solve [{card}]")
+    for key, (fn, plain) in k9_fns.items():
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"K9 ({key}) disagrees with its twin on the timing inputs")
+
     times = {
         **{key: (cuda_ms(fn, reps=50), cuda_ms(plain, reps=3, warmup=1))
            for key, (fn, plain) in new_fns.items()},
+        **{"K9 " + key: (cuda_ms(fn, reps=100), cuda_ms(plain, reps=3, warmup=1))
+           for key, (fn, plain) in k9_fns.items()},
         "K6": (cuda_ms(slab_fns["K6"][0], reps=20), cuda_ms(slab_fns["K6"][1], reps=3)),
         "K7 div": (cuda_ms(slab_fns["K7 div"][0], reps=50),
                    cuda_ms(slab_fns["K7 div"][1], reps=5)),
@@ -1369,6 +1620,34 @@ def main() -> None:
          dp_vortex, win_err[("K4", "mask")],
          bound(3 * vol * f32 + vol, vcfg.jacobi_iters * interior * K4_MASK_OPS)),
     ]
+    # K9's function a sweep, by cell: 6 operations an interior fluid cell
+    # (3 neighbour adds, a*nbr, the rhs add, the division), MIRROR_OPS an
+    # interior solid cell of a velocity component, 2 a corner.  Bytes: a
+    # smoothing solve starts from its rhs (x is x0 on the path), so it reads
+    # x0 and the mask and writes the result (9·n²); a fixed-rhs solve reads
+    # x as well (13·n²).
+    def k9_bound(m, mask, b, iters, smoothing):
+        n_solid2d = int((mask & interior_mask(mask.shape, dev)).sum())
+        ops = (m - 2) ** 2 - n_solid2d
+        ops = 6 * ops + (MIRROR_OPS * n_solid2d if b else 0) + 4 * 2
+        return bound((9 if smoothing else 13) * m * m, iters * ops)
+
+    for what, m, mask, launches, smooth_launches in (
+            ("scene_a", an, amask, scene_a_launches["K9"], scene_a_smooth),
+            ("scene_b", bn, bmask, scene_b_launches["K9"], scene_b_smooth)):
+        entries += [
+            ("K9 " + what + " smoothing",
+             f"K9 lin_solve_2d_resident (smoothing, 20 sweeps, timed on {what}'s viscous "
+             f"diffusion b=1; launches: the path's smoothing solves, {m}^2)",
+             "fluidsim_tpu_torch/csrc/resident2d.cu", "fluidsim_tpu/pallas/resident2d.py:77",
+             smooth_launches, k9_err[what], k9_bound(m, mask, 1, 20, True)),
+            ("K9 " + what + " fixed-rhs",
+             f"K9 lin_solve_2d_resident (fixed rhs, 20 sweeps, timed on {what}'s pressure b=0, "
+             f"a=1, c=6; launches: the path's fixed-rhs solves, diffusion's and pressure's, "
+             f"{m}^2)", "fluidsim_tpu_torch/csrc/resident2d.cu",
+             "fluidsim_tpu/pallas/resident2d.py:77", launches - smooth_launches, k9_err[what],
+             k9_bound(m, mask, 0, 20, False)),
+        ]
     report = []
     for key, name, source, replaces, launches, err, (bound_ms, bound_by) in entries:
         ms, plain_ms = times[key]

@@ -2,7 +2,9 @@
 
 The host-side equivalent of the reference's ``Update()`` loop
 (FluidSim.cs:390-450): emitter injection then one solver step, per step, in
-a Python loop (or, where ``stable3d.emitter_folds`` holds, the emitter
+a Python loop: ``models.stable2d.simulate_step_2d`` for the 2D
+reference-parity mode (``ndim=2``), ``models.stable3d.simulate_step_3d``
+for the 3D engine (where ``stable3d.emitter_folds`` holds, the emitter
 folded into the step's kernels, as the JAX ``Engine`` does); pause, reset,
 source repositioning and an optional NaN guard.
 The SQLite metrics store, mouse drag and checkpoints are not ported yet and
@@ -20,7 +22,9 @@ import torch
 from .config import SimConfig
 from .kernels.project import resident_route
 from .models import stable3d
-from .models.stable3d import HAND_KERNELS, StepKernels, simulate_step_3d
+from .models.stable2d import check_supported_2d, simulate_step_2d
+from .models.stable3d import simulate_step_3d
+from .models.step_kernels import HAND_KERNELS, StepKernels
 from .scene.obstacles import build_obstacle_mask
 from .scene.sources import (
     apply_custom_source,
@@ -32,8 +36,8 @@ from .state import FluidState, zeros_state
 
 
 class Engine:
-    """Steps a 3D fluid simulation on ``device`` (the card unless the
-    caller asks for ``"cpu"``) from the host."""
+    """Steps a 2D (reference-parity) or 3D fluid simulation on ``device``
+    (the card unless the caller asks for ``"cpu"``) from the host."""
 
     def __init__(self, cfg: SimConfig, device="cuda", nan_guard: bool = False,
                  store=None, crash_snapshot_path: Optional[str] = None,
@@ -55,10 +59,14 @@ class Engine:
         self.reset()
 
     def _checked(self, cfg: SimConfig) -> SimConfig:
-        """Validate ``cfg`` and decide its projection route and whether the
-        emitter folds into the kernels on this device once, for every step
-        until the next ``set_config``."""
+        """Validate ``cfg`` and, in 3D, decide its projection route and
+        whether the emitter folds into the kernels on this device once, for
+        every step until the next ``set_config``."""
         cfg = cfg.validate()
+        if cfg.ndim == 2:
+            check_supported_2d(cfg)
+            self._resident, self._folds = None, False
+            return cfg
         use_kernels = stable3d._kernels_usable(cfg, self.device)
         self._resident = resident_route(cfg.current_size, cfg.solve_dtype, self.device)
         stable3d.check_supported(cfg, use_kernels, self._resident)
@@ -119,6 +127,8 @@ class Engine:
             state.density, state.velocity, self.cfg, t, params=self._src_params
         )
         state = state.replace(density=density, velocity=velocity)
+        if self.cfg.ndim == 2:
+            return simulate_step_2d(state, self.cfg, self.kernels)
         return simulate_step_3d(state, self.cfg, self.kernels, self._resident)
 
     def step(self, n: int = 1, substeps_per_dispatch: int = 1) -> FluidState:

@@ -63,6 +63,8 @@ SIGNATURES = {
     "fs_jacobi": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
     # x, x0, mask, out, tmp, n, b, a, inv_c, iters, stream
     "fs_jacobi_resident": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
+    # x, x0, mask, out, tmp, n, b, a, c, iters, smooth, blocks, stream
+    "fs_solve_2d": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _P),
     # vel, div, n, stream
     "fs_divergence": (_P, _P, _I, _P),
     # vel, p, vel_out, n, stream

@@ -32,26 +32,12 @@ raise ``NotImplementedError`` naming the missing piece (``check_supported``).
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
-
 import numpy as np
 import torch
 
 from ..config import SimConfig
-from ..kernels.advect import WINDOWS, advect_multi_3d_kernel, advect_multi_3d_plain
-from ..kernels.project import (
-    jacobi_3d_solve,
-    jacobi_3d_solve_plain,
-    project_3d_kernel,
-    project_3d_plain,
-    resident_route,
-)
-from ..kernels.resident import (
-    full_step_3d,
-    full_step_3d_plain,
-    project_advect_density_3d,
-    project_advect_density_3d_plain,
-)
+from ..kernels.advect import WINDOWS
+from ..kernels.project import resident_route
 from ..ops.advect import advect_maccormack_3d, advect_multi_3d, advect_substep_3d
 from ..ops.forces import (
     buoyancy_force,
@@ -62,30 +48,7 @@ from ..ops.linsolve import diffuse_3d
 from ..ops.project import project_3d
 from ..scene.sources import emitter_foldable
 from ..state import FluidState
-
-
-class StepKernels(NamedTuple):
-    """The calls of the kernel path: ``advect(bs, fields, vel, dt, obst=,
-    window=, n_sub=, buoy=, src=)``, ``project_advect(vel, density, iters,
-    dt, obst=, n_sub=, src=, solve_dtype=, damp=, dens_damp=)``,
-    ``project(vel, iters, obst=, solve_dtype=, resident=)``, which takes K3
-    or the slab route, ``full_step(vel, density, iters, dt, n_sub=,
-    solve_dtype=, damp=, dens_damp=)`` and ``jacobi(b, x, x0, a, c, iters,
-    obst=, resident=)``, which takes K4 or K6."""
-
-    advect: Callable
-    project_advect: Callable
-    project: Callable
-    full_step: Callable
-    jacobi: Callable
-
-
-HAND_KERNELS = StepKernels(advect_multi_3d_kernel, project_advect_density_3d,
-                           project_3d_kernel, full_step_3d, jacobi_3d_solve)
-# The kernels' plain twins, for running the kernel path's arithmetic on a
-# card without the kernels (the reference ``chip_smoke.py`` compares with).
-PLAIN_TWINS = StepKernels(advect_multi_3d_plain, project_advect_density_3d_plain,
-                          project_3d_plain, full_step_3d_plain, jacobi_3d_solve_plain)
+from .step_kernels import HAND_KERNELS, StepKernels
 
 
 def _kernels_usable(cfg: SimConfig, device) -> bool:
@@ -129,7 +92,7 @@ def check_supported(cfg: SimConfig, use_kernels: bool, resident: bool = True) ->
     (``resident``: ``resident_route``'s answer, which decides whether the
     fused kernels run)."""
     if cfg.ndim != 3:
-        _unported("the 2D reference-parity mode (ndim=2)")
+        raise ValueError("a 2D config steps with models.stable2d, not the 3D step")
     if cfg.dtype != "float32":
         _unported(f"field dtype {cfg.dtype!r}")
     if cfg.pressure_solver == "fft":

@@ -1,0 +1,51 @@
+"""The kernel table of both steps: which call each kernel slot of
+``models/stable3d.simulate_step_3d`` and ``models/stable2d.simulate_step_2d``
+takes.  ``HAND_KERNELS`` (the default) launches the hand kernels on CUDA
+tensors; ``PLAIN_TWINS`` runs their plain PyTorch twins, for running the
+kernel path's arithmetic on a card without the kernels (what
+``chip_smoke.py`` compares with)."""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from ..kernels.advect import advect_multi_3d_kernel, advect_multi_3d_plain
+from ..kernels.project import (
+    jacobi_3d_solve,
+    jacobi_3d_solve_plain,
+    project_3d_kernel,
+    project_3d_plain,
+)
+from ..kernels.resident import (
+    full_step_3d,
+    full_step_3d_plain,
+    project_advect_density_3d,
+    project_advect_density_3d_plain,
+)
+from ..kernels.resident2d import lin_solve_2d_resident, lin_solve_2d_resident_plain
+
+
+class StepKernels(NamedTuple):
+    """The calls of the kernel path: ``advect(bs, fields, vel, dt, obst=,
+    window=, n_sub=, buoy=, src=)``, ``project_advect(vel, density, iters,
+    dt, obst=, n_sub=, src=, solve_dtype=, damp=, dens_damp=)``,
+    ``project(vel, iters, obst=, solve_dtype=, resident=)``, which takes K3
+    or the slab route, ``full_step(vel, density, iters, dt, n_sub=,
+    solve_dtype=, damp=, dens_damp=)``, ``jacobi(b, x, x0, a, c, iters,
+    obst=, resident=)``, which takes K4 or K6 (all 3D), and the 2D step's
+    ``solve_2d(b, x, x0, a, c, obst, iters, smooth=)`` (K9)."""
+
+    advect: Callable
+    project_advect: Callable
+    project: Callable
+    full_step: Callable
+    jacobi: Callable
+    solve_2d: Callable
+
+
+HAND_KERNELS = StepKernels(advect_multi_3d_kernel, project_advect_density_3d,
+                           project_3d_kernel, full_step_3d, jacobi_3d_solve,
+                           lin_solve_2d_resident)
+PLAIN_TWINS = StepKernels(advect_multi_3d_plain, project_advect_density_3d_plain,
+                          project_3d_plain, full_step_3d_plain, jacobi_3d_solve_plain,
+                          lin_solve_2d_resident_plain)

@@ -1,15 +1,16 @@
-"""Semi-Lagrangian advection, 3D plain path.
+"""Semi-Lagrangian advection, 2D and the 3D plain path.
 
 Counterpart of ``fluidsim_tpu/ops/advect.py`` (the reference's ``AdvectJob``,
 FluidSim.cs:1125-1186): backtrace ``x = i − dt0·u`` with ``dt0 = dt·(N−2)``,
-clamp to ``[0.5, N−1.5]``, trilinear interpolation, written into a fresh
-zero buffer (walls come out 0) before ``set_bnd``.
+clamp to ``[0.5, N−1.5]``, bilinear (2D) or trilinear (3D) interpolation,
+written into a fresh zero buffer (walls and obstacle cells come out 0)
+before ``set_bnd``.
 
-Two formulations, as in the JAX package: ``window = 0`` is the exact 8-tap
-gather; ``window = K > 0`` is the trilinear sample as a ``(2K+1)³``-term sum
-of shifted fields weighted by per-cell hat functions, with the displacement
-clamped to K cells.  ``advect_maccormack_3d`` and ``advect_substep_3d``
-compose either one.
+In 3D, two formulations, as in the JAX package: ``window = 0`` is the exact
+8-tap gather; ``window = K > 0`` is the trilinear sample as a
+``(2K+1)³``-term sum of shifted fields weighted by per-cell hat functions,
+with the displacement clamped to K cells.  ``advect_maccormack_3d`` and
+``advect_substep_3d`` compose either one.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .boundary import set_bnd_3d
+from .boundary import set_bnd_2d, set_bnd_3d
 
 
 def _backtrace_1d(coord, vel, dt0: float, n: int):
@@ -28,6 +29,48 @@ def _backtrace_1d(coord, vel, dt0: float, n: int):
     x = torch.where(x > n - 1.5, n - 1.5, x)
     i0 = torch.floor(x).to(torch.int32)
     return i0, x - i0.to(x.dtype)
+
+
+def _bilinear_2d(fields, vel_x, vel_y, dt: float):
+    """The bilinear sample of each of the ``(C, N, N)`` ``[y, x]`` fields at
+    every cell's backtrace through ``(vel_x, vel_y)``, in the reference's
+    term order (FluidSim.cs:1183-1184), one backtrace for all fields."""
+    n = fields.shape[-1]
+    dt0 = np.float32(dt) * np.float32(n - 2)
+    ar = torch.arange(n, dtype=torch.float32, device=fields.device)
+    jj, ii = torch.meshgrid(ar, ar, indexing="ij")
+    i0, s1 = _backtrace_1d(ii, vel_x.to(torch.float32), dt0, n)
+    j0, t1 = _backtrace_1d(jj, vel_y.to(torch.float32), dt0, n)
+    s0 = 1.0 - s1
+    t0 = 1.0 - t1
+    i0, j0 = i0.long(), j0.long()
+    i1, j1 = i0 + 1, j0 + 1
+    return [s0 * (t0 * f[j0, i0] + t1 * f[j1, i0]) + s1 * (t0 * f[j0, i1] + t1 * f[j1, i1])
+            for f in fields]
+
+
+def _mask_and_bnd_2d(b: int, val, d0, obst):
+    """Fresh-zero-buffer semantics in 2D: interior non-obstacle cells take
+    ``val``, everything else 0, then ``set_bnd_2d``."""
+    core = (slice(1, -1), slice(1, -1))
+    out = torch.zeros_like(d0)
+    out[core] = torch.where(obst[core], 0.0, val[core].to(d0.dtype))
+    return set_bnd_2d(b, out, obst)
+
+
+def advect_2d(b: int, d0, vel_x, vel_y, dt: float, obst):
+    """The reference advection of the ``[y, x]`` field ``d0`` (boundary code
+    ``b``) through ``(vel_x, vel_y)``."""
+    val = _bilinear_2d(d0[None], vel_x, vel_y, dt)[0]
+    return _mask_and_bnd_2d(b, val, d0, obst)
+
+
+def advect_2d_pair(d0x, d0y, vel_x, vel_y, dt: float, obst):
+    """Advect the two velocity components with one shared backtrace
+    (bitwise two ``advect_2d`` calls, as in the JAX package); returns
+    ``(vel_x', vel_y')`` after ``set_bnd_2d`` 1 and 2."""
+    vx, vy = _bilinear_2d(torch.stack([d0x, d0y]), vel_x, vel_y, dt)
+    return _mask_and_bnd_2d(1, vx, d0x, obst), _mask_and_bnd_2d(2, vy, d0y, obst)
 
 
 def _mask_and_bnd_3d(b: int, val, d0, obst):

@@ -1,10 +1,14 @@
-"""Boundary conditions (the reference's ``set_bnd``), 3D.
+"""Boundary conditions (the reference's ``set_bnd``), 2D and 3D.
 
-Counterpart of ``fluidsim_tpu/ops/boundary.py``.  Faces mirror the adjacent
-interior plane, negated for the velocity component normal to the wall, and
-are written z→y→x so shared edges and corners take the later write.  The
-obstacle mirror (FluidSim.cs:1261-1287, generalized to 3D) writes interior
-obstacle cells from their non-obstacle neighbours along the component axis.
+Counterpart of ``fluidsim_tpu/ops/boundary.py``.  2D (``set_bnd_2d``, the
+reference's ``BoundaryJob``, FluidSim.cs:1243-1288): wall edges (corners
+excluded) copy the adjacent interior cell, negated for the velocity
+component normal to the wall; then each corner is the average of its two
+just-written edge cells.  3D: faces mirror the adjacent interior plane,
+negated likewise, written z→y→x so shared edges and corners take the later
+write.  In both, the obstacle mirror (FluidSim.cs:1261-1287, generalized to
+3D) then writes interior obstacle cells from their non-obstacle neighbours
+along the component axis.
 """
 
 from __future__ import annotations
@@ -56,6 +60,30 @@ def _mirror_obstacles_axis(x, obst, axis):
     out = x.clone()
     out[core] = torch.where(obst[core], mirrored, x[core])
     return out
+
+
+def set_bnd_2d(b: int, x: torch.Tensor, obst=None) -> torch.Tensor:
+    """The reference ``BoundaryJob`` on a ``[y, x]`` tensor: ``b == 1``
+    negates across the x walls (columns 0 and N-1), ``b == 2`` across the y
+    walls (rows 0 and N-1); then, for ``b`` 1 and 2 when the bool mask
+    ``obst`` is given, the obstacle mirror along the component's axis.
+    Returns a new tensor."""
+    sx = -1.0 if b == 1 else 1.0
+    sy = -1.0 if b == 2 else 1.0
+    x = x.clone()
+    # Wall edges, excluding corners.
+    x[1:-1, 0] = sx * x[1:-1, 1]
+    x[1:-1, -1] = sx * x[1:-1, -2]
+    x[0, 1:-1] = sy * x[1, 1:-1]
+    x[-1, 1:-1] = sy * x[-2, 1:-1]
+    # Corners, from the just-written edges (FluidSim.cs:1255-1258).
+    x[0, 0] = 0.5 * (x[0, 1] + x[1, 0])
+    x[-1, 0] = 0.5 * (x[-1, 1] + x[-2, 0])
+    x[0, -1] = 0.5 * (x[0, -2] + x[1, -1])
+    x[-1, -1] = 0.5 * (x[-1, -2] + x[-2, -1])
+    if obst is not None and b in (1, 2):
+        x = _mirror_obstacles_axis(x, obst, axis=2 - b)
+    return x
 
 
 def set_bnd_3d(b: int, x: torch.Tensor, obst=None) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """fluidsim_tpu_torch's CUDA kernels against their plain twins, on a card
 (and K8 against K1 followed by K2, and the fused step paths against the
-unfused ones), and the plain ops that divide on the card against the CPU.
+unfused ones), the 2D mode's kernel path (K9) against its twin path and
+the CPU, and the plain ops that divide on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one.  The module
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -18,6 +19,8 @@ from fluidsim_tpu_torch.config import (
     preset_bench_128,
     preset_multi_emitter_256,
     preset_plume_64,
+    preset_scene_a,
+    preset_scene_b,
     preset_sharded_512,
     preset_smoke_box_32,
     preset_vortex_128,
@@ -50,12 +53,24 @@ from fluidsim_tpu_torch.kernels.resident import (
     project_advect_density_3d,
     project_advect_density_3d_plain,
 )
-from fluidsim_tpu_torch.ops.forces import enforce_obstacle_boundaries_3d
+from fluidsim_tpu_torch.kernels.resident2d import (
+    lin_solve_2d_resident,
+    lin_solve_2d_resident_plain,
+)
+from fluidsim_tpu_torch.ops.advect import advect_2d
+from fluidsim_tpu_torch.ops.boundary import set_bnd_2d
+from fluidsim_tpu_torch.ops.forces import (
+    apply_turbulent_noise_2d,
+    enforce_obstacle_boundaries_2d,
+    enforce_obstacle_boundaries_3d,
+)
 from fluidsim_tpu_torch.ops.linsolve import jacobi_3d as jacobi_3d_xla
+from fluidsim_tpu_torch.ops.linsolve import sweeps_2d
+from fluidsim_tpu_torch.ops.project import project_2d
 from fluidsim_tpu_torch.ops.project import project_3d as project_3d_xla
 from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
 from fluidsim_tpu_torch.scene.sources import emitter_fold_operand
-from fluidsim_tpu_torch.models.stable3d import PLAIN_TWINS
+from fluidsim_tpu_torch.models.step_kernels import PLAIN_TWINS
 
 pytestmark = pytest.mark.cuda
 
@@ -394,20 +409,44 @@ def test_k4_matches_twin(cuda, n, case):
 def test_plain_ops_divide_as_on_the_cpu(cuda):
     """The plain ops the card runs divide by a 0-d tensor on the operand's
     device, so the card and the CPU give the same bits (PyTorch on CUDA
-    divides by a Python scalar as a reciprocal multiply)."""
+    divides by a Python scalar as a reciprocal multiply): the 3D ops, and
+    the 2D solve (``/ c``), projection (``/ N``), obstacle mirror
+    (``/ max(count, 1)``) and obstacle enforcement (``/ visc``)."""
     n = 33
     vel, dens = fields(n, 1400, cuda)
     obst = vortex_mask(n, cuda)
+    m = 48
+    vel2, _ = fields(m, 1401, cuda)
+    v2, x2 = vel2[0, 0] * 3.0, vel2[1, 0]
+    obst2 = scene_mask(preset_scene_a, m, cuda)
     cases = {
         "jacobi_3d": lambda v, d, o: jacobi_3d_xla(0, d, d, 0.13, 1.0 + 6 * 0.13, None, 5),
         "project_3d": lambda v, d, o: project_3d_xla(v, o, 5)[0],
         "obstacle enforcement": lambda v, d, o: enforce_obstacle_boundaries_3d(
             v, o, 0.1, 1e-4),
     }
+    cases_2d = {
+        "2D smoothing sweeps": lambda v, x, o: sweeps_2d(1, x, x, 0.21, 2.26, o, 5, True),
+        "2D fixed-rhs sweeps": lambda v, x, o: sweeps_2d(2, v, x, 0.21, 2.26, o, 5, False),
+        "set_bnd_2d mirror": lambda v, x, o: set_bnd_2d(1, v, o),
+        "project_2d": lambda v, x, o: torch.stack(project_2d(v, x, o, 5)),
+        "advect_2d": lambda v, x, o: advect_2d(0, x, v, x, 0.05, o),
+        "2D obstacle enforcement": lambda v, x, o: torch.stack(
+            enforce_obstacle_boundaries_2d(v, x, o, 1.0 / m, 1e-5)),
+    }
     for name, fn in cases.items():
         got = fn(vel, dens, obst).cpu()
         ref = fn(vel.cpu(), dens.cpu(), obst.cpu())
         assert torch.equal(got, ref), (name, float((got - ref).abs().max()))
+    for name, fn in cases_2d.items():
+        got = fn(v2, x2, obst2).cpu()
+        ref = fn(v2.cpu(), x2.cpu(), obst2.cpu())
+        assert torch.equal(got, ref), (name, float((got - ref).abs().max()))
+    # The turbulence divides nothing; the card's noise is an ulp from the
+    # CPU's (observed 3.0e-8), inside the per-op class.
+    got = torch.stack(apply_turbulent_noise_2d(v2, x2)).cpu()
+    ref = torch.stack(apply_turbulent_noise_2d(v2.cpu(), x2.cpu()))
+    assert torch.allclose(got, ref, rtol=2e-6, atol=1e-6), float((got - ref).abs().max())
 
 
 def test_plume64_kernel_path_matches_twin_path(cuda):
@@ -450,3 +489,111 @@ def test_smoke32_on_the_card_matches_the_cpu(cuda):
     assert [fn.launches for fn in counters] == before
     for name in ("density", "velocity", "pressure"):
         assert torch.equal(getattr(card.state, name).cpu(), getattr(cpu.state, name)), name
+
+
+def scene_mask(preset, n, device):
+    """A 2D scene's obstacle at ``n``² (scene_a's airfoil, scene_b's circle)."""
+    cfg = preset().replace(size=n, resolution_multiplier=1.0)
+    return torch.from_numpy(build_obstacle_mask(cfg)).to(device)
+
+
+@pytest.mark.parametrize("mask", ["none", "scene", "random"])
+@pytest.mark.parametrize("n", [64, 128, 192])
+def test_k9_matches_twin(cuda, n, mask):
+    """K9 bitwise its twin, b 0/1/2 in both modes, 21 sweeps (odd) from
+    seeded fields; the scene's mask (scene_b's circle at 128², scene_a's
+    airfoil otherwise) or a random one with solid border cells."""
+    rng = np.random.default_rng(900 + n)
+    obst = {"none": None,
+            "scene": scene_mask(preset_scene_b if n == 128 else preset_scene_a, n, cuda),
+            "random": torch.from_numpy(rng.random((n, n)) < 0.2).to(cuda)}[mask]
+    a = float(np.float32(2.5e-3 * (n - 2) ** 2))
+    c = float(np.float32(1.0) + np.float32(6.0) * np.float32(a))
+    for b in (0, 1, 2):
+        x = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)).to(cuda)
+        x0 = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)).to(cuda)
+        for smooth in (True, False):
+            start = x0 if smooth else x
+            got = lin_solve_2d_resident(b, start, x0, a, c, obst, 21, smooth=smooth)
+            ref = lin_solve_2d_resident_plain(b, start, x0, a, c, obst, 21, smooth=smooth)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (b, smooth, float((got - ref).abs().max()))
+            assert torch.equal(torch.signbit(got), torch.signbit(ref)), (b, smooth)
+
+
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_k9_cluster_size_leaves_the_result(cuda, blocks):
+    """K9 on a cluster of ``blocks`` blocks (the step uses 8) bitwise its
+    twin at 192² with scene_a's airfoil, b 0/1/2 in both modes, 21 sweeps."""
+    n = 192
+    rng = np.random.default_rng(960 + blocks)
+    obst = scene_mask(preset_scene_a, n, cuda)
+    a = float(np.float32(2.5e-3 * (n - 2) ** 2))
+    c = float(np.float32(1.0) + np.float32(6.0) * np.float32(a))
+    for b in (0, 1, 2):
+        x = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)).to(cuda)
+        x0 = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)).to(cuda)
+        for smooth in (True, False):
+            start = x0 if smooth else x
+            got = lin_solve_2d_resident(b, start, x0, a, c, obst, 21, smooth=smooth,
+                                        blocks=blocks)
+            ref = lin_solve_2d_resident_plain(b, start, x0, a, c, obst, 21, smooth=smooth)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (b, smooth, float((got - ref).abs().max()))
+
+
+def test_k9_wrapper_raises_for_cuda_tensors_it_cannot_take(cuda):
+    x = torch.zeros((32, 32), device=cuda)
+    with pytest.raises(TypeError):
+        lin_solve_2d_resident(0, x.double(), x.double(), 1.0, 6.0, None, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        lin_solve_2d_resident(0, torch.zeros((32, 32), device=cuda).t(), x, 1.0, 6.0, None, 4)
+    with pytest.raises(ValueError, match="square"):
+        lin_solve_2d_resident(0, torch.zeros((32, 16), device=cuda),
+                              torch.zeros((32, 16), device=cuda), 1.0, 6.0, None, 4)
+    with pytest.raises(ValueError, match="one device"):
+        lin_solve_2d_resident(0, x, x.cpu(), 1.0, 6.0, None, 4)
+    for blocks in (0, 9):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            lin_solve_2d_resident(0, x, x, 1.0, 6.0, None, 4, blocks=blocks)
+
+
+@pytest.mark.parametrize("preset", [preset_scene_a, preset_scene_b])
+def test_2d_kernel_path_matches_twin_path(cuda, preset):
+    """Eight K9 launches a step and no 3D kernel; bitwise the twin path
+    after 3 steps (scene_b from a seeded velocity: it has no emitter)."""
+    cfg = preset()
+    kern, twin = Engine(cfg, cuda), Engine(cfg, cuda, kernels=PLAIN_TWINS)
+    n = cfg.current_size
+    rng = np.random.default_rng(950)
+    vel = torch.from_numpy((rng.standard_normal((2, n, n)) * 0.5).astype(np.float32)).to(cuda)
+    for eng in (kern, twin):
+        eng.state = eng.state.replace(velocity=vel.clone())
+    counters = (advect_multi_3d_kernel, project_3d_resident, project_advect_density_3d,
+                jacobi_3d_resident, jacobi_3d_kernel, full_step_3d)
+    before = [fn.launches for fn in counters]
+    k9_before = (lin_solve_2d_resident.launches, lin_solve_2d_resident.smooth_launches)
+    kern.step(3)
+    twin.step(3)
+    # Three smoothing solves a step (vx, vy, density), five fixed-rhs (the
+    # double_diffuse solves and two pressure solves).
+    assert lin_solve_2d_resident.launches - k9_before[0] == 8 * 3
+    assert lin_solve_2d_resident.smooth_launches - k9_before[1] == 3 * 3
+    assert [fn.launches for fn in counters] == before
+    for name in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(kern.state, name), getattr(twin.state, name)), name
+
+
+def test_scene_a_on_the_card_matches_the_cpu(cuda):
+    """scene_a cut to 64² (``resolution_multiplier=1``): 3 steps on the card's
+    kernel path against the CPU port, in the re-synced step's class (rtol
+    1e-5, atol 2e-6·scale; tests/test_parity_step.py)."""
+    cfg = preset_scene_a().replace(resolution_multiplier=1.0)
+    card, cpu = Engine(cfg, cuda), Engine(cfg, "cpu")
+    card.step(3)
+    cpu.step(3)
+    for name in ("density", "velocity", "pressure"):
+        got, ref = getattr(card.state, name).cpu(), getattr(cpu.state, name)
+        scale = max(1.0, float(ref.abs().max()))
+        assert torch.allclose(got, ref, rtol=1e-5, atol=2e-6 * scale), (
+            name, float((got - ref).abs().max()))

@@ -63,6 +63,7 @@ from fluidsim_tpu.scene.sources import src_field_add as j_src_field_add
 from fluidsim_tpu.state import FluidState as JState
 
 import fluidsim_tpu_torch.models.stable3d as t_s3
+from fluidsim_tpu_torch.models.step_kernels import PLAIN_TWINS, StepKernels
 from fluidsim_tpu_torch.config import SourceSpec
 from fluidsim_tpu_torch.config import preset_bench_128 as t_bench128
 from fluidsim_tpu_torch.config import preset_vortex_128 as t_vortex128
@@ -381,7 +382,7 @@ def test_step_refuses_src_where_the_emitter_does_not_fold(monkeypatch):
     cfg = t_bench128().replace(size=N)  # fuse_emitter off
     state = state_from_numpy(start_arrays(cfg), "cpu")
     with pytest.raises(ValueError, match="emitter_folds"):
-        t_s3.simulate_step_3d(state, cfg, t_s3.PLAIN_TWINS,
+        t_s3.simulate_step_3d(state, cfg, PLAIN_TWINS,
                               src=emitter_fold_operand(cfg, state.time))
 
 
@@ -415,8 +416,8 @@ class Spy:
 
     def __init__(self):
         self.calls = []
-        self.kernels = t_s3.StepKernels(*(self._wrap(name, fn) for name, fn in
-                                          t_s3.PLAIN_TWINS._asdict().items()))
+        self.kernels = StepKernels(*(self._wrap(name, fn) for name, fn in
+                                          PLAIN_TWINS._asdict().items()))
 
     def _wrap(self, name, fn):
         def call(*a, **k):
@@ -425,7 +426,7 @@ class Spy:
         return call
 
 
-def rollout_port(cfg, kernels=t_s3.PLAIN_TWINS, steps=STEPS):
+def rollout_port(cfg, kernels=PLAIN_TWINS, steps=STEPS):
     eng = Engine(cfg, "cpu", kernels=kernels)
     eng.state = state_from_numpy(start_arrays(cfg), "cpu")
     eng.step(steps)

@@ -47,6 +47,7 @@ from fluidsim_tpu.state import FluidState as JState
 
 import fluidsim_tpu_torch.config as t_config
 import fluidsim_tpu_torch.models.stable3d as t_s3
+from fluidsim_tpu_torch.models.step_kernels import PLAIN_TWINS
 from fluidsim_tpu_torch.engine import Engine
 from fluidsim_tpu_torch.io.convert import state_from_numpy, state_to_numpy
 from fluidsim_tpu_torch.kernels import project as t_kp
@@ -210,9 +211,9 @@ def test_k2_errors_fire_only_where_the_gate_picks_k2(monkeypatch):
         return wrapped
 
     monkeypatch.setattr(t_s3, "_kernels_usable", lambda cfg, device: True)
-    kernels = t_s3.PLAIN_TWINS._replace(
-        project_advect=spy("K2", t_s3.PLAIN_TWINS.project_advect),
-        project=spy("project", t_s3.PLAIN_TWINS.project))
+    kernels = PLAIN_TWINS._replace(
+        project_advect=spy("K2", PLAIN_TWINS.project_advect),
+        project=spy("project", PLAIN_TWINS.project))
     _, cfg = presets("multi256")
     arrays = start_arrays()
     for change in ({}, {"enable_obstacle": True}):
@@ -261,8 +262,8 @@ def test_step_takes_the_slab_route_when_the_gate_shuts(monkeypatch):
     monkeypatch.setattr(t_kp, "resident_fits", lambda *a: False)
     monkeypatch.setattr(t_kp, "project_3d_slab_plain",
                         spy("slab", t_kp.project_3d_slab_plain))
-    kernels = t_s3.PLAIN_TWINS._replace(
-        project_advect=spy("K2", t_s3.PLAIN_TWINS.project_advect))
+    kernels = PLAIN_TWINS._replace(
+        project_advect=spy("K2", PLAIN_TWINS.project_advect))
     _, cfg = presets("multi256")
     state = state_from_numpy(start_arrays(), "cpu")
     t_s3.simulate_step_3d(state, cfg, kernels)
@@ -278,10 +279,10 @@ def test_engine_decides_the_route_once(monkeypatch):
 
     def project(vel, iters, resident=None, **kw):
         seen.append(resident)
-        return t_s3.PLAIN_TWINS.project(vel, iters, resident=resident, **kw)
+        return PLAIN_TWINS.project(vel, iters, resident=resident, **kw)
 
     _, cfg = presets("multi256")
-    eng = Engine(cfg, "cpu", kernels=t_s3.PLAIN_TWINS._replace(project=project))
+    eng = Engine(cfg, "cpu", kernels=PLAIN_TWINS._replace(project=project))
     eng.step(2)
     assert len(calls) == 1 and seen == [False, False]
     eng.set_config(cfg.replace(size=48))

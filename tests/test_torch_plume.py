@@ -60,6 +60,7 @@ from fluidsim_tpu.scene.obstacles import build_obstacle_mask as j_build_mask
 from fluidsim_tpu.state import FluidState as JState
 
 import fluidsim_tpu_torch.models.stable3d as t_s3
+from fluidsim_tpu_torch.models.step_kernels import PLAIN_TWINS, StepKernels
 from fluidsim_tpu_torch import config as t_config
 from fluidsim_tpu_torch.engine import Engine
 from fluidsim_tpu_torch.io.convert import state_from_numpy, state_to_numpy
@@ -130,8 +131,8 @@ class Spy:
                 return fn(*a, **k)
             return call
 
-        self.kernels = t_s3.StepKernels(*(wrap(name, fn) for name, fn in
-                                          t_s3.PLAIN_TWINS._asdict().items()))
+        self.kernels = StepKernels(*(wrap(name, fn) for name, fn in
+                                          PLAIN_TWINS._asdict().items()))
 
 
 def rollout_jax(cfg, arrays, steps, eng=None):
@@ -147,7 +148,7 @@ def rollout_jax(cfg, arrays, steps, eng=None):
     return out
 
 
-def rollout_port(cfg, arrays, steps, kernels=t_s3.PLAIN_TWINS):
+def rollout_port(cfg, arrays, steps, kernels=PLAIN_TWINS):
     eng = Engine(cfg, "cpu", kernels=kernels)
     eng.state = state_from_numpy(arrays, "cpu")
     out, done = {}, 0

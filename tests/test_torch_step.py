@@ -32,6 +32,7 @@ from fluidsim_tpu.scene.obstacles import build_obstacle_mask as j_build_mask
 from fluidsim_tpu.state import FluidState as JState
 
 import fluidsim_tpu_torch.models.stable3d as t_s3
+from fluidsim_tpu_torch.models.step_kernels import PLAIN_TWINS, StepKernels
 from fluidsim_tpu_torch.config import preset_bench_128 as t_bench128
 from fluidsim_tpu_torch.engine import Engine
 from fluidsim_tpu_torch.io.convert import state_from_numpy, state_to_numpy
@@ -199,7 +200,7 @@ def test_make_step_3d_is_a_loop_of_steps():
 
 @pytest.mark.parametrize("change,missing", [
     (dict(ndim=2, size=64, source_position=(0.5, 0.5),
-          obstacle_position=(0.5, 0.5)), "2D"),
+          obstacle_position=(0.5, 0.5), dtype="bfloat16"), "2D"),
     (dict(apply_turbulent_noise=True), "turbulent noise"),
     (dict(pressure_solver="fft"), "FFT"),
     (dict(dtype="bfloat16"), "dtype"),
@@ -233,9 +234,9 @@ def test_formerly_unported_configs_step_like_jax(monkeypatch, change, calls):
     eng.state = JState(**{k: jnp.asarray(v) for k, v in start_arrays().items()})
     eng.step(1)
     made = []
-    kernels = t_s3.StepKernels(*(
+    kernels = StepKernels(*(
         (lambda name, fn: lambda *a, **k: made.append(name) or fn(*a, **k))(name, fn)
-        for name, fn in t_s3.PLAIN_TWINS._asdict().items()))
+        for name, fn in PLAIN_TWINS._asdict().items()))
     port = Engine(t_bench128().replace(size=N, **change), "cpu", kernels=kernels)
     port.state = state_from_numpy(start_arrays(), "cpu")
     port.step(1)
@@ -287,9 +288,9 @@ def test_fused_kernel_variants_step_like_jax(monkeypatch, change, kernel):
     eng.state = JState(**{k: jnp.asarray(v) for k, v in arrays.items()})
     eng.step(1)
     calls = []
-    kernels = t_s3.PLAIN_TWINS._replace(**{
+    kernels = PLAIN_TWINS._replace(**{
         kernel: lambda *a, **k: calls.append(kernel) or getattr(
-            t_s3.PLAIN_TWINS, kernel)(*a, **k)})
+            PLAIN_TWINS, kernel)(*a, **k)})
     port = Engine(t_bench128().replace(size=N, **change), "cpu", kernels=kernels)
     port.state = state_from_numpy(arrays, "cpu")
     port.step(1)

@@ -54,6 +54,7 @@ from fluidsim_tpu.scene.obstacles import build_obstacle_mask as j_build_mask
 from fluidsim_tpu.state import FluidState as JState
 
 import fluidsim_tpu_torch.models.stable3d as t_s3
+from fluidsim_tpu_torch.models.step_kernels import PLAIN_TWINS
 from fluidsim_tpu_torch.config import preset_bench_128 as t_bench128
 from fluidsim_tpu_torch.config import preset_vortex_128 as t_vortex128
 from fluidsim_tpu_torch.engine import Engine
@@ -345,7 +346,7 @@ def test_fold_buoyancy_gate_matches_jax(monkeypatch, preset, change):
         raise _GateSeen
 
     monkeypatch.setattr(t_s3, "_kernels_usable", lambda cfg, device: True)
-    kernels = t_s3.PLAIN_TWINS._replace(advect=t_record)
+    kernels = PLAIN_TWINS._replace(advect=t_record)
     if t_cfg.enable_obstacle and t_cfg.fuse_project_advect:
         t_cfg = t_cfg.replace(fuse_project_advect=False)
     with pytest.raises(_GateSeen):

@@ -50,6 +50,7 @@ from fluidsim_tpu_torch.kernels.jacobi import jacobi_3d_resident
 from fluidsim_tpu_torch.kernels import project as t_kp
 from fluidsim_tpu_torch.kernels.project import jacobi_3d_solve, jacobi_3d_solve_plain
 from fluidsim_tpu_torch.models import stable3d as t_s3
+from fluidsim_tpu_torch.models.step_kernels import PLAIN_TWINS
 from fluidsim_tpu_torch.ops import advect as t_adv
 from fluidsim_tpu_torch.ops.linsolve import diffuse_3d
 from fluidsim_tpu_torch.scene.sources import emitter_fold_operand
@@ -247,9 +248,9 @@ def test_double_project_hands_the_route_to_the_solve(solve_dtype, resident, pass
 
     def jacobi(*a, **k):
         seen.append(k["resident"])
-        return t_s3.PLAIN_TWINS.jacobi(*a, **k)
+        return PLAIN_TWINS.jacobi(*a, **k)
 
-    kernels = t_s3.PLAIN_TWINS._replace(jacobi=jacobi)
+    kernels = PLAIN_TWINS._replace(jacobi=jacobi)
     state = zeros_state(cfg, "cpu").replace(density=t(np.abs(rand(120, (N, N, N)))),
                                             velocity=t(rand(121, (3, N, N, N), 0.3)))
     with pytest.MonkeyPatch.context() as mp:
