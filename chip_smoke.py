@@ -6,8 +6,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which ends the run with a non-zero exit code on failure:
   1. require a CUDA device (no CPU fallback) and print the card's name and
      power limit;
-  2. build the hand kernels (K1, K2, K3, K4, K6, K7, K8, K9) from
-     ``fluidsim_tpu_torch/csrc``;
+  2. build the hand kernels (K1, K2, K3, K4, K6, K7, K8, K9, float32 and
+     bfloat16) from ``fluidsim_tpu_torch/csrc``;
   3. hold each kernel against its plain PyTorch twin on the card on inputs
      made with NumPy from a seed, bitwise: at 128³ K1 with buoyancy and K2 on
      bench128-scale fields, K1 with three substeps and the vortex128 mask
@@ -78,6 +78,26 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      tests/test_parity_step.py::test_step_parity_resync_64's config on the
      kernel path re-synced to tests/oracle2d.py (loaded by file path: NumPy
      only) for 4 steps (rtol 1e-5, atol 2e-6·scale);
+ 9d. bfloat16 fields and the windowed fused kernels: K1 (F = 3 and 1, and
+     with vortex128's mask and three substeps), K3 (with and without the
+     mask), K2, K2o and K8 on bfloat16 fields against their twins at 128³;
+     K2, K2s, K2o and K8 with a K = 2, 3 density phase (K8 in both phases;
+     float32 and bfloat16) and K1 with the folded emitter at K = 2, 3
+     against their twins at 64³ and 128³, all bitwise; then through
+     ``Engine``: bench128 in bfloat16 (K1 and K2 once a step; the first 10
+     steps bitwise the twin path and within tests/test_bf16.py's bound of
+     the float32 run), unfused (K1 twice, K3 once; bitwise the fused run)
+     and with ``fuse_self_advect`` (K8; bitwise the fused run), vortex128 in
+     bfloat16 (K1 twice, K3 once; with ``fuse_project_advect`` K1 and K2o,
+     bitwise the unfused run), multi256 in bfloat16 for 10 steps (K1, K6,
+     K7 on float32 copies), plume64 with the fused kernels (the substep
+     scheme at one substep: K2 with K = 3, or K8 with K = 3; bitwise the
+     preset after 10 steps), the 64³ gate fused (K2 with K = 2, bitwise
+     unfused), bench128 with ``advect_window=2`` and ``fuse_emitter`` (K1 and
+     K2s at K = 2, no emitter pass; within rtol 1e-5, atol 1e-6 of the
+     composed run after 10 steps), and plume64 with turbulent noise or the
+     FFT projection and smoke32 with the FFT projection, 3 steps each
+     against the CPU port (rtol 1e-5, atol 1e-5·scale);
  10. time every path (steps/s), the p50 step+raymarch frame of bench128 and
      multi256 and each kernel beside its twin, with CUDA events after
      warm-up, K8 beside K1 + K2 and K2o beside K3 + K1 on the same inputs,
@@ -85,7 +105,8 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      per sweep, K9 a solve and a sweep (and on one block beside the 8-block
      cluster), and break a step of each path down by
      device time with ``torch.profiler`` (for scene_a and scene_b with the
-     host-idle share).
+     host-idle share); time each kernel of phase 9d beside its twin and the
+     kernel it extends (the float32 kernel on the same values, or K = 1).
 The line before last is a JSON object describing each kernel (with the
 least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -107,6 +128,8 @@ MULTI_STEPS = 100
 SHARDED_STEPS = 15
 SHARDED_TWIN_STEPS = 3
 PLUME_STEPS = 100
+BF16_STEPS = 100
+BF16_VORTEX_STEPS = 50
 CROSSOVER_SIZES = (128, 160, 192, 224, 256)
 SEED = 128
 
@@ -799,7 +822,6 @@ def main() -> None:
             f"{float((got - ref).abs().max())!r} (bitwise {torch.equal(got, ref)})")
         if not torch.equal(got, ref):
             fail(f"multi256: the kernel path differs from the twin path in {name}")
-    del mat10
 
     # -- 9. sharded512 on one card --------------------------------------------
     sn = scfg.current_size
@@ -1181,6 +1203,303 @@ def main() -> None:
     gate2d_launches = counts()
     exactly(gate2d_launches, {"K9": 32}, "the 2D oracle gate")
 
+    # -- 9d. bfloat16 fields and the windowed fused kernels ----------------------
+    # Each bf16 kernel against its twin at 128³ on bench128's and vortex128's
+    # seeded fields rounded to bfloat16, bitwise.
+    bf = torch.bfloat16
+    bvel, bdens = vel.to(bf), dens.to(bf)
+    bvvel, bvdens = vvel.to(bf), vdens.to(bf)
+    bf16_fns = {
+        "K1 bf16": (lambda: advect_multi_3d_kernel((1, 2, 3), bvel, bvel, dt),
+                    lambda: advect_multi_3d_plain((1, 2, 3), bvel, bvel, dt)),
+        "K1 bf16 density": (
+            lambda: advect_multi_3d_kernel((0,), bdens[None], bvel, dt),
+            lambda: advect_multi_3d_plain((0,), bdens[None], bvel, dt)),
+        "K1v bf16": (
+            lambda: advect_multi_3d_kernel((1, 2, 3), bvvel, bvvel, vdt, obst=obst, n_sub=n_sub),
+            lambda: advect_multi_3d_plain((1, 2, 3), bvvel, bvvel, vdt, obst=obst, n_sub=n_sub)),
+        "K1v bf16 density": (
+            lambda: advect_multi_3d_kernel((0,), bvdens[None], bvvel, vdt, obst=obst,
+                                           n_sub=n_sub),
+            lambda: advect_multi_3d_plain((0,), bvdens[None], bvvel, vdt, obst=obst,
+                                          n_sub=n_sub)),
+        "K3 bf16": (lambda: project_3d_resident(bvvel, vcfg.jacobi_iters, obst=obst,
+                                                solve_dtype=vcfg.solve_dtype),
+                    lambda: project_3d_resident_plain(bvvel, vcfg.jacobi_iters, obst=obst,
+                                                      solve_dtype=vcfg.solve_dtype)),
+        "K3 bf16 no mask": (
+            lambda: project_3d_resident(bvel, cfg.jacobi_iters, solve_dtype=solve),
+            lambda: project_3d_resident_plain(bvel, cfg.jacobi_iters, solve_dtype=solve)),
+        "K2 bf16": (lambda: project_advect_density_3d(
+            bvel, bdens, cfg.jacobi_iters, dt, solve_dtype=solve, damp=damp,
+            dens_damp=ddamp),
+                    lambda: project_advect_density_3d_plain(
+            bvel, bdens, cfg.jacobi_iters, dt, solve_dtype=solve, damp=damp,
+            dens_damp=ddamp)),
+        "K2o bf16": (lambda: project_advect_density_3d(
+            bvvel, bvdens, vcfg.jacobi_iters, vdt, obst=obst, n_sub=n_sub,
+            solve_dtype=vcfg.solve_dtype, damp=vdamp, dens_damp=vddamp),
+                     lambda: project_advect_density_3d_plain(
+            bvvel, bvdens, vcfg.jacobi_iters, vdt, obst=obst, n_sub=n_sub,
+            solve_dtype=vcfg.solve_dtype, damp=vdamp, dens_damp=vddamp)),
+        "K8 bf16": (lambda: full_step_3d(bvel, bdens, cfg.jacobi_iters, dt, solve_dtype=solve,
+                                         damp=damp, dens_damp=ddamp),
+                    lambda: full_step_3d_plain(bvel, bdens, cfg.jacobi_iters, dt,
+                                               solve_dtype=solve, damp=damp,
+                                               dens_damp=ddamp)),
+    }
+    # The float32 kernel each extends, on the same values widened.
+    wvel_, wdens_ = bvel.float(), bdens.float()
+    wvvel_, wvdens_ = bvvel.float(), bvdens.float()
+    f32_of = {
+        "K1 bf16": lambda: advect_multi_3d_kernel((1, 2, 3), wvel_, wvel_, dt),
+        "K1 bf16 density": lambda: advect_multi_3d_kernel((0,), wdens_[None], wvel_, dt),
+        "K1v bf16": lambda: advect_multi_3d_kernel((1, 2, 3), wvvel_, wvvel_, vdt, obst=obst,
+                                                   n_sub=n_sub),
+        "K1v bf16 density": lambda: advect_multi_3d_kernel(
+            (0,), wvdens_[None], wvvel_, vdt, obst=obst, n_sub=n_sub),
+        "K3 bf16": lambda: project_3d_resident(wvvel_, vcfg.jacobi_iters, obst=obst,
+                                               solve_dtype=vcfg.solve_dtype),
+        "K3 bf16 no mask": lambda: project_3d_resident(wvel_, cfg.jacobi_iters,
+                                                       solve_dtype=solve),
+        "K2 bf16": lambda: project_advect_density_3d(
+            wvel_, wdens_, cfg.jacobi_iters, dt, solve_dtype=solve, damp=damp,
+            dens_damp=ddamp),
+        "K2o bf16": lambda: project_advect_density_3d(
+            wvvel_, wvdens_, vcfg.jacobi_iters, vdt, obst=obst, n_sub=n_sub,
+            solve_dtype=vcfg.solve_dtype, damp=vdamp, dens_damp=vddamp),
+        "K8 bf16": lambda: full_step_3d(wvel_, wdens_, cfg.jacobi_iters, dt,
+                                        solve_dtype=solve, damp=damp, dens_damp=ddamp),
+    }
+    new_err = {}
+
+    def twin_check(key, fn, plain, where):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        got, ref = (got,) if torch.is_tensor(got) else got, (ref,) if torch.is_tensor(ref) else ref
+        err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+        new_err[key] = max(new_err.get(key, 0.0), err)
+        same = all(g.dtype == r.dtype and torch.equal(g, r) for g, r in zip(got, ref))
+        say(f"# {key} vs twin {where}: max abs err {err!r} (bitwise {same}; bound: bitwise; "
+            f"dtypes {[str(g.dtype) for g in got]})")
+        if not same:
+            fail(f"{key} disagrees with its twin {where}")
+
+    for key, (fn, plain) in bf16_fns.items():
+        twin_check(key, fn, plain, f"at {n}^3")
+
+    # The fused kernels with a K = 2, 3 density phase (K8: both phases) and
+    # K1 with the folded emitter at K = 2, 3, against their twins at 64³ and
+    # 128³ on seeded fields (a backtrace of up to about 3 cells at plume64's
+    # dt), float32 and (K2, K2o, K8) bfloat16; K8 against the launched
+    # K1 -> K2 too.
+    for wn in (64, 128):
+        wvel = velocity_field(wn, rng, dev, 30.0 / (wn - 2))
+        wdens = density_field(wn, rng, dev)
+        wmask = torch.from_numpy(build_obstacle_mask(vcfg.replace(size=wn))).to(dev)
+        wsrc = emitter_fold_operand(cfg.replace(size=wn), torch.full((), pdt, device=dev))
+        wbuoy = (wdens, cfg.buoyancy, cfg.ambient_density, cfg.gravity)
+        for k in (2, 3):
+            kw = dict(window=k, damp=damp, dens_damp=ddamp)
+            cases = {
+                f"K2w{k}": (lambda kw=kw, v=wvel, d=wdens: project_advect_density_3d(
+                    v, d, 20, pdt, **kw), lambda kw=kw, v=wvel, d=wdens:
+                    project_advect_density_3d_plain(v, d, 20, pdt, **kw)),
+                f"K2w{k} bf16": (lambda kw=kw, v=wvel, d=wdens: project_advect_density_3d(
+                    v.to(bf), d.to(bf), 20, pdt, solve_dtype="bfloat16", **kw),
+                    lambda kw=kw, v=wvel, d=wdens: project_advect_density_3d_plain(
+                    v.to(bf), d.to(bf), 20, pdt, solve_dtype="bfloat16", **kw)),
+                f"K2sw{k}": (lambda kw=kw, v=wvel, d=wdens, s=wsrc: project_advect_density_3d(
+                    v, d, 20, pdt, src=s, **kw), lambda kw=kw, v=wvel, d=wdens, s=wsrc:
+                    project_advect_density_3d_plain(v, d, 20, pdt, src=s, **kw)),
+                f"K2ow{k}": (lambda kw=kw, v=wvel, d=wdens, m=wmask:
+                             project_advect_density_3d(v, d, 20, pdt, obst=m, n_sub=2, **kw),
+                             lambda kw=kw, v=wvel, d=wdens, m=wmask:
+                             project_advect_density_3d_plain(v, d, 20, pdt, obst=m, n_sub=2,
+                                                             **kw)),
+                f"K8w{k}": (lambda kw=kw, v=wvel, d=wdens: full_step_3d(v, d, 20, pdt, **kw),
+                            lambda kw=kw, v=wvel, d=wdens: full_step_3d_plain(v, d, 20, pdt,
+                                                                              **kw)),
+                f"K8w{k} bf16": (lambda kw=kw, v=wvel, d=wdens: full_step_3d(
+                    v.to(bf), d.to(bf), 20, pdt, n_sub=2, **kw),
+                    lambda kw=kw, v=wvel, d=wdens: full_step_3d_plain(
+                    v.to(bf), d.to(bf), 20, pdt, n_sub=2, **kw)),
+                f"K1 srcw{k}": (lambda k=k, v=wvel, b=wbuoy, s=wsrc: advect_multi_3d_kernel(
+                    (1, 2, 3), v, v, pdt, buoy=b, src=s, window=k),
+                    lambda k=k, v=wvel, b=wbuoy, s=wsrc: advect_multi_3d_plain(
+                    (1, 2, 3), v, v, pdt, buoy=b, src=s, window=k)),
+            }
+            for key, (fn, plain) in cases.items():
+                twin_check(key, fn, plain, f"at {wn}^3")
+            got = full_step_3d(wvel, wdens, 20, pdt, **kw)
+            adv = advect_multi_3d_kernel((1, 2, 3), wvel, wvel, pdt, window=k)
+            ref = project_advect_density_3d(adv, wdens, 20, pdt, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                fail(f"K8 window={k} differs from the launched K1 -> K2 at {wn}^3")
+    del wvel, wdens, wmask, got, ref, adv
+
+    # The paths through Engine, each with the counters at zero just before.
+    engine_module.apply_custom_source = counted_source
+
+    def run_path(pcfg_, steps, what, expected, at=10):
+        """``steps`` steps of ``pcfg_`` (the counters at zero before): checks
+        the launches, finite fields and a growing mass; returns the engine
+        and its fields after ``at`` steps."""
+        peng_ = Engine(pcfg_, device="cuda")
+        counters_to_zero()
+        emitter_passes[0] = 0
+        peng_.step(1)
+        m1, c1 = mass_and_com_y(peng_.state)
+        peng_.step(at - 1)
+        snap = {k: getattr(peng_.state, k).clone() for k in ("density", "velocity", "pressure")}
+        peng_.step(steps - at)
+        torch.cuda.synchronize()
+        launches = counts()
+        m_end, c_end = mass_and_com_y(peng_.state)
+        say(f"# {what}: {steps} steps at {pcfg_.current_size}^3, launches {launches}, "
+            f"full-grid emitter passes {emitter_passes[0]}")
+        say(f"# {what} density mass: step 1 {m1!r}, step {steps} {m_end!r}; y centre of "
+            f"mass {c1!r} -> {c_end!r}")
+        exactly(launches, {k: v * steps for k, v in expected.items()}, what)
+        check_state(peng_.state, steps, pcfg_.current_size, what)
+        if not m_end > m1 > 0.0:
+            fail(f"{what}: density mass does not grow")
+        return peng_, snap, launches, (c1, c_end)
+
+    def twin_path(pcfg_, steps=10):
+        t = Engine(pcfg_, device="cuda", kernels=PLAIN_TWINS)
+        t.step(steps)
+        return {k: getattr(t.state, k) for k in ("density", "velocity", "pressure")}
+
+    def tracks(b16, f32, what):
+        """tests/test_bf16.py's audit of a bf16 run against its f32 run."""
+        d16, d32 = b16["density"].double(), f32["density"].double()
+        m16, m32 = float(d16.sum()), float(d32.sum())
+        ys = torch.arange(d32.shape[1], dtype=torch.float64, device=dev)[None, :, None]
+        c16, c32 = float((d16 * ys).sum() / m16), float((d32 * ys).sum() / m32)
+        dscale = max(1.0, float(d32.abs().max()))
+        ddiff = float((d16 - d32).abs().mean())
+        v16, v32 = b16["velocity"].double(), f32["velocity"].double()
+        vscale = max(1e-3, float(v32.abs().max()))
+        vdiff = float((v16 - v32).abs().mean())
+        say(f"# {what} bf16 vs f32 after 10 steps: mass {m16!r} / {m32!r}, y centre "
+            f"{c16!r} / {c32!r}, mean |d| diff {ddiff!r} (bound 2e-2 x {dscale!r}), mean |v| "
+            f"diff {vdiff!r} (bound 2e-2 x {vscale!r})")
+        if not (abs(m16 - m32) < 3e-2 * abs(m32) and abs(c16 - c32) < 0.5
+                and ddiff < 2e-2 * dscale and vdiff < 2e-2 * vscale):
+            fail(f"{what}: the bf16 run leaves its f32 run's bound")
+
+    b16cfg = cfg.replace(dtype="bfloat16")
+    p1, p1at10, p1_launches, (p1c1, p1c_end) = run_path(
+        b16cfg, BF16_STEPS, "bench128 bf16", {"K1": 1, "K2": 1})
+    if not p1c_end > p1c1:
+        fail("bench128 bf16: the plume does not rise")
+    if emitter_passes[0] != BF16_STEPS:
+        fail("bench128 bf16 did not run its emitter once a step")
+    against(p1at10, twin_path(b16cfg), "bench128 bf16 kernel path vs twin path")
+    tracks(p1at10, at10, "bench128")
+    p1u, p1uat10, p1u_launches, _ = run_path(
+        b16cfg.replace(fuse_project_advect=False), 10, "bench128 bf16 unfused",
+        {"K1": 2, "K3": 1})
+    against(p1uat10, p1at10, "bench128 bf16 unfused vs fused")
+    p1k8, p1k8at10, p1k8_launches, _ = run_path(
+        b16cfg.replace(fuse_self_advect=True), BF16_STEPS, "bench128 bf16 + fuse_self_advect",
+        {"K8": 1})
+    # bf16 fields never fold the buoyancy, so K8 is the fused bf16 step.
+    against(p1k8at10, p1at10, "bench128 bf16 + fuse_self_advect vs K1 -> K2")
+
+    v16cfg = vcfg.replace(dtype="bfloat16")
+    p2, p2at10, p2_launches, _ = run_path(v16cfg, BF16_VORTEX_STEPS, "vortex128 bf16",
+                                          {"K1": 2, "K3": 1})
+    if not bool((p2.state.velocity[:, solid] == 0).all()):
+        fail("vortex128 bf16: an interior obstacle cell holds a nonzero velocity")
+    against(p2at10, twin_path(v16cfg), "vortex128 bf16 kernel path vs twin path")
+    tracks(p2at10, vat10, "vortex128")
+    p2f, p2fat10, p2f_launches, _ = run_path(
+        v16cfg.replace(fuse_project_advect=True), BF16_VORTEX_STEPS,
+        "vortex128 bf16 + fuse_project_advect", {"K1": 1, "K2": 1})
+    against(p2fat10, p2at10, "vortex128 bf16 + fuse_project_advect vs unfused")
+
+    m16cfg = mcfg.replace(dtype="bfloat16")
+    p3, p3at10, p3_launches, _ = run_path(
+        m16cfg, 10, "multi256 bf16", {"K1": 2, "K6": 1, "K7 div": 1, "K7 grad": 1})
+    against(p3at10, twin_path(m16cfg), "multi256 bf16 kernel path vs twin path")
+    tracks(p3at10, mat10, "multi256")
+    del p3
+
+    fused_sub = dict(advection_scheme="substep", advect_substeps=1, fuse_project_advect=True)
+    plain10 = Engine(pcfg, device="cuda")
+    plain10.step(10)
+    plain10 = {k: getattr(plain10.state, k) for k in ("density", "velocity", "pressure")}
+    p4, p4at10, p4_launches, (p4c1, p4c_end) = run_path(
+        pcfg.replace(**fused_sub), PLUME_STEPS, "plume64 fused (K2, K = 3)",
+        {"K1": 1, "K2": 1})
+    if not p4c_end > p4c1:
+        fail("plume64 fused: the plume does not rise")
+    against(p4at10, plain10, "plume64 fused vs the preset")
+    p4k8, p4k8at10, p4k8_launches, _ = run_path(
+        pcfg.replace(fuse_self_advect=True, **fused_sub), PLUME_STEPS,
+        "plume64 + fuse_self_advect (K8, K = 3)", {"K8": 1})
+    against(p4k8at10, plain10, "plume64 + fuse_self_advect vs the preset")
+    gfcfg = gcfg.replace(**fused_sub)
+    p4g, p4gat10, p4g_launches, _ = run_path(gfcfg, 10, "the 64^3 gate fused (K2, K = 2)",
+                                             {"K1": 1, "K2": 1})
+    gplain = Engine(gcfg, device="cuda")
+    gplain.step(10)
+    against(p4gat10, {k: getattr(gplain.state, k) for k in p4gat10},
+            "the 64^3 gate fused vs unfused")
+    del gplain
+
+    w2cfg = cfg.replace(advect_window=2)
+    p5, p5at10, p5_launches, _ = run_path(
+        w2cfg.replace(fuse_emitter=True), BF16_STEPS, "bench128 window 2 + fuse_emitter",
+        {"K1": 1, "K2": 1})
+    if emitter_passes[0] != 0:
+        fail("bench128 window 2 + fuse_emitter ran a full-grid emitter pass")
+    composed = Engine(w2cfg, device="cuda")
+    composed.step(10)
+    against(p5at10, {k: getattr(composed.state, k) for k in p5at10},
+            "bench128 window 2 + fuse_emitter vs composed", 1e-5, 1e-6)
+    del composed
+    engine_module.apply_custom_source = apply_custom_source
+
+    # Turbulent noise and the FFT projection on the card against the CPU
+    # port, 3 steps (rtol 1e-5, atol 1e-5·scale: float32 ulps of the card's
+    # transcendentals and FFT reduction order).
+    option_engines = {}
+    for what, ocfg in (("plume64 + noise", pcfg.replace(apply_turbulent_noise=True)),
+                       ("plume64 + fft", pcfg.replace(pressure_solver="fft")),
+                       ("smoke32 + fft", kcfg.replace(pressure_solver="fft"))):
+        oeng = Engine(ocfg, device="cuda")
+        counters_to_zero()
+        oeng.step(3)
+        torch.cuda.synchronize()
+        olaunch = counts()
+        expected = {} if ocfg.advect_window == 0 else {"K1": 6}
+        if ocfg.pressure_solver != "fft":
+            expected["K3"] = 3
+        exactly(olaunch, expected, what)
+        ocpu = Engine(ocfg, device="cpu")
+        ocpu.step(3)
+        for name in ("density", "velocity", "pressure"):
+            ref = getattr(ocpu.state, name)
+            err, ok = worst(getattr(oeng.state, name).cpu(), ref, 1e-5,
+                            1e-5 * max(1.0, float(ref.abs().max())))
+            say(f"# {what}, 3 steps, card vs CPU, {name}: max abs diff {err!r} (bound rtol "
+                f"1e-5, atol 1e-5 x scale)")
+            if not ok:
+                fail(f"{what}: the card leaves the CPU port's class in {name}")
+        check_state(oeng.state, 3, ocfg.current_size, what)
+        option_engines[what] = oeng
+    bf16_paths = (("bench128 bf16", p1, 200), ("bench128 bf16 unfused", p1u, 50),
+                  ("bench128 bf16 + fuse_self_advect", p1k8, 200),
+                  ("vortex128 bf16", p2, 100), ("vortex128 bf16 + fuse_project_advect", p2f, 100),
+                  ("plume64 fused (K2, K = 3)", p4, 100),
+                  ("plume64 + fuse_self_advect (K8, K = 3)", p4k8, 100),
+                  ("bench128 window 2 + fuse_emitter", p5, 100),
+                  *((what, e, 20) for what, e in option_engines.items()))
+
     # -- 10. timing ------------------------------------------------------
     say(f"# timing on {card}")
     step_ms = cuda_ms(lambda: eng.step(1), reps=200, warmup=20)
@@ -1440,6 +1759,37 @@ def main() -> None:
         "K2o": (k2o_ms, cuda_ms(k2o_plain, reps=3)),
         "K8": (k8_ms, cuda_ms(k8_plain, reps=3)),
     }
+    # The new kernels at their paths' shapes, each beside its twin, and
+    # beside the kernel it extends: the float32 kernel on the same values
+    # widened, or the same call at K = 1.
+    win_fns = {
+        "K2w3": (lambda w=3: project_advect_density_3d(tvel, tdens, pcfg.jacobi_iters, pdt,
+                                                       window=w),
+                 lambda: project_advect_density_3d_plain(tvel, tdens, pcfg.jacobi_iters, pdt,
+                                                         window=3)),
+        "K8w3": (lambda w=3: full_step_3d(tvel, tdens, pcfg.jacobi_iters, pdt, window=w),
+                 lambda: full_step_3d_plain(tvel, tdens, pcfg.jacobi_iters, pdt, window=3)),
+        "K2w2": (lambda w=2: project_advect_density_3d(tvel, tdens, gcfg.jacobi_iters, gdt,
+                                                       window=w),
+                 lambda: project_advect_density_3d_plain(tvel, tdens, gcfg.jacobi_iters, gdt,
+                                                         window=2)),
+        "K1 srcw2": (lambda w=2: advect_multi_3d_kernel((1, 2, 3), vel, vel, dt, buoy=buoy,
+                                                        src=src, window=w),
+                     lambda: advect_multi_3d_plain((1, 2, 3), vel, vel, dt, buoy=buoy, src=src,
+                                                   window=2)),
+        "K2sw2": (lambda w=2: k2(src=src, window=w), lambda: k2_plain(src=src, window=2)),
+    }
+    for key, (fn, plain) in win_fns.items():
+        twin_check(key, fn, plain, "on the timing inputs")
+    for key, (fn, plain) in {**bf16_fns, **win_fns}.items():
+        times[key] = (cuda_ms(fn, reps=20), cuda_ms(plain, reps=2, warmup=1))
+        base = f32_of[key] if key in f32_of else (lambda fn=fn: fn(w=1))
+        say(f"{key}: kernel {times[key][0]!r} ms beside the kernel it extends "
+            f"({'float32 on the same values' if key in f32_of else 'K = 1'}) "
+            f"{cuda_ms(base, reps=20)!r} ms [{card}]")
+    for what, engine, reps in bf16_paths:
+        ms = cuda_ms(lambda: engine.step(1), reps=reps, warmup=reps // 10)
+        say(f"{what} steps/s kernel path: {1e3 / ms!r} ({ms!r} ms/step) [{card}]")
     for name, (ms, plain_ms) in times.items():
         say(f"{name}: kernel {ms!r} ms, twin {plain_ms!r} ms [{card}]")
 
@@ -1447,7 +1797,8 @@ def main() -> None:
     for what, engine, reps in (("bench128", eng, 20), ("vortex128", veng, 20),
                                ("multi256", meng, 5), ("sharded512", seng, 2),
                                *((what, engine, 20) for what, engine, _ in fused_paths),
-                               *((what, engine, 20) for what, engine, _ in new_paths)):
+                               *((what, engine, 20) for what, engine, _ in new_paths),
+                               *((what, engine, 10) for what, engine, _ in bf16_paths)):
         by_kernel = profile_ms(lambda: engine.step(1), reps=reps)
         total = sum(by_kernel.values())
         say(f"# profile {what}: device time {total!r} ms/step [{card}]")
@@ -1648,6 +1999,92 @@ def main() -> None:
              "fluidsim_tpu/pallas/resident2d.py:77", launches - smooth_launches, k9_err[what],
              k9_bound(m, mask, 0, 20, False)),
         ]
+    # PR 8's rows: bfloat16 storage halves the field bytes (2 a value; the
+    # operations are the float32 kernels'), and the fused kernels at K = 2, 3
+    # count the windowed backtrace as K1's rows do (win_ops).
+    bf2 = 2
+    gint = pint
+    k2_core = DIV_OPS + cfg.jacobi_iters * SWEEP_OPS + GRAD_OPS
+    entries += [
+        ("K1 bf16", "K1 advect_multi_3d_kernel (bf16 fields, n_sub=1; bench128 bf16 "
+                    "self-advection, F=3)",
+         "fluidsim_tpu_torch/csrc/advect_bf16.cu", "fluidsim_tpu/pallas/advect.py:256",
+         p1_launches["K1"], new_err["K1 bf16"],
+         bound(6 * vol * bf2, interior * (FRAC_OPS + RELU_OPS + 3 * COMB_OPS))),
+        ("K1 bf16 density", "K1 advect_multi_3d_kernel (bf16 fields, n_sub=1; bench128 bf16 "
+                            "unfused density, F=1)",
+         "fluidsim_tpu_torch/csrc/advect_bf16.cu", "fluidsim_tpu/pallas/advect.py:256",
+         p1u_launches["K1"], new_err["K1 bf16 density"],
+         bound(5 * vol * bf2, interior * (FRAC_OPS + RELU_OPS + COMB_OPS))),
+        ("K1v bf16", f"K1 advect_multi_3d_kernel (bf16 fields, n_sub={n_sub}, obstacle mask; "
+                     "vortex128 bf16 self-advection, F=3)",
+         "fluidsim_tpu_torch/csrc/advect_bf16.cu", "fluidsim_tpu/pallas/advect.py:256",
+         p2_launches["K1"], new_err["K1v bf16"],
+         bound(6 * vol * bf2 + vol,
+               n_sub * (fluid * (FRAC_OPS + RELU_OPS + 3 * COMB_OPS)
+                        + n_solid * 3 * MIRROR_OPS))),
+        ("K1v bf16 density", f"K1 advect_multi_3d_kernel (bf16 fields, n_sub={n_sub}, "
+                             "obstacle mask; vortex128 bf16 density, F=1)",
+         "fluidsim_tpu_torch/csrc/advect_bf16.cu", "fluidsim_tpu/pallas/advect.py:256",
+         p2_launches["K1"], new_err["K1v bf16 density"],
+         bound(5 * vol * bf2 + vol, n_sub * fluid * (FRAC_OPS + RELU_OPS + COMB_OPS))),
+        ("K2 bf16", "K2 project_advect_density_3d (bf16 fields, bf16 solve; bench128 bf16)",
+         "fluidsim_tpu_torch/csrc/project_advect.cu", "fluidsim_tpu/pallas/resident.py:1155",
+         p1_launches["K2"], new_err["K2 bf16"],
+         bound(9 * vol * bf2, interior * (k2_core + FRAC_OPS + RELU_OPS + COMB_OPS + 1))),
+        ("K3 bf16", "K3 project_3d_resident (bf16 fields, obstacle mask; vortex128 bf16)",
+         "fluidsim_tpu_torch/csrc/project.cu", "fluidsim_tpu/pallas/resident.py:907",
+         p2_launches["K3"], new_err["K3 bf16"],
+         bound(7 * vol * bf2 + vol,
+               interior * (DIV_OPS + vcfg.jacobi_iters * SWEEP_OPS + GRAD_OPS)
+               + n_solid * 3 * MIRROR_OPS)),
+        ("K3 bf16 no mask", "K3 project_3d_resident (bf16 fields, no mask; bench128 bf16 "
+                            "unfused)",
+         "fluidsim_tpu_torch/csrc/project.cu", "fluidsim_tpu/pallas/resident.py:894",
+         p1u_launches["K3"], new_err["K3 bf16 no mask"],
+         bound(7 * vol * bf2, interior * k2_core)),
+        ("K2o bf16", f"K2o project_advect_density_3d (bf16 fields, obstacle mask, n_sub={n_sub}; "
+                     "vortex128 bf16 + fuse_project_advect)",
+         "fluidsim_tpu_torch/csrc/project_advect.cu", "fluidsim_tpu/pallas/resident.py:1226",
+         p2f_launches["K2"], new_err["K2o bf16"],
+         bound(9 * vol * bf2 + vol,
+               interior * (DIV_OPS + vcfg.jacobi_iters * SWEEP_OPS + GRAD_OPS)
+               + n_solid * 3 * MIRROR_OPS
+               + n_sub * fluid * (FRAC_OPS + RELU_OPS + COMB_OPS) + interior)),
+        ("K8 bf16", "K8 full_step_3d (bf16 fields; bench128 bf16 + fuse_self_advect)",
+         "fluidsim_tpu_torch/csrc/full_step_bf16.cu", "fluidsim_tpu/pallas/resident.py:1531",
+         p1k8_launches["K8"], new_err["K8 bf16"],
+         bound(9 * vol * bf2, interior * (k1_ops + k2_ops))),
+        ("K2w3", f"K2 project_advect_density_3d (K=3 density phase, {pcfg.jacobi_iters} float32 "
+                 "sweeps; plume64 fused, 64^3)",
+         "fluidsim_tpu_torch/csrc/project_advect.cu", "fluidsim_tpu/pallas/resident.py:1155",
+         p4_launches["K2"], max(new_err["K2w3"], new_err["K2w3 bf16"]),
+         bound(9 * pvol * f32, pint * (DIV_OPS + pcfg.jacobi_iters * SWEEP_OPS + GRAD_OPS
+                                       + win_ops(1) + 1))),
+        ("K8w3", "K8 full_step_3d (K=3 in both advections; plume64 + fuse_self_advect, 64^3)",
+         "fluidsim_tpu_torch/csrc/full_step.cu", "fluidsim_tpu/pallas/resident.py:1531",
+         p4k8_launches["K8"], max(new_err["K8w3"], new_err["K8w3 bf16"]),
+         bound(9 * pvol * f32, pint * (win_ops(3) + DIV_OPS + pcfg.jacobi_iters * SWEEP_OPS
+                                       + GRAD_OPS + win_ops(1) + 1))),
+        ("K2w2", f"K2 project_advect_density_3d (K=2 density phase, {gcfg.jacobi_iters} float32 "
+                 "sweeps; the 64^3 gate fused)",
+         "fluidsim_tpu_torch/csrc/project_advect.cu", "fluidsim_tpu/pallas/resident.py:1155",
+         p4g_launches["K2"], max(new_err["K2w2"], new_err["K2w2 bf16"]),
+         bound(9 * pvol * f32, gint * (DIV_OPS + gcfg.jacobi_iters * SWEEP_OPS + GRAD_OPS
+                                       + win_ops(1) + 1))),
+        ("K1 srcw2", "K1 advect_multi_3d_kernel (K=2, buoyancy and emitter folded; bench128 "
+                     "window 2 + fuse_emitter self-advection)",
+         "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
+         p5_launches["K1"], new_err["K1 srcw2"],
+         bound(7 * vol * f32 + 5 * f32, interior * (win_ops(3) + 9 * BUOY_OPS)
+               + ball * EMIT_OPS)),
+        ("K2sw2", "K2s project_advect_density_3d (K=2 density phase with the emitter folded; "
+                  "bench128 window 2 + fuse_emitter)",
+         "fluidsim_tpu_torch/csrc/project_advect.cu", "fluidsim_tpu/pallas/resident.py:1219",
+         p5_launches["K2"], new_err["K2sw2"],
+         bound(9 * vol * f32 + 5 * f32, interior * (k2_core + win_ops(1) + 1)
+               + ball * EMIT_OPS)),
+    ]
     report = []
     for key, name, source, replaces, launches, err, (bound_ms, bound_by) in entries:
         ms, plain_ms = times[key]

@@ -1,17 +1,20 @@
 // K1: semi-Lagrangian advection of F fields (F = 3: velocity
-// self-advection, optionally with buoyancy folded in, and for K = 1 the
-// folded emitter on the buoyancy's density; F = 1: a scalar) with the
-// backtrace clamped to a window of K = 1, 2 or 3 cells, in n_sub substeps of
-// dt0/n_sub through the same velocity, optionally with the obstacle contract
-// after every substep.
+// self-advection, optionally with buoyancy folded in and the folded emitter
+// on the buoyancy's density; F = 1: a scalar, optionally with the emitter on
+// the field, K2's density phase) with the backtrace clamped to a window of
+// K = 1, 2 or 3 cells, in n_sub substeps of dt0/n_sub through the same
+// velocity, optionally with the obstacle contract after every substep, on
+// float32 or (without the folds) bfloat16 storage.
 //
 // Replaces: fluidsim_tpu/pallas/advect.py::_advect_kernel (entry
 // advect_multi_3d_pallas, core _substep_window_vals: windowed_sum_k1 for
 // k_win = 1, windowed_sum for k_win > 1), with or without the in-kernel
 // obstacle mask, with or without the folded emitter (`src`, which rides the
-// buoyancy's density reads: advect.py:415-428).  For n_sub = 1 with a mask
-// the TPU entry applies the output contract on the host (advect.py:728-741);
-// this kernel applies the same contract in the launch.
+// buoyancy's density reads: advect.py:415-428), float32 or bfloat16 storage
+// (the TPU kernel loads its windows in the field dtype and computes in
+// float32: advect.py:392-398, 453).  For n_sub = 1 with a mask the TPU entry
+// applies the output contract on the host (advect.py:728-741); this kernel
+// applies the same contract in the launch.
 //
 // Each substep is one launch, reading the previous substep's fields (the
 // input fields for the first) and writing a fresh buffer:
@@ -22,9 +25,11 @@
 //     faces read it (ops/advect._mask_and_bnd_3d), then, for velocity codes,
 //     a second launch that applies the obstacle mirror in place.
 // The launch boundary is the grid-wide barrier a substep needs: every cell
-// reads its neighbours' previous-substep values.  Two buffers ping-pong (the
-// output and one scratch), so the input velocity is never written
-// (advect.cuh's advect_substeps, which K2's density phase shares).
+// reads its neighbours' previous-substep values.  The input is never written
+// (advect.cuh's advect_substeps, which K2's density phase shares).  On
+// bfloat16 storage the substeps between the first read and the last write
+// are float32, as the TPU kernel keeps them in VMEM, and a velocity's mirror
+// runs on the float32 result before the one rounding (advect_bf16.cu).
 //
 // What bounds it on an H100, K = 1: each substep reads 27 taps of each field
 // (plus 27 density taps for the buoyant y component), and the backtrace, the
@@ -33,13 +38,14 @@
 // into an FMA.  The compulsory DRAM traffic is 7 f32 volumes for bench128's
 // buoyant self-advection and 6 volumes + the byte mask for vortex128's, so
 // one substep is bound by bytes, three substeps by operations; the taps of
-// neighbouring cells overlap, which L1 and L2 serve.  The folded emitter
-// adds a distance, a square root and a division per density read inside
-// the ball's box (and three compares outside it) in place of a full-grid
-// pass over the density.  K > 1: (2K+1)^3 taps a field (343 for plume64's
-// K = 3), each a multiply and an add, plus (2K+1)^2 + (2K+1)^3 weight
-// products: about 2,500 operations a cell for F = 3 at K = 3, so the hat
-// sum is bound by operations at any size.
+// neighbouring cells overlap, which L1 and L2 serve.  bfloat16 storage
+// halves the bytes and leaves the operations.  The folded emitter adds a
+// distance, a square root and a division per density read inside the ball's
+// box (and three compares outside it) in place of a full-grid pass over the
+// density.  K > 1: (2K+1)^3 taps a field (343 for plume64's K = 3), each a
+// multiply and an add, plus (2K+1)^2 + (2K+1)^3 weight products: about 2,500
+// operations a cell for F = 3 at K = 3, so the hat sum is bound by
+// operations at any size.
 //
 // What the design does about it: one thread per cell with x across
 // threadIdx.x, so each tap row is one coalesced 128-byte load per warp and
@@ -54,41 +60,56 @@
 #include <cuda_runtime.h>
 
 #include "advect.cuh"
+#include "entries.h"
 
 extern "C" const char* fs_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// fields (n_fields, n, n, n), vel (3, n, n, n), dens (n, n, n) or null, mask
-// (n, n, n) one byte per cell (nonzero = solid) or null, emitter (5,) or
-// null, out like fields, tmp like fields (scratch; may be null when n_sub ==
-// 1); all float32 apart from the mask, contiguous, on the current device.
+// fields (n_fields, n, n, n) and vel (3, n, n, n) in the storage type
+// (bfloat16 when field_bf16, else float32); dens (n, n, n) float32 or null;
+// mask (n, n, n) one byte per cell (nonzero = solid) or null; emitter (5,)
+// float32 or null, added to the buoyancy's density (src_on = 1, needs
+// has_buoy) or to the F = 1 field's first reads (src_on = 2); out like
+// fields; tmp0 and tmp1 (n_fields, n, n, n) float32 scratch (advect_substeps
+// says when each may be null); all contiguous on the current device.
 // dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2); window 1, 2 or
 // 3 (n >= 2 * window + 1).  With has_buoy the fields must be the velocity and
-// there must be no mask; the emitter needs has_buoy.  Launches on `stream`
-// and returns the first cudaError_t.
-extern "C" int fs_advect_k1(const float* fields, const float* vel, const float* dens,
-                            const unsigned char* mask, const float* emitter, float* out,
-                            float* tmp, int n, int n_fields, int b0, int b1, int b2,
-                            float dt0_sub, int n_sub, int window, int has_buoy, float buoy_dt,
-                            float buoyancy, float ambient, float gravity, void* stream) {
+// there must be no mask; the folds take float32 only.  `scale` multiplies the
+// last substep's output in the storage type.  Launches on `stream` and
+// returns the first cudaError_t.
+extern "C" int fs_advect_k1(const void* fields, const void* vel, const float* dens,
+                            const unsigned char* mask, const float* emitter, int src_on,
+                            void* out, float* tmp0, float* tmp1, int n, int n_fields, int b0,
+                            int b1, int b2, float dt0_sub, int n_sub, int window, int has_buoy,
+                            float buoy_dt, float buoyancy, float ambient, float gravity,
+                            float scale, int field_bf16, void* stream) {
   using namespace fsk;
+  const int src = emitter == nullptr ? kSrcNone : src_on;
   // A window of K reads taps K cells away, wrapped: the grid must hold 2K + 1.
   if (window < 1 || window > 3 || n < 2 * window + 1 || (has_buoy && dens == nullptr) ||
-      (emitter != nullptr && !has_buoy)) {
+      (emitter != nullptr && src_on != kSrcDensity && src_on != kSrcFields) ||
+      (src == kSrcDensity && !has_buoy) || (field_bf16 && (has_buoy || src != kSrcNone))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Substep a{fields, vel, dens, mask, emitter, nullptr, n, b0, b1, b2, dt0_sub, 1.0f,
                   Buoyancy{buoy_dt, buoyancy, ambient, gravity}};
-  const int src = emitter != nullptr ? kSrcDensity : kSrcNone;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (field_bf16) {
+    return static_cast<int>(
+        advect_substeps_bf16(a, n_fields, n_sub, window, out, tmp0, tmp1, scale, s));
+  }
   const bool buoy = has_buoy != 0;
+  float* o = static_cast<float*>(out);
   switch (window) {
     case 1:
-      return static_cast<int>(advect_substeps<1>(a, n_fields, n_sub, buoy, src, out, tmp, 1.0f, s));
+      return static_cast<int>(advect_substeps<1, float>(a, n_fields, n_sub, buoy, src, o, tmp0,
+                                                        tmp1, scale, s));
     case 2:
-      return static_cast<int>(advect_substeps<2>(a, n_fields, n_sub, buoy, src, out, tmp, 1.0f, s));
+      return static_cast<int>(advect_substeps<2, float>(a, n_fields, n_sub, buoy, src, o, tmp0,
+                                                        tmp1, scale, s));
     default:
-      return static_cast<int>(advect_substeps<3>(a, n_fields, n_sub, buoy, src, out, tmp, 1.0f, s));
+      return static_cast<int>(advect_substeps<3, float>(a, n_fields, n_sub, buoy, src, o, tmp0,
+                                                        tmp1, scale, s));
   }
 }

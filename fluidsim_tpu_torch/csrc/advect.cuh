@@ -3,7 +3,8 @@
 // projection (project_advect.cu) and the whole-step kernel (full_step.cu).
 // It is the counterpart of fluidsim_tpu/pallas/advect.py::_substep_window_vals
 // (one substep of it; the caller loops over the substeps), which the TPU
-// kernels share the same way.  Only K1 takes windows K > 1.
+// kernels share the same way.  Every kernel that backtraces takes a window of
+// K = 1, 2 or 3 cells.
 //
 // Arithmetic follows the TPU kernel operation by operation (the build uses
 // -fmad=false, so nothing is contracted into an FMA):
@@ -21,11 +22,20 @@
 // weight, and reading it there keeps even a zero weight times a non-finite
 // value the twin's.
 //
+// Storage: the fields and the velocity are read in their storage types (TF,
+// TV: float or __nv_bfloat16) and widened to float32; the density of the
+// buoyancy and the emitter are float32 (the folds need float32 fields, as in
+// the JAX package).  A substep's result is rounded to its output type TO
+// once; the substeps in between stay float32, as the TPU kernel keeps them
+// in VMEM.
+//
 // The device functions take plain pointers: full_step.cu reads, in a later
 // phase of the same launch, buffers that an earlier phase wrote, which rules
 // out the read-only cache that __restrict__ lets the compiler use.  The
 // __global__ kernels mark their own arguments __restrict__.
 #pragma once
+
+#include <type_traits>
 
 #include "boundary.cuh"
 
@@ -90,16 +100,16 @@ enum SrcOn { kSrcNone = 0, kSrcDensity = 1, kSrcFields = 2 };
 // BUOY_TAPS (self-advection: the fields are the velocity itself) also adds
 // it to every tap of the y component, from the density at that tap.  SRC
 // adds the emitter `e` to the density (or field) value at each point read.
-template <int F, bool BUOY_VEL, bool BUOY_TAPS, int SRC>
-__device__ __forceinline__ void advect_cell_k1(const float* fields, const float* vel,
+template <int F, bool BUOY_VEL, bool BUOY_TAPS, int SRC, typename TF, typename TV>
+__device__ __forceinline__ void advect_cell_k1(const TF* fields, const TV* vel,
                                                const float* dens, const float* e,
                                                const Buoyancy bp, int n, float dt0,
                                                int z, int y, int x, float (&out)[F]) {
   const long long sn = n, plane = sn * sn, vol = plane * sn;
   const long long c0 = (z * sn + y) * sn + x;
-  const float vx = vel[c0];
-  float vy = vel[vol + c0];
-  const float vz = vel[2 * vol + c0];
+  const float vx = ld(vel[c0]);
+  float vy = ld(vel[vol + c0]);
+  const float vz = ld(vel[2 * vol + c0]);
   if (BUOY_VEL) {
     float rho = dens[c0];
     if (SRC == kSrcDensity) rho = emitter_add(rho, e, z, y, x);
@@ -115,7 +125,7 @@ __device__ __forceinline__ void advect_cell_k1(const float* fields, const float*
 
 #pragma unroll
   for (int c = 0; c < F; ++c) {
-    const float* f = fields + c * vol;
+    const TF* f = fields + c * vol;
     float zc[3];
 #pragma unroll
     for (int dz = -1; dz <= 1; ++dz) {
@@ -126,7 +136,7 @@ __device__ __forceinline__ void advect_cell_k1(const float* fields, const float*
         float g[3];
 #pragma unroll
         for (int dx = -1; dx <= 1; ++dx) {
-          g[dx + 1] = f[r + dx];
+          g[dx + 1] = ld(f[r + dx]);
           if (SRC == kSrcFields) g[dx + 1] = emitter_add(g[dx + 1], e, z + dz, y + dy, x + dx);
           if (BUOY_TAPS && c == 1) {
             float rho = dens[r + dx];
@@ -142,23 +152,29 @@ __device__ __forceinline__ void advect_cell_k1(const float* fields, const float*
   }
 }
 
+
 // The same for a window of K > 1 cells: the (2K+1)^3-term hat sum, taps at
 // wrapped indices (n >= 2K+1).  The x and y hats are computed once, the z
 // hat once per plane, and the weights shared by the F fields; the buoyancy
-// enters as in advect_cell_k1.  The z loop is not unrolled
-// (the unrolled K = 3 body is ~7x the code, and ptxas time with it).
-template <int K, int F, bool BUOY_VEL, bool BUOY_TAPS>
-__device__ __forceinline__ void advect_cell_win(const float* fields, const float* vel,
-                                                const float* dens, const Buoyancy bp, int n,
-                                                float dt0, int z, int y, int x,
-                                                float (&out)[F]) {
+// and the emitter enter as in advect_cell_k1, the emitter at a tap's wrapped
+// coordinates (where the twin's torch.roll reads it).  The z loop is not
+// unrolled (the unrolled K = 3 body is ~7x the code, and ptxas time with it).
+template <int K, int F, bool BUOY_VEL, bool BUOY_TAPS, int SRC, typename TF, typename TV>
+__device__ __forceinline__ void advect_cell_win(const TF* fields, const TV* vel,
+                                                const float* dens, const float* e,
+                                                const Buoyancy bp, int n, float dt0, int z, int y,
+                                                int x, float (&out)[F]) {
   constexpr int W = 2 * K + 1;
   const long long sn = n, vol = sn * sn * sn;
   const long long c0 = (z * sn + y) * sn + x;
-  const float vx = vel[c0];
-  float vy = vel[vol + c0];
-  const float vz = vel[2 * vol + c0];
-  if (BUOY_VEL) vy = buoyant_vy(vy, dens[c0], bp);
+  const float vx = ld(vel[c0]);
+  float vy = ld(vel[vol + c0]);
+  const float vz = ld(vel[2 * vol + c0]);
+  if (BUOY_VEL) {
+    float rho = dens[c0];
+    if (SRC == kSrcDensity) rho = emitter_add(rho, e, z, y, x);
+    vy = buoyant_vy(vy, rho, bp);
+  }
   const float hi = float(n) - 1.5f;
   const float fx = frac_win<K>(float(x), vx, dt0, hi);
   const float fy = frac_win<K>(float(y), vy, dt0, hi);
@@ -189,8 +205,13 @@ __device__ __forceinline__ void advect_cell_win(const float* fields, const float
         const long long t = row + xs[dx];
 #pragma unroll
         for (int c = 0; c < F; ++c) {
-          float g = fields[c * vol + t];
-          if (BUOY_TAPS && c == 1) g = buoyant_vy(g, dens[t], bp);
+          float g = ld(fields[c * vol + t]);
+          if (SRC == kSrcFields) g = emitter_add(g, e, tz, ys[dy], xs[dx]);
+          if (BUOY_TAPS && c == 1) {
+            float rho = dens[t];
+            if (SRC == kSrcDensity) rho = emitter_add(rho, e, tz, ys[dy], xs[dx]);
+            g = buoyant_vy(g, rho, bp);
+          }
           acc[c] = acc[c] + w * g;
         }
       }
@@ -200,42 +221,70 @@ __device__ __forceinline__ void advect_cell_win(const float* fields, const float
   for (int c = 0; c < F; ++c) out[c] = acc[c];
 }
 
-// One substep's operands.  src (F, n, n, n) is read and dst written; dens is
-// the buoyancy's density, mask one byte per cell (nonzero = solid) and
-// emitter the (5,) descriptor, each null when unused; b0..b2 the fields'
-// boundary codes; scale multiplies every output value after the faces.
+// One substep's operands.  src (F, n, n, n) is read and dst written, each in
+// the type its launch names; vel is the storage type's; dens is the
+// buoyancy's density, mask one byte per cell (nonzero = solid) and emitter
+// the (5,) descriptor, each null when unused; b0..b2 the fields' boundary
+// codes; scale multiplies every output value after the faces, in the output
+// type (the TPU kernels' storage-dtype multiply).
 struct Substep {
-  const float *src, *vel, *dens;
+  const void *src, *vel;
+  const float* dens;
   const uint8_t* mask;
   const float* emitter;
-  float* dst;
+  void* dst;
   int n, b0, b1, b2;
   float dt0, scale;
   Buoyancy bp;
 };
 
 // One substep at cell k: the backtrace (a solid interior cell is zero
-// instead), then the set_bnd face sign of each field's code, then the scale.
-template <int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC, int K = 1>
+// instead), then the set_bnd face sign of each field's code, the rounding to
+// TO, then the scale (rounded again).
+template <int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC, int K, typename TF,
+          typename TV, typename TO>
 __device__ __forceinline__ void advect_store(const Substep& a, const Cell& k) {
   float v[F];
+  const TF* src = static_cast<const TF*>(a.src);
+  const TV* vel = static_cast<const TV*>(a.vel);
   if (MASK && a.mask[k.c] != 0) {
 #pragma unroll
     for (int c = 0; c < F; ++c) v[c] = 0.0f;
   } else if constexpr (K == 1) {
-    advect_cell_k1<F, BUOY_VEL, BUOY_TAPS, SRC>(a.src, a.vel, a.dens, a.emitter, a.bp, a.n,
-                                                 a.dt0, k.cz, k.cy, k.cx, v);
+    advect_cell_k1<F, BUOY_VEL, BUOY_TAPS, SRC>(src, vel, a.dens, a.emitter, a.bp, a.n, a.dt0,
+                                                k.cz, k.cy, k.cx, v);
   } else {
-    static_assert(SRC == kSrcNone || K == 1, "the emitter folds only into K = 1");
-    advect_cell_win<K, F, BUOY_VEL, BUOY_TAPS>(a.src, a.vel, a.dens, a.bp, a.n, a.dt0, k.cz,
-                                               k.cy, k.cx, v);
+    advect_cell_win<K, F, BUOY_VEL, BUOY_TAPS, SRC>(src, vel, a.dens, a.emitter, a.bp, a.n,
+                                                    a.dt0, k.cz, k.cy, k.cx, v);
   }
   const long long vol = static_cast<long long>(a.n) * a.n * a.n;
   const int bs[3] = {a.b0, a.b1, a.b2};
+  TO* dst = static_cast<TO*>(a.dst);
 #pragma unroll
   for (int c = 0; c < F; ++c) {
     const float u = face_negates(bs[c], k.z, k.y, k.x, k.cz, k.cy, k.cx) ? -v[c] : v[c];
-    a.dst[c * vol + k.idx] = u * a.scale;
+    dst[c * vol + k.idx] = st<TO>(ld(st<TO>(u)) * a.scale);
+  }
+}
+
+// A substep without folds on fields of storage type S, by its place in the
+// run: the first reads S, the others the float32 result of the one before;
+// to_s writes S, else float32.  For S = float every role is one code.
+template <int F, int K, bool MASK, typename S>
+__device__ __forceinline__ void advect_store_role(const Substep& a, const Cell& k, bool first,
+                                                  bool to_s) {
+  if constexpr (std::is_same<S, float>::value) {
+    advect_store<F, false, false, MASK, kSrcNone, K, float, float, float>(a, k);
+  } else if (first) {
+    if (to_s) {
+      advect_store<F, false, false, MASK, kSrcNone, K, S, S, S>(a, k);
+    } else {
+      advect_store<F, false, false, MASK, kSrcNone, K, S, S, float>(a, k);
+    }
+  } else if (to_s) {
+    advect_store<F, false, false, MASK, kSrcNone, K, float, S, S>(a, k);
+  } else {
+    advect_store<F, false, false, MASK, kSrcNone, K, float, S, float>(a, k);
   }
 }
 
@@ -243,98 +292,136 @@ __device__ __forceinline__ void advect_store(const Substep& a, const Cell& k) {
 // kernel gets its own copy.
 namespace {
 
-template <int K, int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC>
+template <int K, int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC, typename TF,
+          typename TV, typename TO>
 __global__ void __launch_bounds__(kThreads)
-    advect_kernel(const float* __restrict__ src, const float* __restrict__ vel,
+    advect_kernel(const TF* __restrict__ src, const TV* __restrict__ vel,
                   const float* __restrict__ dens, const uint8_t* __restrict__ mask,
-                  const float* __restrict__ emitter, float* __restrict__ dst, int n, int b0,
+                  const float* __restrict__ emitter, TO* __restrict__ dst, int n, int b0,
                   int b1, int b2, float dt0, float scale, Buoyancy bp) {
   Cell k;
   if (!cell_of_thread(n, k)) return;
-  advect_store<F, BUOY_VEL, BUOY_TAPS, MASK, SRC, K>(
+  advect_store<F, BUOY_VEL, BUOY_TAPS, MASK, SRC, K, TF, TV, TO>(
       Substep{src, vel, dens, mask, emitter, dst, n, b0, b1, b2, dt0, scale, bp}, k);
 }
 
-template <int K, int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC>
+template <int K, int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC, typename TF = float,
+          typename TV = float, typename TO = float>
 cudaError_t launch(const Substep& a, cudaStream_t s) {
-  advect_kernel<K, F, BUOY_VEL, BUOY_TAPS, MASK, SRC><<<cell_grid(a.n), cell_block(), 0, s>>>(
-      a.src, a.vel, a.dens, a.mask, a.emitter, a.dst, a.n, a.b0, a.b1, a.b2, a.dt0, a.scale,
-      a.bp);
+  advect_kernel<K, F, BUOY_VEL, BUOY_TAPS, MASK, SRC, TF, TV, TO>
+      <<<cell_grid(a.n), cell_block(), 0, s>>>(
+          static_cast<const TF*>(a.src), static_cast<const TV*>(a.vel), a.dens, a.mask,
+          a.emitter, static_cast<TO*>(a.dst), a.n, a.b0, a.b1, a.b2, a.dt0, a.scale, a.bp);
   return cudaGetLastError();
 }
 
-// The variants the port runs, for one window K: buoyancy only in velocity
-// self-advection without a mask, with the emitter on its density only for
-// K = 1 (the fold needs the fused K2s, which takes K = 1); the emitter on
-// the field only for a scalar without a mask (K2s's density phase).
-template <int K>
+// A substep without folds in its role (see advect_store_role).
+template <int K, int F, bool MASK, typename S>
+cudaError_t launch_role(const Substep& a, bool first, bool to_s, cudaStream_t s) {
+  if constexpr (std::is_same<S, float>::value) {
+    return launch<K, F, false, false, MASK, kSrcNone>(a, s);
+  } else if (first) {
+    return to_s ? launch<K, F, false, false, MASK, kSrcNone, S, S, S>(a, s)
+                : launch<K, F, false, false, MASK, kSrcNone, S, S, float>(a, s);
+  } else {
+    return to_s ? launch<K, F, false, false, MASK, kSrcNone, float, S, S>(a, s)
+                : launch<K, F, false, false, MASK, kSrcNone, float, S, float>(a, s);
+  }
+}
+
+// The variants the port runs, for one window K and storage type S: buoyancy
+// only in float32 velocity self-advection without a mask, with or without
+// the emitter on its density; the emitter on the field only for a float32
+// scalar without a mask (K2s's density phase); otherwise F = 1 or 3 with or
+// without a mask, in any role.
+template <int K, typename S>
 cudaError_t launch_window(const Substep& a, int n_fields, bool buoy_vel, bool buoy_taps,
-                          int src, cudaStream_t s) {
+                          int src, bool first, bool to_s, cudaStream_t s) {
   const bool masked = a.mask != nullptr;
-  if (n_fields == 3 && buoy_vel && !masked) {
-    if (K == 1 && src == kSrcDensity) {
-      return buoy_taps ? launch<1, 3, true, true, false, kSrcDensity>(a, s)
-                       : launch<1, 3, true, false, false, kSrcDensity>(a, s);
+  if constexpr (std::is_same<S, float>::value) {
+    if (n_fields == 3 && buoy_vel && !masked) {
+      if (src == kSrcDensity) {
+        return buoy_taps ? launch<K, 3, true, true, false, kSrcDensity>(a, s)
+                         : launch<K, 3, true, false, false, kSrcDensity>(a, s);
+      }
+      if (src == kSrcNone) {
+        return buoy_taps ? launch<K, 3, true, true, false, kSrcNone>(a, s)
+                         : launch<K, 3, true, false, false, kSrcNone>(a, s);
+      }
+      return cudaErrorInvalidValue;
     }
-    if (src == kSrcNone) {
-      return buoy_taps ? launch<K, 3, true, true, false, kSrcNone>(a, s)
-                       : launch<K, 3, true, false, false, kSrcNone>(a, s);
+    if (n_fields == 1 && src == kSrcFields && !masked && !buoy_vel) {
+      return launch<K, 1, false, false, false, kSrcFields>(a, s);
     }
-    return cudaErrorInvalidValue;
   }
-  if (buoy_vel) return cudaErrorInvalidValue;
-  if (K == 1 && n_fields == 1 && src == kSrcFields && !masked) {
-    return launch<1, 1, false, false, false, kSrcFields>(a, s);
-  }
-  if (src != kSrcNone) return cudaErrorInvalidValue;
+  if (buoy_vel || src != kSrcNone) return cudaErrorInvalidValue;
   if (n_fields == 3) {
-    return masked ? launch<K, 3, false, false, true, kSrcNone>(a, s)
-                  : launch<K, 3, false, false, false, kSrcNone>(a, s);
+    return masked ? launch_role<K, 3, true, S>(a, first, to_s, s)
+                  : launch_role<K, 3, false, S>(a, first, to_s, s);
   }
   if (n_fields == 1) {
-    return masked ? launch<K, 1, false, false, true, kSrcNone>(a, s)
-                  : launch<K, 1, false, false, false, kSrcNone>(a, s);
+    return masked ? launch_role<K, 1, true, S>(a, first, to_s, s)
+                  : launch_role<K, 1, false, S>(a, first, to_s, s);
   }
   return cudaErrorInvalidValue;
 }
 
-
-// n_sub substeps of a.src through a.vel with a window of K cells (a
-// template parameter, so that only K1's source instantiates K > 1), one
-// launch each, the last into out
-// and the earlier ones alternating back from it with tmp (which may be null
-// when n_sub == 1), so the input is never written.  With a mask, velocity
-// codes get the obstacle mirror after every substep, as a second launch in
-// place.  The buoyancy (and the emitter on its density) enters every
-// substep's backtrace velocity and the first substep's taps; an emitter on
-// the fields enters the first substep only, whose input it is.  `scale`
-// multiplies the last substep's output (not with a mirror, which would have
-// to come first).  Returns the first cudaError_t.
-template <int K = 1>
-cudaError_t advect_substeps(Substep a, int n_fields, int n_sub, bool buoy, int src,
-                            float* out, float* tmp, float scale, cudaStream_t s) {
-  if (n_sub < 1 || (n_sub > 1 && tmp == nullptr)) return cudaErrorInvalidValue;
+// n_sub substeps of a.src (type S) through a.vel (type S) with a window of K
+// cells, one launch each, the last into out (type S); the input is never
+// written.  float32: the earlier substeps alternate back from out with tmp0
+// (which may be null when n_sub == 1).  bfloat16: the earlier substeps write
+// float32 into tmp0 and tmp1 in turn (each (n_fields, n, n, n) float32, null
+// when unused), and the last rounds into out.  With a mask, velocity codes
+// get the obstacle mirror after every substep, as a second launch in place on
+// the float32 result (bfloat16: the last result is then rounded into out by
+// one more launch).  The buoyancy (and the emitter on its density) enters
+// every substep's backtrace velocity and the first substep's taps; an
+// emitter on the fields enters the first substep only, whose input it is.
+// `scale` multiplies the last substep's output in S (not with a mirror,
+// which would have to come first).  Returns the first cudaError_t.
+template <int K, typename S>
+cudaError_t advect_substeps(Substep a, int n_fields, int n_sub, bool buoy, int src, S* out,
+                            float* tmp0, float* tmp1, float scale, cudaStream_t s) {
+  constexpr bool wide = std::is_same<S, float>::value;
+  if (n_sub < 1) return cudaErrorInvalidValue;
   const int bs[3] = {a.b0, a.b1, a.b2};
   bool mirror = false;
   for (int c = 0; c < n_fields && c < 3; ++c) {
     mirror = mirror || (a.mask != nullptr && bs[c] >= 1 && bs[c] <= 3);
   }
   if (mirror && scale != 1.0f) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
   for (int sub = 0; sub < n_sub; ++sub) {
-    a.dst = (n_sub - 1 - sub) % 2 == 0 ? out : tmp;
-    a.scale = sub == n_sub - 1 ? scale : 1.0f;
-    const int sub_src = (src == kSrcFields && sub > 0) ? kSrcNone : src;
-    cudaError_t err = launch_window<K>(a, n_fields, buoy, buoy && sub == 0, sub_src, s);
+    const bool first = sub == 0, last = sub == n_sub - 1;
+    bool to_s = true;
+    void* dst = out;
+    if (wide) {
+      if ((n_sub - 1 - sub) % 2 != 0) dst = tmp0;
+    } else {
+      to_s = last && !mirror;
+      if (!to_s) dst = sub % 2 == 0 ? tmp0 : tmp1;
+    }
+    if (dst == nullptr) return cudaErrorInvalidValue;
+    a.dst = dst;
+    a.scale = last ? scale : 1.0f;
+    const int sub_src = (src == kSrcFields && !first) ? kSrcNone : src;
+    err = launch_window<K, S>(a, n_fields, buoy, buoy && first, sub_src, first, to_s, s);
     if (err != cudaSuccess) return err;
     if (mirror) {
-      mirror_obstacles_kernel<<<cell_grid(a.n), cell_block(), 0, s>>>(a.dst, a.mask, a.n,
-                                                                      n_fields, a.b0, a.b1,
-                                                                      a.b2);
+      // The mirror works on the float32 result: out itself for float32.
+      mirror_obstacles_kernel<float><<<cell_grid(a.n), cell_block(), 0, s>>>(
+          static_cast<float*>(dst), a.mask, a.n, n_fields, a.b0, a.b1, a.b2);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
-    a.src = a.dst;
+    a.src = dst;
   }
-  return cudaSuccess;
+  if (!wide && mirror) {
+    const long long count = static_cast<long long>(n_fields) * a.n * a.n * a.n;
+    store_kernel<S><<<flat_blocks(count), kThreads, 0, s>>>(static_cast<const float*>(a.src),
+                                                           out, count);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace

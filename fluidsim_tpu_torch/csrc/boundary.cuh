@@ -14,13 +14,30 @@
 // writes each interior solid cell of a velocity component from its fluid
 // neighbours along the component's own axis, as total / max(count, 1), after
 // the faces.
+//
+// Storage: a field is float32 or bfloat16 in memory (the storage type S);
+// every kernel loads it with ld(), computes in float32 and rounds with st<S>()
+// (round to nearest even) only where its twin rounds.
 #pragma once
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace fsk {
+
+__device__ __forceinline__ float ld(float v) { return v; }
+__device__ __forceinline__ float ld(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T st(float v);
+template <>
+__device__ __forceinline__ float st<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 st<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 constexpr int kBlockX = 32, kBlockY = 4, kBlockZ = 2;
 constexpr int kThreads = kBlockX * kBlockY * kBlockZ;
@@ -88,9 +105,10 @@ namespace {
 // mask is one byte per cell, nonzero = solid.  A thread writes only its own
 // cell, and only if that cell is interior and solid; it reads a neighbour
 // only if the neighbour is fluid.  No cell is both written and read, so the
-// pass has no race.
+// pass has no race.  The mirror computes in float32 and rounds once to S.
+template <typename S>
 __global__ void __launch_bounds__(kThreads)
-    mirror_obstacles_kernel(float* __restrict__ v, const uint8_t* __restrict__ mask,
+    mirror_obstacles_kernel(S* __restrict__ v, const uint8_t* __restrict__ mask,
                             int n, int n_fields, int b0, int b1, int b2) {
   Cell k;
   if (!cell_of_thread(n, k) || k.idx != k.c || mask[k.idx] == 0) return;
@@ -100,16 +118,29 @@ __global__ void __launch_bounds__(kThreads)
     const int b = bs[c];
     if (b < 1 || b > 3) continue;
     const long long step = b == 1 ? 1 : (b == 2 ? sn : sn * sn);
-    float* f = v + c * vol;
+    S* f = v + c * vol;
     const bool prev_fluid = mask[k.idx - step] == 0;
     const bool next_fluid = mask[k.idx + step] == 0;
     float lo = 0.0f, hi = 0.0f;
-    if (prev_fluid) lo = -f[k.idx - step];
-    if (next_fluid) hi = -f[k.idx + step];
+    if (prev_fluid) lo = -ld(f[k.idx - step]);
+    if (next_fluid) hi = -ld(f[k.idx + step]);
     const float total = lo + hi;
     const float count = float(prev_fluid) + float(next_fluid);
-    f[k.idx] = count > 0.0f ? total / (count < 1.0f ? 1.0f : count) : 0.0f;
+    f[k.idx] = st<S>(count > 0.0f ? total / (count < 1.0f ? 1.0f : count) : 0.0f);
   }
+}
+
+// out[i] = st<S>(in[i]) for i < count: the one rounding of a result that was
+// finished in float32.
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+    store_kernel(const float* __restrict__ in, S* __restrict__ out, long long count) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < count) out[i] = st<S>(in[i]);
+}
+
+inline unsigned flat_blocks(long long count) {
+  return static_cast<unsigned>((count + kThreads - 1) / kThreads);
 }
 
 }  // namespace

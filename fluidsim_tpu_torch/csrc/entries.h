@@ -1,0 +1,30 @@
+// Entry points that one source calls in another: K2 (project_advect.cu) runs
+// K3's projection (project.cu) and then K1's density advection (advect.cu),
+// and K1 hands bfloat16 storage to advect_bf16.cu.  All are linked into the
+// one library; see each definition for the arguments.
+#pragma once
+
+#include <cuda_runtime.h>
+
+extern "C" int fs_project(const void* vel, const unsigned char* mask, void* vel_out, void* p_out,
+                          void* p_a, void* p_b, void* rhs, int n, int iters, int solve_bf16,
+                          int field_bf16, float damp, void* stream);
+
+extern "C" int fs_advect_k1(const void* fields, const void* vel, const float* dens,
+                            const unsigned char* mask, const float* emitter, int src_on,
+                            void* out, float* tmp0, float* tmp1, int n, int n_fields, int b0,
+                            int b1, int b2, float dt0_sub, int n_sub, int window, int has_buoy,
+                            float buoy_dt, float buoyancy, float ambient, float gravity,
+                            float scale, int field_bf16, void* stream);
+
+namespace fsk {
+
+struct Substep;
+
+// K1 on bfloat16 fields and velocity (advect_bf16.cu): advect_substeps with
+// S = __nv_bfloat16 for window 1, 2 or 3.  out is __nv_bfloat16.
+cudaError_t advect_substeps_bf16(const Substep& a, int n_fields, int n_sub, int window,
+                                 void* out, float* tmp0, float* tmp1, float scale,
+                                 cudaStream_t s);
+
+}  // namespace fsk

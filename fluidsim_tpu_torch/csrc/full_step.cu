@@ -7,12 +7,13 @@
 //   4. gradient + faces + damp;
 //   5. density advection through the projected velocity (K1's F = 1 code,
 //      b = 0), one barrier between substeps, the last times dens_damp.
-// Returns (vel', p as the float32 upcast of the final iterate, density'),
+// Returns (vel', p as the final iterate in the storage type, density'),
 // bitwise K1 (self-advection) followed by K2: every phase calls the same
 // per-cell device code as those kernels (advect.cuh, project.cuh).
 //
 // Replaces: fluidsim_tpu/pallas/resident.py::_full_step_kernel (entry
-// full_step_3d_resident), without sweep blocking.  The TPU kernel is one
+// full_step_3d_resident), without sweep blocking, at windows K = 1, 2, 3 in
+// both advections and on float32 or bfloat16 fields.  The TPU kernel is one
 // grid-less program whose phases run in order; here the phases run on every
 // block of a grid that is exactly as large as the card holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, launched with
@@ -31,161 +32,67 @@
 // thread returns before a barrier (every loop runs over the whole grid's
 // cells); the buffers that a phase writes and a later phase reads are plain
 // pointers, so no read goes through the read-only cache.  The self-advected
-// velocity lives in `adv`; vel_out serves as the other buffer of the
-// self-advection's substeps and adv's first volume as the density's, so
-// the scratch is one velocity volume.
-#include <cooperative_groups.h>
+// velocity lives in `adv`.  On float32 fields vel_out serves as the other
+// buffer of the self-advection's substeps and adv's first volume as the
+// density's, so the scratch is one velocity volume; on bfloat16 fields the
+// substeps before the last are float32 (as the TPU kernel keeps them in
+// VMEM) in two float32 velocity volumes, tmp0 and tmp1, which the density's
+// substeps reuse.  The kernel template is in full_step.cuh; this source
+// instantiates it for float32 fields and full_step_bf16.cu for bfloat16, so
+// the two compile side by side.
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
-#include "advect.cuh"
-#include "project.cuh"
-
-namespace cg = cooperative_groups;
+#include "full_step.cuh"
 
 namespace fsk {
-namespace {
 
-// Blocks per SM the kernel asks the compiler to fit (registers <= 64).
-constexpr int kFullStepMinBlocks = 4;
-
-template <typename T>
-struct FullStep {
-  const float* vel;   // (3, n, n, n) in
-  const float* dens;  // (n, n, n) in
-  float* adv;         // (3, n, n, n) scratch
-  float* vel_out;     // (3, n, n, n) out
-  float* p_out;       // (n, n, n) out
-  float* dens_out;    // (n, n, n) out
-  T *pa, *pb, *rhs;   // (n, n, n) solve scratch in the solve dtype
-  int n, iters, n_sub;
-  float dt0_sub, damp, dens_damp;
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kFullStepMinBlocks)
-    full_step_kernel(const FullStep<T> a) {
-  cg::grid_group grid = cg::this_grid();
-  const int n = a.n;
-  const int vol = n * n * n;
-  const int first = static_cast<int>(grid.thread_rank());
-  const int stride = static_cast<int>(grid.size());
-
-  // 1. Self-advection: the last substep writes adv, the earlier ones
-  //    alternate back from it through vel_out.
-  Substep s{a.vel, a.vel, nullptr, nullptr, nullptr, nullptr, n, 1, 2, 3, a.dt0_sub, 1.0f,
-            Buoyancy{}};
-  for (int sub = 0; sub < a.n_sub; ++sub) {
-    s.dst = (a.n_sub - 1 - sub) % 2 == 0 ? a.adv : a.vel_out;
-    for (int i = first; i < vol; i += stride) {
-      advect_store<3, false, false, false, kSrcNone>(s, cell_at(n, i));
-    }
-    grid.sync();
-    s.src = s.dst;
-  }
-
-  // 2. Divergence and the zero start.
-  for (int i = first; i < vol; i += stride) divergence_cell<T>(a.adv, a.rhs, a.pa, n, cell_at(n, i));
-  grid.sync();
-
-  // 3. The sweeps.
-  const float inv6 = 1.0f / 6.0f;
-  T* src = a.pa;
-  T* dst = a.pb;
-  for (int it = 0; it < a.iters; ++it) {
-    for (int i = first; i < vol; i += stride) {
-      sweep_cell<T, false>(src, a.rhs, nullptr, dst, n, inv6, cell_at(n, i));
-    }
-    grid.sync();
-    T* t = src;
-    src = dst;
-    dst = t;
-  }
-
-  // 4. Gradient, faces, damp.
-  for (int i = first; i < vol; i += stride) {
-    gradient_cell<T, false>(a.adv, src, nullptr, a.vel_out, a.p_out, n, a.damp, cell_at(n, i));
-  }
-  grid.sync();
-
-  // 5. Density: the last substep writes dens_out, the earlier ones
-  //    alternate back from it through adv's first volume.
-  Substep d{a.dens, a.vel_out, nullptr, nullptr, nullptr, nullptr, n, 0, 0, 0, a.dt0_sub, 1.0f,
-            Buoyancy{}};
-  for (int sub = 0; sub < a.n_sub; ++sub) {
-    d.dst = (a.n_sub - 1 - sub) % 2 == 0 ? a.dens_out : a.adv;
-    d.scale = sub == a.n_sub - 1 ? a.dens_damp : 1.0f;
-    for (int i = first; i < vol; i += stride) {
-      advect_store<1, false, false, false, kSrcNone>(d, cell_at(n, i));
-    }
-    if (sub + 1 < a.n_sub) grid.sync();
-    d.src = d.dst;
-  }
+cudaError_t full_step_f32(const FullStepArgs& a, int solve_bf16, int window, bool launch,
+                          int* blocks, cudaStream_t s) {
+  return full_step_dispatch<float>(a, solve_bf16, window, launch, blocks, s);
 }
 
-// The cooperative grid: every block the card holds at once.
-template <typename T>
-cudaError_t full_step_grid(int* blocks) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, full_step_kernel<T>, kThreads, 0);
-  }
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *blocks = per_sm * sms;
-  return cudaSuccess;
-}
-
-template <typename T>
-cudaError_t launch_full_step(FullStep<T> a, cudaStream_t s) {
-  int blocks = 0;
-  cudaError_t err = full_step_grid<T>(&blocks);
-  if (err != cudaSuccess) return err;
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)full_step_kernel<T>,
-                                    dim3(blocks), dim3(kThreads), args, 0, s);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-}  // namespace
 }  // namespace fsk
 
-// The number of blocks fs_full_step launches for the solve dtype (bfloat16
-// when solve_bf16, else float32) on the current device, or minus the
+// The number of blocks fs_full_step launches for the solve type (bfloat16
+// when solve_bf16, else float32), the storage type (bfloat16 when
+// field_bf16) and the window on the current device, or minus the
 // cudaError_t that prevents the launch.
-extern "C" int fs_full_step_blocks(int solve_bf16) {
+extern "C" int fs_full_step_blocks(int solve_bf16, int field_bf16, int window) {
   using namespace fsk;
   int blocks = 0;
-  const cudaError_t err = solve_bf16 ? full_step_grid<__nv_bfloat16>(&blocks)
-                                     : full_step_grid<float>(&blocks);
+  const FullStepArgs none{};
+  const cudaError_t err = field_bf16
+                              ? full_step_bf16(none, solve_bf16, window, false, &blocks, nullptr)
+                              : full_step_f32(none, solve_bf16, window, false, &blocks, nullptr);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 // vel (3, n, n, n) and dens (n, n, n) in; adv (3, n, n, n) scratch; vel_out
-// (3, n, n, n), p_out (n, n, n) and dens_out (n, n, n) out; all float32.
-// p_a, p_b and rhs are (n, n, n) scratch in the solve dtype (bfloat16 when
-// solve_bf16, else float32).  dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) *
-// f32(n - 2).  All contiguous on the current device; n <= 1024.  Launches
-// on `stream` without synchronising and returns the first cudaError_t (a
-// grid the card cannot hold at once is cudaErrorCooperativeLaunchTooLarge).
-extern "C" int fs_full_step(const float* vel, const float* dens, float* adv, float* vel_out,
-                            float* p_out, float* dens_out, void* p_a, void* p_b, void* rhs,
-                            int n, int iters, int solve_bf16, float dt0_sub, int n_sub,
-                            float damp, float dens_damp, void* stream) {
+// (3, n, n, n), p_out (n, n, n) and dens_out (n, n, n) out; all in the
+// storage type (bfloat16 when field_bf16, else float32).  tmp0 and tmp1 are
+// (3, n, n, n) float32 scratch, for bfloat16 fields only: tmp0 when n_sub >
+// 1, tmp1 when n_sub > 2 (else null).  p_a, p_b and rhs are (n, n, n)
+// scratch in the solve type (bfloat16 when solve_bf16, else float32).
+// dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2); window 1, 2 or
+// 3 (n >= 2 * window + 1); damp and dens_damp are values of the storage
+// type.  All contiguous on the current device; n <= 1024.  Launches on
+// `stream` without synchronising and returns the first cudaError_t (a grid
+// the card cannot hold at once is cudaErrorCooperativeLaunchTooLarge).
+extern "C" int fs_full_step(const void* vel, const void* dens, void* adv, void* vel_out,
+                            void* p_out, void* dens_out, float* tmp0, float* tmp1, void* p_a,
+                            void* p_b, void* rhs, int n, int iters, int solve_bf16,
+                            int field_bf16, float dt0_sub, int n_sub, int window, float damp,
+                            float dens_damp, void* stream) {
   using namespace fsk;
-  if (n < 3 || n > 1024 || iters < 1 || n_sub < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 3 || n > 1024 || iters < 1 || n_sub < 1 || window < 1 || window > 3 ||
+      n < 2 * window + 1 ||
+      (field_bf16 && ((n_sub > 1 && tmp0 == nullptr) || (n_sub > 2 && tmp1 == nullptr)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const FullStepArgs a{vel, dens, adv, vel_out, p_out, dens_out, p_a, p_b, rhs, tmp0, tmp1,
+                       n, iters, n_sub, dt0_sub, damp, dens_damp};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_solve_dtype(solve_bf16, p_a, p_b, rhs, [&](auto* pa, auto* pb,
-                                                                           auto* r) {
-    using T = std::remove_pointer_t<decltype(pa)>;
-    return launch_full_step<T>(FullStep<T>{vel, dens, adv, vel_out, p_out, dens_out, pa, pb, r, n,
-                                           iters, n_sub, dt0_sub, damp, dens_damp},
-                               s);
-  }));
+  int blocks = 0;
+  return static_cast<int>(field_bf16 ? full_step_bf16(a, solve_bf16, window, true, &blocks, s)
+                                     : full_step_f32(a, solve_bf16, window, true, &blocks, s));
 }

@@ -1,0 +1,16 @@
+// K8 on bfloat16 fields: full_step.cuh's kernel with S = __nv_bfloat16 for
+// both solve types and windows 1-3, in a source of its own so that it
+// compiles beside the float32 instantiations (full_step.cu), which hold the
+// entry points.
+#include <cuda_runtime.h>
+
+#include "full_step.cuh"
+
+namespace fsk {
+
+cudaError_t full_step_bf16(const FullStepArgs& a, int solve_bf16, int window, bool launch,
+                           int* blocks, cudaStream_t s) {
+  return full_step_dispatch<__nv_bfloat16>(a, solve_bf16, window, launch, blocks, s);
+}
+
+}  // namespace fsk

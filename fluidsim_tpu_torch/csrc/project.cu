@@ -1,12 +1,12 @@
 // K3: the pressure projection on its own (no density phase), with or
 // without an obstacle mask: divergence, `iters` Jacobi sweeps, gradient with
 // faces, the obstacle mirror, damp (project.cuh).  Returns (vel', p as the
-// float32 upcast of the final iterate).  Without a mask it computes exactly
-// K2's first three phases.
+// final iterate in the storage type).  Without a mask it computes exactly
+// K2's first three phases, which K2 runs through this entry.
 //
 // Replaces: fluidsim_tpu/pallas/resident.py::_project_kernel (no mask) and
 // ::_project_obst_kernel (mask), entry project_3d_resident, body
-// _project_body with sweep_block = 1.
+// _project_body with sweep_block = 1, on float32 or bfloat16 fields.
 //
 // What bounds it on an H100: the sweeps, 20 of them in vortex128.  Each
 // reads the iterate (six neighbours), the rhs and the mask byte and writes
@@ -14,8 +14,9 @@
 // rhs and the mask are 14.7 MB, which stays in the 50 MB L2, so a sweep is
 // bound by L2 bandwidth and by the fixed cost of a launch; each sweep needs
 // the whole previous iterate.  The compulsory DRAM traffic of the call
-// (velocity and mask in, velocity and pressure out: 60.8 MB at 128^3) is
-// the floor; the arithmetic (about 160 float32 operations per cell) is not.
+// (velocity and mask in, velocity and pressure out: 60.8 MB at 128^3, half
+// of it for bfloat16 fields) is the floor; the arithmetic (about 160 float32
+// operations per cell) is not.
 //
 // What the design does about it: one launch per sweep (the launch boundary
 // is the grid-wide barrier), one thread per cell with x across threadIdx.x,
@@ -26,22 +27,27 @@
 // and temporal blocking in shared memory, are the next steps.
 #include <cuda_runtime.h>
 
+#include "entries.h"
 #include "project.cuh"
 
-// vel (3, n, n, n) in; vel_out (3, n, n, n) and p_out (n, n, n) out; all
-// float32.  mask (n, n, n) one byte per cell (nonzero = solid) or null.
-// p_a, p_b and rhs are (n, n, n) scratch in the solve dtype (bfloat16 when
-// solve_bf16, else float32).  All contiguous on the current device.
-// Launches every phase on `stream` without synchronising and returns the
-// first cudaError_t.
-extern "C" int fs_project(const float* vel, const unsigned char* mask, float* vel_out,
-                          float* p_out, void* p_a, void* p_b, void* rhs, int n, int iters,
-                          int solve_bf16, float damp, void* stream) {
+// vel (3, n, n, n) in; vel_out (3, n, n, n) and p_out (n, n, n) out; all in
+// the storage type (bfloat16 when field_bf16, else float32).  mask (n, n, n)
+// one byte per cell (nonzero = solid) or null.  p_a, p_b and rhs are (n, n,
+// n) scratch in the solve type (bfloat16 when solve_bf16, else float32).
+// damp is a value of the storage type.  All contiguous on the current
+// device.  Launches every phase on `stream` without synchronising and
+// returns the first cudaError_t.
+extern "C" int fs_project(const void* vel, const unsigned char* mask, void* vel_out, void* p_out,
+                          void* p_a, void* p_b, void* rhs, int n, int iters, int solve_bf16,
+                          int field_bf16, float damp, void* stream) {
   using namespace fsk;
   if (n < 3 || iters < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_solve_dtype(solve_bf16, p_a, p_b, rhs, [&](auto* pa, auto* pb,
-                                                                          auto* r) {
-    return project_phases(vel, mask, vel_out, p_out, pa, pb, r, n, iters, damp, s);
+  return static_cast<int>(with_dtypes(solve_bf16, field_bf16, [&](auto* t, auto* f) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    using S = std::remove_pointer_t<decltype(f)>;
+    return project_phases<T, S>(static_cast<const S*>(vel), mask, static_cast<S*>(vel_out),
+                                static_cast<S*>(p_out), static_cast<T*>(p_a),
+                                static_cast<T*>(p_b), static_cast<T*>(rhs), n, iters, damp, s);
   }));
 }

@@ -12,9 +12,14 @@
 //      the final iterate (v itself in solid cells), the component's set_bnd
 //      faces, the obstacle mirror when there is a mask, then * damp.
 // Counterpart of fluidsim_tpu/pallas/resident.py::_project_body with
-// _solve_loop at sweep_block = 1.  The divergence and gradient kernels also
-// serve K7 (project_slab.cu), with float32 buffers, no zero start (p0 null)
-// and no pressure copy (p_out null).  One launch per phase and per sweep: the
+// _solve_loop at sweep_block = 1.  The velocity, the projected velocity and
+// the pressure are in the storage type S (float32 or bfloat16: the TPU
+// kernel's vbuf and pstag), the iterates and the rhs in the solve type T; the
+// gradient's result is rounded to S before the faces, the mirror computes in
+// float32 from the rounded neighbours and rounds again, and damp multiplies
+// in S, as the TPU kernel does (resident.py:821, 864-893).  The divergence
+// and gradient kernels also serve K7 (project_slab.cu), with float32
+// buffers, no zero start (p0 null) and no pressure copy (p_out null).  One launch per phase and per sweep: the
 // launch boundary is the grid-wide barrier between sweeps.  Border cells
 // recompute their interior cell (boundary.cuh), which is bitwise the TPU
 // kernel's face writes, including its deferred x faces, so no sweep needs a
@@ -23,21 +28,12 @@
 
 #include <cuda_bf16.h>
 
+#include <type_traits>
 #include <utility>
 
 #include "boundary.cuh"
 
 namespace fsk {
-
-__device__ __forceinline__ float ld(float v) { return v; }
-__device__ __forceinline__ float ld(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T st(float v);
-template <>
-__device__ __forceinline__ float st<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 st<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
 
 // The phases' bodies at one cell, shared by the kernels below and by the
 // whole-step kernel (full_step.cu), which loops over cells.  Plain pointers,
@@ -45,8 +41,8 @@ __device__ __forceinline__ __nv_bfloat16 st<__nv_bfloat16>(float v) { return __f
 
 // Phase 1: the rhs at cell k, and the zero start of the iterate when p0 is
 // not null.
-template <typename T>
-__device__ __forceinline__ void divergence_cell(const float* vel, T* rhs, T* p0, int n,
+template <typename T, typename S>
+__device__ __forceinline__ void divergence_cell(const S* vel, T* rhs, T* p0, int n,
                                                 const Cell& k) {
   if (p0 != nullptr) p0[k.idx] = st<T>(0.0f);
   // The rhs is only ever read at interior cells; its faces hold zero.
@@ -56,9 +52,9 @@ __device__ __forceinline__ void divergence_cell(const float* vel, T* rhs, T* p0,
   }
   const long long sn = n, plane = sn * sn, vol = plane * sn;
   const long long i = k.idx;
-  const float dx = vel[i + 1] - vel[i - 1];
-  const float dy = vel[vol + i + sn] - vel[vol + i - sn];
-  const float dz = vel[2 * vol + i + plane] - vel[2 * vol + i - plane];
+  const float dx = ld(vel[i + 1]) - ld(vel[i - 1]);
+  const float dy = ld(vel[vol + i + sn]) - ld(vel[vol + i - sn]);
+  const float dz = ld(vel[2 * vol + i + plane]) - ld(vel[2 * vol + i - plane]);
   rhs[i] = st<T>((-0.5f * ((dx + dy) + dz)) / float(n));
 }
 
@@ -75,36 +71,38 @@ __device__ __forceinline__ void sweep_cell(const T* src, const T* rhs, const uin
   dst[k.idx] = st<T>((ld(rhs[c]) + ((xs + ys) + zs)) * coef);
 }
 
-// Phase 3 at cell k: the gradient step (held in solid cells), the faces,
-// the pressure's float32 copy when p_out is not null, then * damp.
-template <typename T, bool MASK>
-__device__ __forceinline__ void gradient_cell(const float* vel, const T* p, const uint8_t* mask,
-                                              float* vel_out, float* p_out, int n, float damp,
+// Phase 3 at cell k: the gradient step (held in solid cells) rounded to S,
+// the faces, the pressure's copy in S when p_out is not null, then * damp in
+// S (damp is a value of S).
+template <typename T, typename S, bool MASK>
+__device__ __forceinline__ void gradient_cell(const S* vel, const T* p, const uint8_t* mask,
+                                              S* vel_out, S* p_out, int n, float damp,
                                               const Cell& k) {
   const long long sn = n, plane = sn * sn, vol = plane * sn, c = k.c;
   const float nf = float(n);
-  if (p_out != nullptr) p_out[k.idx] = ld(p[k.idx]);
+  if (p_out != nullptr) p_out[k.idx] = st<S>(ld(p[k.idx]));
   const bool solid = MASK && mask[c] != 0;
   const long long step[3] = {1, sn, plane};
   const bool negate[3] = {k.x != k.cx, k.y != k.cy, k.z != k.cz};
 #pragma unroll
   for (int comp = 0; comp < 3; ++comp) {
     const float g = (0.5f * (ld(p[c + step[comp]]) - ld(p[c - step[comp]]))) * nf;
-    const float u = solid ? vel[comp * vol + c] : vel[comp * vol + c] - g;
-    vel_out[comp * vol + k.idx] = (negate[comp] ? -u : u) * damp;
+    const float v = ld(vel[comp * vol + c]);
+    const float u = solid ? v : v - g;
+    vel_out[comp * vol + k.idx] = st<S>(ld(st<S>(negate[comp] ? -u : u)) * damp);
   }
 }
 
 // Internal linkage, as in boundary.cuh: K2 and K3 each get their own copy.
 namespace {
 
-template <typename T>
+template <typename T, typename S>
 __global__ void __launch_bounds__(kThreads)
-    divergence_kernel(const float* __restrict__ vel, T* __restrict__ rhs,
+    divergence_kernel(const S* __restrict__ vel, T* __restrict__ rhs,
                       T* __restrict__ p0, int n) {
   Cell k;
   if (!cell_of_thread(n, k)) return;
-  divergence_cell<T>(vel, rhs, p0, n, k);
+  divergence_cell<T, S>(vel, rhs, p0, n, k);
 }
 
 template <typename T, bool MASK>
@@ -117,31 +115,31 @@ __global__ void __launch_bounds__(kThreads)
   sweep_cell<T, MASK>(src, rhs, mask, dst, n, inv6, k);
 }
 
-template <typename T, bool MASK>
+template <typename T, typename S, bool MASK>
 __global__ void __launch_bounds__(kThreads)
-    gradient_kernel(const float* __restrict__ vel, const T* __restrict__ p,
-                    const uint8_t* __restrict__ mask, float* __restrict__ vel_out,
-                    float* __restrict__ p_out, int n, float damp) {
+    gradient_kernel(const S* __restrict__ vel, const T* __restrict__ p,
+                    const uint8_t* __restrict__ mask, S* __restrict__ vel_out,
+                    S* __restrict__ p_out, int n, float damp) {
   Cell k;
   if (!cell_of_thread(n, k)) return;
-  gradient_cell<T, MASK>(vel, p, mask, vel_out, p_out, n, damp, k);
+  gradient_cell<T, S, MASK>(vel, p, mask, vel_out, p_out, n, damp, k);
 }
 
+template <typename S>
 __global__ void __launch_bounds__(kThreads)
-    scale_kernel(float* __restrict__ v, long long count, float s) {
+    scale_kernel(S* __restrict__ v, long long count, float s) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < count) v[i] = v[i] * s;
+  if (i < count) v[i] = st<S>(ld(v[i]) * s);
 }
 
 // Phases 1-3 on `stream`; mask (one byte per cell, nonzero = solid) may be
 // null.  Returns the first cudaError_t.
-template <typename T>
-cudaError_t project_phases(const float* vel, const uint8_t* mask, float* vel_out,
-                           float* p_out, T* pa, T* pb, T* rhs, int n, int iters,
-                           float damp, cudaStream_t s) {
+template <typename T, typename S>
+cudaError_t project_phases(const S* vel, const uint8_t* mask, S* vel_out, S* p_out, T* pa,
+                           T* pb, T* rhs, int n, int iters, float damp, cudaStream_t s) {
   const dim3 grid = cell_grid(n), block = cell_block();
   const float inv6 = 1.0f / 6.0f;
-  divergence_kernel<T><<<grid, block, 0, s>>>(vel, rhs, pa, n);
+  divergence_kernel<T, S><<<grid, block, 0, s>>>(vel, rhs, pa, n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   T* src = pa;
@@ -156,32 +154,36 @@ cudaError_t project_phases(const float* vel, const uint8_t* mask, float* vel_out
     std::swap(src, dst);
   }
   if (mask == nullptr) {
-    gradient_kernel<T, false><<<grid, block, 0, s>>>(vel, src, mask, vel_out, p_out, n, damp);
+    gradient_kernel<T, S, false><<<grid, block, 0, s>>>(vel, src, mask, vel_out, p_out, n,
+                                                         damp);
     return cudaGetLastError();
   }
   // The mirror reads the post-face values of its neighbours, so it follows
   // the gradient as its own launch; damp comes after the mirror.
-  gradient_kernel<T, true><<<grid, block, 0, s>>>(vel, src, mask, vel_out, p_out, n, 1.0f);
+  gradient_kernel<T, S, true><<<grid, block, 0, s>>>(vel, src, mask, vel_out, p_out, n, 1.0f);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  mirror_obstacles_kernel<<<grid, block, 0, s>>>(vel_out, mask, n, 3, 1, 2, 3);
+  mirror_obstacles_kernel<S><<<grid, block, 0, s>>>(vel_out, mask, n, 3, 1, 2, 3);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (damp != 1.0f) {
     const long long count = 3LL * n * n * n;
-    scale_kernel<<<static_cast<unsigned>((count + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-        vel_out, count, damp);
+    scale_kernel<S><<<flat_blocks(count), kThreads, 0, s>>>(vel_out, count, damp);
     err = cudaGetLastError();
   }
   return err;
 }
 
-// fs_project_* take the solve buffers as void*; this picks their dtype.
+// The entry points take the buffers as void*; this picks the solve type T
+// (bfloat16 when solve_bf16, else float32) and the storage type S (bfloat16
+// when field_bf16) and calls run(T*, S*) with null pointers of those types.
 template <typename F>
-cudaError_t with_solve_dtype(int solve_bf16, void* pa, void* pb, void* rhs, F&& run) {
+cudaError_t with_dtypes(int solve_bf16, int field_bf16, F&& run) {
+  using B = __nv_bfloat16;
   if (solve_bf16) {
-    return run(static_cast<__nv_bfloat16*>(pa), static_cast<__nv_bfloat16*>(pb),
-               static_cast<__nv_bfloat16*>(rhs));
+    return field_bf16 ? run(static_cast<B*>(nullptr), static_cast<B*>(nullptr))
+                      : run(static_cast<B*>(nullptr), static_cast<float*>(nullptr));
   }
-  return run(static_cast<float*>(pa), static_cast<float*>(pb), static_cast<float*>(rhs));
+  return field_bf16 ? run(static_cast<float*>(nullptr), static_cast<B*>(nullptr))
+                    : run(static_cast<float*>(nullptr), static_cast<float*>(nullptr));
 }
 
 }  // namespace

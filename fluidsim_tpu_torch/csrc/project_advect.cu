@@ -6,24 +6,29 @@
 //      held in solid cells and the obstacle mirror before damp), which K3
 //      shares;
 //   4. the density backtraced through the damped projected velocity in
-//      n_sub substeps (advect.cuh's advect_substeps, K1's F = 1 code, b = 0,
-//      no buoyancy): with a mask every substep zeroes the solid cells before
-//      the faces (no mirror for a scalar); with the emitter the first
-//      substep adds it to every density value it reads; the last multiplies
-//      by dens_damp.
-// Returns (vel', p as the float32 upcast of the final iterate, density').
+//      n_sub substeps with a window of K = 1, 2 or 3 cells (K1's F = 1 code
+//      through its entry, b = 0, no buoyancy): with a mask every substep
+//      zeroes the solid cells before the faces (no mirror for a scalar);
+//      with the emitter the first substep adds it to every density value it
+//      reads; the last multiplies by dens_damp.
+// Returns (vel', p as the final iterate in the storage type, density').
 //
 // Replaces: fluidsim_tpu/pallas/resident.py::_project_advect_kernel (K2),
 // ::_project_advect_src_kernel (K2s) and ::_project_advect_obst_kernel (K2o)
 // (entry project_advect_density_3d_resident; phases _project_body,
-// _solve_loop and _density_phase), without sweep blocking.
+// _solve_loop and _density_phase at k_win = 1, 2, 3), without sweep
+// blocking, on float32 or bfloat16 fields (the emitter on float32 only).
+// The TPU kernel's phases are one program; here they are the launches of
+// K3's entry (project.cu) and then K1's (advect.cu) on one stream, since each
+// phase needs the whole result of the one before.
 //
 // What bounds it on an H100: the sweeps.  Each reads the iterate (six
 // neighbours) and the rhs and writes the next iterate: at 128^3 with bfloat16
 // solve buffers the two iterates and the rhs are 12.6 MB, which stays in the
 // 50 MB L2, so a sweep is bound by L2 bandwidth and by the fixed cost of a
 // launch; the sweeps are a chain, each needs the whole previous iterate.
-// Divergence, gradient and each density substep are one pass each.
+// Divergence, gradient and each density substep are one pass each; a density
+// substep at K = 3 reads 343 taps a cell and is bound by operations.
 //
 // What the design does about it: one launch per sweep (the launch boundary is
 // the grid-wide barrier between sweeps), one thread per cell with x across
@@ -36,34 +41,34 @@
 #include <cuda_runtime.h>
 
 #include "advect.cuh"
-#include "project.cuh"
+#include "entries.h"
 
-// vel (3, n, n, n) and dens (n, n, n) in; mask (n, n, n) one byte per cell
-// (nonzero = solid) or null; emitter (5,) or null (not with a mask); vel_out,
-// p_out (n, n, n) and dens_out out; dens_tmp (n, n, n) scratch, may be null
-// when n_sub == 1; all float32 apart from the mask.  p_a, p_b and rhs are
-// (n, n, n) scratch in the solve dtype (bfloat16 when solve_bf16, else
-// float32).  dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2).
-// All contiguous on the current device.  Launches every phase on `stream`
-// without synchronising and returns the first cudaError_t.
-extern "C" int fs_project_advect_density(const float* vel, const float* dens,
+// vel (3, n, n, n) and dens (n, n, n) in; vel_out, p_out (n, n, n) and
+// dens_out out; all in the storage type (bfloat16 when field_bf16, else
+// float32).  mask (n, n, n) one byte per cell (nonzero = solid) or null;
+// emitter (5,) float32 or null (not with a mask, not with bfloat16 fields);
+// tmp0 and tmp1 (n, n, n) float32 scratch of the density substeps (see
+// advect_substeps for when each may be null).  p_a, p_b and rhs are (n, n,
+// n) scratch in the solve type (bfloat16 when solve_bf16, else float32).
+// dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2); window 1, 2 or
+// 3; damp and dens_damp are values of the storage type.  All contiguous on
+// the current device.  Launches every phase on `stream` without
+// synchronising and returns the first cudaError_t.
+extern "C" int fs_project_advect_density(const void* vel, const void* dens,
                                          const unsigned char* mask, const float* emitter,
-                                         float* vel_out, float* p_out, float* dens_out,
-                                         float* dens_tmp, void* p_a, void* p_b, void* rhs, int n,
-                                         int iters, int solve_bf16, float dt0_sub, int n_sub,
-                                         float damp, float dens_damp, void* stream) {
+                                         void* vel_out, void* p_out, void* dens_out, float* tmp0,
+                                         float* tmp1, void* p_a, void* p_b, void* rhs, int n,
+                                         int iters, int solve_bf16, int field_bf16,
+                                         float dt0_sub, int n_sub, int window, float damp,
+                                         float dens_damp, void* stream) {
   using namespace fsk;
   if (n < 3 || iters < 1 || (mask != nullptr && emitter != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = with_solve_dtype(solve_bf16, p_a, p_b, rhs, [&](auto* pa, auto* pb, auto* r) {
-    return project_phases(vel, mask, vel_out, p_out, pa, pb, r, n, iters, damp, s);
-  });
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Substep a{dens, vel_out, nullptr, mask, emitter, nullptr, n, 0, 0, 0, dt0_sub, 1.0f,
-                  Buoyancy{}};
-  return static_cast<int>(advect_substeps(a, 1, n_sub, false,
-                                          emitter != nullptr ? kSrcFields : kSrcNone, dens_out,
-                                          dens_tmp, dens_damp, s));
+  const int err = fs_project(vel, mask, vel_out, p_out, p_a, p_b, rhs, n, iters, solve_bf16,
+                             field_bf16, damp, stream);
+  if (err != 0) return err;
+  return fs_advect_k1(dens, vel_out, nullptr, mask, emitter, kSrcFields, dens_out, tmp0, tmp1,
+                      n, 1, 0, 0, 0, dt0_sub, n_sub, window, 0, 0.0f, 0.0f, 0.0f, 0.0f,
+                      dens_damp, field_bf16, stream);
 }

@@ -30,7 +30,7 @@
 extern "C" int fs_divergence(const float* vel, float* div, int n, void* stream) {
   using namespace fsk;
   if (n < 3) return static_cast<int>(cudaErrorInvalidValue);
-  divergence_kernel<float><<<cell_grid(n), cell_block(), 0, static_cast<cudaStream_t>(stream)>>>(
+  divergence_kernel<float, float><<<cell_grid(n), cell_block(), 0, static_cast<cudaStream_t>(stream)>>>(
       vel, div, nullptr, n);
   return static_cast<int>(cudaGetLastError());
 }
@@ -42,7 +42,7 @@ extern "C" int fs_gradient(const float* vel, const float* p, float* vel_out, int
                            void* stream) {
   using namespace fsk;
   if (n < 3) return static_cast<int>(cudaErrorInvalidValue);
-  gradient_kernel<float, false><<<cell_grid(n), cell_block(), 0, static_cast<cudaStream_t>(stream)>>>(
+  gradient_kernel<float, float, false><<<cell_grid(n), cell_block(), 0, static_cast<cudaStream_t>(stream)>>>(
       vel, p, nullptr, vel_out, nullptr, n, 1.0f);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,7 +22,7 @@ import torch
 from .config import SimConfig
 from .kernels.project import resident_route
 from .models import stable3d
-from .models.stable2d import check_supported_2d, simulate_step_2d
+from .models.stable2d import simulate_step_2d
 from .models.stable3d import simulate_step_3d
 from .models.step_kernels import HAND_KERNELS, StepKernels
 from .scene.obstacles import build_obstacle_mask
@@ -64,12 +64,11 @@ class Engine:
         every step until the next ``set_config``."""
         cfg = cfg.validate()
         if cfg.ndim == 2:
-            check_supported_2d(cfg)
             self._resident, self._folds = None, False
             return cfg
         use_kernels = stable3d._kernels_usable(cfg, self.device)
         self._resident = resident_route(cfg.current_size, cfg.solve_dtype, self.device)
-        stable3d.check_supported(cfg, use_kernels, self._resident)
+        stable3d.check_supported(cfg, use_kernels)
         self._folds = stable3d.emitter_folds(cfg, use_kernels, self._resident)
         return cfg
 

@@ -41,24 +41,27 @@ _F = ctypes.c_float
 # C entry points: name -> argument types (each returns an int: a cudaError_t,
 # or for fs_full_step_blocks a block count).
 SIGNATURES = {
-    # fields, vel, dens, mask, emitter, out, tmp, n, n_fields, b0, b1, b2,
-    # dt0_sub, n_sub, window, has_buoy, buoy_dt, buoyancy, ambient, gravity,
-    # stream
-    "fs_advect_k1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                     _I, _I, _I, _F, _F, _F, _F, _P),
-    # vel, mask, vel_out, p_out, p_a, p_b, rhs, n, iters, solve_bf16, damp,
-    # stream
-    "fs_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
-    # vel, dens, mask, emitter, vel_out, p_out, dens_out, dens_tmp, p_a, p_b,
-    # rhs, n, iters, solve_bf16, dt0_sub, n_sub, damp, dens_damp, stream
+    # fields, vel, dens, mask, emitter, src_on, out, tmp0, tmp1, n, n_fields,
+    # b0, b1, b2, dt0_sub, n_sub, window, has_buoy, buoy_dt, buoyancy,
+    # ambient, gravity, scale, field_bf16, stream
+    "fs_advect_k1": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                     _I, _I, _I, _F, _F, _F, _F, _F, _I, _P),
+    # vel, mask, vel_out, p_out, p_a, p_b, rhs, n, iters, solve_bf16,
+    # field_bf16, damp, stream
+    "fs_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # vel, dens, mask, emitter, vel_out, p_out, dens_out, tmp0, tmp1, p_a, p_b,
+    # rhs, n, iters, solve_bf16, field_bf16, dt0_sub, n_sub, window, damp,
+    # dens_damp, stream
     "fs_project_advect_density": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _F, _I, _F, _F, _P),
-    # vel, dens, adv, vel_out, p_out, dens_out, p_a, p_b, rhs, n, iters,
-    # solve_bf16, dt0_sub, n_sub, damp, dens_damp, stream
-    "fs_full_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
-                     _F, _F, _P),
-    # solve_bf16 (returns the cooperative grid's block count, or -error)
-    "fs_full_step_blocks": (_I,),
+                                  _P, _I, _I, _I, _I, _F, _I, _I, _F, _F, _P),
+    # vel, dens, adv, vel_out, p_out, dens_out, tmp0, tmp1, p_a, p_b, rhs, n,
+    # iters, solve_bf16, field_bf16, dt0_sub, n_sub, window, damp, dens_damp,
+    # stream
+    "fs_full_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _F, _I, _I, _F, _F, _P),
+    # solve_bf16, field_bf16, window (returns the cooperative grid's block
+    # count, or -error)
+    "fs_full_step_blocks": (_I, _I, _I),
     # x, x0, out, tmp, n, b, a, inv_c, iters, stream
     "fs_jacobi": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
     # x, x0, mask, out, tmp, n, b, a, inv_c, iters, stream
@@ -93,7 +96,8 @@ def find_nvcc() -> str:
 
 
 def _sources(csrc_dir: Path):
-    return sorted(csrc_dir.glob("*.cu")) + sorted(csrc_dir.glob("*.cuh"))
+    return sorted(csrc_dir.glob("*.cu")) + sorted(csrc_dir.glob("*.cuh")) \
+        + sorted(csrc_dir.glob("*.h"))
 
 
 def library_path(csrc_dir: Path = CSRC_DIR, build_dir: Path = BUILD_DIR) -> Path:

@@ -10,6 +10,13 @@ against: for a window of K = 1 the two-tap form (``windowed_sum_k1``), for
 K = 2 and 3 the ``(2K+1)³``-term hat sum (``windowed_sum``, the same sum as
 ``ops/advect.window_sum_3d``).
 
+Fields are stored in float32 or bfloat16 (``fields`` and ``vel`` in one
+dtype); the backtrace, the weights and the substeps between the first read
+and the last write are float32, and the result is rounded to the storage
+dtype once, as the TPU kernel keeps its windows in VMEM as float32
+(``advect.py:392-453``).  The buoyancy and emitter folds take float32
+fields only, as the JAX package folds them only there.
+
 The obstacle mask is a ``torch.bool`` tensor (one byte per cell, which the
 kernel reads as ``uint8``, nonzero = solid).
 """
@@ -44,6 +51,19 @@ def substep_dt0(dt: float, n: int, n_sub: int) -> float:
 # The windows the kernel takes (csrc/advect.cuh instantiates these).
 WINDOWS = (1, 2, 3)
 
+# fs_advect_k1's src_on for K1's fold: the emitter goes onto the buoyancy's
+# density (csrc/advect.cuh's kSrcDensity; K2s's kSrcFields is K2's own).
+SRC_ON_DENSITY = 1
+
+# The field storage dtypes the kernels take, and their flag in the C
+# entry points.
+STORAGE = (torch.float32, torch.bfloat16)
+
+
+def storage_flag(dtype: torch.dtype) -> int:
+    """1 for bfloat16 storage, 0 for float32 (the kernels' ``field_bf16``)."""
+    return int(dtype == torch.bfloat16)
+
 
 def advect_multi_3d_plain(bs, fields, vel, dt: float, buoy=None, obst=None,
                           n_sub: int = 1, src=None, window: int = 1):
@@ -59,7 +79,16 @@ def advect_multi_3d_plain(bs, fields, vel, dt: float, buoy=None, obst=None,
     adds the buoyancy force to the y velocity first, at the cell and at
     every tap, exactly as the kernel does.  ``src``, the ``(5,)`` emitter
     descriptor (``scene.sources.emitter_fold_operand``), is first added to
-    that density (``src_field_add``); it needs ``buoy``."""
+    that density (``src_field_add``); it needs ``buoy``.
+
+    On bfloat16 fields the whole call runs on their float32 values and the
+    result is rounded once (the folds take float32 only)."""
+    if fields.dtype == torch.bfloat16:
+        if buoy is not None or src is not None:
+            raise TypeError("the buoyancy and emitter folds take float32 fields")
+        out = advect_multi_3d_plain(bs, fields.float(), vel.float(), dt, obst=obst,
+                                    n_sub=n_sub, window=window)
+        return out.to(fields.dtype)
     n = fields.shape[-1]
     dt0 = substep_dt0(dt, n, n_sub)
     if src is not None and buoy is None:
@@ -123,7 +152,9 @@ def advect_multi_3d_plain(bs, fields, vel, dt: float, buoy=None, obst=None,
 
 def _check_volume(name: str, t: torch.Tensor, shape,
                   dtype: torch.dtype = torch.float32) -> None:
-    if t.dtype != dtype:
+    """``t`` has ``dtype`` (or one of a tuple of dtypes), ``shape`` and a
+    contiguous layout."""
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
@@ -145,20 +176,39 @@ def _check_src(src, device) -> None:
         raise ValueError("src must be on the fields' device")
 
 
+def _scratch(n_fields: int, n: int, n_sub: int, mirror: bool, dtype, device):
+    """The float32 scratch of ``n_sub`` substeps (``csrc/advect.cuh``'s
+    ``advect_substeps``): float32 storage ping-pongs with the output through
+    one buffer; bfloat16 keeps the substeps before the last write (and a
+    velocity's mirror) in float32, in up to two buffers."""
+    shape = (n_fields, n, n, n)
+    if dtype == torch.float32:
+        need = 1 if n_sub > 1 else 0
+    else:
+        need = min(2, n_sub - 1 + int(mirror))
+    bufs = [torch.empty(shape, dtype=torch.float32, device=device) for _ in range(need)]
+    return tuple(bufs) + (None,) * (2 - need)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 1,
                            n_sub: int = 1, buoy=None, src=None):
     """Advect ``fields`` (F = 1 or 3) through ``vel`` with the K1 kernel for
     a ``window`` of 1, 2 or 3 cells, in ``n_sub`` substeps, with the obstacle
-    contract after each when the bool mask ``obst`` is given.
+    contract after each when the bool mask ``obst`` is given.  ``fields``
+    and ``vel`` are float32 or bfloat16, in one dtype.
 
-    CUDA tensors launch ``csrc/advect.cu``; CPU tensors run
-    ``advect_multi_3d_plain``.  ``buoy = (density, buoyancy, ambient,
-    gravity)`` folds the buoyancy force into a self-advection call
-    (``fields is vel``, ``bs == (1, 2, 3)``) without a mask; ``src`` (the
-    ``(5,)`` emitter descriptor, window 1 only) adds the emitter to that
-    density.  Raises
-    for what the kernel does not take.  ``advect_multi_3d_kernel.launches`` counts
-    calls that launched the kernel."""
+    CUDA tensors launch ``csrc/advect.cu`` (``csrc/advect_bf16.cu`` for
+    bfloat16); CPU tensors run ``advect_multi_3d_plain``.  ``buoy =
+    (density, buoyancy, ambient, gravity)`` folds the buoyancy force into a
+    float32 self-advection call (``fields is vel``, ``bs == (1, 2, 3)``)
+    without a mask; ``src`` (the ``(5,)`` emitter descriptor) adds the
+    emitter to that density.  Raises for what the kernel does not take.
+    ``advect_multi_3d_kernel.launches`` counts calls that launched the
+    kernel."""
     bs = tuple(bs)
     if window not in WINDOWS:
         raise NotImplementedError(
@@ -172,17 +222,15 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
             "the buoyancy fold with an obstacle mask is not ported")
     if src is not None and buoy is None:
         raise ValueError("src folding rides the buoy density reads")
-    if src is not None and window != 1:
-        raise NotImplementedError(
-            "the emitter fold with window > 1 is not ported (it needs the fused "
-            "kernels, which take window=1)")
     n_fields, n = fields.shape[0], fields.shape[-1]
     if n_fields not in (1, 3) or len(bs) != n_fields:
         raise ValueError(f"unsupported fields {tuple(fields.shape)} with bs={bs}")
     if n < 2 * window + 1:
         raise ValueError(f"grid too small for window={window}: {n}")
-    _check_volume("fields", fields, (n_fields, n, n, n))
-    _check_volume("vel", vel, (3, n, n, n))
+    _check_volume("fields", fields, (n_fields, n, n, n), STORAGE)
+    _check_volume("vel", vel, (3, n, n, n), fields.dtype)
+    if buoy is not None and fields.dtype != torch.float32:
+        raise TypeError("the buoyancy and emitter folds take float32 fields")
     tensors = [fields, vel]
     if buoy is not None:
         _check_volume("buoy density", buoy[0], (n, n, n))
@@ -203,7 +251,8 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
 
     lib = _build.load_library()
     out = torch.empty_like(fields)
-    tmp = torch.empty_like(fields) if n_sub > 1 else None
+    mirror = obst is not None and any(b in (1, 2, 3) for b in bs)
+    tmp0, tmp1 = _scratch(n_fields, n, n_sub, mirror, fields.dtype, fields.device)
     if buoy is None:
         dens_ptr, bp = None, (0.0, 0.0, 0.0, 0.0)
     else:
@@ -213,12 +262,11 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
     with torch.cuda.device(fields.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_advect_k1(
-            fields.data_ptr(), vel.data_ptr(), dens_ptr,
-            None if obst is None else obst.data_ptr(),
-            None if src is None else src.data_ptr(), out.data_ptr(),
-            None if tmp is None else tmp.data_ptr(),
+            fields.data_ptr(), vel.data_ptr(), dens_ptr, _ptr(obst), _ptr(src),
+            SRC_ON_DENSITY, out.data_ptr(), _ptr(tmp0), _ptr(tmp1),
             n, n_fields, b[0], b[1], b[2], substep_dt0(dt, n, n_sub), n_sub,
-            int(window), int(buoy is not None), *bp, stream,
+            int(window), int(buoy is not None), *bp, 1.0,
+            storage_flag(fields.dtype), stream,
         )
     _build.check(lib, err, "advect kernel launch")
     advect_multi_3d_kernel.launches += 1

@@ -19,6 +19,9 @@ start, the faces after each, and with an obstacle mask (``b = 0``) the
 solid cells held at their start value through the ``coef`` and ``frozen``
 volumes.  The CUDA kernel is ``csrc/jacobi_resident.cu``, one launch per
 sweep; ``jacobi_3d_resident_plain`` is its twin.
+
+Both solves are float32: bfloat16 inputs are solved on their float32 values
+and the result rounded back (the JAX ``jacobi_3d_resident``'s edge upcast).
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ def jacobi_3d_plain(b: int, x, x0, a: float, c: float, iters: int):
     """Plain PyTorch twin of the K6 kernel: ``iters`` sweeps of
     ``(x0 + a·nbr)·inv_c`` on the interior of the float32 ``(N, N, N)``
     ``x`` (normalised by ``set_bnd_3d(b)`` first), the faces after each."""
+    if x.dtype == torch.bfloat16:
+        return jacobi_3d_plain(b, x.float(), x0.float(), a, c, iters).to(x.dtype)
     a32, inv_c = solve_coefficients(a, c)
     x0_int = x0[(slice(1, -1),) * 3]
     x = set_bnd_3d(b, x)
@@ -59,6 +64,8 @@ def jacobi_3d_kernel(b: int, x, x0, a: float, c: float, iters: int):
     CUDA tensors launch ``csrc/jacobi.cu``; CPU tensors run
     ``jacobi_3d_plain``.  Returns a new float32 ``(N, N, N)`` tensor.
     ``jacobi_3d_kernel.launches`` counts calls that launched the kernel."""
+    if x.dtype == torch.bfloat16:
+        return jacobi_3d_kernel(b, x.float(), x0.float(), a, c, iters).to(x.dtype)
     if b not in (0, 1, 2, 3):
         raise ValueError(f"boundary code must be 0..3, got {b}")
     if int(iters) != iters or iters < 1:
@@ -102,6 +109,9 @@ def jacobi_3d_resident_plain(b: int, x, x0, a: float, c: float, iters: int,
     operands take the x face rule (``sx·`` the cell itself next to an x
     wall, the TPU kernel's ``_nbr_sum_selx``); with the bool mask ``obst``
     (``b == 0``) the sweep is ``rhs·((1 − m)·inv_c) + m·x_start``."""
+    if x.dtype == torch.bfloat16:
+        return jacobi_3d_resident_plain(b, x.float(), x0.float(), a, c, iters,
+                                        obst).to(x.dtype)
     a32, inv_c = solve_coefficients(a, c)
     f32 = torch.float32
     core = (slice(1, -1),) * 3
@@ -133,6 +143,8 @@ def jacobi_3d_resident(b: int, x, x0, a: float, c: float, iters: int, obst=None)
     ``jacobi_3d_resident_plain``.  Returns a new float32 ``(N, N, N)``
     tensor.  ``jacobi_3d_resident.launches`` counts calls that launched the
     kernel."""
+    if x.dtype == torch.bfloat16:
+        return jacobi_3d_resident(b, x.float(), x0.float(), a, c, iters, obst).to(x.dtype)
     if b not in (0, 1, 2, 3):
         raise ValueError(f"boundary code must be 0..3, got {b}")
     if obst is not None and b != 0:

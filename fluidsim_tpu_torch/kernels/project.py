@@ -10,8 +10,10 @@ kernels otherwise.  Here the limit is the card's L2: the resident kernels
 sweep their iterates once per launch, which is cheap while the solve's
 working set (two iterates and the rhs) stays in L2 and costs a full HBM
 round trip per sweep once it does not (``resident_fits``).  The slab route
-solves in float32 whatever the solve dtype, as the JAX package's does.  An
-obstacle mask keeps K3 at any size: the slab kernels have none.
+solves in float32 whatever the solve dtype, as the JAX package's does, and
+takes bfloat16 fields through a float32 copy, rounding its results back
+(the JAX ``project_3d_pallas``'s edge upcast).  An obstacle mask keeps K3
+at any size: the slab kernels have none.
 
 The CUDA kernels are ``csrc/project_slab.cu`` (K7) and ``csrc/jacobi.cu``
 (K6).  The twins share the K3 twin's divergence and gradient.
@@ -138,6 +140,9 @@ gradient_3d_kernel.launches = 0
 def _project_slab(vel, iters: int, divergence, jacobi, gradient):
     if int(iters) != iters or iters < 1:
         raise ValueError(f"iters must be a positive integer, got {iters}")
+    if vel.dtype == torch.bfloat16:
+        out, p = _project_slab(vel.float(), iters, divergence, jacobi, gradient)
+        return out.to(vel.dtype), p.to(vel.dtype)
     div = divergence(vel)
     p = jacobi(0, torch.zeros_like(div), div, 1.0, 6.0, iters)
     return gradient(vel, p), p
@@ -145,7 +150,8 @@ def _project_slab(vel, iters: int, divergence, jacobi, gradient):
 
 def project_3d_slab_kernel(vel, iters: int):
     """The slab route: K7 divergence, K6 (``b=0, a=1, c=6`` from zero),
-    K7 gradient.  Returns ``(vel', p)``."""
+    K7 gradient, in float32 (a bfloat16 ``vel`` through a float32 copy).
+    Returns ``(vel', p)`` in ``vel``'s dtype."""
     return _project_slab(vel, iters, divergence_3d_kernel, jacobi_3d_kernel,
                          gradient_3d_kernel)
 

@@ -18,6 +18,15 @@ gradient held in solid cells, the faces, the obstacle mirror, then ``damp``
 (and ``dens_damp`` after the density faces).  They serve CPU tensors and are
 the references the kernels are checked against.  The obstacle mask is a
 ``torch.bool`` tensor, one byte per cell.
+
+Fields (the velocity, the density, the returned pressure) are float32 or
+bfloat16, as the TPU kernels' ``vbuf``, ``pstag`` and density windows take
+the field dtype: the divergence reads the widened velocity, the gradient's
+result is rounded to the field dtype before the faces, the mirror computes
+in float32 from the rounded values and rounds again, ``damp`` and
+``dens_damp`` multiply in the field dtype (``dtypes.scale_in``), and the
+pressure is the final iterate rounded to the field dtype.  The density
+phases take a window of K = 1, 2 or 3 cells.
 """
 
 from __future__ import annotations
@@ -26,15 +35,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..dtypes import scale_in, storage_scalar
 from ..ops.boundary import apply_faces_3d, set_bnd_3d
 from ..ops.linsolve import _nbr_sum_3d
 from ..scene.sources import src_field_add
 from . import _build
 from .advect import (
+    STORAGE,
+    WINDOWS,
     _check_src,
     _check_substeps,
     _check_volume,
+    _ptr,
+    _scratch,
     advect_multi_3d_plain,
+    storage_flag,
     substep_dt0,
 )
 
@@ -53,8 +68,10 @@ def solve_torch_dtype(solve_dtype) -> torch.dtype:
 
 def divergence_interior(vel):
     """``−0.5·((∂vx + ∂vy) + ∂vz)/N`` on the interior cells of a ``(3, N, N,
-    N)`` float32 velocity, the add order and the division of the kernels."""
+    N)`` velocity (widened to float32), the add order and the division of
+    the kernels."""
     n = vel.shape[-1]
+    vel = vel.float()
     vx, vy, vz = vel[0], vel[1], vel[2]
     # A tensor divisor: on CUDA, PyTorch divides by a Python scalar by
     # multiplying with its reciprocal, which is not the kernel's division.
@@ -71,9 +88,12 @@ def divergence_interior(vel):
 
 def project_gradient(vel, p, obst=None, damp: float = 1.0):
     """``v − 0.5·(p₊ − p₋)·N`` per component on the interior cells (``v``
-    itself in solid cells of the bool mask ``obst``), then the component's
-    ``set_bnd`` faces, the obstacle mirror, and ``· damp``."""
+    itself in solid cells of the bool mask ``obst``) from the float32 ``p``,
+    rounded to ``vel``'s dtype, then the component's ``set_bnd`` faces and
+    the obstacle mirror (in float32 from the rounded values, rounded again),
+    and ``· damp`` in ``vel``'s dtype."""
     nf = float(vel.shape[-1])
+    sdt = vel.dtype
     core = (slice(1, -1),) * 3
     grads = (
         0.5 * (p[1:-1, 1:-1, 2:] - p[1:-1, 1:-1, :-2]) * nf,
@@ -82,17 +102,19 @@ def project_gradient(vel, p, obst=None, damp: float = 1.0):
     )
     comps = []
     for c, g in enumerate(grads):
-        comp = vel[c].clone()
-        upd = vel[c][core] - g
-        comp[core] = upd if obst is None else torch.where(obst[core], vel[c][core], upd)
-        comps.append(set_bnd_3d(c + 1, comp, obst) * damp)
+        v = vel[c].float()
+        comp = v.clone()
+        upd = v[core] - g
+        comp[core] = upd if obst is None else torch.where(obst[core], v[core], upd)
+        comp = set_bnd_3d(c + 1, comp.to(sdt).float(), obst).to(sdt)
+        comps.append(scale_in(comp, damp))
     return torch.stack(comps)
 
 
 def project_3d_resident_plain(vel, iters: int, obst=None, solve_dtype=None,
                               damp: float = 1.0):
     """Plain PyTorch twin of the K3 kernel.  Returns ``(vel', p)``, ``p``
-    being the float32 upcast of the final iterate."""
+    being the final iterate in ``vel``'s dtype."""
     n = vel.shape[-1]
     sdt = solve_torch_dtype(solve_dtype)
     f32 = torch.float32
@@ -106,25 +128,25 @@ def project_3d_resident_plain(vel, iters: int, obst=None, solve_dtype=None,
         upd = ((rhs + _nbr_sum_3d(p.to(f32))) * coef).to(sdt)
         p = apply_faces_3d(0, F.pad(upd, (1, 1, 1, 1, 1, 1)))
     p = p.to(f32)
-    return project_gradient(vel, p, obst, damp), p
+    return project_gradient(vel, p, obst, damp), p.to(vel.dtype)
 
 
 def project_advect_density_3d_plain(vel, density, iters: int, dt: float, *,
-                                    obst=None, n_sub: int = 1, src=None,
-                                    solve_dtype=None, damp: float = 1.0,
+                                    window: int = 1, obst=None, n_sub: int = 1,
+                                    src=None, solve_dtype=None, damp: float = 1.0,
                                     dens_damp: float = 1.0):
     """Plain PyTorch twin of the K2 kernel (K2o with the bool mask ``obst``,
     K2s with the ``(5,)`` emitter descriptor ``src``): the K3 twin, then the
     density (plus the emitter) advected through the damped projected
-    velocity in ``n_sub`` substeps with the mask's contract, then ``·
-    dens_damp``.  Returns ``(vel', p, density')``, ``p`` being the float32
-    upcast of the final iterate."""
+    velocity with a ``window`` of K cells in ``n_sub`` substeps with the
+    mask's contract, then ``· dens_damp``.  Returns ``(vel', p,
+    density')``, ``p`` being the final iterate in ``vel``'s dtype."""
     vel_out, p = project_3d_resident_plain(vel, iters, obst, solve_dtype, damp)
     if src is not None:
         density = src_field_add(density, src)
     dens_out = advect_multi_3d_plain((0,), density[None], vel_out, dt, obst=obst,
-                                     n_sub=n_sub)[0]
-    return vel_out, p, dens_out * dens_damp
+                                     n_sub=n_sub, window=window)[0]
+    return vel_out, p, scale_in(dens_out, dens_damp)
 
 
 def _checked_projection(vel, iters: int, solve_dtype):
@@ -136,8 +158,23 @@ def _checked_projection(vel, iters: int, solve_dtype):
     n = vel.shape[-1]
     if n < 3:
         raise ValueError(f"grid too small: {n}")
-    _check_volume("vel", vel, (3, n, n, n))
+    _check_volume("vel", vel, (3, n, n, n), STORAGE)
     return n, sdt
+
+
+def _check_window(window: int, n: int) -> None:
+    if window not in WINDOWS:
+        raise NotImplementedError(
+            f"density advection with window={window}: the kernels take windows "
+            f"{WINDOWS}")
+    if n < 2 * window + 1:
+        raise ValueError(f"grid too small for window={window}: {n}")
+
+
+def _check_density(density, vel, n: int) -> None:
+    _check_volume("density", density, (n, n, n), vel.dtype)
+    if density.device != vel.device:
+        raise ValueError("vel and density must be on one device")
 
 
 def _solve_scratch(n: int, sdt: torch.dtype, device):
@@ -159,30 +196,30 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
     through the damped projected velocity in ``n_sub`` substeps, with the
     K2 kernel: K2o with the bool obstacle mask ``obst``, K2s with the
     ``(5,)`` emitter descriptor ``src`` (added to the density the first
-    substep reads; not with a mask, as in the JAX package).
+    substep reads; not with a mask, as in the JAX package), with a
+    ``window`` of 1, 2 or 3 cells.  ``vel`` and ``density`` are float32 or
+    bfloat16, in one dtype (the emitter takes float32).
 
     CUDA tensors launch ``csrc/project_advect.cu``; CPU tensors run
     ``project_advect_density_3d_plain``.  Returns ``(vel', p, density')``.
     ``project_advect_density_3d.launches`` counts launches."""
-    if window != 1:
-        raise NotImplementedError(
-            f"fused projection with window={window}: only window=1 is ported")
     n_sub = _check_substeps(n_sub)
     if src is not None and obst is not None:
         raise ValueError("src folding requires an obstacle-free config")
     n, sdt = _checked_projection(vel, iters, solve_dtype)
-    _check_volume("density", density, (n, n, n))
-    if density.device != vel.device:
-        raise ValueError("vel and density must be on one device")
+    _check_window(window, n)
+    _check_density(density, vel, n)
     if obst is not None:
         _check_mask(obst, n, vel.device)
     if src is not None:
         _check_src(src, vel.device)
+        if vel.dtype != torch.float32:
+            raise TypeError("the emitter fold takes float32 fields")
 
     if vel.device.type == "cpu":
         return project_advect_density_3d_plain(
-            vel, density, iters, dt, obst=obst, n_sub=n_sub, src=src,
-            solve_dtype=solve_dtype, damp=damp, dens_damp=dens_damp)
+            vel, density, iters, dt, window=window, obst=obst, n_sub=n_sub,
+            src=src, solve_dtype=solve_dtype, damp=damp, dens_damp=dens_damp)
     if vel.device.type != "cuda":
         raise ValueError(f"unsupported device {vel.device}")
 
@@ -190,19 +227,18 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
     vel_out = torch.empty_like(vel)
     p = torch.empty_like(density)
     dens_out = torch.empty_like(density)
-    dens_tmp = torch.empty_like(density) if n_sub > 1 else None
+    tmp0, tmp1 = _scratch(1, n, n_sub, False, vel.dtype, vel.device)
     p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device)
+    fdt = vel.dtype
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_project_advect_density(
-            vel.data_ptr(), density.data_ptr(),
-            None if obst is None else obst.data_ptr(),
-            None if src is None else src.data_ptr(), vel_out.data_ptr(),
-            p.data_ptr(), dens_out.data_ptr(),
-            None if dens_tmp is None else dens_tmp.data_ptr(), p_a.data_ptr(),
-            p_b.data_ptr(), rhs.data_ptr(), n, int(iters),
-            int(sdt == torch.bfloat16), substep_dt0(dt, n, n_sub), n_sub,
-            float(damp), float(dens_damp), stream,
+            vel.data_ptr(), density.data_ptr(), _ptr(obst), _ptr(src),
+            vel_out.data_ptr(), p.data_ptr(), dens_out.data_ptr(), _ptr(tmp0),
+            _ptr(tmp1), p_a.data_ptr(), p_b.data_ptr(), rhs.data_ptr(), n,
+            int(iters), int(sdt == torch.bfloat16), storage_flag(fdt),
+            substep_dt0(dt, n, n_sub), n_sub, int(window),
+            storage_scalar(damp, fdt), storage_scalar(dens_damp, fdt), stream,
         )
     _build.check(lib, err, "fused projection kernel launch")
     project_advect_density_3d.launches += 1
@@ -216,6 +252,8 @@ def project_3d_resident(vel, iters: int, obst=None, solve_dtype=None,
                         damp: float = 1.0):
     """Project ``vel`` with ``iters`` Jacobi sweeps with the K3 kernel, with
     the obstacle contract when the bool mask ``obst`` is given.
+
+    ``vel`` is float32 or bfloat16.
 
     CUDA tensors launch ``csrc/project.cu``; CPU tensors run
     ``project_3d_resident_plain``.  Returns ``(vel', p)``.
@@ -231,15 +269,15 @@ def project_3d_resident(vel, iters: int, obst=None, solve_dtype=None,
 
     lib = _build.load_library()
     vel_out = torch.empty_like(vel)
-    p = torch.empty((n, n, n), dtype=torch.float32, device=vel.device)
+    p = torch.empty((n, n, n), dtype=vel.dtype, device=vel.device)
     p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device)
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_project(
-            vel.data_ptr(), None if obst is None else obst.data_ptr(),
-            vel_out.data_ptr(), p.data_ptr(), p_a.data_ptr(), p_b.data_ptr(),
-            rhs.data_ptr(), n, int(iters), int(sdt == torch.bfloat16),
-            float(damp), stream,
+            vel.data_ptr(), _ptr(obst), vel_out.data_ptr(), p.data_ptr(),
+            p_a.data_ptr(), p_b.data_ptr(), rhs.data_ptr(), n, int(iters),
+            int(sdt == torch.bfloat16), storage_flag(vel.dtype),
+            storage_scalar(damp, vel.dtype), stream,
         )
     _build.check(lib, err, "projection kernel launch")
     project_3d_resident.launches += 1
@@ -249,17 +287,17 @@ def project_3d_resident(vel, iters: int, obst=None, solve_dtype=None,
 project_3d_resident.launches = 0
 
 
-def full_step_3d_plain(vel, density, iters: int, dt: float, *, n_sub: int = 1,
-                       solve_dtype=None, damp: float = 1.0,
+def full_step_3d_plain(vel, density, iters: int, dt: float, *, window: int = 1,
+                       n_sub: int = 1, solve_dtype=None, damp: float = 1.0,
                        dens_damp: float = 1.0):
-    """Plain PyTorch twin of the K8 kernel: the K1 twin's self-advection in
-    ``n_sub`` substeps, then the K2 twin with the same ``n_sub`` (the JAX
-    ``full_step_3d_resident``'s contract).  Returns ``(vel', p,
-    density')``."""
-    adv = advect_multi_3d_plain((1, 2, 3), vel, vel, dt, n_sub=n_sub)
+    """Plain PyTorch twin of the K8 kernel: the K1 twin's self-advection
+    with a ``window`` of K cells in ``n_sub`` substeps, then the K2 twin with
+    the same window and ``n_sub`` (the JAX ``full_step_3d_resident``'s
+    contract).  Returns ``(vel', p, density')``."""
+    adv = advect_multi_3d_plain((1, 2, 3), vel, vel, dt, n_sub=n_sub, window=window)
     return project_advect_density_3d_plain(
-        adv, density, iters, dt, n_sub=n_sub, solve_dtype=solve_dtype,
-        damp=damp, dens_damp=dens_damp)
+        adv, density, iters, dt, window=window, n_sub=n_sub,
+        solve_dtype=solve_dtype, damp=damp, dens_damp=dens_damp)
 
 
 def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
@@ -267,43 +305,45 @@ def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
                  dens_damp: float = 1.0):
     """Self-advect ``vel``, project it with ``iters`` Jacobi sweeps and
     advect ``density`` through the damped result, each advection in
-    ``n_sub`` substeps, with the K8 kernel: one cooperative launch
-    (obstacle-free).
+    ``n_sub`` substeps with a ``window`` of 1, 2 or 3 cells, with the K8
+    kernel: one cooperative launch (obstacle-free).  ``vel`` and ``density``
+    are float32 or bfloat16, in one dtype.
 
-    CUDA tensors launch ``csrc/full_step.cu`` and raise if the launch fails
-    (there is no fallback to K1 + K2); CPU tensors run
-    ``full_step_3d_plain``.  Returns ``(vel', p, density')``.
-    ``full_step_3d.launches`` counts launches."""
-    if window != 1:
-        raise NotImplementedError(
-            f"full-step kernel with window={window}: only window=1 is ported")
+    CUDA tensors launch ``csrc/full_step.cu`` (``csrc/full_step_bf16.cu``
+    for bfloat16) and raise if the launch fails (there is no fallback to K1
+    + K2); CPU tensors run ``full_step_3d_plain``.  Returns ``(vel', p,
+    density')``.  ``full_step_3d.launches`` counts launches."""
     n_sub = _check_substeps(n_sub)
     n, sdt = _checked_projection(vel, iters, solve_dtype)
-    _check_volume("density", density, (n, n, n))
-    if density.device != vel.device:
-        raise ValueError("vel and density must be on one device")
+    _check_window(window, n)
+    _check_density(density, vel, n)
 
     if vel.device.type == "cpu":
-        return full_step_3d_plain(vel, density, iters, dt, n_sub=n_sub,
-                                  solve_dtype=solve_dtype, damp=damp,
+        return full_step_3d_plain(vel, density, iters, dt, window=window,
+                                  n_sub=n_sub, solve_dtype=solve_dtype, damp=damp,
                                   dens_damp=dens_damp)
     if vel.device.type != "cuda":
         raise ValueError(f"unsupported device {vel.device}")
 
     lib = _build.load_library()
+    fdt = vel.dtype
     adv = torch.empty_like(vel)
     vel_out = torch.empty_like(vel)
     p = torch.empty_like(density)
     dens_out = torch.empty_like(density)
+    # bfloat16: the substeps before each advection's last stay float32.
+    tmp0, tmp1 = ((None, None) if fdt == torch.float32
+                  else _scratch(3, n, n_sub, False, fdt, vel.device))
     p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device)
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_full_step(
             vel.data_ptr(), density.data_ptr(), adv.data_ptr(),
-            vel_out.data_ptr(), p.data_ptr(), dens_out.data_ptr(),
-            p_a.data_ptr(), p_b.data_ptr(), rhs.data_ptr(), n, int(iters),
-            int(sdt == torch.bfloat16), substep_dt0(dt, n, n_sub), n_sub,
-            float(damp), float(dens_damp), stream,
+            vel_out.data_ptr(), p.data_ptr(), dens_out.data_ptr(), _ptr(tmp0),
+            _ptr(tmp1), p_a.data_ptr(), p_b.data_ptr(), rhs.data_ptr(), n,
+            int(iters), int(sdt == torch.bfloat16), storage_flag(fdt),
+            substep_dt0(dt, n, n_sub), n_sub, int(window),
+            storage_scalar(damp, fdt), storage_scalar(dens_damp, fdt), stream,
         )
     _build.check(lib, err, "full-step kernel launch")
     full_step_3d.launches += 1
@@ -313,13 +353,16 @@ def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
 full_step_3d.launches = 0
 
 
-def full_step_blocks(solve_dtype=None, device=None) -> int:
+def full_step_blocks(solve_dtype=None, device=None, dtype=torch.float32,
+                     window: int = 1) -> int:
     """The blocks of 256 threads K8's cooperative grid has on ``device``
-    (the current card when None): as many as the card holds at once."""
+    (the current card when None) for fields of ``dtype`` and a ``window``:
+    as many as the card holds at once."""
     lib = _build.load_library()
     with torch.cuda.device(device):
         blocks = lib.fs_full_step_blocks(
-            int(solve_torch_dtype(solve_dtype) == torch.bfloat16))
+            int(solve_torch_dtype(solve_dtype) == torch.bfloat16),
+            storage_flag(dtype), int(window))
     if blocks < 0:
         _build.check(lib, -blocks, "full-step grid")
     return blocks

@@ -17,9 +17,10 @@ then the optional turbulence and the obstacle enforcement with Reynolds
 drag (FluidSim.cs:561-570).  Every Jacobi solve (three smoothing and three
 fixed-rhs diffusion solves and two pressure solves a step, with the
 reference's ``double_diffuse``) goes through ``kernels.solve_2d`` where
-``ops/linsolve.use_2d_kernels`` holds: K9 on a card
-(``kernels/resident2d.py``), its twin on the CPU.  Everything else is plain
-PyTorch, as the JAX package leaves it to XLA.  The 2D path ignores
+``ops/linsolve.use_2d_kernels`` holds (float32 fields): K9 on a card
+(``kernels/resident2d.py``), its twin on the CPU.  On bfloat16 fields the
+solves are the plain sweeps in bfloat16, as the JAX package takes XLA there.
+Everything else is plain PyTorch, as the JAX package leaves it to XLA.  The 2D path ignores
 ``pressure_solver`` and ``advection_scheme``, as the JAX package does.
 """
 
@@ -34,14 +35,6 @@ from ..ops.linsolve import diffuse_2d, use_2d_kernels
 from ..ops.project import project_2d
 from ..state import FluidState
 from .step_kernels import HAND_KERNELS, StepKernels
-
-
-def check_supported_2d(cfg: SimConfig) -> None:
-    """Raise ``NotImplementedError`` for a 2D config the port cannot step."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"field dtype {cfg.dtype!r} in the 2D reference-parity mode is not "
-            "ported to fluidsim_tpu_torch yet")
 
 
 def velocity_step_2d(vel_x, vel_y, obst, dt: float, visc: float, cfg: SimConfig,
@@ -67,7 +60,6 @@ def simulate_step_2d(state: FluidState, cfg: SimConfig,
                      kernels: StepKernels = HAND_KERNELS) -> FluidState:
     """One reference ``Simulate()`` (FluidSim.cs:551-576).  ``kernels``
     supplies the solve (``PLAIN_TWINS`` runs K9's twin)."""
-    check_supported_2d(cfg)
     dt, diff, visc = cfg.effective_params()
     obst = state.obstacles
     solve = kernels.solve_2d if use_2d_kernels(cfg, state.density.dtype) else None

@@ -25,9 +25,13 @@ density dissipation → obstacle enforcement.  Two branches:
   JAX package's XLA composition of the ``ops`` functions.
 
 Buoyancy (when not folded), vorticity confinement, diffusion, MacCormack's
-limiter and obstacle enforcement are plain PyTorch on both paths, as the
-JAX package leaves them to XLA.  Configurations the port does not cover yet
-raise ``NotImplementedError`` naming the missing piece (``check_supported``).
+limiter, the FFT projection (``pressure_solver="fft"``, ``torch.fft``),
+turbulent noise and obstacle enforcement are plain PyTorch on both paths,
+as the JAX package leaves them to XLA.  Fields are float32 or bfloat16
+(``cfg.dtype``); the kernels take either, and the sinks multiply in the
+field dtype.  The one configuration the port does not cover yet, the
+sweep-blocked solve (K5), raises ``NotImplementedError``
+(``check_supported``).
 """
 
 from __future__ import annotations
@@ -36,10 +40,13 @@ import numpy as np
 import torch
 
 from ..config import SimConfig
+from ..dtypes import scale_in
 from ..kernels.advect import WINDOWS
 from ..kernels.project import resident_route
 from ..ops.advect import advect_maccormack_3d, advect_multi_3d, advect_substep_3d
+from ..ops.fft_poisson import project_3d_fft
 from ..ops.forces import (
+    apply_turbulent_noise_3d,
     buoyancy_force,
     enforce_obstacle_boundaries_3d,
     vorticity_confinement_3d,
@@ -87,18 +94,12 @@ def fuses_projection(cfg: SimConfig, use_kernels: bool, resident: bool) -> bool:
     )
 
 
-def check_supported(cfg: SimConfig, use_kernels: bool, resident: bool = True) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot step
-    (``resident``: ``resident_route``'s answer, which decides whether the
-    fused kernels run)."""
+def check_supported(cfg: SimConfig, use_kernels: bool) -> None:
+    """Raise ``NotImplementedError`` for a config the port cannot step on the
+    kernel path: the sweep-blocked solve (K5) and a window the kernels do
+    not take."""
     if cfg.ndim != 3:
         raise ValueError("a 2D config steps with models.stable2d, not the 3D step")
-    if cfg.dtype != "float32":
-        _unported(f"field dtype {cfg.dtype!r}")
-    if cfg.pressure_solver == "fft":
-        _unported("the FFT pressure solver")
-    if cfg.apply_turbulent_noise:
-        _unported("turbulent noise")
     if not use_kernels:
         return
     if cfg.jacobi_sweep_block > 1:
@@ -106,9 +107,6 @@ def check_supported(cfg: SimConfig, use_kernels: bool, resident: bool = True) ->
     if cfg.advect_window not in WINDOWS:
         _unported(f"kernel advection with advect_window={cfg.advect_window} "
                   f"(K1 takes windows {WINDOWS})")
-    if cfg.advect_window > 1 and fuses_projection(cfg, use_kernels, resident):
-        _unported(f"the fused kernels (K2, K2s, K2o, K8) with advect_window="
-                  f"{cfg.advect_window} (they take advect_window=1)")
 
 
 def emitter_folds(cfg: SimConfig, use_kernels: bool, resident: bool) -> bool:
@@ -182,7 +180,7 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
     use_kernels = _kernels_usable(cfg, device)
     if resident is None:
         resident = resident_route(cfg.current_size, cfg.solve_dtype, device)
-    check_supported(cfg, use_kernels, resident)
+    check_supported(cfg, use_kernels)
     if src is not None and not emitter_folds(cfg, use_kernels, resident):
         raise ValueError(
             "src (folded emitter) passed but emitter_folds is False for this "
@@ -251,8 +249,9 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
                    if diff > 0.0 else density)
     if fused and cfg.fuse_self_advect and obst is None:
         vel, pressure, density = kernels.full_step(
-            vel, dens_in, cfg.jacobi_iters, dt, n_sub=cfg.advect_substeps,
-            solve_dtype=cfg.solve_dtype, damp=damp, dens_damp=ddamp,
+            vel, dens_in, cfg.jacobi_iters, dt, window=win,
+            n_sub=cfg.advect_substeps, solve_dtype=cfg.solve_dtype, damp=damp,
+            dens_damp=ddamp,
         )
     else:
         buoy = ((density, cfg.buoyancy, cfg.ambient_density, cfg.gravity)
@@ -260,10 +259,14 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
         vel = advect((1, 2, 3), vel, vel, buoy)
         if fused:
             vel, pressure, density = kernels.project_advect(
-                vel, dens_in, cfg.jacobi_iters, dt, obst=obst,
+                vel, dens_in, cfg.jacobi_iters, dt, window=win, obst=obst,
                 n_sub=cfg.advect_substeps, src=src,
                 solve_dtype=cfg.solve_dtype, damp=damp, dens_damp=ddamp,
             )
+        elif cfg.pressure_solver == "fft":
+            if cfg.enable_obstacle:
+                raise ValueError("pressure_solver='fft' requires no obstacles")
+            vel, pressure = project_3d_fft(vel)
         elif use_kernels:
             vel, pressure = kernels.project(vel, cfg.jacobi_iters, obst=obst,
                                             solve_dtype=cfg.solve_dtype,
@@ -273,13 +276,15 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
 
     if not fused:
         if cfg.velocity_damping != 0.0:
-            vel = vel * damp
+            vel = scale_in(vel, damp)
         if diff > 0.0:
             density = diffuse_3d(0, density, diff, dt, obst, cfg)
         density = advect((0,), density[None], vel)[0]
         if cfg.density_dissipation != 0.0:
-            density = density * ddamp
+            density = scale_in(density, ddamp)
 
+    if cfg.apply_turbulent_noise:
+        vel = apply_turbulent_noise_3d(vel)
     if cfg.enable_obstacle:
         vel = enforce_obstacle_boundaries_3d(vel, state.obstacles,
                                              cfg.cell_size, cfg.viscosity)

@@ -3,7 +3,10 @@ of ``fluidsim_tpu/ops/forces.py``).
 
 These are plain PyTorch elementwise passes, as the JAX package leaves them
 to XLA.  Each keeps the JAX operation order, so the two differ only where
-XLA on the CPU contracts a multiply-add into one FMA.
+XLA on the CPU contracts a multiply-add into one FMA.  On bfloat16 fields
+the constants take the field's dtype (the JAX package's weakly typed Python
+scalars) and every operation rounds to it, where XLA may keep float32
+between fused operations; vorticity confinement computes in float32.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..dtypes import storage_scalar
 from .boundary import interior_mask
 
 
@@ -31,18 +35,20 @@ def enforce_obstacle_boundaries_2d(vel_x, vel_y, obst, cell_size: float,
     vel_x = torch.where(obst_int, 0.0, vel_x)
     vel_y = torch.where(obst_int, 0.0, vel_y)
 
-    length = float(np.float32(cell_size))
+    sdt = vel_x.dtype
+    length = storage_scalar(np.float32(cell_size), sdt)
     # A tensor divisor: on CUDA, PyTorch divides by a Python scalar by
     # multiplying with its reciprocal, which is not XLA's division.
     visc = torch.tensor(max(np.float32(viscosity), np.float32(1e-5)),
-                        dtype=vel_x.dtype, device=vel_x.device)
-    lo = float(np.float32(0.8))
-    span = float(np.float32(0.98) - np.float32(0.8))
+                        dtype=sdt, device=vel_x.device)
+    lo = storage_scalar(np.float32(0.8), sdt)
+    span = storage_scalar(np.float32(0.98) - np.float32(0.8), sdt)
+    hundredth = storage_scalar(0.01, sdt)
     for delta, axis in ((-1, 1), (-1, 0), (1, 0), (1, 1)):
         mask = interior & (~obst) & _shift_no_wrap(obst_int, delta, axis)
         u = torch.sqrt(vel_x * vel_x + vel_y * vel_y)
         re = (u * length) / visc
-        factor = lo + span * (1.0 - torch.exp(-re * 0.01))
+        factor = lo + span * (1.0 - torch.exp(-re * hundredth))
         factor = torch.where(mask, factor, 1.0)
         vel_x = vel_x * factor
         vel_y = vel_y * factor
@@ -95,17 +101,20 @@ def perlin_2d(x, y):
 def apply_turbulent_noise_2d(vel_x, vel_y, noise_scale: float = 0.1,
                              frequency: float = 0.05):
     """FluidSim.cs:675-701: ``v += (perlin − 0.5)·noise_scale·|v|`` on the
-    interior, with transposed coordinates for the y component."""
+    interior, with transposed coordinates for the y component.  The result
+    is rounded to the velocity's dtype (float32 in the JAX package)."""
     n = vel_x.shape[0]
-    ar = torch.arange(n, dtype=vel_x.dtype, device=vel_x.device)
+    sdt = vel_x.dtype
+    ar = torch.arange(n, dtype=sdt, device=vel_x.device)
     jj, ii = torch.meshgrid(ar, ar, indexing="ij")
     u = torch.sqrt(vel_x * vel_x + vel_y * vel_y)
-    noise_x = perlin_2d(ii * frequency, jj * frequency) - 0.5
-    noise_y = perlin_2d(jj * frequency, ii * frequency) - 0.5
+    f = storage_scalar(frequency, sdt)
+    noise_x = perlin_2d(ii * f, jj * f) - 0.5
+    noise_y = perlin_2d(jj * f, ii * f) - 0.5
     interior = interior_mask(vel_x.shape, vel_x.device)
-    strength = noise_scale * u
-    vel_x = torch.where(interior, vel_x + noise_x * strength, vel_x)
-    vel_y = torch.where(interior, vel_y + noise_y * strength, vel_y)
+    strength = storage_scalar(noise_scale, sdt) * u
+    vel_x = torch.where(interior, vel_x + noise_x * strength, vel_x).to(sdt)
+    vel_y = torch.where(interior, vel_y + noise_y * strength, vel_y).to(sdt)
     return vel_x, vel_y
 
 
@@ -113,8 +122,11 @@ def buoyancy_force(vel: torch.Tensor, density: torch.Tensor, dt: float,
                    buoyancy: float, ambient: float = 0.0,
                    gravity: float = 0.0) -> torch.Tensor:
     """Upward force ∝ (density − ambient) on the y component (axis 1 of a
-    [z, y, x] grid); optional downward gravity ∝ density."""
-    accel = buoyancy * (density - ambient) - gravity * density
+    [z, y, x] grid); optional downward gravity ∝ density.  In the fields'
+    dtype."""
+    b, amb, g, dt = (storage_scalar(x, density.dtype)
+                     for x in (buoyancy, ambient, gravity, dt))
+    accel = b * (density - amb) - g * density
     out = vel.clone()
     out[1] = vel[1] + dt * accel
     return out
@@ -174,13 +186,15 @@ def enforce_obstacle_boundaries_3d(vel: torch.Tensor, obst: torch.Tensor,
     obst_int = obst & interior
     vel = torch.where(obst_int[None], 0.0, vel)
 
-    length = float(np.float32(cell_size))
+    sdt = vel.dtype
+    length = storage_scalar(np.float32(cell_size), sdt)
     # A tensor divisor: on CUDA, PyTorch divides by a Python scalar by
     # multiplying with its reciprocal, which is not XLA's division.
     visc = torch.tensor(max(np.float32(viscosity), np.float32(1e-5)),
-                        dtype=vel.dtype, device=vel.device)
-    lo = float(np.float32(0.8))
-    span = float(np.float32(0.98) - np.float32(0.8))
+                        dtype=sdt, device=vel.device)
+    lo = storage_scalar(np.float32(0.8), sdt)
+    span = storage_scalar(np.float32(0.98) - np.float32(0.8), sdt)
+    hundredth = storage_scalar(0.01, sdt)
 
     for axis in (2, 1, 0):
         for delta in (-1, 1):
@@ -188,7 +202,82 @@ def enforce_obstacle_boundaries_3d(vel: torch.Tensor, obst: torch.Tensor,
             mask = interior & (~obst) & obst_nbr
             u = torch.sqrt(torch.sum(vel * vel, dim=0))
             re = (u * length) / visc
-            factor = lo + span * (1.0 - torch.exp(-re * 0.01))
+            factor = lo + span * (1.0 - torch.exp(-re * hundredth))
             factor = torch.where(mask, factor, 1.0)
             vel = vel * factor[None]
     return vel
+
+
+# The 3D Perlin gradients (the JAX package's table).
+_GRADS3 = np.array(
+    [[1, 1, 0], [-1, 1, 0], [1, -1, 0], [-1, -1, 0],
+     [1, 0, 1], [-1, 0, 1], [1, 0, -1], [-1, 0, -1],
+     [0, 1, 1], [0, -1, 1], [0, 1, -1], [0, -1, -1]],
+    dtype=np.float32,
+)
+
+
+def perlin_3d(x, y, z):
+    """Classic 3D Perlin gradient noise of the coordinates ``(x, y, z)``,
+    output ≈ [0, 1] (float32: the gradients are a float32 table, so every
+    product with them widens, as in the JAX package)."""
+    perm = torch.from_numpy(_PERM).to(x.device)
+    g3 = torch.from_numpy(_GRADS3).to(x.device)
+    xi = torch.floor(x).to(torch.int64)
+    yi = torch.floor(y).to(torch.int64)
+    zi = torch.floor(z).to(torch.int64)
+    xf = x - xi.to(x.dtype)
+    yf = y - yi.to(y.dtype)
+    zf = z - zi.to(z.dtype)
+    xi = xi & 255
+    yi = yi & 255
+    zi = zi & 255
+
+    def grad_dot(ix, iy, iz, dx, dy, dz):
+        g = g3[perm[perm[perm[ix] + iy] + iz] % 12]
+        return g[..., 0] * dx + g[..., 1] * dy + g[..., 2] * dz
+
+    u, v, w = _fade(xf), _fade(yf), _fade(zf)
+
+    def lerp(a, b, t):
+        return a + t * (b - a)
+
+    n000 = grad_dot(xi, yi, zi, xf, yf, zf)
+    n100 = grad_dot(xi + 1, yi, zi, xf - 1, yf, zf)
+    n010 = grad_dot(xi, yi + 1, zi, xf, yf - 1, zf)
+    n110 = grad_dot(xi + 1, yi + 1, zi, xf - 1, yf - 1, zf)
+    n001 = grad_dot(xi, yi, zi + 1, xf, yf, zf - 1)
+    n101 = grad_dot(xi + 1, yi, zi + 1, xf - 1, yf, zf - 1)
+    n011 = grad_dot(xi, yi + 1, zi + 1, xf, yf - 1, zf - 1)
+    n111 = grad_dot(xi + 1, yi + 1, zi + 1, xf - 1, yf - 1, zf - 1)
+
+    nx00 = lerp(n000, n100, u)
+    nx10 = lerp(n010, n110, u)
+    nx01 = lerp(n001, n101, u)
+    nx11 = lerp(n011, n111, u)
+    nxy0 = lerp(nx00, nx10, v)
+    nxy1 = lerp(nx01, nx11, v)
+    return 0.5 * (lerp(nxy0, nxy1, w) + 1.0)
+
+
+def apply_turbulent_noise_3d(vel, noise_scale: float = 0.1, frequency: float = 0.05):
+    """3D generalization of FluidSim.cs:675-701: perturb each velocity
+    component on the interior by ``(perlin − 0.5)·noise_scale·|v|``, the
+    noise sampled at the cell coordinates times ``frequency`` (permuted per
+    component).  The coordinates are built in the velocity's dtype, as in
+    the JAX package (in bfloat16 they round above 256).  The perturbed
+    velocity is float32 there; it is rounded back to the velocity's dtype
+    here, so the state keeps its storage dtype."""
+    n = vel.shape[-1]
+    sdt = vel.dtype
+    ar = torch.arange(n, dtype=sdt, device=vel.device)
+    kk, jj, ii = torch.meshgrid(ar, ar, ar, indexing="ij")
+    speed = torch.sqrt(torch.sum(vel * vel, dim=0))
+    strength = storage_scalar(noise_scale, sdt) * speed
+    f = storage_scalar(frequency, sdt)
+    nx = perlin_3d(ii * f, jj * f, kk * f) - 0.5
+    ny = perlin_3d(jj * f, kk * f, ii * f) - 0.5
+    nz = perlin_3d(kk * f, ii * f, jj * f) - 0.5
+    interior = interior_mask(speed.shape, vel.device)
+    delta = torch.stack([nx, ny, nz]) * strength[None]
+    return torch.where(interior[None], vel + delta, vel).to(sdt)

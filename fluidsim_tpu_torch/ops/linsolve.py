@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..dtypes import storage_scalar
 from .boundary import set_bnd_2d, set_bnd_3d
 
 
@@ -42,6 +43,7 @@ def sweeps_2d(b: int, x, x0, a: float, c: float, obst, iters: int,
     # A tensor divisor: on CUDA, PyTorch divides by a Python scalar by
     # multiplying with its reciprocal, which is not XLA's division.
     c_t = torch.tensor(c, dtype=x.dtype, device=x.device)
+    a = storage_scalar(a, x.dtype)
     for _ in range(iters):
         rhs = x[core] if smooth else x0_int
         upd = (rhs + a * _nbr_sum_2d(x)) / c_t

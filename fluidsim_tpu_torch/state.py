@@ -3,7 +3,9 @@
 2D arrays are indexed ``[y, x]``, 3D arrays ``[z, y, x]``; ``velocity`` is
 one ``(ndim, *grid)`` tensor with components (vx, vy[, vz]), component c
 flowing along grid axis ``ndim-1-c``.  ``step`` is a 0-d int32 tensor and
-``time`` a 0-d float32 tensor, as in the JAX state.
+``time`` a 0-d float32 tensor, as in the JAX state.  ``density``,
+``velocity`` and ``pressure`` are stored in ``SimConfig.dtype`` (float32 or
+bfloat16).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import dataclasses
 import torch
 
 from .config import SimConfig
+from .dtypes import torch_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,11 +34,9 @@ class FluidState:
 
 
 def zeros_state(cfg: SimConfig, device, obstacles=None) -> FluidState:
-    """Allocate an all-zero state for ``cfg`` on ``device``."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"field dtype {cfg.dtype!r}: the port supports float32 fields only"
-        )
+    """Allocate an all-zero state for ``cfg`` on ``device``: the fields in
+    ``cfg.dtype``, ``step`` int32 and ``time`` float32."""
+    fdt = torch_dtype(cfg.dtype)
     device = torch.device(device)
     shape = cfg.grid_shape
     if obstacles is None:
@@ -46,12 +47,11 @@ def zeros_state(cfg: SimConfig, device, obstacles=None) -> FluidState:
             raise ValueError(
                 f"obstacle mask shape {tuple(obstacles.shape)} != grid {shape}"
             )
-    f32 = torch.float32
     return FluidState(
-        density=torch.zeros(shape, dtype=f32, device=device),
-        velocity=torch.zeros((cfg.ndim,) + shape, dtype=f32, device=device),
-        pressure=torch.zeros(shape, dtype=f32, device=device),
+        density=torch.zeros(shape, dtype=fdt, device=device),
+        velocity=torch.zeros((cfg.ndim,) + shape, dtype=fdt, device=device),
+        pressure=torch.zeros(shape, dtype=fdt, device=device),
         obstacles=obstacles,
         step=torch.zeros((), dtype=torch.int32, device=device),
-        time=torch.zeros((), dtype=f32, device=device),
+        time=torch.zeros((), dtype=torch.float32, device=device),
     )

@@ -391,14 +391,21 @@ def test_cpu_kernel_route_is_the_plain_route(name):
 
 
 def test_use_2d_kernels_gate():
-    """K9 on float32 fields unless the config forces the plain path; the 2D
-    branch raises for bf16 storage."""
+    """K9 on float32 fields unless the config forces the plain path; bf16
+    storage takes the plain solves (the JAX package's XLA path), so a bf16
+    step calls no solve of the kernel table."""
     cfg = tcfg.preset_scene_b()
     assert t_lin.use_2d_kernels(cfg)
     assert not t_lin.use_2d_kernels(cfg.replace(kernel_backend="xla"))
     assert not t_lin.use_2d_kernels(cfg, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="2D"):
-        Engine(cfg.replace(dtype="bfloat16"), "cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("K9 called on bf16 fields")
+
+    eng = Engine(cfg.replace(dtype="bfloat16"), "cpu",
+                 kernels=PLAIN_TWINS._replace(solve_2d=refuse))
+    eng.step(1)
+    assert eng.state.velocity.dtype == torch.bfloat16
 
 
 def test_turbulent_noise_step_matches_jax():

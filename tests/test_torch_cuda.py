@@ -597,3 +597,206 @@ def test_scene_a_on_the_card_matches_the_cpu(cuda):
         scale = max(1.0, float(ref.abs().max()))
         assert torch.allclose(got, ref, rtol=1e-5, atol=2e-6 * scale), (
             name, float((got - ref).abs().max()))
+
+
+# -- bfloat16 field storage and the fused kernels at K = 2, 3 ----------------
+
+BF16 = torch.bfloat16
+
+
+def bf16_fields(n, seed, device, scale=0.3):
+    """Seeded fields rounded to bfloat16; |v| scaled for a backtrace of up
+    to about ``scale``·17 cells at DT."""
+    vel, dens = fields(n, seed, device)
+    return (vel * scale).to(BF16), dens.to(BF16)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("n_sub", [1, 2, 3])
+@pytest.mark.parametrize("window", [1, 2, 3])
+def test_k1_bf16_matches_twin(cuda, window, n_sub, masked):
+    n = 33
+    vel, dens = bf16_fields(n, 1300 + window, cuda)
+    obst = vortex_mask(n, cuda) if masked else None
+    for bs, f in (((1, 2, 3), vel), ((0,), dens[None])):
+        got = advect_multi_3d_kernel(bs, f, vel, DT, obst=obst, window=window, n_sub=n_sub)
+        ref = advect_multi_3d_plain(bs, f, vel, DT, obst=obst, window=window, n_sub=n_sub)
+        assert got.dtype == BF16
+        assert_equal((got,), (ref,), f"K1 bf16 window={window} {bs}")
+
+
+def test_k1_bf16_at_128_matches_twin(cuda):
+    vel, dens = bf16_fields(128, 1310, cuda, scale=0.1)
+    for bs, f in (((1, 2, 3), vel), ((0,), dens[None])):
+        got = advect_multi_3d_kernel(bs, f, vel, DT)
+        assert_equal((got,), (advect_multi_3d_plain(bs, f, vel, DT),), f"K1 bf16 {bs}")
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+def test_k3_bf16_matches_twin(cuda, solve_dtype, masked):
+    vel, _ = bf16_fields(64, 1320, cuda, scale=1.0)
+    obst = vortex_mask(64, cuda) if masked else None
+    got = project_3d_resident(vel, 20, obst=obst, solve_dtype=solve_dtype, damp=DAMP)
+    ref = project_3d_resident_plain(vel, 20, obst=obst, solve_dtype=solve_dtype, damp=DAMP)
+    assert got[0].dtype == BF16 and got[1].dtype == BF16
+    assert_equal(got, ref, "K3 bf16")
+
+
+@pytest.mark.parametrize("case", ["K2", "K2o", "K2 n_sub=2"])
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+def test_k2_bf16_matches_twin(cuda, case, solve_dtype):
+    n = 64
+    vel, dens = bf16_fields(n, 1330, cuda, scale=0.1)
+    kw = {"K2": {}, "K2o": {"obst": vortex_mask(n, cuda), "n_sub": 3},
+          "K2 n_sub=2": {"n_sub": 2}}[case]
+    got = project_advect_density_3d(vel, dens, 20, DT, solve_dtype=solve_dtype, damp=DAMP,
+                                    dens_damp=DDAMP, **kw)
+    ref = project_advect_density_3d_plain(vel, dens, 20, DT, solve_dtype=solve_dtype,
+                                          damp=DAMP, dens_damp=DDAMP, **kw)
+    assert all(t.dtype == BF16 for t in got)
+    assert_equal(got, ref, case + " bf16")
+
+
+@pytest.mark.parametrize("n_sub", [1, 2, 3])
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+def test_k8_bf16_matches_twin_and_k1_then_k2(cuda, solve_dtype, n_sub):
+    n = 33
+    vel, dens = bf16_fields(n, 1340 + n_sub, cuda, scale=0.1)
+    kw = dict(n_sub=n_sub, solve_dtype=solve_dtype, damp=DAMP, dens_damp=DDAMP)
+    got = full_step_3d(vel, dens, 20, DT, **kw)
+    assert_equal(got, full_step_3d_plain(vel, dens, 20, DT, **kw), "K8 bf16 vs twin")
+    adv = advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, n_sub=n_sub)
+    assert_equal(got, project_advect_density_3d(adv, dens, 20, DT, **kw),
+                 "K8 bf16 vs K1 -> K2")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("window", [2, 3])
+def test_fused_windows_match_twin(cuda, window, n_sub, dtype):
+    """K2, K2o and K8 with a K = 2, 3 density phase (K8 in both phases), K2s
+    at K = 2, 3 in float32, each against its twin; K8 against K1 → K2."""
+    n = 33
+    vel, dens = fields(n, 1400 + window, cuda)
+    vel, dens = (vel * 0.3).to(dtype), dens.to(dtype)
+    kw = dict(window=window, n_sub=n_sub, damp=DAMP, dens_damp=DDAMP)
+    cases = {"K2": {}, "K2o": {"obst": vortex_mask(n, cuda)}}
+    if dtype == torch.float32:
+        cases["K2s"] = {"src": emitter(n, cuda)}
+    for case, extra in cases.items():
+        got = project_advect_density_3d(vel, dens, 20, DT, **kw, **extra)
+        ref = project_advect_density_3d_plain(vel, dens, 20, DT, **kw, **extra)
+        assert_equal(got, ref, f"{case} window={window}")
+    got = full_step_3d(vel, dens, 20, DT, **kw)
+    assert_equal(got, full_step_3d_plain(vel, dens, 20, DT, **kw), "K8 vs twin")
+    adv = advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, n_sub=n_sub, window=window)
+    assert_equal(got, project_advect_density_3d(adv, dens, 20, DT, **kw), "K8 vs K1 -> K2")
+
+
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("window", [2, 3])
+def test_k1_src_window_matches_twin(cuda, window, n_sub):
+    n = 33
+    vel, dens = fields(n, 1500 + window, cuda)
+    vel = vel * 0.3
+    src = emitter(n, cuda)
+    buoy = (dens, 0.2, 0.1, 0.05)
+    got = advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, buoy=buoy, src=src, window=window,
+                                 n_sub=n_sub)
+    ref = advect_multi_3d_plain((1, 2, 3), vel, vel, DT, buoy=buoy, src=src, window=window,
+                                n_sub=n_sub)
+    assert_equal((got,), (ref,), f"K1 src window={window}")
+
+
+def test_k8_grid_holds_for_every_variant(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for dtype in (torch.float32, BF16):
+        for window in (1, 2, 3):
+            for solve_dtype in (None, "bfloat16"):
+                blocks = full_step_blocks(solve_dtype, cuda, dtype, window)
+                assert blocks > 0 and blocks % sms == 0, (dtype, window, solve_dtype)
+
+
+def test_bf16_wrappers_raise_for_what_they_do_not_take(cuda):
+    vel, dens = bf16_fields(16, 1600, cuda)
+    with pytest.raises(TypeError):  # the folds take float32
+        advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, buoy=(dens, 0.2, 0.0, 0.0))
+    with pytest.raises(TypeError):  # one dtype for fields and velocity
+        advect_multi_3d_kernel((0,), dens[None], vel.float(), DT)
+    with pytest.raises(TypeError):
+        project_advect_density_3d(vel, dens, 4, DT, src=emitter(16, cuda))
+    with pytest.raises(TypeError):
+        project_advect_density_3d(vel, dens.float(), 4, DT)
+    with pytest.raises(TypeError):
+        full_step_3d(vel.float(), dens, 4, DT)
+    with pytest.raises(NotImplementedError):
+        full_step_3d(vel, dens, 4, DT, window=4)
+
+
+# -- the bfloat16 and windowed fused paths, FFT and noise, through Engine ------
+
+
+def _counters():
+    return {"K1": advect_multi_3d_kernel, "K2": project_advect_density_3d,
+            "K3": project_3d_resident, "K8": full_step_3d}
+
+
+@pytest.mark.parametrize("name,change,ran", [
+    ("bench128", dict(dtype="bfloat16"), {"K1": 5, "K2": 5}),
+    ("bench128", dict(dtype="bfloat16", fuse_project_advect=False), {"K1": 10, "K3": 5}),
+    ("bench128", dict(dtype="bfloat16", fuse_self_advect=True), {"K8": 5}),
+    ("vortex128", dict(dtype="bfloat16"), {"K1": 10, "K3": 5}),
+    ("vortex128", dict(dtype="bfloat16", fuse_project_advect=True), {"K1": 5, "K2": 5}),
+    ("plume64", dict(advection_scheme="substep", advect_substeps=1,
+                     fuse_project_advect=True), {"K1": 5, "K2": 5}),
+    ("plume64", dict(advection_scheme="substep", advect_substeps=1,
+                     fuse_project_advect=True, fuse_self_advect=True), {"K8": 5}),
+    ("bench128", dict(advect_window=2, fuse_emitter=True), {"K1": 5, "K2": 5}),
+])
+def test_new_paths_match_twin_paths(cuda, name, change, ran):
+    """Each new path at 48³ runs exactly its kernels and equals the twin
+    path bitwise after 5 steps."""
+    preset = {"bench128": CFG, "vortex128": preset_vortex_128(),
+              "plume64": preset_plume_64()}[name]
+    cfg = preset.replace(size=48, **change)
+    kern, twin = Engine(cfg, cuda), Engine(cfg, cuda, kernels=PLAIN_TWINS)
+    before = {k: fn.launches for k, fn in _counters().items()}
+    kern.step(5)
+    twin.step(5)
+    added = {k: fn.launches - before[k] for k, fn in _counters().items()}
+    assert added == {k: ran.get(k, 0) for k in added}
+    for field in ("density", "velocity", "pressure"):
+        got, ref = getattr(kern.state, field), getattr(twin.state, field)
+        assert got.dtype == (BF16 if cfg.dtype == "bfloat16" else torch.float32)
+        assert torch.equal(got, ref), field
+
+
+def test_plume64_fused_equals_the_preset(cuda):
+    """plume64 with the substep scheme at one substep and the fused kernels
+    (K2 with a K = 3 density phase) is the preset's step, bitwise."""
+    cfg = preset_plume_64().replace(size=48)
+    fused = Engine(cfg.replace(advection_scheme="substep", advect_substeps=1,
+                               fuse_project_advect=True), cuda)
+    plain = Engine(cfg, cuda)
+    fused.step(5)
+    plain.step(5)
+    for field in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(fused.state, field), getattr(plain.state, field)), field
+
+
+@pytest.mark.parametrize("change", [
+    dict(pressure_solver="fft"), dict(apply_turbulent_noise=True)], ids=["fft", "noise"])
+def test_fft_and_noise_on_the_card_match_the_cpu(cuda, change):
+    """3 plume64 steps at 32³ on the card against the CPU port: rtol 1e-5,
+    atol 1e-5·max|ref| (the FFT's reduction order and the card's
+    transcendentals differ by float32 ulps)."""
+    cfg = preset_plume_64().replace(size=32, **change)
+    card, cpu = Engine(cfg, cuda), Engine(cfg, "cpu")
+    card.step(3)
+    cpu.step(3)
+    for field in ("density", "velocity", "pressure"):
+        got, ref = getattr(card.state, field).cpu(), getattr(cpu.state, field)
+        scale = max(1.0, float(ref.abs().max()))
+        assert torch.allclose(got, ref, rtol=1e-5, atol=1e-5 * scale), (
+            field, float((got - ref).abs().max()))

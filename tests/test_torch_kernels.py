@@ -152,7 +152,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tt = tv.transpose(1, 3)
         advect_multi_3d_kernel((1, 2, 3), tt, tt, DT_ADV)
     with pytest.raises(NotImplementedError):
-        project_advect_density_3d(tv, td, 5, DT_ADV, window=2)
+        project_advect_density_3d(tv, td, 5, DT_ADV, window=4)
     with pytest.raises(ValueError, match="solve_dtype"):
         project_advect_density_3d(tv, td, 5, DT_ADV, solve_dtype="float16")
 

@@ -374,7 +374,7 @@ def test_semi_lagrangian_does_not_fuse():
 def test_presets_are_supported_at_full_size(preset):
     """Neither preset raises on either path at its published size."""
     cfg = getattr(t_config, preset)()
-    t_s3.check_supported(cfg, False, True)
-    t_s3.check_supported(cfg, t_s3._kernels_usable(cfg, torch.device("cuda")), True)
+    t_s3.check_supported(cfg, False)
+    t_s3.check_supported(cfg, t_s3._kernels_usable(cfg, torch.device("cuda")))
     eng = Engine(cfg, "cpu")
     assert eng.state.density.shape == (cfg.current_size,) * 3

@@ -198,17 +198,34 @@ def test_make_step_3d_is_a_loop_of_steps():
         assert torch.equal(getattr(looped, name), getattr(state, name)), name
 
 
-@pytest.mark.parametrize("change,missing", [
+@pytest.mark.parametrize("change,what", [
     (dict(ndim=2, size=64, source_position=(0.5, 0.5),
           obstacle_position=(0.5, 0.5), dtype="bfloat16"), "2D"),
     (dict(apply_turbulent_noise=True), "turbulent noise"),
     (dict(pressure_solver="fft"), "FFT"),
     (dict(dtype="bfloat16"), "dtype"),
 ])
-def test_unported_configs_raise(change, missing):
+def test_unported_configs_raise(change, what):
+    """The configs that raised before the port took them (2D bf16, 3D noise,
+    the FFT solver, bf16 fields) now step like the JAX package: 2 steps on
+    the plain path from the same start, float32 within rtol 1e-5, atol
+    1e-5·max|ref|, bf16 at storage precision (rtol and atol 3e-2·max|ref|,
+    tests/test_bf16.py)."""
+    jcfg = j_bench128().replace(**{"size": N, **change})
     cfg = t_bench128().replace(**{"size": N, **change})
-    with pytest.raises(NotImplementedError, match=missing):
-        Engine(cfg, "cpu")
+    jeng, eng = JEngine(jcfg), Engine(cfg, "cpu")
+    jeng.step(2)
+    eng.step(2)
+    tol = 3e-2 if cfg.dtype == "bfloat16" else 1e-5
+    for field in ("density", "velocity", "pressure"):
+        got = getattr(eng.state, field)
+        assert got.dtype == {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+        got = got.float().numpy()
+        ref = np.asarray(getattr(jeng.state, field), np.float32)
+        scale = max(float(np.abs(ref).max()), 1e-6)
+        assert float(np.abs(ref).max()) > 0.0 or field != "density", what
+        np.testing.assert_allclose(got, ref, rtol=tol, atol=tol * scale,
+                                   err_msg=f"{what} {field}")
 
 
 @pytest.mark.parametrize("change,calls", [
@@ -252,15 +269,20 @@ def test_formerly_unported_configs_step_like_jax(monkeypatch, change, calls):
 
 @pytest.mark.parametrize("change,missing", [
     (dict(jacobi_sweep_block=2), "K5"),
-    (dict(advect_window=2), "advect_window"),
-    (dict(advect_window=2, fuse_self_advect=True), "K8"),
+    (dict(advect_window=2, jacobi_sweep_block=4), "K5"),
+    (dict(advect_window=2, fuse_self_advect=True, jacobi_sweep_block=2), "K5"),
     (dict(advect_window=4, fuse_project_advect=False), "advect_window=4"),
 ], ids=["K5", "K2 advect_window=2", "K8 advect_window=2", "K1 advect_window=4"])
 def test_unported_kernel_variants_raise(monkeypatch, change, missing):
+    """What the kernel path still raises on: the sweep-blocked solve (K5),
+    with the fused kernels at any window too, and a window K1 does not
+    take.  The fused kernels at K = 2 alone step (tests/test_torch_options.py)."""
     monkeypatch.setattr(t_s3, "_kernels_usable", lambda cfg, device: True)
     cfg = t_bench128().replace(size=N, **change)
     with pytest.raises(NotImplementedError, match=missing):
         Engine(cfg, "cpu")
+    if missing == "K5":
+        Engine(cfg.replace(jacobi_sweep_block=1), "cpu").step(1)
 
 
 @pytest.mark.parametrize("change,kernel", [

@@ -123,8 +123,8 @@ def test_k1_window_twin_matches_jax(window, n_fields, n_sub, masked):
 @pytest.mark.parametrize("window", [2, 3])
 def test_k1_window_folds_buoyancy_like_jax(window):
     """The self-advection with the buoyancy folded into the windowed kernel,
-    against the interpret-mode Pallas kernel.  The emitter folds only into
-    K = 1 (the fold needs the fused kernels, which take K = 1)."""
+    against the interpret-mode Pallas kernel, without and with the emitter
+    folded into the buoyancy's density."""
     _, _, vel = fields_for(3, 70 + window)
     dens = np.abs(rand(80 + window, (N, N, N), 4.0))
     buoy = (0.3, 0.1, 0.05)
@@ -137,9 +137,12 @@ def test_k1_window_folds_buoyancy_like_jax(window):
         interpret=True))
     np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-6 * float(np.abs(ref).max()))
     src = emitter_fold_operand(preset_bench_128().replace(size=N), torch.full((), DT))
-    with pytest.raises(NotImplementedError, match="emitter fold"):
-        advect_multi_3d_kernel((1, 2, 3), tv, tv, DT, window=window,
-                               buoy=(t(dens), *buoy), src=src)
+    got = advect_multi_3d_kernel((1, 2, 3), tv, tv, DT, window=window, n_sub=2,
+                                 buoy=(t(dens), *buoy), src=src).numpy()
+    ref = np.asarray(advect_multi_3d_pallas(
+        (1, 2, 3), jv, jv, DT, None, window=window, n_sub=2, buoy=(j(dens), *buoy),
+        src=jnp.asarray(src.numpy()), interpret=True))
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-6 * float(np.abs(ref).max()))
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
