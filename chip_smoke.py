@@ -6,8 +6,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which ends the run with a non-zero exit code on failure:
   1. require a CUDA device (no CPU fallback) and print the card's name and
      power limit;
-  2. build the hand kernels (K1, K2, K3, K4, K6, K7, K8, K9, float32 and
-     bfloat16) from ``fluidsim_tpu_torch/csrc``;
+  2. build the hand kernels (K1, K2, K3, K4, K5, K6, K7, K8, K9, K14,
+     float32 and bfloat16) from ``fluidsim_tpu_torch/csrc``;
   3. hold each kernel against its plain PyTorch twin on the card on inputs
      made with NumPy from a seed, bitwise: at 128³ K1 with buoyancy and K2 on
      bench128-scale fields, K1 with three substeps and the vortex128 mask
@@ -106,7 +106,20 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      cluster), and break a step of each path down by
      device time with ``torch.profiler`` (for scene_a and scene_b with the
      host-idle share); time each kernel of phase 9d beside its twin and the
-     kernel it extends (the float32 kernel on the same values, or K = 1).
+     kernel it extends (the float32 kernel on the same values, or K = 1);
+ 11. K5, the sweep-blocked solve, and K14: hold K3 with ``sweep_block`` 2
+     and 4 (bench128's bf16 solve without a mask; vortex128's with its
+     mask), K2 with 2 and 4 (bench128's bf16 solve), K8 and K4 with 4 and
+     K14 at K = 1 against their twins at 128³, bitwise (and K14 against the
+     launched K1 → K3); step bench128 with ``jacobi_sweep_block`` 2 and 4
+     (K1 + K2; unfused K1 ×2 + K3), with ``fuse_self_advect`` and 4 (K8)
+     and vortex128 with 2 and 4 (K1 ×2 + K3 with the mask's coefficient
+     volume) through ``Engine`` for 10 steps each: exactly those launches,
+     bitwise the twin path, and one step from a seeded state within the
+     bf16-solve class (3e-2·max) of the ``sweep_block = 1`` step; time each
+     kernel beside the same kernel at T = 1 (ms and µs a sweep) and its
+     twin, K14 beside K1 + K3, and bench128's steps/s and device ms a step
+     at T = 1, 2, 4 in turns.
 The line before last is a JSON object describing each kernel (with the
 least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -341,6 +354,7 @@ def main() -> None:
         advect_multi_3d_plain,
     )
     from fluidsim_tpu_torch.kernels.jacobi import (
+        composite_block,
         jacobi_3d_kernel,
         jacobi_3d_plain,
         jacobi_3d_resident,
@@ -354,6 +368,8 @@ def main() -> None:
     )
     import fluidsim_tpu_torch.engine as engine_module
     from fluidsim_tpu_torch.kernels.resident import (
+        advect_project_3d_resident,
+        advect_project_3d_resident_plain,
         full_step_3d,
         full_step_3d_plain,
         full_step_blocks,
@@ -2085,6 +2101,243 @@ def main() -> None:
          bound(9 * vol * f32 + 5 * f32, interior * (k2_core + win_ops(1) + 1)
                + ball * EMIT_OPS)),
     ]
+    # -- 11. K5 (the sweep-blocked solve) in K2, K3, K4 and K8, and K14 ---------
+    say("# phase 11: K5 (jacobi_sweep_block) in K2, K3, K4 and K8, and K14")
+    counters["K14"] = advect_project_3d_resident
+    k5_err = {}
+    iters = cfg.jacobi_iters
+    sdt_bytes = 2 if cfg.solve_dtype == "bfloat16" else 4
+    vsdt_bytes = 2 if vcfg.solve_dtype == "bfloat16" else 4
+    wvel = velocity_field(n, rng, dev, 4.0)
+    wdens = density_field(n, rng, dev)
+    wvvel = velocity_field(n, rng, dev, 12.0)
+    wdiv = divergence_3d_plain(wvel)
+    wzero = torch.zeros_like(wdiv)
+    # key: (kernel at block T, its twin at T, T, sweeps, solve bytes, mask).
+    k5_cases = {
+        f"K5 K3 T{t}": (lambda t: project_3d_resident(wvel, iters, solve_dtype=cfg.solve_dtype,
+                                                      damp=damp, sweep_block=t),
+                        lambda t: project_3d_resident_plain(
+                            wvel, iters, solve_dtype=cfg.solve_dtype, damp=damp,
+                            sweep_block=t), t, iters, sdt_bytes, False)
+        for t in (2, 4)}
+    k5_cases.update({
+        f"K5 K3o T{t}": (lambda t: project_3d_resident(wvvel, vcfg.jacobi_iters, obst=obst,
+                                                       solve_dtype=vcfg.solve_dtype,
+                                                       sweep_block=t),
+                         lambda t: project_3d_resident_plain(
+                             wvvel, vcfg.jacobi_iters, obst=obst,
+                             solve_dtype=vcfg.solve_dtype, sweep_block=t),
+                         t, vcfg.jacobi_iters, vsdt_bytes, True)
+        for t in (2, 4)})
+    k5_cases.update({
+        f"K5 K2 T{t}": (lambda t: project_advect_density_3d(
+                            wvel, wdens, iters, dt, solve_dtype=cfg.solve_dtype, damp=damp,
+                            dens_damp=ddamp, sweep_block=t),
+                        lambda t: project_advect_density_3d_plain(
+                            wvel, wdens, iters, dt, solve_dtype=cfg.solve_dtype, damp=damp,
+                            dens_damp=ddamp, sweep_block=t), t, iters, sdt_bytes, False)
+        for t in (2, 4)})
+    k5_cases["K5 K8 T4"] = (
+        lambda t: full_step_3d(wvel, wdens, iters, dt, solve_dtype=cfg.solve_dtype, damp=damp,
+                               dens_damp=ddamp, sweep_block=t),
+        lambda t: full_step_3d_plain(wvel, wdens, iters, dt, solve_dtype=cfg.solve_dtype,
+                                     damp=damp, dens_damp=ddamp, sweep_block=t),
+        4, iters, sdt_bytes, False)
+    k5_cases["K5 K4 T4"] = (
+        lambda t: jacobi_3d_resident(0, wzero, wdiv, 1.0, 6.0, iters, sweep_block=t),
+        lambda t: jacobi_3d_resident_plain(0, wzero, wdiv, 1.0, 6.0, iters, sweep_block=t),
+        4, iters, 4, False)
+
+    def as_tuple(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    for key, (fn, plain, t, sweeps, _, _) in k5_cases.items():
+        if composite_block(n, sweeps, t) != t:
+            fail(f"{key}: the gate refuses T={t} at {n}^3 and {sweeps} sweeps")
+        got, ref, seq = as_tuple(fn(t)), as_tuple(plain(t)), as_tuple(fn(1))
+        torch.cuda.synchronize()
+        k5_err[key] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        same = all(torch.equal(g, r) for g, r in zip(got, ref))
+        say(f"# {key} vs its twin at {n}^3: max abs diff {k5_err[key]!r}")
+        if not same:
+            fail(f"{key} disagrees with its twin")
+        if all(torch.equal(g, r) for g, r in zip(got, seq)):
+            fail(f"{key} equals the sequential solve bitwise: the composite did not run")
+        del got, ref, seq
+    k14_got = advect_project_3d_resident(wvel, iters, dt)
+    k14_twin = advect_project_3d_resident_plain(wvel, iters, dt)
+    k14_comp = project_3d_resident(advect_multi_3d_kernel((1, 2, 3), wvel, wvel, dt), iters)
+    torch.cuda.synchronize()
+    k5_err["K14"] = max(float((g - r).abs().max()) for g, r in zip(k14_got, k14_twin))
+    say(f"# K14 vs its twin at {n}^3: max abs diff {k5_err['K14']!r}")
+    if not all(torch.equal(g, r) for g, r in zip(k14_got, k14_twin)):
+        fail("K14 disagrees with its twin")
+    if not all(torch.equal(g, r) for g, r in zip(k14_got, k14_comp)):
+        fail("K14 disagrees with the launched K1 -> K3")
+    del k14_got, k14_twin, k14_comp
+
+    # Through Engine: each path runs exactly its kernels, equals its twin path
+    # bitwise after 10 steps, and one step from a seeded state stays within
+    # the bf16-solve class (3e-2 x max, the JAX package's bound for its bf16
+    # composite, tests/test_pallas_interpret.py) of the sweep_block = 1 step.
+    k5_paths = [
+        ("bench128 T=2", cfg.replace(jacobi_sweep_block=2), {"K1": 10, "K2": 10}),
+        ("bench128 T=4", cfg.replace(jacobi_sweep_block=4), {"K1": 10, "K2": 10}),
+        ("bench128 unfused T=2", cfg.replace(jacobi_sweep_block=2, fuse_project_advect=False),
+         {"K1": 20, "K3": 10}),
+        ("bench128 unfused T=4", cfg.replace(jacobi_sweep_block=4, fuse_project_advect=False),
+         {"K1": 20, "K3": 10}),
+        ("bench128 K8 T=4", cfg.replace(jacobi_sweep_block=4, fuse_self_advect=True),
+         {"K8": 10}),
+        ("vortex128 T=2", vcfg.replace(jacobi_sweep_block=2), {"K1": 20, "K3": 10}),
+        ("vortex128 T=4", vcfg.replace(jacobi_sweep_block=4), {"K1": 20, "K3": 10}),
+    ]
+    k5_launches = {}
+    for what, pcfg_k5, ran in k5_paths:
+        keng = Engine(pcfg_k5, device="cuda")
+        counters_to_zero()
+        keng.step(10)
+        torch.cuda.synchronize()
+        got_launches = counts()
+        k5_launches[what] = got_launches
+        say(f"# {what}: 10 steps, launches {got_launches}")
+        if got_launches != {k: ran.get(k, 0) for k in got_launches}:
+            fail(f"{what} did not run exactly {ran}: {got_launches}")
+        check_state(keng.state, 10, n, what)
+        ktwin = Engine(pcfg_k5, device="cuda", kernels=PLAIN_TWINS)
+        ktwin.step(10)
+        for name in ("density", "velocity", "pressure"):
+            if not torch.equal(getattr(keng.state, name), getattr(ktwin.state, name)):
+                fail(f"{what}: the kernel path differs from its twin path after 10 steps "
+                     f"in {name}")
+        del ktwin
+        seq = Engine(pcfg_k5.replace(jacobi_sweep_block=1), device="cuda")
+        seeded = keng.state.replace(density=density_field(n, rng, dev),
+                                    velocity=velocity_field(n, rng, dev, 4.0),
+                                    step=torch.zeros_like(keng.state.step),
+                                    time=torch.zeros_like(keng.state.time))
+        keng.state, seq.state = seeded, seeded
+        keng.step(1)
+        seq.step(1)
+        for name in ("density", "velocity", "pressure"):
+            r = getattr(seq.state, name)
+            err = float((getattr(keng.state, name) - r).abs().max())
+            scale = float(r.abs().max())
+            say(f"# {what}: one step vs sweep_block=1, {name}: max abs diff {err!r} "
+                f"(bound 3e-2 x {scale!r})")
+            if err > 3e-2 * scale:
+                fail(f"{what}: one step leaves the bf16-solve class of sweep_block=1 "
+                     f"in {name}")
+        del keng, seq
+    # K4 and K14 lie on no Engine path (the JAX step passes K4 no sweep block
+    # and dispatches K14 nowhere): their launches are one direct call each.
+    counters_to_zero()
+    jacobi_3d_resident(0, wzero, wdiv, 1.0, 6.0, iters, sweep_block=4)
+    advect_project_3d_resident(wvel, iters, dt)
+    torch.cuda.synchronize()
+    direct_launches = counts()
+    say(f"# K4 with sweep_block=4 and K14, one direct call each: launches {direct_launches}")
+    if direct_launches["K4"] != 1 or direct_launches["K14"] != 1:
+        fail("K4 (sweep_block=4) or K14 did not launch")
+
+    # Times: each kernel beside the same kernel at T = 1 on the same inputs
+    # and its twin, K14 beside K1 + K3, and bench128's steps/s and device ms a
+    # step at T = 1, 2, 4 in turns.
+    for key, (fn, plain, t, sweeps, _, _) in k5_cases.items():
+        ms, ms1 = cuda_ms(lambda: fn(t), reps=20), cuda_ms(lambda: fn(1), reps=20)
+        times[key] = (ms, cuda_ms(lambda: plain(t), reps=1, warmup=1))
+        say(f"{key}: kernel {ms!r} ms ({1e3 * ms / sweeps!r} us a sweep), the same kernel "
+            f"at T=1 {ms1!r} ms ({1e3 * ms1 / sweeps!r} us a sweep), twin "
+            f"{times[key][1]!r} ms [{card}]")
+    k14_ms = cuda_ms(lambda: advect_project_3d_resident(wvel, iters, dt), reps=20)
+    k1k3_ms = cuda_ms(lambda: project_3d_resident(
+        advect_multi_3d_kernel((1, 2, 3), wvel, wvel, dt), iters), reps=20)
+    times["K14"] = (k14_ms, cuda_ms(lambda: advect_project_3d_resident_plain(wvel, iters, dt),
+                                    reps=2, warmup=1))
+    say(f"K14: kernel {k14_ms!r} ms, K1 + K3 {k1k3_ms!r} ms, twin {times['K14'][1]!r} ms "
+        f"({iters} float32 sweeps) [{card}]")
+    ab = {t: Engine(cfg.replace(jacobi_sweep_block=t), device="cuda") for t in (1, 2, 4)}
+    for t, e in ab.items():
+        e.step(10)
+    rounds = {t: [] for t in ab}
+    for _ in range(3):
+        for t, e in ab.items():
+            rounds[t].append(cuda_ms(lambda: e.step(1), reps=50, warmup=5))
+    for t, e in ab.items():
+        dev_ms = sum(profile_ms(lambda: e.step(1), reps=10).values())
+        best = min(rounds[t])
+        say(f"bench128 jacobi_sweep_block={t}: steps/s {1e3 / best!r} (ms/step in 3 turns "
+            f"{rounds[t]!r}), device {dev_ms!r} ms/step [{card}]")
+    del ab, wvvel, wdiv, wzero
+
+    def k5_solve(sweeps, t, masked, sbytes):
+        """(bytes of a model, float32 operations) of K5's solve at T = t.
+        The operations, counted from the code of csrc/sweep_block.cuh (the
+        shell planes and corrections on the (n - 2)^2 cells of their
+        planes), enter the bound.  The bytes do not: the bound reads the
+        kernel's inputs and writes its outputs once, as every row's does.
+        They are the pass model, printed apart: per block one iterate read,
+        one X read and one write, per sweep left over one iterate read, one
+        rhs read and one write, each from DRAM."""
+        blocks, left = divmod(sweeps, t)
+        plane = (n - 2) ** 2
+        nbytes = blocks * vol * (2 * sbytes + f32) + left * vol * 3 * sbytes
+        if t == 2:
+            pre = vol * (15 if masked else 8)
+            per = vol * 5 + interior * (14 if masked else 7) + 6 * plane * 9
+        else:
+            pre = sum(vol * (5 + 3 + (6 if k == 1 else 0)) for k in range(1, t))
+            shell = sum(2 * t - 1 - k for k in range(1, t + 1)) * 6 * plane * 8
+            per = vol * 5 + (t - 2) * vol * 11 + interior * 14 + shell
+        return nbytes, pre + blocks * per + left * interior * SWEEP_OPS
+
+    def k5_row(key, label, replaces, launches, base_bytes, base_ops):
+        t, sweeps, sbytes, masked = k5_cases[key][2:]
+        model_bytes, nops = k5_solve(sweeps, t, masked, sbytes)
+        model_ms = bound(base_bytes + model_bytes, 0)[0]
+        say(f"{key}: pass model (every block's iterate and X through DRAM) "
+            f"{model_ms!r} ms, {times[key][0]!r} ms measured [{card}]")
+        return (key, label, "fluidsim_tpu_torch/csrc/sweep_block.cuh", replaces, launches,
+                k5_err[key], bound(base_bytes, base_ops + nops))
+
+    solve_at = "fluidsim_tpu/pallas/resident.py:341"
+    k3_rest = interior * (DIV_OPS + GRAD_OPS)
+    entries += [
+        k5_row(f"K5 K3 T{t}", f"K5 in K3 project_3d_resident (sweep_block={t}, "
+               f"{cfg.solve_dtype} solve, {iters} sweeps, no mask; bench128 unfused "
+               f"jacobi_sweep_block={t})", solve_at,
+               k5_launches[f"bench128 unfused T={t}"]["K3"], 7 * vol * f32, k3_rest)
+        for t in (2, 4)]
+    entries += [
+        k5_row(f"K5 K3o T{t}", f"K5 in K3 project_3d_resident (sweep_block={t}, "
+               f"{vcfg.solve_dtype} solve, {vcfg.jacobi_iters} sweeps, obstacle mask; "
+               f"vortex128 jacobi_sweep_block={t})", solve_at,
+               k5_launches[f"vortex128 T={t}"]["K3"], 7 * vol * f32 + vol,
+               k3_rest + n_solid * 3 * MIRROR_OPS)
+        for t in (2, 4)]
+    entries += [
+        k5_row(f"K5 K2 T{t}", f"K5 in K2 project_advect_density_3d (sweep_block={t}, "
+               f"{cfg.solve_dtype} solve, {iters} sweeps; bench128 jacobi_sweep_block={t})",
+               solve_at, k5_launches[f"bench128 T={t}"]["K2"], 9 * vol * f32,
+               k3_rest + interior * (FRAC_OPS + RELU_OPS + COMB_OPS + 1))
+        for t in (2, 4)]
+    entries += [
+        k5_row("K5 K8 T4", f"K5 in K8 full_step_3d (sweep_block=4, {cfg.solve_dtype} solve, "
+               f"{iters} sweeps; bench128 fuse_self_advect + jacobi_sweep_block=4)",
+               solve_at, k5_launches["bench128 K8 T=4"]["K8"], 9 * vol * f32,
+               k3_rest + interior * (k1_ops + FRAC_OPS + RELU_OPS + COMB_OPS + 1)),
+        k5_row("K5 K4 T4", f"K5 in K4 jacobi_3d_resident (sweep_block=4, float32, {iters} "
+               "sweeps, b=0; one direct call: no Engine path passes K4 a sweep block)",
+               solve_at, direct_launches["K4"], 3 * vol * f32, 0),
+        ("K14", f"K14 advect_project_3d_resident (K=1, n_sub=1, {iters} float32 sweeps; one "
+                "direct call: no Engine path, as in the JAX package)",
+         "fluidsim_tpu_torch/csrc/full_step.cu", "fluidsim_tpu/pallas/resident.py:915",
+         direct_launches["K14"], k5_err["K14"],
+         bound(7 * vol * f32, interior * (FRAC_OPS + RELU_OPS + 3 * COMB_OPS + DIV_OPS
+                                          + iters * SWEEP_OPS + GRAD_OPS))),
+    ]
+
     report = []
     for key, name, source, replaces, launches, err, (bound_ms, bound_by) in entries:
         ms, plain_ms = times[key]

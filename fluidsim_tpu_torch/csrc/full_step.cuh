@@ -1,6 +1,7 @@
 // K8's kernel template (see full_step.cu): the whole step of an
 // obstacle-free config in one cooperative launch, for a solve type T, a
-// storage type S and a window of K cells.
+// storage type S and a window of K cells; without the density phase (DENS
+// false) it is K14, the self-advection and the projection in one launch.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -30,10 +31,14 @@ struct FullStepArgs {
 // (full_step_bf16.cu), for a bfloat16 solve when solve_bf16 and a window of 1,
 // 2 or 3: *blocks gets the cooperative grid (every block the card holds at
 // once), and with launch the kernel is launched on `s` as well.
-cudaError_t full_step_f32(const FullStepArgs& a, int solve_bf16, int window, bool launch,
-                          int* blocks, cudaStream_t s);
-cudaError_t full_step_bf16(const FullStepArgs& a, int solve_bf16, int window, bool launch,
-                           int* blocks, cudaStream_t s);
+// blk is K5's block and scratch (blk.block 1: sequential sweeps).
+cudaError_t full_step_f32(const FullStepArgs& a, const SolveBlock& blk, int solve_bf16,
+                          int window, bool launch, int* blocks, cudaStream_t s);
+cudaError_t full_step_bf16(const FullStepArgs& a, const SolveBlock& blk, int solve_bf16,
+                           int window, bool launch, int* blocks, cudaStream_t s);
+// K14 (float32 fields and solve, no density phase) for a window of 1, 2 or 3.
+cudaError_t advect_project_f32(const FullStepArgs& a, int window, bool launch, int* blocks,
+                               cudaStream_t s);
 
 namespace {
 
@@ -42,9 +47,26 @@ namespace cg = cooperative_groups;
 // Blocks per SM the kernel asks the compiler to fit (registers <= 64).
 constexpr int kFullStepMinBlocks = 4;
 
-template <typename T, typename S, int K>
+// The buffer that substep `sub` of `n_sub` writes (sub = -1: the input
+// `in`, which substep 0 reads).  The last writes `out`; float32 (WIDE): the
+// earlier ones alternate back from it through `other`; bfloat16: they write
+// float32 into tmp0 and tmp1 in turn.  Each substep's source and target are
+// functions of its index.  With the source carried from one substep to the
+// next in a Substep (s.src = s.dst after the barrier), the build with
+// SolveBlock inside FullStepArgs ran every substep from `in`, whatever the
+// grid size or register cap (H100, tools/torch_k8_args_probe.py).
+template <bool WIDE>
+__device__ __forceinline__ void* substep_buf(int sub, int n_sub, const void* in, void* out,
+                                             void* other, float* tmp0, float* tmp1) {
+  if (sub < 0) return const_cast<void*>(in);
+  if (WIDE) return (n_sub - 1 - sub) % 2 == 0 ? out : other;
+  if (sub == n_sub - 1) return out;
+  return sub % 2 == 0 ? tmp0 : tmp1;
+}
+
+template <typename T, typename S, int K, bool DENS>
 __global__ void __launch_bounds__(kThreads, kFullStepMinBlocks)
-    full_step_kernel(const FullStepArgs a) {
+    full_step_kernel(const FullStepArgs a, const SolveBlock blk) {
   constexpr bool wide = std::is_same<S, float>::value;
   cg::grid_group grid = cg::this_grid();
   const int n = a.n;
@@ -55,20 +77,16 @@ __global__ void __launch_bounds__(kThreads, kFullStepMinBlocks)
   // 1. Self-advection: the last substep writes adv.  float32: the earlier
   //    ones alternate back from it through vel_out; bfloat16: they write
   //    float32 into tmp0 and tmp1 in turn.
-  Substep s{a.vel, a.vel, nullptr, nullptr, nullptr, nullptr, n, 1, 2, 3, a.dt0_sub, 1.0f,
-            Buoyancy{}};
   for (int sub = 0; sub < a.n_sub; ++sub) {
     const bool last = sub == a.n_sub - 1;
-    if (wide) {
-      s.dst = (a.n_sub - 1 - sub) % 2 == 0 ? a.adv : a.vel_out;
-    } else {
-      s.dst = last ? a.adv : static_cast<void*>(sub % 2 == 0 ? a.tmp0 : a.tmp1);
-    }
+    const Substep s{substep_buf<wide>(sub - 1, a.n_sub, a.vel, a.adv, a.vel_out, a.tmp0, a.tmp1),
+                    a.vel, nullptr, nullptr, nullptr,
+                    substep_buf<wide>(sub, a.n_sub, a.vel, a.adv, a.vel_out, a.tmp0, a.tmp1),
+                    n, 1, 2, 3, a.dt0_sub, 1.0f, Buoyancy{}};
     for (int i = first; i < vol; i += stride) {
       advect_store_role<3, K, false, S>(s, cell_at(n, i), sub == 0, last);
     }
     grid.sync();
-    s.src = s.dst;
   }
 
   // 2. Divergence and the zero start.
@@ -79,11 +97,37 @@ __global__ void __launch_bounds__(kThreads, kFullStepMinBlocks)
   }
   grid.sync();
 
-  // 3. The sweeps.
+  // 3. The sweeps: K5's blocks of T first where blk asks for them
+  //    (sweep_block.cuh, each stage a grid-stride loop), then the sweeps
+  //    left over one by one.
   const float inv6 = 1.0f / 6.0f;
   T* src = static_cast<T*>(a.pa);
   T* dst = static_cast<T*>(a.pb);
-  for (int it = 0; it < a.iters; ++it) {
+  int sweeps = a.iters;
+  const int tb = blk.block;
+  if (tb >= 2) {
+    BlockPass<T> bp{nullptr, nullptr, rhs, nullptr, blk, n};
+    for (int stage = 0; stage < pre_stages(tb); ++stage) {
+      for (int i = first; i < vol; i += stride) pre_stage_item<T, false>(bp, stage, i);
+      grid.sync();
+    }
+    for (int b = 0; b < a.iters / tb; ++b) {
+      bp.src = src;
+      bp.dst = dst;
+      for (int stage = 0; stage < block_stages(tb); ++stage) {
+        const long long items = block_stage_items(n, tb, stage);
+        for (long long it = first; it < items; it += stride) {
+          block_stage_item<T, false>(bp, stage, it);
+        }
+        grid.sync();
+      }
+      T* t = src;
+      src = dst;
+      dst = t;
+    }
+    sweeps = a.iters % tb;
+  }
+  for (int it = 0; it < sweeps; ++it) {
     for (int i = first; i < vol; i += stride) {
       sweep_cell<T, false>(src, rhs, nullptr, dst, n, inv6, cell_at(n, i));
     }
@@ -98,39 +142,36 @@ __global__ void __launch_bounds__(kThreads, kFullStepMinBlocks)
     gradient_cell<T, S, false>(adv, src, nullptr, static_cast<S*>(a.vel_out),
                                static_cast<S*>(a.p_out), n, a.damp, cell_at(n, i));
   }
+  if (!DENS) return;
   grid.sync();
 
   // 5. Density: the last substep writes dens_out.  float32: the earlier ones
   //    alternate back from it through adv's first volume; bfloat16: they
   //    write float32 into tmp0 and tmp1 in turn.
-  Substep d{a.dens, a.vel_out, nullptr, nullptr, nullptr, nullptr, n, 0, 0, 0, a.dt0_sub, 1.0f,
-            Buoyancy{}};
   for (int sub = 0; sub < a.n_sub; ++sub) {
     const bool last = sub == a.n_sub - 1;
-    if (wide) {
-      d.dst = (a.n_sub - 1 - sub) % 2 == 0 ? a.dens_out : a.adv;
-    } else {
-      d.dst = last ? a.dens_out : static_cast<void*>(sub % 2 == 0 ? a.tmp0 : a.tmp1);
-    }
-    d.scale = last ? a.dens_damp : 1.0f;
+    const Substep d{
+        substep_buf<wide>(sub - 1, a.n_sub, a.dens, a.dens_out, a.adv, a.tmp0, a.tmp1),
+        a.vel_out, nullptr, nullptr, nullptr,
+        substep_buf<wide>(sub, a.n_sub, a.dens, a.dens_out, a.adv, a.tmp0, a.tmp1),
+        n, 0, 0, 0, a.dt0_sub, last ? a.dens_damp : 1.0f, Buoyancy{}};
     for (int i = first; i < vol; i += stride) {
       advect_store_role<1, K, false, S>(d, cell_at(n, i), sub == 0, last);
     }
-    if (sub + 1 < a.n_sub) grid.sync();
-    d.src = d.dst;
+    if (!last) grid.sync();
   }
 }
 
-template <typename T, typename S, int K>
-cudaError_t full_step_run(const FullStepArgs& a, bool launch, int* blocks,
-                               cudaStream_t s) {
+template <typename T, typename S, int K, bool DENS = true>
+cudaError_t full_step_run(const FullStepArgs& a, const SolveBlock& blk, bool launch,
+                          int* blocks, cudaStream_t s) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, full_step_kernel<T, S, K>,
-                                                        kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, full_step_kernel<T, S, K, DENS>, kThreads, 0);
   }
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
@@ -138,26 +179,29 @@ cudaError_t full_step_run(const FullStepArgs& a, bool launch, int* blocks,
   *blocks = per_sm * sms;
   if (!launch) return cudaSuccess;
   FullStepArgs args = a;
-  void* params[] = {&args};
-  err = cudaLaunchCooperativeKernel((const void*)full_step_kernel<T, S, K>, dim3(*blocks),
+  SolveBlock block = blk;
+  void* params[] = {&args, &block};
+  err = cudaLaunchCooperativeKernel((const void*)full_step_kernel<T, S, K, DENS>, dim3(*blocks),
                                     dim3(kThreads), params, 0, s);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// full_step_run for the storage type S, dispatched over the solve type and
-// the window.
-template <typename S>
-cudaError_t full_step_dispatch(const FullStepArgs& a, int solve_bf16, int window, bool launch,
-                               int* blocks, cudaStream_t s) {
-  using B = __nv_bfloat16;
+// full_step_run for the storage type S and the density phase DENS (false:
+// K14), dispatched over the solve type and the window.  K14 is float32
+// throughout, so only its float32 solve is instantiated.
+template <typename S, bool DENS = true>
+cudaError_t full_step_dispatch(const FullStepArgs& a, const SolveBlock& blk, int solve_bf16,
+                               int window, bool launch, int* blocks, cudaStream_t s) {
+  using B = typename std::conditional<DENS, __nv_bfloat16, float>::type;
+  if (!DENS && solve_bf16) return cudaErrorInvalidValue;
   switch (window * 2 + (solve_bf16 ? 1 : 0)) {
-    case 2: return full_step_run<float, S, 1>(a, launch, blocks, s);
-    case 3: return full_step_run<B, S, 1>(a, launch, blocks, s);
-    case 4: return full_step_run<float, S, 2>(a, launch, blocks, s);
-    case 5: return full_step_run<B, S, 2>(a, launch, blocks, s);
-    case 6: return full_step_run<float, S, 3>(a, launch, blocks, s);
-    case 7: return full_step_run<B, S, 3>(a, launch, blocks, s);
+    case 2: return full_step_run<float, S, 1, DENS>(a, blk, launch, blocks, s);
+    case 3: return full_step_run<B, S, 1, DENS>(a, blk, launch, blocks, s);
+    case 4: return full_step_run<float, S, 2, DENS>(a, blk, launch, blocks, s);
+    case 5: return full_step_run<B, S, 2, DENS>(a, blk, launch, blocks, s);
+    case 6: return full_step_run<float, S, 3, DENS>(a, blk, launch, blocks, s);
+    case 7: return full_step_run<B, S, 3, DENS>(a, blk, launch, blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -8,9 +8,9 @@
 
 namespace fsk {
 
-cudaError_t full_step_bf16(const FullStepArgs& a, int solve_bf16, int window, bool launch,
-                           int* blocks, cudaStream_t s) {
-  return full_step_dispatch<__nv_bfloat16>(a, solve_bf16, window, launch, blocks, s);
+cudaError_t full_step_bf16(const FullStepArgs& a, const SolveBlock& blk, int solve_bf16,
+                           int window, bool launch, int* blocks, cudaStream_t s) {
+  return full_step_dispatch<__nv_bfloat16>(a, blk, solve_bf16, window, launch, blocks, s);
 }
 
 }  // namespace fsk

@@ -9,8 +9,9 @@
 // kernel's `coef` and `frozen` volumes do.
 //
 // Replaces: fluidsim_tpu/pallas/resident.py::_jacobi_kernel (no mask) and
-// ::_jacobi_obst_kernel (mask), entry jacobi_3d_resident, solve _solve_loop
-// with sweep_block = 1.  Without a mask the TPU sweep substitutes the x face
+// ::_jacobi_obst_kernel (mask), entry jacobi_3d_resident, solve _solve_loop;
+// without a mask and with blk (b = 0), the sweeps run in K5's blocks
+// (sweep_block.cuh) and the iters % T left over one by one.  Without a mask the TPU sweep substitutes the x face
 // rule into its x operands (_nbr_sum_selx: an interior cell next to an x wall
 // reads sx * itself) and writes the x faces once at the end; with a mask it
 // reads the maintained faces.  The two agree from the second sweep on; the
@@ -36,6 +37,7 @@
 #include <cuda_runtime.h>
 
 #include "boundary.cuh"
+#include "sweep_block.cuh"
 
 namespace fsk {
 namespace {
@@ -79,23 +81,41 @@ __global__ void __launch_bounds__(kThreads)
 // x, x0 (n, n, n) in; mask (n, n, n) one byte per cell (nonzero = solid) or
 // null (with a mask b must be 0); out (n, n, n) out and tmp (n, n, n)
 // scratch; all float32 apart from the mask, contiguous, on the current
-// device; a = f32(a), inv_c = f32(1)/f32(c).  Launches the `iters` sweeps on
-// `stream` without synchronising and returns the first cudaError_t.
+// device; a = f32(a), inv_c = f32(1)/f32(c).  blk is null (sequential
+// sweeps) or K5's block and scratch (no mask, b = 0; see block_valid).
+// Launches the sweeps on `stream` without synchronising and returns the
+// first cudaError_t.
 extern "C" int fs_jacobi_resident(const float* x, const float* x0, const unsigned char* mask,
                                   float* out, float* tmp, int n, int b, float a, float inv_c,
-                                  int iters, void* stream) {
+                                  int iters, const fsk::SolveBlock* blk, void* stream) {
   using namespace fsk;
   if (n < 3 || b < 0 || b > 3 || iters < 1 || (mask != nullptr && b != 0) ||
-      (iters > 1 && tmp == nullptr)) {
+      (iters > 1 && tmp == nullptr) ||
+      (blk != nullptr && (mask != nullptr || b != 0 || !block_valid(blk, n, iters, 0)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid = cell_grid(n), block = cell_block();
   const int a_is_one = a == 1.0f;
   const float* src = x;
-  for (int it = 0; it < iters; ++it) {
-    // The last sweep writes `out`; earlier ones alternate back from it.
-    float* dst = (iters - 1 - it) % 2 == 0 ? out : tmp;
+  // Each block and each sweep writes one iterate: the last writes `out`,
+  // earlier ones alternate back from it.
+  const int blocks = blk != nullptr ? iters / blk->block : 0;
+  const int sweeps = blk != nullptr ? iters % blk->block : iters;
+  const int writes = blocks + sweeps;
+  if (blocks > 0) {
+    BlockPass<float> bp{nullptr, nullptr, x0, nullptr, *blk, n};
+    cudaError_t err = block_precompute<float, false>(bp, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    for (int w = 0; w < blocks; ++w) {
+      bp.src = src;
+      bp.dst = (writes - 1 - w) % 2 == 0 ? out : tmp;
+      if ((err = block_step<float, false>(bp, s)) != cudaSuccess) return static_cast<int>(err);
+      src = bp.dst;
+    }
+  }
+  for (int it = 0; it < sweeps; ++it) {
+    float* dst = (writes - 1 - blocks - it) % 2 == 0 ? out : tmp;
     if (mask != nullptr) {
       resident_sweep_kernel<true><<<grid, block, 0, s>>>(src, x0, x, mask, dst, n, b, a,
                                                          a_is_one, inv_c);

@@ -6,7 +6,8 @@
 //
 // Replaces: fluidsim_tpu/pallas/resident.py::_project_kernel (no mask) and
 // ::_project_obst_kernel (mask), entry project_3d_resident, body
-// _project_body with sweep_block = 1, on float32 or bfloat16 fields.
+// _project_body, on float32 or bfloat16 fields; with blk (T >= 2, float32
+// fields) the solve is K5's (sweep_block.cuh).
 //
 // What bounds it on an H100: the sweeps, 20 of them in vortex128.  Each
 // reads the iterate (six neighbours), the rhs and the mask byte and writes
@@ -34,20 +35,24 @@
 // the storage type (bfloat16 when field_bf16, else float32).  mask (n, n, n)
 // one byte per cell (nonzero = solid) or null.  p_a, p_b and rhs are (n, n,
 // n) scratch in the solve type (bfloat16 when solve_bf16, else float32).
-// damp is a value of the storage type.  All contiguous on the current
-// device.  Launches every phase on `stream` without synchronising and
-// returns the first cudaError_t.
+// damp is a value of the storage type.  blk is null (sequential sweeps) or
+// K5's block and scratch (sweep_block.cuh; float32 fields, T = 2 or n >= 4T,
+// iters >= T).  All contiguous on the current device.  Launches every phase
+// on `stream` without synchronising and returns the first cudaError_t.
 extern "C" int fs_project(const void* vel, const unsigned char* mask, void* vel_out, void* p_out,
                           void* p_a, void* p_b, void* rhs, int n, int iters, int solve_bf16,
-                          int field_bf16, float damp, void* stream) {
+                          int field_bf16, float damp, const fsk::SolveBlock* blk,
+                          void* stream) {
   using namespace fsk;
-  if (n < 3 || iters < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 3 || iters < 1 || !block_valid(blk, n, iters, field_bf16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_dtypes(solve_bf16, field_bf16, [&](auto* t, auto* f) {
     using T = std::remove_pointer_t<decltype(t)>;
     using S = std::remove_pointer_t<decltype(f)>;
     return project_phases<T, S>(static_cast<const S*>(vel), mask, static_cast<S*>(vel_out),
                                 static_cast<S*>(p_out), static_cast<T*>(p_a),
-                                static_cast<T*>(p_b), static_cast<T*>(rhs), n, iters, damp, s);
+                                static_cast<T*>(p_b), static_cast<T*>(rhs), n, iters, damp, blk, s);
   }));
 }

@@ -12,7 +12,9 @@
 //      the final iterate (v itself in solid cells), the component's set_bnd
 //      faces, the obstacle mirror when there is a mask, then * damp.
 // Counterpart of fluidsim_tpu/pallas/resident.py::_project_body with
-// _solve_loop at sweep_block = 1.  The velocity, the projected velocity and
+// _solve_loop; with a SolveBlock of T >= 2 (sweep_block.cuh, K5) the sweeps
+// run in blocks of T, on float32 fields only, as the TPU kernel's x1 lives
+// in its float32 pstag volume (the caller decides).  The velocity, the projected velocity and
 // the pressure are in the storage type S (float32 or bfloat16: the TPU
 // kernel's vbuf and pstag), the iterates and the rhs in the solve type T; the
 // gradient's result is rounded to S before the faces, the mirror computes in
@@ -32,6 +34,7 @@
 #include <utility>
 
 #include "boundary.cuh"
+#include "sweep_block.cuh"
 
 namespace fsk {
 
@@ -136,7 +139,8 @@ __global__ void __launch_bounds__(kThreads)
 // null.  Returns the first cudaError_t.
 template <typename T, typename S>
 cudaError_t project_phases(const S* vel, const uint8_t* mask, S* vel_out, S* p_out, T* pa,
-                           T* pb, T* rhs, int n, int iters, float damp, cudaStream_t s) {
+                           T* pb, T* rhs, int n, int iters, float damp, const SolveBlock* blk,
+                           cudaStream_t s) {
   const dim3 grid = cell_grid(n), block = cell_block();
   const float inv6 = 1.0f / 6.0f;
   divergence_kernel<T, S><<<grid, block, 0, s>>>(vel, rhs, pa, n);
@@ -144,7 +148,22 @@ cudaError_t project_phases(const S* vel, const uint8_t* mask, S* vel_out, S* p_o
   if (err != cudaSuccess) return err;
   T* src = pa;
   T* dst = pb;
-  for (int it = 0; it < iters; ++it) {
+  int sweeps = iters;
+  if (blk != nullptr && blk->block >= 2) {
+    // K5 (sweep_block.cuh): iters / T blocks, then the sweeps left over.
+    BlockPass<T> bp{nullptr, nullptr, rhs, mask, *blk, n};
+    err = mask != nullptr ? block_precompute<T, true>(bp, s) : block_precompute<T, false>(bp, s);
+    if (err != cudaSuccess) return err;
+    for (int b = 0; b < iters / blk->block; ++b) {
+      bp.src = src;
+      bp.dst = dst;
+      err = mask != nullptr ? block_step<T, true>(bp, s) : block_step<T, false>(bp, s);
+      if (err != cudaSuccess) return err;
+      std::swap(src, dst);
+    }
+    sweeps = iters % blk->block;
+  }
+  for (int it = 0; it < sweeps; ++it) {
     if (mask != nullptr) {
       jacobi_sweep_kernel<T, true><<<grid, block, 0, s>>>(src, rhs, mask, dst, n, inv6);
     } else {

@@ -16,8 +16,9 @@
 // Replaces: fluidsim_tpu/pallas/resident.py::_project_advect_kernel (K2),
 // ::_project_advect_src_kernel (K2s) and ::_project_advect_obst_kernel (K2o)
 // (entry project_advect_density_3d_resident; phases _project_body,
-// _solve_loop and _density_phase at k_win = 1, 2, 3), without sweep
-// blocking, on float32 or bfloat16 fields (the emitter on float32 only).
+// _solve_loop and _density_phase at k_win = 1, 2, 3), with K5's sweep
+// blocking on float32 fields, on float32 or bfloat16 fields (the emitter on
+// float32 only).
 // The TPU kernel's phases are one program; here they are the launches of
 // K3's entry (project.cu) and then K1's (advect.cu) on one stream, since each
 // phase needs the whole result of the one before.
@@ -51,8 +52,8 @@
 // advect_substeps for when each may be null).  p_a, p_b and rhs are (n, n,
 // n) scratch in the solve type (bfloat16 when solve_bf16, else float32).
 // dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2); window 1, 2 or
-// 3; damp and dens_damp are values of the storage type.  All contiguous on
-// the current device.  Launches every phase on `stream` without
+// 3; damp and dens_damp are values of the storage type; blk as fs_project's.
+// All contiguous on the current device.  Launches every phase on `stream` without
 // synchronising and returns the first cudaError_t.
 extern "C" int fs_project_advect_density(const void* vel, const void* dens,
                                          const unsigned char* mask, const float* emitter,
@@ -60,13 +61,14 @@ extern "C" int fs_project_advect_density(const void* vel, const void* dens,
                                          float* tmp1, void* p_a, void* p_b, void* rhs, int n,
                                          int iters, int solve_bf16, int field_bf16,
                                          float dt0_sub, int n_sub, int window, float damp,
-                                         float dens_damp, void* stream) {
+                                         float dens_damp, const fsk::SolveBlock* blk,
+                                         void* stream) {
   using namespace fsk;
   if (n < 3 || iters < 1 || (mask != nullptr && emitter != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int err = fs_project(vel, mask, vel_out, p_out, p_a, p_b, rhs, n, iters, solve_bf16,
-                             field_bf16, damp, stream);
+                             field_bf16, damp, blk, stream);
   if (err != 0) return err;
   return fs_advect_k1(dens, vel_out, nullptr, mask, emitter, kSrcFields, dens_out, tmp0, tmp1,
                       n, 1, 0, 0, 0, dt0_sub, n_sub, window, 0, 0.0f, 0.0f, 0.0f, 0.0f,

@@ -38,6 +38,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
+
+class SolveBlock(ctypes.Structure):
+    """``fsk::SolveBlock`` (``csrc/sweep_block.cuh``): K5's sweep block, its
+    float32 constants and its scratch pointers."""
+
+    _fields_ = [("block", _I)] + [
+        (name, _F) for name in ("a", "ic", "aic", "aicic", "a2", "a2ic2", "aT")
+    ] + [(name, _P) for name in ("x1", "w0", "w1", "s0", "s1")]
+
+
+_B = ctypes.POINTER(SolveBlock)
+
 # C entry points: name -> argument types (each returns an int: a cudaError_t,
 # or for fs_full_step_blocks a block count).
 SIGNATURES = {
@@ -47,25 +59,28 @@ SIGNATURES = {
     "fs_advect_k1": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                      _I, _I, _I, _F, _F, _F, _F, _F, _I, _P),
     # vel, mask, vel_out, p_out, p_a, p_b, rhs, n, iters, solve_bf16,
-    # field_bf16, damp, stream
-    "fs_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # field_bf16, damp, blk, stream
+    "fs_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _B, _P),
     # vel, dens, mask, emitter, vel_out, p_out, dens_out, tmp0, tmp1, p_a, p_b,
     # rhs, n, iters, solve_bf16, field_bf16, dt0_sub, n_sub, window, damp,
-    # dens_damp, stream
+    # dens_damp, blk, stream
     "fs_project_advect_density": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _I, _I, _I, _I, _F, _I, _I, _F, _F, _P),
+                                  _P, _I, _I, _I, _I, _F, _I, _I, _F, _F, _B, _P),
     # vel, dens, adv, vel_out, p_out, dens_out, tmp0, tmp1, p_a, p_b, rhs, n,
     # iters, solve_bf16, field_bf16, dt0_sub, n_sub, window, damp, dens_damp,
-    # stream
+    # blk, stream
     "fs_full_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                     _F, _I, _I, _F, _F, _P),
+                     _F, _I, _I, _F, _F, _B, _P),
+    # vel, adv, vel_out, p_out, p_a, p_b, rhs, n, iters, dt0_sub, n_sub,
+    # window, stream
+    "fs_advect_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     # solve_bf16, field_bf16, window (returns the cooperative grid's block
     # count, or -error)
     "fs_full_step_blocks": (_I, _I, _I),
     # x, x0, out, tmp, n, b, a, inv_c, iters, stream
     "fs_jacobi": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
-    # x, x0, mask, out, tmp, n, b, a, inv_c, iters, stream
-    "fs_jacobi_resident": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
+    # x, x0, mask, out, tmp, n, b, a, inv_c, iters, blk, stream
+    "fs_jacobi_resident": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _B, _P),
     # x, x0, mask, out, tmp, n, b, a, c, iters, smooth, blocks, stream
     "fs_solve_2d": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _P),
     # vel, div, n, stream

@@ -170,22 +170,28 @@ def _slab(vel, obst, solve_dtype, resident) -> bool:
     return not resident
 
 
-def project_3d_kernel(vel, iters: int, obst=None, solve_dtype=None, resident=None):
-    """Project ``vel`` with ``iters`` Jacobi sweeps: K3 where the solve fits
-    the card's L2 or there is an obstacle mask, else the slab route in
-    float32 (``solve_dtype`` is then ignored).  ``resident`` is
-    ``resident_route``'s answer where the caller has it.  Returns
-    ``(vel', p)``."""
+def project_3d_kernel(vel, iters: int, obst=None, solve_dtype=None, resident=None,
+                      sweep_block: int = 1):
+    """Project ``vel`` with ``iters`` Jacobi sweeps: K3 (its solve in blocks
+    of ``sweep_block``, K5, where ``resident.projection_block`` allows)
+    where the solve fits the card's L2 or there is an obstacle mask, else
+    the slab route in float32 (``solve_dtype`` and ``sweep_block`` are then
+    ignored, as the JAX ``project_3d_pallas``'s slab route ignores them).
+    ``resident`` is ``resident_route``'s answer where the caller has it.
+    Returns ``(vel', p)``."""
     if _slab(vel, obst, solve_dtype, resident):
         return project_3d_slab_kernel(vel, iters)
-    return project_3d_resident(vel, iters, obst=obst, solve_dtype=solve_dtype)
+    return project_3d_resident(vel, iters, obst=obst, solve_dtype=solve_dtype,
+                               sweep_block=sweep_block)
 
 
-def project_3d_plain(vel, iters: int, obst=None, solve_dtype=None, resident=None):
+def project_3d_plain(vel, iters: int, obst=None, solve_dtype=None, resident=None,
+                     sweep_block: int = 1):
     """``project_3d_kernel``'s route with the kernels' twins."""
     if _slab(vel, obst, solve_dtype, resident):
         return project_3d_slab_plain(vel, iters)
-    return project_3d_resident_plain(vel, iters, obst=obst, solve_dtype=solve_dtype)
+    return project_3d_resident_plain(vel, iters, obst=obst, solve_dtype=solve_dtype,
+                                     sweep_block=sweep_block)
 
 
 def _resident_solve(x, obst, resident) -> bool:

@@ -1,14 +1,19 @@
 """K2, the fused projection + density advection kernel (with its emitter
 and obstacle variants K2s and K2o), K3, the projection on its own with an
-optional obstacle mask, and K8, the whole step in one launch: their plain
-twins and their wrappers.
+optional obstacle mask, K8, the whole step in one launch, and K14, the
+self-advection and the projection in one launch: their plain twins and their
+wrappers.  Every projection takes ``sweep_block``: on float32 fields its
+solve runs K5, the sweep-blocked solve (``jacobi.solve_loop_plain``,
+``csrc/sweep_block.cuh``), where ``projection_block`` allows.
 
 Counterpart of ``fluidsim_tpu/pallas/resident.py``: K2 is
 ``project_advect_density_3d_resident`` → ``_project_advect_kernel`` (phases
 ``_project_body``, ``_solve_loop`` and ``_density_phase``; K2s is
 ``_project_advect_src_kernel``, K2o ``_project_advect_obst_kernel``), K3 is
 ``project_3d_resident`` → ``_project_kernel`` / ``_project_obst_kernel``, K8
-is ``full_step_3d_resident`` → ``_full_step_kernel``.  The CUDA kernels are
+is ``full_step_3d_resident`` → ``_full_step_kernel``, K14 is
+``advect_project_3d_resident`` → ``_advect_project_kernel`` (its slab rule
+is the TPU's scaffolding and is not copied).  The CUDA kernels are
 ``csrc/project_advect.cu``, ``csrc/project.cu`` and ``csrc/full_step.cu``,
 which share the projection's phases (``csrc/project.cuh``) and K1's
 backtrace (``csrc/advect.cuh``).  The twins are
@@ -36,8 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dtypes import scale_in, storage_scalar
-from ..ops.boundary import apply_faces_3d, set_bnd_3d
-from ..ops.linsolve import _nbr_sum_3d
+from ..ops.boundary import set_bnd_3d
 from ..scene.sources import src_field_add
 from . import _build
 from .advect import (
@@ -52,6 +56,7 @@ from .advect import (
     storage_flag,
     substep_dt0,
 )
+from .jacobi import composite_block, solve_block_arg, solve_loop_plain
 
 INV6 = float(np.float32(1.0) / np.float32(6.0))
 
@@ -111,37 +116,49 @@ def project_gradient(vel, p, obst=None, damp: float = 1.0):
     return torch.stack(comps)
 
 
+def projection_block(vel, iters: int, sweep_block: int) -> int:
+    """The sweep block the projection of ``vel`` solves with: ``sweep_block``
+    on float32 fields where ``composite_block`` allows (the TPU kernel keeps
+    the composite's ``x1`` in its ``pstag`` volume, which has the field
+    dtype, and blocks only when that is float32), else 1."""
+    if vel.dtype != torch.float32:
+        return 1
+    return composite_block(vel.shape[-1], iters, sweep_block)
+
+
 def project_3d_resident_plain(vel, iters: int, obst=None, solve_dtype=None,
-                              damp: float = 1.0):
-    """Plain PyTorch twin of the K3 kernel.  Returns ``(vel', p)``, ``p``
-    being the final iterate in ``vel``'s dtype."""
+                              damp: float = 1.0, sweep_block: int = 1):
+    """Plain PyTorch twin of the K3 kernel: the rhs (the divergence rounded to
+    the solve dtype, zero on the faces), ``iters`` sweeps from zero with the
+    coefficient ``(1 − m)·inv6`` (``solve_loop_plain``; in blocks of
+    ``sweep_block``, K5, as ``projection_block`` decides), then the
+    gradient.  Returns ``(vel', p)``, ``p`` being the final iterate in
+    ``vel``'s dtype."""
     n = vel.shape[-1]
     sdt = solve_torch_dtype(solve_dtype)
     f32 = torch.float32
-    core = (slice(1, -1),) * 3
-    rhs = divergence_interior(vel).to(sdt).to(f32)
+    rhs = F.pad(divergence_interior(vel).to(sdt), (1, 1, 1, 1, 1, 1))
     # (1 − m)·inv6: inv6 in fluid cells, 0 in solid ones.
-    coef = INV6 if obst is None else (1.0 - obst[core].to(f32)) * INV6
-
+    coef = None if obst is None else (1.0 - obst.to(f32)) * INV6
     p = torch.zeros((n, n, n), dtype=sdt, device=vel.device)
-    for _ in range(iters):
-        upd = ((rhs + _nbr_sum_3d(p.to(f32))) * coef).to(sdt)
-        p = apply_faces_3d(0, F.pad(upd, (1, 1, 1, 1, 1, 1)))
-    p = p.to(f32)
+    p = solve_loop_plain(rhs, p, b=0, a=1.0, inv_c=INV6, iters=iters, coef=coef,
+                         block=projection_block(vel, iters, sweep_block)).to(f32)
     return project_gradient(vel, p, obst, damp), p.to(vel.dtype)
 
 
 def project_advect_density_3d_plain(vel, density, iters: int, dt: float, *,
                                     window: int = 1, obst=None, n_sub: int = 1,
                                     src=None, solve_dtype=None, damp: float = 1.0,
-                                    dens_damp: float = 1.0):
+                                    dens_damp: float = 1.0, sweep_block: int = 1):
     """Plain PyTorch twin of the K2 kernel (K2o with the bool mask ``obst``,
-    K2s with the ``(5,)`` emitter descriptor ``src``): the K3 twin, then the
+    K2s with the ``(5,)`` emitter descriptor ``src``): the K3 twin (with
+    ``sweep_block``), then the
     density (plus the emitter) advected through the damped projected
     velocity with a ``window`` of K cells in ``n_sub`` substeps with the
     mask's contract, then ``· dens_damp``.  Returns ``(vel', p,
     density')``, ``p`` being the final iterate in ``vel``'s dtype."""
-    vel_out, p = project_3d_resident_plain(vel, iters, obst, solve_dtype, damp)
+    vel_out, p = project_3d_resident_plain(vel, iters, obst, solve_dtype, damp,
+                                           sweep_block)
     if src is not None:
         density = src_field_add(density, src)
     dens_out = advect_multi_3d_plain((0,), density[None], vel_out, dt, obst=obst,
@@ -149,11 +166,13 @@ def project_advect_density_3d_plain(vel, density, iters: int, dt: float, *,
     return vel_out, p, scale_in(dens_out, dens_damp)
 
 
-def _checked_projection(vel, iters: int, solve_dtype):
-    """Check the arguments both projection kernels take; returns ``(n,
+def _checked_projection(vel, iters: int, solve_dtype, sweep_block: int = 1):
+    """Check the arguments the projection kernels take; returns ``(n,
     solve storage dtype)``."""
     if int(iters) != iters or iters < 1:
         raise ValueError(f"iters must be a positive integer, got {iters}")
+    if int(sweep_block) != sweep_block or sweep_block < 1:
+        raise ValueError(f"sweep_block must be a positive integer, got {sweep_block}")
     sdt = solve_torch_dtype(solve_dtype)
     n = vel.shape[-1]
     if n < 3:
@@ -182,6 +201,13 @@ def _solve_scratch(n: int, sdt: torch.dtype, device):
     return tuple(torch.empty((n, n, n), dtype=sdt, device=device) for _ in range(3))
 
 
+def _projection_block_arg(vel, iters: int, sweep_block: int):
+    """K5's ``SolveBlock`` for a projection of ``vel`` (None: sequential
+    sweeps)."""
+    return solve_block_arg(vel.shape[-1], projection_block(vel, iters, sweep_block),
+                           1.0, INV6, vel.device)
+
+
 def _check_mask(obst, n: int, device) -> None:
     _check_volume("obst", obst, (n, n, n), torch.bool)
     if obst.device != device:
@@ -191,8 +217,9 @@ def _check_mask(obst, n: int, device) -> None:
 def project_advect_density_3d(vel, density, iters: int, dt: float, *,
                               window: int = 1, n_sub: int = 1, obst=None,
                               src=None, solve_dtype=None, damp: float = 1.0,
-                              dens_damp: float = 1.0):
-    """Project ``vel`` with ``iters`` Jacobi sweeps and advect ``density``
+                              dens_damp: float = 1.0, sweep_block: int = 1):
+    """Project ``vel`` with ``iters`` Jacobi sweeps (in blocks of
+    ``sweep_block``, K5, where ``projection_block`` allows) and advect ``density``
     through the damped projected velocity in ``n_sub`` substeps, with the
     K2 kernel: K2o with the bool obstacle mask ``obst``, K2s with the
     ``(5,)`` emitter descriptor ``src`` (added to the density the first
@@ -206,7 +233,7 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
     n_sub = _check_substeps(n_sub)
     if src is not None and obst is not None:
         raise ValueError("src folding requires an obstacle-free config")
-    n, sdt = _checked_projection(vel, iters, solve_dtype)
+    n, sdt = _checked_projection(vel, iters, solve_dtype, sweep_block)
     _check_window(window, n)
     _check_density(density, vel, n)
     if obst is not None:
@@ -219,7 +246,8 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
     if vel.device.type == "cpu":
         return project_advect_density_3d_plain(
             vel, density, iters, dt, window=window, obst=obst, n_sub=n_sub,
-            src=src, solve_dtype=solve_dtype, damp=damp, dens_damp=dens_damp)
+            src=src, solve_dtype=solve_dtype, damp=damp, dens_damp=dens_damp,
+            sweep_block=sweep_block)
     if vel.device.type != "cuda":
         raise ValueError(f"unsupported device {vel.device}")
 
@@ -229,6 +257,7 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
     dens_out = torch.empty_like(density)
     tmp0, tmp1 = _scratch(1, n, n_sub, False, vel.dtype, vel.device)
     p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device)
+    blk = _projection_block_arg(vel, iters, sweep_block)
     fdt = vel.dtype
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -238,7 +267,7 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
             _ptr(tmp1), p_a.data_ptr(), p_b.data_ptr(), rhs.data_ptr(), n,
             int(iters), int(sdt == torch.bfloat16), storage_flag(fdt),
             substep_dt0(dt, n, n_sub), n_sub, int(window),
-            storage_scalar(damp, fdt), storage_scalar(dens_damp, fdt), stream,
+            storage_scalar(damp, fdt), storage_scalar(dens_damp, fdt), blk, stream,
         )
     _build.check(lib, err, "fused projection kernel launch")
     project_advect_density_3d.launches += 1
@@ -249,21 +278,23 @@ project_advect_density_3d.launches = 0
 
 
 def project_3d_resident(vel, iters: int, obst=None, solve_dtype=None,
-                        damp: float = 1.0):
+                        damp: float = 1.0, sweep_block: int = 1):
     """Project ``vel`` with ``iters`` Jacobi sweeps with the K3 kernel, with
-    the obstacle contract when the bool mask ``obst`` is given.
+    the obstacle contract when the bool mask ``obst`` is given, the sweeps in
+    blocks of ``sweep_block`` (K5) where ``projection_block`` allows.
 
     ``vel`` is float32 or bfloat16.
 
     CUDA tensors launch ``csrc/project.cu``; CPU tensors run
     ``project_3d_resident_plain``.  Returns ``(vel', p)``.
     ``project_3d_resident.launches`` counts calls that launched the kernel."""
-    n, sdt = _checked_projection(vel, iters, solve_dtype)
+    n, sdt = _checked_projection(vel, iters, solve_dtype, sweep_block)
     if obst is not None:
         _check_mask(obst, n, vel.device)
 
     if vel.device.type == "cpu":
-        return project_3d_resident_plain(vel, iters, obst, solve_dtype, damp)
+        return project_3d_resident_plain(vel, iters, obst, solve_dtype, damp,
+                                         sweep_block)
     if vel.device.type != "cuda":
         raise ValueError(f"unsupported device {vel.device}")
 
@@ -271,13 +302,14 @@ def project_3d_resident(vel, iters: int, obst=None, solve_dtype=None,
     vel_out = torch.empty_like(vel)
     p = torch.empty((n, n, n), dtype=vel.dtype, device=vel.device)
     p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device)
+    blk = _projection_block_arg(vel, iters, sweep_block)
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_project(
             vel.data_ptr(), _ptr(obst), vel_out.data_ptr(), p.data_ptr(),
             p_a.data_ptr(), p_b.data_ptr(), rhs.data_ptr(), n, int(iters),
             int(sdt == torch.bfloat16), storage_flag(vel.dtype),
-            storage_scalar(damp, vel.dtype), stream,
+            storage_scalar(damp, vel.dtype), blk, stream,
         )
     _build.check(lib, err, "projection kernel launch")
     project_3d_resident.launches += 1
@@ -289,7 +321,7 @@ project_3d_resident.launches = 0
 
 def full_step_3d_plain(vel, density, iters: int, dt: float, *, window: int = 1,
                        n_sub: int = 1, solve_dtype=None, damp: float = 1.0,
-                       dens_damp: float = 1.0):
+                       dens_damp: float = 1.0, sweep_block: int = 1):
     """Plain PyTorch twin of the K8 kernel: the K1 twin's self-advection
     with a ``window`` of K cells in ``n_sub`` substeps, then the K2 twin with
     the same window and ``n_sub`` (the JAX ``full_step_3d_resident``'s
@@ -297,13 +329,15 @@ def full_step_3d_plain(vel, density, iters: int, dt: float, *, window: int = 1,
     adv = advect_multi_3d_plain((1, 2, 3), vel, vel, dt, n_sub=n_sub, window=window)
     return project_advect_density_3d_plain(
         adv, density, iters, dt, window=window, n_sub=n_sub,
-        solve_dtype=solve_dtype, damp=damp, dens_damp=dens_damp)
+        solve_dtype=solve_dtype, damp=damp, dens_damp=dens_damp,
+        sweep_block=sweep_block)
 
 
 def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
                  n_sub: int = 1, solve_dtype=None, damp: float = 1.0,
-                 dens_damp: float = 1.0):
-    """Self-advect ``vel``, project it with ``iters`` Jacobi sweeps and
+                 dens_damp: float = 1.0, sweep_block: int = 1):
+    """Self-advect ``vel``, project it with ``iters`` Jacobi sweeps (in
+    blocks of ``sweep_block``, K5, where ``projection_block`` allows) and
     advect ``density`` through the damped result, each advection in
     ``n_sub`` substeps with a ``window`` of 1, 2 or 3 cells, with the K8
     kernel: one cooperative launch (obstacle-free).  ``vel`` and ``density``
@@ -314,14 +348,14 @@ def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
     + K2); CPU tensors run ``full_step_3d_plain``.  Returns ``(vel', p,
     density')``.  ``full_step_3d.launches`` counts launches."""
     n_sub = _check_substeps(n_sub)
-    n, sdt = _checked_projection(vel, iters, solve_dtype)
+    n, sdt = _checked_projection(vel, iters, solve_dtype, sweep_block)
     _check_window(window, n)
     _check_density(density, vel, n)
 
     if vel.device.type == "cpu":
         return full_step_3d_plain(vel, density, iters, dt, window=window,
                                   n_sub=n_sub, solve_dtype=solve_dtype, damp=damp,
-                                  dens_damp=dens_damp)
+                                  dens_damp=dens_damp, sweep_block=sweep_block)
     if vel.device.type != "cuda":
         raise ValueError(f"unsupported device {vel.device}")
 
@@ -335,6 +369,7 @@ def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
     tmp0, tmp1 = ((None, None) if fdt == torch.float32
                   else _scratch(3, n, n_sub, False, fdt, vel.device))
     p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device)
+    blk = _projection_block_arg(vel, iters, sweep_block)
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_full_step(
@@ -343,7 +378,7 @@ def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
             _ptr(tmp1), p_a.data_ptr(), p_b.data_ptr(), rhs.data_ptr(), n,
             int(iters), int(sdt == torch.bfloat16), storage_flag(fdt),
             substep_dt0(dt, n, n_sub), n_sub, int(window),
-            storage_scalar(damp, fdt), storage_scalar(dens_damp, fdt), stream,
+            storage_scalar(damp, fdt), storage_scalar(dens_damp, fdt), blk, stream,
         )
     _build.check(lib, err, "full-step kernel launch")
     full_step_3d.launches += 1
@@ -351,6 +386,57 @@ def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
 
 
 full_step_3d.launches = 0
+
+
+def advect_project_3d_resident_plain(vel, iters: int, dt: float, *, window: int = 1,
+                                    n_sub: int = 1):
+    """Plain PyTorch twin of the K14 kernel: the K1 twin's self-advection
+    with a ``window`` of K cells in ``n_sub`` substeps, then the K3 twin
+    (no mask, sequential sweeps, no damping).  Returns ``(vel', p)``."""
+    adv = advect_multi_3d_plain((1, 2, 3), vel, vel, dt, n_sub=n_sub, window=window)
+    return project_3d_resident_plain(adv, iters)
+
+
+def advect_project_3d_resident(vel, iters: int, dt: float, *, window: int = 1,
+                               n_sub: int = 1):
+    """Self-advect the float32 ``vel`` in ``n_sub`` substeps with a
+    ``window`` of 1, 2 or 3 cells and project the result with ``iters``
+    sequential Jacobi sweeps, with the K14 kernel: K8's cooperative launch
+    without the density phase (obstacle-free, float32).
+
+    CUDA tensors launch ``csrc/full_step.cu``'s ``fs_advect_project``; CPU
+    tensors run ``advect_project_3d_resident_plain``.  Returns ``(vel',
+    p)``.  ``advect_project_3d_resident.launches`` counts launches."""
+    n_sub = _check_substeps(n_sub)
+    n, sdt = _checked_projection(vel, iters, None)
+    _check_window(window, n)
+    if vel.dtype != torch.float32:
+        raise TypeError("the fused advect + project kernel takes float32 fields")
+
+    if vel.device.type == "cpu":
+        return advect_project_3d_resident_plain(vel, iters, dt, window=window,
+                                                n_sub=n_sub)
+    if vel.device.type != "cuda":
+        raise ValueError(f"unsupported device {vel.device}")
+
+    lib = _build.load_library()
+    adv = torch.empty_like(vel)
+    vel_out = torch.empty_like(vel)
+    p = torch.empty((n, n, n), dtype=vel.dtype, device=vel.device)
+    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device)
+    with torch.cuda.device(vel.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fs_advect_project(
+            vel.data_ptr(), adv.data_ptr(), vel_out.data_ptr(), p.data_ptr(),
+            p_a.data_ptr(), p_b.data_ptr(), rhs.data_ptr(), n, int(iters),
+            substep_dt0(dt, n, n_sub), n_sub, int(window), stream,
+        )
+    _build.check(lib, err, "advect + project kernel launch")
+    advect_project_3d_resident.launches += 1
+    return vel_out, p
+
+
+advect_project_3d_resident.launches = 0
 
 
 def full_step_blocks(solve_dtype=None, device=None, dtype=torch.float32,

@@ -29,9 +29,10 @@ limiter, the FFT projection (``pressure_solver="fft"``, ``torch.fft``),
 turbulent noise and obstacle enforcement are plain PyTorch on both paths,
 as the JAX package leaves them to XLA.  Fields are float32 or bfloat16
 (``cfg.dtype``); the kernels take either, and the sinks multiply in the
-field dtype.  The one configuration the port does not cover yet, the
-sweep-blocked solve (K5), raises ``NotImplementedError``
-(``check_supported``).
+field dtype.  ``cfg.jacobi_sweep_block`` reaches K2, K3 and K8, as the JAX
+step passes it to its fused, unfused and whole-step projections: on float32
+fields their solve runs K5, the sweep-blocked solve; the pre-projection's
+K4 and the slab route solve sequentially, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -96,14 +97,11 @@ def fuses_projection(cfg: SimConfig, use_kernels: bool, resident: bool) -> bool:
 
 def check_supported(cfg: SimConfig, use_kernels: bool) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot step on the
-    kernel path: the sweep-blocked solve (K5) and a window the kernels do
-    not take."""
+    kernel path: a window the kernels do not take."""
     if cfg.ndim != 3:
         raise ValueError("a 2D config steps with models.stable2d, not the 3D step")
     if not use_kernels:
         return
-    if cfg.jacobi_sweep_block > 1:
-        _unported("sweep-blocked Jacobi (K5, jacobi_sweep_block > 1)")
     if cfg.advect_window not in WINDOWS:
         _unported(f"kernel advection with advect_window={cfg.advect_window} "
                   f"(K1 takes windows {WINDOWS})")
@@ -251,7 +249,7 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
         vel, pressure, density = kernels.full_step(
             vel, dens_in, cfg.jacobi_iters, dt, window=win,
             n_sub=cfg.advect_substeps, solve_dtype=cfg.solve_dtype, damp=damp,
-            dens_damp=ddamp,
+            dens_damp=ddamp, sweep_block=cfg.jacobi_sweep_block,
         )
     else:
         buoy = ((density, cfg.buoyancy, cfg.ambient_density, cfg.gravity)
@@ -262,6 +260,7 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
                 vel, dens_in, cfg.jacobi_iters, dt, window=win, obst=obst,
                 n_sub=cfg.advect_substeps, src=src,
                 solve_dtype=cfg.solve_dtype, damp=damp, dens_damp=ddamp,
+                sweep_block=cfg.jacobi_sweep_block,
             )
         elif cfg.pressure_solver == "fft":
             if cfg.enable_obstacle:
@@ -270,7 +269,8 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
         elif use_kernels:
             vel, pressure = kernels.project(vel, cfg.jacobi_iters, obst=obst,
                                             solve_dtype=cfg.solve_dtype,
-                                            resident=resident)
+                                            resident=resident,
+                                            sweep_block=cfg.jacobi_sweep_block)
         else:
             vel, pressure = project_3d(vel, obst, cfg.jacobi_iters)
 

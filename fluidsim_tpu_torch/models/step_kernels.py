@@ -28,10 +28,11 @@ from ..kernels.resident2d import lin_solve_2d_resident, lin_solve_2d_resident_pl
 class StepKernels(NamedTuple):
     """The calls of the kernel path: ``advect(bs, fields, vel, dt, obst=,
     window=, n_sub=, buoy=, src=)``, ``project_advect(vel, density, iters,
-    dt, obst=, n_sub=, src=, solve_dtype=, damp=, dens_damp=)``,
-    ``project(vel, iters, obst=, solve_dtype=, resident=)``, which takes K3
-    or the slab route, ``full_step(vel, density, iters, dt, n_sub=,
-    solve_dtype=, damp=, dens_damp=)``, ``jacobi(b, x, x0, a, c, iters,
+    dt, obst=, n_sub=, src=, solve_dtype=, damp=, dens_damp=,
+    sweep_block=)``, ``project(vel, iters, obst=, solve_dtype=, resident=,
+    sweep_block=)``, which takes K3 or the slab route, ``full_step(vel,
+    density, iters, dt, n_sub=, solve_dtype=, damp=, dens_damp=,
+    sweep_block=)``, ``jacobi(b, x, x0, a, c, iters,
     obst=, resident=)``, which takes K4 or K6 (all 3D), and the 2D step's
     ``solve_2d(b, x, x0, a, c, obst, iters, smooth=)`` (K9)."""
 

@@ -67,7 +67,8 @@ def test_import_leaves_jax_out():
         "fluidsim_tpu_torch.io.convert, fluidsim_tpu_torch.render.raymarch, "
         "fluidsim_tpu_torch.kernels._build, fluidsim_tpu_torch.models.stable2d, "
         "fluidsim_tpu_torch.kernels.resident2d, fluidsim_tpu_torch.models.step_kernels, "
-        "fluidsim_tpu_torch.ops.fft_poisson, fluidsim_tpu_torch.dtypes\n"
+        "fluidsim_tpu_torch.ops.fft_poisson, fluidsim_tpu_torch.dtypes, "
+        "fluidsim_tpu_torch.kernels.jacobi, fluidsim_tpu_torch.kernels.resident\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'fluidsim_tpu' or m.startswith('fluidsim_tpu.')]\n"
         "print(bad)\n"

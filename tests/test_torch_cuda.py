@@ -1,7 +1,8 @@
 """fluidsim_tpu_torch's CUDA kernels against their plain twins, on a card
 (and K8 against K1 followed by K2, and the fused step paths against the
 unfused ones), the 2D mode's kernel path (K9) against its twin path and
-the CPU, and the plain ops that divide on the card against the CPU.
+the CPU, the sweep-blocked solve (K5) in K2, K3, K4 and K8 and K14, and the
+plain ops that divide on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one.  The module
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -44,6 +45,8 @@ from fluidsim_tpu_torch.kernels.project import (
     project_3d_slab_kernel,
 )
 from fluidsim_tpu_torch.kernels.resident import (
+    advect_project_3d_resident,
+    advect_project_3d_resident_plain,
     full_step_3d,
     full_step_3d_plain,
     full_step_blocks,
@@ -800,3 +803,118 @@ def test_fft_and_noise_on_the_card_match_the_cpu(cuda, change):
         scale = max(1.0, float(ref.abs().max()))
         assert torch.allclose(got, ref, rtol=1e-5, atol=1e-5 * scale), (
             field, float((got - ref).abs().max()))
+
+
+# -- K5, the sweep-blocked solve, and K14 -------------------------------------
+
+
+def sweep_counters():
+    return {"K1": advect_multi_3d_kernel, "K2": project_advect_density_3d,
+            "K3": project_3d_resident, "K8": full_step_3d}
+
+
+@pytest.mark.parametrize("general", [False, True], ids=["poisson", "diffusion"])
+@pytest.mark.parametrize("block", [2, 3, 4])
+@pytest.mark.parametrize("n", [16, 32])
+def test_k5_in_k4_matches_twin(cuda, n, block, general):
+    """K4 without a mask in blocks of T, with sweeps left over (2T + 1)."""
+    vel, _ = fields(n, 1700 + n + block, cuda)
+    a, c = (0.13, 1.0 + 6 * 0.13) if general else (1.0, 6.0)
+    for iters in (block, 2 * block + 1):
+        got = jacobi_3d_resident(0, vel[0], vel[1], a, c, iters, sweep_block=block)
+        ref = jacobi_3d_resident_plain(0, vel[0], vel[1], a, c, iters, sweep_block=block)
+        assert_equal((got,), (ref,), f"K4 T={block} iters={iters}")
+    seq = jacobi_3d_resident(0, vel[0], vel[1], a, c, iters)
+    assert not torch.equal(got, seq)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("block", [2, 3, 4])
+@pytest.mark.parametrize("n", [16, 32])
+def test_k5_in_k3_matches_twin(cuda, n, block, solve_dtype, masked):
+    """K3 with T = 2, 3, 4, float32 and bfloat16 solves, with and without
+    the mask, at 60 sweeps and at 2T + 1 (sweeps left over)."""
+    vel, _ = fields(n, 1800 + n + block, cuda)
+    obst = vortex_mask(n, cuda) if masked else None
+    for iters in (60, 2 * block + 1):
+        got = project_3d_resident(vel, iters, obst=obst, solve_dtype=solve_dtype,
+                                  damp=DAMP, sweep_block=block)
+        ref = project_3d_resident_plain(vel, iters, obst=obst, solve_dtype=solve_dtype,
+                                        damp=DAMP, sweep_block=block)
+        assert_equal(got, ref, f"K3 T={block} iters={iters}")
+        seq = project_3d_resident(vel, iters, obst=obst, solve_dtype=solve_dtype, damp=DAMP)
+        assert not torch.equal(got[1], seq[1])  # the blocks ran
+
+
+@pytest.mark.parametrize("block", [2, 4])
+@pytest.mark.parametrize("case", ["K2", "K2s", "K2o"])
+def test_k5_in_k2_matches_twin(cuda, case, block):
+    """K2 with the bench128 preset's bfloat16 solve, K2s and K2o (vortex128's
+    mask, three substeps)."""
+    n = 32
+    vel, dens = fields(n, 1900 + block, cuda)
+    vel = vel * 0.3
+    kw = {"K2": dict(solve_dtype="bfloat16"), "K2s": dict(src=emitter(n, cuda)),
+          "K2o": dict(obst=vortex_mask(n, cuda), n_sub=3)}[case]
+    got = project_advect_density_3d(vel, dens, 60, DT, damp=DAMP, dens_damp=DDAMP,
+                                    sweep_block=block, **kw)
+    ref = project_advect_density_3d_plain(vel, dens, 60, DT, damp=DAMP, dens_damp=DDAMP,
+                                          sweep_block=block, **kw)
+    assert_equal(got, ref, f"{case} T={block}")
+    seq = project_advect_density_3d(vel, dens, 60, DT, damp=DAMP, dens_damp=DDAMP, **kw)
+    assert not torch.equal(got[1], seq[1])  # the blocks ran
+
+
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("block", [2, 4])
+def test_k5_in_k8_matches_twin_and_k1_then_k2(cuda, block, solve_dtype):
+    n = 32
+    vel, dens = fields(n, 2000 + block, cuda)
+    vel = vel * 0.3
+    got = full_step_3d(vel, dens, 60, DT, n_sub=2, solve_dtype=solve_dtype, damp=DAMP,
+                       dens_damp=DDAMP, sweep_block=block)
+    ref = full_step_3d_plain(vel, dens, 60, DT, n_sub=2, solve_dtype=solve_dtype,
+                             damp=DAMP, dens_damp=DDAMP, sweep_block=block)
+    assert_equal(got, ref, f"K8 T={block}")
+    adv = advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, n_sub=2)
+    two = project_advect_density_3d(adv, dens, 60, DT, n_sub=2, solve_dtype=solve_dtype,
+                                    damp=DAMP, dens_damp=DDAMP, sweep_block=block)
+    assert_equal(got, two, f"K8 T={block} vs K1 + K2")
+    seq = full_step_3d(vel, dens, 60, DT, n_sub=2, solve_dtype=solve_dtype, damp=DAMP,
+                       dens_damp=DDAMP)
+    assert not torch.equal(got[1], seq[1])  # the blocks ran
+
+
+@pytest.mark.parametrize("window,n_sub", [(1, 1), (1, 2), (2, 1), (3, 2)])
+def test_k14_matches_twin_and_k1_then_k3(cuda, window, n_sub):
+    n = 32
+    vel, _ = fields(n, 2100 + window + n_sub, cuda)
+    vel = vel * 0.3
+    got = advect_project_3d_resident(vel, 20, DT, window=window, n_sub=n_sub)
+    ref = advect_project_3d_resident_plain(vel, 20, DT, window=window, n_sub=n_sub)
+    assert_equal(got, ref, f"K14 window={window}")
+    adv = advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, n_sub=n_sub, window=window)
+    assert_equal(got, project_3d_resident(adv, 20), f"K14 window={window} vs K1 + K3")
+
+
+@pytest.mark.parametrize("name,change,ran", [
+    ("bench128", dict(jacobi_sweep_block=2), {"K1": 5, "K2": 5}),
+    ("bench128", dict(jacobi_sweep_block=4), {"K1": 5, "K2": 5}),
+    ("bench128", dict(jacobi_sweep_block=4, fuse_self_advect=True), {"K8": 5}),
+    ("vortex128", dict(jacobi_sweep_block=2), {"K1": 10, "K3": 5}),
+    ("vortex128", dict(jacobi_sweep_block=2, fuse_project_advect=True), {"K1": 5, "K2": 5}),
+])
+def test_sweep_block_paths_match_twin_paths(cuda, name, change, ran):
+    """Each sweep-blocked path at 48³ runs exactly its kernels and equals the
+    twin path bitwise after 5 steps."""
+    preset = {"bench128": CFG, "vortex128": preset_vortex_128()}[name]
+    cfg = preset.replace(size=48, **change)
+    kern, twin = Engine(cfg, cuda), Engine(cfg, cuda, kernels=PLAIN_TWINS)
+    before = {k: fn.launches for k, fn in sweep_counters().items()}
+    kern.step(5)
+    twin.step(5)
+    added = {k: fn.launches - before[k] for k, fn in sweep_counters().items()}
+    assert added == {k: ran.get(k, 0) for k in added}
+    for field in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(kern.state, field), getattr(twin.state, field)), field

@@ -36,6 +36,7 @@ from fluidsim_tpu_torch.models.step_kernels import PLAIN_TWINS, StepKernels
 from fluidsim_tpu_torch.config import preset_bench_128 as t_bench128
 from fluidsim_tpu_torch.engine import Engine
 from fluidsim_tpu_torch.io.convert import state_from_numpy, state_to_numpy
+from fluidsim_tpu_torch.kernels.jacobi import composite_block
 from fluidsim_tpu_torch.render.raymarch import render_frame_3d
 
 torch.set_num_threads(1)
@@ -274,15 +275,30 @@ def test_formerly_unported_configs_step_like_jax(monkeypatch, change, calls):
     (dict(advect_window=4, fuse_project_advect=False), "advect_window=4"),
 ], ids=["K5", "K2 advect_window=2", "K8 advect_window=2", "K1 advect_window=4"])
 def test_unported_kernel_variants_raise(monkeypatch, change, missing):
-    """What the kernel path still raises on: the sweep-blocked solve (K5),
-    with the fused kernels at any window too, and a window K1 does not
-    take.  The fused kernels at K = 2 alone step (tests/test_torch_options.py)."""
+    """What the kernel path still raises on: a window K1 does not take.  The
+    sweep-blocked solve (K5) steps, in K3 and in the fused kernels at window
+    2 (K2, K8): with a float32 solve, one step is within 1e-5 relative of
+    the ``jacobi_sweep_block = 1`` step (the JAX package's bound for its
+    composite, tests/test_pallas_interpret.py)."""
     monkeypatch.setattr(t_s3, "_kernels_usable", lambda cfg, device: True)
     cfg = t_bench128().replace(size=N, **change)
-    with pytest.raises(NotImplementedError, match=missing):
-        Engine(cfg, "cpu")
-    if missing == "K5":
-        Engine(cfg.replace(jacobi_sweep_block=1), "cpu").step(1)
+    if missing != "K5":
+        with pytest.raises(NotImplementedError, match=missing):
+            Engine(cfg, "cpu")
+        return
+    cfg = cfg.replace(solve_dtype="float32")
+    block = cfg.jacobi_sweep_block
+    assert composite_block(N, cfg.jacobi_iters, block) == block
+    runs = []
+    for sweep_block in (block, 1):
+        eng = Engine(cfg.replace(jacobi_sweep_block=sweep_block), "cpu")
+        eng.state = state_from_numpy(start_arrays(), "cpu")
+        eng.step(1)
+        runs.append(state_to_numpy(eng.state))
+    for field in ("density", "velocity", "pressure"):
+        ref = runs[1][field]
+        bound = 1e-5 * max(float(np.abs(ref).max()), 1e-6)
+        assert max_diff(runs[0][field], ref) <= bound, field
 
 
 @pytest.mark.parametrize("change,kernel", [
