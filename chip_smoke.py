@@ -6,8 +6,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which ends the run with a non-zero exit code on failure:
   1. require a CUDA device (no CPU fallback) and print the card's name and
      power limit;
-  2. build the hand kernels (K1, K2, K3, K4, K5, K6, K7, K8, K9, K14,
-     float32 and bfloat16) from ``fluidsim_tpu_torch/csrc``;
+  2. build the hand kernels (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11,
+     K14, float32 and bfloat16) from ``fluidsim_tpu_torch/csrc``;
   3. hold each kernel against its plain PyTorch twin on the card on inputs
      made with NumPy from a seed, bitwise: at 128³ K1 with buoyancy and K2 on
      bench128-scale fields, K1 with three substeps and the vortex128 mask
@@ -119,7 +119,27 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      bf16-solve class (3e-2·max) of the ``sweep_block = 1`` step; time each
      kernel beside the same kernel at T = 1 (ms and µs a sweep) and its
      twin, K14 beside K1 + K3, and bench128's steps/s and device ms a step
-     at T = 1, 2, 4 in turns.
+     at T = 1, 2, 4 in turns;
+ 12. the explicit halo-exchange sharded step, sharded512 on 8 shards of the
+     card: hold K10 against its twin on sharded512's slabs (72 planes at
+     T = 4, 68 at T = 2; the first, a middle and the last shard; b = 0 and
+     3) and on a 4-shard split of 128³ with vortex128's sphere, and K11
+     (F = 3 self-advection and F = 1, two substeps) on sharded512's slabs,
+     with vortex128's sphere and three substeps and at K = 2 on 4-shard
+     splits of 128³, all bitwise; hold the 8-shard solve against K6 (rtol =
+     atol = 2e-6) and the 8-shard advection against K1 (rtol 5e-4, atol
+     5e-5) on the whole 512³ volume; step sharded512 through
+     ``sharded_step_fn(halo="explicit", halo_backend="pallas")`` at T = 4
+     for ``HALO_STEPS`` steps and at T = 2 for ``HALO_T2_STEPS``, the
+     counters at zero just before each: exactly 8·iters/T K10 and 16 K11
+     launches a step and nothing else, finite fields, the mass grows, the
+     plume rises, the first ``HALO_TWIN_STEPS`` steps bitwise the twin path,
+     the peak device memory reported; one step from a seeded state within
+     1e-5·scale of the unsharded ``Engine``'s (K7 → K6 → K7); time K10 a
+     round and a solve, K11 a call, the halo copies of a step and the
+     steps/s of T = 4, T = 2 and the unsharded ``Engine`` in turns; run
+     ``python -m fluidsim_tpu_torch.cli bench --preset sharded512 --mesh 8
+     --halo explicit ...`` as a subprocess and check its JSON line.
 The line before last is a JSON object describing each kernel (with the
 least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -140,6 +160,9 @@ VORTEX_STEPS = 100
 MULTI_STEPS = 100
 SHARDED_STEPS = 15
 SHARDED_TWIN_STEPS = 3
+HALO_STEPS = 20
+HALO_T2_STEPS = 10
+HALO_TWIN_STEPS = 10
 PLUME_STEPS = 100
 BF16_STEPS = 100
 BF16_VORTEX_STEPS = 50
@@ -353,6 +376,14 @@ def main() -> None:
         advect_multi_3d_kernel,
         advect_multi_3d_plain,
     )
+    from fluidsim_tpu_torch.kernels.halo import (
+        NO_WALL,
+        advect_ext_kernel,
+        advect_ext_plain,
+        ext_halo,
+        jacobi_ext_kernel,
+        jacobi_ext_plain,
+    )
     from fluidsim_tpu_torch.kernels.jacobi import (
         composite_block,
         jacobi_3d_kernel,
@@ -386,7 +417,15 @@ def main() -> None:
     from fluidsim_tpu_torch.models.stable2d import simulate_step_2d
     from fluidsim_tpu_torch.models.stable3d import simulate_step_3d, sink_factor
     from fluidsim_tpu_torch.models.step_kernels import PLAIN_TWINS
-    from fluidsim_tpu_torch.ops.boundary import interior_mask
+    from fluidsim_tpu_torch.ops.boundary import interior_mask, set_bnd_3d
+    from fluidsim_tpu_torch.parallel import (
+        halo_exchange_z,
+        jacobi_3d_sharded,
+        make_mesh,
+        shard_state,
+        sharded_step_fn,
+    )
+    from fluidsim_tpu_torch.parallel.halo import advect_multi_3d_sharded
     from fluidsim_tpu_torch.ops.forces import (
         buoyancy_force,
         enforce_obstacle_boundaries_3d,
@@ -2336,6 +2375,295 @@ def main() -> None:
          direct_launches["K14"], k5_err["K14"],
          bound(7 * vol * f32, interior * (FRAC_OPS + RELU_OPS + 3 * COMB_OPS + DIV_OPS
                                           + iters * SWEEP_OPS + GRAD_OPS))),
+    ]
+
+    # -- 12. the explicit halo-exchange sharded step: K10 and K11 ------------------
+    say("# phase 12: the explicit halo-exchange sharded step (K10, K11) on 8 shards")
+    counters["K10"] = jacobi_ext_kernel
+    counters["K11"] = advect_ext_kernel
+    torch.cuda.empty_cache()
+    hcfg = preset_sharded_512()
+    hn = hcfg.current_size
+    hdt = hcfg.effective_params()[0]
+    h_sub = hcfg.advect_substeps
+    h_iters = hcfg.jacobi_iters
+    hmesh = make_mesh(["cuda"] * 8)
+    hlz = hn // hmesh.shape["z"]
+    ext_err = {}
+
+    def ext_slab(v, shard, lz, h):
+        """Shard ``shard``'s halo-extended slab of the global ``v`` (z on axis
+        -3), zeros past the global ends."""
+        pad = torch.zeros_like(v.narrow(-3, 0, h))
+        return torch.cat([pad, v, pad], -3).narrow(-3, shard * lz, lz + 2 * h).contiguous()
+
+    def walls(shard, shards, lz, t):
+        return (t if shard == 0 else NO_WALL, t + lz - 1 if shard == shards - 1 else NO_WALL)
+
+    def held(key, got, ref):
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        ext_err[key] = max(ext_err.get(key, 0.0), err)
+        say(f"# {key}: kernel vs twin, max abs diff {err!r}")
+        if not torch.equal(got, ref):
+            fail(f"{key} disagrees with its twin")
+
+    # 12a. K10 on sharded512's slabs (72 planes at T = 4, 68 at T = 2) of the
+    # first, a middle and the last shard, b = 0 and 3, and on a 4-shard split
+    # of 128³ with vortex128's sphere; inputs with set_bnd-consistent faces.
+    hx0 = smooth(hn, rng, dev)
+    for b in (0, 3):
+        hx = set_bnd_3d(b, smooth(hn, rng, dev))
+        for t in (4, 2):
+            for shard in (0, 3, 7):
+                xe, x0e = ext_slab(hx, shard, hlz, t), ext_slab(hx0, shard, hlz, t)
+                args = (xe, x0e, 1.0, 6.0, t, *walls(shard, 8, hlz, t), b)
+                held(f"K10 T={t}", jacobi_ext_kernel(*args), jacobi_ext_plain(*args))
+        del hx, xe, x0e
+    v4cfg = preset_vortex_128()
+    vn, v4dt = v4cfg.current_size, v4cfg.effective_params()[0]
+    vmask = torch.as_tensor(build_obstacle_mask(v4cfg), device=dev)
+    vdiv = divergence_3d_plain(velocity_field(vn, rng, dev, 12.0))
+    vp = set_bnd_3d(0, torch.zeros_like(vdiv), vmask)
+    for shard in range(4):
+        args = (ext_slab(vp, shard, vn // 4, 2), ext_slab(vdiv, shard, vn // 4, 2), 1.0, 6.0,
+                2, *walls(shard, 4, vn // 4, 2), 0, ext_slab(vmask, shard, vn // 4, 2))
+        held("K10 mask", jacobi_ext_kernel(*args), jacobi_ext_plain(*args))
+    # The 8-shard solve against K6 on the whole volume: 20 sweeps from zero.
+    hvel = velocity_field(hn, rng, dev, 0.5)
+    hdiv = divergence_3d_plain(hvel)
+    hzero = torch.zeros_like(hdiv)
+    k6_whole = jacobi_3d_kernel(0, hzero, hdiv, 1.0, 6.0, h_iters)
+    for t in (4, 2):
+        got = jacobi_3d_sharded(hzero, hdiv, 1.0, 6.0, h_iters, hmesh, block_iters=t,
+                                backend="pallas")
+        err, ok = worst(got, k6_whole, 2e-6, 2e-6)
+        say(f"# 8-shard K10 solve (T={t}) vs K6 on the whole {hn}^3 volume, {h_iters} sweeps: "
+            f"max abs diff {err!r} (bitwise {torch.equal(got, k6_whole)}; bound rtol = atol = "
+            f"2e-6)")
+        if not ok:
+            fail(f"the 8-shard K10 solve at T={t} leaves the bound of K6")
+        del got
+    del k6_whole
+
+    # 12b. K11: F = 3 self-advection and F = 1 at window 1, two substeps, on
+    # sharded512's slabs; vortex128's sphere with three substeps on a 4-shard
+    # split of 128³ (a halo of 6 planes); K = 2 at 128³; then the 8-shard
+    # advection against K1 on the whole volume.
+    hdens = density_field(hn, rng, dev)
+    hh = ext_halo(hcfg.advect_window, h_sub, False)
+    for shard in (0, 3, 7):
+        ve = ext_slab(hvel, shard, hlz, hh)
+        de = ext_slab(hdens[None], shard, hlz, hh)
+        zoff = shard * hlz - hh
+        held("K11 F=3", advect_ext_kernel((1, 2, 3), ve, ve, hn, hdt, zoff, 1, h_sub),
+             advect_ext_plain((1, 2, 3), ve, ve, hn, hdt, zoff, 1, h_sub))
+        held("K11 F=1", advect_ext_kernel((0,), de, ve, hn, hdt, zoff, 1, h_sub),
+             advect_ext_plain((0,), de, ve, hn, hdt, zoff, 1, h_sub))
+        del ve, de
+    vvel = velocity_field(vn, rng, dev, 30.0)
+    vdens = density_field(vn, rng, dev)
+    for window, v_sub, mask in ((1, v4cfg.advect_substeps, vmask), (2, 2, None)):
+        vh = ext_halo(window, v_sub, mask is not None)
+        for shard in range(4):
+            ve = ext_slab(vvel, shard, vn // 4, vh)
+            de = ext_slab(vdens[None], shard, vn // 4, vh)
+            me = None if mask is None else ext_slab(mask, shard, vn // 4, vh)
+            zoff = shard * (vn // 4) - vh
+            what = "K11 mask" if mask is not None else "K11 K=2"
+            for bs, f in (((1, 2, 3), ve), ((0,), de)):
+                held(what, advect_ext_kernel(bs, f, ve, vn, v4dt, zoff, window, v_sub, me),
+                     advect_ext_plain(bs, f, ve, vn, v4dt, zoff, window, v_sub, me))
+    del ve, de, vvel, vdens, vdiv, vp
+    got = advect_multi_3d_sharded((1, 2, 3), hvel, hvel, hdt, hmesh, window=1, n_sub=h_sub)
+    k1_whole = advect_multi_3d_kernel((1, 2, 3), hvel, hvel, hdt, n_sub=h_sub)
+    err, ok = worst(got, k1_whole, 5e-4, 5e-5)
+    say(f"# 8-shard K11 advection vs K1 on the whole {hn}^3 volume: max abs diff {err!r} "
+        f"(bitwise {torch.equal(got, k1_whole)}; bound rtol 5e-4, atol 5e-5)")
+    if not ok:
+        fail("the 8-shard K11 advection leaves the bound of K1")
+    del got, k1_whole
+
+    # 12c. sharded512 on 8 shards of the card through sharded_step_fn, at
+    # T = 4 for HALO_STEPS steps and T = 2 for HALO_T2_STEPS, the counters at
+    # zero just before each run.
+    def halo_step(t, kernels=None):
+        kw = {} if kernels is None else {"kernels": kernels}
+        return sharded_step_fn(hcfg, hmesh, halo="explicit", halo_block_iters=t,
+                               halo_backend="pallas", **kw)
+
+    hstart = shard_state(zeros_state(hcfg, dev), hmesh)
+    halo_launches = {}
+    for t, steps in ((4, HALO_STEPS), (2, HALO_T2_STEPS)):
+        step = halo_step(t)
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        st = hstart
+        counters_to_zero()
+        st = step(st)
+        hmass1, hcom1 = mass_and_com_y(st)
+        for i in range(1, steps):
+            st = step(st)
+            if i + 1 == HALO_TWIN_STEPS:
+                hat = {k: getattr(st, k).clone() for k in ("density", "velocity", "pressure")}
+        torch.cuda.synchronize()
+        got_launches = counts()
+        halo_launches[t] = got_launches
+        peak = torch.cuda.max_memory_allocated()
+        hmass_end, hcom_end = mass_and_com_y(st)
+        say(f"# sharded512, 8 shards, T={t}: {steps} steps, launches {got_launches}")
+        say(f"# sharded512 8 shards T={t} density mass: step 1 {hmass1!r}, step {steps} "
+            f"{hmass_end!r}; y centre of mass {hcom1!r} -> {hcom_end!r}")
+        say(f"sharded512 8 shards T={t} peak device memory: {peak - mem_before!r} bytes above "
+            f"what earlier phases hold ({peak!r} in all) [{card}]")
+        want = {"K10": 8 * (h_iters // t) * steps, "K11": 8 * 2 * steps}
+        if got_launches != {k: want.get(k, 0) for k in got_launches}:
+            fail(f"sharded512 on 8 shards (T={t}) did not run exactly {want}: {got_launches}")
+        check_state(st, steps, hn, f"sharded512 8 shards T={t}")
+        if not hmass_end > hmass1 > 0.0:
+            fail(f"sharded512 8 shards T={t}: density mass does not grow")
+        if not hcom_end > hcom1:
+            fail(f"sharded512 8 shards T={t}: the plume does not rise")
+        twin_step = halo_step(t, PLAIN_TWINS)
+        tw = hstart
+        for _ in range(HALO_TWIN_STEPS):
+            tw = twin_step(tw)
+        for name, got in hat.items():
+            if not torch.equal(got, getattr(tw, name)):
+                fail(f"sharded512 8 shards T={t}: the kernel path differs from its twin path "
+                     f"after {HALO_TWIN_STEPS} steps in {name}")
+        say(f"# sharded512 8 shards T={t}: kernel path bitwise the twin path after "
+            f"{HALO_TWIN_STEPS} steps")
+        del st, tw, hat, got
+    # One step from a seeded state against the unsharded Engine (K7 -> K6 -> K7).
+    seeded = hstart.replace(density=hdens, velocity=hvel)
+    hone = halo_step(4)(seeded)
+    seng.state = seeded
+    seng.step(1)
+    for name in ("density", "velocity", "pressure"):
+        r = getattr(seng.state, name)
+        err = float((getattr(hone, name) - r).abs().max())
+        scale = float(r.abs().max())
+        say(f"# sharded512: one 8-shard step vs the unsharded Engine step, {name}: max abs "
+            f"diff {err!r} (bound 1e-5 x {scale!r})")
+        if err > 1e-5 * scale:
+            fail(f"sharded512: the 8-shard step leaves 1e-5 of the unsharded step in {name}")
+    del hone, seeded
+
+    # 12d. Times: K10 a round per shard and a solve, K11 a call, the halo
+    # copies of a step, and steps/s of the 8-shard path at T = 2 and 4 beside
+    # the unsharded Engine, in turns.
+    for t in (4, 2):
+        xe, x0e = ext_slab(hzero, 3, hlz, t), ext_slab(hdiv, 3, hlz, t)
+        args = (xe, x0e, 1.0, 6.0, t, NO_WALL, NO_WALL, 0)
+        times[f"K10 T{t}"] = (cuda_ms(lambda: jacobi_ext_kernel(*args), reps=50),
+                              cuda_ms(lambda: jacobi_ext_plain(*args), reps=3, warmup=1))
+        solve_ms = cuda_ms(lambda: jacobi_3d_sharded(hzero, hdiv, 1.0, 6.0, h_iters, hmesh,
+                                                     block_iters=t, backend="pallas"), reps=5)
+        say(f"K10 T={t}: {times[f'K10 T{t}'][0]!r} ms a round of one shard ({xe.shape[0]} "
+            f"planes), twin {times[f'K10 T{t}'][1]!r} ms; the 8-shard solve ({h_iters} sweeps, "
+            f"{8 * h_iters // t} launches) {solve_ms!r} ms [{card}]")
+    ve = ext_slab(hvel, 3, hlz, hh)
+    de = ext_slab(hdens[None], 3, hlz, hh)
+    k11_args = {"K11 F=3": ((1, 2, 3), ve, ve, hn, hdt, 3 * hlz - hh, 1, h_sub),
+                "K11 F=1": ((0,), de, ve, hn, hdt, 3 * hlz - hh, 1, h_sub)}
+    for key, args in k11_args.items():
+        times[key] = (cuda_ms(lambda: advect_ext_kernel(*args), reps=20),
+                      cuda_ms(lambda: advect_ext_plain(*args), reps=2, warmup=1))
+        say(f"{key}: {times[key][0]!r} ms a call on one shard's slab {tuple(args[1].shape)}, "
+            f"twin {times[key][1]!r} ms [{card}]")
+
+    def halo_copies():
+        """The exchanges and copies of one T = 4 step without the kernels:
+        the velocity's and the density's extended slabs and the results'
+        copies back (advection), the rhs's and the start's extended slabs,
+        three refreshes of 2T planes and the result's gather (solve)."""
+        for f in (hvel, hdens[None]):
+            exts = [torch.cat([b, x, a], 1) for x, (b, a) in
+                    zip(torch.chunk(f, 8, 1), halo_exchange_z(torch.chunk(f, 8, 1), hh, 1))]
+            out = torch.empty_like(f)
+            for r, e in enumerate(exts):
+                out[:, r * hlz:(r + 1) * hlz].copy_(e[:, hh:hh + hlz])
+        x0_exts, exts = ([torch.cat([b, x, a]) for x, (b, a) in
+                          zip(torch.chunk(f, 8), halo_exchange_z(torch.chunk(f, 8), 4))]
+                         for f in (hdiv, hzero))
+        for _ in range(h_iters // 4 - 1):
+            pairs = halo_exchange_z([e[4:4 + hlz] for e in exts], 4)
+            for e, (b, a) in zip(exts, pairs):
+                e[:4].copy_(b)
+                e[4 + hlz:].copy_(a)
+        return torch.cat([e[4:4 + hlz] for e in exts])
+
+    copies_ms = cuda_ms(halo_copies, reps=10)
+    say(f"sharded512 8 shards: halo exchanges and copies of a T=4 step {copies_ms!r} ms "
+        f"[{card}]")
+    hsteps = {"8 shards T=4": halo_step(4), "8 shards T=2": halo_step(2)}
+    hstates = {k: hstart for k in hsteps}
+    for k in hsteps:
+        hstates[k] = hsteps[k](hstates[k])
+    seng.state = hstart
+    halo_rounds = {k: [] for k in (*hsteps, "unsharded Engine")}
+    for _ in range(3):
+        for k, fn in hsteps.items():
+            def adv(k=k, fn=fn):
+                hstates[k] = fn(hstates[k])
+            halo_rounds[k].append(cuda_ms(adv, reps=5, warmup=1))
+        halo_rounds["unsharded Engine"].append(cuda_ms(lambda: seng.step(1), reps=5, warmup=1))
+    for k, ms in halo_rounds.items():
+        if k == "unsharded Engine":
+            by_kernel = profile_ms(lambda: seng.step(1), reps=3)
+        else:
+            def adv(k=k):
+                hstates[k] = hsteps[k](hstates[k])
+            by_kernel = profile_ms(adv, reps=3)
+        say(f"sharded512 {k}: steps/s {1e3 / min(ms)!r} (ms/step in 3 turns {ms!r}), device "
+            f"{sum(by_kernel.values())!r} ms/step [{card}]")
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+        say(f"# sharded512 {k}, device ms a step by kernel: "
+            + "; ".join(f"{name} {t!r}" for name, t in top))
+    del hstates, hsteps
+
+    # 12e. The CLI's bench on 8 shards, as a subprocess.
+    torch.cuda.empty_cache()
+    cli = subprocess.run(
+        [sys.executable, "-m", "fluidsim_tpu_torch.cli", "bench", "--preset", "sharded512",
+         "--mesh", "8", "--halo", "explicit", "--halo-block-iters", "4", "--halo-backend",
+         "pallas", "--steps", "4"], capture_output=True, text=True, timeout=600, cwd=ROOT)
+    if cli.returncode != 0:
+        fail(f"the CLI's bench --mesh 8 failed: {cli.stderr[-2000:]}")
+    bench_line = json.loads(cli.stdout.strip().splitlines()[-1])
+    say(f"cli bench --preset sharded512 --mesh 8 --halo explicit --halo-block-iters 4: "
+        f"{json.dumps(bench_line)} [{card}]")
+    if bench_line.get("mesh") != 8 or bench_line.get("devices") != 1 \
+            or not bench_line.get("steps_per_sec", 0) > 0:
+        fail(f"the CLI's bench line is not the 8-shard run's: {bench_line}")
+    del ve, de, hvel, hdens, hdiv, hzero, hx0, hstart
+
+    hplane = hn * hn
+    hcells = (hn - 2) ** 2
+    entries += [
+        (f"K10 T{t}", f"K10 jacobi_ext_kernel (T={t} sweeps a round on one shard's "
+                      f"({hlz + 2 * t}, {hn}, {hn}) slab, b=0; sharded512 on 8 shards, "
+                      f"halo_block_iters={t})",
+         "fluidsim_tpu_torch/csrc/jacobi_ext.cu", "fluidsim_tpu/pallas/halo_kernel.py:66",
+         halo_launches[t]["K10"], ext_err[f"K10 T={t}"],
+         bound(3 * (hlz + 2 * t) * hplane * f32, t * (hlz + 2 * t) * hcells * JACOBI_OPS))
+        for t in (4, 2)]
+    # sharded512 launches K11 twice a shard and a step, once for each of these two.
+    entries += [
+        ("K11 F=3", f"K11 advect_ext_kernel (F=3 self-advection, K=1, n_sub={h_sub}, on one "
+                    f"shard's (3, {hlz + 2 * hh}, {hn}, {hn}) slab; sharded512 on 8 shards)",
+         "fluidsim_tpu_torch/csrc/advect_ext.cu", "fluidsim_tpu/pallas/halo_kernel.py:226",
+         halo_launches[4]["K11"], ext_err["K11 F=3"],
+         bound(6 * (hlz + 2 * hh) * hplane * f32,
+               h_sub * (hlz + 2 * hh) * hcells * (FRAC_OPS + RELU_OPS + 3 * COMB_OPS))),
+        ("K11 F=1", f"K11 advect_ext_kernel (F=1 density, K=1, n_sub={h_sub}, on one shard's "
+                    f"({hlz + 2 * hh}, {hn}, {hn}) slab; sharded512 on 8 shards)",
+         "fluidsim_tpu_torch/csrc/advect_ext.cu", "fluidsim_tpu/pallas/halo_kernel.py:226",
+         halo_launches[4]["K11"], ext_err["K11 F=1"],
+         bound(5 * (hlz + 2 * hh) * hplane * f32,
+               h_sub * (hlz + 2 * hh) * hcells * (FRAC_OPS + RELU_OPS + COMB_OPS))),
     ]
 
     report = []

@@ -92,8 +92,8 @@ extern "C" int fs_advect_k1(const void* fields, const void* vel, const float* de
       (src == kSrcDensity && !has_buoy) || (field_bf16 && (has_buoy || src != kSrcNone))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Substep a{fields, vel, dens, mask, emitter, nullptr, n, b0, b1, b2, dt0_sub, 1.0f,
-                  Buoyancy{buoy_dt, buoyancy, ambient, gravity}};
+  const Substep a{fields, vel, dens, mask, emitter, nullptr, n, Slab{n, 0}, b0, b1, b2, dt0_sub,
+                  1.0f, Buoyancy{buoy_dt, buoyancy, ambient, gravity}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (field_bf16) {
     return static_cast<int>(

@@ -1,6 +1,7 @@
 // Device code shared by the semi-Lagrangian backtrace kernels: the
 // self-advection kernel (advect.cu), the density phase of the fused
-// projection (project_advect.cu) and the whole-step kernel (full_step.cu).
+// projection (project_advect.cu), the whole-step kernel (full_step.cu) and
+// the sharded step's slab kernel (advect_ext.cu, K11).
 // It is the counterpart of fluidsim_tpu/pallas/advect.py::_substep_window_vals
 // (one substep of it; the caller loops over the substeps), which the TPU
 // kernels share the same way.  Every kernel that backtraces takes a window of
@@ -21,6 +22,12 @@
 // torch.roll reads them: the clamp gives every tap outside the grid zero
 // weight, and reading it there keeps even a zero weight times a non-finite
 // value the twin's.
+//
+// Every body runs on a slab `sl` of the grid (boundary.cuh; {n, 0}, the whole
+// grid, for every kernel but K11): the backtrace, its clamp and the emitter
+// take global z (zoff + z), the taps' z is wrapped modulo nz, and a field's
+// volume is n*n*nz.  On the whole grid the wrap never fires for K = 1 and is
+// the modulo n above for K > 1.
 //
 // Storage: the fields and the velocity are read in their storage types (TF,
 // TV: float or __nv_bfloat16) and widened to float32; the density of the
@@ -103,22 +110,24 @@ enum SrcOn { kSrcNone = 0, kSrcDensity = 1, kSrcFields = 2 };
 template <int F, bool BUOY_VEL, bool BUOY_TAPS, int SRC, typename TF, typename TV>
 __device__ __forceinline__ void advect_cell_k1(const TF* fields, const TV* vel,
                                                const float* dens, const float* e,
-                                               const Buoyancy bp, int n, float dt0,
-                                               int z, int y, int x, float (&out)[F]) {
-  const long long sn = n, plane = sn * sn, vol = plane * sn;
+                                               const Buoyancy bp, int n, const Slab& sl,
+                                               float dt0, int z, int y, int x,
+                                               float (&out)[F]) {
+  const long long sn = n, plane = sn * sn, vol = plane * sl.nz;
   const long long c0 = (z * sn + y) * sn + x;
+  const int zg = z + sl.zoff;
   const float vx = ld(vel[c0]);
   float vy = ld(vel[vol + c0]);
   const float vz = ld(vel[2 * vol + c0]);
   if (BUOY_VEL) {
     float rho = dens[c0];
-    if (SRC == kSrcDensity) rho = emitter_add(rho, e, z, y, x);
+    if (SRC == kSrcDensity) rho = emitter_add(rho, e, zg, y, x);
     vy = buoyant_vy(vy, rho, bp);
   }
   const float hi = float(n) - 1.5f;
   const float fx = frac_win<1>(float(x), vx, dt0, hi);
   const float fy = frac_win<1>(float(y), vy, dt0, hi);
-  const float fz = frac_win<1>(float(z), vz, dt0, hi);
+  const float fz = frac_win<1>(float(zg), vz, dt0, hi);
   const float fxp = max_to(fx, 0.0f), fxm = max_to(-fx, 0.0f);
   const float fyp = max_to(fy, 0.0f), fym = max_to(-fy, 0.0f);
   const float fzp = max_to(fz, 0.0f), fzm = max_to(-fz, 0.0f);
@@ -129,18 +138,21 @@ __device__ __forceinline__ void advect_cell_k1(const TF* fields, const TV* vel,
     float zc[3];
 #pragma unroll
     for (int dz = -1; dz <= 1; ++dz) {
+      const int tz = wrap_plane(z + dz, sl.nz);
       float yc[3];
 #pragma unroll
       for (int dy = -1; dy <= 1; ++dy) {
-        const long long r = c0 + dz * plane + dy * sn;
+        const long long r = c0 + (tz - z) * plane + dy * sn;
         float g[3];
 #pragma unroll
         for (int dx = -1; dx <= 1; ++dx) {
           g[dx + 1] = ld(f[r + dx]);
-          if (SRC == kSrcFields) g[dx + 1] = emitter_add(g[dx + 1], e, z + dz, y + dy, x + dx);
+          if (SRC == kSrcFields) {
+            g[dx + 1] = emitter_add(g[dx + 1], e, sl.zoff + tz, y + dy, x + dx);
+          }
           if (BUOY_TAPS && c == 1) {
             float rho = dens[r + dx];
-            if (SRC == kSrcDensity) rho = emitter_add(rho, e, z + dz, y + dy, x + dx);
+            if (SRC == kSrcDensity) rho = emitter_add(rho, e, sl.zoff + tz, y + dy, x + dx);
             g[dx + 1] = buoyant_vy(g[dx + 1], rho, bp);
           }
         }
@@ -154,7 +166,7 @@ __device__ __forceinline__ void advect_cell_k1(const TF* fields, const TV* vel,
 
 
 // The same for a window of K > 1 cells: the (2K+1)^3-term hat sum, taps at
-// wrapped indices (n >= 2K+1).  The x and y hats are computed once, the z
+// wrapped indices (n >= 2K+1, nz >= 2K+1).  The x and y hats are computed once, the z
 // hat once per plane, and the weights shared by the F fields; the buoyancy
 // and the emitter enter as in advect_cell_k1, the emitter at a tap's wrapped
 // coordinates (where the twin's torch.roll reads it).  The z loop is not
@@ -162,23 +174,25 @@ __device__ __forceinline__ void advect_cell_k1(const TF* fields, const TV* vel,
 template <int K, int F, bool BUOY_VEL, bool BUOY_TAPS, int SRC, typename TF, typename TV>
 __device__ __forceinline__ void advect_cell_win(const TF* fields, const TV* vel,
                                                 const float* dens, const float* e,
-                                                const Buoyancy bp, int n, float dt0, int z, int y,
-                                                int x, float (&out)[F]) {
+                                                const Buoyancy bp, int n, const Slab& sl,
+                                                float dt0, int z, int y, int x,
+                                                float (&out)[F]) {
   constexpr int W = 2 * K + 1;
-  const long long sn = n, vol = sn * sn * sn;
+  const long long sn = n, vol = sn * sn * sl.nz;
   const long long c0 = (z * sn + y) * sn + x;
+  const int zg = z + sl.zoff;
   const float vx = ld(vel[c0]);
   float vy = ld(vel[vol + c0]);
   const float vz = ld(vel[2 * vol + c0]);
   if (BUOY_VEL) {
     float rho = dens[c0];
-    if (SRC == kSrcDensity) rho = emitter_add(rho, e, z, y, x);
+    if (SRC == kSrcDensity) rho = emitter_add(rho, e, zg, y, x);
     vy = buoyant_vy(vy, rho, bp);
   }
   const float hi = float(n) - 1.5f;
   const float fx = frac_win<K>(float(x), vx, dt0, hi);
   const float fy = frac_win<K>(float(y), vy, dt0, hi);
-  const float fz = frac_win<K>(float(z), vz, dt0, hi);
+  const float fz = frac_win<K>(float(zg), vz, dt0, hi);
   float hx[W], hy[W];
   int xs[W], ys[W];
 #pragma unroll
@@ -194,7 +208,7 @@ __device__ __forceinline__ void advect_cell_win(const TF* fields, const TV* vel,
 #pragma unroll 1
   for (int dz = 0; dz < W; ++dz) {
     const float wz = hat(fz, dz - K);
-    const int tz = (z + dz - K + n) % n;
+    const int tz = (z + dz - K + sl.nz) % sl.nz;
 #pragma unroll
     for (int dy = 0; dy < W; ++dy) {
       const float wzy = wz * hy[dy];
@@ -206,10 +220,10 @@ __device__ __forceinline__ void advect_cell_win(const TF* fields, const TV* vel,
 #pragma unroll
         for (int c = 0; c < F; ++c) {
           float g = ld(fields[c * vol + t]);
-          if (SRC == kSrcFields) g = emitter_add(g, e, tz, ys[dy], xs[dx]);
+          if (SRC == kSrcFields) g = emitter_add(g, e, sl.zoff + tz, ys[dy], xs[dx]);
           if (BUOY_TAPS && c == 1) {
             float rho = dens[t];
-            if (SRC == kSrcDensity) rho = emitter_add(rho, e, tz, ys[dy], xs[dx]);
+            if (SRC == kSrcDensity) rho = emitter_add(rho, e, sl.zoff + tz, ys[dy], xs[dx]);
             g = buoyant_vy(g, rho, bp);
           }
           acc[c] = acc[c] + w * g;
@@ -221,19 +235,22 @@ __device__ __forceinline__ void advect_cell_win(const TF* fields, const TV* vel,
   for (int c = 0; c < F; ++c) out[c] = acc[c];
 }
 
-// One substep's operands.  src (F, n, n, n) is read and dst written, each in
+// One substep's operands.  src (F, nz, n, n) is read and dst written, each in
 // the type its launch names; vel is the storage type's; dens is the
 // buoyancy's density, mask one byte per cell (nonzero = solid) and emitter
-// the (5,) descriptor, each null when unused; b0..b2 the fields' boundary
-// codes; scale multiplies every output value after the faces, in the output
-// type (the TPU kernels' storage-dtype multiply).
+// the (5,) descriptor, each null when unused; slab the z-slab of the n^3 grid
+// the arrays hold ({n, 0}: all of it); b0..b2 the fields' boundary codes;
+// scale multiplies every output value after the faces, in the output type
+// (the TPU kernels' storage-dtype multiply).
 struct Substep {
   const void *src, *vel;
   const float* dens;
   const uint8_t* mask;
   const float* emitter;
   void* dst;
-  int n, b0, b1, b2;
+  int n;
+  Slab slab;
+  int b0, b1, b2;
   float dt0, scale;
   Buoyancy bp;
 };
@@ -251,13 +268,13 @@ __device__ __forceinline__ void advect_store(const Substep& a, const Cell& k) {
 #pragma unroll
     for (int c = 0; c < F; ++c) v[c] = 0.0f;
   } else if constexpr (K == 1) {
-    advect_cell_k1<F, BUOY_VEL, BUOY_TAPS, SRC>(src, vel, a.dens, a.emitter, a.bp, a.n, a.dt0,
-                                                k.cz, k.cy, k.cx, v);
+    advect_cell_k1<F, BUOY_VEL, BUOY_TAPS, SRC>(src, vel, a.dens, a.emitter, a.bp, a.n, a.slab,
+                                                a.dt0, k.cz, k.cy, k.cx, v);
   } else {
     advect_cell_win<K, F, BUOY_VEL, BUOY_TAPS, SRC>(src, vel, a.dens, a.emitter, a.bp, a.n,
-                                                    a.dt0, k.cz, k.cy, k.cx, v);
+                                                    a.slab, a.dt0, k.cz, k.cy, k.cx, v);
   }
-  const long long vol = static_cast<long long>(a.n) * a.n * a.n;
+  const long long vol = static_cast<long long>(a.n) * a.n * a.slab.nz;
   const int bs[3] = {a.b0, a.b1, a.b2};
   TO* dst = static_cast<TO*>(a.dst);
 #pragma unroll
@@ -297,21 +314,22 @@ template <int K, int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC, typen
 __global__ void __launch_bounds__(kThreads)
     advect_kernel(const TF* __restrict__ src, const TV* __restrict__ vel,
                   const float* __restrict__ dens, const uint8_t* __restrict__ mask,
-                  const float* __restrict__ emitter, TO* __restrict__ dst, int n, int b0,
-                  int b1, int b2, float dt0, float scale, Buoyancy bp) {
+                  const float* __restrict__ emitter, TO* __restrict__ dst, int n, Slab sl,
+                  int b0, int b1, int b2, float dt0, float scale, Buoyancy bp) {
   Cell k;
-  if (!cell_of_thread(n, k)) return;
+  if (!cell_of_thread_slab(n, sl, k)) return;
   advect_store<F, BUOY_VEL, BUOY_TAPS, MASK, SRC, K, TF, TV, TO>(
-      Substep{src, vel, dens, mask, emitter, dst, n, b0, b1, b2, dt0, scale, bp}, k);
+      Substep{src, vel, dens, mask, emitter, dst, n, sl, b0, b1, b2, dt0, scale, bp}, k);
 }
 
 template <int K, int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC, typename TF = float,
           typename TV = float, typename TO = float>
 cudaError_t launch(const Substep& a, cudaStream_t s) {
   advect_kernel<K, F, BUOY_VEL, BUOY_TAPS, MASK, SRC, TF, TV, TO>
-      <<<cell_grid(a.n), cell_block(), 0, s>>>(
+      <<<cell_grid_slab(a.n, a.slab.nz), cell_block(), 0, s>>>(
           static_cast<const TF*>(a.src), static_cast<const TV*>(a.vel), a.dens, a.mask,
-          a.emitter, static_cast<TO*>(a.dst), a.n, a.b0, a.b1, a.b2, a.dt0, a.scale, a.bp);
+          a.emitter, static_cast<TO*>(a.dst), a.n, a.slab, a.b0, a.b1, a.b2, a.dt0, a.scale,
+          a.bp);
   return cudaGetLastError();
 }
 
@@ -367,10 +385,10 @@ cudaError_t launch_window(const Substep& a, int n_fields, bool buoy_vel, bool bu
 }
 
 // n_sub substeps of a.src (type S) through a.vel (type S) with a window of K
-// cells, one launch each, the last into out (type S); the input is never
-// written.  float32: the earlier substeps alternate back from out with tmp0
-// (which may be null when n_sub == 1).  bfloat16: the earlier substeps write
-// float32 into tmp0 and tmp1 in turn (each (n_fields, n, n, n) float32, null
+// cells on a.slab, one launch each, the last into out (type S); the input is
+// never written.  float32: the earlier substeps alternate back from out with
+// tmp0 (which may be null when n_sub == 1).  bfloat16: the earlier substeps
+// write float32 into tmp0 and tmp1 in turn (each like out in float32, null
 // when unused), and the last rounds into out.  With a mask, velocity codes
 // get the obstacle mirror after every substep, as a second launch in place on
 // the float32 result (bfloat16: the last result is then rounded into out by
@@ -409,14 +427,14 @@ cudaError_t advect_substeps(Substep a, int n_fields, int n_sub, bool buoy, int s
     if (err != cudaSuccess) return err;
     if (mirror) {
       // The mirror works on the float32 result: out itself for float32.
-      mirror_obstacles_kernel<float><<<cell_grid(a.n), cell_block(), 0, s>>>(
-          static_cast<float*>(dst), a.mask, a.n, n_fields, a.b0, a.b1, a.b2);
+      mirror_obstacles_kernel<float><<<cell_grid_slab(a.n, a.slab.nz), cell_block(), 0, s>>>(
+          static_cast<float*>(dst), a.mask, a.n, a.slab, n_fields, a.b0, a.b1, a.b2);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
     a.src = dst;
   }
   if (!wide && mirror) {
-    const long long count = static_cast<long long>(n_fields) * a.n * a.n * a.n;
+    const long long count = static_cast<long long>(n_fields) * a.n * a.n * a.slab.nz;
     store_kernel<S><<<flat_blocks(count), kThreads, 0, s>>>(static_cast<const float*>(a.src),
                                                            out, count);
     err = cudaGetLastError();

@@ -82,7 +82,7 @@ __global__ void __launch_bounds__(kThreads, kFullStepMinBlocks)
     const Substep s{substep_buf<wide>(sub - 1, a.n_sub, a.vel, a.adv, a.vel_out, a.tmp0, a.tmp1),
                     a.vel, nullptr, nullptr, nullptr,
                     substep_buf<wide>(sub, a.n_sub, a.vel, a.adv, a.vel_out, a.tmp0, a.tmp1),
-                    n, 1, 2, 3, a.dt0_sub, 1.0f, Buoyancy{}};
+                    n, Slab{n, 0}, 1, 2, 3, a.dt0_sub, 1.0f, Buoyancy{}};
     for (int i = first; i < vol; i += stride) {
       advect_store_role<3, K, false, S>(s, cell_at(n, i), sub == 0, last);
     }
@@ -154,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, kFullStepMinBlocks)
         substep_buf<wide>(sub - 1, a.n_sub, a.dens, a.dens_out, a.adv, a.tmp0, a.tmp1),
         a.vel_out, nullptr, nullptr, nullptr,
         substep_buf<wide>(sub, a.n_sub, a.dens, a.dens_out, a.adv, a.tmp0, a.tmp1),
-        n, 0, 0, 0, a.dt0_sub, last ? a.dens_damp : 1.0f, Buoyancy{}};
+        n, Slab{n, 0}, 0, 0, 0, a.dt0_sub, last ? a.dens_damp : 1.0f, Buoyancy{}};
     for (int i = first; i < vol; i += stride) {
       advect_store_role<1, K, false, S>(d, cell_at(n, i), sub == 0, last);
     }

@@ -181,7 +181,7 @@ cudaError_t project_phases(const S* vel, const uint8_t* mask, S* vel_out, S* p_o
   // the gradient as its own launch; damp comes after the mirror.
   gradient_kernel<T, S, true><<<grid, block, 0, s>>>(vel, src, mask, vel_out, p_out, n, 1.0f);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  mirror_obstacles_kernel<S><<<grid, block, 0, s>>>(vel_out, mask, n, 3, 1, 2, 3);
+  mirror_obstacles_kernel<S><<<grid, block, 0, s>>>(vel_out, mask, n, Slab{n, 0}, 3, 1, 2, 3);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (damp != 1.0f) {
     const long long count = 3LL * n * n * n;

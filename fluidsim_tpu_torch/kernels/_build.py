@@ -81,6 +81,12 @@ SIGNATURES = {
     "fs_jacobi": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
     # x, x0, mask, out, tmp, n, b, a, inv_c, iters, blk, stream
     "fs_jacobi_resident": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _B, _P),
+    # x, x0, mask, out, tmp, nz, n, b, a, inv_c, t_iters, wall_lo, wall_hi,
+    # stream
+    "fs_jacobi_ext": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _P),
+    # fields, vel, mask, out, tmp0, n, nz, zoff, n_fields, b0, b1, b2,
+    # dt0_sub, n_sub, window, stream
+    "fs_advect_ext": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # x, x0, mask, out, tmp, n, b, a, c, iters, smooth, blocks, stream
     "fs_solve_2d": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _P),
     # vel, div, n, stream

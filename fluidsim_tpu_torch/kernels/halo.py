@@ -1,0 +1,323 @@
+"""K10 and K11, the per-shard kernels of the explicit halo-exchange sharded
+step: their plain twins and their wrappers.
+
+Counterpart of the K10/K11 half of ``fluidsim_tpu/pallas/halo_kernel.py``.
+Both run on one shard's halo-extended z-slab: its ``lz`` planes between the
+neighbours' edge planes (``parallel/halo.py`` exchanges them).
+
+* K10, ``jacobi_ext_kernel`` (``jacobi_ext_pallas`` → ``_ext_jacobi_kernel``):
+  ``t_iters`` Jacobi sweeps ``(x0 + a·nbr)·coef`` on the ``(nz, n, n)`` slab,
+  with open z edges and the global z walls at the run-time slab planes
+  ``(wall_lo, wall_hi)`` (``NO_WALL`` for none), then the ``set_bnd`` faces.
+  The CUDA kernel is ``csrc/jacobi_ext.cu`` (K6's pass on a slab).
+* K11, ``advect_ext_kernel`` (``advect_ext_pallas`` → ``_ext_advect_kernel``):
+  K1's windowed substep advection of F fields on the ``(F, nz, n, n)`` slab
+  whose plane 0 is global plane ``z_offset``.  The CUDA kernel is
+  ``csrc/advect_ext.cu`` (K1's per-cell bodies on a slab).
+
+A sweep or a substep reads one plane (``window`` planes, plus one for the
+obstacle mirror) past each cell, so validity erodes from the slab's open
+ends: after the call only planes at least ``t_iters`` (K10) or the halo
+(K11) from an end hold the global computation's values, and the callers
+keep those.  Past the ends the twins define what the kernels compute, so
+the two agree on every plane: K10 reads zeros past the slab's ends, K11
+reads taps (and mirror neighbours) at planes wrapped modulo ``nz``.  The TPU
+kernels leave other values there (their windows wrap inside VMEM); no
+caller reads them.
+
+Both take float32 fields (the sharded step's pressure solve is float32, as
+the JAX package's ``project_3d`` upcasts; the port's sharded step advects
+float32 fields only).  Masks are ``torch.bool`` (one byte per cell, nonzero =
+solid in the kernels).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.advect import window_sum_3d
+from . import _build
+from .advect import WINDOWS, _check_substeps, _check_volume, _comb, _ptr, substep_dt0
+from .jacobi import solve_coefficients
+
+# "No wall on this side" for K10's wall positions: any value <= -2 (-1 would
+# put a corrected read at slab plane 0), as the TPU kernel's NO_WALL.
+NO_WALL = -5
+
+
+def _signs(b: int):
+    """``(sz, sy, sx)``: -1 across the walls normal to field code ``b``."""
+    return tuple(-1.0 if b == code else 1.0 for code in (3, 2, 1))
+
+
+def _check_wall(name: str, wall: int, lo: int, hi: int) -> int:
+    if int(wall) != wall or not (wall <= -2 or lo <= wall <= hi):
+        raise ValueError(f"{name}={wall}: expected a slab plane in [{lo}, {hi}] or "
+                         f"NO_WALL (<= -2)")
+    return int(wall)
+
+
+def slab_faces(b: int, v, wall_lo: int, wall_hi: int):
+    """The ``set_bnd_3d(b)`` faces of the ``(nz, n, n)`` slab ``v`` in the TPU
+    kernel's z → y → x order: the z faces at the slab planes ``wall_lo`` and
+    ``wall_hi`` where they lie in the slab (each the signed copy of the plane
+    inwards, wrapped), then y and x on every plane.  Returns a new tensor."""
+    sz, sy, sx = _signs(b)
+    v = v.clone()
+    nz = v.shape[0]
+    for wall, src in ((wall_lo, wall_lo + 1), (wall_hi, wall_hi - 1)):
+        if 0 <= wall < nz:
+            v[wall] = sz * v[src % nz]
+    for dst, src in ((0, 1), (-1, -2)):
+        v[:, dst] = sy * v[:, src]
+    for dst, src in ((0, 1), (-1, -2)):
+        v[:, :, dst] = sx * v[:, :, src]
+    return v
+
+
+def jacobi_ext_plain(xp, x0_ext, a: float, c: float, t_iters: int, wall_lo: int,
+                     wall_hi: int, b: int = 0, obst_ext=None):
+    """Plain PyTorch twin of K10: ``t_iters`` sweeps of
+    ``(x0 + a·nbr)·coef`` on every plane of the float32 ``(nz, n, n)`` slab
+    ``xp`` (``coef = f32(1)/f32(c)``, 0 in the solid cells of the bool mask
+    ``obst_ext``), then the faces (``slab_faces``).  ``nbr`` is
+    ``((x₊+x₋) + (y₊+y₋)) + (z₊+z₋)`` with zeros past the slab's ends and the
+    corrected reads of the TPU kernel: ``s·`` the cell itself for the
+    neighbour across an x or y wall (next to x, y = 1 and n−2) and across a z
+    wall (at planes ``wall_lo + 1`` and ``wall_hi − 1``), ``s`` the wall's
+    sign for code ``b``."""
+    a32, inv_c = solve_coefficients(a, c)
+    nz, n = xp.shape[0], xp.shape[-1]
+    sz, sy, sx = _signs(b)
+    dev = xp.device
+    coef = (inv_c if obst_ext is None
+            else torch.where(obst_ext, 0.0, torch.tensor(inv_c, device=dev)))
+    zi = torch.arange(nz, device=dev)[:, None, None]
+    yi = torch.arange(n, device=dev)[None, :, None]
+    xi = torch.arange(n, device=dev)[None, None, :]
+    v = xp
+    for _ in range(t_iters):
+        p = F.pad(v, (1, 1, 1, 1, 1, 1))
+        right = torch.where(xi == n - 2, sx * v, p[1:-1, 1:-1, 2:])
+        left = torch.where(xi == 1, sx * v, p[1:-1, 1:-1, :-2])
+        up = torch.where(yi == n - 2, sy * v, p[1:-1, 2:, 1:-1])
+        down = torch.where(yi == 1, sy * v, p[1:-1, :-2, 1:-1])
+        above = torch.where(zi == wall_hi - 1, sz * v, p[2:, 1:-1, 1:-1])
+        below = torch.where(zi == wall_lo + 1, sz * v, p[:-2, 1:-1, 1:-1])
+        nbr = ((right + left) + (up + down)) + (above + below)
+        v = (x0_ext + a32 * nbr) * coef
+    return slab_faces(b, v, wall_lo, wall_hi)
+
+
+def jacobi_ext_kernel(xp, x0_ext, a: float, c: float, t_iters: int, wall_lo: int,
+                      wall_hi: int, b: int = 0, obst_ext=None):
+    """K10: ``t_iters`` Jacobi sweeps on the float32 halo-extended slab ``xp``
+    ``(nz, n, n)`` with rhs ``x0_ext``, the global z walls at slab planes
+    ``wall_lo`` and ``wall_hi`` (``NO_WALL``: none on that side), then the
+    faces; the bool mask ``obst_ext`` makes the coefficient 0 in solids.
+    The outer ``t_iters`` planes of the result are erosion margin.
+
+    CUDA tensors launch ``csrc/jacobi_ext.cu``; CPU tensors run
+    ``jacobi_ext_plain``.  Returns a new tensor.
+    ``jacobi_ext_kernel.launches`` counts calls that launched the kernel."""
+    if b not in (0, 1, 2, 3):
+        raise ValueError(f"boundary code must be 0..3, got {b}")
+    if int(t_iters) != t_iters or t_iters < 1:
+        raise ValueError(f"t_iters must be a positive integer, got {t_iters}")
+    nz, n = xp.shape[0], xp.shape[-1]
+    if n < 3 or xp.dim() != 3:
+        raise ValueError(f"expected an (nz, n, n) slab with n >= 3, got {tuple(xp.shape)}")
+    _check_volume("xp", xp, (nz, n, n))
+    _check_volume("x0_ext", x0_ext, (nz, n, n))
+    wall_lo = _check_wall("wall_lo", wall_lo, 0, nz - 2)
+    wall_hi = _check_wall("wall_hi", wall_hi, 1, nz - 1)
+    tensors = [x0_ext]
+    if obst_ext is not None:
+        _check_volume("obst_ext", obst_ext, (nz, n, n), torch.bool)
+        tensors.append(obst_ext)
+    if any(t.device != xp.device for t in tensors):
+        raise ValueError("all tensors must be on one device")
+
+    if xp.device.type == "cpu":
+        return jacobi_ext_plain(xp, x0_ext, a, c, t_iters, wall_lo, wall_hi, b, obst_ext)
+    if xp.device.type != "cuda":
+        raise ValueError(f"unsupported device {xp.device}")
+
+    lib = _build.load_library()
+    out = torch.empty_like(xp)
+    tmp = torch.empty_like(xp) if t_iters > 3 else None
+    a32, inv_c = solve_coefficients(a, c)
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fs_jacobi_ext(
+            xp.data_ptr(), x0_ext.data_ptr(), _ptr(obst_ext), out.data_ptr(), _ptr(tmp),
+            nz, n, int(b), a32, inv_c, int(t_iters), wall_lo, wall_hi, stream,
+        )
+    _build.check(lib, err, "extended-slab Jacobi kernel launch")
+    jacobi_ext_kernel.launches += 1
+    return out
+
+
+jacobi_ext_kernel.launches = 0
+
+
+def ext_halo(window: int, n_sub: int, masked: bool) -> int:
+    """The planes a K11 call erodes from each end of its slab (and so the
+    halo its caller exchanges): ``window·n_sub``, or ``n_sub·(window+1)``
+    with a mask, whose mirror reads one plane further each substep."""
+    return n_sub * (window + 1) if masked else window * n_sub
+
+
+def _nonborder_solid(obst_ext, n: int, z_offset: int):
+    """Solid cells of the slab's mask that are not border cells (x, y in
+    [1, n−2], global z not 0 or n−1): where the obstacle mirror writes."""
+    nz = obst_ext.shape[0]
+    dev = obst_ext.device
+    zg = torch.arange(nz, device=dev)[:, None, None] + z_offset
+    ar = torch.arange(n, device=dev)
+    inner = (ar >= 1) & (ar <= n - 2)
+    return obst_ext & (zg != 0) & (zg != n - 1) & inner[None, :, None] & inner[None, None, :]
+
+
+def _mirror_ext(v, obst_ext, writes, axis: int):
+    """The obstacle mirror along ``axis`` of the slab ``v`` (the arithmetic of
+    ``ops/boundary._mirror_obstacles_axis``) at the cells ``writes``,
+    neighbours read wrapped."""
+    fluid = ~obst_ext
+    prev_fluid = torch.roll(fluid, 1, axis)
+    next_fluid = torch.roll(fluid, -1, axis)
+    total = (torch.where(prev_fluid, -torch.roll(v, 1, axis), 0.0)
+             + torch.where(next_fluid, -torch.roll(v, -1, axis), 0.0))
+    count = prev_fluid.to(v.dtype) + next_fluid.to(v.dtype)
+    mirrored = torch.where(count > 0, total / torch.clamp(count, min=1.0), 0.0)
+    return torch.where(writes, mirrored, v)
+
+
+def advect_ext_plain(bs, fields_ext, vel_ext, n: int, dt: float, z_offset: int,
+                     window: int = 1, n_sub: int = 1, obst_ext=None):
+    """Plain PyTorch twin of K11: advect the float32 ``(F, nz, n, n)`` slab
+    ``fields_ext`` (boundary codes ``bs``) through ``vel_ext`` in ``n_sub``
+    substeps with the backtrace clamped to ``window`` cells, the slab's plane
+    0 at global z ``z_offset`` of the ``n³`` grid.  Per substep: the sample
+    (K = 1: the two-tap form, x innermost, then y, then z; K > 1:
+    ``window_sum_3d`` on the slab), with the bool mask the solid cells
+    zeroed, the faces (``slab_faces`` at the global walls' slab planes
+    ``-z_offset`` and ``n−1−z_offset``), and for velocity codes with the mask
+    the obstacle mirror.  Taps past the slab's ends wrap modulo ``nz``."""
+    nz = fields_ext.shape[1]
+    dt0 = substep_dt0(dt, n, n_sub)
+    f32 = torch.float32
+    dev = fields_ext.device
+    fields = fields_ext
+    if window == 1:
+        ar = torch.arange(n, dtype=f32, device=dev)
+        zc = (torch.arange(nz, device=dev) + z_offset).to(f32)[:, None, None]
+
+        def frac(c, v):
+            t = c - dt0 * v
+            t = torch.where(t < 0.5, 0.5, t)
+            t = torch.where(t > n - 1.5, n - 1.5, t)
+            t = torch.minimum(torch.maximum(t, c - 1.0), c + 1.0)
+            return t - c
+
+        fx = frac(ar[None, None, :], vel_ext[0])
+        fy = frac(ar[None, :, None], vel_ext[1])
+        fz = frac(zc, vel_ext[2])
+        w = [(torch.clamp(f, min=0.0), torch.clamp(-f, min=0.0)) for f in (fx, fy, fz)]
+
+        def interp(g, dim, wts, inner):
+            # (g at -1, g, g at +1 along dim), each through `inner` first.
+            return _comb(inner(torch.roll(g, 1, dim)), inner(g), inner(torch.roll(g, -1, dim)),
+                         *wts)
+
+        def sample(f):
+            def x_i(g):
+                return _comb(torch.roll(g, 1, -1), g, torch.roll(g, -1, -1), *w[0])
+
+            def yx_i(g):
+                return interp(g, -2, w[1], x_i)
+
+            return interp(f, -3, w[2], yx_i)
+    else:
+        def sample(f):
+            return window_sum_3d(f, vel_ext, dt0, window, z_offset)
+
+    writes = None if obst_ext is None else _nonborder_solid(obst_ext, n, z_offset)
+    for _ in range(n_sub):
+        vals = sample(fields)
+        out = []
+        for c, b in enumerate(bs):
+            v = vals[c]
+            if obst_ext is not None:
+                v = torch.where(obst_ext, 0.0, v)
+            v = slab_faces(b, v, -z_offset, n - 1 - z_offset)
+            if obst_ext is not None and b in (1, 2, 3):
+                v = _mirror_ext(v, obst_ext, writes, 3 - b)
+            out.append(v)
+        fields = torch.stack(out)
+    return fields
+
+
+def advect_ext_kernel(bs, fields_ext, vel_ext, n: int, dt: float, z_offset: int,
+                      window: int = 1, n_sub: int = 1, obst_ext=None):
+    """K11: advect the float32 ``(F, nz, n, n)`` halo-extended slab
+    ``fields_ext`` (F = 1 or 3, boundary codes ``bs``; ``fields_ext is
+    vel_ext`` for self-advection) through ``vel_ext`` with a ``window`` of 1,
+    2 or 3 cells in ``n_sub`` substeps, the slab's plane 0 at global z
+    ``z_offset`` of the ``n³`` grid, with the obstacle contract after each
+    substep when the bool mask ``obst_ext`` is given.  The outer
+    ``ext_halo(window, n_sub, masked)`` planes of the result are erosion
+    margin.
+
+    CUDA tensors launch ``csrc/advect_ext.cu``; CPU tensors run
+    ``advect_ext_plain``.  Returns a new tensor.
+    ``advect_ext_kernel.launches`` counts calls that launched the kernel."""
+    bs = tuple(bs)
+    if window not in WINDOWS:
+        raise NotImplementedError(
+            f"extended-slab advection with window={window}: the kernel takes "
+            f"windows {WINDOWS}")
+    n_sub = _check_substeps(n_sub)
+    if fields_ext.dim() != 4 or vel_ext.dim() != 4:
+        raise ValueError("expected (F, nz, n, n) fields and a (3, nz, n, n) velocity")
+    n_fields, nz = fields_ext.shape[0], fields_ext.shape[1]
+    if n_fields not in (1, 3) or len(bs) != n_fields:
+        raise ValueError(f"unsupported fields {tuple(fields_ext.shape)} with bs={bs}")
+    if n < 2 * window + 1 or nz < 2 * window + 1:
+        raise ValueError(f"slab too small for window={window}: n={n}, nz={nz}")
+    if int(z_offset) != z_offset:
+        raise ValueError(f"z_offset must be an integer, got {z_offset}")
+    z_offset = int(z_offset)
+    _check_volume("fields_ext", fields_ext, (n_fields, nz, n, n))
+    _check_volume("vel_ext", vel_ext, (3, nz, n, n))
+    tensors = [vel_ext]
+    if obst_ext is not None:
+        _check_volume("obst_ext", obst_ext, (nz, n, n), torch.bool)
+        tensors.append(obst_ext)
+    if any(t.device != fields_ext.device for t in tensors):
+        raise ValueError("all tensors must be on one device")
+
+    if fields_ext.device.type == "cpu":
+        return advect_ext_plain(bs, fields_ext, vel_ext, n, dt, z_offset, window, n_sub,
+                                obst_ext)
+    if fields_ext.device.type != "cuda":
+        raise ValueError(f"unsupported device {fields_ext.device}")
+
+    lib = _build.load_library()
+    out = torch.empty_like(fields_ext)
+    tmp0 = torch.empty_like(fields_ext) if n_sub > 1 else None
+    b = bs + (0,) * (3 - n_fields)
+    with torch.cuda.device(fields_ext.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fs_advect_ext(
+            fields_ext.data_ptr(), vel_ext.data_ptr(), _ptr(obst_ext), out.data_ptr(),
+            _ptr(tmp0), n, nz, z_offset, n_fields, b[0], b[1], b[2],
+            substep_dt0(dt, n, n_sub), n_sub, int(window), stream,
+        )
+    _build.check(lib, err, "extended-slab advection kernel launch")
+    advect_ext_kernel.launches += 1
+    return out
+
+
+advect_ext_kernel.launches = 0

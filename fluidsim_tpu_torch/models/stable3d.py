@@ -24,6 +24,12 @@ density dissipation → obstacle enforcement.  Two branches:
 * the plain path (``kernel_backend="xla"``, window 0, or a CPU device): the
   JAX package's XLA composition of the ``ops`` functions.
 
+The sharded step (``parallel.sharding.sharded_step_fn``) passes two hooks,
+as in the JAX package: ``advect_fn`` takes every advection (K11 per shard)
+and ``jacobi_fn`` the pressure solve, inside ``ops/project.project_3d``'s
+plain divergence and gradient (K10 per shard).  Either hook turns the
+fused kernels and the buoyancy fold off.
+
 Buoyancy (when not folded), vorticity confinement, diffusion, MacCormack's
 limiter, the FFT projection (``pressure_solver="fft"``, ``torch.fft``),
 turbulent noise and obstacle enforcement are plain PyTorch on both paths,
@@ -79,15 +85,19 @@ def _unported(what: str):
     raise NotImplementedError(f"{what} is not ported to fluidsim_tpu_torch yet")
 
 
-def fuses_projection(cfg: SimConfig, use_kernels: bool, resident: bool) -> bool:
+def fuses_projection(cfg: SimConfig, use_kernels: bool, resident: bool,
+                     jacobi_fn=None, advect_fn=None) -> bool:
     """Whether the step runs a fused kernel, K2 (the projection + density
     advection) or, with ``fuse_self_advect`` and no mask, K8 (the whole
     step): asked for (``fuse_project_advect``) on the kernel path with the
-    substep scheme and the Jacobi solver (the JAX ``fuse_ok``), and the
-    solve fits the card's L2 (``resident``, from ``resident_route``; as the
-    JAX step takes its fused kernels only where they fit on chip)."""
+    substep scheme and the Jacobi solver and without the sharded step's
+    hooks (the JAX ``fuse_ok``), and the solve fits the card's L2
+    (``resident``, from ``resident_route``; as the JAX step takes its fused
+    kernels only where they fit on chip)."""
     return (
         use_kernels
+        and jacobi_fn is None
+        and advect_fn is None
         and cfg.fuse_project_advect
         and cfg.advection_scheme == "substep"
         and cfg.pressure_solver != "fft"
@@ -135,18 +145,19 @@ def emitter_folds(cfg: SimConfig, use_kernels: bool, resident: bool) -> bool:
     )
 
 
-def fold_buoyancy(cfg: SimConfig, use_kernels: bool) -> bool:
+def fold_buoyancy(cfg: SimConfig, use_kernels: bool, advect_fn=None) -> bool:
     """Whether the buoyancy force folds into the self-advection kernel: the
     JAX package's gate (``fluidsim_tpu/models/stable3d.py``), valid only
     when nothing acts on the velocity between the force and the advection
-    (no obstacle, vorticity, viscosity or pre-projection) and the kernel
-    path runs the substep scheme."""
+    (no obstacle, vorticity, viscosity or pre-projection), the kernel path
+    runs the substep scheme and no ``advect_fn`` hook replaces K1."""
     _, _, visc = cfg.effective_params()
     has_force = cfg.buoyancy != 0.0 or cfg.gravity != 0.0
     return (
         has_force
         and cfg.fuse_buoyancy
         and use_kernels
+        and advect_fn is None
         and not cfg.enable_obstacle
         and cfg.vorticity_confinement == 0.0
         and visc <= 0.0
@@ -165,20 +176,32 @@ def sink_factor(dt: float, rate: float) -> float:
 
 def simulate_step_3d(state: FluidState, cfg: SimConfig,
                      kernels: StepKernels = HAND_KERNELS,
-                     resident=None, src=None) -> FluidState:
+                     resident=None, src=None, jacobi_fn=None,
+                     advect_fn=None) -> FluidState:
     """One product step.  ``kernels`` replaces the calls of the kernel path
     (``PLAIN_TWINS`` runs their plain twins instead).  ``resident`` is
     ``resident_route``'s answer for this grid and device where the caller
     decided it once (``Engine`` does); None decides it here.  ``src`` is
     the folded emitter's descriptor (``scene.sources.emitter_fold_operand``),
     only where ``emitter_folds`` holds: the caller has then skipped
-    ``apply_custom_source``."""
+    ``apply_custom_source``.
+
+    ``jacobi_fn(p, div, iters, obst)`` replaces the pressure solve, between
+    the plain divergence and gradient of ``ops/project.project_3d``, and
+    ``advect_fn(bs, fields, vel, dt, obst)`` replaces every advection (it
+    implements the whole scheme and the per-substep obstacle contract): the
+    hooks of the explicit halo-exchange sharded step
+    (``parallel.sharding.sharded_step_fn``), as in the JAX package.  Without
+    them the step is unchanged."""
     dt, diff, visc = cfg.effective_params()
     device = state.density.device
     use_kernels = _kernels_usable(cfg, device)
     if resident is None:
         resident = resident_route(cfg.current_size, cfg.solve_dtype, device)
     check_supported(cfg, use_kernels)
+    if src is not None and (jacobi_fn is not None or advect_fn is not None):
+        raise ValueError("src folding is incompatible with solver hooks "
+                         "(sharded paths apply the emitter themselves)")
     if src is not None and not emitter_folds(cfg, use_kernels, resident):
         raise ValueError(
             "src (folded emitter) passed but emitter_folds is False for this "
@@ -189,7 +212,7 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
     density = state.density
 
     has_force = cfg.buoyancy != 0.0 or cfg.gravity != 0.0
-    fold_buoy = fold_buoyancy(cfg, use_kernels)
+    fold_buoy = fold_buoyancy(cfg, use_kernels, advect_fn)
     if has_force and not fold_buoy:
         vel = buoyancy_force(vel, density, dt, cfg.buoyancy,
                              cfg.ambient_density, cfg.gravity)
@@ -213,7 +236,10 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
     ddamp = (sink_factor(dt, cfg.density_dissipation)
              if cfg.density_dissipation else 1.0)
 
-    if use_kernels:
+    if advect_fn is not None:
+        def advect(bs, fields, velocity, buoy=None):
+            return advect_fn(bs, fields, velocity, dt, obst)
+    elif use_kernels:
         def base(bs, fields, velocity, d):
             return kernels.advect(bs, fields, velocity, d, obst=obst, window=win)
 
@@ -239,7 +265,7 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
                 return advect_maccormack_3d(bs, fields, velocity, dt, obst, win)
             return advect_multi_3d(bs, fields, velocity, dt, obst, win)
 
-    fused = fuses_projection(cfg, use_kernels, resident)
+    fused = fuses_projection(cfg, use_kernels, resident, jacobi_fn, advect_fn)
     if fused:
         # Density diffusion touches no velocity, so it runs before the fused
         # kernel (as in the JAX package).
@@ -262,6 +288,8 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
                 solve_dtype=cfg.solve_dtype, damp=damp, dens_damp=ddamp,
                 sweep_block=cfg.jacobi_sweep_block,
             )
+        elif jacobi_fn is not None:
+            vel, pressure = project_3d(vel, obst, cfg.jacobi_iters, jacobi_fn=jacobi_fn)
         elif cfg.pressure_solver == "fft":
             if cfg.enable_obstacle:
                 raise ValueError("pressure_solver='fft' requires no obstacles")

@@ -10,6 +10,12 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 from ..kernels.advect import advect_multi_3d_kernel, advect_multi_3d_plain
+from ..kernels.halo import (
+    advect_ext_kernel,
+    advect_ext_plain,
+    jacobi_ext_kernel,
+    jacobi_ext_plain,
+)
 from ..kernels.project import (
     jacobi_3d_solve,
     jacobi_3d_solve_plain,
@@ -33,8 +39,11 @@ class StepKernels(NamedTuple):
     sweep_block=)``, which takes K3 or the slab route, ``full_step(vel,
     density, iters, dt, n_sub=, solve_dtype=, damp=, dens_damp=,
     sweep_block=)``, ``jacobi(b, x, x0, a, c, iters,
-    obst=, resident=)``, which takes K4 or K6 (all 3D), and the 2D step's
-    ``solve_2d(b, x, x0, a, c, obst, iters, smooth=)`` (K9)."""
+    obst=, resident=)``, which takes K4 or K6 (all 3D), the 2D step's
+    ``solve_2d(b, x, x0, a, c, obst, iters, smooth=)`` (K9), and the
+    sharded step's per-shard calls ``jacobi_ext(xp, x0_ext, a, c, t_iters,
+    wall_lo, wall_hi, b, obst_ext)`` (K10) and ``advect_ext(bs, fields_ext,
+    vel_ext, n, dt, z_offset, window, n_sub, obst_ext)`` (K11)."""
 
     advect: Callable
     project_advect: Callable
@@ -42,11 +51,13 @@ class StepKernels(NamedTuple):
     full_step: Callable
     jacobi: Callable
     solve_2d: Callable
+    jacobi_ext: Callable
+    advect_ext: Callable
 
 
 HAND_KERNELS = StepKernels(advect_multi_3d_kernel, project_advect_density_3d,
                            project_3d_kernel, full_step_3d, jacobi_3d_solve,
-                           lin_solve_2d_resident)
+                           lin_solve_2d_resident, jacobi_ext_kernel, advect_ext_kernel)
 PLAIN_TWINS = StepKernels(advect_multi_3d_plain, project_advect_density_3d_plain,
                           project_3d_plain, full_step_3d_plain, jacobi_3d_solve_plain,
-                          lin_solve_2d_resident_plain)
+                          lin_solve_2d_resident_plain, jacobi_ext_plain, advect_ext_plain)

@@ -90,17 +90,23 @@ def _coords(n: int, device):
     return torch.meshgrid(ar, ar, ar, indexing="ij")
 
 
-def window_sum_3d(fields, vel, dt0: float, window: int):
+def window_sum_3d(fields, vel, dt0: float, window: int, z_offset: int = 0):
     """The windowed trilinear sample of the ``(C, N, N, N)`` ``fields`` at
     every cell (before the output contract), for the backtrace scale
     ``dt0``: ``Σ_{dz,dy,dx ∈ [−K, K]} ((hat(fz,dz)·hat(fy,dy))·hat(fx,dx))·
     f[z+dz, y+dy, x+dx]`` accumulated in that order from zero, with
     ``hat(f, d) = max(0, 1 − |f − d|)`` and the displacement ``f`` clamped to
     ``[0.5, n−1.5]`` and then to ``coord ± K``.  Taps are read at wrapped
-    indices; the clamp gives every tap outside the grid zero weight."""
-    n = fields.shape[-1]
+    indices; the clamp gives every tap outside the grid zero weight.
+
+    On a z-slab of the grid (``fields`` ``(C, nz, N, N)`` and ``vel``
+    ``(3, nz, N, N)``, plane 0 at global z ``z_offset``) the backtrace takes
+    global z and the z taps wrap modulo ``nz``."""
+    n, nz = fields.shape[-1], fields.shape[1]
     f32 = torch.float32
-    kk, jj, ii = _coords(n, fields.device)
+    ar = torch.arange(n, dtype=f32, device=fields.device)
+    kk = (torch.arange(nz, device=fields.device) + z_offset).to(f32)[:, None, None]
+    jj, ii = ar[None, :, None], ar[None, None, :]
 
     def frac_disp(v, coord):
         x = coord - float(dt0) * v

@@ -1,8 +1,9 @@
 """fluidsim_tpu_torch's CUDA kernels against their plain twins, on a card
 (and K8 against K1 followed by K2, and the fused step paths against the
 unfused ones), the 2D mode's kernel path (K9) against its twin path and
-the CPU, the sweep-blocked solve (K5) in K2, K3, K4 and K8 and K14, and the
-plain ops that divide on the card against the CPU.
+the CPU, the sweep-blocked solve (K5) in K2, K3, K4 and K8 and K14, the
+sharded step's per-shard kernels (K10, K11) and its paths, and the plain
+ops that divide on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one.  The module
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -74,6 +75,17 @@ from fluidsim_tpu_torch.ops.project import project_3d as project_3d_xla
 from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
 from fluidsim_tpu_torch.scene.sources import emitter_fold_operand
 from fluidsim_tpu_torch.models.step_kernels import PLAIN_TWINS
+from fluidsim_tpu_torch.kernels.halo import (
+    NO_WALL,
+    advect_ext_kernel,
+    advect_ext_plain,
+    ext_halo,
+    jacobi_ext_kernel,
+    jacobi_ext_plain,
+)
+from fluidsim_tpu_torch.parallel import jacobi_3d_sharded, make_mesh, shard_state, sharded_step_fn
+from fluidsim_tpu_torch.parallel.halo import advect_multi_3d_sharded
+from fluidsim_tpu_torch.state import zeros_state
 
 pytestmark = pytest.mark.cuda
 
@@ -918,3 +930,142 @@ def test_sweep_block_paths_match_twin_paths(cuda, name, change, ran):
     assert added == {k: ran.get(k, 0) for k in added}
     for field in ("density", "velocity", "pressure"):
         assert torch.equal(getattr(kern.state, field), getattr(twin.state, field)), field
+
+
+# -- K10 and K11, the per-shard kernels of the explicit halo-exchange step ----
+
+def ext_slab(v, shard, lz, h):
+    """Shard ``shard``'s halo-extended slab of the global ``v`` (z on axis -3):
+    its lz planes between h planes of each neighbour, zeros past the ends."""
+    pad = torch.zeros_like(v.narrow(-3, 0, h))
+    return torch.cat([pad, v, pad], -3).narrow(-3, shard * lz, lz + 2 * h).contiguous()
+
+
+RANKS = {"first": 0, "middle": 1, "last": 3}
+
+
+@pytest.mark.parametrize("b", [0, 1, 2, 3])
+@pytest.mark.parametrize("rank", sorted(RANKS))
+@pytest.mark.parametrize("t", [2, 3, 4])
+def test_k10_matches_twin(cuda, t, rank, b):
+    """A shard of 10 planes of a 40³ grid (x-y tiles of 26, the last
+    partial), bitwise on every plane of the slab, erosion margin included."""
+    n, lz = 40, 10
+    vel, _ = fields(n, 2200 + t, cuda)
+    x, x0 = ext_slab(vel[0], RANKS[rank], lz, t), ext_slab(vel[1], RANKS[rank], lz, t)
+    wall_lo = t if rank == "first" else NO_WALL
+    wall_hi = t + lz - 1 if rank == "last" else NO_WALL
+    got = jacobi_ext_kernel(x, x0, 1.0, 6.0, t, wall_lo, wall_hi, b)
+    ref = jacobi_ext_plain(x, x0, 1.0, 6.0, t, wall_lo, wall_hi, b)
+    assert_equal([got], [ref], f"K10 T={t} {rank} b={b}")
+
+
+@pytest.mark.parametrize("t", [2, 3, 4])
+def test_k10_mask_and_chunks_match_twin(cuda, t):
+    """With vortex128's sphere at 40³ on every rank kind, and on one slab of
+    78 planes (a block owns 39: two chunks) with both walls."""
+    n, lz = 40, 10
+    vel, _ = fields(n, 2300 + t, cuda)
+    obst = vortex_mask(n, cuda)
+    for rank, shard in RANKS.items():
+        x = ext_slab(torch.where(obst, 0.0, vel[0]), shard, lz, t)
+        x0, m = ext_slab(vel[1], shard, lz, t), ext_slab(obst, shard, lz, t)
+        walls = (t if rank == "first" else NO_WALL, t + lz - 1 if rank == "last" else NO_WALL)
+        assert_equal([jacobi_ext_kernel(x, x0, 1.0, 6.0, t, *walls, 0, m)],
+                     [jacobi_ext_plain(x, x0, 1.0, 6.0, t, *walls, 0, m)], f"K10 mask {rank}")
+    deep, _ = fields(24, 2400 + t, cuda)
+    x = torch.cat([deep[0], deep[1], deep[2], deep[0][:6]])
+    x0 = x.flip(0).contiguous()
+    assert_equal([jacobi_ext_kernel(x, x0, 0.13, 1.78, t, t, 77 - t, 3)],
+                 [jacobi_ext_plain(x, x0, 0.13, 1.78, t, t, 77 - t, 3)], "K10 two chunks")
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("window", [1, 2, 3])
+@pytest.mark.parametrize("n_fields", [1, 3])
+def test_k11_matches_twin(cuda, n_fields, window, masked):
+    """Two substeps on each rank kind's slab of a 40³ grid (10 planes a shard,
+    a halo of 2K, or 2(K + 1) with vortex128's sphere), self-advection for
+    F = 3, bitwise on every plane."""
+    n, lz, n_sub = 40, 10, 2
+    vel, dens = fields(n, 2500 + window, cuda)
+    vel = vel * 0.3
+    obst = vortex_mask(n, cuda) if masked else None
+    h = ext_halo(window, n_sub, masked)
+    for rank, shard in RANKS.items():
+        v = ext_slab(vel, shard, lz, h)
+        f = v if n_fields == 3 else ext_slab(dens[None], shard, lz, h)
+        m = None if obst is None else ext_slab(obst, shard, lz, h)
+        bs = (1, 2, 3) if n_fields == 3 else (0,)
+        zoff = shard * lz - h
+        got = advect_ext_kernel(bs, f, v, n, DT, zoff, window, n_sub, m)
+        ref = advect_ext_plain(bs, f, v, n, DT, zoff, window, n_sub, m)
+        assert_equal([got], [ref], f"K11 F={n_fields} K={window} {rank}")
+
+
+@pytest.mark.parametrize("shards", [4, 8])
+def test_sharded_solve_and_advection_equal_k6_and_k1(cuda, shards):
+    """The per-shard kernels put together equal the whole-grid kernels bitwise
+    at 64³: the K10 solve K6's (20 sweeps at T = 2 and 4), the K11 advection
+    K1's (two substeps, with vortex128's sphere on 4 shards)."""
+    n = 64
+    vel, _ = fields(n, 2600 + shards, cuda)
+    vel = vel * 0.3
+    mesh = make_mesh(["cuda"] * shards)
+    div = divergence_3d_plain(vel)
+    zero = torch.zeros_like(div)
+    k6 = jacobi_3d_kernel(0, zero, div, 1.0, 6.0, 20)
+    for t in (2, 4):
+        got = jacobi_3d_sharded(zero, div, 1.0, 6.0, 20, mesh, block_iters=t, backend="pallas")
+        assert_equal([got], [k6], f"sharded solve T={t}")
+    obst = vortex_mask(n, cuda) if shards == 4 else None
+    got = advect_multi_3d_sharded((1, 2, 3), vel, vel, DT, mesh, window=1, n_sub=2, obst=obst)
+    assert_equal([got], [advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, obst=obst, n_sub=2)],
+                 "sharded advection")
+
+
+@pytest.mark.parametrize("name,t", [("sharded512", 2), ("sharded512", 4), ("vortex128", 2)])
+def test_sharded_step_kernel_path_matches_twin_path(cuda, name, t):
+    """sharded512 (at 64³) and vortex128 (at 64³, its sphere and three
+    substeps) on 4 shards of one card with K10 and K11: exactly iters/T K10
+    and two K11 launches a shard and a step, no single-card kernel, and
+    bitwise the same path on the twins after 3 steps."""
+    preset = {"sharded512": preset_sharded_512, "vortex128": preset_vortex_128}[name]
+    cfg = preset().replace(size=64)
+    mesh = make_mesh(["cuda"] * 4)
+    obst = vortex_mask(64, cuda) if cfg.enable_obstacle else None
+    start = shard_state(zeros_state(cfg, cuda, obstacles=obst), mesh)
+    kw = dict(halo="explicit", halo_block_iters=t, halo_backend="pallas")
+    step, twin = sharded_step_fn(cfg, mesh, **kw), sharded_step_fn(cfg, mesh, kernels=PLAIN_TWINS, **kw)
+    counters = dict(sweep_counters(), K10=jacobi_ext_kernel, K11=advect_ext_kernel,
+                    K6=jacobi_3d_kernel, K4=jacobi_3d_resident)
+    before = {k: fn.launches for k, fn in counters.items()}
+    a = b = start
+    for _ in range(3):
+        a, b = step(a), twin(b)
+    added = {k: fn.launches - before[k] for k, fn in counters.items()}
+    want = {"K10": 3 * 4 * cfg.jacobi_iters // t, "K11": 3 * 4 * 2}
+    assert added == {k: want.get(k, 0) for k in added}
+    for field in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(a, field), getattr(b, field)), field
+    assert float(a.density.sum()) > 0.0
+
+
+def test_ext_wrappers_raise_for_cuda_tensors_they_cannot_take(cuda):
+    """K10 and K11 on CUDA tensors launch or raise: a type, a shape or a
+    device the kernel does not take never reaches the twin."""
+    vel, _ = fields(16, 2700, cuda)
+    with pytest.raises(TypeError):
+        jacobi_ext_kernel(vel[0].double(), vel[1].double(), 1.0, 6.0, 2, NO_WALL, NO_WALL)
+    with pytest.raises(ValueError, match="wall_hi"):
+        jacobi_ext_kernel(vel[0], vel[1], 1.0, 6.0, 2, NO_WALL, 16)
+    with pytest.raises(ValueError, match="one device"):
+        jacobi_ext_kernel(vel[0], vel[1], 1.0, 6.0, 2, NO_WALL, NO_WALL,
+                          obst_ext=torch.zeros(16, 16, 16, dtype=torch.bool))
+    with pytest.raises(ValueError, match="slab too small"):
+        thin = vel[:, :4].contiguous()
+        advect_ext_kernel((1, 2, 3), thin, thin, 16, DT, 0, window=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        advect_ext_kernel((0,), vel[:1].transpose(2, 3), vel, 16, DT, 0)
+    with pytest.raises(TypeError):
+        advect_ext_kernel((0,), vel[:1].half(), vel, 16, DT, 0)

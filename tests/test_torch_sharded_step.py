@@ -1,0 +1,235 @@
+"""The explicit halo-exchange sharded step of fluidsim_tpu_torch
+(``parallel.sharding.sharded_step_fn``) as a whole, against the JAX
+package's ``sharded_step_fn``, and its gates.
+
+sharded512 cut to 32³ (``size=32, source_radius=2.0, jacobi_iters=4``; every
+other field is the preset's: buoyancy, the emitter, two K = 1 substeps) on 4
+shards of 8 planes, 2 steps from one state made from a seed (smooth fields,
+tests/test_torch_multi256.py's ``start_arrays``).  The JAX side runs its
+Pallas kernels in interpret mode on 4 host devices; the port runs K10's and
+K11's twins on ``make_mesh(["cpu"] * 4)``.
+
+Tolerance: rtol 1e-5, atol 1e-6·max|ref| per field (tests/test_torch_step.
+py's class).  The density reaches about 260, where a float32 ulp is 3e-5:
+an absolute 1e-6 is below the density's resolution.  Observed max abs diff
+over max|ref| after 2 steps: 1.8e-7 (density), 6.2e-7 (velocity), 3.3e-7
+(pressure) with K10/K11, 1.8e-7, 5.2e-7, 3.3e-7 on the plain backend, from
+XLA-CPU's FMAs in the JAX step (the buoyancy, the emitter, the interpreted
+kernels).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import fluidsim_tpu.config as j_config
+from fluidsim_tpu.parallel.sharding import make_mesh as j_make_mesh
+from fluidsim_tpu.parallel.sharding import shard_state as j_shard_state
+from fluidsim_tpu.parallel.sharding import sharded_step_fn as j_sharded_step_fn
+from fluidsim_tpu.state import FluidState as JState
+
+import fluidsim_tpu_torch.config as t_config
+import fluidsim_tpu_torch.models.stable3d as t_s3
+from fluidsim_tpu_torch.engine import Engine
+from fluidsim_tpu_torch.io.convert import state_from_numpy, state_to_numpy
+from fluidsim_tpu_torch.models.stable3d import simulate_step_3d
+from fluidsim_tpu_torch.models.step_kernels import PLAIN_TWINS, StepKernels
+from fluidsim_tpu_torch.parallel import (
+    make_mesh,
+    shard_state,
+    sharded_step_fn,
+    state_sharding,
+)
+from fluidsim_tpu_torch.scene.sources import apply_custom_source
+
+from test_torch_multi256 import start_arrays
+
+torch.set_num_threads(1)
+
+N = 32
+SHARDS = 4
+CUT = dict(size=N, source_radius=2.0, jacobi_iters=4)
+
+
+def configs(**change):
+    return (j_config.preset_sharded_512().replace(**CUT, **change),
+            t_config.preset_sharded_512().replace(**CUT, **change))
+
+
+class Recorder:
+    """PLAIN_TWINS whose calls are recorded by slot name."""
+
+    def __init__(self):
+        self.calls = []
+        self.kernels = StepKernels(*(self._wrap(name, fn)
+                                     for name, fn in PLAIN_TWINS._asdict().items()))
+
+    def _wrap(self, name, fn):
+        def call(*a, **k):
+            self.calls.append(name)
+            return fn(*a, **k)
+        return call
+
+
+def run_jax(cfg, steps, **kw):
+    mesh = j_make_mesh(jax.devices()[:SHARDS])
+    state = j_shard_state(JState(**{k: jnp.asarray(v) for k, v in start_arrays().items()}),
+                          mesh)
+    step = j_sharded_step_fn(cfg, mesh, **kw)
+    for _ in range(steps):
+        state = step(state)
+    return {k: np.asarray(getattr(state, k)) for k in ("density", "velocity", "pressure")}
+
+
+def run_port(cfg, steps, shards=SHARDS, **kw):
+    mesh = make_mesh(["cpu"] * shards)
+    state = shard_state(state_from_numpy(start_arrays(), "cpu"), mesh)
+    step = sharded_step_fn(cfg, mesh, **kw)
+    for _ in range(steps):
+        state = step(state)
+    return state
+
+
+@pytest.mark.parametrize("backend,t", [("pallas", 2), ("xla", 1)])
+def test_explicit_step_matches_jax(backend, t):
+    """``halo_backend="pallas"`` (K10 and K11 per shard, T = 2) and ``"xla"``
+    (the plain sweeps at T = 1, the plain advection) for 2 steps."""
+    j_cfg, t_cfg = configs()
+    ref = run_jax(j_cfg, 2, halo="explicit", halo_block_iters=t, halo_backend=backend,
+                  pallas_interpret=True)
+    got = state_to_numpy(run_port(t_cfg, 2, halo="explicit", halo_block_iters=t,
+                                  halo_backend=backend))
+    for field, r in ref.items():
+        np.testing.assert_allclose(got[field], r, rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(r).max()), err_msg=field)
+
+
+def test_auto_halo_is_the_unsharded_step():
+    """``halo="auto"`` on 4 shards (the plain path, as on the JAX package's
+    multi-shard mesh) equals the unsharded ``simulate_step_3d`` bitwise."""
+    _, cfg = configs()
+    got = run_port(cfg, 2, halo="auto")
+    state = state_from_numpy(start_arrays(), "cpu")
+    dt = cfg.effective_params()[0]
+    for _ in range(2):
+        d, v = apply_custom_source(state.density, state.velocity, cfg, state.time + dt)
+        state = simulate_step_3d(state.replace(density=d, velocity=v), cfg)
+    for field in ("density", "velocity", "pressure", "step", "time"):
+        assert torch.equal(getattr(got, field), getattr(state, field)), field
+
+
+def test_per_shard_calls(monkeypatch):
+    """With K10 and K11 per shard, a step makes iters/T K10 calls and two K11
+    calls (self-advection and density) per shard, and no single-card kernel
+    call; ``halo_backend="xla"`` makes neither."""
+    _, cfg = configs()
+    rec = Recorder()
+    run_port(cfg, 1, halo="explicit", halo_block_iters=2, halo_backend="pallas",
+             kernels=rec.kernels)
+    assert sorted(rec.calls) == sorted(["jacobi_ext"] * SHARDS * 2 + ["advect_ext"] * SHARDS * 2)
+    rec.calls.clear()
+    run_port(cfg, 1, halo="explicit", halo_backend="xla", kernels=rec.kernels)
+    assert rec.calls == []
+
+
+@pytest.mark.parametrize("change", [dict(advection_scheme="maccormack", advect_window=2),
+                                    dict(advect_window=0),
+                                    dict(advect_window=3, advect_substeps=2)])
+def test_advection_hook_only_where_it_applies(change):
+    """The per-shard advection takes the semi-Lagrangian and substep schemes
+    at a window of 1 to 3 whose halo fits a shard; MacCormack, the exact
+    gather (window 0) and a 6-plane halo on 8-plane shards keep the plain
+    advection, while the solve still runs K10 per shard."""
+    _, cfg = configs(**change)
+    rec = Recorder()
+    run_port(cfg, 1, shards=SHARDS if change.get("advect_window") != 3 else 8,
+             halo="explicit", halo_block_iters=2, halo_backend="pallas", kernels=rec.kernels)
+    assert "advect_ext" not in rec.calls
+    assert "jacobi_ext" in rec.calls
+
+
+def test_one_shard_mesh_keeps_the_single_card_kernels(monkeypatch):
+    """On a one-shard mesh ``halo="auto"`` is the unsharded step with the
+    single-card kernels (here their twins): Engine's step, bitwise, and the
+    same kernel calls."""
+    monkeypatch.setattr(t_s3, "_kernels_usable", lambda cfg, device: cfg.kernel_backend != "xla")
+    _, cfg = configs()
+    a, b = Recorder(), Recorder()
+    eng = Engine(cfg, "cpu", kernels=a.kernels)
+    eng.state = state_from_numpy(start_arrays(), "cpu")
+    eng.step(2)
+    got = run_port(cfg, 2, shards=1, halo="auto", kernels=b.kernels)
+    assert a.calls == b.calls and "advect" in a.calls
+    for field in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(got, field), getattr(eng.state, field)), field
+
+
+def test_hooks_turn_the_fusions_off(monkeypatch):
+    """Without hooks the kernel path of bench128 (at 32³) fuses the
+    projection and the density advection (K2) and folds the buoyancy into
+    K1; passing ``advect_fn`` or ``jacobi_fn`` turns both off, as in the JAX
+    step; passing ``None`` for both is the step without hooks, bitwise."""
+    monkeypatch.setattr(t_s3, "_kernels_usable", lambda cfg, device: cfg.kernel_backend != "xla")
+    cfg = t_config.preset_bench_128().replace(size=N)
+    assert t_s3.fuses_projection(cfg, True, True)
+    assert t_s3.fold_buoyancy(cfg, True)
+    hook = object()
+    assert not t_s3.fuses_projection(cfg, True, True, jacobi_fn=hook)
+    assert not t_s3.fuses_projection(cfg, True, True, advect_fn=hook)
+    assert not t_s3.fold_buoyancy(cfg, True, advect_fn=hook)
+
+    state = state_from_numpy(start_arrays(), "cpu")
+    a, b = Recorder(), Recorder()
+    plain = simulate_step_3d(state, cfg, a.kernels)
+    hooked = simulate_step_3d(state, cfg, b.kernels, jacobi_fn=None, advect_fn=None)
+    assert a.calls == b.calls == ["advect", "project_advect"]
+    for field in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(plain, field), getattr(hooked, field)), field
+
+    seen = []
+
+    def advect_fn(bs, fields, vel, dt, obst=None):
+        seen.append(bs)
+        return PLAIN_TWINS.advect(bs, fields, vel, dt, obst=obst, window=cfg.advect_window,
+                                  n_sub=cfg.advect_substeps)
+
+    c = Recorder()
+    simulate_step_3d(state, cfg, c.kernels, advect_fn=advect_fn)
+    assert seen == [(1, 2, 3), (0,)]
+    assert "project_advect" not in c.calls and "advect" not in c.calls
+    with pytest.raises(ValueError, match="hooks"):
+        simulate_step_3d(state, cfg, src=torch.zeros(5), advect_fn=advect_fn)
+
+
+def test_gates_and_errors():
+    _, cfg = configs()
+    mesh = make_mesh(["cpu"] * SHARDS)
+    with pytest.raises(ValueError, match="fft"):
+        sharded_step_fn(cfg.replace(pressure_solver="fft"), mesh, halo="explicit")
+    with pytest.raises(ValueError, match="halo_block_iters only applies"):
+        sharded_step_fn(cfg, mesh, halo="auto", halo_block_iters=2)
+    with pytest.raises(ValueError, match="multi-shard mesh"):
+        sharded_step_fn(cfg.replace(kernel_backend="pallas"), mesh)
+    with pytest.raises(ValueError, match="halo must be"):
+        sharded_step_fn(cfg, mesh, halo="ppermute")
+    with pytest.raises(NotImplementedError, match="K12/K13"):
+        sharded_step_fn(cfg, mesh, halo="explicit", halo_block_iters=2, halo_backend="rdma")
+    with pytest.raises(ValueError, match="3D"):
+        sharded_step_fn(t_config.preset_scene_b(), mesh)
+    with pytest.raises(ValueError, match="not divisible"):
+        shard_state(state_from_numpy(start_arrays(), "cpu"), make_mesh(["cpu"] * 3))
+
+
+def test_mesh_layout():
+    """Entries may repeat one device; distinct devices need the multi-card
+    slice; a leaf's split axis is z."""
+    mesh = make_mesh(["cpu"] * 8)
+    assert mesh.shape["z"] == 8 and mesh.devices == (torch.device("cpu"),) * 8
+    with pytest.raises(NotImplementedError, match="K12/K13"):
+        make_mesh(["cpu", "meta"])
+    sh = state_sharding(mesh)
+    assert (sh.density, sh.velocity, sh.pressure, sh.obstacles) == (0, 1, 0, 0)
+    assert sh.step is None and sh.time is None
