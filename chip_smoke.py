@@ -139,7 +139,25 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      round and a solve, K11 a call, the halo copies of a step and the
      steps/s of T = 4, T = 2 and the unsharded ``Engine`` in turns; run
      ``python -m fluidsim_tpu_torch.cli bench --preset sharded512 --mesh 8
-     --halo explicit ...`` as a subprocess and check its JSON line.
+     --halo explicit ...`` as a subprocess and check its JSON line;
+ 13. the sharded step's ``"rdma"`` backend and bfloat16 fields: hold K12
+     against its twin on sharded512's 8 slabs (T = 2, 3, 4; b = 0..3; two
+     chained rounds) and with vortex128's sphere on a 4-shard split of
+     128³, K13 on float32, bfloat16 and bool arrays at depths 1–4 (8 shards
+     of 512³, 4 of 128³), and K11 on bfloat16 slabs (F = 3 and 1; K = 1 on
+     sharded512's slabs, K = 1 with the sphere and three substeps, K = 3
+     with one, K = 2 and 3 with two at 128³), all bitwise; the 8-shard rdma
+     solve bitwise the pallas solve and K6 on the whole 512³ volume; step
+     sharded512 through ``sharded_step_fn(halo_backend="rdma")`` at T = 4
+     for ``HALO_STEPS`` and T = 2 for ``HALO_T2_STEPS`` steps: exactly
+     8·iters/T K12, 24 K13 and 16 K11 launches a step and nothing else,
+     bitwise the ``"pallas"`` run after the same steps; sharded512 in
+     bfloat16 on both backends for ``BF16_HALO_STEPS`` steps: exactly their
+     kernels, bitwise each its twin path and each other, mass grows, the
+     plume rises; time K12 a launch, K13's three calls of a step beside
+     ``torch.cat``, bf16 K11, and steps/s with device ms by kernel of rdma
+     (T = 4, 2, bf16), pallas and the unsharded ``Engine`` in turns; run
+     ``cli bench ... --halo-backend rdma`` as a subprocess.
 The line before last is a JSON object describing each kernel (with the
 least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -163,6 +181,7 @@ SHARDED_TWIN_STEPS = 3
 HALO_STEPS = 20
 HALO_T2_STEPS = 10
 HALO_TWIN_STEPS = 10
+BF16_HALO_STEPS = 10
 PLUME_STEPS = 100
 BF16_STEPS = 100
 BF16_VORTEX_STEPS = 50
@@ -381,8 +400,12 @@ def main() -> None:
         advect_ext_kernel,
         advect_ext_plain,
         ext_halo,
+        halo_exchange_rdma,
+        halo_exchange_rdma_plain,
         jacobi_ext_kernel,
         jacobi_ext_plain,
+        jacobi_ext_rdma,
+        jacobi_ext_rdma_plain,
     )
     from fluidsim_tpu_torch.kernels.jacobi import (
         composite_block,
@@ -2666,11 +2689,348 @@ def main() -> None:
                h_sub * (hlz + 2 * hh) * hcells * (FRAC_OPS + RELU_OPS + COMB_OPS))),
     ]
 
+    # -- 13. the "rdma" backend (K12, K13) and bfloat16 fields (K11) -------------------
+    say("# phase 13: the rdma backend (K12, K13) and K11 on bfloat16 slabs, 8 shards")
+    counters["K12"] = jacobi_ext_rdma
+    counters["K13"] = halo_exchange_rdma
+    torch.cuda.empty_cache()
+    bf16 = torch.bfloat16
+
+    def held_all(key, got, ref):
+        """Every shard's outputs of a call over all shards, bitwise."""
+        flat_got = [t for g in got for t in (g if isinstance(g, list) else [g])]
+        flat_ref = [t for r in ref for t in (r if isinstance(r, list) else [r])]
+        torch.cuda.synchronize()
+        err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(flat_got, flat_ref))
+        ext_err[key] = max(ext_err.get(key, 0.0), err)
+        if not all(torch.equal(g, r) for g, r in zip(flat_got, flat_ref)):
+            fail(f"{key} disagrees with its twin (max abs diff {err!r})")
+
+    def shard_slabs(v, shards, h):
+        lz = v.shape[-3] // shards
+        return [ext_slab(v, r, lz, h) for r in range(shards)]
+
+    # 13a. K12 on sharded512's 8 slabs, T = 2, 3, 4 and b = 0..3 (every rank
+    # kind in each call: the first, the middle and the last shard), and with
+    # vortex128's sphere on a 4-shard split of 128³; two chained rounds each.
+    hx0 = smooth(hn, rng, dev)
+    for b in (0, 1, 2, 3):
+        hx = set_bnd_3d(b, smooth(hn, rng, dev))
+        for t in (4, 3, 2):
+            xps, x0s = shard_slabs(hx, 8, t), shard_slabs(hx0, 8, t)
+            for _ in range(2):
+                got = jacobi_ext_rdma(xps, x0s, 1.0, 6.0, t, b)
+                held_all(f"K12 T={t}", got, jacobi_ext_rdma_plain(xps, x0s, 1.0, 6.0, t, b))
+                xps = got
+            del xps, x0s, got
+        say(f"# K12 b={b}: 8 shards of sharded512, T = 4, 3, 2, two rounds: kernel bitwise "
+            f"its twin")
+        del hx
+    vdiv = divergence_3d_plain(velocity_field(vn, rng, dev, 12.0))
+    vp = set_bnd_3d(0, torch.zeros_like(vdiv), vmask)
+    for t in (4, 3, 2):
+        xps, x0s, ms = (shard_slabs(v, 4, t) for v in (vp, vdiv, vmask))
+        for _ in range(2):
+            got = jacobi_ext_rdma(xps, x0s, 1.0, 6.0, t, 0, ms)
+            held_all("K12 mask", got, jacobi_ext_rdma_plain(xps, x0s, 1.0, 6.0, t, 0, ms))
+            xps = got
+    say(f"# K12 with vortex128's sphere, 4 shards of 128^3, T = 4, 3, 2: max abs diff "
+        f"{ext_err['K12 mask']!r} (bitwise)")
+    del xps, x0s, ms, got, vdiv, vp
+
+    # K13 on float32 (the velocity's channels as views of the global tensor),
+    # bfloat16 and the bool mask, depth 1-4, three arrays a call, on 8 shards
+    # of 512³ and 4 of 128³ (vortex128's sphere).
+    hvel = velocity_field(hn, rng, dev, 0.5)
+    hdens = density_field(hn, rng, dev)
+    hmask = hdens > 30.0
+    vvel = velocity_field(vn, rng, dev, 30.0)
+    for shards, arrays in ((8, [hvel, hdens[None].to(bf16), hmask[None]]),
+                           (4, [vvel, vvel[:1].to(bf16), vmask[None]])):
+        for depth in (1, 2, 3, 4):
+            by_shard = [[torch.chunk(a, shards, 1)[r] for a in arrays] for r in range(shards)]
+            held_all(f"K13 {shards} shards", halo_exchange_rdma(by_shard, depth),
+                     halo_exchange_rdma_plain(by_shard, depth))
+        say(f"# K13 on {shards} shards (float32, bfloat16, bool; depth 1-4): kernel bitwise "
+            f"its twin")
+    del by_shard, hmask
+
+    # K11 on bfloat16 slabs: F = 3 self-advection and F = 1 at K = 1, two
+    # substeps, on sharded512's slabs of the first, a middle and the last
+    # shard; on 4-shard splits of 128³ with vortex128's sphere and three
+    # substeps (and at K = 3 with one), and at K = 2, 3 with two substeps.
+    hvel_b, hdens_b = hvel.to(bf16), hdens.to(bf16)
+    for shard in (0, 3, 7):
+        ve = ext_slab(hvel_b, shard, hlz, hh)
+        de = ext_slab(hdens_b[None], shard, hlz, hh)
+        zoff = shard * hlz - hh
+        held("K11 bf16 F=3", advect_ext_kernel((1, 2, 3), ve, ve, hn, hdt, zoff, 1, h_sub),
+             advect_ext_plain((1, 2, 3), ve, ve, hn, hdt, zoff, 1, h_sub))
+        held("K11 bf16 F=1", advect_ext_kernel((0,), de, ve, hn, hdt, zoff, 1, h_sub),
+             advect_ext_plain((0,), de, ve, hn, hdt, zoff, 1, h_sub))
+    vvel_b, vdens_b = vvel.to(bf16), density_field(vn, rng, dev).to(bf16)
+    for window, v_sub, mask in ((1, v4cfg.advect_substeps, vmask), (3, 1, vmask),
+                                (2, 2, None), (3, 2, None)):
+        vh = ext_halo(window, v_sub, mask is not None)
+        for shard in range(4):
+            ve = ext_slab(vvel_b, shard, vn // 4, vh)
+            de = ext_slab(vdens_b[None], shard, vn // 4, vh)
+            me = None if mask is None else ext_slab(mask, shard, vn // 4, vh)
+            zoff = shard * (vn // 4) - vh
+            for bs, f in (((1, 2, 3), ve), ((0,), de)):
+                held("K11 bf16 128", advect_ext_kernel(bs, f, ve, vn, v4dt, zoff, window, v_sub,
+                                                       me),
+                     advect_ext_plain(bs, f, ve, vn, v4dt, zoff, window, v_sub, me))
+    del ve, de, me, vvel, vvel_b, vdens_b
+
+    # 13b. The 8-shard rdma solve against the pallas solve and K6 on the whole
+    # 512³ volume, 20 sweeps from zero, at T = 4 and 2.
+    hdiv = divergence_3d_plain(hvel)
+    hzero = torch.zeros_like(hdiv)
+    k6_whole = jacobi_3d_kernel(0, hzero, hdiv, 1.0, 6.0, h_iters)
+    for t in (4, 2):
+        got = jacobi_3d_sharded(hzero, hdiv, 1.0, 6.0, h_iters, hmesh, block_iters=t,
+                                backend="rdma")
+        pal = jacobi_3d_sharded(hzero, hdiv, 1.0, 6.0, h_iters, hmesh, block_iters=t,
+                                backend="pallas")
+        say(f"# 8-shard rdma solve (T={t}) vs the pallas solve and K6 on the whole {hn}^3 "
+            f"volume: bitwise {torch.equal(got, pal)} and {torch.equal(got, k6_whole)}")
+        if not (torch.equal(got, pal) and torch.equal(got, k6_whole)):
+            fail(f"the 8-shard rdma solve at T={t} differs from the pallas solve or K6")
+        del got, pal
+    del k6_whole
+
+    # sharded512 on 8 shards with halo_backend="rdma" against "pallas": T = 4
+    # for HALO_STEPS steps and T = 2 for HALO_T2_STEPS, the counters at zero
+    # just before each run; then bfloat16 fields on both backends at T = 4
+    # for BF16_HALO_STEPS, each bitwise its twin path.
+    def backend_step(cfg, t, backend, kernels=None):
+        kw = {} if kernels is None else {"kernels": kernels}
+        return sharded_step_fn(cfg, hmesh, halo="explicit", halo_block_iters=t,
+                               halo_backend=backend, **kw)
+
+    def run_counted(step, start, steps, what):
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counters_to_zero()
+        st = step(start)
+        mass1, com1 = mass_and_com_y(st)
+        for _ in range(1, steps):
+            st = step(st)
+        torch.cuda.synchronize()
+        got = counts()
+        peak = torch.cuda.max_memory_allocated()
+        mass_end, com_end = mass_and_com_y(st)
+        say(f"# {what}: {steps} steps, launches {got}; density mass {mass1!r} -> "
+            f"{mass_end!r}, y centre of mass {com1!r} -> {com_end!r}")
+        say(f"{what} peak device memory: {peak - mem_before!r} bytes above what earlier "
+            f"phases hold ({peak!r} in all) [{card}]")
+        check_state(st, steps, hn, what)
+        if not mass_end > mass1 > 0.0:
+            fail(f"{what}: density mass does not grow")
+        if not com_end > com1:
+            fail(f"{what}: the plume does not rise")
+        return st, got
+
+    rdma_launches = {}
+    hstart = shard_state(zeros_state(hcfg, dev), hmesh)
+    for t, steps in ((4, HALO_STEPS), (2, HALO_T2_STEPS)):
+        st, got = run_counted(backend_step(hcfg, t, "rdma"), hstart, steps,
+                              f"sharded512 8 shards rdma T={t}")
+        rdma_launches[t] = got
+        want = {"K12": 8 * (h_iters // t) * steps, "K13": 8 * 3 * steps, "K11": 8 * 2 * steps}
+        if got != {k: want.get(k, 0) for k in got}:
+            fail(f"sharded512 rdma on 8 shards (T={t}) did not run exactly {want}: {got}")
+        pal = hstart
+        pal_step = backend_step(hcfg, t, "pallas")
+        for _ in range(steps):
+            pal = pal_step(pal)
+        for name in ("density", "velocity", "pressure"):
+            if not torch.equal(getattr(st, name), getattr(pal, name)):
+                fail(f"sharded512 8 shards T={t}: rdma differs from pallas after {steps} steps "
+                     f"in {name}")
+        say(f"# sharded512 8 shards T={t}: rdma bitwise pallas after {steps} steps")
+        del st, pal
+    bcfg = hcfg.replace(dtype="bfloat16")
+    bstart = shard_state(zeros_state(bcfg, dev), hmesh)
+    bf16_launches, bf16_states = {}, {}
+    for backend, ran in (("pallas", ("K10", "K11")), ("rdma", ("K12", "K13", "K11"))):
+        st, got = run_counted(backend_step(bcfg, 4, backend), bstart, BF16_HALO_STEPS,
+                              f"sharded512 bf16 8 shards {backend} T=4")
+        bf16_launches[backend] = got
+        per_step = {"K10": 8 * (h_iters // 4), "K12": 8 * (h_iters // 4), "K13": 8 * 3,
+                    "K11": 8 * 2}
+        want = {k: per_step[k] * BF16_HALO_STEPS for k in ran}
+        if got != {k: want.get(k, 0) for k in got}:
+            fail(f"sharded512 bf16 {backend} on 8 shards did not run exactly {want}: {got}")
+        if st.density.dtype != bf16 or st.velocity.dtype != bf16:
+            fail(f"sharded512 bf16 {backend}: the fields left bfloat16")
+        tw = bstart
+        twin_step = backend_step(bcfg, 4, backend, PLAIN_TWINS)
+        for _ in range(BF16_HALO_STEPS):
+            tw = twin_step(tw)
+        for name in ("density", "velocity", "pressure"):
+            if not torch.equal(getattr(st, name), getattr(tw, name)):
+                fail(f"sharded512 bf16 {backend}: the kernel path differs from its twin path "
+                     f"after {BF16_HALO_STEPS} steps in {name}")
+        say(f"# sharded512 bf16 8 shards {backend}: kernel path bitwise the twin path after "
+            f"{BF16_HALO_STEPS} steps")
+        bf16_states[backend] = st
+        del tw
+    for name in ("density", "velocity", "pressure"):
+        if not torch.equal(getattr(bf16_states["rdma"], name),
+                           getattr(bf16_states["pallas"], name)):
+            fail(f"sharded512 bf16: rdma differs from pallas in {name}")
+    del bf16_states, st
+
+    # 13c. Times: K12 a round of the 8 shards (a launch is one shard's share),
+    # K13's three calls of a T = 4 step beside their torch.cat, K11 on
+    # bfloat16 slabs, what is left of the copies, and steps/s of rdma, pallas
+    # and the unsharded Engine in turns, with device ms a step by kernel.
+    k12_planes = {}
+    for t in (4, 2):
+        xps, x0s = shard_slabs(hzero, 8, t), shard_slabs(hdiv, 8, t)
+        k12_planes[t] = xps[0].shape[0]
+        times[f"K12 T{t}"] = tuple(ms / 8 for ms in (
+            cuda_ms(lambda: jacobi_ext_rdma(xps, x0s, 1.0, 6.0, t, 0), reps=20),
+            cuda_ms(lambda: jacobi_ext_rdma_plain(xps, x0s, 1.0, 6.0, t, 0), reps=3,
+                    warmup=1)))
+        say(f"K12 T={t}: {times[f'K12 T{t}'][0]!r} ms a launch (an 8-shard round / 8, "
+            f"{k12_planes[t]} planes a slab), twin {times[f'K12 T{t}'][1]!r} ms [{card}]")
+        del xps, x0s
+    k13_calls = {
+        "K13 prime": ([[z[None], d[None]] for z, d in
+                       zip(torch.chunk(hzero, 8), torch.chunk(hdiv, 8))], 4),
+        "K13 self": ([[v] for v in torch.chunk(hvel, 8, 1)], hh),
+        "K13 density": ([[d, v] for d, v in zip(torch.chunk(hdens[None], 8, 1),
+                                                torch.chunk(hvel, 8, 1))], hh),
+    }
+
+    def cat_only(by_shard, h, zeros):
+        """The same extended arrays by torch.cat alone (the zero halos made
+        beforehand)."""
+        k = len(by_shard)
+        return [[torch.cat([by_shard[r - 1][j][:, -h:] if r > 0 else zeros[j], x,
+                            by_shard[r + 1][j][:, :h] if r < k - 1 else zeros[j]], 1)
+                 for j, x in enumerate(arrays)] for r, arrays in enumerate(by_shard)]
+
+    for key, (by_shard, h) in k13_calls.items():
+        zeros = [torch.zeros_like(x[:, :h]) for x in by_shard[0]]
+        times[key] = tuple(ms / 8 for ms in (
+            cuda_ms(lambda: halo_exchange_rdma(by_shard, h), reps=20),
+            cuda_ms(lambda: halo_exchange_rdma_plain(by_shard, h), reps=5)))
+        library[key] = cuda_ms(lambda: cat_only(by_shard, h, zeros), reps=20) / 8
+        say(f"{key}: {times[key][0]!r} ms a launch (a call / 8; {len(by_shard[0])} arrays, "
+            f"depth {h}), twin {times[key][1]!r} ms, torch.cat {library[key]!r} ms [{card}]")
+    hvel_b, hdens_b = hvel.to(bf16), hdens.to(bf16)
+    ve = ext_slab(hvel_b, 3, hlz, hh)
+    de = ext_slab(hdens_b[None], 3, hlz, hh)
+    k11b_args = {"K11 bf16 F=3": ((1, 2, 3), ve, ve, hn, hdt, 3 * hlz - hh, 1, h_sub),
+                 "K11 bf16 F=1": ((0,), de, ve, hn, hdt, 3 * hlz - hh, 1, h_sub)}
+    for key, args in k11b_args.items():
+        times[key] = (cuda_ms(lambda: advect_ext_kernel(*args), reps=20),
+                      cuda_ms(lambda: advect_ext_plain(*args), reps=2, warmup=1))
+        say(f"{key}: {times[key][0]!r} ms a call on one shard's slab {tuple(args[1].shape)}, "
+            f"twin {times[key][1]!r} ms (float32 K11: {times[key.replace(' bf16', '')][0]!r}) "
+            f"[{card}]")
+    del ve, de, hvel_b, hdens_b
+    seng.state = hstart
+    rsteps = {"rdma T=4": backend_step(hcfg, 4, "rdma"),
+              "pallas T=4": backend_step(hcfg, 4, "pallas"),
+              "rdma T=2": backend_step(hcfg, 2, "rdma"),
+              "rdma bf16 T=4": backend_step(bcfg, 4, "rdma")}
+    rstates = {k: (bstart if "bf16" in k else hstart) for k in rsteps}
+    for k in rsteps:
+        rstates[k] = rsteps[k](rstates[k])
+    rdma_rounds = {k: [] for k in (*rsteps, "unsharded Engine")}
+    for _ in range(3):
+        for k, fn in rsteps.items():
+            def adv(k=k, fn=fn):
+                rstates[k] = fn(rstates[k])
+            rdma_rounds[k].append(cuda_ms(adv, reps=5, warmup=1))
+        rdma_rounds["unsharded Engine"].append(cuda_ms(lambda: seng.step(1), reps=5, warmup=1))
+    for k, ms in rdma_rounds.items():
+        if k == "unsharded Engine":
+            by_kernel = profile_ms(lambda: seng.step(1), reps=3)
+        else:
+            def adv(k=k):
+                rstates[k] = rsteps[k](rstates[k])
+            by_kernel = profile_ms(adv, reps=3)
+        copies = sum(v for name, v in by_kernel.items()
+                     if "cat" in name.lower() or "copy" in name.lower()
+                     or "memcpy" in name.lower())
+        say(f"sharded512 {k}: steps/s {1e3 / min(ms)!r} (ms/step in 3 turns {ms!r}), device "
+            f"{sum(by_kernel.values())!r} ms/step, of it copies and cat {copies!r} ms [{card}]")
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+        say(f"# sharded512 {k}, device ms a step by kernel: "
+            + "; ".join(f"{name} {t!r}" for name, t in top))
+    del rstates, rsteps
+
+    # 13d. The CLI's bench on 8 shards with the rdma backend, as a subprocess.
+    torch.cuda.empty_cache()
+    cli = subprocess.run(
+        [sys.executable, "-m", "fluidsim_tpu_torch.cli", "bench", "--preset", "sharded512",
+         "--mesh", "8", "--halo", "explicit", "--halo-block-iters", "4", "--halo-backend",
+         "rdma", "--steps", "4"], capture_output=True, text=True, timeout=600, cwd=ROOT)
+    if cli.returncode != 0:
+        fail(f"the CLI's bench --mesh 8 --halo-backend rdma failed: {cli.stderr[-2000:]}")
+    bench_line = json.loads(cli.stdout.strip().splitlines()[-1])
+    say(f"cli bench --preset sharded512 --mesh 8 --halo explicit --halo-block-iters 4 "
+        f"--halo-backend rdma: {json.dumps(bench_line)} [{card}]")
+    if bench_line.get("mesh") != 8 or bench_line.get("halo_backend") != "rdma" \
+            or not bench_line.get("steps_per_sec", 0) > 0:
+        fail(f"the CLI's rdma bench line is not the 8-shard run's: {bench_line}")
+    del hvel, hdens, hdiv, hzero, hx0, hstart, bstart
+
+    entries += [
+        (f"K12 T{t}", f"K12 jacobi_ext_rdma (T={t} sweeps and the push of 2T edge planes, one "
+                      f"shard's ({k12_planes[t]}, {hn}, {hn}) slab a launch, b=0; sharded512 "
+                      f"on 8 shards, halo_backend=rdma, halo_block_iters={t})",
+         "fluidsim_tpu_torch/csrc/jacobi_ext.cu", "fluidsim_tpu/pallas/halo_kernel.py:498",
+         rdma_launches[t]["K12"], ext_err[f"K12 T={t}"],
+         # K10's bytes: the next extended slab is lz planes of the shard's own
+         # and 2T pushed into the neighbours', so the pushes are inside them.
+         # This design's exchange stage reads its 2T edge planes back out of
+         # out and stores them again: 4T planes more than the bound.
+         bound(3 * (hlz + 2 * t) * hplane * f32, t * (hlz + 2 * t) * hcells * JACOBI_OPS))
+        for t in (4, 2)]
+    # sharded512 launches K13 three times a shard and a step, once for each of
+    # these; bytes: every local plane read (the 2h edge planes twice), every
+    # output plane written.
+    k13_channels = {"K13 prime": (2, 4), "K13 self": (3, hh), "K13 density": (4, hh)}
+    k13_what = {"K13 prime": "the solve's priming: x and x0",
+                "K13 self": "self-advection: the velocity",
+                "K13 density": "the density call: the density and the velocity"}
+    entries += [
+        (key, f"K13 halo_exchange_rdma ({k13_what[key]}, depth {h}, one shard's share a "
+              f"launch; sharded512 on 8 shards, halo_backend=rdma; launches: all three calls)",
+         "fluidsim_tpu_torch/csrc/halo_exchange.cu", "fluidsim_tpu/pallas/halo_kernel.py:774",
+         rdma_launches[4]["K13"], max(ext_err["K13 8 shards"], ext_err["K13 4 shards"]),
+         bound(c * (2 * hlz + 2 * h) * hplane * f32, 0))
+        for key, (c, h) in k13_channels.items()]
+    entries += [
+        ("K11 bf16 F=3", f"K11 advect_ext_kernel on bfloat16 (F=3 self-advection, K=1, "
+                         f"n_sub={h_sub}, one shard's (3, {hlz + 2 * hh}, {hn}, {hn}) slab; "
+                         f"sharded512 bf16 on 8 shards, halo_backend=rdma)",
+         "fluidsim_tpu_torch/csrc/advect_ext.cu", "fluidsim_tpu/pallas/halo_kernel.py:226",
+         bf16_launches["rdma"]["K11"], max(ext_err["K11 bf16 F=3"], ext_err["K11 bf16 128"]),
+         bound(6 * (hlz + 2 * hh) * hplane * 2,
+               h_sub * (hlz + 2 * hh) * hcells * (FRAC_OPS + RELU_OPS + 3 * COMB_OPS))),
+        ("K11 bf16 F=1", f"K11 advect_ext_kernel on bfloat16 (F=1 density, K=1, n_sub={h_sub}, "
+                         f"one shard's ({hlz + 2 * hh}, {hn}, {hn}) slab; sharded512 bf16 on 8 "
+                         f"shards, halo_backend=rdma)",
+         "fluidsim_tpu_torch/csrc/advect_ext.cu", "fluidsim_tpu/pallas/halo_kernel.py:226",
+         bf16_launches["rdma"]["K11"], ext_err["K11 bf16 F=1"],
+         bound(5 * (hlz + 2 * hh) * hplane * 2,
+               h_sub * (hlz + 2 * hh) * hcells * (FRAC_OPS + RELU_OPS + COMB_OPS))),
+    ]
+
     report = []
     for key, name, source, replaces, launches, err, (bound_ms, bound_by) in entries:
         ms, plain_ms = times[key]
         say(f"{name}: {ms!r} ms, bound {bound_ms!r} ms ({bound_by}) [{card}]")
-        # Only K7's divergence is one PyTorch call (a convolution).
+        # K7's divergence is one PyTorch call (a convolution), K13 torch.cat.
         report.append({"name": name, "route": "cuda", "source": source,
                        "replaces": replaces, "launches": launches,
                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

@@ -4,12 +4,17 @@
     python -m fluidsim_tpu_torch.cli bench --preset bench128 --steps 100
     python -m fluidsim_tpu_torch.cli bench --preset sharded512 --mesh 8 \\
         --halo explicit --halo-block-iters 4 --halo-backend pallas --steps 20
+    python -m fluidsim_tpu_torch.cli bench --preset sharded512 --mesh 8 \\
+        --halo explicit --halo-block-iters 4 --halo-backend rdma --dtype bfloat16
     python -m fluidsim_tpu_torch.cli presets
 
 ``bench`` steps on the card unless ``--device cpu`` asks for the CPU.  With
 ``--mesh N`` it benches the slab-sharded step over an N-shard mesh on the
 visible card(s): N shards on one card when one is visible
-(``parallel.sharding``; a mesh over distinct cards is not ported).  ``run``,
+(``parallel.sharding``; a mesh over distinct cards is not ported).
+``--halo-backend pallas`` runs K10 and K11 per shard with ``torch.cat``
+exchanges, ``rdma`` K12 and K11 with every exchange in a kernel (K12,
+K13); either takes ``--dtype bfloat16`` fields.  ``run``,
 ``render``, ``save-config`` and ``serve`` (the metrics store, checkpoints
 and the viewer) and ``--config`` are not ported.
 """
@@ -174,7 +179,8 @@ def main(argv=None):
                     "explicit = per-shard kernels with halo exchanges)")
     sp.add_argument("--halo-backend", choices=("auto", "xla", "pallas", "rdma"),
                     default="auto", help="per-shard compute for --halo explicit "
-                    "(pallas = K10/K11; rdma is not ported)")
+                    "(pallas = K10/K11 with torch.cat exchanges; rdma = K12/K11 with "
+                    "the exchanges in kernels, K12/K13)")
     sp.add_argument("--halo-block-iters", type=int, default=1, metavar="T",
                     help="communication-avoiding exchange cadence for --halo "
                     "explicit (T-deep halos every T sweeps)")

@@ -30,22 +30,32 @@
 // slab (boundary.cuh's Slab): one thread per cell, one launch per substep
 // (and one per mirror), float32 ping-pong through out and tmp0 so that
 // self-advection never writes the buffer it reads.
+//
+// bfloat16 slabs take K1's bfloat16 instantiations (advect_bf16.cu), which
+// carry the slab as every K1 body does: the first substep loads bfloat16,
+// the substeps run in float32 through tmp0 and tmp1, and the last (or, with
+// a velocity's mirror, one more launch) rounds once, as the TPU kernel loads
+// its windows to float32 and casts at the store (its face writes after the
+// store are sign copies, exact in bfloat16).
 #include <cuda_runtime.h>
 
 #include "advect.cuh"
+#include "entries.h"
 
-// fields (n_fields, nz, n, n) and vel (3, nz, n, n) float32 (fields may be
-// vel, for self-advection); mask (nz, n, n) one byte a cell (nonzero = solid)
-// or null; out like fields, distinct from both; tmp0 like out (scratch, may be
-// null when n_sub == 1); all contiguous on the current device.  n is the
-// global grid size, zoff the global z of slab plane 0, b0..b2 the fields'
-// set_bnd codes, dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2),
-// window 1, 2 or 3 (n and nz >= 2 * window + 1).  Launches on `stream` and
-// returns the first cudaError_t.
-extern "C" int fs_advect_ext(const float* fields, const float* vel, const unsigned char* mask,
-                             float* out, float* tmp0, int n, int nz, int zoff, int n_fields,
-                             int b0, int b1, int b2, float dt0_sub, int n_sub, int window,
-                             void* stream) {
+// fields (n_fields, nz, n, n) and vel (3, nz, n, n) float32, or both bfloat16
+// when field_bf16 (fields may be vel, for self-advection); mask (nz, n, n) one
+// byte a cell (nonzero = solid) or null; out like fields, distinct from both;
+// tmp0 and tmp1 float32 (n_fields, nz, n, n) scratch: float32 needs tmp0 when
+// n_sub > 1, bfloat16 tmp0 and tmp1 for the float32 results before the
+// rounding one (advect_substeps), null when unused; all contiguous on the
+// current device.  n is the global grid size, zoff the global z of slab
+// plane 0, b0..b2 the fields' set_bnd codes, dt0_sub = f32(dt0 / n_sub) with
+// dt0 = f32(dt) * f32(n - 2), window 1, 2 or 3 (n and nz >= 2 * window + 1).
+// Launches on `stream` and returns the first cudaError_t.
+extern "C" int fs_advect_ext(const void* fields, const void* vel, const unsigned char* mask,
+                             void* out, float* tmp0, float* tmp1, int n, int nz, int zoff,
+                             int n_fields, int b0, int b1, int b2, float dt0_sub, int n_sub,
+                             int window, int field_bf16, void* stream) {
   using namespace fsk;
   if (window < 1 || window > 3 || n < 2 * window + 1 || nz < 2 * window + 1 || n_sub < 1 ||
       (n_fields != 1 && n_fields != 3)) {
@@ -54,18 +64,23 @@ extern "C" int fs_advect_ext(const float* fields, const float* vel, const unsign
   const Substep a{fields, vel, nullptr, mask, nullptr, nullptr, n, Slab{nz, zoff}, b0, b1, b2,
                   dt0_sub, 1.0f, Buoyancy{}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (field_bf16) {
+    return static_cast<int>(advect_substeps_bf16(a, n_fields, n_sub, window, out, tmp0, tmp1,
+                                                 1.0f, s));
+  }
+  float* const o = static_cast<float*>(out);
   switch (window) {
     case 1:
       return static_cast<int>(
-          advect_substeps<1, float>(a, n_fields, n_sub, false, kSrcNone, out, tmp0, nullptr,
+          advect_substeps<1, float>(a, n_fields, n_sub, false, kSrcNone, o, tmp0, nullptr,
                                     1.0f, s));
     case 2:
       return static_cast<int>(
-          advect_substeps<2, float>(a, n_fields, n_sub, false, kSrcNone, out, tmp0, nullptr,
+          advect_substeps<2, float>(a, n_fields, n_sub, false, kSrcNone, o, tmp0, nullptr,
                                     1.0f, s));
     default:
       return static_cast<int>(
-          advect_substeps<3, float>(a, n_fields, n_sub, false, kSrcNone, out, tmp0, nullptr,
+          advect_substeps<3, float>(a, n_fields, n_sub, false, kSrcNone, o, tmp0, nullptr,
                                     1.0f, s));
   }
 }

@@ -40,7 +40,9 @@ constexpr size_t pass_smem(int levels) {
 
 // One pass's operands: x and x0 (nz, n, n) in, out written; mask one byte a
 // cell (nonzero = solid) or null, read only by an open pass; chunk the planes
-// a block owns; halo the window's margin in x, y and z (>= L).
+// a block owns; halo the window's margin in x, y and z (>= L).  An open pass
+// stores only the planes [keep_lo, keep_hi] of out (K12's last pass: the
+// shard's own planes, for its neighbours write the rest).
 struct Pass {
   const float *x, *x0;
   const uint8_t* mask;
@@ -48,6 +50,7 @@ struct Pass {
   int n, nz, b;
   float a, inv_c;
   int halo, chunk, wall_lo, wall_hi;
+  int keep_lo = 0, keep_hi = 1 << 30;
 };
 
 // One pass: L (<= halo) sweeps of this block's tile, whose window starts
@@ -142,7 +145,8 @@ __global__ void __launch_bounds__(kPlaneW, 2) jacobi_pass_kernel(const Pass q) {
                 (x0ring[((j - 2 * t) & (kX0Ring - 1)) * kPlaneW + own] + q.a * nbr) * coef;
             if (t < L) {
               smem[(4 * t + ((j - 2 * t) & 3)) * kPlaneW + own] = sgn * u;
-            } else if (writes && p >= zs && p < ze) {
+            } else if (writes && p >= zs && p < ze &&
+                       (!OPEN || (p >= q.keep_lo && p <= q.keep_hi))) {
               q.out[p * plane + col] = u;
             }
           } else if (OPEN && t < L && (p < 0 || p >= nz)) {
@@ -185,15 +189,27 @@ cudaError_t launch_levels(int levels, const Pass& q, cudaStream_t s) {
 
 // `iters` sweeps in passes of up to kBlockIters, chained through out and tmp
 // (the last pass writes out; tmp may be null for one pass).  q.x is the
-// input, q.out is ignored.  Returns the first cudaError_t.
+// input, q.out is ignored; q's keep range applies to the last pass only.
+// With `spare` (K12, whose out the neighbours write into) the earlier passes
+// alternate through tmp and spare and never write out.  Returns the first
+// cudaError_t.
 template <bool OPEN>
-cudaError_t run_passes(Pass q, float* out, float* tmp, int iters, cudaStream_t s) {
+cudaError_t run_passes(Pass q, float* out, float* tmp, int iters, cudaStream_t s,
+                       float* spare = nullptr) {
   const int passes = (iters + kBlockIters - 1) / kBlockIters;
+  const int keep_lo = q.keep_lo, keep_hi = q.keep_hi;
   int remaining = iters;
   for (int pass = 0; pass < passes; ++pass) {
     // The last pass writes `out`; earlier ones alternate back from it.
-    q.out = (passes - 1 - pass) % 2 == 0 ? out : tmp;
+    const int back = passes - 1 - pass;
+    if (spare == nullptr) {
+      q.out = back % 2 == 0 ? out : tmp;
+    } else {
+      q.out = back == 0 ? out : (back % 2 == 1 ? tmp : spare);
+    }
     if (q.out == nullptr) return cudaErrorInvalidValue;
+    q.keep_lo = back == 0 ? keep_lo : 0;
+    q.keep_hi = back == 0 ? keep_hi : q.nz - 1;
     const int sweeps = remaining < kBlockIters ? remaining : kBlockIters;
     const cudaError_t err = launch_levels<OPEN>(sweeps, q, s);
     if (err != cudaSuccess) return err;
@@ -209,9 +225,9 @@ cudaError_t run_passes(Pass q, float* out, float* tmp, int iters, cudaStream_t s
 // moving a wall plane one plane inwards.  blockIdx.z picks the wall (0, 1: z;
 // 2, 3: y; 4, 5: x); a cell on an edge or a corner is written by each of its
 // walls with the same value.  Reads only interior cells, writes only border
-// cells.
+// cells, and only in the planes [keep_lo, keep_hi].
 __global__ void faces_kernel(float* __restrict__ v, int n, int nz, int b, int wall_lo,
-                             int wall_hi) {
+                             int wall_hi, int keep_lo, int keep_hi) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const bool high = blockIdx.z & 1;
@@ -224,7 +240,7 @@ __global__ void faces_kernel(float* __restrict__ v, int n, int nz, int b, int wa
     y = high ? n - 1 : 0;
     z = j;
   }
-  if (i >= n || y >= n || z < 0 || z >= nz) return;
+  if (i >= n || y >= n || z < 0 || z >= nz || z < keep_lo || z > keep_hi) return;
   const int cx = clamp_interior(x, n), cy = clamp_interior(y, n);
   const int cz = z == wall_lo ? wall_lo + 1 : (z == wall_hi ? wall_hi - 1 : z);
   const long long sn = n;
@@ -233,10 +249,10 @@ __global__ void faces_kernel(float* __restrict__ v, int n, int nz, int b, int wa
 }
 
 cudaError_t launch_faces(float* v, int n, int nz, int b, int wall_lo, int wall_hi,
-                         cudaStream_t s) {
+                         cudaStream_t s, int keep_lo = 0, int keep_hi = 1 << 30) {
   const int rows = nz > n ? nz : n;
-  faces_kernel<<<dim3((n + 31) / 32, (rows + 7) / 8, 6), dim3(32, 8), 0, s>>>(v, n, nz, b,
-                                                                           wall_lo, wall_hi);
+  faces_kernel<<<dim3((n + 31) / 32, (rows + 7) / 8, 6), dim3(32, 8), 0, s>>>(
+      v, n, nz, b, wall_lo, wall_hi, keep_lo, keep_hi);
   return cudaGetLastError();
 }
 

@@ -50,6 +50,14 @@ class SolveBlock(ctypes.Structure):
 
 _B = ctypes.POINTER(SolveBlock)
 
+
+class HaloArray(ctypes.Structure):
+    """``fsk::HaloArray`` (``csrc/halo_copy.cuh``): one array of a K13 call on
+    one shard, its source planes, its output and its neighbours' outputs."""
+
+    _fields_ = [("src", _P), ("out", _P), ("out_lo", _P), ("out_hi", _P),
+                ("src_cstride", ctypes.c_longlong), ("channels", _I), ("elem", _I)]
+
 # C entry points: name -> argument types (each returns an int: a cudaError_t,
 # or for fs_full_step_blocks a block count).
 SIGNATURES = {
@@ -84,9 +92,16 @@ SIGNATURES = {
     # x, x0, mask, out, tmp, nz, n, b, a, inv_c, t_iters, wall_lo, wall_hi,
     # stream
     "fs_jacobi_ext": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _P),
-    # fields, vel, mask, out, tmp0, n, nz, zoff, n_fields, b0, b1, b2,
-    # dt0_sub, n_sub, window, stream
-    "fs_advect_ext": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    # x, x0, mask, out, tmp, spare, out_lo, out_hi, nz, n, b, a, inv_c,
+    # t_iters, wall_lo, wall_hi, stream
+    "fs_jacobi_ext_rdma": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I,
+                           _P),
+    # arrays, n_arrays, lz, h, n, stream
+    "fs_halo_exchange": (ctypes.POINTER(HaloArray), _I, _I, _I, _I, _P),
+    # fields, vel, mask, out, tmp0, tmp1, n, nz, zoff, n_fields, b0, b1, b2,
+    # dt0_sub, n_sub, window, field_bf16, stream
+    "fs_advect_ext": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                      _P),
     # x, x0, mask, out, tmp, n, b, a, c, iters, smooth, blocks, stream
     "fs_solve_2d": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _P),
     # vel, div, n, stream

@@ -176,12 +176,14 @@ def _check_src(src, device) -> None:
         raise ValueError("src must be on the fields' device")
 
 
-def _scratch(n_fields: int, n: int, n_sub: int, mirror: bool, dtype, device):
+def _scratch(n_fields: int, n: int, n_sub: int, mirror: bool, dtype, device,
+             nz: int = None):
     """The float32 scratch of ``n_sub`` substeps (``csrc/advect.cuh``'s
-    ``advect_substeps``): float32 storage ping-pongs with the output through
-    one buffer; bfloat16 keeps the substeps before the last write (and a
-    velocity's mirror) in float32, in up to two buffers."""
-    shape = (n_fields, n, n, n)
+    ``advect_substeps``) on ``(n_fields, nz, n, n)`` (``nz`` = n: the whole
+    grid): float32 storage ping-pongs with the output through one buffer;
+    bfloat16 keeps the substeps before the last write (and a velocity's
+    mirror) in float32, in up to two buffers."""
+    shape = (n_fields, n if nz is None else nz, n, n)
     if dtype == torch.float32:
         need = 1 if n_sub > 1 else 0
     else:

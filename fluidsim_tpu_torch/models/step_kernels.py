@@ -13,8 +13,12 @@ from ..kernels.advect import advect_multi_3d_kernel, advect_multi_3d_plain
 from ..kernels.halo import (
     advect_ext_kernel,
     advect_ext_plain,
+    halo_exchange_rdma,
+    halo_exchange_rdma_plain,
     jacobi_ext_kernel,
     jacobi_ext_plain,
+    jacobi_ext_rdma,
+    jacobi_ext_rdma_plain,
 )
 from ..kernels.project import (
     jacobi_3d_solve,
@@ -42,8 +46,11 @@ class StepKernels(NamedTuple):
     obst=, resident=)``, which takes K4 or K6 (all 3D), the 2D step's
     ``solve_2d(b, x, x0, a, c, obst, iters, smooth=)`` (K9), and the
     sharded step's per-shard calls ``jacobi_ext(xp, x0_ext, a, c, t_iters,
-    wall_lo, wall_hi, b, obst_ext)`` (K10) and ``advect_ext(bs, fields_ext,
-    vel_ext, n, dt, z_offset, window, n_sub, obst_ext)`` (K11)."""
+    wall_lo, wall_hi, b, obst_ext)`` (K10), ``advect_ext(bs, fields_ext,
+    vel_ext, n, dt, z_offset, window, n_sub, obst_ext)`` (K11), and the
+    ``"rdma"`` backend's calls over all shards ``jacobi_ext_rdma(xps,
+    x0_exts, a, c, t_iters, b, obst_exts)`` (K12) and
+    ``halo_exchange_rdma(arrays_by_shard, depth)`` (K13)."""
 
     advect: Callable
     project_advect: Callable
@@ -53,11 +60,15 @@ class StepKernels(NamedTuple):
     solve_2d: Callable
     jacobi_ext: Callable
     advect_ext: Callable
+    jacobi_ext_rdma: Callable
+    halo_exchange_rdma: Callable
 
 
 HAND_KERNELS = StepKernels(advect_multi_3d_kernel, project_advect_density_3d,
                            project_3d_kernel, full_step_3d, jacobi_3d_solve,
-                           lin_solve_2d_resident, jacobi_ext_kernel, advect_ext_kernel)
+                           lin_solve_2d_resident, jacobi_ext_kernel, advect_ext_kernel,
+                           jacobi_ext_rdma, halo_exchange_rdma)
 PLAIN_TWINS = StepKernels(advect_multi_3d_plain, project_advect_density_3d_plain,
                           project_3d_plain, full_step_3d_plain, jacobi_3d_solve_plain,
-                          lin_solve_2d_resident_plain, jacobi_ext_plain, advect_ext_plain)
+                          lin_solve_2d_resident_plain, jacobi_ext_plain, advect_ext_plain,
+                          jacobi_ext_rdma_plain, halo_exchange_rdma_plain)

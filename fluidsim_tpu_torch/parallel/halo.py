@@ -19,7 +19,12 @@ K10 (``kernels/halo.jacobi_ext_kernel``) runs the T sweeps of a round, K11
 the JAX package's shards run together under ``shard_map``, the port's run
 one after another from the host, each round's exchange after every shard's
 round.  Every entry of the mesh is one device in this port
-(``sharding.mesh_device``), so an exchange is a copy on that device.
+(``sharding.mesh_device``), so an exchange is a copy on that device: a
+``torch.cat`` of the slabs (``"pallas"``/``"ppermute"``), or on the
+``"rdma"`` backend a kernel's stores into the neighbour shards' buffers,
+K13 (``kernels/halo.halo_exchange_rdma``) for the extended arrays and K12
+(``kernels/halo.jacobi_ext_rdma``) for a round's sweeps and its exchange
+together.
 """
 
 from __future__ import annotations
@@ -28,14 +33,9 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from ..kernels.halo import (
-    NO_WALL,
-    advect_ext_kernel,
-    ext_halo,
-    jacobi_ext_kernel,
-    slab_faces,
-)
-from .sharding import Mesh, MULTI_CARD, mesh_device
+from ..kernels.halo import ext_halo, rank_walls, slab_faces
+from ..models.step_kernels import HAND_KERNELS, StepKernels
+from .sharding import Mesh, mesh_device
 
 
 def halo_exchange_z(x_locals: Sequence[torch.Tensor], depth: int = 1,
@@ -85,19 +85,12 @@ def _extended(locals_, depth: int, axis: int = 0) -> List[torch.Tensor]:
             for x, (below, above) in zip(locals_, halo_exchange_z(locals_, depth, axis))]
 
 
-def _walls(rank: int, n_dev: int, halo: int, lz: int) -> Tuple[int, int]:
-    """The slab planes of the global z walls on an extended slab: ``halo`` on
-    the first shard, ``halo + lz − 1`` on the last, ``NO_WALL`` elsewhere."""
-    return (halo if rank == 0 else NO_WALL,
-            halo + lz - 1 if rank == n_dev - 1 else NO_WALL)
-
-
 def _ext_faces(b: int, out, rank: int, n_dev: int, halo: int, lz: int):
     """The wall faces of a halo-extended slab as the single-device
     ``set_bnd_3d`` face pass writes them: the global z faces (slab planes
     ``halo`` / ``halo + lz − 1``) only on the first / last shard, y and x
     faces on every plane, z → y → x, with the sign of field code ``b``."""
-    return slab_faces(b, out, *_walls(rank, n_dev, halo, lz))
+    return slab_faces(b, out, *rank_walls(rank, n_dev, halo, lz))
 
 
 def _ext_sweep(b: int, xp, x0_ext, a: float, c_t, rank: int, n_dev: int, halo: int,
@@ -121,15 +114,10 @@ def _ext_sweep(b: int, xp, x0_ext, a: float, c_t, rank: int, n_dev: int, halo: i
     return _ext_faces(b, out, rank, n_dev, halo, lz)
 
 
-def _rdma_unported(what: str):
-    raise NotImplementedError(
-        f"{what}: the in-kernel remote-DMA exchange (K12/K13) is not ported; "
-        f"it comes with {MULTI_CARD}")
-
-
 def jacobi_3d_sharded(x, x0, a: float, c: float, iters: int, mesh: Mesh,
                       axis_name: str = "z", b: int = 0, block_iters: int = 1,
-                      backend: str = "auto", obst=None, kernel=None):
+                      backend: str = "auto", obst=None,
+                      kernels: StepKernels = HAND_KERNELS):
     """Slab-sharded fixed-rhs Jacobi with explicit halo exchange: ``iters``
     sweeps from the global ``(N, N, N)`` ``x`` with rhs ``x0`` on the mesh's
     shards, the result the global ``(N, N, N)`` solution (equal to the
@@ -144,13 +132,18 @@ def jacobi_3d_sharded(x, x0, a: float, c: float, iters: int, mesh: Mesh,
 
     ``backend``: ``"xla"`` runs the JAX package's plain sweeps on every
     shard's extended slab (``_ext_sweep``, a division by ``c``);
-    ``"pallas"`` runs K10 (``kernel``, default ``jacobi_ext_kernel``: its
-    twin on CPU tensors) once per round per shard on a persistent extended
+    ``"pallas"`` runs K10 (``kernels.jacobi_ext``; the hand kernels run their
+    twins on CPU tensors) once per round per shard on a persistent extended
     buffer whose 2T halo planes alone are refreshed between rounds, after
     normalising the input's faces (the kernel's corrected reads assume
-    ``set_bnd``-consistent faces); T >= 2.  ``"auto"`` takes K10 on a CUDA
-    mesh with T >= 2, else the plain sweeps.  ``"rdma"`` (K12) is not
-    ported."""
+    ``set_bnd``-consistent faces); T >= 2.  ``"rdma"`` does the exchanges
+    in kernels, as in the JAX package: one K13
+    (``kernels.halo_exchange_rdma``) builds the extended x (faces
+    normalised), rhs and mask together, then each round is one K12
+    (``kernels.jacobi_ext_rdma``) that sweeps every shard and hands each its next
+    extended slab; bitwise the ``"pallas"`` solve; T >= 2.  ``"auto"``
+    takes K10 on a CUDA mesh with T >= 2, else the plain sweeps (never
+    ``"rdma"``, as in the JAX package)."""
     T = int(block_iters)
     if iters % T:
         raise ValueError(f"iters={iters} not divisible by block_iters={T}")
@@ -161,14 +154,12 @@ def jacobi_3d_sharded(x, x0, a: float, c: float, iters: int, mesh: Mesh,
             "jacobi_3d_sharded: obst requires b == 0 (the scalar set_bnd "
             "contract; velocity components need the obstacle mirror, which this "
             "solver does not implement)")
-    if backend == "rdma":
-        _rdma_unported("jacobi_3d_sharded(backend='rdma')")
     device = mesh_device(mesh)
     k = mesh.shape[axis_name]
     lz = x.shape[0] // k
     if T > lz:
         raise ValueError(f"block_iters={T} exceeds the local slab depth {lz}")
-    if backend == "pallas" and T < 2:
+    if backend in ("pallas", "rdma") and T < 2:
         raise ValueError(
             f"backend={backend!r} requires block_iters >= 2 (the kernel amortizes T "
             "sweeps per pass; at T=1 it has nothing to amortize)")
@@ -178,6 +169,8 @@ def jacobi_3d_sharded(x, x0, a: float, c: float, iters: int, mesh: Mesh,
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, the mesh on {device}")
 
+    if backend == "rdma":
+        return _jacobi_rdma(x, x0, a, c, iters, mesh, axis_name, b, T, obst, kernels)
     x0_ext = _extended(_split(x0, mesh, axis_name), T)
     obst_ext = (None if obst is None
                 else _extended(_split(obst.to(torch.bool), mesh, axis_name), T))
@@ -195,10 +188,10 @@ def jacobi_3d_sharded(x, x0, a: float, c: float, iters: int, mesh: Mesh,
             locals_ = [e[T:T + lz] for e in exts]
         return torch.cat(locals_)
 
-    kernel = jacobi_ext_kernel if kernel is None else kernel
+    kernel = kernels.jacobi_ext
     exts = _extended([_ext_faces(b, x_r, r, k, 0, lz) for r, x_r in enumerate(locals_)], T)
     for rnd in range(rounds):
-        exts = [kernel(exts[r], x0_ext[r], a, c, T, *_walls(r, k, T, lz), b, mask(r))
+        exts = [kernel(exts[r], x0_ext[r], a, c, T, *rank_walls(r, k, T, lz), b, mask(r))
                 for r in range(k)]
         if rnd + 1 < rounds:
             # Only the 2T halo planes are refreshed; the exchange reads the
@@ -210,26 +203,52 @@ def jacobi_3d_sharded(x, x0, a: float, c: float, iters: int, mesh: Mesh,
     return torch.cat([e[T:T + lz] for e in exts])
 
 
+def _jacobi_rdma(x, x0, a, c, iters, mesh, axis_name, b, T, obst, kernels):
+    """The ``"rdma"`` backend of ``jacobi_3d_sharded`` (JAX
+    ``parallel/halo.py:390-424``): the input's faces normalised per shard,
+    one exchange that primes x, x0 and the mask together, ``iters / T``
+    rounds of K12, the local planes."""
+    k = mesh.shape[axis_name]
+    lz = x.shape[0] // k
+    x0_locals = _split(x0, mesh, axis_name)
+    obst_locals = None if obst is None else _split(obst.to(torch.bool), mesh, axis_name)
+    prime = []
+    for r, x_r in enumerate(_split(x, mesh, axis_name)):
+        arrays = [_ext_faces(b, x_r, r, k, 0, lz)[None], x0_locals[r][None]]
+        if obst_locals is not None:
+            arrays.append(obst_locals[r][None])
+        prime.append(arrays)
+    exts = kernels.halo_exchange_rdma(prime, T)
+    xps = [e[0][0] for e in exts]
+    x0_exts = [e[1][0] for e in exts]
+    obst_exts = None if obst is None else [e[2][0] for e in exts]
+    for _ in range(iters // T):
+        xps = kernels.jacobi_ext_rdma(xps, x0_exts, a, c, T, b, obst_exts)
+    return torch.cat([e[T:T + lz] for e in xps])
+
+
 def advect_multi_3d_sharded(bs, fields, vel, dt: float, mesh: Mesh, axis_name: str = "z",
                             window: int = 1, n_sub: int = 1, transport: str = "ppermute",
-                            obst=None, kernel=None):
+                            obst=None, kernels: StepKernels = HAND_KERNELS):
     """Slab-sharded windowed substepped advection with explicit halo exchange
-    and per-shard K11 (``kernel``, default ``advect_ext_kernel``: its twin on
-    CPU tensors).  ``fields`` ``(F, N, N, N)`` (F = 1 or 3) and ``vel``
-    ``(3, N, N, N)`` are global float32 tensors; the result is the global
-    advected ``(F, N, N, N)``, equal to ``ops.advect.advect_substep_3d``
-    through K1 on the whole grid.
+    and per-shard K11 (``kernels.advect_ext``; the hand kernels run their
+    twins on CPU tensors).  ``fields`` ``(F, N, N, N)`` (F = 1 or 3) and ``vel``
+    ``(3, N, N, N)`` are global tensors of one dtype, float32 or bfloat16;
+    the result is the global advected ``(F, N, N, N)``, equal to
+    ``ops.advect.advect_substep_3d`` through K1 on the whole grid.
 
     The backtrace is clamped to ``window`` cells a substep, so a
     ``window·n_sub``-plane halo covers every sample (``n_sub·(window+1)``
     with the bool mask ``obst``, whose mirror reads one plane further each
     substep): one exchange of the fields, the velocity and the mask a call.
     Self-advection (``fields is vel``, ``bs == (1, 2, 3)``) shares one
-    exchange.  ``transport="rdma"`` (K13) is not ported."""
+    exchange.  ``transport="ppermute"`` builds each shard's extended slabs
+    with ``torch.cat`` when its turn comes; ``"rdma"`` builds every shard's
+    in one K13 call (``kernels.halo_exchange_rdma``) that
+    carries the fields, the velocity and the mask, as in the JAX package:
+    the same slabs, so the same result bitwise."""
     if transport not in ("ppermute", "rdma"):
         raise ValueError(f"transport must be ppermute/rdma, got {transport!r}")
-    if transport == "rdma":
-        _rdma_unported("advect_multi_3d_sharded(transport='rdma')")
     device = mesh_device(mesh)
     n = fields.shape[-1]
     k = mesh.shape[axis_name]
@@ -243,7 +262,6 @@ def advect_multi_3d_sharded(bs, fields, vel, dt: float, mesh: Mesh, axis_name: s
             (("obst", obst),) if has_obst else ()):
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, the mesh on {device}")
-    kernel = advect_ext_kernel if kernel is None else kernel
     self_adv = fields is vel and tuple(bs) == (1, 2, 3) and fields.shape[0] == 3
 
     def exchanged(x, axis):
@@ -253,13 +271,24 @@ def advect_multi_3d_sharded(bs, fields, vel, dt: float, mesh: Mesh, axis_name: s
         pairs = halo_exchange_z(locals_, h, axis)
         return lambda r: torch.cat([pairs[r][0], locals_[r], pairs[r][1]], dim=axis)
 
-    v_ext = exchanged(vel, 1)
-    f_ext = None if self_adv else exchanged(fields, 1)
-    m_ext = None if not has_obst else exchanged(obst.to(torch.bool), 0)
+    if transport == "rdma":
+        arrays = [[v] if self_adv else [f, v] for f, v in
+                  zip(_split(fields, mesh, axis_name, 1), _split(vel, mesh, axis_name, 1))]
+        if has_obst:
+            for arrays_r, m in zip(arrays, _split(obst.to(torch.bool), mesh, axis_name)):
+                arrays_r.append(m[None])
+        exts = kernels.halo_exchange_rdma(arrays, h)
+        v_ext = (lambda r: exts[r][0]) if self_adv else (lambda r: exts[r][1])
+        f_ext = None if self_adv else (lambda r: exts[r][0])
+        m_ext = None if not has_obst else (lambda r: exts[r][-1][0])
+    else:
+        v_ext = exchanged(vel, 1)
+        f_ext = None if self_adv else exchanged(fields, 1)
+        m_ext = None if not has_obst else exchanged(obst.to(torch.bool), 0)
     out = torch.empty_like(fields)
     for r in range(k):
         v = v_ext(r)
-        res = kernel(tuple(bs), v if self_adv else f_ext(r), v, n, dt, r * lz - h, window,
-                     n_sub, None if m_ext is None else m_ext(r))
+        res = kernels.advect_ext(tuple(bs), v if self_adv else f_ext(r), v, n, dt, r * lz - h,
+                                 window, n_sub, None if m_ext is None else m_ext(r))
         out[:, r * lz:(r + 1) * lz].copy_(res[:, h:h + lz])
     return out

@@ -11,7 +11,8 @@ in the JAX package:
   collectives, which gives the unsharded values; the port runs that step.
 * ``halo="explicit"``: the pressure solve and the advection run per shard
   with explicit halo exchanges (``parallel/halo.py``): K10 and K11 on each
-  shard's extended slab.
+  shard's extended slab, or on the ``"rdma"`` backend K12 and K11, every
+  exchange a kernel's (K12's rounds, K13's extended arrays).
 
 A mesh here is a list of devices, one per shard, which may repeat:
 ``make_mesh(["cuda"] * 8)`` is eight shards on one card, each with its own
@@ -21,8 +22,9 @@ lives there and the parts of the step that the JAX package leaves to XLA's
 partitioner (the emitter, buoyancy, the projection's divergence and
 gradient, the sinks) run on it as whole-tensor ops, which the partitioner's
 values equal.  A mesh over distinct cards needs those ops partitioned and
-the exchange done by ``torch.distributed`` or peer copies: the multi-card
-slice, with K12/K13.
+K12 and K13 given peer pointers to the neighbours' buffers and a
+cross-device event a round: the multi-card slice.  ``mesh_device`` raises
+for such a mesh.
 """
 
 from __future__ import annotations
@@ -35,8 +37,8 @@ from ..config import SimConfig
 from ..models.step_kernels import HAND_KERNELS, StepKernels
 from ..state import FluidState
 
-MULTI_CARD = ("the multi-card slice (distinct devices per shard, torch.distributed or "
-              "peer copies, the partitioned global ops, K12/K13)")
+MULTI_CARD = ("the multi-card slice (distinct devices per shard: peer pointers into "
+              "K12/K13, a cross-device event a round, the partitioned whole-volume ops)")
 
 
 class Mesh:
@@ -132,9 +134,13 @@ def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z", n_substeps
       scheme is semi-Lagrangian or substep, the window is 1, 2 or 3 and the
       halo fits a shard, unless ``halo_backend="xla"`` (or ``"auto"`` off the
       card).  Obstacle scenes run both, the mask's halo riding the
-      exchanges.  ``"rdma"`` (K12/K13) is not ported.
+      exchanges.  ``halo_backend="rdma"`` does every exchange in kernels:
+      the solve's rounds in K12, its priming and each advection's slabs in
+      K13 (bitwise the ``"pallas"`` step).  Fields may be float32 or
+      bfloat16 (``cfg.dtype``): K11 takes either, the solve is float32.
 
-    ``kernels`` supplies K10 and K11 (``jacobi_ext``, ``advect_ext``) and, on
+    ``kernels`` supplies K10 to K13 (``jacobi_ext``, ``advect_ext``,
+    ``jacobi_ext_rdma``, ``halo_exchange_rdma``) and, on
     a one-shard mesh, the single-card kernels; ``PLAIN_TWINS`` runs the same
     path on the twins.  On a mesh of more than one shard the single-card
     kernels never run (``kernel_backend="pallas"`` raises), as in the JAX
@@ -160,19 +166,18 @@ def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z", n_substeps
     k = mesh.shape[axis_name]
     jacobi_fn = advect_fn = None
     if halo == "explicit":
-        from .halo import _rdma_unported, advect_multi_3d_sharded, jacobi_3d_sharded
+        from .halo import advect_multi_3d_sharded, jacobi_3d_sharded
 
         if cfg.pressure_solver == "fft":
             raise ValueError(
                 "halo='explicit' replaces the Jacobi pressure solve and cannot be "
                 "combined with pressure_solver='fft'")
-        if halo_backend == "rdma":
-            _rdma_unported("sharded_step_fn(halo_backend='rdma')")
+        transport = "rdma" if halo_backend == "rdma" else "ppermute"
 
         def jacobi_fn(p, div, iters, obst=None):
             return jacobi_3d_sharded(p, div, 1.0, 6.0, iters, mesh, axis_name, b=0,
                                      block_iters=halo_block_iters, backend=halo_backend,
-                                     obst=obst, kernel=kernels.jacobi_ext)
+                                     obst=obst, kernels=kernels)
 
         n = cfg.current_size
         n_sub = cfg.advect_substeps if cfg.advection_scheme == "substep" else 1
@@ -180,17 +185,13 @@ def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z", n_substeps
         feasible = (cfg.advection_scheme in ("semi_lagrangian", "substep")
                     and cfg.advect_window in WINDOWS and h <= n // k)
         if (halo_backend != "xla" and feasible
-                and (device.type == "cuda" or halo_backend == "pallas")):
-            if cfg.dtype != "float32":
-                raise NotImplementedError(
-                    "the per-shard advection (K11) takes float32 fields; "
-                    f"dtype={cfg.dtype!r} is not ported")
+                and (device.type == "cuda" or halo_backend in ("pallas", "rdma"))):
 
             def advect_fn(bs, fields, velocity, d_t, obst=None):
                 return advect_multi_3d_sharded(bs, fields, velocity, float(d_t), mesh,
                                                axis_name, window=cfg.advect_window,
-                                               n_sub=n_sub, obst=obst,
-                                               kernel=kernels.advect_ext)
+                                               n_sub=n_sub, transport=transport, obst=obst,
+                                               kernels=kernels)
 
     # On a mesh of more than one shard the single-card kernels would run on
     # the whole volume, not per shard: as in the JAX package, they are off

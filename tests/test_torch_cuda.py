@@ -2,8 +2,8 @@
 (and K8 against K1 followed by K2, and the fused step paths against the
 unfused ones), the 2D mode's kernel path (K9) against its twin path and
 the CPU, the sweep-blocked solve (K5) in K2, K3, K4 and K8 and K14, the
-sharded step's per-shard kernels (K10, K11) and its paths, and the plain
-ops that divide on the card against the CPU.
+sharded step's kernels (K10, K11, and the "rdma" backend's K12 and K13)
+and its paths, and the plain ops that divide on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one.  The module
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -80,8 +80,12 @@ from fluidsim_tpu_torch.kernels.halo import (
     advect_ext_kernel,
     advect_ext_plain,
     ext_halo,
+    halo_exchange_rdma,
+    halo_exchange_rdma_plain,
     jacobi_ext_kernel,
     jacobi_ext_plain,
+    jacobi_ext_rdma,
+    jacobi_ext_rdma_plain,
 )
 from fluidsim_tpu_torch.parallel import jacobi_3d_sharded, make_mesh, shard_state, sharded_step_fn
 from fluidsim_tpu_torch.parallel.halo import advect_multi_3d_sharded
@@ -1069,3 +1073,181 @@ def test_ext_wrappers_raise_for_cuda_tensors_they_cannot_take(cuda):
         advect_ext_kernel((0,), vel[:1].transpose(2, 3), vel, 16, DT, 0)
     with pytest.raises(TypeError):
         advect_ext_kernel((0,), vel[:1].half(), vel, 16, DT, 0)
+
+
+# -- K12, K13 and K11 on bfloat16: the "rdma" backend and bf16 fields --------
+
+def shard_slabs(v, shards, h):
+    """Every shard's halo-extended slab of the global (nz, n, n) ``v``."""
+    lz = v.shape[0] // shards
+    return [ext_slab(v, r, lz, h) for r in range(shards)]
+
+
+@pytest.mark.parametrize("b,masked", [(0, False), (1, False), (2, False), (3, False),
+                                      (0, True)])
+@pytest.mark.parametrize("t", [2, 3, 4, 7])
+def test_k12_matches_twin(cuda, t, b, masked):
+    """Two chained rounds on 4 shards of a 40³ grid (10 planes a shard):
+    every rank kind, bitwise on every plane of every shard's next slab, and
+    the kept planes bitwise K10's.  T = 4 runs two passes (through the
+    scratch, then into the output), T = 7 three (through the scratch and
+    the spare)."""
+    n, shards, lz = 40, 4, 10
+    vel, _ = fields(n, 2800 + t + b, cuda)
+    obst = vortex_mask(n, cuda) if masked else None
+    x = vel[0] if obst is None else torch.where(obst, 0.0, vel[0])
+    xps, x0s = shard_slabs(x, shards, t), shard_slabs(vel[1], shards, t)
+    ms = None if obst is None else shard_slabs(obst, shards, t)
+    for rnd in range(2):
+        got = jacobi_ext_rdma(xps, x0s, 1.0, 6.0, t, b, ms)
+        ref = jacobi_ext_rdma_plain(xps, x0s, 1.0, 6.0, t, b, ms)
+        assert_equal(got, ref, f"K12 T={t} b={b} round {rnd}")
+        for r in range(shards):
+            walls = (t if r == 0 else NO_WALL, t + lz - 1 if r == shards - 1 else NO_WALL)
+            k10 = jacobi_ext_kernel(xps[r], x0s[r], 1.0, 6.0, t, *walls, b,
+                                    None if ms is None else ms[r])
+            assert_equal([got[r][t:t + lz]], [k10[t:t + lz]], f"K12 vs K10 shard {r}")
+        xps = got
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_k13_matches_twin(cuda, shards, depth):
+    """Several arrays a call: float32 channels as views of a global tensor,
+    bfloat16 and the bool mask on 40² planes (16-byte moves), and a bool
+    mask on 7² planes (49 bytes: the byte path); bitwise on every plane of
+    every output."""
+    n = 40
+    vel, dens = fields(n, 2900 + shards + depth, cuda)
+    calls = ([vel, dens[None].to(torch.bfloat16), vel[:1] > 0.0],
+             [(dens[None, :, :7, :7] > 3.0).contiguous()])
+    for arrays in calls:
+        by_shard = [[torch.chunk(a, shards, 1)[r] for a in arrays] for r in range(shards)]
+        got = halo_exchange_rdma(by_shard, depth)
+        ref = halo_exchange_rdma_plain(by_shard, depth)
+        for r in range(shards):
+            assert [g.dtype for g in got[r]] == [a.dtype for a in arrays]
+            assert_equal(got[r], ref[r], f"K13 {len(arrays)} arrays, shard {r}")
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("window", [1, 2, 3])
+@pytest.mark.parametrize("n_fields", [1, 3])
+def test_k11_bf16_matches_twin(cuda, n_fields, window, masked):
+    """K11 on bfloat16 slabs, as test_k11_matches_twin: two substeps on each
+    rank kind's slab of a 40³ grid, bitwise on every plane."""
+    n, lz, n_sub = 40, 10, 2
+    vel, dens = fields(n, 3000 + window, cuda)
+    vel, dens = (vel * 0.3).to(torch.bfloat16), dens.to(torch.bfloat16)
+    obst = vortex_mask(n, cuda) if masked else None
+    h = ext_halo(window, n_sub, masked)
+    for rank, shard in RANKS.items():
+        v = ext_slab(vel, shard, lz, h)
+        f = v if n_fields == 3 else ext_slab(dens[None], shard, lz, h)
+        m = None if obst is None else ext_slab(obst, shard, lz, h)
+        bs = (1, 2, 3) if n_fields == 3 else (0,)
+        zoff = shard * lz - h
+        got = advect_ext_kernel(bs, f, v, n, DT, zoff, window, n_sub, m)
+        ref = advect_ext_plain(bs, f, v, n, DT, zoff, window, n_sub, m)
+        assert got.dtype == torch.bfloat16
+        assert_equal([got], [ref], f"K11 bf16 F={n_fields} K={window} {rank}")
+
+
+@pytest.mark.parametrize("shards", [4, 8])
+def test_rdma_solve_and_advection_equal_pallas(cuda, shards):
+    """At 64³ the rdma solve (K13, then K12 rounds) equals the pallas solve
+    and K6 bitwise, with and without the mask; the rdma advection (K13, then
+    K11) equals the ppermute advection, float32 and bfloat16."""
+    n = 64
+    vel, dens = fields(n, 3100 + shards, cuda)
+    vel = vel * 0.3
+    mesh = make_mesh(["cuda"] * shards)
+    div = divergence_3d_plain(vel)
+    zero = torch.zeros_like(div)
+    k6 = jacobi_3d_kernel(0, zero, div, 1.0, 6.0, 20)
+    obst = vortex_mask(n, cuda)
+    for t in (2, 4):
+        got = jacobi_3d_sharded(zero, div, 1.0, 6.0, 20, mesh, block_iters=t, backend="rdma")
+        assert_equal([got], [k6], f"rdma solve T={t}")
+        kw = dict(block_iters=t, obst=obst)
+        assert_equal([jacobi_3d_sharded(zero, div, 1.0, 6.0, 20, mesh, backend="rdma", **kw)],
+                     [jacobi_3d_sharded(zero, div, 1.0, 6.0, 20, mesh, backend="pallas", **kw)],
+                     f"rdma solve with the mask T={t}")
+    for dtype in (torch.float32, torch.bfloat16):
+        v, d = vel.to(dtype), dens[None].to(dtype)
+        for bs, f, m in (((1, 2, 3), v, None), ((0,), d, None), ((1, 2, 3), v, obst)):
+            kw = dict(window=1, n_sub=2, obst=m)
+            if m is not None and shards == 8:
+                continue  # a 4-plane halo on 8-plane shards
+            assert_equal([advect_multi_3d_sharded(bs, f, v, DT, mesh, transport="rdma", **kw)],
+                         [advect_multi_3d_sharded(bs, f, v, DT, mesh, **kw)],
+                         f"rdma advection {dtype} {bs}")
+
+
+RDMA_COUNTERS = dict(K10=jacobi_ext_kernel, K11=advect_ext_kernel, K12=jacobi_ext_rdma,
+                     K13=halo_exchange_rdma, K6=jacobi_3d_kernel, K4=jacobi_3d_resident)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,t", [("sharded512", 2), ("sharded512", 4), ("vortex128", 2)])
+def test_rdma_step_matches_pallas_step_and_twin_path(cuda, name, t, dtype):
+    """sharded512 and vortex128 at 64³ on 4 shards with halo_backend="rdma":
+    exactly iters/T K12, three K13 (the solve's priming and the two
+    advections' slabs) and two K11 launches a shard and a step and no K10;
+    bitwise the "pallas" step and the rdma path on the twins after 3 steps;
+    the "pallas" bf16 step bitwise its twin path too."""
+    preset = {"sharded512": preset_sharded_512, "vortex128": preset_vortex_128}[name]
+    cfg = preset().replace(size=64, dtype=dtype)
+    mesh = make_mesh(["cuda"] * 4)
+    obst = vortex_mask(64, cuda) if cfg.enable_obstacle else None
+    start = shard_state(zeros_state(cfg, cuda, obstacles=obst), mesh)
+    kw = dict(halo="explicit", halo_block_iters=t)
+    rdma = sharded_step_fn(cfg, mesh, halo_backend="rdma", **kw)
+    pallas = sharded_step_fn(cfg, mesh, halo_backend="pallas", **kw)
+    twins = {backend: sharded_step_fn(cfg, mesh, halo_backend=backend, kernels=PLAIN_TWINS, **kw)
+             for backend in ("rdma", "pallas")}
+    counters = dict(sweep_counters(), **RDMA_COUNTERS)
+    before = {k: fn.launches for k, fn in counters.items()}
+    a = start
+    for _ in range(3):
+        a = rdma(a)
+    added = {k: fn.launches - before[k] for k, fn in counters.items()}
+    want = {"K12": 3 * 4 * cfg.jacobi_iters // t, "K13": 3 * 4 * 3, "K11": 3 * 4 * 2}
+    assert added == {k: want.get(k, 0) for k in added}
+    p = tr = tp = start
+    for _ in range(3):
+        p, tr, tp = pallas(p), twins["rdma"](tr), twins["pallas"](tp)
+    for field in ("density", "velocity", "pressure"):
+        got = getattr(a, field)
+        assert got.dtype == getattr(start, field).dtype
+        for what, ref in (("pallas", p), ("twin path", tr), ("pallas twin path", tp)):
+            assert torch.equal(got, getattr(ref, field)), (field, what)
+    assert float(a.density.float().sum()) > 0.0
+
+
+def test_rdma_wrappers_raise_for_cuda_tensors_they_cannot_take(cuda):
+    """K12 and K13 on CUDA tensors launch or raise: a type, a layout, a shape
+    or a device the kernel does not take never reaches the twin."""
+    vel, _ = fields(16, 3200, cuda)
+    xps = shard_slabs(vel[0], 2, 2)
+    with pytest.raises(TypeError):
+        jacobi_ext_rdma([x.double() for x in xps], [x.double() for x in xps], 1.0, 6.0, 2)
+    with pytest.raises(ValueError, match="lz >= T"):
+        jacobi_ext_rdma(xps, xps, 1.0, 6.0, 5)
+    with pytest.raises(ValueError, match="one device"):
+        jacobi_ext_rdma(xps, [x.cpu() for x in xps], 1.0, 6.0, 2)
+    with pytest.raises(ValueError, match="one slab per shard"):
+        jacobi_ext_rdma(xps, xps[:1], 1.0, 6.0, 2)
+    halves = [[h] for h in torch.chunk(vel, 2, 1)]
+    with pytest.raises(TypeError):
+        halo_exchange_rdma([[h[0].double()] for h in halves], 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        halo_exchange_rdma([[h[0].transpose(2, 3)] for h in halves], 2)
+    with pytest.raises(RuntimeError, match="halo exchange kernel launch"):
+        halo_exchange_rdma([h * 5 for h in halves], 2)
+    with pytest.raises(ValueError, match="local slab depth"):
+        halo_exchange_rdma(halves, 9)
+    with pytest.raises(ValueError, match="geometry"):
+        halo_exchange_rdma([h + [h[0][:, :4]] for h in halves], 2)
+    with pytest.raises(ValueError, match="one device"):
+        halo_exchange_rdma([halves[0], [halves[1][0].cpu()]], 2)

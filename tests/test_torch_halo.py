@@ -178,8 +178,8 @@ def test_jacobi_ext_plain_matches_pallas_interpret(rank):
 
 
 def test_sharded_solve_errors():
-    """The JAX package's ValueErrors, and the kernel backends that are not
-    ported."""
+    """The JAX package's ValueErrors; ``backend="rdma"`` (ported: it raised
+    before K12 and K13) needs T >= 2 and solves."""
     x = torch.zeros(N, N, N)
     mesh = make_mesh(["cpu"] * 8)
     with pytest.raises(ValueError, match="not divisible"):
@@ -192,8 +192,10 @@ def test_sharded_solve_errors():
         jacobi_3d_sharded(x, x, 1.0, 6.0, 4, mesh, backend="pallas")
     with pytest.raises(ValueError, match="backend must be"):
         jacobi_3d_sharded(x, x, 1.0, 6.0, 4, mesh, backend="cuda")
-    with pytest.raises(NotImplementedError, match="K12/K13"):
-        jacobi_3d_sharded(x, x, 1.0, 6.0, 4, mesh, block_iters=2, backend="rdma")
+    with pytest.raises(ValueError, match="block_iters >= 2"):
+        jacobi_3d_sharded(x, x, 1.0, 6.0, 4, mesh, backend="rdma")
+    assert torch.equal(jacobi_3d_sharded(x, x, 1.0, 6.0, 4, mesh, block_iters=2,
+                                         backend="rdma"), x)
 
 
 def test_jacobi_ext_wrapper_checks():

@@ -116,8 +116,10 @@ def test_sharded_advection_errors():
                                 obst=torch.zeros(N, N, N, dtype=torch.bool))
     with pytest.raises(ValueError, match="transport"):
         advect_multi_3d_sharded((1, 2, 3), vel, vel, DT, mesh, transport="nccl")
-    with pytest.raises(NotImplementedError, match="K12/K13"):
-        advect_multi_3d_sharded((1, 2, 3), vel, vel, DT, mesh, transport="rdma")
+    # transport="rdma" (ported: it raised before K13) is the ppermute result.
+    vel = torch.from_numpy(inputs(5, 3)[0])
+    assert torch.equal(advect_multi_3d_sharded((1, 2, 3), vel, vel, DT, mesh, transport="rdma"),
+                       advect_multi_3d_sharded((1, 2, 3), vel, vel, DT, mesh))
 
 
 def test_advect_ext_wrapper_checks():

@@ -5,9 +5,12 @@ package's ``sharded_step_fn``, and its gates.
 sharded512 cut to 32³ (``size=32, source_radius=2.0, jacobi_iters=4``; every
 other field is the preset's: buoyancy, the emitter, two K = 1 substeps) on 4
 shards of 8 planes, 2 steps from one state made from a seed (smooth fields,
-tests/test_torch_multi256.py's ``start_arrays``).  The JAX side runs its
-Pallas kernels in interpret mode on 4 host devices; the port runs K10's and
-K11's twins on ``make_mesh(["cpu"] * 4)``.
+tests/test_torch_multi256.py's ``start_arrays``); vortex128 (its sphere,
+three substeps) and plume64 (K = 3) cut to 32³ the same way.  The JAX side
+runs its Pallas kernels in interpret mode on 4 host devices; the port runs
+K10's to K13's twins on ``make_mesh(["cpu"] * 4)``.  The port's ``"rdma"``
+step is bitwise its ``"pallas"`` step, as the JAX package's is
+(tests/test_rdma.py).
 
 Tolerance: rtol 1e-5, atol 1e-6·max|ref| per field (tests/test_torch_step.
 py's class).  The density reaches about 260, where a float32 ulp is 3e-5:
@@ -15,7 +18,9 @@ an absolute 1e-6 is below the density's resolution.  Observed max abs diff
 over max|ref| after 2 steps: 1.8e-7 (density), 6.2e-7 (velocity), 3.3e-7
 (pressure) with K10/K11, 1.8e-7, 5.2e-7, 3.3e-7 on the plain backend, from
 XLA-CPU's FMAs in the JAX step (the buoyancy, the emitter, the interpreted
-kernels).
+kernels); 1.8e-7, 6.2e-7, 3.3e-7 on ``"rdma"`` against the JAX ``"rdma"``
+step; vortex128 4.9e-7, 5.3e-7, 2.0e-7 and plume64 6.4e-7, 5.0e-7, 1.9e-7
+against the JAX ``"pallas"`` step.
 """
 
 import numpy as np
@@ -33,6 +38,7 @@ from fluidsim_tpu.state import FluidState as JState
 
 import fluidsim_tpu_torch.config as t_config
 import fluidsim_tpu_torch.models.stable3d as t_s3
+from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
 from fluidsim_tpu_torch.engine import Engine
 from fluidsim_tpu_torch.io.convert import state_from_numpy, state_to_numpy
 from fluidsim_tpu_torch.models.stable3d import simulate_step_3d
@@ -74,10 +80,17 @@ class Recorder:
         return call
 
 
+def start(cfg):
+    """``start_arrays`` with the config's obstacle mask."""
+    arrays = start_arrays()
+    if cfg.enable_obstacle:
+        arrays["obstacles"] = np.asarray(build_obstacle_mask(cfg))
+    return arrays
+
+
 def run_jax(cfg, steps, **kw):
     mesh = j_make_mesh(jax.devices()[:SHARDS])
-    state = j_shard_state(JState(**{k: jnp.asarray(v) for k, v in start_arrays().items()}),
-                          mesh)
+    state = j_shard_state(JState(**{k: jnp.asarray(v) for k, v in start(cfg).items()}), mesh)
     step = j_sharded_step_fn(cfg, mesh, **kw)
     for _ in range(steps):
         state = step(state)
@@ -86,11 +99,17 @@ def run_jax(cfg, steps, **kw):
 
 def run_port(cfg, steps, shards=SHARDS, **kw):
     mesh = make_mesh(["cpu"] * shards)
-    state = shard_state(state_from_numpy(start_arrays(), "cpu"), mesh)
+    state = shard_state(state_from_numpy(start(cfg), "cpu"), mesh)
     step = sharded_step_fn(cfg, mesh, **kw)
     for _ in range(steps):
         state = step(state)
     return state
+
+
+def assert_close(got, ref, what=""):
+    for field, r in ref.items():
+        np.testing.assert_allclose(got[field], r, rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(r).max()), err_msg=f"{what} {field}")
 
 
 @pytest.mark.parametrize("backend,t", [("pallas", 2), ("xla", 1)])
@@ -102,9 +121,41 @@ def test_explicit_step_matches_jax(backend, t):
                   pallas_interpret=True)
     got = state_to_numpy(run_port(t_cfg, 2, halo="explicit", halo_block_iters=t,
                                   halo_backend=backend))
-    for field, r in ref.items():
-        np.testing.assert_allclose(got[field], r, rtol=1e-5,
-                                   atol=1e-6 * float(np.abs(r).max()), err_msg=field)
+    assert_close(got, ref)
+
+
+@pytest.mark.parametrize("name,t", [("vortex_128", 2), ("plume_64", 4)])
+def test_explicit_step_with_obstacle_and_window3_matches_jax(name, t):
+    """vortex128 (its sphere, three substeps: the mask rides every exchange
+    and K11's halo is 6 planes) at T = 2 and plume64 (K = 3, viscous
+    diffusion) at T = 4, cut to 32³, 2 steps: the port's ``"pallas"`` and
+    ``"rdma"`` steps against the JAX ``"pallas"`` step (which the JAX
+    package holds bitwise to its ``"rdma"`` step), and the port's two
+    bitwise each other."""
+    j_cfg = getattr(j_config, f"preset_{name}")().replace(size=N)
+    t_cfg = getattr(t_config, f"preset_{name}")().replace(size=N)
+    kw = dict(halo="explicit", halo_block_iters=t)
+    ref = run_jax(j_cfg, 2, halo_backend="pallas", pallas_interpret=True, **kw)
+    got = {backend: state_to_numpy(run_port(t_cfg, 2, halo_backend=backend, **kw))
+           for backend in ("pallas", "rdma")}
+    for backend, g in got.items():
+        assert_close(g, ref, backend)
+    for field in ("density", "velocity", "pressure"):
+        np.testing.assert_array_equal(got["rdma"][field], got["pallas"][field], err_msg=field)
+
+
+def test_rdma_step_matches_jax():
+    """sharded512 cut to 32³ with ``halo_backend="rdma"`` (K12 rounds, K13
+    exchanges) against the JAX ``"rdma"`` step in interpret mode, and
+    bitwise the port's ``"pallas"`` step."""
+    j_cfg, t_cfg = configs()
+    kw = dict(halo="explicit", halo_block_iters=2)
+    ref = run_jax(j_cfg, 2, halo_backend="rdma", pallas_interpret=True, **kw)
+    got = run_port(t_cfg, 2, halo_backend="rdma", **kw)
+    assert_close(state_to_numpy(got), ref)
+    pallas = run_port(t_cfg, 2, halo_backend="pallas", **kw)
+    for field in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(got, field), getattr(pallas, field)), field
 
 
 def test_auto_halo_is_the_unsharded_step():
@@ -133,6 +184,19 @@ def test_per_shard_calls(monkeypatch):
     rec.calls.clear()
     run_port(cfg, 1, halo="explicit", halo_backend="xla", kernels=rec.kernels)
     assert rec.calls == []
+
+
+def test_per_shard_calls_on_the_rdma_backend():
+    """``halo_backend="rdma"`` makes one K13 call (every shard's priming of
+    the solve) and iters/T K12 calls (every shard's round) a solve, one K13
+    call (every shard's slabs) before each of the two K11 calls a shard,
+    and no K10 call."""
+    _, cfg = configs()
+    rec = Recorder()
+    run_port(cfg, 1, halo="explicit", halo_block_iters=2, halo_backend="rdma",
+             kernels=rec.kernels)
+    assert sorted(rec.calls) == sorted(["halo_exchange_rdma"] * 3 + ["jacobi_ext_rdma"] * 2
+                                       + ["advect_ext"] * SHARDS * 2)
 
 
 @pytest.mark.parametrize("change", [dict(advection_scheme="maccormack", advect_window=2),
@@ -215,8 +279,13 @@ def test_gates_and_errors():
         sharded_step_fn(cfg.replace(kernel_backend="pallas"), mesh)
     with pytest.raises(ValueError, match="halo must be"):
         sharded_step_fn(cfg, mesh, halo="ppermute")
-    with pytest.raises(NotImplementedError, match="K12/K13"):
-        sharded_step_fn(cfg, mesh, halo="explicit", halo_block_iters=2, halo_backend="rdma")
+    with pytest.raises(ValueError, match="halo_backend must be"):
+        sharded_step_fn(cfg, mesh, halo="explicit", halo_backend="nccl")
+    # halo_backend="rdma" and bfloat16 fields step (they raised before K12,
+    # K13 and bfloat16 K11 were ported).
+    for change in (dict(), dict(dtype="bfloat16")):
+        sharded_step_fn(cfg.replace(**change), mesh, halo="explicit", halo_block_iters=2,
+                        halo_backend="rdma")
     with pytest.raises(ValueError, match="3D"):
         sharded_step_fn(t_config.preset_scene_b(), mesh)
     with pytest.raises(ValueError, match="not divisible"):
@@ -228,7 +297,7 @@ def test_mesh_layout():
     slice; a leaf's split axis is z."""
     mesh = make_mesh(["cpu"] * 8)
     assert mesh.shape["z"] == 8 and mesh.devices == (torch.device("cpu"),) * 8
-    with pytest.raises(NotImplementedError, match="K12/K13"):
+    with pytest.raises(NotImplementedError, match="distinct devices"):
         make_mesh(["cpu", "meta"])
     sh = state_sharding(mesh)
     assert (sh.density, sh.velocity, sh.pressure, sh.obstacles) == (0, 1, 0, 0)
