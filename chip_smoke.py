@@ -6,8 +6,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which ends the run with a non-zero exit code on failure:
   1. require a CUDA device (no CPU fallback) and print the card's name and
      power limit;
-  2. build the hand kernels (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11,
-     K14, float32 and bfloat16) from ``fluidsim_tpu_torch/csrc``;
+  2. build the hand kernels (K1 to K14, float32 and bfloat16, K1's body at
+     any window) from ``fluidsim_tpu_torch/csrc``;
   3. hold each kernel against its plain PyTorch twin on the card on inputs
      made with NumPy from a seed, bitwise: at 128³ K1 with buoyancy and K2 on
      bench128-scale fields, K1 with three substeps and the vortex128 mask
@@ -157,7 +157,29 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      plume rises; time K12 a launch, K13's three calls of a step beside
      ``torch.cat``, bf16 K11, and steps/s with device ms by kernel of rdma
      (T = 4, 2, bf16), pallas and the unsharded ``Engine`` in turns; run
-     ``cli bench ... --halo-backend rdma`` as a subprocess.
+     ``cli bench ... --halo-backend rdma`` as a subprocess;
+ 14. K1's body at windows K = 4 and 5 (``csrc/advect.cuh``'s runtime-K
+     body): each kernel that shares it against its twin, bitwise, on the
+     presets' shapes (K1 on plume64 F = 3 and 1, with buoyancy and the
+     emitter at 128³, with vortex128's mask and three substeps, in bf16;
+     K2, K2s, K2o, bf16 K2, K8 f32 and bf16, K14; K11 on sharded512's
+     middle slab, f32 and bf16), timed beside the twin; the Engine paths
+     at K = 4 (10 steps) and 5 (5 steps): plume64, bench128 (plain,
+     ``fuse_emitter``, ``fuse_self_advect``, bf16, bf16 +
+     ``fuse_self_advect``) and vortex128 fused, each with exactly its
+     kernels and bitwise its twin path; sharded512 on 8 shards with
+     ``halo_backend="rdma"`` at K = 4, 5 in f32 and bf16 for
+     ``WIDE_HALO_STEPS`` steps (exactly K12, K13 and K11; against the
+     unsharded ``Engine``; at K = 4 one step bitwise the twin path); then
+     the entry points as a user runs them, each a subprocess: ``cli
+     save-config --preset plume64``, ``advect_window`` set to 4 in its
+     JSON, ``cli run --config ... --steps 20 --db ... --checkpoint ...``
+     (the store holds the run and its metric rows),
+     ``Engine.from_checkpoint`` and 20 more steps bitwise a continuous
+     40-step run, ``cli render --preset scene_a ... --html`` (2D colormap
+     and streamlines, which rasterizer ran is printed) and ``cli render
+     --config ... --html`` (3D raymarch); and a ``LiveServer`` in a thread:
+     a frame, a drag that stirs, ``stop()``.
 The line before last is a JSON object describing each kernel (with the
 least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -646,7 +668,8 @@ def main() -> None:
     for key, (fn, plain) in fused_fns.items():
         got, ref = fn(), plain()
         torch.cuda.synchronize()
-        got, ref = (got,) if torch.is_tensor(got) else got, (ref,) if torch.is_tensor(ref) else ref
+        if torch.is_tensor(got):
+            got, ref = (got,), (ref,)
         fused_err[key] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         same = all(torch.equal(g, r) for g, r in zip(got, ref))
         say(f"# {key} vs twin at {n}^3: max abs err {fused_err[key]!r} (bitwise {same}; "
@@ -1354,7 +1377,8 @@ def main() -> None:
     def twin_check(key, fn, plain, where):
         got, ref = fn(), plain()
         torch.cuda.synchronize()
-        got, ref = (got,) if torch.is_tensor(got) else got, (ref,) if torch.is_tensor(ref) else ref
+        if torch.is_tensor(got):
+            got, ref = (got,), (ref,)
         err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
         new_err[key] = max(new_err.get(key, 0.0), err)
         same = all(g.dtype == r.dtype and torch.equal(g, r) for g, r in zip(got, ref))
@@ -3026,6 +3050,10 @@ def main() -> None:
                h_sub * (hlz + 2 * hh) * hcells * (FRAC_OPS + RELU_OPS + COMB_OPS))),
     ]
 
+    # -- 14. K1's body at K >= 4 and the host entry points ----------------------
+    phase_wide(card, dev, counters_to_zero, counts, entries, times)
+    phase_entry_points(card, counters_to_zero, counts)
+
     report = []
     for key, name, source, replaces, launches, err, (bound_ms, bound_by) in entries:
         ms, plain_ms = times[key]
@@ -3040,6 +3068,486 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+WIDE_STEPS = {4: 10, 5: 5}
+WIDE_HALO_STEPS = 2
+
+
+def phase_wide(card, dev, counters_to_zero, counts, entries, times):
+    """Phases 14a-c: K1's body at windows K = 4 and 5 (the runtime-K body of
+    csrc/advect.cuh) in every kernel that shares it, against its twin, and
+    the Engine and sharded paths that run it (``phase_entry_points`` is
+    14d).  Appends the K >= 4 rows to ``entries`` and their times to
+    ``times``."""
+    import numpy as np
+    import torch
+
+    from fluidsim_tpu_torch.config import (
+        preset_bench_128,
+        preset_plume_64,
+        preset_sharded_512,
+        preset_vortex_128,
+    )
+    from fluidsim_tpu_torch.engine import Engine
+    from fluidsim_tpu_torch.kernels.advect import advect_multi_3d_kernel, advect_multi_3d_plain
+    from fluidsim_tpu_torch.kernels.halo import advect_ext_kernel, advect_ext_plain, ext_halo
+    from fluidsim_tpu_torch.kernels.resident import (
+        advect_project_3d_resident,
+        advect_project_3d_resident_plain,
+        full_step_3d,
+        full_step_3d_plain,
+        full_step_blocks,
+        project_advect_density_3d,
+        project_advect_density_3d_plain,
+    )
+    from fluidsim_tpu_torch.models.stable3d import sink_factor
+    from fluidsim_tpu_torch.models.step_kernels import PLAIN_TWINS
+    from fluidsim_tpu_torch.parallel import make_mesh, shard_state, sharded_step_fn
+    from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
+    from fluidsim_tpu_torch.scene.sources import emitter_fold_operand, src_field_add
+    from fluidsim_tpu_torch.state import zeros_state
+
+    say("# phase 14: K1's body at K = 4, 5 in K1, K2/K2s/K2o, K8, K14 and K11; the paths "
+        "that run it; the host entry points")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 14)
+    f32, bf2 = 4, 2
+    bf16 = torch.bfloat16
+    err = {}
+
+    def reach(n, dt, cells, n_sub=1):
+        """A velocity whose backtrace reaches about ``cells`` cells a substep."""
+        return velocity_field(n, rng, dev, cells * n_sub / (2.0 * dt * (n - 2)))
+
+    def held(key, fn, plain):
+        """Kernel against twin, bitwise; the twin's time of this one call."""
+        got = fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = plain()
+        end.record()
+        end.synchronize()
+        if torch.is_tensor(got):
+            got, ref = (got,), (ref,)
+        e = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+        err[key] = e
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            fail(f"phase 14: {key} disagrees with its twin (max abs diff {e!r})")
+        times[key] = (cuda_ms(fn, reps=10, warmup=1), start.elapsed_time(end))
+        say(f"{key}: kernel {times[key][0]!r} ms, twin {times[key][1]!r} ms (one call), "
+            f"bitwise [{card}]")
+
+    # 14a. Each kernel at K = 4 and 5 against its twin on the presets' shapes.
+    pcfg, bcfg, vcfg, hcfg = (preset_plume_64(), preset_bench_128(), preset_vortex_128(),
+                              preset_sharded_512())
+    pn, bn, vn, hn = (c.current_size for c in (pcfg, bcfg, vcfg, hcfg))
+    pdt, bdt, vdt, hdt = (c.effective_params()[0] for c in (pcfg, bcfg, vcfg, hcfg))
+    bdamp, bddamp = sink_factor(bdt, bcfg.velocity_damping), sink_factor(bdt,
+                                                                        bcfg.density_dissipation)
+    vdamp, vddamp = sink_factor(vdt, vcfg.velocity_damping), sink_factor(vdt,
+                                                                        vcfg.density_dissipation)
+    v_sub, h_sub = vcfg.advect_substeps, hcfg.advect_substeps
+    vmask = torch.as_tensor(build_obstacle_mask(vcfg), device=dev)
+    src = emitter_fold_operand(bcfg, torch.zeros((), device=dev))
+    b_iters, v_iters, h_iters = bcfg.jacobi_iters, vcfg.jacobi_iters, hcfg.jacobi_iters
+    hmesh = make_mesh(["cuda"] * 8)
+    hlz = hn // 8
+    for k in (4, 5):
+        pvel, pdens = reach(pn, pdt, k + 2), density_field(pn, rng, dev)
+        bvel, bdens = reach(bn, bdt, k + 2), density_field(bn, rng, dev)
+        vvel, vdens = reach(vn, vdt, k + 1, v_sub), density_field(vn, rng, dev)
+        buoy = (bdens, bcfg.buoyancy, bcfg.ambient_density, bcfg.gravity)
+        held(f"K1w{k}", lambda: advect_multi_3d_kernel((1, 2, 3), pvel, pvel, pdt, window=k),
+             lambda: advect_multi_3d_plain((1, 2, 3), pvel, pvel, pdt, window=k))
+        held(f"K1w{k} density",
+             lambda: advect_multi_3d_kernel((0,), pdens[None], pvel, pdt, window=k),
+             lambda: advect_multi_3d_plain((0,), pdens[None], pvel, pdt, window=k))
+        held(f"K1 srcw{k}",
+             lambda: advect_multi_3d_kernel((1, 2, 3), bvel, bvel, bdt, buoy=buoy, src=src,
+                                            window=k),
+             lambda: advect_multi_3d_plain((1, 2, 3), bvel, bvel, bdt, buoy=buoy, src=src,
+                                           window=k))
+        held(f"K1v w{k}",
+             lambda: advect_multi_3d_kernel((1, 2, 3), vvel, vvel, vdt, obst=vmask, window=k,
+                                            n_sub=v_sub),
+             lambda: advect_multi_3d_plain((1, 2, 3), vvel, vvel, vdt, obst=vmask, window=k,
+                                           n_sub=v_sub))
+        held(f"K1v w{k} density",
+             lambda: advect_multi_3d_kernel((0,), vdens[None], vvel, vdt, obst=vmask, window=k,
+                                            n_sub=v_sub),
+             lambda: advect_multi_3d_plain((0,), vdens[None], vvel, vdt, obst=vmask, window=k,
+                                           n_sub=v_sub))
+        bvb, bdb = bvel.to(bf16), bdens.to(bf16)
+        held(f"K1 bf16 w{k}", lambda: advect_multi_3d_kernel((1, 2, 3), bvb, bvb, bdt, window=k),
+             lambda: advect_multi_3d_plain((1, 2, 3), bvb, bvb, bdt, window=k))
+        held(f"K1 bf16 w{k} density",
+             lambda: advect_multi_3d_kernel((0,), bdb[None], bvb, bdt, window=k),
+             lambda: advect_multi_3d_plain((0,), bdb[None], bvb, bdt, window=k))
+        kw = dict(solve_dtype=bcfg.solve_dtype, damp=bdamp, dens_damp=bddamp, window=k)
+        held(f"K2w{k}", lambda: project_advect_density_3d(bvel, bdens, b_iters, bdt, **kw),
+             lambda: project_advect_density_3d_plain(bvel, bdens, b_iters, bdt, **kw))
+        held(f"K2sw{k}",
+             lambda: project_advect_density_3d(bvel, bdens, b_iters, bdt, src=src, **kw),
+             lambda: project_advect_density_3d_plain(bvel, bdens, b_iters, bdt, src=src, **kw))
+        held(f"K2 bf16 w{k}", lambda: project_advect_density_3d(bvb, bdb, b_iters, bdt, **kw),
+             lambda: project_advect_density_3d_plain(bvb, bdb, b_iters, bdt, **kw))
+        vkw = dict(solve_dtype=vcfg.solve_dtype, damp=vdamp, dens_damp=vddamp, window=k,
+                   n_sub=v_sub, obst=vmask)
+        held(f"K2ow{k}", lambda: project_advect_density_3d(vvel, vdens, v_iters, vdt, **vkw),
+             lambda: project_advect_density_3d_plain(vvel, vdens, v_iters, vdt, **vkw))
+        held(f"K8w{k}", lambda: full_step_3d(bvel, bdens, b_iters, bdt, **kw),
+             lambda: full_step_3d_plain(bvel, bdens, b_iters, bdt, **kw))
+        held(f"K8 bf16 w{k}", lambda: full_step_3d(bvb, bdb, b_iters, bdt, **kw),
+             lambda: full_step_3d_plain(bvb, bdb, b_iters, bdt, **kw))
+        held(f"K14w{k}", lambda: advect_project_3d_resident(bvel, b_iters, bdt, window=k),
+             lambda: advect_project_3d_resident_plain(bvel, b_iters, bdt, window=k))
+        for dtype, blocks in ((None, full_step_blocks(None, dev, torch.float32, k)),
+                              ("bf16", full_step_blocks("bfloat16", dev, bf16, k))):
+            say(f"# K8 at K={k} ({dtype or 'float32'} fields and solve): a cooperative grid "
+                f"of {blocks} blocks")
+            if blocks <= 0:
+                fail(f"K8 at K={k} cannot be co-resident")
+        del pvel, pdens, bvel, bdens, vvel, vdens, bvb, bdb, buoy
+        # K11 on the middle shard's slab of sharded512 (8 shards, two substeps,
+        # a halo of 2K planes), float32 and bfloat16.
+        h = ext_halo(k, h_sub, False)
+        hvel = reach(hn, hdt, k + 1, h_sub)
+        hdens = density_field(hn, rng, dev)
+        zoff = 3 * hlz - h
+        for dtype, tag in ((torch.float32, ""), (bf16, " bf16")):
+            ve = hvel.to(dtype).narrow(1, zoff, hlz + 2 * h).contiguous()
+            de = hdens.to(dtype)[None].narrow(1, zoff, hlz + 2 * h).contiguous()
+            held(f"K11{tag} w{k}",
+                 lambda: advect_ext_kernel((1, 2, 3), ve, ve, hn, hdt, zoff, k, h_sub),
+                 lambda: advect_ext_plain((1, 2, 3), ve, ve, hn, hdt, zoff, k, h_sub))
+            held(f"K11{tag} w{k} density",
+                 lambda: advect_ext_kernel((0,), de, ve, hn, hdt, zoff, k, h_sub),
+                 lambda: advect_ext_plain((0,), de, ve, hn, hdt, zoff, k, h_sub))
+            del ve, de
+        del hvel, hdens
+        torch.cuda.empty_cache()
+    say(f"# phase 14a (kernels at K = 4, 5): {time.perf_counter() - t_phase:.1f} s")
+
+    # 14b. The paths through Engine at K = 4 (10 steps) and 5 (5 steps), the
+    # counters at zero just before each: exactly their kernels, finite
+    # fields, bitwise the twin path.
+    def exact_path(cfg_, steps, ran, what):
+        eng = Engine(cfg_, device="cuda")
+        counters_to_zero()
+        eng.step(steps)
+        torch.cuda.synchronize()
+        got = counts()
+        want = {key: per * steps for key, per in ran.items()}
+        say(f"# {what}: {steps} steps at {cfg_.current_size}^3, launches {got}")
+        if got != {key: want.get(key, 0) for key in got}:
+            fail(f"{what} launched {got}, not {want}")
+        check_state(eng.state, steps, cfg_.current_size, what)
+        twin = Engine(cfg_, device="cuda", kernels=PLAIN_TWINS)
+        twin.step(steps)
+        for name in ("density", "velocity", "pressure"):
+            if not torch.equal(getattr(eng.state, name), getattr(twin.state, name)):
+                e = float((getattr(eng.state, name).float()
+                           - getattr(twin.state, name).float()).abs().max())
+                fail(f"{what}: kernel path differs from the twin path after {steps} steps in "
+                     f"{name} (max abs diff {e!r})")
+        say(f"# {what}: kernel path bitwise the twin path after {steps} steps")
+        return got
+
+    t_paths = time.perf_counter()
+    path_launches = {}
+    for k, steps in WIDE_STEPS.items():
+        paths = {
+            "plume64": (pcfg.replace(advect_window=k), {"K1": 2, "K3": 1}),
+            "bench128": (bcfg.replace(advect_window=k), {"K1": 1, "K2": 1}),
+            "bench128 fuse_emitter": (bcfg.replace(advect_window=k, fuse_emitter=True),
+                                      {"K1": 1, "K2": 1}),
+            "bench128 fuse_self_advect": (bcfg.replace(advect_window=k, fuse_self_advect=True),
+                                          {"K8": 1}),
+            "vortex128 fuse_project_advect": (vcfg.replace(advect_window=k,
+                                                           fuse_project_advect=True),
+                                              {"K1": 1, "K2": 1}),
+            "bench128 bf16": (bcfg.replace(advect_window=k, dtype="bfloat16"),
+                              {"K1": 1, "K2": 1}),
+            "bench128 bf16 fuse_self_advect": (bcfg.replace(advect_window=k, dtype="bfloat16",
+                                                            fuse_self_advect=True), {"K8": 1}),
+        }
+        for name, (cfg_, ran) in paths.items():
+            path_launches[(name, k)] = exact_path(cfg_, steps, ran, f"{name} K={k}")
+    say(f"# phase 14b (Engine paths at K = 4, 5): {time.perf_counter() - t_paths:.1f} s")
+
+    # 14c. sharded512 on 8 shards with halo_backend="rdma" at K = 4 and 5 for
+    # WIDE_HALO_STEPS steps (float32 and bfloat16): exactly K12, K13 and K11,
+    # against the unsharded Engine; at K = 4 the first step bitwise the twin
+    # path.
+    t_sharded = time.perf_counter()
+    sharded_launches = {}
+    for k in (4, 5):
+        for dtype in ("float32", "bfloat16"):
+            kcfg = hcfg.replace(advect_window=k, dtype=dtype)
+            what = f"sharded512 8 shards rdma K={k} {dtype}"
+            step = sharded_step_fn(kcfg, hmesh, halo="explicit", halo_block_iters=4,
+                                   halo_backend="rdma")
+            start = shard_state(zeros_state(kcfg, dev), hmesh)
+            counters_to_zero()
+            st = step(start)
+            first = {n_: getattr(st, n_).clone() for n_ in ("density", "velocity", "pressure")}
+            for _ in range(1, WIDE_HALO_STEPS):
+                st = step(st)
+            torch.cuda.synchronize()
+            got = counts()
+            sharded_launches[(k, dtype)] = got
+            want = {"K12": 8 * (h_iters // 4) * WIDE_HALO_STEPS, "K13": 8 * 3 * WIDE_HALO_STEPS,
+                    "K11": 8 * 2 * WIDE_HALO_STEPS}
+            say(f"# {what}: {WIDE_HALO_STEPS} steps, launches {got}")
+            if got != {key: want.get(key, 0) for key in got}:
+                fail(f"{what} did not run exactly {want}: {got}")
+            check_state(st, WIDE_HALO_STEPS, hn, what)
+            ueng = Engine(kcfg, device="cuda")
+            ueng.state = start
+            ueng.step(WIDE_HALO_STEPS)
+            for name in ("density", "velocity", "pressure"):
+                r = getattr(ueng.state, name).float()
+                e = float((getattr(st, name).float() - r).abs().max())
+                scale = float(r.abs().max())
+                bound_ = 1e-5 if dtype == "float32" else 3e-2
+                say(f"# {what} vs the unsharded Engine after {WIDE_HALO_STEPS} steps, {name}: "
+                    f"max abs diff {e!r} (bitwise {e == 0.0}; bound {bound_} x {scale!r})")
+                if e > bound_ * scale:
+                    fail(f"{what}: leaves the unsharded Engine's bound in {name}")
+            del ueng
+            if k == 4 and dtype == "float32":
+                tw = sharded_step_fn(kcfg, hmesh, halo="explicit", halo_block_iters=4,
+                                     halo_backend="rdma", kernels=PLAIN_TWINS)(start)
+                for name, got_ in first.items():
+                    if not torch.equal(got_, getattr(tw, name)):
+                        fail(f"{what}: the kernel path differs from its twin path after one "
+                             f"step in {name}")
+                say(f"# {what}: kernel path bitwise the twin path after one step")
+                del tw
+            del st, start, first
+            torch.cuda.empty_cache()
+    say(f"# phase 14c (sharded512 at K = 4, 5): {time.perf_counter() - t_sharded:.1f} s")
+
+    # K14 lies on no Engine path (the JAX package dispatches it nowhere): its
+    # launches at K = 4 and 5 are one direct call each.
+    k14_launches = {}
+    wvel = reach(bn, bdt, 5)
+    for k in (4, 5):
+        counters_to_zero()
+        advect_project_3d_resident(wvel, b_iters, bdt, window=k)
+        torch.cuda.synchronize()
+        k14_launches[k] = counts()["K14"]
+        if k14_launches[k] != 1:
+            fail(f"K14 at K={k} did not launch")
+    del wvel
+
+    # The rows: the operations a cell counted as for K1 at K > 1 (win_ops:
+    # after the clamp two hats an axis are non-zero, so 8 taps a field), the
+    # compulsory bytes in and out.
+    def win_ops(n_fields):
+        return FRAC_OPS + 3 * 2 * HAT_OPS + 4 + 8 + n_fields * 8 * 2
+
+    def inner(n):
+        return (n - 2) ** 3
+
+    pvol, bvol = pn ** 3, bn ** 3
+    n_solid = int((vmask[1:-1, 1:-1, 1:-1]).sum())
+    vfluid = inner(vn) - n_solid
+    ball = int((src_field_add(torch.zeros((bn,) * 3, device=dev), src) > 0).sum())
+    k2_core = DIV_OPS + b_iters * SWEEP_OPS + GRAD_OPS
+    v2_core = DIV_OPS + v_iters * SWEEP_OPS + GRAD_OPS
+    replaces = {"advect.cu": "fluidsim_tpu/pallas/advect.py:256",
+                "advect_bf16.cu": "fluidsim_tpu/pallas/advect.py:256",
+                "project_advect.cu": "fluidsim_tpu/pallas/resident.py:1155",
+                "full_step.cu": "fluidsim_tpu/pallas/resident.py:1531",
+                "full_step_bf16.cu": "fluidsim_tpu/pallas/resident.py:1531",
+                "advect_ext.cu": "fluidsim_tpu/pallas/halo_kernel.py:226"}
+    k1, k2, k8 = ("K1 advect_multi_3d_kernel", "K2 project_advect_density_3d", "K8 full_step_3d")
+    k11 = "K11 advect_ext_kernel"
+    for k in (4, 5):
+        pl = {name: got for (name, kk), got in path_launches.items() if kk == k}
+        h = ext_halo(k, h_sub, False)
+        hcells = (hlz + 2 * h) * hn * hn
+        s32, s16 = sharded_launches[(k, "float32")], sharded_launches[(k, "bfloat16")]
+        steps = f"{WIDE_STEPS[k]} steps"
+        rows = [
+            # plume64 launches K1 twice a step, once for each of these two.
+            (f"K1w{k}", k1, f"plume64 self-advection, F=3, n_sub=1, {pn}^3", "advect.cu",
+             pl["plume64"]["K1"], bound(6 * pvol * f32, inner(pn) * win_ops(3))),
+            (f"K1w{k} density", k1, f"plume64 density, F=1, n_sub=1, {pn}^3", "advect.cu",
+             pl["plume64"]["K1"], bound(5 * pvol * f32, inner(pn) * win_ops(1))),
+            (f"K1 srcw{k}", k1, f"buoyancy and emitter folded, F=3; bench128 + fuse_emitter",
+             "advect.cu", pl["bench128 fuse_emitter"]["K1"],
+             bound(7 * bvol * f32 + 5 * f32,
+                   inner(bn) * (win_ops(3) + 9 * BUOY_OPS) + ball * EMIT_OPS)),
+            (f"K1v w{k}", k1, f"obstacle mask, n_sub={v_sub}, F=3; vortex128 + "
+                              f"fuse_project_advect", "advect.cu",
+             pl["vortex128 fuse_project_advect"]["K1"],
+             bound(6 * vn ** 3 * f32 + vn ** 3,
+                   v_sub * (vfluid * win_ops(3) + n_solid * 3 * MIRROR_OPS))),
+            (f"K1 bf16 w{k}", k1, "bf16 fields, F=3; bench128 bf16", "advect_bf16.cu",
+             pl["bench128 bf16"]["K1"], bound(6 * bvol * bf2, inner(bn) * win_ops(3))),
+            (f"K2w{k}", k2, f"K={k} density phase, {b_iters} bf16 sweeps; bench128",
+             "project_advect.cu", pl["bench128"]["K2"],
+             bound(9 * bvol * f32, inner(bn) * (k2_core + win_ops(1) + 1))),
+            (f"K2sw{k}", k2.replace("K2", "K2s"), f"emitter folded, K={k} density phase; "
+                                                  f"bench128 + fuse_emitter",
+             "project_advect.cu", pl["bench128 fuse_emitter"]["K2"],
+             bound(9 * bvol * f32 + 5 * f32,
+                   inner(bn) * (k2_core + win_ops(1) + 1) + ball * EMIT_OPS)),
+            (f"K2ow{k}", k2.replace("K2", "K2o"), f"vortex128's mask, n_sub={v_sub}, K={k} "
+                                                  f"density phase; vortex128 + "
+                                                  f"fuse_project_advect", "project_advect.cu",
+             pl["vortex128 fuse_project_advect"]["K2"],
+             bound(9 * vn ** 3 * f32 + vn ** 3, inner(vn) * v2_core + n_solid * 3 * MIRROR_OPS
+                   + v_sub * vfluid * win_ops(1) + inner(vn))),
+            (f"K2 bf16 w{k}", k2, f"bf16 fields, K={k} density phase; bench128 bf16",
+             "project_advect.cu", pl["bench128 bf16"]["K2"],
+             bound(9 * bvol * bf2, inner(bn) * (k2_core + win_ops(1) + 1))),
+            (f"K8w{k}", k8, f"K={k} in both advections; bench128 + fuse_self_advect",
+             "full_step.cu", pl["bench128 fuse_self_advect"]["K8"],
+             bound(9 * bvol * f32, inner(bn) * (win_ops(3) + k2_core + win_ops(1) + 1))),
+            (f"K8 bf16 w{k}", k8, f"bf16 fields, K={k}; bench128 bf16 + fuse_self_advect",
+             "full_step_bf16.cu", pl["bench128 bf16 fuse_self_advect"]["K8"],
+             bound(9 * bvol * bf2, inner(bn) * (win_ops(3) + k2_core + win_ops(1) + 1))),
+            (f"K14w{k}", "K14 advect_project_3d_resident",
+             f"K={k}, n_sub=1, {b_iters} float32 sweeps, {bn}^3; one direct call",
+             "full_step.cu", k14_launches[k],
+             bound(7 * bvol * f32, inner(bn) * (win_ops(3) + k2_core))),
+            (f"K11 w{k}", k11, f"F=3 self-advection, n_sub={h_sub}, one shard's (3, "
+                               f"{hlz + 2 * h}, {hn}, {hn}) slab; sharded512 rdma, 8 shards",
+             "advect_ext.cu", s32["K11"], bound(6 * hcells * f32, h_sub * hcells * win_ops(3))),
+            (f"K11 w{k} density", k11, f"F=1 density, n_sub={h_sub}, one shard's slab; "
+                                       f"sharded512 rdma, 8 shards", "advect_ext.cu",
+             s32["K11"], bound(5 * hcells * f32, h_sub * hcells * win_ops(1))),
+            (f"K11 bf16 w{k}", k11, f"bf16 slab, F=3, n_sub={h_sub}; sharded512 bf16 rdma, 8 "
+                                    f"shards", "advect_ext.cu", s16["K11"],
+             bound(6 * hcells * bf2, h_sub * hcells * win_ops(3))),
+            (f"K11 bf16 w{k} density", k11, f"bf16 slab, F=1, n_sub={h_sub}; sharded512 bf16 "
+                                            f"rdma, 8 shards", "advect_ext.cu", s16["K11"],
+             bound(5 * hcells * bf2, h_sub * hcells * win_ops(1))),
+        ]
+        for key, label, what, source, launches, bnd in rows:
+            run_len = (f"{WIDE_HALO_STEPS} steps" if key.startswith("K11")
+                       else "a direct call" if key.startswith("K14") else steps)
+            entries.append((key, f"{label} (window K={k}, runtime-K body; {what}; launches "
+                                 f"in {run_len})",
+                            f"fluidsim_tpu_torch/csrc/{source}",
+                            replaces[source] if not key.startswith("K14")
+                            else "fluidsim_tpu/pallas/resident.py:917",
+                            launches, err[key], bnd))
+    say(f"# phase 14a-c: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_entry_points(card, counters_to_zero, counts):
+    """Phase 14d: the entry points as a user runs them: ``cli save-config``,
+    the window edited to 4 in its JSON, ``cli run`` with the store and a
+    checkpoint, ``Engine.from_checkpoint`` and 20 more steps against a
+    continuous run, ``cli render`` (2D with streamlines, 3D), and the live
+    viewer in a thread."""
+    import shutil
+    import sqlite3
+    import urllib.request
+
+    import torch
+
+    from fluidsim_tpu_torch.config import preset_scene_a
+    from fluidsim_tpu_torch.engine import Engine
+    from fluidsim_tpu_torch.io.checkpoint import load_config
+    from fluidsim_tpu_torch.render.live import LiveServer
+    from fluidsim_tpu_torch.render.streamlines import native_rasterizer_available
+
+    t_cli = time.perf_counter()
+    work = ROOT / "_scratch" / "chip_smoke_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    def cli(*argv):
+        res = subprocess.run([sys.executable, "-m", "fluidsim_tpu_torch.cli", *argv],
+                             capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if res.returncode != 0:
+            fail(f"cli {' '.join(argv)} failed: {res.stderr[-2000:]} {res.stdout[-500:]}")
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+        say(f"cli {' '.join(argv)}: {json.dumps(line)} [{card}]")
+        return line
+
+    cfg_path, db, ckpt = work / "plume64.json", work / "runs.db", work / "s20.npz"
+    cli("save-config", "--preset", "plume64", "--out", str(cfg_path))
+    user = json.loads(cfg_path.read_text())
+    user["advect_window"] = 4
+    cfg_path.write_text(json.dumps(user, indent=2))
+    run = cli("run", "--config", str(cfg_path), "--steps", "20", "--db", str(db),
+              "--checkpoint", str(ckpt))
+    if run["steps"] != 20 or not run["steps_per_sec"] > 0 or run["run_id"] != 1:
+        fail(f"cli run did not run 20 steps as run 1: {run}")
+    with sqlite3.connect(str(db)) as conn:
+        runs = conn.execute("SELECT RunID, Size, TimeStep FROM SimulationRuns").fetchall()
+        rows = conn.execute("SELECT RunID, Step, AverageDensity, MaxVelocityMagnitude, "
+                            "FrameRate FROM RuntimeMetrics ORDER BY MetricID").fetchall()
+    say(f"# the store after cli run: runs {runs}, metric rows {rows}")
+    ucfg = load_config(str(cfg_path))
+    every = ucfg.logging_interval
+    if len(runs) != 1 or runs[0][1] != ucfg.size or [r[:2] for r in rows] != [
+            (1, s) for s in range(every, 21, every)] or not all(
+                r[2] > 0 and r[3] > 0 and r[4] >= 0 for r in rows) or not rows[-1][4] > 0:
+        fail(f"the store does not hold the run and its metrics: {runs}, {rows}")
+    resumed = Engine.from_checkpoint(str(ckpt))
+    if resumed.cfg.advect_window != 4 or int(resumed.state.step) != 20:
+        fail("Engine.from_checkpoint did not restore the K = 4 run at step 20")
+    counters_to_zero()
+    resumed.step(20)
+    resumed_launches = counts()
+    whole = Engine(ucfg)
+    whole.step(40)
+    for name in ("density", "velocity", "pressure", "step", "time"):
+        if not torch.equal(getattr(resumed.state, name), getattr(whole.state, name)):
+            fail(f"resume from the checkpoint differs from the continuous run in {name}")
+    say(f"# cli run 20 steps + Engine.from_checkpoint + 20 steps: bitwise a continuous 40-step "
+        f"run (plume64 K=4; launches after the resume {resumed_launches})")
+    del resumed, whole
+    r2d = cli("render", "--preset", "scene_a", "--steps", "20", "--render-every", "10",
+              "--html", "-o", str(work / "out2d"))
+    r3d = cli("render", "--config", str(cfg_path), "--steps", "20", "--render-every", "10",
+              "--html", "-o", str(work / "out3d"))
+    for res, shape in ((r2d, [192, 192, 4]), (r3d, [64, 64, 3])):
+        if res["frames"] != 2 or res["shape"] != shape or not Path(res["html"]).exists():
+            fail(f"cli render did not write its frames and player: {res}")
+    say(f"# 2D streamlines rasterized by the "
+        f"{'native library' if native_rasterizer_available() else 'NumPy fallback'}")
+    scfg = preset_scene_a()
+    srv = LiveServer(Engine(scfg), port=0, steps_per_frame=1, config_out=str(work / "l.json"))
+    srv.start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        with urllib.request.urlopen(base + "/frame.png", timeout=60) as r:
+            png = r.read()
+        if r.status != 200 or png[:8] != b"\x89PNG\r\n\x1a\n":
+            fail("the live viewer served no PNG frame")
+        def post(event):
+            req = urllib.request.Request(base + "/event", method="POST",
+                                         data=json.dumps(event).encode())
+            with urllib.request.urlopen(req, timeout=60) as r:
+                if r.status != 200:
+                    fail(f"the live viewer refused {event}")
+
+        post({"type": "pause", "paused": True})
+        with srv.lock:
+            v0 = float(srv.engine.state.velocity.abs().max())
+        post({"type": "drag", "prev": [60, 90], "cur": [80, 95]})
+        with srv.lock:
+            v1 = float(srv.engine.state.velocity.abs().max())
+        say(f"# live viewer (scene_a on the card): a {len(png)}-byte frame; max |v| "
+            f"{v0!r} -> {v1!r} after the drag")
+        if not v1 > v0:
+            fail("the live viewer's drag did not stir the fluid")
+    finally:
+        srv.stop()
+    if srv._sim_thread.is_alive():
+        fail("the live viewer's simulation thread did not stop")
+    shutil.rmtree(work, ignore_errors=True)
+    say(f"# phase 14d (entry points): {time.perf_counter() - t_cli:.1f} s")
 
 
 if __name__ == "__main__":

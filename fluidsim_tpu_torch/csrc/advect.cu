@@ -2,7 +2,7 @@
 // self-advection, optionally with buoyancy folded in and the folded emitter
 // on the buoyancy's density; F = 1: a scalar, optionally with the emitter on
 // the field, K2's density phase) with the backtrace clamped to a window of
-// K = 1, 2 or 3 cells, in n_sub substeps of dt0/n_sub through the same
+// K >= 1 cells, in n_sub substeps of dt0/n_sub through the same
 // velocity, optionally with the obstacle contract after every substep, on
 // float32 or (without the folds) bfloat16 storage.
 //
@@ -73,11 +73,11 @@ extern "C" const char* fs_error_string(int err) {
 // has_buoy) or to the F = 1 field's first reads (src_on = 2); out like
 // fields; tmp0 and tmp1 (n_fields, n, n, n) float32 scratch (advect_substeps
 // says when each may be null); all contiguous on the current device.
-// dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2); window 1, 2 or
-// 3 (n >= 2 * window + 1).  With has_buoy the fields must be the velocity and
-// there must be no mask; the folds take float32 only.  `scale` multiplies the
-// last substep's output in the storage type.  Launches on `stream` and
-// returns the first cudaError_t.
+// dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2); window >= 1
+// (n >= 2 * window + 1; 4 and more take the runtime-K body).  With has_buoy
+// the fields must be the velocity and there must be no mask; the folds take
+// float32 only.  `scale` multiplies the last substep's output in the storage
+// type.  Launches on `stream` and returns the first cudaError_t.
 extern "C" int fs_advect_k1(const void* fields, const void* vel, const float* dens,
                             const unsigned char* mask, const float* emitter, int src_on,
                             void* out, float* tmp0, float* tmp1, int n, int n_fields, int b0,
@@ -87,13 +87,13 @@ extern "C" int fs_advect_k1(const void* fields, const void* vel, const float* de
   using namespace fsk;
   const int src = emitter == nullptr ? kSrcNone : src_on;
   // A window of K reads taps K cells away, wrapped: the grid must hold 2K + 1.
-  if (window < 1 || window > 3 || n < 2 * window + 1 || (has_buoy && dens == nullptr) ||
+  if (window < 1 || n < 2 * window + 1 || (has_buoy && dens == nullptr) ||
       (emitter != nullptr && src_on != kSrcDensity && src_on != kSrcFields) ||
       (src == kSrcDensity && !has_buoy) || (field_bf16 && (has_buoy || src != kSrcNone))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Substep a{fields, vel, dens, mask, emitter, nullptr, n, Slab{n, 0}, b0, b1, b2, dt0_sub,
-                  1.0f, Buoyancy{buoy_dt, buoyancy, ambient, gravity}};
+                  1.0f, Buoyancy{buoy_dt, buoyancy, ambient, gravity}, window};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (field_bf16) {
     return static_cast<int>(
@@ -108,8 +108,11 @@ extern "C" int fs_advect_k1(const void* fields, const void* vel, const float* de
     case 2:
       return static_cast<int>(advect_substeps<2, float>(a, n_fields, n_sub, buoy, src, o, tmp0,
                                                         tmp1, scale, s));
-    default:
+    case 3:
       return static_cast<int>(advect_substeps<3, float>(a, n_fields, n_sub, buoy, src, o, tmp0,
                                                         tmp1, scale, s));
+    default:
+      return static_cast<int>(advect_substeps<kWinAny, float>(a, n_fields, n_sub, buoy, src, o,
+                                                              tmp0, tmp1, scale, s));
   }
 }

@@ -5,7 +5,8 @@
 // It is the counterpart of fluidsim_tpu/pallas/advect.py::_substep_window_vals
 // (one substep of it; the caller loops over the substeps), which the TPU
 // kernels share the same way.  Every kernel that backtraces takes a window of
-// K = 1, 2 or 3 cells.
+// any K >= 1 cells: K = 1, 2 and 3 are compile-time bodies, every K >= 4 one
+// body with a runtime K (kWinAny).
 //
 // Arithmetic follows the TPU kernel operation by operation (the build uses
 // -fmad=false, so nothing is contracted into an FMA):
@@ -79,13 +80,21 @@ __device__ __forceinline__ float emitter_add(float v, const float* e, int z, int
   return v + e[3] * falloff;
 }
 
-template <int K>
-__device__ __forceinline__ float frac_win(float coord, float v, float dt0, float hi) {
+// The template argument K of the windowed bodies that stands for a window
+// of K >= 4 cells, read at run time from Substep::window.
+constexpr int kWinAny = 0;
+
+__device__ __forceinline__ float frac_win(float coord, float v, float dt0, float hi, int k) {
   float t = coord - dt0 * v;
   t = max_to(t, 0.5f);
   t = min_to(t, hi);
-  t = min_to(max_to(t, coord - float(K)), coord + float(K));
+  t = min_to(max_to(t, coord - float(k)), coord + float(k));
   return t - coord;
+}
+
+template <int K>
+__device__ __forceinline__ float frac_win(float coord, float v, float dt0, float hi) {
+  return frac_win(coord, v, dt0, hi, K);
 }
 
 __device__ __forceinline__ float hat(float f, int d) {
@@ -235,13 +244,77 @@ __device__ __forceinline__ void advect_cell_win(const TF* fields, const TV* vel,
   for (int c = 0; c < F; ++c) out[c] = acc[c];
 }
 
+// advect_cell_win for a window of k >= 4 cells known only at run time: the
+// same float32 operations in the same order (the full (2k+1)^3 sum, zero
+// weights too), with each tap's x and y hat and wrapped index recomputed
+// where advect_cell_win reads them from its per-axis arrays, which a runtime
+// width cannot keep in registers.  hat() and the wrap are pure functions of
+// their operands, so the recomputed values are the same bits.
+template <int F, bool BUOY_VEL, bool BUOY_TAPS, int SRC, typename TF, typename TV>
+__device__ __forceinline__ void advect_cell_win_rt(const TF* fields, const TV* vel,
+                                                   const float* dens, const float* e,
+                                                   const Buoyancy bp, int n, const Slab& sl,
+                                                   float dt0, int k, int z, int y, int x,
+                                                   float (&out)[F]) {
+  const int w = 2 * k + 1;
+  const long long sn = n, vol = sn * sn * sl.nz;
+  const long long c0 = (z * sn + y) * sn + x;
+  const int zg = z + sl.zoff;
+  const float vx = ld(vel[c0]);
+  float vy = ld(vel[vol + c0]);
+  const float vz = ld(vel[2 * vol + c0]);
+  if (BUOY_VEL) {
+    float rho = dens[c0];
+    if (SRC == kSrcDensity) rho = emitter_add(rho, e, zg, y, x);
+    vy = buoyant_vy(vy, rho, bp);
+  }
+  const float hi = float(n) - 1.5f;
+  const float fx = frac_win(float(x), vx, dt0, hi, k);
+  const float fy = frac_win(float(y), vy, dt0, hi, k);
+  const float fz = frac_win(float(zg), vz, dt0, hi, k);
+  float acc[F];
+#pragma unroll
+  for (int c = 0; c < F; ++c) acc[c] = 0.0f;
+#pragma unroll 1
+  for (int dz = 0; dz < w; ++dz) {
+    const float wz = hat(fz, dz - k);
+    const int tz = (z + dz - k + sl.nz) % sl.nz;
+#pragma unroll 1
+    for (int dy = 0; dy < w; ++dy) {
+      const int ty = (y + dy - k + n) % n;
+      const float wzy = wz * hat(fy, dy - k);
+      const long long row = (tz * sn + ty) * sn;
+#pragma unroll 1
+      for (int dx = 0; dx < w; ++dx) {
+        const int tx = (x + dx - k + n) % n;
+        const float wt = wzy * hat(fx, dx - k);
+        const long long t = row + tx;
+#pragma unroll
+        for (int c = 0; c < F; ++c) {
+          float g = ld(fields[c * vol + t]);
+          if (SRC == kSrcFields) g = emitter_add(g, e, sl.zoff + tz, ty, tx);
+          if (BUOY_TAPS && c == 1) {
+            float rho = dens[t];
+            if (SRC == kSrcDensity) rho = emitter_add(rho, e, sl.zoff + tz, ty, tx);
+            g = buoyant_vy(g, rho, bp);
+          }
+          acc[c] = acc[c] + wt * g;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < F; ++c) out[c] = acc[c];
+}
+
 // One substep's operands.  src (F, nz, n, n) is read and dst written, each in
 // the type its launch names; vel is the storage type's; dens is the
 // buoyancy's density, mask one byte per cell (nonzero = solid) and emitter
 // the (5,) descriptor, each null when unused; slab the z-slab of the n^3 grid
 // the arrays hold ({n, 0}: all of it); b0..b2 the fields' boundary codes;
 // scale multiplies every output value after the faces, in the output type
-// (the TPU kernels' storage-dtype multiply).
+// (the TPU kernels' storage-dtype multiply); window is the window K >= 4 of
+// the bodies instantiated at kWinAny (unread by the others).
 struct Substep {
   const void *src, *vel;
   const float* dens;
@@ -253,6 +326,7 @@ struct Substep {
   int b0, b1, b2;
   float dt0, scale;
   Buoyancy bp;
+  int window;
 };
 
 // One substep at cell k: the backtrace (a solid interior cell is zero
@@ -270,6 +344,10 @@ __device__ __forceinline__ void advect_store(const Substep& a, const Cell& k) {
   } else if constexpr (K == 1) {
     advect_cell_k1<F, BUOY_VEL, BUOY_TAPS, SRC>(src, vel, a.dens, a.emitter, a.bp, a.n, a.slab,
                                                 a.dt0, k.cz, k.cy, k.cx, v);
+  } else if constexpr (K == kWinAny) {
+    advect_cell_win_rt<F, BUOY_VEL, BUOY_TAPS, SRC>(src, vel, a.dens, a.emitter, a.bp, a.n,
+                                                    a.slab, a.dt0, a.window, k.cz, k.cy, k.cx,
+                                                    v);
   } else {
     advect_cell_win<K, F, BUOY_VEL, BUOY_TAPS, SRC>(src, vel, a.dens, a.emitter, a.bp, a.n,
                                                     a.slab, a.dt0, k.cz, k.cy, k.cx, v);
@@ -315,11 +393,12 @@ __global__ void __launch_bounds__(kThreads)
     advect_kernel(const TF* __restrict__ src, const TV* __restrict__ vel,
                   const float* __restrict__ dens, const uint8_t* __restrict__ mask,
                   const float* __restrict__ emitter, TO* __restrict__ dst, int n, Slab sl,
-                  int b0, int b1, int b2, float dt0, float scale, Buoyancy bp) {
+                  int b0, int b1, int b2, float dt0, float scale, Buoyancy bp, int window) {
   Cell k;
   if (!cell_of_thread_slab(n, sl, k)) return;
   advect_store<F, BUOY_VEL, BUOY_TAPS, MASK, SRC, K, TF, TV, TO>(
-      Substep{src, vel, dens, mask, emitter, dst, n, sl, b0, b1, b2, dt0, scale, bp}, k);
+      Substep{src, vel, dens, mask, emitter, dst, n, sl, b0, b1, b2, dt0, scale, bp, window},
+      k);
 }
 
 template <int K, int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC, typename TF = float,
@@ -329,7 +408,7 @@ cudaError_t launch(const Substep& a, cudaStream_t s) {
       <<<cell_grid_slab(a.n, a.slab.nz), cell_block(), 0, s>>>(
           static_cast<const TF*>(a.src), static_cast<const TV*>(a.vel), a.dens, a.mask,
           a.emitter, static_cast<TO*>(a.dst), a.n, a.slab, a.b0, a.b1, a.b2, a.dt0, a.scale,
-          a.bp);
+          a.bp, a.window);
   return cudaGetLastError();
 }
 
@@ -347,7 +426,8 @@ cudaError_t launch_role(const Substep& a, bool first, bool to_s, cudaStream_t s)
   }
 }
 
-// The variants the port runs, for one window K and storage type S: buoyancy
+// The variants the port runs, for one window K (kWinAny: a.window) and
+// storage type S: buoyancy
 // only in float32 velocity self-advection without a mask, with or without
 // the emitter on its density; the emitter on the field only for a float32
 // scalar without a mask (K2s's density phase); otherwise F = 1 or 3 with or
@@ -385,8 +465,8 @@ cudaError_t launch_window(const Substep& a, int n_fields, bool buoy_vel, bool bu
 }
 
 // n_sub substeps of a.src (type S) through a.vel (type S) with a window of K
-// cells on a.slab, one launch each, the last into out (type S); the input is
-// never written.  float32: the earlier substeps alternate back from out with
+// cells (kWinAny: a.window >= 4) on a.slab, one launch each, the last into
+// out (type S); the input is never written.  float32: the earlier substeps alternate back from out with
 // tmp0 (which may be null when n_sub == 1).  bfloat16: the earlier substeps
 // write float32 into tmp0 and tmp1 in turn (each like out in float32, null
 // when unused), and the last rounds into out.  With a mask, velocity codes

@@ -1,9 +1,9 @@
 // K1 on bfloat16 storage: advect.cu's kernel with S = __nv_bfloat16, in a
 // source of its own so that its instantiations (F = 1 and 3, with and
-// without a mask, windows 1-3, four roles: bfloat16 or float32 in and out)
-// compile beside the rest.  The folds never meet bfloat16 fields (the JAX
-// package's fold_buoy and emitter_foldable need float32), so none is
-// instantiated here.
+// without a mask, windows 1-3 and the runtime window K >= 4, four roles:
+// bfloat16 or float32 in and out) compile beside the rest.  The folds never
+// meet bfloat16 fields (the JAX package's fold_buoy and emitter_foldable need
+// float32), so none is instantiated here.
 #include <cuda_runtime.h>
 
 #include "advect.cuh"
@@ -24,7 +24,9 @@ cudaError_t advect_substeps_bf16(const Substep& a, int n_fields, int n_sub, int 
     case 3:
       return advect_substeps<3, S>(a, n_fields, n_sub, false, kSrcNone, o, tmp0, tmp1, scale, s);
     default:
-      return cudaErrorInvalidValue;
+      if (window < 4 || a.window != window) return cudaErrorInvalidValue;
+      return advect_substeps<kWinAny, S>(a, n_fields, n_sub, false, kSrcNone, o, tmp0, tmp1,
+                                         scale, s);
   }
 }
 

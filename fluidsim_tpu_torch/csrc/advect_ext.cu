@@ -50,19 +50,20 @@
 // rounding one (advect_substeps), null when unused; all contiguous on the
 // current device.  n is the global grid size, zoff the global z of slab
 // plane 0, b0..b2 the fields' set_bnd codes, dt0_sub = f32(dt0 / n_sub) with
-// dt0 = f32(dt) * f32(n - 2), window 1, 2 or 3 (n and nz >= 2 * window + 1).
+// dt0 = f32(dt) * f32(n - 2), window >= 1 (n and nz >= 2 * window + 1; 4 and
+// more take the runtime-K body).
 // Launches on `stream` and returns the first cudaError_t.
 extern "C" int fs_advect_ext(const void* fields, const void* vel, const unsigned char* mask,
                              void* out, float* tmp0, float* tmp1, int n, int nz, int zoff,
                              int n_fields, int b0, int b1, int b2, float dt0_sub, int n_sub,
                              int window, int field_bf16, void* stream) {
   using namespace fsk;
-  if (window < 1 || window > 3 || n < 2 * window + 1 || nz < 2 * window + 1 || n_sub < 1 ||
+  if (window < 1 || n < 2 * window + 1 || nz < 2 * window + 1 || n_sub < 1 ||
       (n_fields != 1 && n_fields != 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Substep a{fields, vel, nullptr, mask, nullptr, nullptr, n, Slab{nz, zoff}, b0, b1, b2,
-                  dt0_sub, 1.0f, Buoyancy{}};
+                  dt0_sub, 1.0f, Buoyancy{}, window};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (field_bf16) {
     return static_cast<int>(advect_substeps_bf16(a, n_fields, n_sub, window, out, tmp0, tmp1,
@@ -78,9 +79,13 @@ extern "C" int fs_advect_ext(const void* fields, const void* vel, const unsigned
       return static_cast<int>(
           advect_substeps<2, float>(a, n_fields, n_sub, false, kSrcNone, o, tmp0, nullptr,
                                     1.0f, s));
-    default:
+    case 3:
       return static_cast<int>(
           advect_substeps<3, float>(a, n_fields, n_sub, false, kSrcNone, o, tmp0, nullptr,
                                     1.0f, s));
+    default:
+      return static_cast<int>(
+          advect_substeps<kWinAny, float>(a, n_fields, n_sub, false, kSrcNone, o, tmp0,
+                                          nullptr, 1.0f, s));
   }
 }

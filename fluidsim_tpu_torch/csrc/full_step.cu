@@ -14,7 +14,7 @@
 // Replaces: fluidsim_tpu/pallas/resident.py::_full_step_kernel (entry
 // full_step_3d_resident), with K5's sweep blocking on float32 fields
 // (sweep_block.cuh: each stage a grid-stride loop, grid.sync() between
-// stages), at windows K = 1, 2, 3 in both advections and on float32 or
+// stages), at any window K >= 1 in both advections and on float32 or
 // bfloat16 fields.  Without the density phase the same template is K14,
 // fluidsim_tpu/pallas/resident.py::_advect_project_kernel (entry
 // advect_project_3d_resident): float32, no mask, sequential sweeps, bitwise
@@ -70,7 +70,8 @@ cudaError_t advect_project_f32(const FullStepArgs& a, int window, bool launch, i
 extern "C" int fs_full_step_blocks(int solve_bf16, int field_bf16, int window) {
   using namespace fsk;
   int blocks = 0;
-  const FullStepArgs none{};
+  FullStepArgs none{};
+  none.window = window;
   const SolveBlock seq{1};
   const cudaError_t err =
       field_bf16 ? full_step_bf16(none, seq, solve_bf16, window, false, &blocks, nullptr)
@@ -84,8 +85,8 @@ extern "C" int fs_full_step_blocks(int solve_bf16, int field_bf16, int window) {
 // (3, n, n, n) float32 scratch, for bfloat16 fields only: tmp0 when n_sub >
 // 1, tmp1 when n_sub > 2 (else null).  p_a, p_b and rhs are (n, n, n)
 // scratch in the solve type (bfloat16 when solve_bf16, else float32).
-// dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2); window 1, 2 or
-// 3 (n >= 2 * window + 1); damp and dens_damp are values of the storage
+// dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2); window >= 1
+// (n >= 2 * window + 1); damp and dens_damp are values of the storage
 // type; blk is null (sequential sweeps) or K5's block and scratch (float32
 // fields; see block_valid).  All contiguous on the current device; n <=
 // 1024.  Launches on `stream` without synchronising and returns the first
@@ -97,13 +98,13 @@ extern "C" int fs_full_step(const void* vel, const void* dens, void* adv, void* 
                             int field_bf16, float dt0_sub, int n_sub, int window, float damp,
                             float dens_damp, const fsk::SolveBlock* blk, void* stream) {
   using namespace fsk;
-  if (n < 3 || n > 1024 || iters < 1 || n_sub < 1 || window < 1 || window > 3 ||
-      n < 2 * window + 1 || !block_valid(blk, n, iters, field_bf16) ||
+  if (n < 3 || n > 1024 || iters < 1 || n_sub < 1 || window < 1 || n < 2 * window + 1 ||
+      !block_valid(blk, n, iters, field_bf16) ||
       (field_bf16 && ((n_sub > 1 && tmp0 == nullptr) || (n_sub > 2 && tmp1 == nullptr)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const FullStepArgs a{vel, dens, adv, vel_out, p_out, dens_out, p_a, p_b, rhs, tmp0, tmp1,
-                       n, iters, n_sub, dt0_sub, damp, dens_damp};
+                       n, iters, n_sub, dt0_sub, damp, dens_damp, window};
   const SolveBlock block = blk != nullptr ? *blk : SolveBlock{1};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int blocks = 0;
@@ -116,19 +117,18 @@ extern "C" int fs_full_step(const void* vel, const void* dens, void* adv, void* 
 // velocity); vel_out (3, n, n, n) and p_out (n, n, n) out; p_a, p_b and rhs
 // (n, n, n) solve scratch; all float32, contiguous on the current device, n
 // <= 1024.  dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2);
-// window 1, 2 or 3 (n >= 2 * window + 1).  Self-advects vel (b = 1, 2, 3) in
+// window >= 1 (n >= 2 * window + 1).  Self-advects vel (b = 1, 2, 3) in
 // n_sub substeps and projects the result with `iters` sequential sweeps, in
 // one cooperative launch on `stream`; returns the first cudaError_t.
 extern "C" int fs_advect_project(const float* vel, float* adv, float* vel_out, float* p_out,
                                  float* p_a, float* p_b, float* rhs, int n, int iters,
                                  float dt0_sub, int n_sub, int window, void* stream) {
   using namespace fsk;
-  if (n < 3 || n > 1024 || iters < 1 || n_sub < 1 || window < 1 || window > 3 ||
-      n < 2 * window + 1) {
+  if (n < 3 || n > 1024 || iters < 1 || n_sub < 1 || window < 1 || n < 2 * window + 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const FullStepArgs a{vel, nullptr, adv, vel_out, p_out, nullptr, p_a, p_b, rhs, nullptr,
-                       nullptr, n, iters, n_sub, dt0_sub, 1.0f, 1.0f};
+                       nullptr, n, iters, n_sub, dt0_sub, 1.0f, 1.0f, window};
   int blocks = 0;
   return static_cast<int>(
       advect_project_f32(a, window, true, &blocks, static_cast<cudaStream_t>(stream)));

@@ -1,6 +1,7 @@
 // K8's kernel template (see full_step.cu): the whole step of an
 // obstacle-free config in one cooperative launch, for a solve type T, a
-// storage type S and a window of K cells; without the density phase (DENS
+// storage type S and a window of K cells (kWinAny: FullStepArgs::window >=
+// 4, advect.cuh's runtime-K body); without the density phase (DENS
 // false) it is K14, the self-advection and the projection in one launch.
 #pragma once
 
@@ -25,18 +26,20 @@ struct FullStepArgs {
   float *tmp0, *tmp1;   // (3, n, n, n) float32 scratch (bfloat16 fields only)
   int n, iters, n_sub;
   float dt0_sub, damp, dens_damp;
+  int window;
 };
 
 // K8 on float32 fields (full_step.cu) and on bfloat16 fields
-// (full_step_bf16.cu), for a bfloat16 solve when solve_bf16 and a window of 1,
-// 2 or 3: *blocks gets the cooperative grid (every block the card holds at
-// once), and with launch the kernel is launched on `s` as well.
+// (full_step_bf16.cu), for a bfloat16 solve when solve_bf16 and a window of
+// K >= 1 (4 and more: a.window): *blocks gets the cooperative grid (every
+// block the card holds at once), and with launch the kernel is launched on
+// `s` as well.
 // blk is K5's block and scratch (blk.block 1: sequential sweeps).
 cudaError_t full_step_f32(const FullStepArgs& a, const SolveBlock& blk, int solve_bf16,
                           int window, bool launch, int* blocks, cudaStream_t s);
 cudaError_t full_step_bf16(const FullStepArgs& a, const SolveBlock& blk, int solve_bf16,
                            int window, bool launch, int* blocks, cudaStream_t s);
-// K14 (float32 fields and solve, no density phase) for a window of 1, 2 or 3.
+// K14 (float32 fields and solve, no density phase) for a window of K >= 1.
 cudaError_t advect_project_f32(const FullStepArgs& a, int window, bool launch, int* blocks,
                                cudaStream_t s);
 
@@ -82,7 +85,7 @@ __global__ void __launch_bounds__(kThreads, kFullStepMinBlocks)
     const Substep s{substep_buf<wide>(sub - 1, a.n_sub, a.vel, a.adv, a.vel_out, a.tmp0, a.tmp1),
                     a.vel, nullptr, nullptr, nullptr,
                     substep_buf<wide>(sub, a.n_sub, a.vel, a.adv, a.vel_out, a.tmp0, a.tmp1),
-                    n, Slab{n, 0}, 1, 2, 3, a.dt0_sub, 1.0f, Buoyancy{}};
+                    n, Slab{n, 0}, 1, 2, 3, a.dt0_sub, 1.0f, Buoyancy{}, a.window};
     for (int i = first; i < vol; i += stride) {
       advect_store_role<3, K, false, S>(s, cell_at(n, i), sub == 0, last);
     }
@@ -154,7 +157,7 @@ __global__ void __launch_bounds__(kThreads, kFullStepMinBlocks)
         substep_buf<wide>(sub - 1, a.n_sub, a.dens, a.dens_out, a.adv, a.tmp0, a.tmp1),
         a.vel_out, nullptr, nullptr, nullptr,
         substep_buf<wide>(sub, a.n_sub, a.dens, a.dens_out, a.adv, a.tmp0, a.tmp1),
-        n, Slab{n, 0}, 0, 0, 0, a.dt0_sub, last ? a.dens_damp : 1.0f, Buoyancy{}};
+        n, Slab{n, 0}, 0, 0, 0, a.dt0_sub, last ? a.dens_damp : 1.0f, Buoyancy{}, a.window};
     for (int i = first; i < vol; i += stride) {
       advect_store_role<1, K, false, S>(d, cell_at(n, i), sub == 0, last);
     }
@@ -188,13 +191,19 @@ cudaError_t full_step_run(const FullStepArgs& a, const SolveBlock& blk, bool lau
 }
 
 // full_step_run for the storage type S and the density phase DENS (false:
-// K14), dispatched over the solve type and the window.  K14 is float32
+// K14), dispatched over the solve type and the window (every window >= 4 to
+// the runtime-K instantiation, which reads a.window).  K14 is float32
 // throughout, so only its float32 solve is instantiated.
 template <typename S, bool DENS = true>
 cudaError_t full_step_dispatch(const FullStepArgs& a, const SolveBlock& blk, int solve_bf16,
                                int window, bool launch, int* blocks, cudaStream_t s) {
   using B = typename std::conditional<DENS, __nv_bfloat16, float>::type;
   if (!DENS && solve_bf16) return cudaErrorInvalidValue;
+  if (window >= 4) {
+    if (a.window != window) return cudaErrorInvalidValue;
+    return solve_bf16 ? full_step_run<B, S, kWinAny, DENS>(a, blk, launch, blocks, s)
+                      : full_step_run<float, S, kWinAny, DENS>(a, blk, launch, blocks, s);
+  }
   switch (window * 2 + (solve_bf16 ? 1 : 0)) {
     case 2: return full_step_run<float, S, 1, DENS>(a, blk, launch, blocks, s);
     case 3: return full_step_run<B, S, 1, DENS>(a, blk, launch, blocks, s);

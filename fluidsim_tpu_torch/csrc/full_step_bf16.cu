@@ -1,7 +1,7 @@
 // K8 on bfloat16 fields: full_step.cuh's kernel with S = __nv_bfloat16 for
-// both solve types and windows 1-3, in a source of its own so that it
-// compiles beside the float32 instantiations (full_step.cu), which hold the
-// entry points.
+// both solve types and windows 1-3 and K >= 4, in a source of its own so that
+// it compiles beside the float32 instantiations (full_step.cu), which hold
+// the entry points.
 #include <cuda_runtime.h>
 
 #include "full_step.cuh"

@@ -6,7 +6,7 @@
 //      held in solid cells and the obstacle mirror before damp), which K3
 //      shares;
 //   4. the density backtraced through the damped projected velocity in
-//      n_sub substeps with a window of K = 1, 2 or 3 cells (K1's F = 1 code
+//      n_sub substeps with a window of K >= 1 cells (K1's F = 1 code
 //      through its entry, b = 0, no buoyancy): with a mask every substep
 //      zeroes the solid cells before the faces (no mirror for a scalar);
 //      with the emitter the first substep adds it to every density value it
@@ -16,7 +16,7 @@
 // Replaces: fluidsim_tpu/pallas/resident.py::_project_advect_kernel (K2),
 // ::_project_advect_src_kernel (K2s) and ::_project_advect_obst_kernel (K2o)
 // (entry project_advect_density_3d_resident; phases _project_body,
-// _solve_loop and _density_phase at k_win = 1, 2, 3), with K5's sweep
+// _solve_loop and _density_phase at any k_win >= 1), with K5's sweep
 // blocking on float32 fields, on float32 or bfloat16 fields (the emitter on
 // float32 only).
 // The TPU kernel's phases are one program; here they are the launches of
@@ -51,8 +51,8 @@
 // tmp0 and tmp1 (n, n, n) float32 scratch of the density substeps (see
 // advect_substeps for when each may be null).  p_a, p_b and rhs are (n, n,
 // n) scratch in the solve type (bfloat16 when solve_bf16, else float32).
-// dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2); window 1, 2 or
-// 3; damp and dens_damp are values of the storage type; blk as fs_project's.
+// dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2); window >= 1
+// (n >= 2 * window + 1); damp and dens_damp are values of the storage type; blk as fs_project's.
 // All contiguous on the current device.  Launches every phase on `stream` without
 // synchronising and returns the first cudaError_t.
 extern "C" int fs_project_advect_density(const void* vel, const void* dens,

@@ -6,9 +6,10 @@ a Python loop: ``models.stable2d.simulate_step_2d`` for the 2D
 reference-parity mode (``ndim=2``), ``models.stable3d.simulate_step_3d``
 for the 3D engine (where ``stable3d.emitter_folds`` holds, the emitter
 folded into the step's kernels, as the JAX ``Engine`` does); pause, reset,
-source repositioning and an optional NaN guard.
-The SQLite metrics store, mouse drag and checkpoints are not ported yet and
-raise ``NotImplementedError``.
+source repositioning, mouse drag (``scene.interact``), metrics logged every
+``logging_interval`` steps to a ``metrics.MetricsStore`` with the
+reference's smoothed frame rate, checkpoints (``io.checkpoint``) and an
+optional NaN guard that can dump the last good state before it raises.
 """
 
 from __future__ import annotations
@@ -20,11 +21,14 @@ import numpy as np
 import torch
 
 from .config import SimConfig
+from .io.checkpoint import load_checkpoint, save_checkpoint
 from .kernels.project import resident_route
+from .metrics import FrameRateTracker, MetricsStore, compute_metrics
 from .models import stable3d
 from .models.stable2d import simulate_step_2d
 from .models.stable3d import simulate_step_3d
 from .models.step_kernels import HAND_KERNELS, StepKernels
+from .scene.interact import add_force_to_area, mouse_drag_force
 from .scene.obstacles import build_obstacle_mask
 from .scene.sources import (
     apply_custom_source,
@@ -40,22 +44,28 @@ class Engine:
     (the card unless the caller asks for ``"cpu"``) from the host."""
 
     def __init__(self, cfg: SimConfig, device="cuda", nan_guard: bool = False,
-                 store=None, crash_snapshot_path: Optional[str] = None,
+                 store: Optional[MetricsStore] = None,
+                 crash_snapshot_path: Optional[str] = None,
                  kernels: StepKernels = HAND_KERNELS):
-        """``kernels`` replaces the kernel path's calls (see
-        ``models.stable3d.simulate_step_3d``)."""
-        if store is not None:
-            raise NotImplementedError("the SQLite metrics store is not ported")
-        if crash_snapshot_path is not None:
-            raise NotImplementedError("crash snapshots (checkpoints) are not ported")
+        """``store`` records the run (``run_id``; -1 without a store, or for
+        a run the store refuses) and its metrics every ``logging_interval``
+        steps.  ``crash_snapshot_path``: with ``nan_guard``, the last good
+        state is saved there before the guard raises (resume with
+        ``Engine.from_checkpoint``).  ``kernels`` replaces the kernel path's
+        calls (see ``models.stable3d.simulate_step_3d``)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to step on the CPU")
         self.kernels = kernels
         self.nan_guard = nan_guard
+        self.crash_snapshot_path = crash_snapshot_path
+        self._last_good: Optional[FluidState] = None
         self.paused = False
         self._clock = time.perf_counter  # swappable for tests
         self.cfg = self._checked(cfg)
+        self.store = store
+        self.run_id = store.save_run_params(cfg) if store is not None else -1
+        self._fps = FrameRateTracker()
         self.reset()
 
     def _checked(self, cfg: SimConfig) -> SimConfig:
@@ -89,6 +99,7 @@ class Engine:
         self.state = zeros_state(self.cfg, self.device, obstacles=obst)
         self._set_src_params(source_params(self.cfg))
         self._host_step = 0
+        self._fps_pending = 0  # steps since the last frame-rate tick
         # Wall-clock elapsedTime for pulse_clock="wall" (FluidSim.cs:394):
         # accumulates frame deltas only while unpaused.
         self._elapsed = 0.0
@@ -155,11 +166,30 @@ class Engine:
     def _after_dispatch(self, n_steps: int) -> None:
         # The step count is known on the host; reading state.step would
         # synchronise with the device after every dispatch.
+        self._fps_pending += n_steps
         self._host_step += n_steps
-        if self.nan_guard and bool(torch.isnan(self.state.density).any()):
-            raise FloatingPointError(
-                f"NaN detected in density at step {self._host_step}"
-            )
+        step_now = self._host_step
+        if self.nan_guard:
+            if bool(torch.isnan(self.state.density).any()):
+                saved = self.crash_snapshot_path is not None and self._last_good is not None
+                if saved:
+                    save_checkpoint(self.crash_snapshot_path, self._last_good, self.cfg)
+                raise FloatingPointError(
+                    f"NaN detected in density at step {step_now}"
+                    + (f"; last good state saved to {self.crash_snapshot_path}"
+                       if saved else ""))
+            if self.crash_snapshot_path is not None:
+                self._last_good = self.state
+        if (self.store is not None and self.cfg.enable_runtime_logging
+                and step_now % max(self.cfg.logging_interval, 1) < n_steps):
+            avg, vmax = compute_metrics(self.state.density, self.state.velocity)
+            avg_f, vmax_f = float(avg), float(vmax)  # waits for the device
+            # The frame rate is measured between metric reads, the only
+            # points where the host clock has seen the device finish, over
+            # every step since the last one.
+            fps = self._fps.tick(frames=self._fps_pending)
+            self._fps_pending = 0
+            self.store.log_runtime_metrics(self.run_id, step_now, avg_f, vmax_f, fps)
 
     # -- interaction (FluidSim.cs:390-483, 979-988) ---------------------
 
@@ -178,13 +208,30 @@ class Engine:
         ))
 
     def drag(self, prev_pos: Sequence[float], cur_pos: Sequence[float]) -> None:
-        raise NotImplementedError("mouse drag (scene/interact) is not ported")
+        """Apply one mouse-drag event (FluidSim.cs:414-436) on the device."""
+        center, force, radius = mouse_drag_force(tuple(prev_pos), tuple(cur_pos), self.cfg)
+        vel, density = add_force_to_area(self.state.velocity, self.state.density, center,
+                                         force, radius, self.cfg.source_strength)
+        self.state = self.state.replace(velocity=vel, density=density)
 
     # -- persistence ----------------------------------------------------
 
+    def save_configuration(self) -> int:
+        """``SaveCurrentConfiguration`` (FluidSim.cs:2004-2023): a
+        SimulationRuns row in the store, or -1 without one."""
+        if self.store is None:
+            return -1
+        return self.store.save_run_params(self.cfg)
+
     def save_checkpoint(self, path: str) -> None:
-        raise NotImplementedError("checkpoints (io/checkpoint) are not ported")
+        save_checkpoint(path, self.state, self.cfg)
 
     @classmethod
-    def from_checkpoint(cls, path: str, **kw) -> "Engine":
-        raise NotImplementedError("checkpoints (io/checkpoint) are not ported")
+    def from_checkpoint(cls, path: str, device="cuda", **kw) -> "Engine":
+        """An engine on ``device`` that resumes the checkpoint at ``path``
+        (its config, state and step count); ``kw`` as for ``Engine``."""
+        state, cfg = load_checkpoint(path, device)
+        eng = cls(cfg, device, **kw)
+        eng.state = state
+        eng._host_step = int(state.step)
+        return eng

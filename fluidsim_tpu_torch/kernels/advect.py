@@ -7,7 +7,7 @@ the folded emitter (``src``) of its self-advection.  The CUDA kernel is
 ``csrc/advect.cu``; ``advect_multi_3d_plain`` is the same arithmetic in plain
 PyTorch, used for CPU tensors and as the reference the kernel is checked
 against: for a window of K = 1 the two-tap form (``windowed_sum_k1``), for
-K = 2 and 3 the ``(2K+1)³``-term hat sum (``windowed_sum``, the same sum as
+any K > 1 the ``(2K+1)³``-term hat sum (``windowed_sum``, the same sum as
 ``ops/advect.window_sum_3d``).
 
 Fields are stored in float32 or bfloat16 (``fields`` and ``vel`` in one
@@ -48,8 +48,19 @@ def substep_dt0(dt: float, n: int, n_sub: int) -> float:
     return float(np.float32(dt0 / n_sub))
 
 
-# The windows the kernel takes (csrc/advect.cuh instantiates these).
-WINDOWS = (1, 2, 3)
+def check_window(window, n: int, nz: int = None) -> int:
+    """The window K of a kernel's backtrace: any integer K >= 1 on a grid of
+    ``n >= 2K+1`` cells (and a slab of ``nz >= 2K+1`` planes), since the taps
+    K cells away are read at wrapped indices.  ``csrc/advect.cuh`` compiles
+    K = 1, 2 and 3 and one body for every K >= 4.  Raises ``ValueError``."""
+    if int(window) != window or window < 1:
+        raise ValueError(f"window must be an integer >= 1, got {window}")
+    window = int(window)
+    if nz is None and n < 2 * window + 1:
+        raise ValueError(f"grid too small for window={window}: {n}")
+    if nz is not None and (n < 2 * window + 1 or nz < 2 * window + 1):
+        raise ValueError(f"slab too small for window={window}: n={n}, nz={nz}")
+    return window
 
 # fs_advect_k1's src_on for K1's fold: the emitter goes onto the buoyancy's
 # density (csrc/advect.cuh's kSrcDensity; K2s's kSrcFields is K2's own).
@@ -199,7 +210,7 @@ def _ptr(t):
 def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 1,
                            n_sub: int = 1, buoy=None, src=None):
     """Advect ``fields`` (F = 1 or 3) through ``vel`` with the K1 kernel for
-    a ``window`` of 1, 2 or 3 cells, in ``n_sub`` substeps, with the obstacle
+    a ``window`` of K >= 1 cells, in ``n_sub`` substeps, with the obstacle
     contract after each when the bool mask ``obst`` is given.  ``fields``
     and ``vel`` are float32 or bfloat16, in one dtype.
 
@@ -212,10 +223,6 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
     ``advect_multi_3d_kernel.launches`` counts calls that launched the
     kernel."""
     bs = tuple(bs)
-    if window not in WINDOWS:
-        raise NotImplementedError(
-            f"advection kernel with window={window}: the kernel takes "
-            f"windows {WINDOWS}")
     n_sub = _check_substeps(n_sub)
     if buoy is not None and not (fields is vel and bs == (1, 2, 3)):
         raise ValueError("buoy folding requires a self-advect call")
@@ -227,8 +234,7 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
     n_fields, n = fields.shape[0], fields.shape[-1]
     if n_fields not in (1, 3) or len(bs) != n_fields:
         raise ValueError(f"unsupported fields {tuple(fields.shape)} with bs={bs}")
-    if n < 2 * window + 1:
-        raise ValueError(f"grid too small for window={window}: {n}")
+    window = check_window(window, n)
     _check_volume("fields", fields, (n_fields, n, n, n), STORAGE)
     _check_volume("vel", vel, (3, n, n, n), fields.dtype)
     if buoy is not None and fields.dtype != torch.float32:
@@ -267,7 +273,7 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
             fields.data_ptr(), vel.data_ptr(), dens_ptr, _ptr(obst), _ptr(src),
             SRC_ON_DENSITY, out.data_ptr(), _ptr(tmp0), _ptr(tmp1),
             n, n_fields, b[0], b[1], b[2], substep_dt0(dt, n, n_sub), n_sub,
-            int(window), int(buoy is not None), *bp, 1.0,
+            window, int(buoy is not None), *bp, 1.0,
             storage_flag(fields.dtype), stream,
         )
     _build.check(lib, err, "advect kernel launch")

@@ -52,12 +52,12 @@ from ..ops.advect import window_sum_3d
 from . import _build
 from .advect import (
     STORAGE,
-    WINDOWS,
     _check_substeps,
     _check_volume,
     _comb,
     _ptr,
     _scratch,
+    check_window,
     storage_flag,
     substep_dt0,
 )
@@ -388,8 +388,8 @@ def advect_ext_kernel(bs, fields_ext, vel_ext, n: int, dt: float, z_offset: int,
                       window: int = 1, n_sub: int = 1, obst_ext=None):
     """K11: advect the float32 or bfloat16 ``(F, nz, n, n)`` halo-extended slab
     ``fields_ext`` (F = 1 or 3, boundary codes ``bs``; ``fields_ext is
-    vel_ext`` for self-advection) through ``vel_ext`` with a ``window`` of 1,
-    2 or 3 cells in ``n_sub`` substeps, the slab's plane 0 at global z
+    vel_ext`` for self-advection) through ``vel_ext`` with a ``window`` of K
+    >= 1 cells in ``n_sub`` substeps, the slab's plane 0 at global z
     ``z_offset`` of the ``n³`` grid, with the obstacle contract after each
     substep when the bool mask ``obst_ext`` is given.  The outer
     ``ext_halo(window, n_sub, masked)`` planes of the result are erosion
@@ -401,18 +401,13 @@ def advect_ext_kernel(bs, fields_ext, vel_ext, n: int, dt: float, z_offset: int,
     ``advect_ext_plain``.  Returns a new tensor.
     ``advect_ext_kernel.launches`` counts calls that launched the kernel."""
     bs = tuple(bs)
-    if window not in WINDOWS:
-        raise NotImplementedError(
-            f"extended-slab advection with window={window}: the kernel takes "
-            f"windows {WINDOWS}")
     n_sub = _check_substeps(n_sub)
     if fields_ext.dim() != 4 or vel_ext.dim() != 4:
         raise ValueError("expected (F, nz, n, n) fields and a (3, nz, n, n) velocity")
     n_fields, nz = fields_ext.shape[0], fields_ext.shape[1]
     if n_fields not in (1, 3) or len(bs) != n_fields:
         raise ValueError(f"unsupported fields {tuple(fields_ext.shape)} with bs={bs}")
-    if n < 2 * window + 1 or nz < 2 * window + 1:
-        raise ValueError(f"slab too small for window={window}: n={n}, nz={nz}")
+    window = check_window(window, n, nz)
     if int(z_offset) != z_offset:
         raise ValueError(f"z_offset must be an integer, got {z_offset}")
     z_offset = int(z_offset)
@@ -442,7 +437,7 @@ def advect_ext_kernel(bs, fields_ext, vel_ext, n: int, dt: float, z_offset: int,
         err = lib.fs_advect_ext(
             fields_ext.data_ptr(), vel_ext.data_ptr(), _ptr(obst_ext), out.data_ptr(),
             _ptr(tmp0), _ptr(tmp1), n, nz, z_offset, n_fields, b[0], b[1], b[2],
-            substep_dt0(dt, n, n_sub), n_sub, int(window), storage_flag(fields_ext.dtype),
+            substep_dt0(dt, n, n_sub), n_sub, window, storage_flag(fields_ext.dtype),
             stream,
         )
     _build.check(lib, err, "extended-slab advection kernel launch")

@@ -31,7 +31,7 @@ result is rounded to the field dtype before the faces, the mirror computes
 in float32 from the rounded values and rounds again, ``damp`` and
 ``dens_damp`` multiply in the field dtype (``dtypes.scale_in``), and the
 pressure is the final iterate rounded to the field dtype.  The density
-phases take a window of K = 1, 2 or 3 cells.
+phases take a window of K >= 1 cells.
 """
 
 from __future__ import annotations
@@ -46,13 +46,13 @@ from ..scene.sources import src_field_add
 from . import _build
 from .advect import (
     STORAGE,
-    WINDOWS,
     _check_src,
     _check_substeps,
     _check_volume,
     _ptr,
     _scratch,
     advect_multi_3d_plain,
+    check_window,
     storage_flag,
     substep_dt0,
 )
@@ -181,15 +181,6 @@ def _checked_projection(vel, iters: int, solve_dtype, sweep_block: int = 1):
     return n, sdt
 
 
-def _check_window(window: int, n: int) -> None:
-    if window not in WINDOWS:
-        raise NotImplementedError(
-            f"density advection with window={window}: the kernels take windows "
-            f"{WINDOWS}")
-    if n < 2 * window + 1:
-        raise ValueError(f"grid too small for window={window}: {n}")
-
-
 def _check_density(density, vel, n: int) -> None:
     _check_volume("density", density, (n, n, n), vel.dtype)
     if density.device != vel.device:
@@ -224,7 +215,7 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
     K2 kernel: K2o with the bool obstacle mask ``obst``, K2s with the
     ``(5,)`` emitter descriptor ``src`` (added to the density the first
     substep reads; not with a mask, as in the JAX package), with a
-    ``window`` of 1, 2 or 3 cells.  ``vel`` and ``density`` are float32 or
+    ``window`` of K >= 1 cells.  ``vel`` and ``density`` are float32 or
     bfloat16, in one dtype (the emitter takes float32).
 
     CUDA tensors launch ``csrc/project_advect.cu``; CPU tensors run
@@ -234,7 +225,7 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
     if src is not None and obst is not None:
         raise ValueError("src folding requires an obstacle-free config")
     n, sdt = _checked_projection(vel, iters, solve_dtype, sweep_block)
-    _check_window(window, n)
+    window = check_window(window, n)
     _check_density(density, vel, n)
     if obst is not None:
         _check_mask(obst, n, vel.device)
@@ -339,7 +330,7 @@ def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
     """Self-advect ``vel``, project it with ``iters`` Jacobi sweeps (in
     blocks of ``sweep_block``, K5, where ``projection_block`` allows) and
     advect ``density`` through the damped result, each advection in
-    ``n_sub`` substeps with a ``window`` of 1, 2 or 3 cells, with the K8
+    ``n_sub`` substeps with a ``window`` of K >= 1 cells, with the K8
     kernel: one cooperative launch (obstacle-free).  ``vel`` and ``density``
     are float32 or bfloat16, in one dtype.
 
@@ -349,7 +340,7 @@ def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
     density')``.  ``full_step_3d.launches`` counts launches."""
     n_sub = _check_substeps(n_sub)
     n, sdt = _checked_projection(vel, iters, solve_dtype, sweep_block)
-    _check_window(window, n)
+    window = check_window(window, n)
     _check_density(density, vel, n)
 
     if vel.device.type == "cpu":
@@ -400,7 +391,7 @@ def advect_project_3d_resident_plain(vel, iters: int, dt: float, *, window: int 
 def advect_project_3d_resident(vel, iters: int, dt: float, *, window: int = 1,
                                n_sub: int = 1):
     """Self-advect the float32 ``vel`` in ``n_sub`` substeps with a
-    ``window`` of 1, 2 or 3 cells and project the result with ``iters``
+    ``window`` of K >= 1 cells and project the result with ``iters``
     sequential Jacobi sweeps, with the K14 kernel: K8's cooperative launch
     without the density phase (obstacle-free, float32).
 
@@ -409,7 +400,7 @@ def advect_project_3d_resident(vel, iters: int, dt: float, *, window: int = 1,
     p)``.  ``advect_project_3d_resident.launches`` counts launches."""
     n_sub = _check_substeps(n_sub)
     n, sdt = _checked_projection(vel, iters, None)
-    _check_window(window, n)
+    window = check_window(window, n)
     if vel.dtype != torch.float32:
         raise TypeError("the fused advect + project kernel takes float32 fields")
 

@@ -48,7 +48,7 @@ import torch
 
 from ..config import SimConfig
 from ..dtypes import scale_in
-from ..kernels.advect import WINDOWS
+from ..kernels.advect import check_window
 from ..kernels.project import resident_route
 from ..ops.advect import advect_maccormack_3d, advect_multi_3d, advect_substep_3d
 from ..ops.fft_poisson import project_3d_fft
@@ -81,10 +81,6 @@ def _kernels_usable(cfg: SimConfig, device) -> bool:
     return ok
 
 
-def _unported(what: str):
-    raise NotImplementedError(f"{what} is not ported to fluidsim_tpu_torch yet")
-
-
 def fuses_projection(cfg: SimConfig, use_kernels: bool, resident: bool,
                      jacobi_fn=None, advect_fn=None) -> bool:
     """Whether the step runs a fused kernel, K2 (the projection + density
@@ -106,15 +102,13 @@ def fuses_projection(cfg: SimConfig, use_kernels: bool, resident: bool,
 
 
 def check_supported(cfg: SimConfig, use_kernels: bool) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot step on the
-    kernel path: a window the kernels do not take."""
+    """Raise ``ValueError`` for a config the port cannot step on the kernel
+    path: a window of K cells on a grid smaller than ``2K+1`` (the kernels
+    take any K >= 1, ``kernels.advect.check_window``)."""
     if cfg.ndim != 3:
         raise ValueError("a 2D config steps with models.stable2d, not the 3D step")
-    if not use_kernels:
-        return
-    if cfg.advect_window not in WINDOWS:
-        _unported(f"kernel advection with advect_window={cfg.advect_window} "
-                  f"(K1 takes windows {WINDOWS})")
+    if use_kernels:
+        check_window(cfg.advect_window, cfg.current_size)
 
 
 def emitter_folds(cfg: SimConfig, use_kernels: bool, resident: bool) -> bool:

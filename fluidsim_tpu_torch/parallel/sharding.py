@@ -131,8 +131,8 @@ def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z", n_substeps
       shard, ``"xla"`` the plain sweeps, ``"auto"`` K10 on a CUDA mesh at
       T >= 2), and the advection through
       ``parallel.halo.advect_multi_3d_sharded`` (K11 per shard) where the
-      scheme is semi-Lagrangian or substep, the window is 1, 2 or 3 and the
-      halo fits a shard, unless ``halo_backend="xla"`` (or ``"auto"`` off the
+      scheme is semi-Lagrangian or substep, the window is K >= 1 cells and
+      the halo fits a shard, unless ``halo_backend="xla"`` (or ``"auto"`` off the
       card).  Obstacle scenes run both, the mask's halo riding the
       exchanges.  ``halo_backend="rdma"`` does every exchange in kernels:
       the solve's rounds in K12, its priming and each advection's slabs in
@@ -145,7 +145,6 @@ def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z", n_substeps
     path on the twins.  On a mesh of more than one shard the single-card
     kernels never run (``kernel_backend="pallas"`` raises), as in the JAX
     package.  The emitter is applied by ``apply_custom_source`` each step."""
-    from ..kernels.advect import WINDOWS
     from ..kernels.halo import ext_halo
     from ..kernels.project import resident_route
     from ..models.stable3d import simulate_step_3d
@@ -183,7 +182,7 @@ def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z", n_substeps
         n_sub = cfg.advect_substeps if cfg.advection_scheme == "substep" else 1
         h = ext_halo(cfg.advect_window, n_sub, bool(cfg.enable_obstacle))
         feasible = (cfg.advection_scheme in ("semi_lagrangian", "substep")
-                    and cfg.advect_window in WINDOWS and h <= n // k)
+                    and cfg.advect_window >= 1 and h <= n // k)
         if (halo_backend != "xla" and feasible
                 and (device.type == "cuda" or halo_backend in ("pallas", "rdma"))):
 

@@ -213,3 +213,28 @@ def apply_custom_source(density, vel, cfg: SimConfig, t,
             pulse_rate=spec.pulse_rate,
         )
     return density, vel
+
+
+def add_density(density: torch.Tensor, x: float, y: float, amount, z: float = None):
+    """Point injector (FluidSim.cs:723-729): ``amount`` added at the cell of
+    the truncated, clamped coordinates.  Returns a new tensor."""
+    idx = _clamp_idx((x, y) if z is None else (x, y, z), density.shape[-1])
+    out = density.clone()
+    out[idx] = out[idx] + amount
+    return out
+
+
+def add_velocity(vel: torch.Tensor, x: float, y: float, amounts, z: float = None):
+    """Point injector (FluidSim.cs:731-738): ``amounts[c]`` added to
+    component c at the cell.  Returns a new tensor."""
+    idx = _clamp_idx((x, y) if z is None else (x, y, z), vel.shape[-1])
+    out = vel.clone()
+    for c, amt in enumerate(amounts):
+        out[(c,) + idx] = out[(c,) + idx] + amt
+    return out
+
+
+def _clamp_idx(coords_xy, n):
+    """(x, y[, z]) floats → clamped int array index ([y, x] / [z, y, x])."""
+    ints = [int(np.clip(int(c), 0, n - 1)) for c in coords_xy]
+    return tuple(reversed(ints))

@@ -381,16 +381,16 @@ def test_vortex128_fused_path_equals_unfused(cuda):
         assert torch.equal(getattr(fused.state, name), getattr(unfused.state, name)), name
 
 
-# -- K1 with a window of K = 2, 3, K4, and the plume64 / smoke32 paths ----------
+# -- K1 with a window of K = 2, 3 and K >= 4, K4, and the plume64 / smoke32 paths --
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
 @pytest.mark.parametrize("n_sub", [1, 2])
-@pytest.mark.parametrize("window", [2, 3])
+@pytest.mark.parametrize("window", [2, 3, 4, 5])
 @pytest.mark.parametrize("n", [17, 64])
 def test_k1_window_matches_twin(cuda, n, window, n_sub, masked):
     vel, dens = fields(n, 1100 + n + window, cuda)
-    vel = vel * 0.3  # a backtrace of up to about three cells
+    vel = vel * 0.3 * max(1, window - 2)  # a backtrace of up to about 3(K-2) cells
     obst = vortex_mask(n, cuda) if masked else None
     for bs, f in (((1, 2, 3), vel), ((0,), dens[None])):
         got = advect_multi_3d_kernel(bs, f, vel, DT, obst=obst, window=window, n_sub=n_sub)
@@ -398,7 +398,7 @@ def test_k1_window_matches_twin(cuda, n, window, n_sub, masked):
         assert_equal((got,), (ref,), f"K1 window={window} {bs}")
 
 
-@pytest.mark.parametrize("window", [2, 3])
+@pytest.mark.parametrize("window", [2, 3, 4, 5])
 def test_k1_window_buoyancy_fold_matches_twin(cuda, window):
     n = 33
     vel, dens = fields(n, 1200 + window, cuda)
@@ -632,7 +632,7 @@ def bf16_fields(n, seed, device, scale=0.3):
 
 @pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
 @pytest.mark.parametrize("n_sub", [1, 2, 3])
-@pytest.mark.parametrize("window", [1, 2, 3])
+@pytest.mark.parametrize("window", [1, 2, 3, 4, 5])
 def test_k1_bf16_matches_twin(cuda, window, n_sub, masked):
     n = 33
     vel, dens = bf16_fields(n, 1300 + window, cuda)
@@ -692,10 +692,10 @@ def test_k8_bf16_matches_twin_and_k1_then_k2(cuda, solve_dtype, n_sub):
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("n_sub", [1, 2])
-@pytest.mark.parametrize("window", [2, 3])
+@pytest.mark.parametrize("window", [2, 3, 4, 5])
 def test_fused_windows_match_twin(cuda, window, n_sub, dtype):
-    """K2, K2o and K8 with a K = 2, 3 density phase (K8 in both phases), K2s
-    at K = 2, 3 in float32, each against its twin; K8 against K1 → K2."""
+    """K2, K2o and K8 with a K = 2, 3, 4, 5 density phase (K8 in both
+    phases), K2s at those windows in float32, each against its twin; K8 against K1 → K2."""
     n = 33
     vel, dens = fields(n, 1400 + window, cuda)
     vel, dens = (vel * 0.3).to(dtype), dens.to(dtype)
@@ -714,7 +714,7 @@ def test_fused_windows_match_twin(cuda, window, n_sub, dtype):
 
 
 @pytest.mark.parametrize("n_sub", [1, 2])
-@pytest.mark.parametrize("window", [2, 3])
+@pytest.mark.parametrize("window", [2, 3, 4, 5])
 def test_k1_src_window_matches_twin(cuda, window, n_sub):
     n = 33
     vel, dens = fields(n, 1500 + window, cuda)
@@ -731,7 +731,7 @@ def test_k1_src_window_matches_twin(cuda, window, n_sub):
 def test_k8_grid_holds_for_every_variant(cuda):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for dtype in (torch.float32, BF16):
-        for window in (1, 2, 3):
+        for window in (1, 2, 3, 4, 5):
             for solve_dtype in (None, "bfloat16"):
                 blocks = full_step_blocks(solve_dtype, cuda, dtype, window)
                 assert blocks > 0 and blocks % sms == 0, (dtype, window, solve_dtype)
@@ -749,8 +749,8 @@ def test_bf16_wrappers_raise_for_what_they_do_not_take(cuda):
         project_advect_density_3d(vel, dens.float(), 4, DT)
     with pytest.raises(TypeError):
         full_step_3d(vel.float(), dens, 4, DT)
-    with pytest.raises(NotImplementedError):
-        full_step_3d(vel, dens, 4, DT, window=4)
+    with pytest.raises(ValueError, match="window"):
+        full_step_3d(vel, dens, 4, DT, window=0)
 
 
 # -- the bfloat16 and windowed fused paths, FFT and noise, through Engine ------
@@ -772,6 +772,11 @@ def _counters():
     ("plume64", dict(advection_scheme="substep", advect_substeps=1,
                      fuse_project_advect=True, fuse_self_advect=True), {"K8": 5}),
     ("bench128", dict(advect_window=2, fuse_emitter=True), {"K1": 5, "K2": 5}),
+    ("plume64", dict(advect_window=4), {"K1": 10, "K3": 5}),
+    ("bench128", dict(advect_window=4, fuse_emitter=True), {"K1": 5, "K2": 5}),
+    ("bench128", dict(advect_window=4, fuse_self_advect=True), {"K8": 5}),
+    ("vortex128", dict(advect_window=4, fuse_project_advect=True), {"K1": 5, "K2": 5}),
+    ("bench128", dict(advect_window=5, dtype="bfloat16"), {"K1": 5, "K2": 5}),
 ])
 def test_new_paths_match_twin_paths(cuda, name, change, ran):
     """Each new path at 48³ runs exactly its kernels and equals the twin
@@ -902,7 +907,7 @@ def test_k5_in_k8_matches_twin_and_k1_then_k2(cuda, block, solve_dtype):
     assert not torch.equal(got[1], seq[1])  # the blocks ran
 
 
-@pytest.mark.parametrize("window,n_sub", [(1, 1), (1, 2), (2, 1), (3, 2)])
+@pytest.mark.parametrize("window,n_sub", [(1, 1), (1, 2), (2, 1), (3, 2), (4, 1), (5, 2)])
 def test_k14_matches_twin_and_k1_then_k3(cuda, window, n_sub):
     n = 32
     vel, _ = fields(n, 2100 + window + n_sub, cuda)
@@ -985,7 +990,7 @@ def test_k10_mask_and_chunks_match_twin(cuda, t):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("window", [1, 2, 3])
+@pytest.mark.parametrize("window", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("n_fields", [1, 3])
 def test_k11_matches_twin(cuda, n_fields, window, masked):
     """Two substeps on each rank kind's slab of a 40³ grid (10 planes a shard,
@@ -1131,7 +1136,7 @@ def test_k13_matches_twin(cuda, shards, depth):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("window", [1, 2, 3])
+@pytest.mark.parametrize("window", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("n_fields", [1, 3])
 def test_k11_bf16_matches_twin(cuda, n_fields, window, masked):
     """K11 on bfloat16 slabs, as test_k11_matches_twin: two substeps on each

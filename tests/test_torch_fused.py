@@ -337,8 +337,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         project_advect_density_3d(vel, dens, 5, DT_ADV, n_sub=0)
     with pytest.raises(ValueError, match="n_sub"):
         full_step_3d(vel, dens, 5, DT_ADV, n_sub=1.5)
-    with pytest.raises(NotImplementedError):
-        full_step_3d(vel, dens, 5, DT_ADV, window=4)
+    with pytest.raises(ValueError, match="window"):
+        full_step_3d(vel, dens, 5, DT_ADV, window=0)
     with pytest.raises(ValueError, match="iters"):
         full_step_3d(vel, dens, 0, DT_ADV)
 

@@ -128,8 +128,8 @@ def test_advect_ext_wrapper_checks():
     vel = torch.randn(3, 12, 16, 16) * 0.1
     assert torch.equal(advect_ext_kernel((1, 2, 3), vel, vel, 16, DT, 4, n_sub=2),
                        advect_ext_plain((1, 2, 3), vel, vel, 16, DT, 4, n_sub=2))
-    with pytest.raises(NotImplementedError, match="window"):
-        advect_ext_kernel((1, 2, 3), vel, vel, 16, DT, 4, window=4)
+    with pytest.raises(ValueError, match="window"):
+        advect_ext_kernel((1, 2, 3), vel, vel, 16, DT, 4, window=0)
     with pytest.raises(ValueError, match="slab too small"):
         advect_ext_kernel((1, 2, 3), vel[:, :4].contiguous(), vel[:, :4].contiguous(), 16,
                           DT, 4, window=2)

@@ -124,16 +124,19 @@ def test_explicit_step_matches_jax(backend, t):
     assert_close(got, ref)
 
 
-@pytest.mark.parametrize("name,t", [("vortex_128", 2), ("plume_64", 4)])
-def test_explicit_step_with_obstacle_and_window3_matches_jax(name, t):
+@pytest.mark.parametrize("name,t,window", [("vortex_128", 2, None), ("plume_64", 4, None),
+                                           ("plume_64", 4, 4)],
+                         ids=["vortex_128-2", "plume_64-4", "plume_64-4-K4"])
+def test_explicit_step_with_obstacle_and_window3_matches_jax(name, t, window):
     """vortex128 (its sphere, three substeps: the mask rides every exchange
     and K11's halo is 6 planes) at T = 2 and plume64 (K = 3, viscous
-    diffusion) at T = 4, cut to 32³, 2 steps: the port's ``"pallas"`` and
-    ``"rdma"`` steps against the JAX ``"pallas"`` step (which the JAX
-    package holds bitwise to its ``"rdma"`` step), and the port's two
-    bitwise each other."""
-    j_cfg = getattr(j_config, f"preset_{name}")().replace(size=N)
-    t_cfg = getattr(t_config, f"preset_{name}")().replace(size=N)
+    diffusion; and at K = 4, a K11 halo of 4 planes) at T = 4, cut to 32³,
+    2 steps: the port's ``"pallas"`` and ``"rdma"`` steps against the JAX
+    ``"pallas"`` step (which the JAX package holds bitwise to its
+    ``"rdma"`` step), and the port's two bitwise each other."""
+    change = dict(size=N) if window is None else dict(size=N, advect_window=window)
+    j_cfg = getattr(j_config, f"preset_{name}")().replace(**change)
+    t_cfg = getattr(t_config, f"preset_{name}")().replace(**change)
     kw = dict(halo="explicit", halo_block_iters=t)
     ref = run_jax(j_cfg, 2, halo_backend="pallas", pallas_interpret=True, **kw)
     got = {backend: state_to_numpy(run_port(t_cfg, 2, halo_backend=backend, **kw))

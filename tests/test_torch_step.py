@@ -242,6 +242,13 @@ def test_formerly_unported_configs_step_like_jax(monkeypatch, change, calls):
     folded) steps on the kernel path's twins and equals the JAX step with
     its interpret-mode Pallas kernels after one step, within the bf16-solve
     class of the 20-step test."""
+    one_kernel_step_like_jax(monkeypatch, change, calls)
+
+
+def one_kernel_step_like_jax(monkeypatch, change, calls):
+    """One step of bench128 at 32³ with ``change`` on the kernel path's
+    twins, which make ``calls``, against the JAX step with its
+    interpret-mode Pallas kernels."""
     monkeypatch.setattr(j_s3, "_pallas_usable", lambda cfg: True)
     for mod, name in ((j_pa, "advect_multi_3d_pallas"), (j_pp, "project_3d_pallas"),
                       (j_pp, "project_advect_density_3d_pallas")):
@@ -272,20 +279,22 @@ def test_formerly_unported_configs_step_like_jax(monkeypatch, change, calls):
     (dict(jacobi_sweep_block=2), "K5"),
     (dict(advect_window=2, jacobi_sweep_block=4), "K5"),
     (dict(advect_window=2, fuse_self_advect=True, jacobi_sweep_block=2), "K5"),
-    (dict(advect_window=4, fuse_project_advect=False), "advect_window=4"),
+    (dict(advect_window=4, fuse_project_advect=False), "K1 K=4"),
 ], ids=["K5", "K2 advect_window=2", "K8 advect_window=2", "K1 advect_window=4"])
 def test_unported_kernel_variants_raise(monkeypatch, change, missing):
-    """What the kernel path still raises on: a window K1 does not take.  The
-    sweep-blocked solve (K5) steps, in K3 and in the fused kernels at window
-    2 (K2, K8): with a float32 solve, one step is within 1e-5 relative of
-    the ``jacobi_sweep_block = 1`` step (the JAX package's bound for its
+    """The kernel variants that raised before they were ported now step.
+    K1 at a window of 4 cells (then K3, then K1 on the density) is the JAX
+    step with its interpret-mode Pallas kernels after one step, as in
+    test_formerly_unported_configs_step_like_jax.  The sweep-blocked solve
+    (K5) steps, in K3 and in the fused kernels at window 2 (K2, K8): with a
+    float32 solve, one step is within 1e-5 relative of the
+    ``jacobi_sweep_block = 1`` step (the JAX package's bound for its
     composite, tests/test_pallas_interpret.py)."""
+    if missing != "K5":
+        one_kernel_step_like_jax(monkeypatch, change, ["advect", "project", "advect"])
+        return
     monkeypatch.setattr(t_s3, "_kernels_usable", lambda cfg, device: True)
     cfg = t_bench128().replace(size=N, **change)
-    if missing != "K5":
-        with pytest.raises(NotImplementedError, match=missing):
-            Engine(cfg, "cpu")
-        return
     cfg = cfg.replace(solve_dtype="float32")
     block = cfg.jacobi_sweep_block
     assert composite_block(N, cfg.jacobi_iters, block) == block

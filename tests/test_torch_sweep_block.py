@@ -208,7 +208,7 @@ def test_k14_wrapper_rejects_what_the_kernel_does_not_take():
     vel = velocity(351, n=16)
     with pytest.raises(TypeError):
         advect_project_3d_resident(vel.to(torch.bfloat16), 4, DT_ADV)
-    with pytest.raises(NotImplementedError):
-        advect_project_3d_resident(vel, 4, DT_ADV, window=4)
+    with pytest.raises(ValueError, match="window"):
+        advect_project_3d_resident(vel, 4, DT_ADV, window=0)
     with pytest.raises(ValueError):
         project_3d_resident(vel, 4, sweep_block=0)

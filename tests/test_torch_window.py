@@ -276,9 +276,11 @@ def test_k4_wrapper_checks():
 
 
 def test_k1_wrapper_window_checks():
+    """Any integer window K >= 1 on a grid of 2K+1 cells or more."""
     vel = torch.zeros((3, N, N, N))
-    with pytest.raises(NotImplementedError, match="window=4"):
-        advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, window=4)
+    for window in (0, -1, 2.5):
+        with pytest.raises(ValueError, match="window"):
+            advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, window=window)
     small = torch.zeros((3, 6, 6, 6))
     with pytest.raises(ValueError, match="too small"):
         advect_multi_3d_kernel((1, 2, 3), small, small, DT, window=3)
