@@ -179,7 +179,19 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      40-step run, ``cli render --preset scene_a ... --html`` (2D colormap
      and streamlines, which rasterizer ran is printed) and ``cli render
      --config ... --html`` (3D raymarch); and a ``LiveServer`` in a thread:
-     a frame, a drag that stirs, ``stop()``.
+     a frame, a drag that stirs, ``stop()``;
+ 15. the tiled Jacobi solve (``csrc/solve_tiled.cuh``) inside K2, K2s, K2o
+     and K3, which every earlier phase already ran: K2 (bench128 on float32
+     and bfloat16 fields, plume64's fused K = 3 density phase), K2s, K2o
+     (vortex128) and K3 (bench128 unfused, vortex128 with its mask, a
+     float32 solve at 128³) each bitwise its twin and timed with CUDA events
+     beside the per-sweep route on the same inputs (µs a sweep from the call
+     at the preset's sweeps and at one, beside a sweep's byte bound); then
+     bench128 through ``Engine`` with the counters at zero: exactly one
+     tiled solve and no per-sweep launch a step (the counters and the
+     profile), steps/s and device ms a step in turns with the per-sweep
+     route.  Phases 4–6 also check that bench128, its unfused path and
+     vortex128 solved in one tiled launch a step.
 The line before last is a JSON object describing each kernel (with the
 least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -454,6 +466,7 @@ def main() -> None:
         project_gradient,
         project_advect_density_3d,
         project_advect_density_3d_plain,
+        solve_launches,
     )
     from fluidsim_tpu_torch.kernels.resident2d import (
         lin_solve_2d_resident,
@@ -504,6 +517,8 @@ def main() -> None:
         for fn in counters.values():
             fn.launches = 0
         lin_solve_2d_resident.smooth_launches = 0
+        for route in solve_launches:
+            solve_launches[route] = 0
 
     def counts():
         return {k: fn.launches for k, fn in counters.items()}
@@ -768,6 +783,9 @@ def main() -> None:
     say(f"# density y centre of mass: step 1 {com1!r}, step 40 {com40!r}, "
         f"step {STEPS} {com_end!r}")
     ran_only(bench_launches, ("K1", "K2"), "the bench128 path")
+    say(f"# bench128 solves: {dict(solve_launches)} (tiled solves, per-sweep launches)")
+    if solve_launches != {"tiled": STEPS, "sweep": 0}:
+        fail("the bench128 path did not solve in one tiled launch a step")
     check_state(eng.state, STEPS, n, "bench128")
     if not (mass_end > mass40 > mass1 > 0.0):
         fail("density mass does not grow")
@@ -787,6 +805,8 @@ def main() -> None:
     unfused_launches = counts()
     say(f"# bench128 unfused: 10 steps, launches {unfused_launches}")
     ran_only(unfused_launches, ("K1", "K3"), "the unfused bench128 path")
+    if solve_launches != {"tiled": 10, "sweep": 0}:
+        fail(f"the unfused bench128 path solved {dict(solve_launches)}, not 10 tiled")
     for name, ref in at10.items():
         err = float((getattr(ueng.state, name) - ref).abs().max())
         say(f"# bench128 unfused vs fused, 10 steps, {name}: max abs diff {err!r}")
@@ -813,6 +833,9 @@ def main() -> None:
     say(f"# vortex128 density y centre of mass: step 1 {vcom1!r}, step 40 {vcom40!r}, "
         f"step {VORTEX_STEPS} {vcom_end!r}")
     ran_only(vortex_launches, ("K1", "K3"), "the vortex128 path")
+    say(f"# vortex128 solves: {dict(solve_launches)}")
+    if solve_launches != {"tiled": VORTEX_STEPS, "sweep": 0}:
+        fail("the vortex128 path did not solve in one tiled launch a step")
     check_state(veng.state, VORTEX_STEPS, n, "vortex128")
     if not (vmass_end > vmass1 > 0.0 and vmass40 > vmass1):
         fail("vortex128: density mass does not grow")
@@ -3054,6 +3077,9 @@ def main() -> None:
     phase_wide(card, dev, counters_to_zero, counts, entries, times)
     phase_entry_points(card, counters_to_zero, counts)
 
+    # -- 15. the tiled solve of K2 and K3 ----------------------------------------
+    phase_tiled_solve(card, dev, counters_to_zero, counts)
+
     report = []
     for key, name, source, replaces, launches, err, (bound_ms, bound_by) in entries:
         ms, plain_ms = times[key]
@@ -3548,6 +3574,139 @@ def phase_entry_points(card, counters_to_zero, counts):
         fail("the live viewer's simulation thread did not stop")
     shutil.rmtree(work, ignore_errors=True)
     say(f"# phase 14d (entry points): {time.perf_counter() - t_cli:.1f} s")
+
+
+def phase_tiled_solve(card, dev, counters_to_zero, counts):
+    """Phase 15: the tiled Jacobi solve (csrc/solve_tiled.cuh) in K2, K2s,
+    K2o and K3 on the presets' shapes: each bitwise its twin, timed with
+    CUDA events beside the per-sweep route on the same inputs (µs a sweep
+    from the call at the preset's sweeps and at one), and bench128 through
+    ``Engine``: one tiled solve a step, no per-sweep launch, steps/s and
+    device ms a step by kernel in turns with the per-sweep route."""
+    import numpy as np
+    import torch
+
+    from fluidsim_tpu_torch.config import preset_bench_128, preset_plume_64, preset_vortex_128
+    from fluidsim_tpu_torch.engine import Engine
+    from fluidsim_tpu_torch.kernels import resident as kres
+    from fluidsim_tpu_torch.models.stable3d import sink_factor
+    from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
+    from fluidsim_tpu_torch.scene.sources import emitter_fold_operand
+
+    t_phase = time.perf_counter()
+    say("# phase 15: the tiled Jacobi solve in K2, K2s, K2o and K3")
+    rng = np.random.default_rng(SEED + 15)
+    bf = torch.bfloat16
+    bcfg, vcfg, pcfg = preset_bench_128(), preset_vortex_128(), preset_plume_64()
+    bn, pn = bcfg.current_size, pcfg.current_size
+    bdt, vdt, pdt = (c.effective_params()[0] for c in (bcfg, vcfg, pcfg))
+    bdamp, bddamp = (sink_factor(bdt, k) for k in (bcfg.velocity_damping,
+                                                   bcfg.density_dissipation))
+    vdamp = sink_factor(vdt, vcfg.velocity_damping) if vcfg.velocity_damping else 1.0
+    vddamp = sink_factor(vdt, vcfg.density_dissipation) if vcfg.density_dissipation else 1.0
+    bvel, bdens = velocity_field(bn, rng, dev, 4.0), density_field(bn, rng, dev)
+    vvel, vdens = velocity_field(bn, rng, dev, 12.0), density_field(bn, rng, dev)
+    pvel, pdens = velocity_field(pn, rng, dev, 30.0 / (pn - 2)), density_field(pn, rng, dev)
+    vmask = torch.from_numpy(build_obstacle_mask(vcfg)).to(dev)
+    src = emitter_fold_operand(bcfg, torch.full((), bdt, device=dev))
+    b_it, v_it, p_it = bcfg.jacobi_iters, vcfg.jacobi_iters, pcfg.jacobi_iters
+    k2, k2p = kres.project_advect_density_3d, kres.project_advect_density_3d_plain
+    k3, k3p = kres.project_3d_resident, kres.project_3d_resident_plain
+    bk = dict(solve_dtype=bcfg.solve_dtype, damp=bdamp, dens_damp=bddamp)
+    vk = dict(obst=vmask, n_sub=vcfg.advect_substeps, solve_dtype=vcfg.solve_dtype,
+              damp=vdamp, dens_damp=vddamp)
+    # key: (call with the sweeps, its twin, the preset's sweeps, n, solve bytes)
+    cases = {
+        "K2 bench128": (lambda it: k2(bvel, bdens, it, bdt, **bk),
+                        lambda it: k2p(bvel, bdens, it, bdt, **bk), b_it, bn, 2),
+        "K2 bench128 bf16 fields": (lambda it: k2(bvel.to(bf), bdens.to(bf), it, bdt, **bk),
+                                    lambda it: k2p(bvel.to(bf), bdens.to(bf), it, bdt, **bk),
+                                    b_it, bn, 2),
+        "K2 plume64 fused K=3": (lambda it: k2(pvel, pdens, it, pdt, window=3),
+                                 lambda it: k2p(pvel, pdens, it, pdt, window=3), p_it, pn, 4),
+        "K2s bench128": (lambda it: k2(bvel, bdens, it, bdt, src=src, **bk),
+                         lambda it: k2p(bvel, bdens, it, bdt, src=src, **bk), b_it, bn, 2),
+        "K2o vortex128": (lambda it: k2(vvel, vdens, it, vdt, **vk),
+                          lambda it: k2p(vvel, vdens, it, vdt, **vk), v_it, bn, 2),
+        "K3 bench128 unfused": (lambda it: k3(bvel, it, solve_dtype=bcfg.solve_dtype,
+                                              damp=bdamp),
+                                lambda it: k3p(bvel, it, solve_dtype=bcfg.solve_dtype,
+                                               damp=bdamp), b_it, bn, 2),
+        "K3 vortex128": (lambda it: k3(vvel, it, obst=vmask, solve_dtype=vcfg.solve_dtype,
+                                       damp=vdamp),
+                         lambda it: k3p(vvel, it, obst=vmask, solve_dtype=vcfg.solve_dtype,
+                                        damp=vdamp), v_it, bn, 2),
+        "K3 f32 solve 128^3": (lambda it: k3(bvel, it), lambda it: k3p(bvel, it), b_it, bn, 4),
+    }
+    gate = kres.solve_tiles
+
+    def per_sweep_route(on):
+        kres.solve_tiles = (lambda *args: None) if on else gate
+
+    for key, (fn, plain, it, n, sbytes) in cases.items():
+        got, ref = fn(it), plain(it)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            if not torch.equal(g, r):
+                fail(f"phase 15: {key} through the tiled solve differs from its twin "
+                     f"(max abs diff {float((g.float() - r.float()).abs().max())!r})")
+        del got, ref
+        ms = {}
+        for route in ("tiled", "per-sweep", "per-sweep", "tiled"):
+            per_sweep_route(route == "per-sweep")
+            for sweeps in (it, 1):
+                ms.setdefault((route, sweeps), []).append(
+                    cuda_ms(lambda: fn(sweeps), reps=20, warmup=3))
+        per_sweep_route(False)
+        ms = {k: sum(v) / len(v) for k, v in ms.items()}
+        us = {route: (ms[(route, it)] - ms[(route, 1)]) / (it - 1) * 1e3
+              for route in ("tiled", "per-sweep")}
+        bound_us = 3 * n ** 3 * sbytes / HBM_BYTES_PER_S * 1e6
+        plain_ms = cuda_ms(lambda: plain(it), reps=1, warmup=1)
+        say(f"{key} ({it} sweeps, {n}^3): tiled {ms[('tiled', it)]!r} ms "
+            f"({us['tiled']!r} us a sweep), per-sweep route {ms[('per-sweep', it)]!r} ms "
+            f"({us['per-sweep']!r} us a sweep), twin {plain_ms!r} ms; a sweep's bound "
+            f"{bound_us!r} us (iterate read and written, rhs read, at 3.35 TB/s); bitwise "
+            f"the twin [{card}]")
+
+    # bench128 through Engine: one tiled solve a step and no per-sweep launch.
+    eng = Engine(bcfg, device="cuda")
+    eng.step(10)
+    counters_to_zero()
+    eng.step(20)
+    torch.cuda.synchronize()
+    launched = counts()
+    say(f"# bench128, 20 steps: launches {launched}, solves {dict(kres.solve_launches)}")
+    if launched["K2"] != 20 or kres.solve_launches != {"tiled": 20, "sweep": 0}:
+        fail("phase 15: bench128 did not solve in one tiled launch a step")
+    by_name = {}
+    device = profile_ms(lambda: eng.step(1), reps=20, launches=by_name)
+    tiled = sum(v for k, v in by_name.items() if "solve_tiled_kernel" in k)
+    sweeps = sum(v for k, v in by_name.items() if "jacobi_sweep_kernel" in k)
+    grads = sum(v for k, v in by_name.items() if "gradient_kernel" in k)
+    say(f"# profile bench128 (tiled solve): device time {sum(device.values())!r} ms/step; "
+        f"solve_tiled_kernel {tiled!r} launches a step, jacobi_sweep_kernel {sweeps!r}, "
+        f"gradient_kernel {grads!r} [{card}]")
+    for name, t in sorted(device.items(), key=lambda kv: -kv[1])[:8]:
+        say(f"#   {t!r} ms/step  {name}  ({by_name[name]!r} launches a step)")
+    # The profiler may miss a step's events at the edge of its window: the
+    # solve is held to the gradient's count, one of each a step.
+    if not (tiled > 0 and tiled == grads and sweeps == 0):
+        fail("phase 15: the bench128 step's profile does not show one tiled solve a step")
+    steps = {}
+    for route in ("tiled", "per-sweep", "per-sweep", "tiled"):
+        per_sweep_route(route == "per-sweep")
+        steps.setdefault(route, []).append(1e3 / cuda_ms(lambda: eng.step(1), reps=100,
+                                                         warmup=10))
+    per_sweep_route(True)
+    sweep_device = sum(profile_ms(lambda: eng.step(1), reps=20).values())
+    per_sweep_route(False)
+    say(f"bench128 steps/s: tiled solve {steps['tiled']!r}, per-sweep route "
+        f"{steps['per-sweep']!r} (in turns); device ms a step: tiled "
+        f"{sum(device.values())!r}, per-sweep {sweep_device!r} [{card}]")
+    # 10 + 20 steps, 20 profiled, 4 x (10 + 100) timed, 20 profiled.
+    check_state(eng.state, 10 + 20 + 20 + 4 * 110 + 20, bn, "bench128 (phase 15)")
+    say(f"# phase 15: {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

@@ -8,10 +8,14 @@
 
 #include "sweep_block.cuh"
 
+namespace fsk {
+struct SolveTiles;  // solve_tiled.cuh
+}  // namespace fsk
+
 extern "C" int fs_project(const void* vel, const unsigned char* mask, void* vel_out, void* p_out,
                           void* p_a, void* p_b, void* rhs, int n, int iters, int solve_bf16,
                           int field_bf16, float damp, const fsk::SolveBlock* blk,
-                          void* stream);
+                          const fsk::SolveTiles* tiles, void* stream);
 
 extern "C" int fs_advect_k1(const void* fields, const void* vel, const float* dens,
                             const unsigned char* mask, const float* emitter, int src_on,

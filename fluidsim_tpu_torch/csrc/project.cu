@@ -9,23 +9,24 @@
 // _project_body, on float32 or bfloat16 fields; with blk (T >= 2, float32
 // fields) the solve is K5's (sweep_block.cuh).
 //
-// What bounds it on an H100: the sweeps, 20 of them in vortex128.  Each
-// reads the iterate (six neighbours), the rhs and the mask byte and writes
-// the next iterate: at 128^3 with bfloat16 solve buffers the iterates, the
-// rhs and the mask are 14.7 MB, which stays in the 50 MB L2, so a sweep is
-// bound by L2 bandwidth and by the fixed cost of a launch; each sweep needs
-// the whole previous iterate.  The compulsory DRAM traffic of the call
-// (velocity and mask in, velocity and pressure out: 60.8 MB at 128^3, half
-// of it for bfloat16 fields) is the floor; the arithmetic (about 160 float32
-// operations per cell) is not.
+// What bounds it on an H100: the sweeps, 20 of them in vortex128, 60 in
+// bench128 unfused.  Where kernels/resident.solve_tiles finds a tiling (up
+// to 128^3, with or without the mask), the divergence and every sweep are
+// one persistent launch (solve_tiled.cuh) bound by shared-memory bandwidth
+// and the wait for the face neighbours; elsewhere each sweep is a launch
+// that reads the iterate (six neighbours), the rhs and the mask byte from
+// L2 and writes the next iterate (14.7 MB at 128^3 in bfloat16, inside the
+// 50 MB L2), bound by L2 bandwidth and the launch.  The compulsory DRAM
+// traffic of the call (velocity and mask in, velocity and pressure out:
+// 60.8 MB at 128^3, half of it for bfloat16 fields) is the floor; the
+// arithmetic (about 160 float32 operations per cell) is not.
 //
-// What the design does about it: one launch per sweep (the launch boundary
-// is the grid-wide barrier), one thread per cell with x across threadIdx.x,
-// and the solve working set small enough for L2.  The mask folds into the
-// sweep's coefficient, so a masked sweep costs one byte more per cell than an
-// unmasked one.  The mirror is one more launch that writes only the solid
-// interior cells.  A CUDA graph or a persistent kernel over the 23 launches,
-// and temporal blocking in shared memory, are the next steps.
+// What the design does about it: the tiled solve keeps each tile of the
+// iterate, its rhs and its solid bits on one SM for all sweeps and trades
+// only its faces with its neighbours; the per-sweep route is one thread per
+// cell with x across threadIdx.x.  The mask folds into the sweep's
+// coefficient.  The gradient and the mirror stay a launch each (the mirror
+// writes only the solid interior cells).
 #include <cuda_runtime.h>
 
 #include "entries.h"
@@ -37,14 +38,18 @@
 // n) scratch in the solve type (bfloat16 when solve_bf16, else float32).
 // damp is a value of the storage type.  blk is null (sequential sweeps) or
 // K5's block and scratch (sweep_block.cuh; float32 fields, T = 2 or n >= 4T,
-// iters >= T).  All contiguous on the current device.  Launches every phase
-// on `stream` without synchronising and returns the first cudaError_t.
+// iters >= T).  tiles is null (the per-sweep launches) or the tiled solve's
+// tiling and scratch (solve_tiled.cuh; not with blk).  All contiguous on the
+// current device.  Launches every phase on `stream` without synchronising
+// and returns the first cudaError_t (cudaErrorInvalidValue for a tiling the
+// tiled solve cannot take).
 extern "C" int fs_project(const void* vel, const unsigned char* mask, void* vel_out, void* p_out,
                           void* p_a, void* p_b, void* rhs, int n, int iters, int solve_bf16,
                           int field_bf16, float damp, const fsk::SolveBlock* blk,
-                          void* stream) {
+                          const fsk::SolveTiles* tiles, void* stream) {
   using namespace fsk;
-  if (n < 3 || iters < 1 || !block_valid(blk, n, iters, field_bf16)) {
+  if (n < 3 || iters < 1 || !block_valid(blk, n, iters, field_bf16) ||
+      (tiles != nullptr && blk != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -53,6 +58,18 @@ extern "C" int fs_project(const void* vel, const unsigned char* mask, void* vel_
     using S = std::remove_pointer_t<decltype(f)>;
     return project_phases<T, S>(static_cast<const S*>(vel), mask, static_cast<S*>(vel_out),
                                 static_cast<S*>(p_out), static_cast<T*>(p_a),
-                                static_cast<T*>(p_b), static_cast<T*>(rhs), n, iters, damp, blk, s);
+                                static_cast<T*>(p_b), static_cast<T*>(rhs), n, iters, damp, blk, tiles,
+                                s);
   }));
+}
+
+// The shared memory a block may opt in to on the current device (the tiled
+// solve's limit), or minus the cudaError_t of the query.
+extern "C" int fs_smem_optin() {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return err == cudaSuccess ? optin : -static_cast<int>(err);
 }

@@ -21,11 +21,13 @@
 // float32 from the rounded neighbours and rounds again, and damp multiplies
 // in S, as the TPU kernel does (resident.py:821, 864-893).  The divergence
 // and gradient kernels also serve K7 (project_slab.cu), with float32
-// buffers, no zero start (p0 null) and no pressure copy (p_out null).  One launch per phase and per sweep: the
-// launch boundary is the grid-wide barrier between sweeps.  Border cells
-// recompute their interior cell (boundary.cuh), which is bitwise the TPU
-// kernel's face writes, including its deferred x faces, so no sweep needs a
-// separate faces pass.
+// buffers, no zero start (p0 null) and no pressure copy (p_out null).  With
+// a SolveTiles (solve_tiled.cuh) phases 1 and 2 are one persistent launch
+// that keeps the solve in shared memory; without one, one launch per phase
+// and per sweep, the launch boundary being the grid-wide barrier between
+// sweeps.  Border cells recompute their interior cell (boundary.cuh), which
+// is bitwise the TPU kernel's face writes, including its deferred x faces,
+// so no sweep needs a separate faces pass.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,6 +36,7 @@
 #include <utility>
 
 #include "boundary.cuh"
+#include "solve_tiled.cuh"
 #include "sweep_block.cuh"
 
 namespace fsk {
@@ -53,12 +56,7 @@ __device__ __forceinline__ void divergence_cell(const S* vel, T* rhs, T* p0, int
     rhs[k.idx] = st<T>(0.0f);
     return;
   }
-  const long long sn = n, plane = sn * sn, vol = plane * sn;
-  const long long i = k.idx;
-  const float dx = ld(vel[i + 1]) - ld(vel[i - 1]);
-  const float dy = ld(vel[vol + i + sn]) - ld(vel[vol + i - sn]);
-  const float dz = ld(vel[2 * vol + i + plane]) - ld(vel[2 * vol + i - plane]);
-  rhs[i] = st<T>((-0.5f * ((dx + dy) + dz)) / float(n));
+  rhs[k.idx] = st<T>(divergence_value(vel, n, k.idx));
 }
 
 // Phase 2: one Jacobi sweep at cell k (a border cell recomputes its
@@ -136,19 +134,25 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Phases 1-3 on `stream`; mask (one byte per cell, nonzero = solid) may be
-// null.  Returns the first cudaError_t.
+// null.  With tiles (not with blk) phases 1 and 2 are the tiled solve's one
+// launch into pa.  Returns the first cudaError_t.
 template <typename T, typename S>
 cudaError_t project_phases(const S* vel, const uint8_t* mask, S* vel_out, S* p_out, T* pa,
                            T* pb, T* rhs, int n, int iters, float damp, const SolveBlock* blk,
-                           cudaStream_t s) {
+                           const SolveTiles* tiles, cudaStream_t s) {
   const dim3 grid = cell_grid(n), block = cell_block();
   const float inv6 = 1.0f / 6.0f;
-  divergence_kernel<T, S><<<grid, block, 0, s>>>(vel, rhs, pa, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  cudaError_t err;
   T* src = pa;
   T* dst = pb;
   int sweeps = iters;
+  if (tiles != nullptr) {
+    if ((err = solve_tiled<T, S>(vel, mask, pa, n, iters, *tiles, s)) != cudaSuccess) return err;
+    sweeps = 0;
+  } else {
+    divergence_kernel<T, S><<<grid, block, 0, s>>>(vel, rhs, pa, n);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
   if (blk != nullptr && blk->block >= 2) {
     // K5 (sweep_block.cuh): iters / T blocks, then the sweeps left over.
     BlockPass<T> bp{nullptr, nullptr, rhs, mask, *blk, n};

@@ -23,22 +23,26 @@
 // K3's entry (project.cu) and then K1's (advect.cu) on one stream, since each
 // phase needs the whole result of the one before.
 //
-// What bounds it on an H100: the sweeps.  Each reads the iterate (six
-// neighbours) and the rhs and writes the next iterate: at 128^3 with bfloat16
-// solve buffers the two iterates and the rhs are 12.6 MB, which stays in the
-// 50 MB L2, so a sweep is bound by L2 bandwidth and by the fixed cost of a
-// launch; the sweeps are a chain, each needs the whole previous iterate.
-// Divergence, gradient and each density substep are one pass each; a density
-// substep at K = 3 reads 343 taps a cell and is bound by operations.
+// What bounds it on an H100: the sweeps, a chain in which each needs the
+// whole previous iterate.  Where kernels/resident.solve_tiles finds a tiling
+// (every preset's K2, up to 128^3), the divergence and all sweeps are one
+// persistent launch (solve_tiled.cuh) that keeps a tile of the iterate, the
+// rhs and the mask on each SM: a sweep is bound by shared-memory bandwidth
+// and by the wait for the face neighbours' flags.  Elsewhere each sweep is a
+// launch over the L2-resident iterates and rhs (12.6 MB at 128^3 in
+// bfloat16), bound by L2 bandwidth and the launch.  Gradient and each
+// density substep are one pass each; a density substep at K = 3 reads 343
+// taps a cell and is bound by operations.
 //
-// What the design does about it: one launch per sweep (the launch boundary is
-// the grid-wide barrier between sweeps), one thread per cell with x across
-// threadIdx.x, and the whole solve working set kept small enough for L2.
-// Border cells recompute their interior cell, which is bitwise the TPU
-// kernel's face writes (including its deferred x faces), so no sweep needs a
-// separate faces pass.  The emitter costs a distance test per density read
-// and the add only inside the ball's box.  full_step.cu runs the same phases
-// in one cooperative launch, with grid-wide barriers between them.
+// What the design does about it: the tiled solve trades only tile faces
+// through L2 and synchronises each block with its face neighbours only; the
+// per-sweep route keeps one thread per cell with x across threadIdx.x, the
+// launch boundary as the barrier between sweeps.  Border cells recompute
+// their interior cell, which is bitwise the TPU kernel's face writes
+// (including its deferred x faces), so no sweep needs a separate faces pass.
+// The emitter costs a distance test per density read and the add only
+// inside the ball's box.  full_step.cu runs the same phases in one
+// cooperative launch, with grid-wide barriers between them.
 #include <cuda_runtime.h>
 
 #include "advect.cuh"
@@ -52,7 +56,8 @@
 // advect_substeps for when each may be null).  p_a, p_b and rhs are (n, n,
 // n) scratch in the solve type (bfloat16 when solve_bf16, else float32).
 // dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2); window >= 1
-// (n >= 2 * window + 1); damp and dens_damp are values of the storage type; blk as fs_project's.
+// (n >= 2 * window + 1); damp and dens_damp are values of the storage type;
+// blk and tiles as fs_project's.
 // All contiguous on the current device.  Launches every phase on `stream` without
 // synchronising and returns the first cudaError_t.
 extern "C" int fs_project_advect_density(const void* vel, const void* dens,
@@ -62,13 +67,13 @@ extern "C" int fs_project_advect_density(const void* vel, const void* dens,
                                          int iters, int solve_bf16, int field_bf16,
                                          float dt0_sub, int n_sub, int window, float damp,
                                          float dens_damp, const fsk::SolveBlock* blk,
-                                         void* stream) {
+                                         const fsk::SolveTiles* tiles, void* stream) {
   using namespace fsk;
   if (n < 3 || iters < 1 || (mask != nullptr && emitter != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int err = fs_project(vel, mask, vel_out, p_out, p_a, p_b, rhs, n, iters, solve_bf16,
-                             field_bf16, damp, blk, stream);
+                             field_bf16, damp, blk, tiles, stream);
   if (err != 0) return err;
   return fs_advect_k1(dens, vel_out, nullptr, mask, emitter, kSrcFields, dens_out, tmp0, tmp1,
                       n, 1, 0, 0, 0, dt0_sub, n_sub, window, 0, 0.0f, 0.0f, 0.0f, 0.0f,

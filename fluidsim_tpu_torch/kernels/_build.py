@@ -51,6 +51,16 @@ class SolveBlock(ctypes.Structure):
 _B = ctypes.POINTER(SolveBlock)
 
 
+class SolveTiles(ctypes.Structure):
+    """``fsk::SolveTiles`` (``csrc/solve_tiled.cuh``): the tiled solve's
+    tiles along x, y and z, its zeroed flags and its face buffer."""
+
+    _fields_ = [("gx", _I), ("gy", _I), ("gz", _I), ("flags", _P), ("faces", _P)]
+
+
+_T = ctypes.POINTER(SolveTiles)
+
+
 class HaloArray(ctypes.Structure):
     """``fsk::HaloArray`` (``csrc/halo_copy.cuh``): one array of a K13 call on
     one shard, its source planes, its output and its neighbours' outputs."""
@@ -59,7 +69,7 @@ class HaloArray(ctypes.Structure):
                 ("src_cstride", ctypes.c_longlong), ("channels", _I), ("elem", _I)]
 
 # C entry points: name -> argument types (each returns an int: a cudaError_t,
-# or for fs_full_step_blocks a block count).
+# or for fs_full_step_blocks a block count, for fs_smem_optin bytes).
 SIGNATURES = {
     # fields, vel, dens, mask, emitter, src_on, out, tmp0, tmp1, n, n_fields,
     # b0, b1, b2, dt0_sub, n_sub, window, has_buoy, buoy_dt, buoyancy,
@@ -67,13 +77,16 @@ SIGNATURES = {
     "fs_advect_k1": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                      _I, _I, _I, _F, _F, _F, _F, _F, _I, _P),
     # vel, mask, vel_out, p_out, p_a, p_b, rhs, n, iters, solve_bf16,
-    # field_bf16, damp, blk, stream
-    "fs_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _B, _P),
+    # field_bf16, damp, blk, tiles, stream
+    "fs_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _B, _T, _P),
     # vel, dens, mask, emitter, vel_out, p_out, dens_out, tmp0, tmp1, p_a, p_b,
     # rhs, n, iters, solve_bf16, field_bf16, dt0_sub, n_sub, window, damp,
-    # dens_damp, blk, stream
+    # dens_damp, blk, tiles, stream
     "fs_project_advect_density": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _I, _I, _I, _I, _F, _I, _I, _F, _F, _B, _P),
+                                  _P, _I, _I, _I, _I, _F, _I, _I, _F, _F, _B, _T, _P),
+    # (returns the shared memory a block may opt in to on the current
+    # device, or -error)
+    "fs_smem_optin": (),
     # vel, dens, adv, vel_out, p_out, dens_out, tmp0, tmp1, p_a, p_b, rhs, n,
     # iters, solve_bf16, field_bf16, dt0_sub, n_sub, window, damp, dens_damp,
     # blk, stream

@@ -16,7 +16,10 @@ is ``full_step_3d_resident`` → ``_full_step_kernel``, K14 is
 is the TPU's scaffolding and is not copied).  The CUDA kernels are
 ``csrc/project_advect.cu``, ``csrc/project.cu`` and ``csrc/full_step.cu``,
 which share the projection's phases (``csrc/project.cuh``) and K1's
-backtrace (``csrc/advect.cuh``).  The twins are
+backtrace (``csrc/advect.cuh``).  In K2 and K3 the divergence and every
+sweep of the solve are one persistent launch (``csrc/solve_tiled.cuh``)
+wherever ``solve_tiles`` finds a tiling of the grid, and one launch a sweep
+elsewhere; ``solve_launches`` counts which route ran.  The twins are
 the same arithmetic in plain PyTorch: the ``inv6`` multiply (``(1 − m)·inv6``
 with a mask), the rhs and every iterate rounded to the solve dtype, the
 gradient held in solid cells, the faces, the obstacle mirror, then ``damp``
@@ -35,6 +38,8 @@ phases take a window of K >= 1 cells.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -187,9 +192,163 @@ def _check_density(density, vel, n: int) -> None:
         raise ValueError("vel and density must be on one device")
 
 
-def _solve_scratch(n: int, sdt: torch.dtype, device):
-    """The two iterates and the rhs of the solve, in its storage dtype."""
+def _solve_scratch(n: int, sdt: torch.dtype, device, tiled: bool = False):
+    """The two iterates and the rhs of the solve, in its storage dtype (the
+    tiled solve keeps the rhs and the other iterate on chip: None)."""
+    if tiled:
+        return torch.empty((n, n, n), dtype=sdt, device=device), None, None
     return tuple(torch.empty((n, n, n), dtype=sdt, device=device) for _ in range(3))
+
+
+# The tiled solve (csrc/solve_tiled.cuh): its kernel's limits, and an NVIDIA
+# H100's SM count and the shared memory a block may opt in to, which the gate
+# decides for where the tensors are not on a card (the CPU tests check the
+# card's tiling).
+TILE_THREADS = 512
+TILE_MAX_ROW = 32
+TILE_MAX_Z = 32
+TILE_FLAG_STRIDE = 32
+H100_SMS = 132
+H100_SMEM_OPTIN = 232_448
+
+# Launches of the projection's solve kernels by K2 and K3 (csrc/project.cuh):
+# "tiled" counts tiled solves, "sweep" the per-sweep kernel's launches (the
+# sweeps of the per-sweep route, and those K5 leaves over).
+solve_launches = {"tiled": 0, "sweep": 0}
+
+
+def tile_bounds(n: int, g: int):
+    """The ``[lo, hi)`` extents of ``g`` tiles along y or z of ``n`` cells,
+    as the kernel cuts them: tile ``t`` holds ``[t·n//g, (t+1)·n//g)``."""
+    return [(t * n // g, (t + 1) * n // g) for t in range(g)]
+
+
+def tile_bounds_x(n: int, g: int):
+    """The extents of ``g`` tiles along x: the inner bounds ``t·n//g``
+    rounded down to the parity of ``n``, so that cells ``n − 2`` and
+    ``n − 1`` fall in one of a tile's column pairs (its cells ``2k, 2k +
+    1``), as cells 0 and 1 do."""
+    p = n & 1
+    lo = [0] + [((t * n // g - p) & ~1) + p for t in range(1, g)] + [n]
+    return list(zip(lo[:-1], lo[1:]))
+
+
+def tile_span(n: int, g: int) -> int:
+    """The largest of ``g`` tiles' extent along y or z of ``n`` cells."""
+    return -(-n // g)
+
+
+def tile_extents(n: int, tiles):
+    """The largest tile's extents ``(mx, my, mz)`` of the tiling ``tiles =
+    (gx, gy, gz)``."""
+    gx, gy, gz = tiles
+    return (max(hi - lo for lo, hi in tile_bounds_x(n, gx)), tile_span(n, gy),
+            tile_span(n, gz))
+
+
+def tile_smem(n: int, tiles, itemsize: int) -> int:
+    """Bytes of shared memory a block of the tiling takes: two copies of
+    the largest tile padded by a cell on every side (rows of ``2·hx + 2``
+    values, ``hx`` the most column pairs), 2 values of slack before each,
+    and the rhs."""
+    mx, my, mz = tile_extents(n, tiles)
+    hx = (mx + 1) // 2
+    padded = (2 * hx + 2) * (my + 2) * (mz + 2) + 2
+    return (2 + 2 * padded + 2 * hx * my * mz) * itemsize
+
+
+def tile_face_values(n: int, tiles) -> int:
+    """Values of the face buffer: two parities of six slots a tile, each as
+    large as the largest face (its x rows ``2·hx`` long), rounded up to an
+    even count."""
+    mx, my, mz = tile_extents(n, tiles)
+    row = 2 * ((mx + 1) // 2)
+    face = max(my * mz, row * mz, row * my)
+    return 2 * 6 * int(np.prod(tiles)) * (face + face % 2)
+
+
+@functools.lru_cache(maxsize=None)
+def tiling(n: int, itemsize: int, sms: int, smem_optin: int):
+    """The tiling ``(gx, gy, gz)`` of an ``n³`` solve of ``itemsize``-byte
+    values on a card of ``sms`` SMs that lets a block opt in to
+    ``smem_optin`` bytes of shared memory, or None: at most one tile an SM,
+    every tile 3 to ``TILE_MAX_ROW`` cells along x and y and at most
+    ``TILE_MAX_Z`` along z, at most ``TILE_THREADS`` column pairs, two x
+    tiles or more for an odd ``n``, both padded copies and the rhs within
+    ``smem_optin``.  Of those, the one with the least work on its largest
+    tile, then the fewest face cells, then the widest rows along x, then the
+    longest columns."""
+    best, best_key = None, None
+    top = n // 3
+    for gz in range(1, min(top, sms) + 1):
+        for gy in range(1, min(top, sms // gz) + 1):
+            for gx in range(1, min(top, sms // (gz * gy)) + 1):
+                if n % 2 and gx < 2:
+                    continue
+                if min(hi - lo for lo, hi in tile_bounds_x(n, gx)) < 3:
+                    continue
+                mx, my, mz = tile_extents(n, (gx, gy, gz))
+                if (max(mx, my) > TILE_MAX_ROW or (mx + 1) // 2 * my > TILE_THREADS
+                        or mz > TILE_MAX_Z):
+                    continue
+                if tile_smem(n, (gx, gy, gz), itemsize) > smem_optin:
+                    continue
+                key = (mx * my * mz, my * mz + mx * mz + mx * my, -mx, -mz)
+                if best_key is None or key < best_key:
+                    best, best_key = (gx, gy, gz), key
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _card_limits(index: int):
+    """Card ``index``'s SM count and the shared memory a block may opt in
+    to."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    lib = _build.load_library()
+    with torch.cuda.device(index):
+        optin = lib.fs_smem_optin()
+    if optin < 0:
+        _build.check(lib, -optin, "shared memory query")
+    return sms, optin
+
+
+def solve_tiles(n: int, sdt: torch.dtype, device=None):
+    """The tiled solve's tiling of an ``n³`` projection solved in ``sdt`` on
+    ``device`` (``tiling`` with the card's SM count and shared memory; the
+    H100's where ``device`` is not a card), or None where the per-sweep
+    launches run.  The mask takes no shared memory (a bit a cell, in
+    registers), so the tiling does not depend on it."""
+    limits = H100_SMS, H100_SMEM_OPTIN
+    if device is not None and torch.device(device).type == "cuda":
+        index = torch.device(device).index
+        limits = _card_limits(torch.cuda.current_device() if index is None else index)
+    return tiling(n, sdt.itemsize, *limits)
+
+
+def _solve_tiles_arg(vel, iters: int, sweep_block: int, sdt: torch.dtype):
+    """The tiled solve's ``SolveTiles`` for a projection of ``vel`` (None:
+    the per-sweep launches, or K5 where ``projection_block`` blocks), with
+    its zeroed flags and its face buffer, which the struct keeps alive as
+    ``scratch``."""
+    n = vel.shape[-1]
+    if projection_block(vel, iters, sweep_block) != 1:
+        return None
+    tiles = solve_tiles(n, sdt, vel.device)
+    if tiles is None:
+        return None
+    flags = torch.zeros(int(np.prod(tiles)) * TILE_FLAG_STRIDE, dtype=torch.int32,
+                        device=vel.device)
+    faces = torch.empty(tile_face_values(n, tiles), dtype=sdt, device=vel.device)
+    arg = _build.SolveTiles(*tiles, flags.data_ptr(), faces.data_ptr())
+    arg.scratch = (flags, faces)
+    return arg
+
+
+def _count_solve(tiles, iters: int, blk) -> None:
+    if tiles is not None:
+        solve_launches["tiled"] += 1
+    else:
+        solve_launches["sweep"] += iters if blk is None else iters % blk.block
 
 
 def _projection_block_arg(vel, iters: int, sweep_block: int):
@@ -218,7 +377,8 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
     ``window`` of K >= 1 cells.  ``vel`` and ``density`` are float32 or
     bfloat16, in one dtype (the emitter takes float32).
 
-    CUDA tensors launch ``csrc/project_advect.cu``; CPU tensors run
+    CUDA tensors launch ``csrc/project_advect.cu`` (its solve tiled where
+    ``solve_tiles`` allows); CPU tensors run
     ``project_advect_density_3d_plain``.  Returns ``(vel', p, density')``.
     ``project_advect_density_3d.launches`` counts launches."""
     n_sub = _check_substeps(n_sub)
@@ -247,7 +407,8 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
     p = torch.empty_like(density)
     dens_out = torch.empty_like(density)
     tmp0, tmp1 = _scratch(1, n, n_sub, False, vel.dtype, vel.device)
-    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device)
+    tiles = _solve_tiles_arg(vel, iters, sweep_block, sdt)
+    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device, tiles is not None)
     blk = _projection_block_arg(vel, iters, sweep_block)
     fdt = vel.dtype
     with torch.cuda.device(vel.device):
@@ -255,13 +416,14 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
         err = lib.fs_project_advect_density(
             vel.data_ptr(), density.data_ptr(), _ptr(obst), _ptr(src),
             vel_out.data_ptr(), p.data_ptr(), dens_out.data_ptr(), _ptr(tmp0),
-            _ptr(tmp1), p_a.data_ptr(), p_b.data_ptr(), rhs.data_ptr(), n,
+            _ptr(tmp1), p_a.data_ptr(), _ptr(p_b), _ptr(rhs), n,
             int(iters), int(sdt == torch.bfloat16), storage_flag(fdt),
             substep_dt0(dt, n, n_sub), n_sub, int(window),
-            storage_scalar(damp, fdt), storage_scalar(dens_damp, fdt), blk, stream,
+            storage_scalar(damp, fdt), storage_scalar(dens_damp, fdt), blk, tiles, stream,
         )
     _build.check(lib, err, "fused projection kernel launch")
     project_advect_density_3d.launches += 1
+    _count_solve(tiles, iters, blk)
     return vel_out, p, dens_out
 
 
@@ -276,8 +438,9 @@ def project_3d_resident(vel, iters: int, obst=None, solve_dtype=None,
 
     ``vel`` is float32 or bfloat16.
 
-    CUDA tensors launch ``csrc/project.cu``; CPU tensors run
-    ``project_3d_resident_plain``.  Returns ``(vel', p)``.
+    CUDA tensors launch ``csrc/project.cu`` (its solve tiled where
+    ``solve_tiles`` allows); CPU tensors run ``project_3d_resident_plain``.
+    Returns ``(vel', p)``.
     ``project_3d_resident.launches`` counts calls that launched the kernel."""
     n, sdt = _checked_projection(vel, iters, solve_dtype, sweep_block)
     if obst is not None:
@@ -292,18 +455,20 @@ def project_3d_resident(vel, iters: int, obst=None, solve_dtype=None,
     lib = _build.load_library()
     vel_out = torch.empty_like(vel)
     p = torch.empty((n, n, n), dtype=vel.dtype, device=vel.device)
-    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device)
+    tiles = _solve_tiles_arg(vel, iters, sweep_block, sdt)
+    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device, tiles is not None)
     blk = _projection_block_arg(vel, iters, sweep_block)
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_project(
             vel.data_ptr(), _ptr(obst), vel_out.data_ptr(), p.data_ptr(),
-            p_a.data_ptr(), p_b.data_ptr(), rhs.data_ptr(), n, int(iters),
+            p_a.data_ptr(), _ptr(p_b), _ptr(rhs), n, int(iters),
             int(sdt == torch.bfloat16), storage_flag(vel.dtype),
-            storage_scalar(damp, vel.dtype), blk, stream,
+            storage_scalar(damp, vel.dtype), blk, tiles, stream,
         )
     _build.check(lib, err, "projection kernel launch")
     project_3d_resident.launches += 1
+    _count_solve(tiles, iters, blk)
     return vel_out, p
 
 

@@ -29,6 +29,7 @@ from fluidsim_tpu_torch.config import (
 )
 from fluidsim_tpu_torch.engine import Engine
 from fluidsim_tpu_torch.kernels import project as kproject
+from fluidsim_tpu_torch.kernels import resident as kresident
 from fluidsim_tpu_torch.kernels.advect import (
     advect_multi_3d_kernel,
     advect_multi_3d_plain,
@@ -1256,3 +1257,122 @@ def test_rdma_wrappers_raise_for_cuda_tensors_they_cannot_take(cuda):
         halo_exchange_rdma([h + [h[0][:, :4]] for h in halves], 2)
     with pytest.raises(ValueError, match="one device"):
         halo_exchange_rdma([halves[0], [halves[1][0].cpu()]], 2)
+
+
+# -- the tiled solve of K2 and K3 (csrc/solve_tiled.cuh) ------------------------
+
+
+def solve_counts():
+    return dict(kresident.solve_launches)
+
+
+def ran_route(before, tiled, sweeps):
+    after = solve_counts()
+    assert {k: after[k] - before[k] for k in after} == {"tiled": tiled, "sweep": sweeps}
+
+
+@pytest.mark.parametrize("iters", [1, 2, 59, 60])
+@pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("n", [8, 31, 64, 97, 128])
+def test_tiled_k3_matches_twin(cuda, n, solve_dtype, masked, iters):
+    vel, _ = fields(n, 1300 + n, cuda)
+    obst = vortex_mask(n, cuda) if masked else None
+    for v in (vel, vel.to(BF16)):
+        before = solve_counts()
+        got = project_3d_resident(v, iters, obst=obst, solve_dtype=solve_dtype, damp=DAMP)
+        ran_route(before, 1, 0)
+        ref = project_3d_resident_plain(v, iters, obst=obst, solve_dtype=solve_dtype,
+                                        damp=DAMP)
+        assert_equal(got, ref, f"K3 {v.dtype}")
+
+
+@pytest.mark.parametrize("iters", [1, 2, 59, 60])
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("n", [8, 31, 64, 97, 128])
+@pytest.mark.parametrize("case", ["K2", "K2s", "K2o"])
+def test_tiled_k2_variants_match_twin(cuda, case, n, solve_dtype, iters):
+    vel, dens = fields(n, 1400 + n, cuda)
+    vel = vel * 0.1
+    kw = {"K2": {}, "K2s": {"src": emitter(n, cuda)},
+          "K2o": {"obst": vortex_mask(n, cuda), "n_sub": 3}}[case]
+    before = solve_counts()
+    got = project_advect_density_3d(vel, dens, iters, DT, solve_dtype=solve_dtype, damp=DAMP,
+                                    dens_damp=DDAMP, **kw)
+    ran_route(before, 1, 0)
+    ref = project_advect_density_3d_plain(vel, dens, iters, DT, solve_dtype=solve_dtype,
+                                          damp=DAMP, dens_damp=DDAMP, **kw)
+    assert_equal(got, ref, case)
+
+
+@pytest.mark.parametrize("n,tiles", [(40, (2, 2, 2)), (64, (3, 4, 5)), (29, (2, 9, 2)),
+                                     (33, (7, 2, 3))])
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+def test_tiled_solve_at_forced_coarse_tilings(cuda, monkeypatch, n, tiles, solve_dtype):
+    """Multi-tile waits and ragged tiles: a tiling the gate would not pick."""
+    monkeypatch.setattr(kresident, "solve_tiles", lambda *args: tiles)
+    vel, dens = fields(n, 1500 + n, cuda)
+    obst = vortex_mask(n, cuda)
+    for mask in (None, obst):
+        got = project_3d_resident(vel, 23, obst=mask, solve_dtype=solve_dtype, damp=DAMP)
+        ref = project_3d_resident_plain(vel, 23, obst=mask, solve_dtype=solve_dtype, damp=DAMP)
+        assert_equal(got, ref, f"K3 {tiles} mask={mask is not None}")
+    got = project_advect_density_3d(vel * 0.1, dens, 23, DT, solve_dtype=solve_dtype)
+    ref = project_advect_density_3d_plain(vel * 0.1, dens, 23, DT, solve_dtype=solve_dtype)
+    assert_equal(got, ref, f"K2 {tiles}")
+
+
+def test_tiled_solve_repeats_bitwise(cuda):
+    """A race between a block and its neighbours' face slots would flip a
+    bit now and then: 100 calls on one input, each the first's."""
+    vel, dens = fields(128, 1600, cuda)
+    vel = vel * 0.1
+    first = project_advect_density_3d(vel, dens, 60, DT, solve_dtype="bfloat16",
+                                      damp=DAMP, dens_damp=DDAMP)
+    torch.cuda.synchronize()
+    for call in range(100):
+        again = project_advect_density_3d(vel, dens, 60, DT, solve_dtype="bfloat16",
+                                          damp=DAMP, dens_damp=DDAMP)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again)), call
+
+
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+def test_tiled_k2_is_k3_then_k1(cuda, solve_dtype):
+    vel, dens = fields(128, 1700, cuda)
+    vel = vel * 0.1
+    v2, p2, d2 = project_advect_density_3d(vel, dens, 60, DT, solve_dtype=solve_dtype,
+                                           damp=DAMP)
+    v3, p3 = project_3d_resident(vel, 60, solve_dtype=solve_dtype, damp=DAMP)
+    d1 = advect_multi_3d_kernel((0,), dens[None], v3, DT)[0]
+    assert_equal((v2, p2, d2), (v3, p3, d1), "K2 vs K3 -> K1")
+
+
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+def test_gate_refusal_takes_the_per_sweep_route(cuda, solve_dtype):
+    """176³ needs more than a tile an SM: the per-sweep kernel runs, decided
+    before the launch, and the counts say so; K5 (sweep_block 2) keeps its
+    route and leaves iters % 2 sweeps to the per-sweep kernel."""
+    n = 176
+    sdt = kresident.solve_torch_dtype(solve_dtype)
+    assert kresident.solve_tiles(n, sdt, cuda) is None
+    vel, _ = fields(n, 1800, cuda)
+    before = solve_counts()
+    got = project_3d_resident(vel, 20, solve_dtype=solve_dtype)
+    ran_route(before, 0, 20)
+    assert_equal(got, project_3d_resident_plain(vel, 20, solve_dtype=solve_dtype), "K3 176")
+    vel, _ = fields(64, 1801, cuda)
+    before = solve_counts()
+    got = project_3d_resident(vel, 21, solve_dtype=solve_dtype, sweep_block=2)
+    ran_route(before, 0, 1)
+    assert_equal(got, project_3d_resident_plain(vel, 21, solve_dtype=solve_dtype,
+                                                sweep_block=2), "K5 in K3")
+
+
+def test_tiled_solve_refuses_a_tiling_it_cannot_take(cuda, monkeypatch):
+    """A tiling of more columns than a block holds is refused by the C entry
+    and raises: no fallback."""
+    monkeypatch.setattr(kresident, "solve_tiles", lambda *args: (1, 1, 1))
+    vel, _ = fields(64, 1900, cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        project_3d_resident(vel, 20)

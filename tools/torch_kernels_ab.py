@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Kernel times of the PyTorch port for two or more checkouts, alternated on
 one CUDA card: K6 (20 sweeps of the projection's solve at 256³ and 512³),
-K1 (bench128's self-advection with the buoyancy folded in) and K8
-(bench128's whole step in one launch, 60 sweeps).
+K1 (bench128's self-advection with the buoyancy folded in), K8
+(bench128's whole step in one launch, 60 sweeps), K2 (bench128: 60
+bfloat16 sweeps and the density) and K3 (bench128 unfused, 60 bfloat16
+sweeps; vortex128, its mask and 20 bfloat16 sweeps; 60 float32 sweeps).
 
 Run from anywhere:  python3 tools/torch_kernels_ab.py ROOT_A ROOT_B [...]
 
 Each ROOT is the root of a checkout that holds ``fluidsim_tpu_torch/``.
 The checkouts run in the order A, B, ..., then the reverse (A, B, B, A for
 two), each in a fresh Python process that builds that checkout's kernels
-and times each kernel with CUDA events over 10 (K6) or 50 (K1, K8) calls
+and times each kernel with CUDA events over 10 (K6) or 50 (the others) calls
 after two warm-up calls, on inputs made from one NumPy seed.  Prints the
 card's name and power limit, then one JSON line per process: the
 milliseconds a call by kernel.
@@ -48,7 +50,13 @@ def child(root: str) -> None:
     from fluidsim_tpu_torch.kernels.advect import advect_multi_3d_kernel
     from fluidsim_tpu_torch.kernels.jacobi import jacobi_3d_kernel
     from fluidsim_tpu_torch.kernels.project import divergence_3d_plain
-    from fluidsim_tpu_torch.kernels.resident import full_step_3d
+    from fluidsim_tpu_torch.config import preset_vortex_128
+    from fluidsim_tpu_torch.kernels.resident import (
+        full_step_3d,
+        project_3d_resident,
+        project_advect_density_3d,
+    )
+    from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
 
     if Path(fluidsim_tpu_torch.__file__).resolve().parent.parent != Path(root):
         raise SystemExit(f"imported {fluidsim_tpu_torch.__file__}, not from {root}")
@@ -70,6 +78,14 @@ def child(root: str) -> None:
     out["K1 128^3 buoyancy"] = cuda_ms(lambda: advect_multi_3d_kernel(
         (1, 2, 3), vel, vel, 0.0008, buoy=(dens, 1.0, 0.0, 0.0)), 50)
     out["K8 128^3"] = cuda_ms(lambda: full_step_3d(vel, dens, 60, 0.0008, n_sub=1), 50)
+    bf16 = "bfloat16"
+    out["K2 bench128"] = cuda_ms(lambda: project_advect_density_3d(
+        vel, dens, 60, 0.0008, solve_dtype=bf16), 50)
+    out["K3 bench128"] = cuda_ms(lambda: project_3d_resident(vel, 60, solve_dtype=bf16), 50)
+    out["K3 f32 solve 128^3"] = cuda_ms(lambda: project_3d_resident(vel, 60), 50)
+    mask = torch.from_numpy(build_obstacle_mask(preset_vortex_128())).to(dev)
+    out["K3 vortex128"] = cuda_ms(lambda: project_3d_resident(
+        vel, 20, obst=mask, solve_dtype=bf16), 50)
     print(json.dumps({"root": root, "ms": out}), flush=True)
 
 
