@@ -191,7 +191,21 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      tiled solve and no per-sweep launch a step (the counters and the
      profile), steps/s and device ms a step in turns with the per-sweep
      route.  Phases 4–6 also check that bench128, its unfused path and
-     vortex128 solved in one tiled launch a step.
+     vortex128 solved in one tiled launch a step;
+ 16. K1 and K11 at a window of K = 1 on tiles (``csrc/advect_tiled.cuh``),
+     which every earlier phase already ran: bench128's self-advection with
+     the buoyancy (and with the emitter on its density), vortex128's three
+     substeps with the mask (F = 3 and 1, float32 and bfloat16), multi256's
+     two substeps (F = 3 and 1), 512³ with two substeps (F = 3 with the
+     buoyancy, F = 1) and K11 on shard 3 of sharded512's 8 slabs (F = 3 and
+     1, float32 and bfloat16), each bitwise its twin on the tiled route and
+     timed beside the twin and ``F.grid_sample`` (trilinear,
+     ``align_corners=True``) on the same backtrace positions, the
+     interpolation alone (the K1 and K11 rows' ``library_ms``); then
+     bench128, vortex128, multi256 and sharded512 through ``Engine`` and
+     sharded512 on 8 shards (rdma) through ``sharded_step_fn``, the counters
+     at zero just before each: every K = 1 substep on the tiled route
+     (``kernels/advect.advect_launches``), none a cell a thread.
 The line before last is a JSON object describing each kernel (with the
 least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -232,7 +246,8 @@ F32_OPS_PER_S = 67e12
 FRAC_OPS = 3 * 9      # per axis: dt0*v, sub, 2 bounds, 2 clip bounds (+2 adds), sub
 RELU_OPS = 3 * 3      # per axis: negate, two max
 COMB_OPS = 13 * 6     # per field: 9 x-, 3 y-, 1 z-combination of 6 operations
-BUOY_OPS = 6          # per buoyant value: sub, 2 mul, sub, mul, add
+BUOY_OPS = 6          # per buoyant value: sub, 2 mul, sub, mul, add; at K = 1 once a
+#                       staged value and once at the cell (csrc/advect_tiled.cuh)
 MIRROR_OPS = 6        # per solid cell and component: 2 negates, 3 adds, div
 DIV_OPS = 7
 SWEEP_OPS = 7         # 5 neighbour adds, the rhs add, the coefficient multiply
@@ -426,6 +441,7 @@ def main() -> None:
     from fluidsim_tpu_torch.engine import Engine
     from fluidsim_tpu_torch.kernels import _build
     from fluidsim_tpu_torch.kernels.advect import (
+        advect_launches,
         advect_multi_3d_kernel,
         advect_multi_3d_plain,
     )
@@ -519,6 +535,8 @@ def main() -> None:
         lin_solve_2d_resident.smooth_launches = 0
         for route in solve_launches:
             solve_launches[route] = 0
+        for route in advect_launches:
+            advect_launches[route] = 0
 
     def counts():
         return {k: fn.launches for k, fn in counters.items()}
@@ -1948,7 +1966,7 @@ def main() -> None:
          "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
          bench_launches["K1"], k1_err,
          bound(7 * vol * f32,
-               interior * (FRAC_OPS + RELU_OPS + 3 * COMB_OPS + 28 * BUOY_OPS))),
+               interior * (FRAC_OPS + RELU_OPS + 3 * COMB_OPS + 2 * BUOY_OPS))),
         # vortex128 launches K1 twice a step, once for each of these two.
         ("K1v", f"K1 advect_multi_3d_kernel (n_sub={n_sub}, obstacle mask; vortex128 "
                 "self-advection, F=3)",
@@ -1997,7 +2015,7 @@ def main() -> None:
          "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
          sharded_launches["K1"], slab_err["K1s"],
          bound(7 * svol * f32, sinterior * (s_sub * (FRAC_OPS + RELU_OPS + 3 * COMB_OPS)
-                                            + 29 * BUOY_OPS))),
+                                            + 3 * BUOY_OPS))),
         ("K1s density", f"K1 advect_multi_3d_kernel (n_sub={s_sub}, no mask; sharded512 "
                         "density, F=1, 512^3)",
          "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
@@ -2033,7 +2051,7 @@ def main() -> None:
                    "bench128 + fuse_emitter self-advection)",
          "fluidsim_tpu_torch/csrc/advect.cu", "fluidsim_tpu/pallas/advect.py:256",
          emit_launches["K1"], fused_err["K1 src"],
-         bound(7 * vol * f32 + 5 * f32, interior * (k1_ops + 28 * BUOY_OPS) + ball * EMIT_OPS)),
+         bound(7 * vol * f32 + 5 * f32, interior * (k1_ops + 2 * BUOY_OPS) + ball * EMIT_OPS)),
         ("K2s", "K2s project_advect_density_3d (projection + density advection with the "
                 "emitter folded; bench128 + fuse_emitter)",
          "fluidsim_tpu_torch/csrc/project_advect.cu", "fluidsim_tpu/pallas/resident.py:1219",
@@ -3080,6 +3098,9 @@ def main() -> None:
     # -- 15. the tiled solve of K2 and K3 ----------------------------------------
     phase_tiled_solve(card, dev, counters_to_zero, counts)
 
+    # -- 16. K1 and K11 at K = 1 on tiles -----------------------------------------
+    phase_advect_tiles(card, dev, counters_to_zero, library)
+
     report = []
     for key, name, source, replaces, launches, err, (bound_ms, bound_by) in entries:
         ms, plain_ms = times[key]
@@ -3707,6 +3728,197 @@ def phase_tiled_solve(card, dev, counters_to_zero, counts):
     # 10 + 20 steps, 20 profiled, 4 x (10 + 100) timed, 20 profiled.
     check_state(eng.state, 10 + 20 + 20 + 4 * 110 + 20, bn, "bench128 (phase 15)")
     say(f"# phase 15: {time.perf_counter() - t_phase:.1f} s")
+
+
+def backtrace_grid(vel, dt: float, n: int, n_sub: int, zoff: int = 0):
+    """The ``(1, nz, n, n, 3)`` sample positions of one substep's backtrace
+    (``frac`` of the K = 1 twins: clamped to [0.5, n - 1.5] and to a cell of
+    each axis' coordinate, z global), normalised for ``F.grid_sample`` with
+    ``align_corners=True``."""
+    import torch
+
+    from fluidsim_tpu_torch.kernels.advect import substep_dt0
+
+    nz = vel.shape[1]
+    dt0 = substep_dt0(dt, n, n_sub)
+    ar = torch.arange(n, dtype=torch.float32, device=vel.device)
+    zs = torch.arange(nz, dtype=torch.float32, device=vel.device) + zoff
+    out = []
+    for axis, coord in ((0, ar[None, None, :]), (1, ar[None, :, None]), (2, zs[:, None, None])):
+        t = (coord - dt0 * vel[axis]).clamp(0.5, n - 1.5)
+        t = torch.minimum(torch.maximum(t, coord - 1.0), coord + 1.0)
+        if axis == 2:
+            t = t - zoff
+        out.append(2.0 * t / ((nz if axis == 2 else n) - 1) - 1.0)
+    return torch.stack(out, -1)[None]
+
+
+def phase_advect_tiles(card, dev, counters_to_zero, library):
+    """Phase 16: K1 and K11 at K = 1 on tiles (csrc/advect_tiled.cuh): each
+    preset's call bitwise its twin, timed with CUDA events beside the twin and
+    ``F.grid_sample`` (trilinear, ``align_corners=True``) on the same
+    backtrace positions, the interpolation alone (the K1 rows' library time);
+    every call takes the tiled route by ``advect_launches``; then bench128,
+    vortex128, multi256 and sharded512 (unsharded, and on 8 shards) through
+    their entry points, each with exactly its substeps on the tiled route and
+    none a cell a thread."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from fluidsim_tpu_torch.config import (
+        preset_bench_128,
+        preset_multi_emitter_256,
+        preset_sharded_512,
+        preset_vortex_128,
+    )
+    from fluidsim_tpu_torch.engine import Engine
+    from fluidsim_tpu_torch.kernels.advect import (
+        advect_launches,
+        advect_multi_3d_kernel,
+        advect_multi_3d_plain,
+    )
+    from fluidsim_tpu_torch.kernels.halo import advect_ext_kernel, advect_ext_plain
+    from fluidsim_tpu_torch.ops.forces import buoyancy_force
+    from fluidsim_tpu_torch.parallel import make_mesh, shard_state, sharded_step_fn
+    from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
+    from fluidsim_tpu_torch.scene.sources import emitter_fold_operand
+    from fluidsim_tpu_torch.state import zeros_state
+
+    t_phase = time.perf_counter()
+    say("# phase 16: K1 and K11 at K = 1 on tiles (csrc/advect_tiled.cuh)")
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 16)
+    bf = torch.bfloat16
+    bcfg, vcfg = preset_bench_128(), preset_vortex_128()
+    mcfg, scfg = preset_multi_emitter_256(), preset_sharded_512()
+    bn, mn, sn = bcfg.current_size, mcfg.current_size, scfg.current_size
+    bdt, vdt, mdt, sdt = (c.effective_params()[0] for c in (bcfg, vcfg, mcfg, scfg))
+    bvel, bdens = velocity_field(bn, rng, dev, 4.0), density_field(bn, rng, dev)
+    vvel, vdens = velocity_field(bn, rng, dev, 12.0), density_field(bn, rng, dev)
+    vmask = torch.from_numpy(build_obstacle_mask(vcfg)).to(dev)
+    bbuoy = (bdens, bcfg.buoyancy, bcfg.ambient_density, bcfg.gravity)
+    src = emitter_fold_operand(bcfg, torch.full((), bdt, device=dev))
+    v_sub, m_sub, s_sub = vcfg.advect_substeps, mcfg.advect_substeps, scfg.advect_substeps
+    k1, k1p, k11, k11p = (advect_multi_3d_kernel, advect_multi_3d_plain, advect_ext_kernel,
+                          advect_ext_plain)
+
+    def held(key, fn, plain, n_sub, sample=None, reps=20):
+        """Bitwise the twin, on the tiled route, timed beside the twin and
+        (``sample``: grid_sample's input and positions) the interpolation."""
+        before = dict(advect_launches)
+        got = fn()
+        launched = {k: advect_launches[k] - before[k] for k in before}
+        ref = plain()
+        torch.cuda.synchronize()
+        if launched != {"tiled": n_sub, "cell": 0}:
+            fail(f"phase 16: {key} did not take the tiled route: {launched}")
+        if not torch.equal(got, ref):
+            fail(f"phase 16: {key} differs from its twin "
+                 f"(max abs diff {float((got.float() - ref.float()).abs().max())!r})")
+        del got, ref
+        ms = cuda_ms(fn, reps=reps)
+        plain_ms = cuda_ms(plain, reps=1, warmup=1)
+        line = f"{key}: tiled {ms!r} ms, twin {plain_ms!r} ms"
+        if sample is not None:
+            inp, g = sample
+            lib = cuda_ms(lambda: [F.grid_sample(inp, g, mode="bilinear", padding_mode="border",
+                                                 align_corners=True) for _ in range(n_sub)],
+                          reps=reps)
+            library[key] = lib
+            line += f", F.grid_sample x{n_sub} (interpolation only) {lib!r} ms"
+        say(f"{line}; bitwise the twin [{card}]")
+
+    def sample_input(fields, vel, dt, n, n_sub, zoff=0, buoy=None):
+        if buoy is not None:
+            vel = buoyancy_force(vel, buoy[0], dt, *buoy[1:])
+        return fields[None].contiguous(), backtrace_grid(vel, dt, n, n_sub, zoff)
+
+    # 16a. bench128 (buoyancy; with the emitter on its density), vortex128
+    # (three substeps and the mask, float32 and bfloat16), multi256 (two
+    # substeps), 512^3 (two substeps, buoyancy for F = 3).
+    held("K1", lambda: k1((1, 2, 3), bvel, bvel, bdt, buoy=bbuoy),
+         lambda: k1p((1, 2, 3), bvel, bvel, bdt, buoy=bbuoy), 1,
+         sample_input(bvel, bvel, bdt, bn, 1, buoy=bbuoy))
+    held("K1 src", lambda: k1((1, 2, 3), bvel, bvel, bdt, buoy=bbuoy, src=src),
+         lambda: k1p((1, 2, 3), bvel, bvel, bdt, buoy=bbuoy, src=src), 1)
+    for tag, dtype in (("", torch.float32), (" bf16", bf)):
+        v, d = vvel.to(dtype), vdens.to(dtype)
+        held(f"K1v{tag}", lambda: k1((1, 2, 3), v, v, vdt, obst=vmask, n_sub=v_sub),
+             lambda: k1p((1, 2, 3), v, v, vdt, obst=vmask, n_sub=v_sub), v_sub,
+             sample_input(v, v, vdt, bn, v_sub) if not tag else None)
+        held(f"K1v{tag} density", lambda: k1((0,), d[None], v, vdt, obst=vmask, n_sub=v_sub),
+             lambda: k1p((0,), d[None], v, vdt, obst=vmask, n_sub=v_sub), v_sub,
+             sample_input(d[None], v, vdt, bn, v_sub) if not tag else None)
+    del bvel, bdens, vvel, vdens, bbuoy
+    mvel, mdens = velocity_field(mn, rng, dev, 8.0), density_field(mn, rng, dev)
+    held("K1m", lambda: k1((1, 2, 3), mvel, mvel, mdt, n_sub=m_sub),
+         lambda: k1p((1, 2, 3), mvel, mvel, mdt, n_sub=m_sub), m_sub,
+         sample_input(mvel, mvel, mdt, mn, m_sub))
+    held("K1m density", lambda: k1((0,), mdens[None], mvel, mdt, n_sub=m_sub),
+         lambda: k1p((0,), mdens[None], mvel, mdt, n_sub=m_sub), m_sub,
+         sample_input(mdens[None], mvel, mdt, mn, m_sub))
+    del mvel, mdens
+    torch.cuda.empty_cache()
+    svel, sdens = velocity_field(sn, rng, dev, 16.0), density_field(sn, rng, dev)
+    sbuoy = (sdens, scfg.buoyancy, scfg.ambient_density, scfg.gravity)
+    held("K1s", lambda: k1((1, 2, 3), svel, svel, sdt, buoy=sbuoy, n_sub=s_sub),
+         lambda: k1p((1, 2, 3), svel, svel, sdt, buoy=sbuoy, n_sub=s_sub), s_sub,
+         sample_input(svel, svel, sdt, sn, s_sub, buoy=sbuoy), reps=5)
+    torch.cuda.empty_cache()
+    held("K1s density", lambda: k1((0,), sdens[None], svel, sdt, n_sub=s_sub),
+         lambda: k1p((0,), sdens[None], svel, sdt, n_sub=s_sub), s_sub,
+         sample_input(sdens[None], svel, sdt, sn, s_sub), reps=5)
+    torch.cuda.empty_cache()
+
+    # 16b. K11: shard 3 of sharded512 on 8 shards, its 64 planes between h of
+    # each neighbour's, float32 and bfloat16.
+    h, lz = s_sub, sn // 8
+    zoff = 3 * lz - h
+    ve = svel[:, zoff:zoff + lz + 2 * h].contiguous()
+    de = sdens[None, zoff:zoff + lz + 2 * h].contiguous()
+    del svel, sdens, sbuoy
+    torch.cuda.empty_cache()
+    for tag, dtype in (("", torch.float32), (" bf16", bf)):
+        v, d = ve.to(dtype), de.to(dtype)
+        held(f"K11{tag} F=3", lambda: k11((1, 2, 3), v, v, sn, sdt, zoff, 1, s_sub),
+             lambda: k11p((1, 2, 3), v, v, sn, sdt, zoff, 1, s_sub), s_sub,
+             sample_input(v, v, sdt, sn, s_sub, zoff) if not tag else None)
+        held(f"K11{tag} F=1", lambda: k11((0,), d, v, sn, sdt, zoff, 1, s_sub),
+             lambda: k11p((0,), d, v, sn, sdt, zoff, 1, s_sub), s_sub,
+             sample_input(d, v, sdt, sn, s_sub, zoff) if not tag else None)
+    del ve, de
+    torch.cuda.empty_cache()
+
+    # 16c. The presets' paths: every K = 1 substep on tiles, exactly.
+    paths = (("bench128", bcfg, 3, 2 * 1), ("vortex128", vcfg, 3, 2 * v_sub),
+             ("multi256", mcfg, 2, 2 * m_sub), ("sharded512", scfg, 1, 2 * s_sub))
+    for name, cfg, steps, per_step in paths:
+        eng = Engine(cfg, device="cuda")
+        counters_to_zero()
+        eng.step(steps)
+        torch.cuda.synchronize()
+        say(f"# {name}, {steps} steps: substep launches by route {dict(advect_launches)}")
+        if advect_launches != {"tiled": per_step * steps, "cell": 0}:
+            fail(f"phase 16: {name} did not take the tiled route for every K = 1 substep")
+        check_state(eng.state, steps, cfg.current_size, f"{name} (phase 16)")
+        del eng
+        torch.cuda.empty_cache()
+    step = sharded_step_fn(scfg, make_mesh(["cuda"] * 8), halo="explicit", halo_block_iters=4,
+                           halo_backend="rdma")
+    start = shard_state(zeros_state(scfg, dev), make_mesh(["cuda"] * 8))
+    counters_to_zero()
+    st = step(start)
+    torch.cuda.synchronize()
+    say(f"# sharded512 on 8 shards (rdma), 1 step: substep launches by route "
+        f"{dict(advect_launches)}")
+    if advect_launches != {"tiled": 8 * 2 * s_sub, "cell": 0}:
+        fail("phase 16: sharded512 on 8 shards did not take the tiled route for every K11 "
+             "substep")
+    check_state(st, 1, sn, "sharded512 on 8 shards (phase 16)")
+    del st, start, step
+    torch.cuda.empty_cache()
+    say(f"# phase 16: {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

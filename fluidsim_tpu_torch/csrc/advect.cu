@@ -31,27 +31,30 @@
 // are float32, as the TPU kernel keeps them in VMEM, and a velocity's mirror
 // runs on the float32 result before the one rounding (advect_bf16.cu).
 //
-// What bounds it on an H100, K = 1: each substep reads 27 taps of each field
-// (plus 27 density taps for the buoyant y component), and the backtrace, the
-// 13 two-tap combinations per field and the buoyancy are about 270 float32
-// operations per cell for F = 3 (438 with buoyancy), none of them contracted
-// into an FMA.  The compulsory DRAM traffic is 7 f32 volumes for bench128's
-// buoyant self-advection and 6 volumes + the byte mask for vortex128's, so
-// one substep is bound by bytes, three substeps by operations; the taps of
-// neighbouring cells overlap, which L1 and L2 serve.  bfloat16 storage
+// What bounds it on an H100, K = 1: each cell interpolates 27 taps of each
+// field; the backtrace and the 13 two-tap combinations per field are about
+// 270 float32 operations per cell for F = 3, none of them contracted into an
+// FMA, and the buoyancy 6 more per staged value and at the cell.  The
+// compulsory DRAM traffic is 7 f32 volumes for bench128's buoyant
+// self-advection and 6 volumes + the byte mask for vortex128's, so one
+// substep is bound by bytes, three substeps by operations.  bfloat16 storage
 // halves the bytes and leaves the operations.  The folded emitter adds a
-// distance, a square root and a division per density read inside the ball's
-// box (and three compares outside it) in place of a full-grid pass over the
-// density.  K > 1: (2K+1)^3 taps a field (343 for plume64's K = 3), each a
-// multiply and an add, plus (2K+1)^2 + (2K+1)^3 weight products: about 2,500
-// operations a cell for F = 3 at K = 3, so the hat sum is bound by
-// operations at any size.
+// distance, a square root and a division per density value inside the
+// ball's box (and three compares outside it) in place of a full-grid pass
+// over the density.  K > 1: (2K+1)^3 taps a field (343 for plume64's K = 3),
+// each a multiply and an add, plus (2K+1)^2 + (2K+1)^3 weight products:
+// about 2,500 operations a cell for F = 3 at K = 3, so the hat sum is bound
+// by operations at any size.
 //
-// What the design does about it: one thread per cell with x across
-// threadIdx.x, so each tap row is one coalesced 128-byte load per warp and
-// the overlapping taps of a block hit in L1; the velocity at the cell, its
-// backtrace fractions and (K > 1) the per-axis hats and the weights are
-// computed once and shared by all fields; a solid cell skips the
+// What the design does about it.  K = 1 (advect_tiled.cuh): a block stages a
+// tile's planes in shared memory once, each value with the buoyancy and the
+// emitter already applied (advect_cell_k1 applied them at each of 27 taps),
+// marches along z loading each plane once and one plane ahead, and a thread
+// computes four cells of a column from six staged rows.  K > 1: one thread per
+// cell with x across threadIdx.x, so each tap row is one coalesced 128-byte
+// load per warp and the overlapping taps of a block hit in L1; the velocity
+// at the cell, its backtrace fractions and the per-axis hats and the weights
+// are computed once and shared by all fields; a solid cell skips the
 // interpolation.  Every tap of the hat sum is computed, zero weights too, so
 // the sum is the twin's operation for operation.  Keeping the substeps in
 // shared memory (the TPU kernel's halo of n_sub*(K+1) planes) and skipping

@@ -6,7 +6,10 @@
 // (one substep of it; the caller loops over the substeps), which the TPU
 // kernels share the same way.  Every kernel that backtraces takes a window of
 // any K >= 1 cells: K = 1, 2 and 3 are compile-time bodies, every K >= 4 one
-// body with a runtime K (kWinAny).
+// body with a runtime K (kWinAny).  A launch of a K = 1 substep (K1, K2's
+// density phase, K11) runs advect_tiled.cuh's kernel, which stages each tap
+// once a tile and is bitwise advect_cell_k1; the whole-step kernels (K8,
+// K14) call advect_cell_k1 per cell.
 //
 // Arithmetic follows the TPU kernel operation by operation (the build uses
 // -fmad=false, so nothing is contracted into an FMA):
@@ -383,6 +386,14 @@ __device__ __forceinline__ void advect_store_role(const Substep& a, const Cell& 
   }
 }
 
+}  // namespace fsk
+
+// K = 1's launch: advect_tiled_kernel, on tiles with the taps staged in
+// shared memory (launch_tiled below takes it for every K = 1 substep).
+#include "advect_tiled.cuh"
+
+namespace fsk {
+
 // Internal linkage, as in boundary.cuh: every source that launches K1's
 // kernel gets its own copy.
 namespace {
@@ -401,15 +412,21 @@ __global__ void __launch_bounds__(kThreads)
       k);
 }
 
+// One substep's launch: K = 1 on tiles (advect_tiled.cuh), any other window
+// one thread a cell.
 template <int K, int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC, typename TF = float,
           typename TV = float, typename TO = float>
 cudaError_t launch(const Substep& a, cudaStream_t s) {
-  advect_kernel<K, F, BUOY_VEL, BUOY_TAPS, MASK, SRC, TF, TV, TO>
-      <<<cell_grid_slab(a.n, a.slab.nz), cell_block(), 0, s>>>(
-          static_cast<const TF*>(a.src), static_cast<const TV*>(a.vel), a.dens, a.mask,
-          a.emitter, static_cast<TO*>(a.dst), a.n, a.slab, a.b0, a.b1, a.b2, a.dt0, a.scale,
-          a.bp, a.window);
-  return cudaGetLastError();
+  if constexpr (K == 1) {
+    return launch_tiled<F, BUOY_VEL, BUOY_TAPS, MASK, SRC, TF, TV, TO>(a, s);
+  } else {
+    advect_kernel<K, F, BUOY_VEL, BUOY_TAPS, MASK, SRC, TF, TV, TO>
+        <<<cell_grid_slab(a.n, a.slab.nz), cell_block(), 0, s>>>(
+            static_cast<const TF*>(a.src), static_cast<const TV*>(a.vel), a.dens, a.mask,
+            a.emitter, static_cast<TO*>(a.dst), a.n, a.slab, a.b0, a.b1, a.b2, a.dt0, a.scale,
+            a.bp, a.window);
+    return cudaGetLastError();
+  }
 }
 
 // A substep without folds in its role (see advect_store_role).

@@ -26,10 +26,12 @@
 // scratch), and about 270 float32 operations a cell for F = 3 at K = 1, so a
 // two-substep call is bound by operations.
 //
-// What the design does about it: K1's per-cell bodies, unchanged but for the
-// slab (boundary.cuh's Slab): one thread per cell, one launch per substep
-// (and one per mirror), float32 ping-pong through out and tmp0 so that
-// self-advection never writes the buffer it reads.
+// What the design does about it: K1's kernels, unchanged but for the slab
+// (boundary.cuh's Slab): at K = 1 the tiled kernel of advect_tiled.cuh (the
+// slab's planes staged once, taps past its ends read at wrapped planes), at
+// K > 1 one thread per cell; one launch per substep (and one per mirror),
+// float32 ping-pong through out and tmp0 so that self-advection never writes
+// the buffer it reads.
 //
 // bfloat16 slabs take K1's bfloat16 instantiations (advect_bf16.cu), which
 // carry the slab as every K1 body does: the first substep loads bfloat16,

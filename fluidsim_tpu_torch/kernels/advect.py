@@ -8,7 +8,9 @@ the folded emitter (``src``) of its self-advection.  The CUDA kernel is
 PyTorch, used for CPU tensors and as the reference the kernel is checked
 against: for a window of K = 1 the two-tap form (``windowed_sum_k1``), for
 any K > 1 the ``(2K+1)³``-term hat sum (``windowed_sum``, the same sum as
-``ops/advect.window_sum_3d``).
+``ops/advect.window_sum_3d``).  At K = 1 the kernel stages tiles of the
+fields in shared memory (``csrc/advect_tiled.cuh``); ``advect_launches``
+counts substep launches by route.
 
 Fields are stored in float32 or bfloat16 (``fields`` and ``vel`` in one
 dtype); the backtrace, the weights and the substeps between the first read
@@ -74,6 +76,23 @@ STORAGE = (torch.float32, torch.bfloat16)
 def storage_flag(dtype: torch.dtype) -> int:
     """1 for bfloat16 storage, 0 for float32 (the kernels' ``field_bf16``)."""
     return int(dtype == torch.bfloat16)
+
+
+# Substep launches of the backtrace kernels by route, counted by the wrappers
+# that launch them (K1, K11 and K2's density phase): "tiled" at K = 1
+# (csrc/advect_tiled.cuh), one thread a cell ("cell") at any other window.
+advect_launches = {"tiled": 0, "cell": 0}
+
+
+def advect_route(window: int) -> str:
+    """The route of a substep with a window of ``window`` cells, as
+    ``csrc/advect.cuh``'s ``launch`` takes it."""
+    return "tiled" if window == 1 else "cell"
+
+
+def count_substeps(window: int, n_sub: int) -> None:
+    """Add a call's ``n_sub`` substep launches to ``advect_launches``."""
+    advect_launches[advect_route(window)] += n_sub
 
 
 def advect_multi_3d_plain(bs, fields, vel, dt: float, buoy=None, obst=None,
@@ -221,7 +240,7 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
     without a mask; ``src`` (the ``(5,)`` emitter descriptor) adds the
     emitter to that density.  Raises for what the kernel does not take.
     ``advect_multi_3d_kernel.launches`` counts calls that launched the
-    kernel."""
+    kernel, ``advect_launches`` their substeps by route."""
     bs = tuple(bs)
     n_sub = _check_substeps(n_sub)
     if buoy is not None and not (fields is vel and bs == (1, 2, 3)):
@@ -278,6 +297,7 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
         )
     _build.check(lib, err, "advect kernel launch")
     advect_multi_3d_kernel.launches += 1
+    count_substeps(window, n_sub)
     return out
 
 

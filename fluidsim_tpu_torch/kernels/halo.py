@@ -58,6 +58,7 @@ from .advect import (
     _ptr,
     _scratch,
     check_window,
+    count_substeps,
     storage_flag,
     substep_dt0,
 )
@@ -399,7 +400,8 @@ def advect_ext_kernel(bs, fields_ext, vel_ext, n: int, dt: float, z_offset: int,
     ``csrc/advect_ext.cu`` (bfloat16: K1's bfloat16 instantiations of
     ``csrc/advect_bf16.cu`` on the slab); CPU tensors run
     ``advect_ext_plain``.  Returns a new tensor.
-    ``advect_ext_kernel.launches`` counts calls that launched the kernel."""
+    ``advect_ext_kernel.launches`` counts calls that launched the kernel,
+    ``kernels.advect.advect_launches`` their substeps by route."""
     bs = tuple(bs)
     n_sub = _check_substeps(n_sub)
     if fields_ext.dim() != 4 or vel_ext.dim() != 4:
@@ -442,6 +444,7 @@ def advect_ext_kernel(bs, fields_ext, vel_ext, n: int, dt: float, z_offset: int,
         )
     _build.check(lib, err, "extended-slab advection kernel launch")
     advect_ext_kernel.launches += 1
+    count_substeps(window, n_sub)
     return out
 
 

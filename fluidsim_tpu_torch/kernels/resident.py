@@ -58,6 +58,7 @@ from .advect import (
     _scratch,
     advect_multi_3d_plain,
     check_window,
+    count_substeps,
     storage_flag,
     substep_dt0,
 )
@@ -380,7 +381,8 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
     CUDA tensors launch ``csrc/project_advect.cu`` (its solve tiled where
     ``solve_tiles`` allows); CPU tensors run
     ``project_advect_density_3d_plain``.  Returns ``(vel', p, density')``.
-    ``project_advect_density_3d.launches`` counts launches."""
+    ``project_advect_density_3d.launches`` counts launches, and
+    ``kernels.advect.advect_launches`` the density phase's substeps by route."""
     n_sub = _check_substeps(n_sub)
     if src is not None and obst is not None:
         raise ValueError("src folding requires an obstacle-free config")
@@ -424,6 +426,7 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
     _build.check(lib, err, "fused projection kernel launch")
     project_advect_density_3d.launches += 1
     _count_solve(tiles, iters, blk)
+    count_substeps(window, n_sub)
     return vel_out, p, dens_out
 
 

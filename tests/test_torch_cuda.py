@@ -28,6 +28,7 @@ from fluidsim_tpu_torch.config import (
     preset_vortex_128,
 )
 from fluidsim_tpu_torch.engine import Engine
+from fluidsim_tpu_torch.kernels import advect as kadvect
 from fluidsim_tpu_torch.kernels import project as kproject
 from fluidsim_tpu_torch.kernels import resident as kresident
 from fluidsim_tpu_torch.kernels.advect import (
@@ -1376,3 +1377,115 @@ def test_tiled_solve_refuses_a_tiling_it_cannot_take(cuda, monkeypatch):
     vel, _ = fields(64, 1900, cuda)
     with pytest.raises(RuntimeError, match="invalid argument"):
         project_3d_resident(vel, 20)
+
+
+# -- K1 and K11 at K = 1 on tiles (csrc/advect_tiled.cuh) ----------------------
+
+
+def advect_counts():
+    return dict(kadvect.advect_launches)
+
+
+def ran_advect(before, tiled, cell):
+    after = advect_counts()
+    assert {k: after[k] - before[k] for k in after} == {"tiled": tiled, "cell": cell}
+
+
+# Ragged sizes (a tile's last columns, rows and planes partial; n = 3 and 5
+# inside one tile) and the presets' 128³ and 256³.
+TILED_SIZES = [3, 5, 37, 130, 128, 256]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["F3", "F1", "F3-mask", "F1-mask"])
+@pytest.mark.parametrize("n_sub", [1, 2, 3])
+@pytest.mark.parametrize("n", TILED_SIZES)
+def test_tiled_k1_matches_twin(cuda, n, n_sub, case, dtype):
+    """Every unfolded K = 1 instantiation: F = 3 and 1, with and without
+    vortex128's mask, float32 and the four bfloat16 roles."""
+    vel, dens = fields(n, 4000 + n + n_sub, cuda)
+    vel, dens = (vel * 0.3).to(dtype), dens.to(dtype)
+    obst = vortex_mask(n, cuda) if case.endswith("mask") else None
+    bs, f = ((1, 2, 3), vel) if case.startswith("F3") else ((0,), dens[None])
+    before = advect_counts()
+    got = advect_multi_3d_kernel(bs, f, vel, DT, obst=obst, n_sub=n_sub)
+    ran_advect(before, n_sub, 0)
+    ref = advect_multi_3d_plain(bs, f, vel, DT, obst=obst, n_sub=n_sub)
+    assert got.dtype == dtype
+    assert_equal([got], [ref], f"K1 {case} {dtype}")
+
+
+@pytest.mark.parametrize("src", [False, True], ids=["buoy", "buoy-src"])
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("n", TILED_SIZES)
+def test_tiled_k1_buoyancy_matches_twin(cuda, n, n_sub, src):
+    """The buoyancy on the staged y component (and the emitter on its
+    density) in the first substep, at the cell in every substep."""
+    vel, dens = fields(n, 4100 + n + n_sub, cuda)
+    buoy = (dens, 0.2, 0.1, 0.05)
+    e = emitter(n, cuda) if src else None
+    before = advect_counts()
+    got = advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, buoy=buoy, n_sub=n_sub, src=e)
+    ran_advect(before, n_sub, 0)
+    ref = advect_multi_3d_plain((1, 2, 3), vel, vel, DT, buoy=buoy, n_sub=n_sub, src=e)
+    assert_equal([got], [ref], f"K1 buoyancy src={src}")
+
+
+@pytest.mark.parametrize("case", ["K2", "K2s", "K2o"])
+@pytest.mark.parametrize("n", [5, 37, 130, 128])
+def test_tiled_density_phase_matches_twin(cuda, n, case):
+    """K2's density phase launches K1's entry: on tiles at K = 1, with the
+    emitter on the staged density (K2s), the mask and three substeps (K2o),
+    and the damping as the last substep's scale."""
+    vel, dens = fields(n, 4200 + n, cuda)
+    vel = vel * 0.1
+    kw = {"K2": {}, "K2s": {"src": emitter(n, cuda)},
+          "K2o": {"obst": vortex_mask(n, cuda), "n_sub": 3}}[case]
+    before = advect_counts()
+    got = project_advect_density_3d(vel, dens, 20, DT, solve_dtype="bfloat16", damp=DAMP,
+                                    dens_damp=DDAMP, **kw)
+    ran_advect(before, kw.get("n_sub", 1), 0)
+    ref = project_advect_density_3d_plain(vel, dens, 20, DT, solve_dtype="bfloat16",
+                                          damp=DAMP, dens_damp=DDAMP, **kw)
+    assert_equal(got, ref, case)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("n_sub", [1, 2, 3])
+@pytest.mark.parametrize("n,lz", [(37, 9), (130, 32)])
+def test_tiled_k11_matches_twin(cuda, n, lz, n_sub, masked, dtype):
+    """K11 at K = 1 on each rank kind's slab (the global walls inside slabs
+    with zoff != 0), bitwise on every plane, erosion margin included."""
+    vel, dens = fields(n, 4300 + n + n_sub, cuda)
+    vel, dens = (vel * 0.3).to(dtype), dens.to(dtype)
+    obst = vortex_mask(n, cuda) if masked else None
+    h = ext_halo(1, n_sub, masked)
+    for rank, shard in RANKS.items():
+        v = ext_slab(vel, shard, lz, h)
+        m = None if obst is None else ext_slab(obst, shard, lz, h)
+        zoff = shard * lz - h
+        for bs, f in (((1, 2, 3), v), ((0,), ext_slab(dens[None], shard, lz, h))):
+            before = advect_counts()
+            got = advect_ext_kernel(bs, f, v, n, DT, zoff, 1, n_sub, m)
+            ran_advect(before, n_sub, 0)
+            ref = advect_ext_plain(bs, f, v, n, DT, zoff, 1, n_sub, m)
+            assert_equal([got], [ref], f"K11 F={len(bs)} {rank}")
+
+
+def test_advect_route_counter_by_window(cuda):
+    """K = 1 takes the tiled kernel, K = 2 the one-thread-a-cell kernel, in
+    K1, K11 and K2's density phase, a count a substep."""
+    n = 32
+    vel, dens = fields(n, 4400, cuda)
+    vel = vel * 0.2
+    for window, route in ((1, (2, 0)), (2, (0, 2))):
+        before = advect_counts()
+        advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, window=window, n_sub=2)
+        ran_advect(before, *route)
+        before = advect_counts()
+        advect_ext_kernel((0,), dens[None], vel, n, DT, 0, window, 2)
+        ran_advect(before, *route)
+        before = advect_counts()
+        project_advect_density_3d(vel, dens, 4, DT, window=window, n_sub=2)
+        ran_advect(before, *route)

@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Kernel times of the PyTorch port for two or more checkouts, alternated on
 one CUDA card: K6 (20 sweeps of the projection's solve at 256³ and 512³),
-K1 (bench128's self-advection with the buoyancy folded in), K8
+K1 (bench128's self-advection with the buoyancy folded in, and with the
+emitter on its density; vortex128's three substeps with its mask, F = 3 and
+1, float32 and bfloat16; multi256's two substeps, F = 3 and 1; 512³ with two
+substeps, F = 3 with the buoyancy and F = 1), K11 (two substeps on one
+shard's (F, 68, 512, 512) slab of sharded512 on 8 shards, F = 3 and 1), K8
 (bench128's whole step in one launch, 60 sweeps), K2 (bench128: 60
 bfloat16 sweeps and the density) and K3 (bench128 unfused, 60 bfloat16
 sweeps; vortex128, its mask and 20 bfloat16 sweeps; 60 float32 sweeps).
@@ -12,7 +16,8 @@ Each ROOT is the root of a checkout that holds ``fluidsim_tpu_torch/``.
 The checkouts run in the order A, B, ..., then the reverse (A, B, B, A for
 two), each in a fresh Python process that builds that checkout's kernels
 and times each kernel with CUDA events over 10 (K6) or 50 (the others) calls
-after two warm-up calls, on inputs made from one NumPy seed.  Prints the
+(5 for the 512³ calls) after two warm-up calls, on inputs made from one
+NumPy seed.  Prints the
 card's name and power limit, then one JSON line per process: the
 milliseconds a call by kernel.
 """
@@ -48,15 +53,17 @@ def child(root: str) -> None:
     import fluidsim_tpu_torch
     from fluidsim_tpu_torch.kernels import _build
     from fluidsim_tpu_torch.kernels.advect import advect_multi_3d_kernel
+    from fluidsim_tpu_torch.kernels.halo import advect_ext_kernel
     from fluidsim_tpu_torch.kernels.jacobi import jacobi_3d_kernel
     from fluidsim_tpu_torch.kernels.project import divergence_3d_plain
-    from fluidsim_tpu_torch.config import preset_vortex_128
+    from fluidsim_tpu_torch.config import preset_bench_128, preset_vortex_128
     from fluidsim_tpu_torch.kernels.resident import (
         full_step_3d,
         project_3d_resident,
         project_advect_density_3d,
     )
     from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
+    from fluidsim_tpu_torch.scene.sources import emitter_fold_operand
 
     if Path(fluidsim_tpu_torch.__file__).resolve().parent.parent != Path(root):
         raise SystemExit(f"imported {fluidsim_tpu_torch.__file__}, not from {root}")
@@ -77,15 +84,44 @@ def child(root: str) -> None:
     vel, dens = field(128, 3, scale=4.0), field(128).abs() * 20.0
     out["K1 128^3 buoyancy"] = cuda_ms(lambda: advect_multi_3d_kernel(
         (1, 2, 3), vel, vel, 0.0008, buoy=(dens, 1.0, 0.0, 0.0)), 50)
+    src = emitter_fold_operand(preset_bench_128(), torch.full((), 0.0008, device=dev))
+    out["K1 128^3 buoyancy + src"] = cuda_ms(lambda: advect_multi_3d_kernel(
+        (1, 2, 3), vel, vel, 0.0008, buoy=(dens, 1.0, 0.0, 0.0), src=src), 50)
+    vmask = torch.from_numpy(build_obstacle_mask(preset_vortex_128())).to(dev)
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, " bf16")):
+        v, d = vel.to(dtype), dens.to(dtype)
+        out[f"K1 vortex128 F=3{tag}"] = cuda_ms(lambda: advect_multi_3d_kernel(
+            (1, 2, 3), v, v, 0.03, obst=vmask, n_sub=3), 50)
+        out[f"K1 vortex128 F=1{tag}"] = cuda_ms(lambda: advect_multi_3d_kernel(
+            (0,), d[None], v, 0.03, obst=vmask, n_sub=3), 50)
+    mvel, mdens = field(256, 3, scale=4.0), field(256).abs() * 20.0
+    out["K1 multi256 F=3"] = cuda_ms(lambda: advect_multi_3d_kernel(
+        (1, 2, 3), mvel, mvel, 0.02, n_sub=2), 50)
+    out["K1 multi256 F=1"] = cuda_ms(lambda: advect_multi_3d_kernel(
+        (0,), mdens[None], mvel, 0.02, n_sub=2), 50)
+    del mvel, mdens
+    svel, sdens = field(512, 3, scale=4.0), field(512).abs() * 20.0
+    out["K1 512^3 F=3 buoyancy"] = cuda_ms(lambda: advect_multi_3d_kernel(
+        (1, 2, 3), svel, svel, 0.01, buoy=(sdens, 1.0, 0.0, 0.0), n_sub=2), 5)
+    out["K1 512^3 F=1"] = cuda_ms(lambda: advect_multi_3d_kernel(
+        (0,), sdens[None], svel, 0.01, n_sub=2), 5)
+    # Shard 3 of 8: its 64 planes between 2 of each neighbour's (h = K * n_sub).
+    ve = svel[:, 190:258].contiguous()
+    de = sdens[None, 190:258].contiguous()
+    del svel, sdens
+    out["K11 F=3 slab"] = cuda_ms(lambda: advect_ext_kernel(
+        (1, 2, 3), ve, ve, 512, 0.01, 190, 1, 2), 50)
+    out["K11 F=1 slab"] = cuda_ms(lambda: advect_ext_kernel(
+        (0,), de, ve, 512, 0.01, 190, 1, 2), 50)
+    del ve, de
     out["K8 128^3"] = cuda_ms(lambda: full_step_3d(vel, dens, 60, 0.0008, n_sub=1), 50)
     bf16 = "bfloat16"
     out["K2 bench128"] = cuda_ms(lambda: project_advect_density_3d(
         vel, dens, 60, 0.0008, solve_dtype=bf16), 50)
     out["K3 bench128"] = cuda_ms(lambda: project_3d_resident(vel, 60, solve_dtype=bf16), 50)
     out["K3 f32 solve 128^3"] = cuda_ms(lambda: project_3d_resident(vel, 60), 50)
-    mask = torch.from_numpy(build_obstacle_mask(preset_vortex_128())).to(dev)
     out["K3 vortex128"] = cuda_ms(lambda: project_3d_resident(
-        vel, 20, obst=mask, solve_dtype=bf16), 50)
+        vel, 20, obst=vmask, solve_dtype=bf16), 50)
     print(json.dumps({"root": root, "ms": out}), flush=True)
 
 

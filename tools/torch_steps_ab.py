@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Steps/s of the PyTorch port's bench128 and vortex128 paths for two or
-more checkouts, alternated on one CUDA card.
+"""Steps/s and device time a step of the PyTorch port's bench128,
+vortex128, multi256 and sharded512 paths (sharded512 unsharded through
+``Engine`` and on 8 shards of the card through ``sharded_step_fn`` with the
+rdma backend at T = 4) for two or more checkouts, alternated on one CUDA
+card.
 
 Run from anywhere:  python3 tools/torch_steps_ab.py ROOT_A ROOT_B [...]
 
 Each ROOT is the root of a checkout that holds ``fluidsim_tpu_torch/``.
 The checkouts run in the order A, B, ..., then the reverse (A, B, B, A for
 two), each in a fresh Python process that builds that checkout's kernels,
-steps each path through ``Engine(cfg, device="cuda")`` after 20 warm-up
-steps, and times five chunks of steps with CUDA events, then takes the
-device time of 20 more steps by kernel with ``torch.profiler``.  Both paths
-are partly bound by the host, so two checkouts are compared only within
-one run of this script.  Prints the card's name and power limit, then one
+steps each path after its warm-up steps, and times five chunks of steps
+with CUDA events, then takes the device time of more steps by kernel with
+``torch.profiler``.  The paths are partly bound by the host, so two
+checkouts are compared only within one run of this script.  Prints the card's name and power limit, then one
 JSON line per process: for each path the median and the chunks of steps/s,
 the device milliseconds per step and its five largest kernels.
 """
@@ -24,10 +26,31 @@ import subprocess
 import sys
 from pathlib import Path
 
-PATHS = (("bench128", "preset_bench_128", 200), ("vortex128", "preset_vortex_128", 50))
+# (path, preset, steps a chunk, warm-up and profiled steps, on 8 shards)
+PATHS = (("bench128", "preset_bench_128", 200, 20, False),
+         ("vortex128", "preset_vortex_128", 50, 20, False),
+         ("multi256", "preset_multi_emitter_256", 20, 10, False),
+         ("sharded512", "preset_sharded_512", 5, 5, False),
+         ("sharded512 8 shards rdma", "preset_sharded_512", 5, 5, True))
 CHUNKS = 5
-WARMUP = 20
-PROFILED_STEPS = 20
+
+
+class Sharded:
+    """sharded512's step on 8 shards of the card (the rdma backend, T = 4)
+    with ``Engine``'s ``step`` and ``state``."""
+
+    def __init__(self, cfg):
+        from fluidsim_tpu_torch.parallel import make_mesh, shard_state, sharded_step_fn
+        from fluidsim_tpu_torch.state import zeros_state
+
+        mesh = make_mesh(["cuda"] * 8)
+        self._step = sharded_step_fn(cfg, mesh, halo="explicit", halo_block_iters=4,
+                                     halo_backend="rdma")
+        self.state = shard_state(zeros_state(cfg, "cuda"), mesh)
+
+    def step(self, n: int = 1) -> None:
+        for _ in range(n):
+            self.state = self._step(self.state)
 
 
 def device_ms_per_step(eng, steps: int) -> dict:
@@ -59,9 +82,10 @@ def child(root: str) -> None:
     if Path(fluidsim_tpu_torch.__file__).resolve().parent.parent != Path(root):
         raise SystemExit(f"imported {fluidsim_tpu_torch.__file__}, not from {root}")
     out = {"root": root}
-    for name, preset, steps in PATHS:
-        eng = Engine(getattr(config, preset)(), device="cuda")
-        eng.step(WARMUP)
+    for name, preset, steps, warmup, sharded in PATHS:
+        cfg = getattr(config, preset)()
+        eng = Sharded(cfg) if sharded else Engine(cfg, device="cuda")
+        eng.step(warmup)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         rates = []
@@ -74,11 +98,13 @@ def child(root: str) -> None:
             rates.append(steps * 1e3 / start.elapsed_time(end))
         if not bool(torch.isfinite(eng.state.density).all()):
             raise SystemExit(f"{name}: non-finite density")
-        by_kernel = device_ms_per_step(eng, PROFILED_STEPS)
+        by_kernel = device_ms_per_step(eng, warmup)
         out[name] = {"steps_per_s_median": statistics.median(rates), "chunks": rates,
                      "device_ms_per_step": sum(by_kernel.values()),
                      "top_kernels_ms": dict(sorted(by_kernel.items(),
                                                    key=lambda kv: -kv[1])[:5])}
+        del eng
+        torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
 
 
