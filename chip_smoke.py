@@ -205,7 +205,18 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      bench128, vortex128, multi256 and sharded512 through ``Engine`` and
      sharded512 on 8 shards (rdma) through ``sharded_step_fn``, the counters
      at zero just before each: every K = 1 substep on the tiled route
-     (``kernels/advect.advect_launches``), none a cell a thread.
+     (``kernels/advect.advect_launches``), none a cell a thread;
+ 17. the Jacobi round of K6, K10 and K12 (``csrc/jacobi_pass.cuh``, T ≤ 4
+     sweeps and the faces in one launch, K12's edge pushes from the last
+     sweep), which phases 10, 12 and 13 already ran: K6 at 256³ and 512³ (20
+     sweeps, b = 0 and 3), K10 on sharded512's first, a middle and the last
+     slab and K12 on all eight at T = 4 (with a mask, and without) and 2,
+     each bitwise its twin, timed with CUDA events beside its bound with its
+     pass launches a call from ``torch.profiler`` (the round kernel alone);
+     then sharded512 on 8 shards (rdma, T = 4), multi256 and sharded512
+     through their entry points with the counters at zero: one launch a
+     round (40 a step on 8 shards, five for K6's 20 sweeps), no faces or
+     exchange-stage kernel.
 The line before last is a JSON object describing each kernel (with the
 least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -3056,8 +3067,6 @@ def main() -> None:
          rdma_launches[t]["K12"], ext_err[f"K12 T={t}"],
          # K10's bytes: the next extended slab is lz planes of the shard's own
          # and 2T pushed into the neighbours', so the pushes are inside them.
-         # This design's exchange stage reads its 2T edge planes back out of
-         # out and stores them again: 4T planes more than the bound.
          bound(3 * (hlz + 2 * t) * hplane * f32, t * (hlz + 2 * t) * hcells * JACOBI_OPS))
         for t in (4, 2)]
     # sharded512 launches K13 three times a shard and a step, once for each of
@@ -3100,6 +3109,9 @@ def main() -> None:
 
     # -- 16. K1 and K11 at K = 1 on tiles -----------------------------------------
     phase_advect_tiles(card, dev, counters_to_zero, library)
+
+    # -- 17. the Jacobi round of K6, K10 and K12 ----------------------------------
+    phase_jacobi_round(card, dev, counters_to_zero, counts)
 
     report = []
     for key, name, source, replaces, launches, err, (bound_ms, bound_by) in entries:
@@ -3919,6 +3931,174 @@ def phase_advect_tiles(card, dev, counters_to_zero, library):
     del st, start, step
     torch.cuda.empty_cache()
     say(f"# phase 16: {time.perf_counter() - t_phase:.1f} s")
+
+
+def round_kernels(fn, reps: int = 5):
+    """The kernels a call of ``fn()`` launched, by name, from ``reps`` calls
+    under ``torch.profiler`` (``profile_ms``; ``"round"``: the Jacobi
+    round), rounded: the profiler may miss an event at its window's edge."""
+    launches = {}
+    profile_ms(fn, reps=reps, launches=launches)
+    names = {}
+    for name, count in launches.items():
+        key = "round" if "jacobi_round_kernel" in name else name
+        names[key] = names.get(key, 0.0) + count
+    return {k: round(v) for k, v in names.items()}
+
+
+def phase_jacobi_round(card, dev, counters_to_zero, counts):
+    """Phase 17: the Jacobi round (csrc/jacobi_pass.cuh) that K6, K10 and K12
+    run: K6 at 256³ and 512³ (20 sweeps), K10 and K12 on sharded512's 8-shard
+    slabs at T = 4 and 2 (K10 on the first, a middle and the last shard,
+    K12 on all eight; masked once), each bitwise its twin, timed with CUDA
+    events beside its bound, its pass launches a call counted from
+    ``torch.profiler``'s kernel events (no other kernel may launch); then
+    sharded512 on 8 shards (rdma, T = 4) and multi256 through their entry
+    points with the counters at zero: exactly their rounds a step."""
+    import numpy as np
+    import torch
+
+    from fluidsim_tpu_torch.config import preset_multi_emitter_256, preset_sharded_512
+    from fluidsim_tpu_torch.engine import Engine
+    from fluidsim_tpu_torch.kernels.halo import (
+        NO_WALL,
+        jacobi_ext_kernel,
+        jacobi_ext_plain,
+        jacobi_ext_rdma,
+        jacobi_ext_rdma_plain,
+        rank_walls,
+    )
+    from fluidsim_tpu_torch.kernels.jacobi import jacobi_3d_kernel, jacobi_3d_plain, round_passes
+    from fluidsim_tpu_torch.ops.boundary import set_bnd_3d
+    from fluidsim_tpu_torch.parallel import make_mesh, shard_state, sharded_step_fn
+    from fluidsim_tpu_torch.state import zeros_state
+
+    t_phase = time.perf_counter()
+    say("# phase 17: the Jacobi round of K6, K10 and K12 (csrc/jacobi_pass.cuh)")
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 17)
+    f32 = 4
+    scfg = preset_sharded_512()
+    iters = scfg.jacobi_iters
+
+    def held(key, got, ref):
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            if not torch.equal(g, r):
+                fail(f"phase 17: {key} differs from its twin "
+                     f"(max abs diff {float((g - r).abs().max())!r})")
+
+    # Late in this process torch.profiler has been seen to record no device
+    # events on the H100; the launches a round are then held by the card
+    # tests (tests/test_torch_cuda.py::test_round_is_one_launch) and the
+    # wrappers' counters.
+    profiled = bool(round_kernels(lambda: torch.ones(1, device=dev) + 1, reps=1))
+    say(f"# torch.profiler records device events in this process: {profiled}")
+
+    def report(key, fn, reps, launches, nbytes, nops, calls=1):
+        """Times ``fn`` (``calls`` launches of the kernel a call), checks its
+        pass launches against the profile and prints them beside the bound."""
+        seen = round_kernels(fn, reps=3) if profiled else None
+        if seen is not None and seen != {"round": launches * calls}:
+            fail(f"phase 17: {key} launched {seen}, expected {launches * calls} rounds alone")
+        ms = cuda_ms(fn, reps=reps) / calls
+        bound_ms, by = bound(nbytes, nops)
+        say(f"{key}: {ms!r} ms a launch, {launches} pass launch(es) a call "
+            f"({'profiled' if seen else 'round_passes'}); bound {bound_ms!r} ms ({by}), "
+            f"{100 * bound_ms / ms:.1f}% of bound; bitwise the twin [{card}]")
+
+    # 17a. K6: 20 sweeps at 256^3 (multi256) and 512^3 (sharded512 unsharded),
+    # b = 0 from zero as the projection, and b = 3 from a face-consistent start.
+    for n in (256, 512):
+        x0 = smooth(n, rng, dev)
+        for b, x in ((0, torch.zeros_like(x0)), (3, set_bnd_3d(3, smooth(n, rng, dev)))):
+            held(f"K6 {n}^3 b={b}", [jacobi_3d_kernel(b, x, x0, 1.0, 6.0, iters)],
+                 [jacobi_3d_plain(b, x, x0, 1.0, 6.0, iters)])
+            if b == 0:
+                report(f"K6 {n}^3, {iters} sweeps", lambda: jacobi_3d_kernel(
+                    b, x, x0, 1.0, 6.0, iters), 10 if n == 256 else 5, round_passes(iters),
+                    3 * n ** 3 * f32, iters * n ** 3 * JACOBI_OPS)
+            del x
+        del x0
+        torch.cuda.empty_cache()
+
+    # 17b. K10 and K12 on sharded512's slabs: lz = 64 planes a shard between T
+    # of each neighbour's, T = 4 (72 planes) and 2 (68).
+    sn, shards = scfg.current_size, 8
+    lz = sn // shards
+    gx, gx0 = smooth(sn, rng, dev), smooth(sn, rng, dev)
+    gmask = smooth(sn, rng, dev) > 1.2
+
+    def slabs(v, t):
+        pad = torch.zeros_like(v[:t])
+        return [torch.cat([pad, v, pad]).narrow(0, r * lz, lz + 2 * t).contiguous()
+                for r in range(shards)]
+
+    for t in (4, 2):
+        xps, x0s = slabs(gx, t), slabs(gx0, t)
+        ms = slabs(gmask, t) if t == 4 else None
+        nz = lz + 2 * t
+        for r in (0, 3, 7):
+            args = (xps[r], x0s[r], 1.0, 6.0, t, *rank_walls(r, shards, t, lz), 0,
+                    None if ms is None else ms[r])
+            held(f"K10 T={t} shard {r}", [jacobi_ext_kernel(*args)], [jacobi_ext_plain(*args)])
+        held(f"K12 T={t}", jacobi_ext_rdma(xps, x0s, 1.0, 6.0, t, 0, ms),
+             jacobi_ext_rdma_plain(xps, x0s, 1.0, 6.0, t, 0, ms))
+        if ms is not None:  # and unmasked, as the step runs it
+            held(f"K12 T={t} no mask", jacobi_ext_rdma(xps, x0s, 1.0, 6.0, t),
+                 jacobi_ext_rdma_plain(xps, x0s, 1.0, 6.0, t))
+        slab_bytes, slab_ops = 3 * nz * sn * sn * f32, t * nz * sn * sn * JACOBI_OPS
+        report(f"K10 T={t} ({nz}, {sn}, {sn})", lambda: jacobi_ext_kernel(
+            xps[3], x0s[3], 1.0, 6.0, t, NO_WALL, NO_WALL), 50, round_passes(t), slab_bytes,
+            slab_ops)
+        report(f"K12 T={t} ({nz}, {sn}, {sn}) a shard", lambda: jacobi_ext_rdma(
+            xps, x0s, 1.0, 6.0, t), 10, round_passes(t), slab_bytes, slab_ops, calls=shards)
+        del xps, x0s, ms
+    del gx, gx0, gmask
+    torch.cuda.empty_cache()
+
+    # 17c. The paths: sharded512 on 8 shards (rdma, T = 4) and multi256 and
+    # sharded512 unsharded through Engine, the counters at zero just before.
+    step = sharded_step_fn(scfg, make_mesh(["cuda"] * shards), halo="explicit",
+                           halo_block_iters=4, halo_backend="rdma")
+    st = shard_state(zeros_state(scfg, dev), make_mesh(["cuda"] * shards))
+    st = step(st)
+    counters_to_zero()
+    kernels = round_kernels(lambda: step(st), reps=3) if profiled else {}
+    if not profiled:
+        for _ in range(3):
+            step(st)
+        torch.cuda.synchronize()
+    launched = {k: v / 3 for k, v in counts().items()}
+    rounds = shards * (iters // 4)
+    say(f"# sharded512 on 8 shards (rdma), 1 step: K12 {launched.get('K12')} launches, "
+        f"K13 {launched.get('K13')}, kernels {kernels}")
+    # The plane moves are K13's alone: K12 pushes its edges from its last sweep.
+    moves = sum(v for k, v in kernels.items() if "exchange_kernel" in k)
+    if launched.get("K12") != rounds or (profiled and (
+            kernels.get("round") != rounds or moves != launched.get("K13")
+            or any("faces_kernel" in k for k in kernels))):
+        fail("phase 17: the 8-shard rdma step did not run its rounds as one launch each")
+    del st, step
+    torch.cuda.empty_cache()
+    for cfg, name in ((preset_multi_emitter_256(), "multi256"), (scfg, "sharded512")):
+        eng = Engine(cfg, device="cuda")
+        eng.step(1)
+        counters_to_zero()
+        kernels = round_kernels(lambda: eng.step(1), reps=3) if profiled else {}
+        if not profiled:
+            eng.step(3)
+            torch.cuda.synchronize()
+        launched = {k: v / 3 for k, v in counts().items()}
+        say(f"# {name}, 1 step: K6 {launched['K6']} launch(es), kernels {kernels}")
+        if launched["K6"] != 1 or (profiled and (
+                kernels.get("round") != round_passes(cfg.jacobi_iters)
+                or any("faces_kernel" in k for k in kernels))):
+            fail(f"phase 17: {name} did not solve in {round_passes(cfg.jacobi_iters)} rounds")
+        check_state(eng.state, 4, cfg.current_size, f"{name} (phase 17)")
+        del eng
+        torch.cuda.empty_cache()
+    say(f"# phase 17: {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

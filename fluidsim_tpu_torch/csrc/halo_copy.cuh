@@ -1,7 +1,6 @@
 // The halo exchange of the explicit sharded step as plane moves on one
-// device, shared by K13 (halo_exchange.cu: build every shard's extended
-// arrays) and K12's exchange stage (jacobi_ext.cu: push a round's fresh edge
-// planes into the neighbours' next extended slabs).
+// device, K13's (halo_exchange.cu: build every shard's extended arrays; K12
+// pushes its edge planes from its own last sweep, jacobi_pass.cuh).
 //
 // A shard's extended array is (C, lz + 2h, n, n): its lz planes in the
 // middle, h planes of each neighbour's edge around them, zeros past the
@@ -72,13 +71,12 @@ __device__ __forceinline__ void move_plane(const unsigned char* src, unsigned ch
 }
 
 // The planes one shard moves, blockIdx.y (striding by gridDim.y) picking the
-// plane: per array and channel, with INTERIOR, lz planes of the middle, then
-// h planes pushed down (or zeroed below) and h pushed up (or zeroed above).
-template <bool INTERIOR>
+// plane: per array and channel, lz planes of the middle, then h planes
+// pushed down (or zeroed below) and h pushed up (or zeroed above).
 __global__ void __launch_bounds__(kMoveThreads)
     exchange_kernel(const __grid_constant__ Exchange e) {
   const int lz = e.lz, h = e.h;
-  const int per_channel = (INTERIOR ? lz : 0) + 2 * h;
+  const int per_channel = lz + 2 * h;
   const long long cells = static_cast<long long>(e.n) * e.n;
   long long total = 0;
   for (int j = 0; j < e.n_arrays; ++j) {
@@ -103,11 +101,11 @@ __global__ void __launch_bounds__(kMoveThreads)
     unsigned char* const hi = static_cast<unsigned char*>(a.out_hi);
     const unsigned char* from;
     unsigned char* to;
-    if (INTERIOR && i < lz) {
+    if (i < lz) {
       from = src + i * plane;
       to = own + (h + i) * plane;
     } else {
-      if (INTERIOR) i -= lz;
+      i -= lz;
       if (i < h) {  // my bottom plane i: the lower shard's top halo
         from = lo != nullptr ? src + i * plane : nullptr;
         to = lo != nullptr ? lo + cout + (lz + h + i) * plane : own + i * plane;
@@ -121,8 +119,7 @@ __global__ void __launch_bounds__(kMoveThreads)
   }
 }
 
-// Launches exchange_kernel<INTERIOR> for `e` on `s`.
-template <bool INTERIOR>
+// Launches exchange_kernel for `e` on `s`.
 cudaError_t launch_exchange(const Exchange& e, cudaStream_t s) {
   if (e.n_arrays < 1 || e.n_arrays > kMaxArrays || e.h < 0 || e.h > e.lz || e.n < 1) {
     return cudaErrorInvalidValue;
@@ -134,7 +131,7 @@ cudaError_t launch_exchange(const Exchange& e, cudaStream_t s) {
         (a.elem != 1 && a.elem != 2 && a.elem != 4)) {
       return cudaErrorInvalidValue;
     }
-    total += static_cast<long long>(a.channels) * ((INTERIOR ? e.lz : 0) + 2 * e.h);
+    total += static_cast<long long>(a.channels) * (e.lz + 2 * e.h);
     const long long bytes = static_cast<long long>(e.n) * e.n * a.elem;
     widest = bytes > widest ? bytes : widest;
   }
@@ -144,7 +141,7 @@ cudaError_t launch_exchange(const Exchange& e, cudaStream_t s) {
   const int gx = static_cast<int>((widest + per_block - 1) / per_block);
   const dim3 grid(gx < 1 ? 1 : (gx > 64 ? 64 : gx),
                   static_cast<unsigned>(total < 65535 ? total : 65535));
-  exchange_kernel<INTERIOR><<<grid, kMoveThreads, 0, s>>>(e);
+  exchange_kernel<<<grid, kMoveThreads, 0, s>>>(e);
   return cudaGetLastError();
 }
 

@@ -47,5 +47,5 @@ extern "C" int fs_halo_exchange(const fsk::HaloArray* arrays, int n_arrays, int 
   e.lz = lz;
   e.h = h;
   e.n = n;
-  return static_cast<int>(launch_exchange<true>(e, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_exchange(e, static_cast<cudaStream_t>(stream)));
 }

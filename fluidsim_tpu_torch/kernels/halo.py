@@ -13,7 +13,8 @@ remote DMAs; on one card the entry barrier is stream order).
   ``t_iters`` Jacobi sweeps ``(x0 + a·nbr)·coef`` on the ``(nz, n, n)`` slab,
   with open z edges and the global z walls at the run-time slab planes
   ``(wall_lo, wall_hi)`` (``NO_WALL`` for none), then the ``set_bnd`` faces.
-  The CUDA kernel is ``csrc/jacobi_ext.cu`` (K6's pass on a slab).
+  The CUDA kernel is ``csrc/jacobi_ext.cu`` (K6's round on a slab: a round
+  of ``t_iters ≤ 4`` sweeps and its faces in one launch).
 * K11, ``advect_ext_kernel`` (``advect_ext_pallas`` → ``_ext_advect_kernel``):
   K1's windowed substep advection of F fields on the ``(F, nz, n, n)`` slab
   whose plane 0 is global plane ``z_offset``.  The CUDA kernel is
@@ -30,9 +31,9 @@ kernels leave other values there (their windows wrap inside VMEM); no
 caller reads them.
 
 * K12, ``jacobi_ext_rdma`` (``jacobi_ext_rdma`` → ``_rdma_jacobi_kernel``):
-  one round over all shards, K10's sweeps and then the push of each shard's
-  fresh edge planes into its neighbours' next slabs.  The CUDA kernel is
-  ``fs_jacobi_ext_rdma`` in ``csrc/jacobi_ext.cu``.
+  one round over all shards, K10's sweeps with each shard's fresh edge
+  planes pushed into its neighbours' next slabs by the last sweep.  The CUDA
+  kernel is ``fs_jacobi_ext_rdma`` in ``csrc/jacobi_ext.cu``.
 * K13, ``halo_exchange_rdma`` (``halo_exchange_rdma`` →
   ``_halo_exchange_kernel``): every shard's extended arrays of one call,
   any element size.  The CUDA kernel is ``csrc/halo_exchange.cu``.
@@ -62,7 +63,7 @@ from .advect import (
     storage_flag,
     substep_dt0,
 )
-from .jacobi import solve_coefficients
+from .jacobi import ROUND_MAX_SWEEPS, check_offsets, solve_coefficients
 
 # "No wall on this side" for K10's wall positions: any value <= -2 (-1 would
 # put a corrected read at slab plane 0), as the TPU kernel's NO_WALL.
@@ -159,6 +160,8 @@ def jacobi_ext_kernel(xp, x0_ext, a: float, c: float, t_iters: int, wall_lo: int
     nz, n = xp.shape[0], xp.shape[-1]
     if n < 3 or xp.dim() != 3:
         raise ValueError(f"expected an (nz, n, n) slab with n >= 3, got {tuple(xp.shape)}")
+    if xp.device.type == "cuda":
+        check_offsets(nz, n)
     _check_volume("xp", xp, (nz, n, n))
     _check_volume("x0_ext", x0_ext, (nz, n, n))
     wall_lo = _check_wall("wall_lo", wall_lo, 0, nz - 2)
@@ -177,7 +180,7 @@ def jacobi_ext_kernel(xp, x0_ext, a: float, c: float, t_iters: int, wall_lo: int
 
     lib = _build.load_library()
     out = torch.empty_like(xp)
-    tmp = torch.empty_like(xp) if t_iters > 3 else None
+    tmp = torch.empty_like(xp) if t_iters > ROUND_MAX_SWEEPS else None
     a32, inv_c = solve_coefficients(a, c)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -243,6 +246,8 @@ def jacobi_ext_rdma(xps, x0_exts, a: float, c: float, t_iters: int, b: int = 0,
     if xps[0].dim() != 3 or n < 3 or lz < T:
         raise ValueError(f"expected (lz + 2T, n, n) slabs with lz >= T = {T} and n >= 3, "
                          f"got {tuple(xps[0].shape)}")
+    if xps[0].device.type == "cuda":
+        check_offsets(nz, n)
     _check_shards("xps", xps, (nz, n, n))
     _check_shards("x0_exts", x0_exts, (nz, n, n))
     tensors = list(x0_exts) + list(xps)
@@ -261,8 +266,8 @@ def jacobi_ext_rdma(xps, x0_exts, a: float, c: float, t_iters: int, b: int = 0,
     lib = _build.load_library()
     outs = [torch.empty_like(x) for x in xps]
     # Stream order keeps one shard's scratch from the next's.
-    tmp = torch.empty_like(xps[0]) if T > 3 else None
-    spare = torch.empty_like(xps[0]) if T > 6 else None
+    tmp = torch.empty_like(xps[0]) if T > ROUND_MAX_SWEEPS else None
+    spare = torch.empty_like(xps[0]) if T > 2 * ROUND_MAX_SWEEPS else None
     a32, inv_c = solve_coefficients(a, c)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream

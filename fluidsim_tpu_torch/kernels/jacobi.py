@@ -4,9 +4,10 @@ solve: their plain twins and their wrappers.
 Counterpart of ``fluidsim_tpu/pallas/jacobi.py`` (``jacobi_3d_pallas`` →
 ``_jacobi_kernel``), the general no-obstacle solve ``x ← (x0 + a·Σ₆x)·inv_c``
 with ``inv_c = f32(1)/f32(c)``, the ``set_bnd_3d(b)`` faces written once at
-the end.  The CUDA kernel is ``csrc/jacobi.cu``: three sweeps per launch
-out of shared memory, streamed along z, with corrected neighbour reads at
-the walls.
+the end.  The CUDA kernel is ``csrc/jacobi.cu``: up to four sweeps a launch
+(``csrc/jacobi_pass.cuh``), streamed along z with the z neighbours in
+registers, corrected neighbour reads at the walls, and the faces stored by
+the last launch's last sweep.
 ``jacobi_3d_plain`` is the same arithmetic in plain PyTorch: it writes the
 faces after every sweep instead, which gives every interior cell the same
 neighbour values as the corrected reads.  It serves CPU tensors and is the
@@ -51,6 +52,23 @@ def solve_coefficients(a: float, c: float):
     return float(np.float32(a)), float(np.float32(1.0) / np.float32(c))
 
 
+# Sweeps a launch of K6, K10 and K12 (``kMaxLevels`` in csrc/jacobi_pass.cuh).
+ROUND_MAX_SWEEPS = 4
+
+
+def round_passes(iters: int) -> int:
+    """The launches of a K6, K10 or K12 call of ``iters`` sweeps."""
+    return -(-int(iters) // ROUND_MAX_SWEEPS)
+
+
+def check_offsets(nz: int, n: int) -> None:
+    """Raise unless an ``(nz, n, n)`` volume fits the Jacobi round's 32-bit
+    offsets (``nz·n² < 2³¹``)."""
+    if nz * n * n >= 2 ** 31:
+        raise ValueError(f"({nz}, {n}, {n}) has nz*n^2 >= 2^31 cells: the kernel's offsets "
+                         "are 32-bit")
+
+
 def jacobi_3d_plain(b: int, x, x0, a: float, c: float, iters: int):
     """Plain PyTorch twin of the K6 kernel: ``iters`` sweeps of
     ``(x0 + a·nbr)·inv_c`` on the interior of the float32 ``(N, N, N)``
@@ -82,6 +100,8 @@ def jacobi_3d_kernel(b: int, x, x0, a: float, c: float, iters: int):
     n = x.shape[-1]
     if n < 3:
         raise ValueError(f"grid too small: {n}")
+    if x.device.type == "cuda":
+        check_offsets(n, n)
     _check_volume("x", x, (n, n, n))
     _check_volume("x0", x0, (n, n, n))
     if x0.device != x.device:
@@ -94,12 +114,12 @@ def jacobi_3d_kernel(b: int, x, x0, a: float, c: float, iters: int):
 
     lib = _build.load_library()
     out = torch.empty_like(x)
-    tmp = torch.empty_like(x)
+    tmp = torch.empty_like(x) if iters > ROUND_MAX_SWEEPS else None
     a32, inv_c = solve_coefficients(a, c)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_jacobi(
-            x.data_ptr(), x0.data_ptr(), out.data_ptr(), tmp.data_ptr(), n,
+            x.data_ptr(), x0.data_ptr(), out.data_ptr(), _ptr(tmp), n,
             int(b), a32, inv_c, int(iters), stream,
         )
     _build.check(lib, err, "Jacobi kernel launch")

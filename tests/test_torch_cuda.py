@@ -234,10 +234,10 @@ def test_vortex128_kernel_path_matches_twin_path(cuda):
 @pytest.mark.parametrize("iters", [2, 4, 5, 20])
 @pytest.mark.parametrize("n", [37, 64, 96])
 def test_k6_matches_twin(cuda, n, iters):
-    """The grids cut into several 26 x 26 x-y tiles per axis, the last one
-    partial, and 96 into two z-ranges; at three sweeps a launch, 2 sweeps
-    are one partial pass and 4, 5 and 20 end with a partial pass of one or
-    two sweeps."""
+    """The grids cut into 56 x (48 - 2T) x-y tiles, the last one partial, and
+    into several z-ranges (as many as fill the card); at up to four sweeps
+    a launch, 2 and 4 sweeps are one pass, 5 two (three and two) and 20
+    five."""
     vel, _ = fields(n, 500 + n, cuda)
     x, x0 = vel[0], vel[1]
     for b, a, c in ((0, 1.0, 6.0), (1, 1.0, 6.0), (2, 1.0, 6.0), (3, 0.13, 1.0 + 6 * 0.13)):
@@ -1096,9 +1096,8 @@ def shard_slabs(v, shards, h):
 def test_k12_matches_twin(cuda, t, b, masked):
     """Two chained rounds on 4 shards of a 40³ grid (10 planes a shard):
     every rank kind, bitwise on every plane of every shard's next slab, and
-    the kept planes bitwise K10's.  T = 4 runs two passes (through the
-    scratch, then into the output), T = 7 three (through the scratch and
-    the spare)."""
+    the kept planes bitwise K10's.  T <= 4 is one pass, T = 7 two (four
+    sweeps into the scratch, then three into the output)."""
     n, shards, lz = 40, 4, 10
     vel, _ = fields(n, 2800 + t + b, cuda)
     obst = vortex_mask(n, cuda) if masked else None
@@ -1489,3 +1488,132 @@ def test_advect_route_counter_by_window(cuda):
         before = advect_counts()
         project_advect_density_3d(vel, dens, 4, DT, window=window, n_sub=2)
         ran_advect(before, *route)
+
+
+# -- the Jacobi round of K6, K10 and K12 (csrc/jacobi_pass.cuh) -------------------
+
+ROUND_N = [3, 5, 33, 130, 256]
+
+
+def round_launches(fn):
+    """The kernels ``fn()`` launched, by name, from ``torch.profiler``'s
+    kernel events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            key = "round" if "jacobi_round_kernel" in evt.name else evt.name
+            names[key] = names.get(key, 0) + 1
+    return names
+
+
+@pytest.mark.parametrize("iters", [1, 2, 3, 4, 5, 6, 7, 8, 9, 20])
+@pytest.mark.parametrize("n", ROUND_N)
+def test_round_k6_matches_twin(cuda, n, iters):
+    """K6 at every sweep count up to two and a bit passes and at the
+    projection's 20 (five passes of four), b = 0 and 3, bitwise."""
+    vel, _ = fields(n, 4500 + n + iters, cuda)
+    for b, a, c in ((0, 1.0, 6.0), (3, 0.13, 1.0 + 6 * 0.13)):
+        got = jacobi_3d_kernel(b, vel[0], vel[1], a, c, iters)
+        ref = jacobi_3d_plain(b, vel[0], vel[1], a, c, iters)
+        assert_equal([got], [ref], f"K6 n={n} iters={iters} b={b}")
+
+
+# n, lz: the slabs' z-chunks (launch_round's, on 132 SMs) run from one (n = 3)
+# through two to four (n = 33, 256) to ten and more (n = 5, 130: few x-y tiles,
+# chunks of 8 planes or more).
+ROUND_SLABS = [(3, 6), (5, 160), (33, 20), (130, 80), (256, 16)]
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("t", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("n,lz", ROUND_SLABS)
+def test_round_k10_matches_twin(cuda, n, lz, t, masked):
+    """K10 on (lz + 2T, n, n) slabs cut into one or several z-chunks, every
+    rank kind's walls, b = 0 (with the mask) and b = 1..3, bitwise."""
+    nz = lz + 2 * t
+    rng = np.random.default_rng(4600 + n + lz + t)
+    x = torch.from_numpy(rng.standard_normal((nz, n, n)).astype(np.float32)).to(cuda)
+    x0 = torch.from_numpy(rng.standard_normal((nz, n, n)).astype(np.float32)).to(cuda)
+    m = torch.from_numpy(rng.random((nz, n, n)) < 0.2).to(cuda) if masked else None
+    cases = ((0, t, t + lz - 1), (1, t, NO_WALL), (2, NO_WALL, t + lz - 1),
+             (3, NO_WALL, NO_WALL))
+    for b, wall_lo, wall_hi in cases[:1] if masked else cases:
+        args = (x, x0, 1.0, 6.0, t, wall_lo, wall_hi, b, m)
+        assert_equal([jacobi_ext_kernel(*args)], [jacobi_ext_plain(*args)],
+                     f"K10 n={n} nz={nz} T={t} b={b}")
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("t", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("n,shards,lz", [(3, 2, 8), (5, 3, 160), (33, 4, 10), (130, 2, 70),
+                                          (256, 2, 16)])
+def test_round_k12_pushes_match_twin(cuda, n, shards, lz, t, masked):
+    """One K12 round on every shard: each shard's halos are written only by
+    its neighbours' folded pushes (or zeroed at a global end), each output
+    starting as NaN so an unwritten cell shows; bitwise the twin on every
+    plane, the kept planes bitwise K10's."""
+    nz = lz + 2 * t
+    rng = np.random.default_rng(4700 + n + lz + t)
+    xps = [torch.from_numpy(rng.standard_normal((nz, n, n)).astype(np.float32)).to(cuda)
+           for _ in range(shards)]
+    x0s = [torch.from_numpy(rng.standard_normal((nz, n, n)).astype(np.float32)).to(cuda)
+           for _ in range(shards)]
+    ms = ([torch.from_numpy(rng.random((nz, n, n)) < 0.2).to(cuda) for _ in range(shards)]
+          if masked else None)
+    orig_empty_like = torch.empty_like
+
+    def poisoned(v, *args, **kw):
+        return orig_empty_like(v, *args, **kw).fill_(float("nan"))
+
+    torch.empty_like = poisoned
+    try:
+        got = jacobi_ext_rdma(xps, x0s, 1.0, 6.0, t, 0, ms)
+    finally:
+        torch.empty_like = orig_empty_like
+    ref = jacobi_ext_rdma_plain(xps, x0s, 1.0, 6.0, t, 0, ms)
+    assert_equal(got, ref, f"K12 n={n} T={t}")
+    for r in range(shards):
+        walls = (t if r == 0 else NO_WALL, t + lz - 1 if r == shards - 1 else NO_WALL)
+        k10 = jacobi_ext_kernel(xps[r], x0s[r], 1.0, 6.0, t, *walls, 0,
+                                None if ms is None else ms[r])
+        assert_equal([got[r][t:t + lz]], [k10[t:t + lz]], f"K12 vs K10 shard {r}")
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 4])
+def test_round_is_one_launch(cuda, t):
+    """A K10 round at T <= 4 is one launch and nothing else; a K12 round one
+    launch a shard, no faces or exchange launch; K6's 20 sweeps five."""
+    n, lz, shards = 64, 16, 4
+    vel, _ = fields(n, 4800 + t, cuda)
+    x, x0 = ext_slab(vel[0], 1, lz, t), ext_slab(vel[1], 1, lz, t)
+    assert round_launches(lambda: jacobi_ext_kernel(x, x0, 1.0, 6.0, t, NO_WALL,
+                                                    NO_WALL)) == {"round": 1}
+    xps, x0s = shard_slabs(vel[0], shards, t), shard_slabs(vel[1], shards, t)
+    assert round_launches(lambda: jacobi_ext_rdma(xps, x0s, 1.0, 6.0, t)) == {"round": shards}
+    assert round_launches(lambda: jacobi_3d_kernel(0, vel[0], vel[1], 1.0, 6.0, 20)) == {
+        "round": 5}
+    assert round_launches(lambda: jacobi_3d_kernel(0, vel[0], vel[1], 1.0, 6.0, t)) == {
+        "round": 1}
+
+
+def test_round_wrappers_raise_past_32_bit_offsets(cuda):
+    """nz·n² ≥ 2³¹ cells: K6, K10 and K12 raise before any launch (views of
+    one value stand in for the 8 GiB volumes)."""
+    one = torch.zeros(1, device=cuda)
+    big = one.expand(1291, 1291, 1291)  # 1291³ > 2³¹
+    with pytest.raises(ValueError, match="32-bit"):
+        jacobi_3d_kernel(0, big, big, 1.0, 6.0, 4)
+    slab = one.expand(2 ** 31 // (2048 * 2048), 2048, 2048)  # exactly 2³¹ cells
+    with pytest.raises(ValueError, match="32-bit"):
+        jacobi_ext_kernel(slab, slab, 1.0, 6.0, 2, NO_WALL, NO_WALL)
+    with pytest.raises(ValueError, match="32-bit"):
+        jacobi_ext_rdma([slab, slab], [slab, slab], 1.0, 6.0, 2)
+    fits = one.expand(511, 2048, 2048)  # below 2³¹: the next check speaks
+    with pytest.raises(ValueError, match="contiguous"):
+        jacobi_ext_kernel(fits, fits, 1.0, 6.0, 2, NO_WALL, NO_WALL)

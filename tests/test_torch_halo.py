@@ -63,18 +63,18 @@ def mask32():
     return build_obstacle_mask(preset_vortex_128().replace(size=N))
 
 
-def port_solve(x, x0, shards, **kw):
+def port_solve(x, x0, shards, iters=4, **kw):
     obst = kw.pop("obst", None)
-    return jacobi_3d_sharded(torch.from_numpy(x), torch.from_numpy(x0), 1.0, 6.0, 4,
+    return jacobi_3d_sharded(torch.from_numpy(x), torch.from_numpy(x0), 1.0, 6.0, iters,
                              make_mesh(["cpu"] * shards),
                              obst=None if obst is None else torch.from_numpy(obst),
                              **kw).numpy()
 
 
-def jax_solve(x, x0, shards, **kw):
+def jax_solve(x, x0, shards, iters=4, **kw):
     obst = kw.pop("obst", None)
     return np.asarray(j_jacobi_sharded(
-        jnp.asarray(x), jnp.asarray(x0), 1.0, 6.0, 4, j_make_mesh(jax.devices()[:shards]),
+        jnp.asarray(x), jnp.asarray(x0), 1.0, 6.0, iters, j_make_mesh(jax.devices()[:shards]),
         obst=None if obst is None else jnp.asarray(obst), **kw))
 
 
@@ -138,18 +138,24 @@ def test_xla_backend_with_mask_matches_jax(t):
 
 # -- the sharded solve, K10 ----------------------------------------------------------
 
-@pytest.mark.parametrize("b,masked", [(0, False), (3, False), (0, True)])
-def test_kernel_backend_matches_jax_interpret(b, masked):
-    """K10's twin per shard, 4 shards of 8 planes, 4 sweeps at T = 2 (two
-    rounds on the persistent extended buffer), against the JAX Pallas kernel
-    in interpret mode."""
+@pytest.mark.parametrize("b,masked,t", [
+    pytest.param(0, False, 2, id="0-False"),
+    pytest.param(3, False, 2, id="3-False"),
+    pytest.param(0, True, 2, id="0-True"),
+    pytest.param(1, False, 3, id="1-False-T3"),
+    pytest.param(0, True, 4, id="0-True-T4"),
+])
+def test_kernel_backend_matches_jax_interpret(b, masked, t):
+    """K10's twin per shard, 4 shards of 8 planes, two rounds of T sweeps on
+    the persistent extended buffer (T = 2, 3 and 4: one launch a round of
+    K10 on the card), against the JAX Pallas kernel in interpret mode."""
     x, x0 = solve_inputs(b, 120 + b + masked)
     obst = mask32() if masked else None
     if masked:
         x = np.where(obst, 0.0, x).astype(np.float32)  # the solve's zero in solids
-    got = port_solve(x, x0, 4, b=b, block_iters=2, backend="pallas", obst=obst)
-    ref = jax_solve(x, x0, 4, b=b, block_iters=2, backend="pallas", interpret=True,
-                    obst=obst)
+    got = port_solve(x, x0, 4, iters=2 * t, b=b, block_iters=t, backend="pallas", obst=obst)
+    ref = jax_solve(x, x0, 4, iters=2 * t, b=b, block_iters=t, backend="pallas",
+                    interpret=True, obst=obst)
     np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-6)
 
 

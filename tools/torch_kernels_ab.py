@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Kernel times of the PyTorch port for two or more checkouts, alternated on
 one CUDA card: K6 (20 sweeps of the projection's solve at 256³ and 512³),
-K1 (bench128's self-advection with the buoyancy folded in, and with the
-emitter on its density; vortex128's three substeps with its mask, F = 3 and
-1, float32 and bfloat16; multi256's two substeps, F = 3 and 1; 512³ with two
-substeps, F = 3 with the buoyancy and F = 1), K11 (two substeps on one
+K10 (a round on shard 3's slab of sharded512 on 8 shards: (72, 512, 512) at
+T = 4, (68, 512, 512) at T = 2), K12 (an 8-shard round of those slabs:
+eight launches), K1 (bench128's self-advection with the buoyancy folded in,
+and with the emitter on its density; vortex128's three substeps with its
+mask, F = 3 and 1, float32 and bfloat16; multi256's two substeps, F = 3 and
+1; 512³ with two substeps, F = 3 with the buoyancy and F = 1), K11 (two substeps on one
 shard's (F, 68, 512, 512) slab of sharded512 on 8 shards, F = 3 and 1), K8
 (bench128's whole step in one launch, 60 sweeps), K2 (bench128: 60
 bfloat16 sweeps and the density) and K3 (bench128 unfused, 60 bfloat16
@@ -15,11 +17,10 @@ Run from anywhere:  python3 tools/torch_kernels_ab.py ROOT_A ROOT_B [...]
 Each ROOT is the root of a checkout that holds ``fluidsim_tpu_torch/``.
 The checkouts run in the order A, B, ..., then the reverse (A, B, B, A for
 two), each in a fresh Python process that builds that checkout's kernels
-and times each kernel with CUDA events over 10 (K6) or 50 (the others) calls
-(5 for the 512³ calls) after two warm-up calls, on inputs made from one
-NumPy seed.  Prints the
-card's name and power limit, then one JSON line per process: the
-milliseconds a call by kernel.
+and times each kernel with CUDA events over 10 (K6, K12) or 50 (the others)
+calls (5 for the 512³ calls) after two warm-up calls, on inputs made from one
+NumPy seed.  Prints the card's name and power limit, then one JSON line per
+process: the milliseconds a call by kernel.
 """
 
 from __future__ import annotations
@@ -53,7 +54,12 @@ def child(root: str) -> None:
     import fluidsim_tpu_torch
     from fluidsim_tpu_torch.kernels import _build
     from fluidsim_tpu_torch.kernels.advect import advect_multi_3d_kernel
-    from fluidsim_tpu_torch.kernels.halo import advect_ext_kernel
+    from fluidsim_tpu_torch.kernels.halo import (
+        NO_WALL,
+        advect_ext_kernel,
+        jacobi_ext_kernel,
+        jacobi_ext_rdma,
+    )
     from fluidsim_tpu_torch.kernels.jacobi import jacobi_3d_kernel
     from fluidsim_tpu_torch.kernels.project import divergence_3d_plain
     from fluidsim_tpu_torch.config import preset_bench_128, preset_vortex_128
@@ -80,6 +86,19 @@ def child(root: str) -> None:
         div = divergence_3d_plain(field(n, 3, scale=0.5))
         zero = torch.zeros_like(div)
         out[f"K6 {n}^3"] = cuda_ms(lambda: jacobi_3d_kernel(0, zero, div, 1.0, 6.0, 20), 10)
+        if n == 512:
+            for t in (4, 2):
+                # Every shard's (64 + 2T)-plane slab, zeros past the global ends.
+                pad = torch.zeros_like(div[:t])
+                ext = [torch.cat([pad, v, pad]).narrow(0, r * 64, 64 + 2 * t).contiguous()
+                       for v in (zero + 0.25 * div, div) for r in range(8)]
+                xps, x0s = ext[:8], ext[8:]
+                nz = xps[0].shape[0]
+                out[f"K10 T={t} ({nz}, 512, 512)"] = cuda_ms(lambda: jacobi_ext_kernel(
+                    xps[3], x0s[3], 1.0, 6.0, t, NO_WALL, NO_WALL), 50)
+                out[f"K12 T={t} an 8-shard round"] = cuda_ms(
+                    lambda: jacobi_ext_rdma(xps, x0s, 1.0, 6.0, t), 10)
+                del ext, xps, x0s, pad
         del div, zero
     vel, dens = field(128, 3, scale=4.0), field(128).abs() * 20.0
     out["K1 128^3 buoyancy"] = cuda_ms(lambda: advect_multi_3d_kernel(
