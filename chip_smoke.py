@@ -102,7 +102,7 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      multi256 and each kernel beside its twin, with CUDA events after
      warm-up, K8 beside K1 + K2 and K2o beside K3 + K1 on the same inputs,
      K3 (float32 and bfloat16) beside the slab route from 128³ to 256³, K4
-     per sweep, K9 a solve and a sweep (and on one block beside the 8-block
+     per sweep, K9 a solve and a sweep (and on one block beside the 16-block
      cluster), and break a step of each path down by
      device time with ``torch.profiler`` (for scene_a and scene_b with the
      host-idle share); time each kernel of phase 9d beside its twin and the
@@ -216,7 +216,23 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      then sharded512 on 8 shards (rdma, T = 4), multi256 and sharded512
      through their entry points with the counters at zero: one launch a
      round (40 a step on 8 shards, five for K6's 20 sweeps), no faces or
-     exchange-stage kernel.
+     exchange-stage kernel;
+ 18. K8 and K14 on the tiled solve (``csrc/full_step.cuh``'s tiled route:
+     the tiled solve's tiles, no grid barrier inside the solve) and K9 on
+     strips in the cluster's distributed shared memory
+     (``csrc/resident2d.cu``), which every earlier phase already ran, in a
+     process of its own (``--phase-18``), whose torch.profiler records the
+     card's events: K8 on bench128 (float32 and bfloat16 fields, one and two
+     substeps) and plume64 (K = 3, 20 float32 sweeps) and K14 at 128³, each
+     on both routes (the grid-stride one where no tiling is taken), bitwise
+     its twin and K1 → K2 (K1 → K3), one launch on the route's counter
+     (``resident.full_step_launches``, ``advect_project_launches``), timed in
+     turns beside the composition; K9 (scene_a's airfoil at 192², scene_b's
+     circle at 128², a smoothing and a fixed-rhs solve) on both routes
+     (strips, L2) bitwise its twin, timed in turns, beside the floor (a
+     launch of 20 cluster barriers alone); bench128 with ``fuse_full_step``'s
+     options and scene_a through ``Engine`` on each route (the counters
+     show it), steps/s and device ms a step in turns.
 The line before last is a JSON object describing each kernel (with the
 least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -706,8 +722,11 @@ def main() -> None:
         "K8": (k8, k8_plain),
         "K8 n_sub=2": (lambda: k8(n_sub=2), lambda: k8_plain(n_sub=2)),
     }
-    say(f"# K8 grid: {full_step_blocks(solve)} blocks of 256 threads (bf16 solve), "
-        f"{full_step_blocks(None)} (float32 solve), {torch.cuda.get_device_properties(dev).multi_processor_count} SMs")
+    say(f"# K8 grid: the tiled route {full_step_blocks(solve, n=n, iters=cfg.jacobi_iters)} "
+        f"blocks (bf16 solve), {full_step_blocks(None, n=n, iters=cfg.jacobi_iters)} (float32 "
+        f"solve); the grid-stride route {full_step_blocks(solve)} blocks of 256 threads (bf16 "
+        f"solve), {full_step_blocks(None)} (float32 solve); "
+        f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs")
     fused_err = {}
     for key, (fn, plain) in fused_fns.items():
         got, ref = fn(), plain()
@@ -1866,7 +1885,7 @@ def main() -> None:
         k9_sweep[what] = (many - one) / 60 * 1e3
         say(f"K9 per sweep at {m}^2 ({what}'s mask): {k9_sweep[what]!r} us (1 sweep {one!r} "
             f"ms, 61 sweeps {many!r} ms) [{card}]")
-        # The one-block form (the simplest barrier) beside the 8-block cluster.
+        # The one-block form (the simplest barrier) beside the step's cluster.
         one1 = cuda_ms(lambda: lin_solve_2d_resident(1, x9, x9, a9, c9, mask, 1, smooth=True,
                                                      blocks=1), reps=100)
         many1 = cuda_ms(lambda: lin_solve_2d_resident(1, x9, x9, a9, c9, mask, 61, smooth=True,
@@ -2077,7 +2096,7 @@ def main() -> None:
                + n_solid * 3 * MIRROR_OPS
                + n_sub * fluid * (FRAC_OPS + RELU_OPS + COMB_OPS) + interior)),
         ("K8", "K8 full_step_3d (self-advection + projection + density advection in one "
-               "cooperative launch; bench128 + fuse_self_advect)",
+               "cooperative launch on the tiled solve's tiles; bench128 + fuse_self_advect)",
          "fluidsim_tpu_torch/csrc/full_step.cu", "fluidsim_tpu/pallas/resident.py:1531",
          k8_launches["K8"], fused_err["K8"],
          bound(9 * vol * f32, interior * (k1_ops + k2_ops))),
@@ -2142,12 +2161,13 @@ def main() -> None:
             ("scene_b", bn, bmask, scene_b_launches["K9"], scene_b_smooth)):
         entries += [
             ("K9 " + what + " smoothing",
-             f"K9 lin_solve_2d_resident (smoothing, 20 sweeps, timed on {what}'s viscous "
-             f"diffusion b=1; launches: the path's smoothing solves, {m}^2)",
+             f"K9 lin_solve_2d_resident (strips route, smoothing, 20 sweeps, timed on "
+             f"{what}'s viscous diffusion b=1; launches: the path's smoothing solves, {m}^2)",
              "fluidsim_tpu_torch/csrc/resident2d.cu", "fluidsim_tpu/pallas/resident2d.py:77",
              smooth_launches, k9_err[what], k9_bound(m, mask, 1, 20, True)),
             ("K9 " + what + " fixed-rhs",
-             f"K9 lin_solve_2d_resident (fixed rhs, 20 sweeps, timed on {what}'s pressure b=0, "
+             f"K9 lin_solve_2d_resident (strips route, fixed rhs, 20 sweeps, timed on {what}'s "
+             f"pressure b=0, "
              f"a=1, c=6; launches: the path's fixed-rhs solves, diffusion's and pressure's, "
              f"{m}^2)", "fluidsim_tpu_torch/csrc/resident2d.cu",
              "fluidsim_tpu/pallas/resident2d.py:77", launches - smooth_launches, k9_err[what],
@@ -2468,8 +2488,8 @@ def main() -> None:
         k5_row("K5 K4 T4", f"K5 in K4 jacobi_3d_resident (sweep_block=4, float32, {iters} "
                "sweeps, b=0; one direct call: no Engine path passes K4 a sweep block)",
                solve_at, direct_launches["K4"], 3 * vol * f32, 0),
-        ("K14", f"K14 advect_project_3d_resident (K=1, n_sub=1, {iters} float32 sweeps; one "
-                "direct call: no Engine path, as in the JAX package)",
+        ("K14", f"K14 advect_project_3d_resident (K=1, n_sub=1, {iters} float32 sweeps on the "
+                "tiled solve's tiles; one direct call: no Engine path, as in the JAX package)",
          "fluidsim_tpu_torch/csrc/full_step.cu", "fluidsim_tpu/pallas/resident.py:915",
          direct_launches["K14"], k5_err["K14"],
          bound(7 * vol * f32, interior * (FRAC_OPS + RELU_OPS + 3 * COMB_OPS + DIV_OPS
@@ -3112,6 +3132,14 @@ def main() -> None:
 
     # -- 17. the Jacobi round of K6, K10 and K12 ----------------------------------
     phase_jacobi_round(card, dev, counters_to_zero, counts)
+
+    # -- 18. K8 and K14 on the tiled solve, K9 on strips --------------------------
+    # In a process of its own: late in this one torch.profiler records no
+    # device events.
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase-18"],
+                           cwd=ROOT, timeout=900)
+    if child.returncode != 0:
+        fail(f"phase 18 failed (exit code {child.returncode})")
 
     report = []
     for key, name, source, replaces, launches, err, (bound_ms, bound_by) in entries:
@@ -4101,5 +4129,248 @@ def phase_jacobi_round(card, dev, counters_to_zero, counts):
     say(f"# phase 17: {time.perf_counter() - t_phase:.1f} s")
 
 
+FUSED_REPS = 20
+K9_REPS = 200
+
+
+def phase_step_and_2d_tiles(card, dev):
+    """Phase 18, in a process of its own (``--phase-18``), whose
+    torch.profiler records the card's events: K8 and K14 on the tiled solve
+    (csrc/full_step.cuh's tiled route) and K9 on strips in the cluster's
+    distributed shared memory (csrc/resident2d.cu), each on both of its
+    routes, bitwise its twin and its composition, timed in turns with CUDA
+    events; the floor of a K9 launch; bench128 with ``fuse_full_step``'s
+    options and scene_a through ``Engine`` on both routes in turns."""
+    import numpy as np
+    import torch
+
+    from fluidsim_tpu_torch.config import (
+        preset_bench_128,
+        preset_plume_64,
+        preset_scene_a,
+        preset_scene_b,
+    )
+    from fluidsim_tpu_torch.engine import Engine
+    from fluidsim_tpu_torch.kernels import _build
+    from fluidsim_tpu_torch.kernels import resident as kres
+    from fluidsim_tpu_torch.kernels import resident2d as k2d
+    from fluidsim_tpu_torch.kernels.advect import advect_multi_3d_kernel
+    from fluidsim_tpu_torch.models.stable3d import sink_factor
+    from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
+
+    t_phase = time.perf_counter()
+    _build.load_library()
+    say("# phase 18: K8 and K14 on the tiled solve, K9 on strips in distributed shared memory")
+    rng = np.random.default_rng(SEED + 18)
+    bf = torch.bfloat16
+    bcfg, pcfg = preset_bench_128(), preset_plume_64()
+    bn, pn = bcfg.current_size, pcfg.current_size
+    bdt, pdt = bcfg.effective_params()[0], pcfg.effective_params()[0]
+    bk = dict(solve_dtype=bcfg.solve_dtype, damp=sink_factor(bdt, bcfg.velocity_damping),
+              dens_damp=sink_factor(bdt, bcfg.density_dissipation))
+    bvel, bdens = velocity_field(bn, rng, dev, 4.0), density_field(bn, rng, dev)
+    pvel, pdens = velocity_field(pn, rng, dev, 30.0 / (pn - 2)), density_field(pn, rng, dev)
+    b_it, p_it = bcfg.jacobi_iters, pcfg.jacobi_iters
+    k8, k8p = kres.full_step_3d, kres.full_step_3d_plain
+    k2 = kres.project_advect_density_3d
+
+    def k1(vel, dt, **kw):
+        return advect_multi_3d_kernel((1, 2, 3), vel, vel, dt, **kw)
+
+    bvb, bdb = bvel.to(bf), bdens.to(bf)
+    # key: (kernel call, its twin, its composition (each with the sweeps),
+    # the preset's sweeps, route counter)
+    cases = {
+        "K8 bench128": (
+            lambda it: k8(bvel, bdens, it, bdt, **bk),
+            lambda it: k8p(bvel, bdens, it, bdt, **bk),
+            lambda it: k2(k1(bvel, bdt), bdens, it, bdt, **bk), b_it, kres.full_step_launches),
+        "K8 bench128 bf16 fields": (
+            lambda it: k8(bvb, bdb, it, bdt, **bk),
+            lambda it: k8p(bvb, bdb, it, bdt, **bk),
+            lambda it: k2(k1(bvb, bdt), bdb, it, bdt, **bk), b_it, kres.full_step_launches),
+        "K8 bench128 n_sub=2": (
+            lambda it: k8(bvel, bdens, it, bdt, n_sub=2, **bk),
+            lambda it: k8p(bvel, bdens, it, bdt, n_sub=2, **bk),
+            lambda it: k2(k1(bvel, bdt, n_sub=2), bdens, it, bdt, n_sub=2, **bk), b_it,
+            kres.full_step_launches),
+        "K8 plume64 K=3": (
+            lambda it: k8(pvel, pdens, it, pdt, window=3),
+            lambda it: k8p(pvel, pdens, it, pdt, window=3),
+            lambda it: k2(k1(pvel, pdt, window=3), pdens, it, pdt, window=3), p_it,
+            kres.full_step_launches),
+        "K14 128^3": (
+            lambda it: kres.advect_project_3d_resident(bvel, it, bdt),
+            lambda it: kres.advect_project_3d_resident_plain(bvel, it, bdt),
+            lambda it: kres.project_3d_resident(k1(bvel, bdt), it), b_it,
+            kres.advect_project_launches),
+    }
+    gate = kres.solve_tiles
+
+    def on_route(route):
+        kres.solve_tiles = gate if route == "tiled" else (lambda *args: None)
+
+    for key, (fn, plain, composed, it, routes) in cases.items():
+        ref = plain(it)
+        for route in ("tiled", "grid"):
+            on_route(route)
+            before = dict(routes)
+            got, two = fn(it), composed(it)
+            torch.cuda.synchronize()
+            moved = {k: v - before[k] for k, v in routes.items()}
+            if moved != {"tiled": int(route == "tiled"), "grid": int(route == "grid")}:
+                fail(f"phase 18: {key} did not launch on the {route} route: {moved}")
+            for g, r, c in zip(got, ref, two):
+                if not (torch.equal(g, r) and torch.equal(g, c)):
+                    fail(f"phase 18: {key} on the {route} route differs from its twin or its "
+                         f"composition (max abs diff {float((g.float() - r.float()).abs().max())!r})")
+        on_route("tiled")
+        del got, ref, two
+        ms = {}
+        for route in ("tiled", "grid", "grid", "tiled"):
+            on_route(route)
+            ms.setdefault(route, []).append(cuda_ms(lambda: fn(it), reps=FUSED_REPS, warmup=3))
+        on_route("tiled")
+        ms["composed"] = [cuda_ms(lambda: composed(it), reps=FUSED_REPS, warmup=3)]
+        # Device time (torch.profiler) at the preset's sweeps and at one: the
+        # solve's share and the rest (advection, gradient, barriers).
+        dev_ms = {(what, sweeps): sum(profile_ms(lambda: call(sweeps), reps=10).values())
+                  for what, call in (("kernel", fn), ("composed", composed))
+                  for sweeps in (it, 1)}
+        comp = "K1 -> K3" if key.startswith("K14") else "K1 -> K2"
+        # A profile that lost events reads below the events' time: not a
+        # device time.
+        short = dev_ms[("kernel", it)] < 0.5 * min(ms["tiled"])
+        say(f"{key}: tiled route {ms['tiled']!r} ms, grid-stride route {ms['grid']!r} ms (in "
+            f"turns), {comp} on the same inputs {ms['composed']!r} ms; device time, tiled "
+            f"route {dev_ms[('kernel', it)]!r} ms at {it} sweeps and {dev_ms[('kernel', 1)]!r} "
+            f"at one, {comp} {dev_ms[('composed', it)]!r} and {dev_ms[('composed', 1)]!r}"
+            f"{' (not measured: the profile lost events)' if short else ''}; "
+            f"bitwise the twin and the composition on both routes [{card}]")
+
+    # K9: scene_a's viscous diffusion (b = 1, smoothing) and pressure solve
+    # (b = 0, fixed rhs) at 192², scene_b's at 128², on both routes.
+    route_of = k2d.solve2d_route
+    for name, preset in (("scene_a", preset_scene_a), ("scene_b", preset_scene_b)):
+        scfg = preset()
+        m = scfg.current_size
+        mask = torch.from_numpy(build_obstacle_mask(scfg)).to(dev)
+        sdt, _, svisc = scfg.effective_params()
+        a9 = float(np.float32(sdt) * np.float32(svisc) * np.float32(m - 2) * np.float32(m - 2))
+        c9 = float(np.float32(1.0) + np.float32(6.0) * np.float32(a9))
+        x9 = (torch.from_numpy(rng.standard_normal((m, m)).astype(np.float32)) * 3.0).to(dev)
+        div9 = torch.from_numpy(rng.standard_normal((m, m)).astype(np.float32) * 1e-3).to(dev)
+        p9 = torch.zeros_like(div9)
+        it9 = scfg.jacobi_iters
+        blocks = k2d.CLUSTER_BLOCKS
+        solves = {
+            "smoothing": (lambda b=blocks: k2d.lin_solve_2d_resident(
+                1, x9, x9, a9, c9, mask, it9, smooth=True, blocks=b),
+                lambda: k2d.lin_solve_2d_resident_plain(1, x9, x9, a9, c9, mask, it9,
+                                                        smooth=True)),
+            "fixed-rhs": (lambda b=blocks: k2d.lin_solve_2d_resident(
+                0, p9, div9, 1.0, 6.0, mask, it9, blocks=b),
+                lambda: k2d.lin_solve_2d_resident_plain(0, p9, div9, 1.0, 6.0, mask, it9)),
+        }
+        if route_of(m, k2d.CLUSTER_BLOCKS, dev) != "strips":
+            fail(f"phase 18: {name} at {m}^2 is not on the strips route")
+        for mode, (fn, plain) in solves.items():
+            ref = plain()
+            for route in ("strips", "l2"):
+                k2d.solve2d_route = lambda *args, route=route: route
+                before = dict(k2d.solve2d_launches)
+                got = fn()
+                torch.cuda.synchronize()
+                if k2d.solve2d_launches[route] != before[route] + 1 or not torch.equal(got, ref):
+                    fail(f"phase 18: K9 {mode} at {m}^2 on the {route} route is not its twin")
+            ms = {}
+            for route in ("strips", "l2", "l2", "strips"):
+                k2d.solve2d_route = lambda *args, route=route: route
+                ms.setdefault(route, []).append(cuda_ms(fn, reps=K9_REPS, warmup=10))
+            k2d.solve2d_route = route_of
+            # The portable cluster of 8 beside the step's 16, on the strips route.
+            got8 = fn(8)
+            torch.cuda.synchronize()
+            if not torch.equal(got8, ref):
+                fail(f"phase 18: K9 {mode} at {m}^2 on 8 blocks is not its twin")
+            ms8 = [cuda_ms(lambda b=b: fn(b), reps=K9_REPS, warmup=10)
+                   for b in (8, blocks, blocks, 8)]
+            by_kernel = profile_ms(fn, reps=20)
+            say(f"K9 {mode} at {m}^2 ({it9} sweeps, {name}'s mask): strips route "
+                f"{ms['strips']!r} ms, L2 route {ms['l2']!r} ms (in turns); strips on 8 "
+                f"blocks {[ms8[0], ms8[3]]!r} ms beside {blocks} {[ms8[1], ms8[2]]!r} (in "
+                f"turns); device time on the strips route {sum(by_kernel.values())!r} ms "
+                f"({len(by_kernel)} kernel names in the profile); bitwise the twin on both "
+                f"routes and on 8 blocks [{card}]")
+    # The floor: a launch of the cluster's barriers alone, as many as a
+    # solve's sweeps, and one barrier's cost from a launch of 2000.
+    floor = {syncs: cuda_ms(lambda syncs=syncs: k2d.cluster_barriers(syncs), reps=K9_REPS,
+                            warmup=10) for syncs in (0, 20, 2000)}
+    floor_dev = sum(profile_ms(lambda: k2d.cluster_barriers(20), reps=20).values())
+    say(f"K9 floor: a launch of 20 cluster barriers on {k2d.CLUSTER_BLOCKS} blocks of 1024 "
+        f"threads {floor[20]!r} ms by CUDA events, device time {floor_dev!r} ms; no barrier "
+        f"{floor[0]!r} ms; a barrier {(floor[2000] - floor[0]) / 2000 * 1e3!r} us [{card}]")
+
+    # Through Engine: bench128 with fuse_full_step's options (K8 alone) and
+    # scene_a (eight K9 a step), each route in turns.
+    fcfg = bcfg.replace(fuse_project_advect=True, fuse_self_advect=True)
+    feng = Engine(fcfg, device="cuda")
+    aeng = Engine(preset_scene_a(), device="cuda")
+    for what, eng, routes, switch, counter, per_step, reps, prof in (
+            ("bench128 + fuse_full_step", feng, ("tiled", "grid"), on_route,
+             kres.full_step_launches, 1, 100, 10),
+            ("scene_a", aeng, ("strips", "l2"),
+             lambda r: setattr(k2d, "solve2d_route", route_of if r == "strips"
+                               else (lambda *args: "l2")),
+             k2d.solve2d_launches, 8, 30, 3)):
+        eng.step(5)
+        for route in routes:
+            switch(route)
+            before = dict(counter)
+            eng.step(10)
+            torch.cuda.synchronize()
+            if counter[route] - before[route] != 10 * per_step:
+                fail(f"phase 18: {what} did not step on the {route} route: {dict(counter)}")
+        steps, device = {}, {}
+        for route in (*routes, *routes[::-1]):
+            switch(route)
+            steps.setdefault(route, []).append(
+                1e3 / cuda_ms(lambda: eng.step(1), reps=reps, warmup=reps // 10))
+            device.setdefault(route, []).append(
+                sum(profile_ms(lambda: eng.step(1), reps=prof).values()))
+        switch(routes[0])
+        # 5 + 20 steps, then four turns of the timed and the profiled.
+        st = eng.state
+        if int(st.step) != 5 + 20 + 4 * (reps + reps // 10 + prof) or not all(
+                bool(torch.isfinite(getattr(st, name)).all())
+                for name in ("density", "velocity", "pressure")):
+            fail(f"phase 18: {what} ended at step {int(st.step)} or with non-finite fields")
+        say(f"{what} steps/s: " + ", ".join(f"{r} route {steps[r]!r}" for r in routes)
+            + " (in turns); device ms a step: "
+            + ", ".join(f"{r} {device[r]!r}" for r in routes)
+            + (" (the profiler recorded no device events)" if not any(
+                sum(v) for v in device.values()) else "") + f" [{card}]")
+    say(f"# phase 18: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_18_main() -> None:
+    """``python3 chip_smoke.py --phase-18``: phase 18 alone, on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: the port's smoke run needs the card")
+    sys.path.insert(0, str(ROOT))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown card"
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    phase_step_and_2d_tiles(card, dev)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--phase-18"]:
+        phase_18_main()
+    else:
+        main()

@@ -334,11 +334,11 @@ struct Substep {
 
 // One substep at cell k: the backtrace (a solid interior cell is zero
 // instead), then the set_bnd face sign of each field's code, the rounding to
-// TO, then the scale (rounded again).
+// TO, then the scale (rounded again).  advect_values computes the values,
+// advect_put stores them.
 template <int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC, int K, typename TF,
-          typename TV, typename TO>
-__device__ __forceinline__ void advect_store(const Substep& a, const Cell& k) {
-  float v[F];
+          typename TV>
+__device__ __forceinline__ void advect_values(const Substep& a, const Cell& k, float (&v)[F]) {
   const TF* src = static_cast<const TF*>(a.src);
   const TV* vel = static_cast<const TV*>(a.vel);
   if (MASK && a.mask[k.c] != 0) {
@@ -355,6 +355,10 @@ __device__ __forceinline__ void advect_store(const Substep& a, const Cell& k) {
     advect_cell_win<K, F, BUOY_VEL, BUOY_TAPS, SRC>(src, vel, a.dens, a.emitter, a.bp, a.n,
                                                     a.slab, a.dt0, k.cz, k.cy, k.cx, v);
   }
+}
+
+template <int F, typename TO>
+__device__ __forceinline__ void advect_put(const Substep& a, const Cell& k, const float (&v)[F]) {
   const long long vol = static_cast<long long>(a.n) * a.n * a.slab.nz;
   const int bs[3] = {a.b0, a.b1, a.b2};
   TO* dst = static_cast<TO*>(a.dst);
@@ -365,24 +369,46 @@ __device__ __forceinline__ void advect_store(const Substep& a, const Cell& k) {
   }
 }
 
-// A substep without folds on fields of storage type S, by its place in the
+template <int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC, int K, typename TF,
+          typename TV, typename TO>
+__device__ __forceinline__ void advect_store(const Substep& a, const Cell& k) {
+  float v[F];
+  advect_values<F, BUOY_VEL, BUOY_TAPS, MASK, SRC, K, TF, TV>(a, k, v);
+  advect_put<F, TO>(a, k, v);
+}
+
+// Two cells of one substep without folds, k0 and k1 (stored only when two):
+// both cells' values before either store, so that the loads of the two
+// overlap (the whole-step kernels' grid-stride loops, whose grids hold few
+// threads an SM).
+template <int F, int K, bool MASK, typename TF, typename TV, typename TO>
+__device__ __forceinline__ void advect_pair(const Substep& a, const Cell& k0, const Cell& k1,
+                                            bool two) {
+  float v0[F], v1[F];
+  advect_values<F, false, false, MASK, kSrcNone, K, TF, TV>(a, k0, v0);
+  advect_values<F, false, false, MASK, kSrcNone, K, TF, TV>(a, k1, v1);
+  advect_put<F, TO>(a, k0, v0);
+  if (two) advect_put<F, TO>(a, k1, v1);
+}
+
+// advect_pair on fields of storage type S, by the substep's place in the
 // run: the first reads S, the others the float32 result of the one before;
 // to_s writes S, else float32.  For S = float every role is one code.
 template <int F, int K, bool MASK, typename S>
-__device__ __forceinline__ void advect_store_role(const Substep& a, const Cell& k, bool first,
-                                                  bool to_s) {
+__device__ __forceinline__ void advect_pair_role(const Substep& a, const Cell& k0, const Cell& k1,
+                                                 bool two, bool first, bool to_s) {
   if constexpr (std::is_same<S, float>::value) {
-    advect_store<F, false, false, MASK, kSrcNone, K, float, float, float>(a, k);
+    advect_pair<F, K, MASK, float, float, float>(a, k0, k1, two);
   } else if (first) {
     if (to_s) {
-      advect_store<F, false, false, MASK, kSrcNone, K, S, S, S>(a, k);
+      advect_pair<F, K, MASK, S, S, S>(a, k0, k1, two);
     } else {
-      advect_store<F, false, false, MASK, kSrcNone, K, S, S, float>(a, k);
+      advect_pair<F, K, MASK, S, S, float>(a, k0, k1, two);
     }
   } else if (to_s) {
-    advect_store<F, false, false, MASK, kSrcNone, K, float, S, S>(a, k);
+    advect_pair<F, K, MASK, float, S, S>(a, k0, k1, two);
   } else {
-    advect_store<F, false, false, MASK, kSrcNone, K, float, S, float>(a, k);
+    advect_pair<F, K, MASK, float, S, float>(a, k0, k1, two);
   }
 }
 
@@ -429,7 +455,7 @@ cudaError_t launch(const Substep& a, cudaStream_t s) {
   }
 }
 
-// A substep without folds in its role (see advect_store_role).
+// A substep without folds in its role (see advect_pair_role).
 template <int K, int F, bool MASK, typename S>
 cudaError_t launch_role(const Substep& a, bool first, bool to_s, cudaStream_t s) {
   if constexpr (std::is_same<S, float>::value) {

@@ -1,8 +1,10 @@
-// K8's kernel template (see full_step.cu): the whole step of an
+// K8's kernel templates (see full_step.cu): the whole step of an
 // obstacle-free config in one cooperative launch, for a solve type T, a
 // storage type S and a window of K cells (kWinAny: FullStepArgs::window >=
-// 4, advect.cuh's runtime-K body); without the density phase (DENS
-// false) it is K14, the self-advection and the projection in one launch.
+// 4, advect.cuh's runtime-K body), on one of two routes: the tiled solve's
+// tiles (full_step_tiled_kernel) or a grid-stride grid with a grid barrier
+// a sweep (full_step_kernel).  Without the density phase (DENS false) it is
+// K14, the self-advection and the projection in one launch.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -22,7 +24,7 @@ struct FullStepArgs {
   void* vel_out;     // (3, n, n, n) out, S
   void* p_out;       // (n, n, n) out, S
   void* dens_out;    // (n, n, n) out, S
-  void *pa, *pb, *rhs;  // (n, n, n) solve scratch, T
+  void *pa, *pb, *rhs;  // (n, n, n) solve scratch, T (the tiled route: pa only)
   float *tmp0, *tmp1;   // (3, n, n, n) float32 scratch (bfloat16 fields only)
   int n, iters, n_sub;
   float dt0_sub, damp, dens_damp;
@@ -31,23 +33,27 @@ struct FullStepArgs {
 
 // K8 on float32 fields (full_step.cu) and on bfloat16 fields
 // (full_step_bf16.cu), for a bfloat16 solve when solve_bf16 and a window of
-// K >= 1 (4 and more: a.window): *blocks gets the cooperative grid (every
-// block the card holds at once), and with launch the kernel is launched on
-// `s` as well.
-// blk is K5's block and scratch (blk.block 1: sequential sweeps).
-cudaError_t full_step_f32(const FullStepArgs& a, const SolveBlock& blk, int solve_bf16,
-                          int window, bool launch, int* blocks, cudaStream_t s);
-cudaError_t full_step_bf16(const FullStepArgs& a, const SolveBlock& blk, int solve_bf16,
-                           int window, bool launch, int* blocks, cudaStream_t s);
-// K14 (float32 fields and solve, no density phase) for a window of K >= 1.
-cudaError_t advect_project_f32(const FullStepArgs& a, int window, bool launch, int* blocks,
-                               cudaStream_t s);
+// K >= 1 (4 and more: a.window): *blocks gets the cooperative grid (the
+// tiled route: the tiles; the grid-stride route: every block the card holds
+// at once), and with launch the kernel is launched on `s` as well.  tiles
+// is the tiled solve's tiling and scratch (the tiled route) or null (the
+// grid-stride route); blk is K5's block and scratch there (blk.block 1:
+// sequential sweeps).
+cudaError_t full_step_f32(const FullStepArgs& a, const SolveBlock& blk, const SolveTiles* tiles,
+                          int solve_bf16, int window, bool launch, int* blocks, cudaStream_t s);
+cudaError_t full_step_bf16(const FullStepArgs& a, const SolveBlock& blk, const SolveTiles* tiles,
+                           int solve_bf16, int window, bool launch, int* blocks, cudaStream_t s);
+// K14 (float32 fields and solve, no density phase) for a window of K >= 1,
+// on the route of tiles as K8's.
+cudaError_t advect_project_f32(const FullStepArgs& a, const SolveTiles* tiles, int window,
+                               bool launch, int* blocks, cudaStream_t s);
 
 namespace {
 
 namespace cg = cooperative_groups;
 
-// Blocks per SM the kernel asks the compiler to fit (registers <= 64).
+// Blocks per SM the grid-stride kernel asks the compiler to fit (registers
+// <= 64).
 constexpr int kFullStepMinBlocks = 4;
 
 // The buffer that substep `sub` of `n_sub` writes (sub = -1: the input
@@ -67,30 +73,83 @@ __device__ __forceinline__ void* substep_buf(int sub, int n_sub, const void* in,
   return sub % 2 == 0 ? tmp0 : tmp1;
 }
 
-template <typename T, typename S, int K, bool DENS>
-__global__ void __launch_bounds__(kThreads, kFullStepMinBlocks)
-    full_step_kernel(const FullStepArgs a, const SolveBlock blk) {
+// Phase 1 over the grid's threads (first, stride; two cells a loop trip,
+// advect_pair): the self-advection, the last substep writing adv.
+// float32: the earlier ones alternate back from it through vel_out;
+// bfloat16: they write float32 into tmp0 and tmp1 in turn.  One grid
+// barrier after each substep.
+template <typename S, int K>
+__device__ __forceinline__ void self_advect_phase(const FullStepArgs& a, cg::grid_group& grid,
+                                                  int first, int stride) {
   constexpr bool wide = std::is_same<S, float>::value;
-  cg::grid_group grid = cg::this_grid();
-  const int n = a.n;
-  const int vol = n * n * n;
-  const int first = static_cast<int>(grid.thread_rank());
-  const int stride = static_cast<int>(grid.size());
-
-  // 1. Self-advection: the last substep writes adv.  float32: the earlier
-  //    ones alternate back from it through vel_out; bfloat16: they write
-  //    float32 into tmp0 and tmp1 in turn.
+  const int n = a.n, vol = n * n * n;
   for (int sub = 0; sub < a.n_sub; ++sub) {
     const bool last = sub == a.n_sub - 1;
     const Substep s{substep_buf<wide>(sub - 1, a.n_sub, a.vel, a.adv, a.vel_out, a.tmp0, a.tmp1),
                     a.vel, nullptr, nullptr, nullptr,
                     substep_buf<wide>(sub, a.n_sub, a.vel, a.adv, a.vel_out, a.tmp0, a.tmp1),
                     n, Slab{n, 0}, 1, 2, 3, a.dt0_sub, 1.0f, Buoyancy{}, a.window};
-    for (int i = first; i < vol; i += stride) {
-      advect_store_role<3, K, false, S>(s, cell_at(n, i), sub == 0, last);
+    for (int i = first; i < vol; i += 2 * stride) {
+      const bool two = i + stride < vol;
+      advect_pair_role<3, K, false, S>(s, cell_at(n, i), cell_at(n, two ? i + stride : i), two,
+                                       sub == 0, last);
     }
     grid.sync();
   }
+}
+
+// Phase 4: the gradient from the final iterate p, the faces and damp.
+template <typename T, typename S>
+__device__ __forceinline__ void gradient_phase(const FullStepArgs& a, const T* p, int first,
+                                               int stride) {
+  const int n = a.n, vol = n * n * n;
+  for (int i = first; i < vol; i += stride) {
+    gradient_cell<T, S, false>(static_cast<const S*>(a.adv), p, nullptr,
+                               static_cast<S*>(a.vel_out), static_cast<S*>(a.p_out), n, a.damp,
+                               cell_at(n, i));
+  }
+}
+
+// Phase 5 (two cells a loop trip): the density, the last substep writing
+// dens_out.  float32: the earlier ones alternate back from it through adv's
+// first volume; bfloat16: they write float32 into tmp0 and tmp1 in turn.  A
+// grid barrier between substeps.
+template <typename S, int K>
+__device__ __forceinline__ void density_phase(const FullStepArgs& a, cg::grid_group& grid,
+                                              int first, int stride) {
+  constexpr bool wide = std::is_same<S, float>::value;
+  const int n = a.n, vol = n * n * n;
+  for (int sub = 0; sub < a.n_sub; ++sub) {
+    const bool last = sub == a.n_sub - 1;
+    const Substep d{
+        substep_buf<wide>(sub - 1, a.n_sub, a.dens, a.dens_out, a.adv, a.tmp0, a.tmp1),
+        a.vel_out, nullptr, nullptr, nullptr,
+        substep_buf<wide>(sub, a.n_sub, a.dens, a.dens_out, a.adv, a.tmp0, a.tmp1),
+        n, Slab{n, 0}, 0, 0, 0, a.dt0_sub, last ? a.dens_damp : 1.0f, Buoyancy{}, a.window};
+    for (int i = first; i < vol; i += 2 * stride) {
+      const bool two = i + stride < vol;
+      advect_pair_role<1, K, false, S>(d, cell_at(n, i), cell_at(n, two ? i + stride : i), two,
+                                       sub == 0, last);
+    }
+    if (!last) grid.sync();
+  }
+}
+
+// The grid-stride route: every phase a grid-stride loop over the cells of
+// a grid as large as the card holds at once, the solve's sweeps (and K5's
+// stages) separated by grid barriers.  It serves K5 (blk.block >= 2) and
+// the grids the tiled solve cannot tile.
+template <typename T, typename S, int K, bool DENS>
+__global__ void __launch_bounds__(kThreads, kFullStepMinBlocks)
+    full_step_kernel(const FullStepArgs a, const SolveBlock blk) {
+  cg::grid_group grid = cg::this_grid();
+  const int n = a.n;
+  const int vol = n * n * n;
+  const int first = static_cast<int>(grid.thread_rank());
+  const int stride = static_cast<int>(grid.size());
+
+  // 1. Self-advection into adv.
+  self_advect_phase<S, K>(a, grid, first, stride);
 
   // 2. Divergence and the zero start.
   const S* adv = static_cast<const S*>(a.adv);
@@ -141,28 +200,48 @@ __global__ void __launch_bounds__(kThreads, kFullStepMinBlocks)
   }
 
   // 4. Gradient, faces, damp.
-  for (int i = first; i < vol; i += stride) {
-    gradient_cell<T, S, false>(adv, src, nullptr, static_cast<S*>(a.vel_out),
-                               static_cast<S*>(a.p_out), n, a.damp, cell_at(n, i));
-  }
+  gradient_phase<T, S>(a, src, first, stride);
   if (!DENS) return;
   grid.sync();
 
-  // 5. Density: the last substep writes dens_out.  float32: the earlier ones
-  //    alternate back from it through adv's first volume; bfloat16: they
-  //    write float32 into tmp0 and tmp1 in turn.
-  for (int sub = 0; sub < a.n_sub; ++sub) {
-    const bool last = sub == a.n_sub - 1;
-    const Substep d{
-        substep_buf<wide>(sub - 1, a.n_sub, a.dens, a.dens_out, a.adv, a.tmp0, a.tmp1),
-        a.vel_out, nullptr, nullptr, nullptr,
-        substep_buf<wide>(sub, a.n_sub, a.dens, a.dens_out, a.adv, a.tmp0, a.tmp1),
-        n, Slab{n, 0}, 0, 0, 0, a.dt0_sub, last ? a.dens_damp : 1.0f, Buoyancy{}, a.window};
-    for (int i = first; i < vol; i += stride) {
-      advect_store_role<1, K, false, S>(d, cell_at(n, i), sub == 0, last);
-    }
-    if (!last) grid.sync();
-  }
+  // 5. Density into dens_out.
+  density_phase<S, K>(a, grid, first, stride);
+}
+
+// The tiled route: one block a tile of the tiled solve (solve_tiled.cuh),
+// one an SM, of kTileThreads threads (hx x my x as many as fit: more than
+// the tile's solve takes where the tile is small).  The advection phases
+// and the gradient are grid-stride loops over every thread of the tiles'
+// blocks (walking a block's own tile instead ran slower on an H100);
+// between the self-advection and the gradient each block runs the tiled
+// solve of its tile (divergence of adv, every sweep in its shared memory,
+// the final iterate stored to t.p = pa), which synchronises a tile with its
+// face neighbours only: no grid barrier inside the solve.  Grid barriers:
+// one a self-advection substep, one after the solve, one before the density
+// and one between density substeps.
+template <typename T, typename S, int K, bool DENS>
+__global__ void __launch_bounds__(kTileThreads, 1)
+    full_step_tiled_kernel(const FullStepArgs a, const TiledArgs<T, S> t) {
+  extern __shared__ __align__(16) unsigned char fs_tile_smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int first = static_cast<int>(grid.thread_rank());
+  const int stride = static_cast<int>(grid.size());
+
+  // 1. Self-advection into adv (a barrier after each substep orders adv
+  //    before the divergence reads it).
+  self_advect_phase<S, K>(a, grid, first, stride);
+
+  // 2-3. Divergence and every sweep of this block's tile, into pa.
+  solve_tile<T, S, false, true>(fs_tile_smem, t, blockIdx.x);
+  grid.sync();
+
+  // 4. Gradient, faces, damp.
+  gradient_phase<T, S>(a, t.p, first, stride);
+  if (!DENS) return;
+  grid.sync();
+
+  // 5. Density into dens_out.
+  density_phase<S, K>(a, grid, first, stride);
 }
 
 template <typename T, typename S, int K, bool DENS = true>
@@ -190,27 +269,81 @@ cudaError_t full_step_run(const FullStepArgs& a, const SolveBlock& blk, bool lau
   return cudaGetLastError();
 }
 
-// full_step_run for the storage type S and the density phase DENS (false:
+// The tiled route's launch over the tiling `tiles` (every tile's block
+// resident at once, or cudaErrorCooperativeLaunchTooLarge): *blocks gets
+// the tile count, and with launch the kernel is launched on `s` as well.
+// cudaErrorInvalidValue for a tiling the tiled solve cannot take (see
+// tile_shape) or, with launch, without its flags and faces.
+template <typename T, typename S, int K, bool DENS = true>
+cudaError_t full_step_tiled_run(const FullStepArgs& a, const SolveTiles& tiles, bool launch,
+                                int* blocks, cudaStream_t s) {
+  TileShape shape;
+  if (!tile_shape(a.n, tiles.gx, tiles.gy, tiles.gz, sizeof(T), &shape) ||
+      (launch && (tiles.flags == nullptr || tiles.faces == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  const void* kernel = (const void*)full_step_tiled_kernel<T, S, K, DENS>;
+  // The tile's block, grown along z to kTileThreads threads for the
+  // advection phases (the solve leaves threads lz >= split idle).
+  const dim3 block(shape.hx, shape.my, kTileThreads / (shape.hx * shape.my));
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(shape.smem));
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, static_cast<int>(block.x * block.y * block.z), shape.smem);
+  }
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  const int count = tiles.gx * tiles.gy * tiles.gz;
+  if (per_sm * sms < count) return cudaErrorCooperativeLaunchTooLarge;
+  *blocks = count;
+  if (!launch) return cudaSuccess;
+  FullStepArgs args = a;
+  TiledArgs<T, S> targs{static_cast<const S*>(a.adv), nullptr, static_cast<T*>(a.pa),
+                        tiles.flags, static_cast<T*>(tiles.faces), a.n, a.iters,
+                        tiles.gx, tiles.gy, tiles.gz, shape};
+  void* params[] = {&args, &targs};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(count), block, params, shape.smem, s);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// One route for the solve type T: the tiled one where tiles is not null
+// (not with K5's block), else the grid-stride one.
+template <typename T, typename S, int K, bool DENS>
+cudaError_t full_step_route(const FullStepArgs& a, const SolveBlock& blk,
+                            const SolveTiles* tiles, bool launch, int* blocks, cudaStream_t s) {
+  if (tiles == nullptr) return full_step_run<T, S, K, DENS>(a, blk, launch, blocks, s);
+  if (blk.block >= 2) return cudaErrorInvalidValue;
+  return full_step_tiled_run<T, S, K, DENS>(a, *tiles, launch, blocks, s);
+}
+
+// full_step_route for the storage type S and the density phase DENS (false:
 // K14), dispatched over the solve type and the window (every window >= 4 to
 // the runtime-K instantiation, which reads a.window).  K14 is float32
 // throughout, so only its float32 solve is instantiated.
 template <typename S, bool DENS = true>
-cudaError_t full_step_dispatch(const FullStepArgs& a, const SolveBlock& blk, int solve_bf16,
-                               int window, bool launch, int* blocks, cudaStream_t s) {
+cudaError_t full_step_dispatch(const FullStepArgs& a, const SolveBlock& blk,
+                               const SolveTiles* tiles, int solve_bf16, int window, bool launch,
+                               int* blocks, cudaStream_t s) {
   using B = typename std::conditional<DENS, __nv_bfloat16, float>::type;
   if (!DENS && solve_bf16) return cudaErrorInvalidValue;
   if (window >= 4) {
     if (a.window != window) return cudaErrorInvalidValue;
-    return solve_bf16 ? full_step_run<B, S, kWinAny, DENS>(a, blk, launch, blocks, s)
-                      : full_step_run<float, S, kWinAny, DENS>(a, blk, launch, blocks, s);
+    return solve_bf16 ? full_step_route<B, S, kWinAny, DENS>(a, blk, tiles, launch, blocks, s)
+                      : full_step_route<float, S, kWinAny, DENS>(a, blk, tiles, launch, blocks, s);
   }
   switch (window * 2 + (solve_bf16 ? 1 : 0)) {
-    case 2: return full_step_run<float, S, 1, DENS>(a, blk, launch, blocks, s);
-    case 3: return full_step_run<B, S, 1, DENS>(a, blk, launch, blocks, s);
-    case 4: return full_step_run<float, S, 2, DENS>(a, blk, launch, blocks, s);
-    case 5: return full_step_run<B, S, 2, DENS>(a, blk, launch, blocks, s);
-    case 6: return full_step_run<float, S, 3, DENS>(a, blk, launch, blocks, s);
-    case 7: return full_step_run<B, S, 3, DENS>(a, blk, launch, blocks, s);
+    case 2: return full_step_route<float, S, 1, DENS>(a, blk, tiles, launch, blocks, s);
+    case 3: return full_step_route<B, S, 1, DENS>(a, blk, tiles, launch, blocks, s);
+    case 4: return full_step_route<float, S, 2, DENS>(a, blk, tiles, launch, blocks, s);
+    case 5: return full_step_route<B, S, 2, DENS>(a, blk, tiles, launch, blocks, s);
+    case 6: return full_step_route<float, S, 3, DENS>(a, blk, tiles, launch, blocks, s);
+    case 7: return full_step_route<B, S, 3, DENS>(a, blk, tiles, launch, blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -2,7 +2,8 @@
 // divergence) and all `iters` sweeps of phase 2 of project.cuh, for K3 and,
 // through K3's entry, K2, K2s and K2o, wherever kernels/resident.solve_tiles
 // finds a tiling (the caller decides before the launch; elsewhere the
-// per-sweep kernel of project.cuh runs).
+// per-sweep kernel of project.cuh runs).  K8 and K14 (full_step.cuh) run the
+// same program of a tile (solve_tile) inside their one launch.
 //
 // Replaces: fluidsim_tpu/pallas/resident.py:341 _solve_loop with block 1,
 // as _project_body (:741) runs it inside _project_kernel (:894) and
@@ -113,6 +114,7 @@ __host__ __device__ __forceinline__ int tile_span(int n, int g) { return (n + g 
 struct TileShape {
   int mx, my, mz;     // the largest extents
   int hx;             // the most column pairs along x: blockDim.x
+  int split;          // threads a column pair (2 where the block holds them)
   int face;           // values a face slot holds: the largest face, even
   size_t smem;        // bytes of shared memory: two padded copies, the rhs
 };
@@ -146,23 +148,13 @@ __host__ inline bool tile_shape(int n, int gx, int gy, int gz, int bytes, TileSh
       s.mz > kTileMaxZ) {
     return false;
   }
+  s.split = 2 * s.hx * s.my <= kTileThreads ? 2 : 1;
   const int rrow = 2 * s.hx, fx = s.my * s.mz, fy = rrow * s.mz, fz = rrow * s.my;
   s.face = ((fx > fy ? (fx > fz ? fx : fz) : (fy > fz ? fy : fz)) + 1) & ~1;
   s.smem = (2 + 2 * static_cast<size_t>(padded_values(s.hx, s.my, s.mz)) +
             2 * static_cast<size_t>(s.hx) * s.my * s.mz) * bytes;
   *out = s;
   return true;
-}
-
-// Phase 1's value at interior cell i: -0.5*((dvx + dvy) + dvz) / n in
-// float32 (divergence_cell rounds it to the solve type).
-template <typename S>
-__device__ __forceinline__ float divergence_value(const S* vel, int n, long long i) {
-  const long long sn = n, plane = sn * sn, vol = plane * sn;
-  const float dx = ld(vel[i + 1]) - ld(vel[i - 1]);
-  const float dy = ld(vel[vol + i + sn]) - ld(vel[vol + i - sn]);
-  const float dz = ld(vel[2 * vol + i + plane]) - ld(vel[2 * vol + i - plane]);
-  return (-0.5f * ((dx + dy) + dz)) / float(n);
 }
 
 // Face values through L2 only (the raw bits of a bfloat16).
@@ -173,6 +165,26 @@ __device__ __forceinline__ void store_cg(__nv_bfloat16* p, __nv_bfloat16 v) {
 __device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
 __device__ __forceinline__ __nv_bfloat16 load_cg(const __nv_bfloat16* p) {
   return __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// Phase 1's value at interior cell i: -0.5*((dvx + dvy) + dvz) / n in
+// float32 (divergence_cell rounds it to the solve type).  FRESH: the
+// velocity was written earlier in the same launch by other blocks (K8, K14),
+// so it is read at L2 (L1 is not coherent across SMs).
+template <typename S, bool FRESH = false>
+__device__ __forceinline__ float divergence_value(const S* vel, int n, long long i) {
+  const long long sn = n, plane = sn * sn, vol = plane * sn;
+  const auto v = [&](long long k) {
+    if constexpr (FRESH) {
+      return ld(load_cg(vel + k));
+    } else {
+      return ld(vel[k]);
+    }
+  };
+  const float dx = v(i + 1) - v(i - 1);
+  const float dy = v(vol + i + sn) - v(vol + i - sn);
+  const float dz = v(2 * vol + i + plane) - v(2 * vol + i - plane);
+  return (-0.5f * ((dx + dy) + dz)) / float(n);
 }
 
 // Two neighbouring values along x (an aligned pair) as float32, and two
@@ -261,20 +273,27 @@ namespace {
 // j = lx, lx + hx, ...; the y face values of its pair at j = ly, ly + ty,
 // ...; the z face values of its pair: values in consecutive lanes are
 // consecutive in a slot.
-template <typename T, typename S, bool MASK>
-__global__ void __launch_bounds__(kTileThreads, 1) solve_tiled_kernel(TiledArgs<T, S> a) {
-  extern __shared__ __align__(16) unsigned char fs_tile_smem[];
+//
+// solve_tile is the whole program of block b (its tile) over the block's
+// dynamic shared memory `smem` (TileShape::smem bytes): the rhs, the
+// `iters` sweeps with their face trades and the final iterate's store to
+// a.p.  solve_tiled_kernel runs it on a grid of the tiles (K2, K3);
+// full_step.cuh's tiled kernel runs it between its advection phases (K8,
+// K14), with FRESH since its velocity was written earlier in that launch.
+// Every block of the grid must run it, the grid being exactly the tiles.
+template <typename T, typename S, bool MASK, bool FRESH>
+__device__ __forceinline__ void solve_tile(unsigned char* smem, const TiledArgs<T, S>& a,
+                                           int b) {
   const int n = a.n, hx = a.shape.hx, my = a.shape.my, mz = a.shape.mz;
-  const int face = a.shape.face;
+  const int face = a.shape.face, ntiles = a.gx * a.gy * a.gz;
   const int px = 2 * hx + 2, pplane = px * (my + 2), pvol = padded_values(hx, my, mz);
   // Padded copy (x, y, z), cells -1 .. tile + 1 along each axis, at
   // (z + 1) * pplane + (y + 1) * px + x.
-  T* src = reinterpret_cast<T*>(fs_tile_smem) + 2;
+  T* src = reinterpret_cast<T*>(smem) + 2;
   T* dst = src + pvol;
   T* rhs = dst + pvol;  // (mz, my, 2 hx), at the cells' own places
   const int rrow = 2 * hx, rplane = rrow * my;
 
-  const int b = blockIdx.x;
   const int bx = b % a.gx, by = (b / a.gx) % a.gy, bz = b / (a.gx * a.gy);
   const int x0 = tile_lo_x(bx, n, a.gx), tx = tile_lo_x(bx + 1, n, a.gx) - x0;
   const int y0 = tile_lo(by, n, a.gy), ty = tile_lo(by + 1, n, a.gy) - y0;
@@ -282,11 +301,13 @@ __global__ void __launch_bounds__(kTileThreads, 1) solve_tiled_kernel(TiledArgs<
   const int lx = threadIdx.x, ly = threadIdx.y, lz = threadIdx.z;
   const int tid = (lz * blockDim.y + ly) * blockDim.x + lx;
   const int nthreads = blockDim.x * blockDim.y * blockDim.z;
-  // The pair's cells j in [jlo, jhi): with two threads a pair (blockDim.z =
-  // 2) and 4 cells or more along z, each takes a half, the wall cell's
-  // neighbour in the same half; else thread lz = 0 takes them all.
-  const int half = blockDim.z == 2 && tz >= 4 ? tz / 2 : tz;
-  const int jlo = lz == 0 ? 0 : half, jhi = lz == 0 ? half : tz;
+  // The pair's cells j in [jlo, jhi): with two threads a pair (split 2)
+  // and 4 cells or more along z, each takes a half, the wall cell's
+  // neighbour in the same half; else thread lz = 0 takes them all.  Threads
+  // lz >= split (a block larger than the solve needs: K8's) take none.
+  const int split = a.shape.split;
+  const int half = split == 2 && tz >= 4 ? tz / 2 : tz;
+  const int jlo = lz == 0 ? 0 : half, jhi = lz == 0 ? half : (lz < split ? tz : half);
   // This thread's column pair: cells xa and xa + 1 of row ly (cell xa + 1
   // past the tile's end in a tile of odd width: it then computes a value
   // that lands in the halo, which the next halo load overwrites).
@@ -312,8 +333,12 @@ __global__ void __launch_bounds__(kTileThreads, 1) solve_tiled_kernel(TiledArgs<
     }
   };
 
-  for (int i = tid; i < 2 + 2 * pvol + rplane * mz; i += nthreads) {
-    reinterpret_cast<T*>(fs_tile_smem)[i] = st<T>(0.0f);
+  // The zero start: both padded copies (their halos stay zero at the walls).
+  // Not the rhs: a thread writes every rhs value its sweeps read, and a zero
+  // stored there by another thread could land after it (a race seen once in
+  // K8 at 128^3, where the divergence reads adv from L2).
+  for (int i = tid; i < 2 + 2 * pvol; i += nthreads) {
+    reinterpret_cast<T*>(smem)[i] = st<T>(0.0f);
   }
   // The rhs (phase 1, rounded to T) and the solid bits, at the interior z
   // of each cell; a wall cell's are never used.
@@ -325,11 +350,11 @@ __global__ void __launch_bounds__(kTileThreads, 1) solve_tiled_kernel(TiledArgs<
       if (z >= 1 && z <= n - 2) {
         const long long row = (static_cast<long long>(z) * n + (y0 + ry)) * n + gxa;
         if (!wall_a) {
-          ra = st<T>(divergence_value(a.vel, n, row));
+          ra = st<T>(divergence_value<S, FRESH>(a.vel, n, row));
           if (MASK && a.mask[row] != 0) solid_a |= 1u << j;
         }
         if (has_b && !wall_b) {
-          rb = st<T>(divergence_value(a.vel, n, row + 1));
+          rb = st<T>(divergence_value<S, FRESH>(a.vel, n, row + 1));
           if (MASK && a.mask[row + 1] != 0) solid_b |= 1u << j;
         }
       }
@@ -384,7 +409,7 @@ __global__ void __launch_bounds__(kTileThreads, 1) solve_tiled_kernel(TiledArgs<
     __syncthreads();
     // The tile's new faces into its slot of this parity (pairs as they lie
     // in the copy; a partial pair's second value lands past the face).
-    T* slot = a.faces + (static_cast<long long>((s & 1) * gridDim.x + b) * 6) * face;
+    T* slot = a.faces + (static_cast<long long>((s & 1) * ntiles + b) * 6) * face;
     if (face_pair) {
       const int zr = ly * rrow + xa;
       if (lo_z) store2_cg(slot + 4 * face + zr, get2(dst + pplane + own));
@@ -413,7 +438,7 @@ __global__ void __launch_bounds__(kTileThreads, 1) solve_tiled_kernel(TiledArgs<
     // The halo of dst: neighbour nb(f)'s opposite face f ^ 1 of this
     // parity; each thread's first kHaloBatch values of every face all
     // loaded before its first store.
-    const T* in = a.faces + static_cast<long long>((s & 1) * gridDim.x) * 6 * face;
+    const T* in = a.faces + static_cast<long long>((s & 1) * ntiles) * 6 * face;
     const auto from = [&](int f) {
       return in + (static_cast<long long>(nb(f)) * 6 + (f ^ 1)) * face;
     };
@@ -481,6 +506,18 @@ __global__ void __launch_bounds__(kTileThreads, 1) solve_tiled_kernel(TiledArgs<
   }
 }
 
+template <typename T, typename S, bool MASK>
+__global__ void __launch_bounds__(kTileThreads, 1) solve_tiled_kernel(TiledArgs<T, S> a) {
+  extern __shared__ __align__(16) unsigned char fs_tile_smem[];
+  solve_tile<T, S, MASK, false>(fs_tile_smem, a, blockIdx.x);
+}
+
+// A block of the tiling of `shape`: hx column pairs by my rows by `split`
+// threads a pair (each half the column).
+__host__ inline dim3 tile_block(const TileShape& shape) {
+  return dim3(shape.hx, shape.my, shape.split);
+}
+
 // The divergence of vel and `iters` sweeps from zero into p (n, n, n) in
 // the solve type T, in one cooperative launch on `s` over the tiling t.
 // Returns cudaErrorInvalidValue for a tiling the kernel cannot take (see
@@ -500,14 +537,11 @@ cudaError_t solve_tiled(const S* vel, const uint8_t* mask, T* p, int n, int iter
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(shape.smem));
   if (err != cudaSuccess) return err;
-  // Two threads a column pair (each half the column) where the block holds
-  // them.
-  const int split = 2 * shape.hx * shape.my <= kTileThreads ? 2 : 1;
   TiledArgs<T, S> args{vel, mask, p, t.flags, static_cast<T*>(t.faces),
                        n, iters, t.gx, t.gy, t.gz, shape};
   void* params[] = {&args};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(t.gx * t.gy * t.gz),
-                                    dim3(shape.hx, shape.my, split), params, shape.smem, s);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(t.gx * t.gy * t.gz), tile_block(shape), params,
+                                    shape.smem, s);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

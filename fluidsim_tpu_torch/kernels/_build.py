@@ -89,15 +89,15 @@ SIGNATURES = {
     "fs_smem_optin": (),
     # vel, dens, adv, vel_out, p_out, dens_out, tmp0, tmp1, p_a, p_b, rhs, n,
     # iters, solve_bf16, field_bf16, dt0_sub, n_sub, window, damp, dens_damp,
-    # blk, stream
+    # blk, tiles, stream
     "fs_full_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                     _F, _I, _I, _F, _F, _B, _P),
+                     _F, _I, _I, _F, _F, _B, _T, _P),
     # vel, adv, vel_out, p_out, p_a, p_b, rhs, n, iters, dt0_sub, n_sub,
-    # window, stream
-    "fs_advect_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
-    # solve_bf16, field_bf16, window (returns the cooperative grid's block
-    # count, or -error)
-    "fs_full_step_blocks": (_I, _I, _I),
+    # window, tiles, stream
+    "fs_advect_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _T, _P),
+    # solve_bf16, field_bf16, window, n, gx, gy, gz (returns the cooperative
+    # grid's block count, or -error)
+    "fs_full_step_blocks": (_I, _I, _I, _I, _I, _I, _I),
     # x, x0, out, tmp, n, b, a, inv_c, iters, stream
     "fs_jacobi": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
     # x, x0, mask, out, tmp, n, b, a, inv_c, iters, blk, stream
@@ -115,8 +115,10 @@ SIGNATURES = {
     # dt0_sub, n_sub, window, field_bf16, stream
     "fs_advect_ext": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                       _P),
-    # x, x0, mask, out, tmp, n, b, a, c, iters, smooth, blocks, stream
-    "fs_solve_2d": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _P),
+    # x, x0, mask, out, tmp, n, b, a, c, iters, smooth, blocks, strips, stream
+    "fs_solve_2d": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _I, _P),
+    # blocks, syncs, stream
+    "fs_cluster_barriers": (_I, _I, _P),
     # vel, div, n, stream
     "fs_divergence": (_P, _P, _I, _P),
     # vel, p, vel_out, n, stream

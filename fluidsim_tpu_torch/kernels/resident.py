@@ -19,7 +19,10 @@ which share the projection's phases (``csrc/project.cuh``) and K1's
 backtrace (``csrc/advect.cuh``).  In K2 and K3 the divergence and every
 sweep of the solve are one persistent launch (``csrc/solve_tiled.cuh``)
 wherever ``solve_tiles`` finds a tiling of the grid, and one launch a sweep
-elsewhere; ``solve_launches`` counts which route ran.  The twins are
+elsewhere; ``solve_launches`` counts which route ran.  K8 and K14 run the
+same tiled solve inside their one launch there (``fused_step_route``), and
+a grid barrier a sweep elsewhere; ``full_step_launches`` and
+``advect_project_launches`` count their routes.  The twins are
 the same arithmetic in plain PyTorch: the ``inv6`` multiply (``(1 − m)·inv6``
 with a mask), the rhs and every iterate rounded to the solve dtype, the
 gradient held in solid cells, the faces, the obstacle mirror, then ``damp``
@@ -217,6 +220,11 @@ H100_SMEM_OPTIN = 232_448
 # sweeps of the per-sweep route, and those K5 leaves over).
 solve_launches = {"tiled": 0, "sweep": 0}
 
+# Launches of K8 and of K14 (csrc/full_step.cuh) by route: "tiled" on the
+# tiled solve's tiles, "grid" the grid-stride kernel.
+full_step_launches = {"tiled": 0, "grid": 0}
+advect_project_launches = {"tiled": 0, "grid": 0}
+
 
 def tile_bounds(n: int, g: int):
     """The ``[lo, hi)`` extents of ``g`` tiles along y or z of ``n`` cells,
@@ -326,15 +334,36 @@ def solve_tiles(n: int, sdt: torch.dtype, device=None):
     return tiling(n, sdt.itemsize, *limits)
 
 
-def _solve_tiles_arg(vel, iters: int, sweep_block: int, sdt: torch.dtype):
-    """The tiled solve's ``SolveTiles`` for a projection of ``vel`` (None:
-    the per-sweep launches, or K5 where ``projection_block`` blocks), with
-    its zeroed flags and its face buffer, which the struct keeps alive as
-    ``scratch``."""
-    n = vel.shape[-1]
-    if projection_block(vel, iters, sweep_block) != 1:
+def projection_tiles(n: int, dtype: torch.dtype, iters: int, sweep_block: int,
+                     sdt: torch.dtype, device=None):
+    """The tiling the solve of a projection of an ``n³`` velocity of
+    ``dtype`` with ``iters`` sweeps takes on ``device`` (``solve_tiles``),
+    or None: where no tiling fits, or where K5 blocks the sweeps
+    (``projection_block``: ``sweep_block`` on float32 fields).  K2 and K3
+    solve on the tiles where it returns one, else one launch a sweep (or
+    K5); K8 and K14 take their tiled route there, else their grid-stride
+    route."""
+    if dtype == torch.float32 and composite_block(n, iters, sweep_block) != 1:
         return None
-    tiles = solve_tiles(n, sdt, vel.device)
+    return solve_tiles(n, sdt, device)
+
+
+def fused_step_route(n: int, iters: int, solve_dtype=None, dtype=torch.float32,
+                     sweep_block: int = 1, device=None) -> str:
+    """The route K8 (and K14, float32 with ``sweep_block`` 1) takes for an
+    ``n³`` step: "tiled" where ``projection_tiles`` finds a tiling, else
+    "grid" (the grid-stride kernel with a grid barrier a sweep)."""
+    tiles = projection_tiles(n, dtype, iters, sweep_block, solve_torch_dtype(solve_dtype),
+                             device)
+    return "grid" if tiles is None else "tiled"
+
+
+def _solve_tiles_arg(vel, iters: int, sweep_block: int, sdt: torch.dtype):
+    """The tiled solve's ``SolveTiles`` for a projection of ``vel`` (None
+    where ``projection_tiles`` finds none), with its zeroed flags and its
+    face buffer, which the struct keeps alive as ``scratch``."""
+    n = vel.shape[-1]
+    tiles = projection_tiles(n, vel.dtype, iters, sweep_block, sdt, vel.device)
     if tiles is None:
         return None
     flags = torch.zeros(int(np.prod(tiles)) * TILE_FLAG_STRIDE, dtype=torch.int32,
@@ -503,9 +532,11 @@ def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
     are float32 or bfloat16, in one dtype.
 
     CUDA tensors launch ``csrc/full_step.cu`` (``csrc/full_step_bf16.cu``
-    for bfloat16) and raise if the launch fails (there is no fallback to K1
-    + K2); CPU tensors run ``full_step_3d_plain``.  Returns ``(vel', p,
-    density')``.  ``full_step_3d.launches`` counts launches."""
+    for bfloat16) on ``fused_step_route``'s route, decided before the
+    launch, and raise if the launch fails (there is no fallback to K1 + K2
+    or to the other route); CPU tensors run ``full_step_3d_plain``.
+    Returns ``(vel', p, density')``.  ``full_step_3d.launches`` counts
+    launches, ``full_step_launches`` them by route."""
     n_sub = _check_substeps(n_sub)
     n, sdt = _checked_projection(vel, iters, solve_dtype, sweep_block)
     window = check_window(window, n)
@@ -527,20 +558,22 @@ def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
     # bfloat16: the substeps before each advection's last stay float32.
     tmp0, tmp1 = ((None, None) if fdt == torch.float32
                   else _scratch(3, n, n_sub, False, fdt, vel.device))
-    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device)
+    tiles = _solve_tiles_arg(vel, iters, sweep_block, sdt)
+    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device, tiles is not None)
     blk = _projection_block_arg(vel, iters, sweep_block)
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_full_step(
             vel.data_ptr(), density.data_ptr(), adv.data_ptr(),
             vel_out.data_ptr(), p.data_ptr(), dens_out.data_ptr(), _ptr(tmp0),
-            _ptr(tmp1), p_a.data_ptr(), p_b.data_ptr(), rhs.data_ptr(), n,
+            _ptr(tmp1), p_a.data_ptr(), _ptr(p_b), _ptr(rhs), n,
             int(iters), int(sdt == torch.bfloat16), storage_flag(fdt),
             substep_dt0(dt, n, n_sub), n_sub, int(window),
-            storage_scalar(damp, fdt), storage_scalar(dens_damp, fdt), blk, stream,
+            storage_scalar(damp, fdt), storage_scalar(dens_damp, fdt), blk, tiles, stream,
         )
     _build.check(lib, err, "full-step kernel launch")
     full_step_3d.launches += 1
+    full_step_launches["grid" if tiles is None else "tiled"] += 1
     return vel_out, p, dens_out
 
 
@@ -563,9 +596,11 @@ def advect_project_3d_resident(vel, iters: int, dt: float, *, window: int = 1,
     sequential Jacobi sweeps, with the K14 kernel: K8's cooperative launch
     without the density phase (obstacle-free, float32).
 
-    CUDA tensors launch ``csrc/full_step.cu``'s ``fs_advect_project``; CPU
-    tensors run ``advect_project_3d_resident_plain``.  Returns ``(vel',
-    p)``.  ``advect_project_3d_resident.launches`` counts launches."""
+    CUDA tensors launch ``csrc/full_step.cu``'s ``fs_advect_project`` on
+    K8's routes (``fused_step_route``); CPU tensors run
+    ``advect_project_3d_resident_plain``.  Returns ``(vel', p)``.
+    ``advect_project_3d_resident.launches`` counts launches,
+    ``advect_project_launches`` them by route."""
     n_sub = _check_substeps(n_sub)
     n, sdt = _checked_projection(vel, iters, None)
     window = check_window(window, n)
@@ -582,16 +617,18 @@ def advect_project_3d_resident(vel, iters: int, dt: float, *, window: int = 1,
     adv = torch.empty_like(vel)
     vel_out = torch.empty_like(vel)
     p = torch.empty((n, n, n), dtype=vel.dtype, device=vel.device)
-    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device)
+    tiles = _solve_tiles_arg(vel, iters, 1, sdt)
+    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device, tiles is not None)
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_advect_project(
             vel.data_ptr(), adv.data_ptr(), vel_out.data_ptr(), p.data_ptr(),
-            p_a.data_ptr(), p_b.data_ptr(), rhs.data_ptr(), n, int(iters),
-            substep_dt0(dt, n, n_sub), n_sub, int(window), stream,
+            p_a.data_ptr(), _ptr(p_b), _ptr(rhs), n, int(iters),
+            substep_dt0(dt, n, n_sub), n_sub, int(window), tiles, stream,
         )
     _build.check(lib, err, "advect + project kernel launch")
     advect_project_3d_resident.launches += 1
+    advect_project_launches["grid" if tiles is None else "tiled"] += 1
     return vel_out, p
 
 
@@ -599,15 +636,23 @@ advect_project_3d_resident.launches = 0
 
 
 def full_step_blocks(solve_dtype=None, device=None, dtype=torch.float32,
-                     window: int = 1) -> int:
-    """The blocks of 256 threads K8's cooperative grid has on ``device``
-    (the current card when None) for fields of ``dtype`` and a ``window``:
-    as many as the card holds at once."""
+                     window: int = 1, n: int = None, iters: int = 1,
+                     sweep_block: int = 1) -> int:
+    """The blocks of K8's cooperative grid on ``device`` (the current card
+    when None) for fields of ``dtype`` and a ``window``, on the route an
+    ``n³`` step with ``iters`` sweeps and ``sweep_block`` takes
+    (``fused_step_route``): on the tiled route the tiles (one block of up
+    to 512 threads a tile, checked to fit the card at once); on the
+    grid-stride route, or with ``n`` None, as many blocks of 256 threads as
+    the card holds at once."""
+    sdt = solve_torch_dtype(solve_dtype)
+    tiles = None if n is None else projection_tiles(n, dtype, iters, sweep_block, sdt,
+                                                    device)
     lib = _build.load_library()
     with torch.cuda.device(device):
         blocks = lib.fs_full_step_blocks(
-            int(solve_torch_dtype(solve_dtype) == torch.bfloat16),
-            storage_flag(dtype), int(window))
+            int(sdt == torch.bfloat16), storage_flag(dtype), int(window),
+            0 if n is None else int(n), *(tiles or (0, 0, 0)))
     if blocks < 0:
         _build.check(lib, -blocks, "full-step grid")
     return blocks

@@ -31,6 +31,7 @@ from fluidsim_tpu_torch.engine import Engine
 from fluidsim_tpu_torch.kernels import advect as kadvect
 from fluidsim_tpu_torch.kernels import project as kproject
 from fluidsim_tpu_torch.kernels import resident as kresident
+from fluidsim_tpu_torch.kernels import resident2d as kresident2d
 from fluidsim_tpu_torch.kernels.advect import (
     advect_multi_3d_kernel,
     advect_multi_3d_plain,
@@ -344,10 +345,21 @@ def test_k8_matches_twin_and_k1_then_k2(cuda, n, solve_dtype, n_sub):
 
 
 def test_k8_grid_is_what_the_card_holds(cuda):
+    """Each route's grid: the tiles at bench128 (the tiled route, one block
+    a tile, all resident at once), the occupancy grid where K5 blocks the
+    sweeps or no tiling fits, and with no size given."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for solve_dtype in (None, "bfloat16"):
-        blocks = full_step_blocks(solve_dtype, cuda)
-        assert blocks > 0 and blocks % sms == 0
+        sdt = kresident.solve_torch_dtype(solve_dtype)
+        tiles = kresident.solve_tiles(128, sdt, cuda)
+        blocks = full_step_blocks(solve_dtype, cuda, n=128, iters=60)
+        assert blocks == int(np.prod(tiles)) <= sms
+        for n, block in ((None, 1), (128, 4), (176, 1)):
+            if n is not None:
+                assert kresident.fused_step_route(n, 60, solve_dtype, sweep_block=block,
+                                                  device=cuda) == "grid"
+            blocks = full_step_blocks(solve_dtype, cuda, n=n, iters=60, sweep_block=block)
+            assert blocks > 0 and blocks % sms == 0
 
 
 @pytest.mark.parametrize("change,ran", [
@@ -544,7 +556,7 @@ def test_k9_matches_twin(cuda, n, mask):
 
 @pytest.mark.parametrize("blocks", [1, 3])
 def test_k9_cluster_size_leaves_the_result(cuda, blocks):
-    """K9 on a cluster of ``blocks`` blocks (the step uses 8) bitwise its
+    """K9 on a cluster of ``blocks`` blocks (the step uses 16) bitwise its
     twin at 192² with scene_a's airfoil, b 0/1/2 in both modes, 21 sweeps."""
     n = 192
     rng = np.random.default_rng(960 + blocks)
@@ -574,7 +586,7 @@ def test_k9_wrapper_raises_for_cuda_tensors_it_cannot_take(cuda):
                               torch.zeros((32, 16), device=cuda), 1.0, 6.0, None, 4)
     with pytest.raises(ValueError, match="one device"):
         lin_solve_2d_resident(0, x, x.cpu(), 1.0, 6.0, None, 4)
-    for blocks in (0, 9):
+    for blocks in (0, 17):
         with pytest.raises(RuntimeError, match="CUDA error"):
             lin_solve_2d_resident(0, x, x, 1.0, 6.0, None, 4, blocks=blocks)
 
@@ -731,12 +743,19 @@ def test_k1_src_window_matches_twin(cuda, window, n_sub):
 
 
 def test_k8_grid_holds_for_every_variant(cuda):
+    """Every instantiation's grid on both routes: the grid-stride one a
+    whole number of blocks an SM, the tiled one its tiles at 64³ and 128³."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for dtype in (torch.float32, BF16):
         for window in (1, 2, 3, 4, 5):
             for solve_dtype in (None, "bfloat16"):
                 blocks = full_step_blocks(solve_dtype, cuda, dtype, window)
                 assert blocks > 0 and blocks % sms == 0, (dtype, window, solve_dtype)
+                sdt = kresident.solve_torch_dtype(solve_dtype)
+                for n in (64, 128):
+                    tiles = kresident.solve_tiles(n, sdt, cuda)
+                    blocks = full_step_blocks(solve_dtype, cuda, dtype, window, n=n, iters=20)
+                    assert blocks == int(np.prod(tiles)) <= sms, (dtype, window, solve_dtype, n)
 
 
 def test_bf16_wrappers_raise_for_what_they_do_not_take(cuda):
@@ -1617,3 +1636,132 @@ def test_round_wrappers_raise_past_32_bit_offsets(cuda):
     fits = one.expand(511, 2048, 2048)  # below 2³¹: the next check speaks
     with pytest.raises(ValueError, match="contiguous"):
         jacobi_ext_kernel(fits, fits, 1.0, 6.0, 2, NO_WALL, NO_WALL)
+
+
+# -- K8 and K14 on both routes; K9 on both routes (the tiled step and the 2D
+# solve's strips) ----------------------------------------------------------------
+
+
+def force_route(monkeypatch, route):
+    """K8/K14 (and K2/K3) on ``route``: "grid" takes no tiling."""
+    if route == "grid":
+        monkeypatch.setattr(kresident, "solve_tiles", lambda *args: None)
+
+
+def route_of(counters, before):
+    return [k for k, v in counters.items() if v != before[k]]
+
+
+@pytest.mark.parametrize("n_sub,window", [(1, 1), (2, 2), (3, 3)])
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [32, 64, 128])
+@pytest.mark.parametrize("route", ["tiled", "grid"])
+def test_k8_routes_match_twin_and_k1_then_k2(cuda, monkeypatch, route, n, dtype, solve_dtype,
+                                            n_sub, window):
+    """K8 on each route bitwise its twin and K1 → K2 on the same inputs."""
+    force_route(monkeypatch, route)
+    vel, dens = fields(n, 2300 + n + n_sub, cuda)
+    vel, dens = (vel * 0.06).to(dtype), dens.to(dtype)
+    kw = dict(window=window, n_sub=n_sub, solve_dtype=solve_dtype, damp=DAMP, dens_damp=DDAMP)
+    before = dict(kresident.full_step_launches)
+    got = full_step_3d(vel, dens, 20, DT, **kw)
+    assert route_of(kresident.full_step_launches, before) == [route]
+    assert_equal(got, full_step_3d_plain(vel, dens, 20, DT, **kw), f"K8 {route}")
+    adv = advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, n_sub=n_sub, window=window)
+    assert_equal(got, project_advect_density_3d(adv, dens, 20, DT, **kw),
+                 f"K8 {route} vs K1 -> K2")
+
+
+@pytest.mark.parametrize("n_sub,window", [(1, 1), (2, 2), (3, 3)])
+@pytest.mark.parametrize("n", [32, 128])
+@pytest.mark.parametrize("route", ["tiled", "grid"])
+def test_k14_routes_match_twin_and_k1_then_k3(cuda, monkeypatch, route, n, n_sub, window):
+    force_route(monkeypatch, route)
+    vel, _ = fields(n, 2400 + n + window, cuda)
+    vel = vel * 0.06
+    before = dict(kresident.advect_project_launches)
+    got = advect_project_3d_resident(vel, 60, DT, window=window, n_sub=n_sub)
+    assert route_of(kresident.advect_project_launches, before) == [route]
+    assert_equal(got, advect_project_3d_resident_plain(vel, 60, DT, window=window, n_sub=n_sub),
+                 f"K14 {route}")
+    adv = advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, n_sub=n_sub, window=window)
+    assert_equal(got, project_3d_resident(adv, 60), f"K14 {route} vs K1 -> K3")
+
+
+def test_k8_tiled_route_at_bench128_is_one_launch(cuda):
+    """bench128's fused step (bf16 solve, 60 sweeps) on the tiled route: one
+    launch, counted by route; sweep_block 4 takes the grid-stride one."""
+    vel, dens = fields(128, 2500, cuda)
+    vel = vel * 0.06
+    before = dict(kresident.full_step_launches)
+    full_step_3d(vel, dens, 60, DT, solve_dtype="bfloat16", damp=DAMP, dens_damp=DDAMP)
+    full_step_3d(vel, dens, 60, DT, solve_dtype="bfloat16", damp=DAMP, dens_damp=DDAMP,
+                 sweep_block=4)
+    assert {k: v - before[k] for k, v in kresident.full_step_launches.items()} == \
+        {"tiled": 1, "grid": 1}
+
+
+def k9_inputs(n, mask, seed, device):
+    rng = np.random.default_rng(seed)
+    obst = {"none": None,
+            "scene": scene_mask(preset_scene_b if n == 128 else preset_scene_a, n, device),
+            "random": torch.from_numpy(rng.random((n, n)) < 0.2).to(device)}[mask]
+    a = float(np.float32(2.5e-3 * (n - 2) ** 2))
+    c = float(np.float32(1.0) + np.float32(6.0) * np.float32(a))
+    x = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)).to(device)
+    x0 = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)).to(device)
+    return obst, a, c, x, x0
+
+
+@pytest.mark.parametrize("mask", ["none", "scene", "random"])
+@pytest.mark.parametrize("n", [33, 64, 128, 192])
+@pytest.mark.parametrize("route", ["strips", "l2"])
+def test_k9_routes_match_twin(cuda, monkeypatch, route, n, mask):
+    """K9 on each route bitwise its twin: b 0/1/2, both modes, 1, 2 and 20
+    sweeps."""
+    monkeypatch.setattr(kresident2d, "solve2d_route", lambda *args: route)
+    obst, a, c, x, x0 = k9_inputs(n, mask, 2600 + n, cuda)
+    before = dict(kresident2d.solve2d_launches)
+    for b in (0, 1, 2):
+        for smooth in (True, False):
+            for iters in (1, 2, 20):
+                start = x0 if smooth else x
+                got = lin_solve_2d_resident(b, start, x0, a, c, obst, iters, smooth=smooth)
+                ref = lin_solve_2d_resident_plain(b, start, x0, a, c, obst, iters,
+                                                  smooth=smooth)
+                torch.cuda.synchronize()
+                assert torch.equal(got, ref), (b, smooth, iters,
+                                               float((got - ref).abs().max()))
+                assert torch.equal(torch.signbit(got), torch.signbit(ref)), (b, smooth, iters)
+    assert kresident2d.solve2d_launches[route] - before[route] == 18
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 3, 4, 5, 6, 7, 8, 12, 16])
+@pytest.mark.parametrize("n", [5, 17, 128, 600])
+def test_k9_gate_routes_match_twin(cuda, n, blocks):
+    """K9 on the route its gate picks for n and the cluster's size (600²:
+    above the strips' gate at every size), bitwise its twin."""
+    route = kresident2d.solve2d_route(n, blocks, cuda)
+    assert route == ("l2" if n == 600 else "strips")
+    obst, a, c, x, x0 = k9_inputs(n, "random", 2700 + n + blocks, cuda)
+    before = dict(kresident2d.solve2d_launches)
+    for b in (0, 1, 2):
+        for smooth in (True, False):
+            start = x0 if smooth else x
+            got = lin_solve_2d_resident(b, start, x0, a, c, obst, 21, smooth=smooth,
+                                        blocks=blocks)
+            ref = lin_solve_2d_resident_plain(b, start, x0, a, c, obst, 21, smooth=smooth)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (b, smooth, float((got - ref).abs().max()))
+    assert kresident2d.solve2d_launches[route] - before[route] == 6
+
+
+def test_k9_floor_launches(cuda):
+    """The cluster-barrier launch that chip_smoke.py times as K9's floor."""
+    for blocks in (1, 8, 16):
+        for syncs in (0, 20):
+            kresident2d.cluster_barriers(syncs, blocks, cuda)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kresident2d.cluster_barriers(20, 17, cuda)

@@ -1,0 +1,279 @@
+"""K8 and K14 on the tiled solve (``csrc/full_step.cuh``'s
+``full_step_tiled_kernel``) on the CPU: the route each option and size
+takes (``kernels/resident.fused_step_route``), the kernel's grid barriers
+read from its source, and a plain emulation of its schedule held bitwise
+against the twins ``full_step_3d_plain`` and
+``advect_project_3d_resident_plain``.
+
+The emulation runs the kernel's phases on flat tensors named as the
+kernel's buffers, each poisoned with NaN before the launch: the
+self-advection's substeps, each reading and writing the buffers
+``substep_buf`` gives its index; the tiled solve of every tile
+(``test_torch_solve_tiles.tiled_solve_emulated``: tiles in a shuffled order,
+the face trades through the parity slots) from the divergence of ``adv``;
+the gradient from the final iterate in ``pa``; the density's substeps.  A
+grid-stride phase writes each cell from the thread the kernel gives it
+(``grid.thread_rank()`` of the tiles' blocks; a thread's two cells of a
+loop trip, ``advect_pair``, are its own), its blocks in a shuffled order in
+two waves, each wave computing from the buffers as the waves before it left
+them: a phase that read what it writes would show.  A grid
+barrier is the end of a phase.  The kernel must equal the twins bit for bit
+on the card as well (``tests/test_torch_cuda.py``).
+"""
+
+import re
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from fluidsim_tpu_torch.dtypes import scale_in
+from fluidsim_tpu_torch.kernels import advect as kadvect
+from fluidsim_tpu_torch.kernels.advect import advect_multi_3d_plain, substep_dt0
+from fluidsim_tpu_torch.kernels.resident import (
+    TILE_THREADS,
+    advect_project_3d_resident_plain,
+    divergence_interior,
+    full_step_3d_plain,
+    fused_step_route,
+    project_gradient,
+    projection_tiles,
+    solve_torch_dtype,
+    tile_extents,
+)
+from test_torch_solve_tiles import tiled_solve_emulated
+
+torch.set_num_threads(1)
+
+CSRC = Path(__file__).resolve().parent.parent / "fluidsim_tpu_torch" / "csrc"
+BF16 = torch.bfloat16
+DT, DAMP, DDAMP = 0.1, 0.999, 0.995
+
+
+def function_body(text: str, head: str) -> str:
+    """The braces-balanced body of the function whose definition starts with
+    ``head`` in ``text``."""
+    start = text.index("{", text.index(head))
+    depth = 0
+    for i in range(start, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[i], 0)
+        if depth == 0:
+            return text[start:i + 1]
+    raise AssertionError(f"unbalanced body of {head}")
+
+
+def test_tiled_kernel_barriers_are_the_kernels():
+    """The tiled kernel's grid barriers are the emulation's phase ends: one
+    a self-advection substep, one after the solve, one before the density,
+    one between density substeps; none inside the solve, whose block waits
+    on its face neighbours' flags only."""
+    step = (CSRC / "full_step.cuh").read_text()
+    tiled = function_body(step, "    full_step_tiled_kernel(")
+    assert "__launch_bounds__(kTileThreads, 1)\n    full_step_tiled_kernel(" in step
+    assert tiled.count("grid.sync()") == 2
+    assert re.search(r"solve_tile<T, S, false, true>\(fs_tile_smem, t, blockIdx\.x\);\s*"
+                     r"grid\.sync\(\);", tiled)
+    advect = function_body(step, "__device__ __forceinline__ void self_advect_phase(")
+    assert advect.count("grid.sync()") == 1
+    density = function_body(step, "__device__ __forceinline__ void density_phase(")
+    assert density.count("if (!last) grid.sync();") == 1
+    solve = (CSRC / "solve_tiled.cuh").read_text()
+    body = function_body(solve, "__device__ __forceinline__ void solve_tile(")
+    assert "grid" not in body.replace("gridDim", "")
+    # The zero start covers the two padded copies, not the rhs, which its
+    # threads write while others zero.
+    assert "i < 2 + 2 * pvol; i += nthreads" in body
+    assert "gridDim" not in body  # the slots are indexed by the tile count
+    assert re.search(rf"kTileThreads = {TILE_THREADS};", solve)
+
+
+@pytest.mark.parametrize("n,iters,solve,dtype,block,route", [
+    (128, 60, "bfloat16", torch.float32, 1, "tiled"),     # bench128 + fuse_self_advect
+    (128, 60, "bfloat16", BF16, 1, "tiled"),              # bench128 bf16
+    (128, 60, None, torch.float32, 1, "tiled"),           # K14, 60 f32 sweeps
+    (64, 20, None, torch.float32, 1, "tiled"),            # plume64 + fuse_self_advect
+    (160, 60, "bfloat16", torch.float32, 1, "tiled"),     # the bf16 tiling's largest
+    (144, 60, None, torch.float32, 1, "grid"),            # f32 copies over the opt-in
+    (163, 60, None, torch.float32, 1, "grid"),            # the L2 gate's f32 edge
+    (176, 60, "bfloat16", torch.float32, 1, "grid"),      # more tiles than SMs
+    (205, 60, "bfloat16", BF16, 1, "grid"),               # the L2 gate's bf16 edge
+    (128, 60, "bfloat16", torch.float32, 2, "grid"),      # K5 at T = 2
+    (128, 60, "bfloat16", torch.float32, 4, "grid"),      # K5 at T = 4
+    (128, 60, "bfloat16", BF16, 4, "tiled"),              # K5 blocks float32 fields only
+])
+def test_route(n, iters, solve, dtype, block, route):
+    assert fused_step_route(n, iters, solve, dtype, block) == route
+    tiles = projection_tiles(n, dtype, iters, block, solve_torch_dtype(solve))
+    assert (tiles is not None) == (route == "tiled")
+
+
+# -- the kernel's schedule ------------------------------------------------------
+
+
+def substep_buf(sub, n_sub, wide, inp, out, other, tmp0, tmp1):
+    """csrc/full_step.cuh's substep_buf: the buffer substep ``sub`` writes
+    (-1: the input, which substep 0 reads)."""
+    if sub < 0:
+        return inp
+    if wide:
+        return out if (n_sub - 1 - sub) % 2 == 0 else other
+    if sub == n_sub - 1:
+        return out
+    return tmp0 if sub % 2 == 0 else tmp1
+
+
+def one_substep(bs, fields, vel, dt0, window):
+    """One substep of the K1 twin in float32 with the backtrace scale
+    ``dt0``: the twin's loop body, as the kernel's per-cell body computes
+    it."""
+    with mock.patch.object(kadvect, "substep_dt0", lambda *_: dt0):
+        return advect_multi_3d_plain(bs, fields.float(), vel.float(), DT, n_sub=1,
+                                     window=window)
+
+
+class Grid:
+    """The tiled kernel's grid-stride phases: ``grid.thread_rank()`` of the
+    tiles' blocks (each grown along z to ``TILE_THREADS`` threads), the
+    block of every cell, and a shuffled block order in two waves."""
+
+    def __init__(self, n, tiles, rng):
+        mx, my, _ = tile_extents(n, tiles)
+        hx = (mx + 1) // 2
+        threads = hx * my * (TILE_THREADS // (hx * my))
+        self.blocks = int(np.prod(tiles))
+        cells = torch.arange(n ** 3)
+        self.block_of = ((cells % (self.blocks * threads)) // threads).reshape(n, n, n)
+        self.rng = rng
+        self.n = n
+
+    def run(self, buf, name, compute):
+        """Write ``compute()`` into ``buf[name]`` cell by cell, the blocks in
+        a shuffled order in two waves, each computing from the buffers as
+        the waves before it left them; every cell written once."""
+        order = self.rng.permutation(self.blocks)
+        written = torch.zeros((self.n,) * 3, dtype=torch.int32)
+        for wave in np.array_split(order, 2):
+            mine = torch.isin(self.block_of, torch.from_numpy(wave))
+            vals = compute()
+            dst = buf[name]
+            dst[(Ellipsis, mine)] = vals[(Ellipsis, mine)].to(dst.dtype)
+            written += mine.int()
+        assert bool((written == 1).all())
+
+
+def poisoned(shape, dtype):
+    return torch.full(shape, float("nan"), dtype=dtype)
+
+
+def advect_phase(grid, buf, n_sub, wide, bs, names, vel_name, dt0, window, scale=None):
+    """The substeps of one advection (``names``: in, out, other, tmp0,
+    tmp1), each from the buffer of index sub - 1 into that of sub: float32
+    between, the last rounded to the storage type (then ``· scale`` in
+    it)."""
+    for sub in range(n_sub):
+        src = substep_buf(sub - 1, n_sub, wide, *names)
+        dst = substep_buf(sub, n_sub, wide, *names)
+        last = sub == n_sub - 1
+
+        def compute(src=src, last=last):
+            vals = one_substep(bs, buf[src] if len(bs) == 3 else buf[src][None],
+                               buf[vel_name], dt0, window)
+            vals = vals if len(bs) == 3 else vals[0]
+            if last and scale is not None:
+                return scale_in(vals.to(buf["vel"].dtype), scale)
+            return vals
+
+        assert src != dst
+        grid.run(buf, dst, compute)
+
+
+def emulate_step(vel, dens, iters, *, window, n_sub, solve_dtype, damp, dens_damp, seed):
+    """The tiled kernel's schedule on the CPU (``dens_damp`` None: K14,
+    without the density phase); returns (vel', p[, density'])."""
+    n = vel.shape[-1]
+    sdt = solve_torch_dtype(solve_dtype)
+    tiles = projection_tiles(n, vel.dtype, iters, 1, sdt)
+    assert tiles is not None
+    rng = np.random.default_rng(seed)
+    grid = Grid(n, tiles, rng)
+    sdtype, wide = vel.dtype, vel.dtype == torch.float32
+    vol3, vol = (3, n, n, n), (n, n, n)
+    buf = {"vel": vel.clone(), "dens": dens.clone(), "adv": poisoned(vol3, sdtype),
+           "vel_out": poisoned(vol3, sdtype), "p_out": poisoned(vol, sdtype),
+           "dens_out": poisoned(vol, sdtype), "pa": poisoned(vol, sdt),
+           "tmp0": poisoned(vol3, torch.float32), "tmp1": poisoned(vol3, torch.float32)}
+    dt0 = substep_dt0(DT, n, n_sub)
+    # 1. Self-advection into adv, a barrier after each substep.
+    advect_phase(grid, buf, n_sub, wide, (1, 2, 3),
+                 ("vel", "adv", "vel_out", "tmp0", "tmp1"), "vel", dt0, window)
+    # 2-3. Every tile's solve (divergence of adv, the sweeps with the face
+    # trades), the final iterate into pa; a barrier.
+    rhs = F.pad(divergence_interior(buf["adv"]).to(sdt), (1, 1, 1, 1, 1, 1))
+    buf["pa"] = tiled_solve_emulated(rhs, None, iters, tiles, sdt, seed)
+    # 4. Gradient, faces, damp (and the pressure's copy); a barrier.
+    grid.run(buf, "vel_out", lambda: project_gradient(buf["adv"], buf["pa"].float(), None,
+                                                      damp))
+    grid.run(buf, "p_out", lambda: buf["pa"].float())
+    if dens_damp is None:
+        return buf["vel_out"], buf["p_out"]
+    # 5. Density into dens_out; float32: the other buffer is adv's first
+    # volume, bfloat16: the first volumes of tmp0 and tmp1.
+    for name in ("adv", "tmp0", "tmp1"):
+        buf[name + "[0]"] = buf[name][0]
+    advect_phase(grid, buf, n_sub, wide, (0,),
+                 ("dens", "dens_out", "adv[0]", "tmp0[0]", "tmp1[0]"), "vel_out", dt0, window,
+                 scale=dens_damp)
+    return buf["vel_out"], buf["p_out"], buf["dens_out"]
+
+
+def seeded(n, seed, dtype):
+    rng = np.random.default_rng(seed)
+    vel = torch.from_numpy((rng.standard_normal((3, n, n, n)) * 0.3).astype(np.float32))
+    dens = torch.from_numpy(np.abs(rng.standard_normal((n, n, n)) * 10).astype(np.float32))
+    return vel.to(dtype), dens.to(dtype)
+
+
+def assert_bitwise(got, ref, what):
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype, what
+        assert torch.equal(g, r), (what, float((g.float() - r.float()).abs().max()))
+
+
+# (n, n_sub, window, fields, solve): every n_sub and window at 16^3, both
+# field and solve dtypes at 24^3 and 33^3 (odd: the x tiles at n's parity),
+# bench128's options at 48^3.
+K8_CASES = [
+    *[(16, s, k, "f32", "bf16") for s in (1, 2, 3) for k in (1, 2, 3)],
+    *[(16, s, 1, "bf16", "f32") for s in (1, 2, 3)],
+    *[(24, s, k, f, v) for s, k in ((1, 1), (2, 2)) for f in ("f32", "bf16")
+      for v in ("f32", "bf16")],
+    (33, 1, 1, "f32", "f32"), (33, 2, 1, "bf16", "bf16"), (33, 3, 3, "f32", "bf16"),
+    (48, 1, 1, "f32", "bf16"), (48, 1, 1, "bf16", "bf16"), (48, 2, 1, "f32", "f32"),
+]
+DTYPES = {"f32": torch.float32, "bf16": BF16}
+
+
+@pytest.mark.parametrize("n,n_sub,window,fields,solve", K8_CASES)
+def test_k8_schedule_is_the_twin(n, n_sub, window, fields, solve):
+    dtype = DTYPES[fields]
+    vel, dens = seeded(n, 100 * n + 10 * n_sub + window, dtype)
+    solve_dtype = "bfloat16" if solve == "bf16" else None
+    iters = 5
+    got = emulate_step(vel, dens, iters, window=window, n_sub=n_sub, solve_dtype=solve_dtype,
+                       damp=DAMP, dens_damp=DDAMP, seed=n + n_sub)
+    ref = full_step_3d_plain(vel, dens, iters, DT, window=window, n_sub=n_sub,
+                             solve_dtype=solve_dtype, damp=DAMP, dens_damp=DDAMP)
+    assert_bitwise(got, ref, "K8")
+
+
+@pytest.mark.parametrize("n,n_sub,window", [(16, 1, 1), (16, 2, 2), (16, 3, 3), (33, 2, 1),
+                                            (48, 1, 1)])
+def test_k14_schedule_is_the_twin(n, n_sub, window):
+    vel, dens = seeded(n, 7 * n + n_sub, torch.float32)
+    got = emulate_step(vel, dens, 6, window=window, n_sub=n_sub, solve_dtype=None, damp=1.0,
+                       dens_damp=None, seed=n)
+    ref = advect_project_3d_resident_plain(vel, 6, DT, window=window, n_sub=n_sub)
+    assert_bitwise(got, ref, "K14")

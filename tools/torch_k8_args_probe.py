@@ -18,12 +18,14 @@ from the copy (``kernels/_build.build``):
 - ``current-half``: ``current`` on half the grid.
 
 For each variant it prints ptxas's registers, spills and stack for K8's
-float32-field kernels, the count of non-coherent global loads
-(``LDG.E...CONSTANT``) and of local loads in their SASS (``cuobjdump``), and
-then runs ``full_step_3d`` at 32^3 and 33^3 (K = 1, 2, 3; n_sub = 1, 2, 3;
-float32 and bfloat16 solves; sweep_block 1 and 4) against its plain twin
-on the card, one JSON line per case that is not bitwise and a summary line
-per variant.  With ``--sanitize``, where ``compute-sanitizer`` exists, it
+float32-field kernels (both routes: ``full_step_kernel``, the grid-stride
+one, and ``full_step_tiled_kernel``), the count of non-coherent global
+loads (``LDG.E...CONSTANT``) and of local loads in their SASS
+(``cuobjdump``), and then runs ``full_step_3d`` at 32^3 and 33^3 (K = 1, 2,
+3; n_sub = 1, 2, 3; float32 and bfloat16 solves; sweep_block 1, the tiled
+route, and 4, the grid-stride route) against its plain twin on the card,
+one JSON line per case that is not bitwise and a summary line per variant.
+The edits touch the grid-stride kernel's arguments only.  With ``--sanitize``, where ``compute-sanitizer`` exists, it
 then runs the ``member`` variant's n_sub = 2 case under its memcheck,
 initcheck and racecheck tools and prints the end of each report.
 
@@ -49,8 +51,7 @@ sys.path.insert(0, str(ROOT))
 
 SWAPS = {
     "member": [
-        ("  float dt0_sub, damp, dens_damp;\n};",
-         "  float dt0_sub, damp, dens_damp;\n  SolveBlock blk;\n};"),
+        ("  int window;\n};", "  int window;\n  SolveBlock blk;\n};"),
         ("full_step_kernel(const FullStepArgs a, const SolveBlock blk) {",
          "full_step_kernel(const FullStepArgs a) {\n  const SolveBlock& blk = a.blk;"),
         ("  SolveBlock block = blk;\n  void* params[] = {&args, &block};",
@@ -99,17 +100,18 @@ def load(so: Path) -> ctypes.CDLL:
 
 
 def ptxas_k8(log: str) -> dict:
-    """K8's float32-field kernels in full_step.cu's ptxas report: template
-    arguments -> registers, spill stores/loads and stack bytes."""
+    """K8's float32-field kernels in full_step.cu's ptxas report: route and
+    template arguments -> registers, spill stores/loads and stack bytes."""
     sec = log.split("== full_step.cu\n", 1)[1].split("\n== ", 1)[0]
     out = {}
-    for m in re.finditer(r"full_step_kernelI(\w+?)fLi(\d)ELb(\d)E\S*' for 'sm_90a'\n"
-                         r".*\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                         r"(\d+) bytes spill loads\n.*Used (\d+) registers", sec):
-        solve = "bf16" if "bfloat16" in m.group(1) else "f32"
-        key = f"solve={solve} K={m.group(2)} dens={m.group(3)}"
-        out[key] = {"regs": int(m.group(7)), "spill_st": int(m.group(5)),
-                    "spill_ld": int(m.group(6)), "stack": int(m.group(4))}
+    for m in re.finditer(r"full_step_(tiled_)?kernelI(\w+?)fLi(\d)ELb(\d)E\S*' for "
+                         r"'sm_90a'\n.*\n\s*(\d+) bytes stack frame, (\d+) bytes spill "
+                         r"stores, (\d+) bytes spill loads\n.*Used (\d+) registers", sec):
+        tiled, types, window, dens, stack, spill_st, spill_ld, regs = m.groups()
+        solve = "bf16" if "bfloat16" in types else "f32"
+        key = f"route={'tiled' if tiled else 'grid'} solve={solve} K={window} dens={dens}"
+        out[key] = {"regs": int(regs), "spill_st": int(spill_st), "spill_ld": int(spill_ld),
+                    "stack": int(stack)}
     return out
 
 
@@ -124,7 +126,7 @@ def sass_k8(so: Path) -> dict:
     for line in proc.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1) if "full_step_kernel" in m.group(1) else None
+            name = m.group(1) if re.search(r"full_step_(tiled_)?kernel", m.group(1)) else None
             if name:
                 out[name] = {"ldg_constant": 0, "ldg": 0, "ldl": 0}
             continue
@@ -174,7 +176,9 @@ def run_cases(lib, only=None) -> dict:
         diffs = [float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref)]
         if any(not torch.equal(g, r) for g, r in zip(got, ref)):
             bad.append({"n": n, "window": window, "n_sub": n_sub, "solve": solve,
-                        "block": block, "max_abs_diff(vel,p,dens)": diffs})
+                        "block": block,
+                        "route": resident.fused_step_route(n, 12, solve, sweep_block=block),
+                        "max_abs_diff(vel,p,dens)": diffs})
     return {"cases": total, "not_bitwise": bad}
 
 
@@ -216,13 +220,14 @@ def locate(lib) -> list:
                 e(n, n, n), e(n, n, n), e(n, n, n)
             err = lib.fs_advect_project(vel.data_ptr(), adv.data_ptr(), vel_out.data_ptr(),
                                         p.data_ptr(), pa.data_ptr(), pb.data_ptr(),
-                                        rhs.data_ptr(), n, iters, d_sub, n_sub, window, stream)
+                                        rhs.data_ptr(), n, iters, d_sub, n_sub, window, None,
+                                        stream)
             adv8, vel8, dens8 = e(3, n, n, n), e(3, n, n, n), e(n, n, n)
             err8 = lib.fs_full_step(vel.data_ptr(), dens.data_ptr(), adv8.data_ptr(),
                                     vel8.data_ptr(), e(n, n, n).data_ptr(), dens8.data_ptr(),
                                     None, None, pa.data_ptr(), pb.data_ptr(), rhs.data_ptr(),
                                     n, iters, 0, 0, d_sub, n_sub, window, 1.0, 1.0, None,
-                                    stream)
+                                    None, stream)
             torch.cuda.synchronize()
             row = {"window": window, "n_sub": n_sub, "err": [err, err8]}
             for name, h in hyp.items():

@@ -8,17 +8,21 @@ and with the emitter on its density; vortex128's three substeps with its
 mask, F = 3 and 1, float32 and bfloat16; multi256's two substeps, F = 3 and
 1; 512³ with two substeps, F = 3 with the buoyancy and F = 1), K11 (two substeps on one
 shard's (F, 68, 512, 512) slab of sharded512 on 8 shards, F = 3 and 1), K8
-(bench128's whole step in one launch, 60 sweeps), K2 (bench128: 60
-bfloat16 sweeps and the density) and K3 (bench128 unfused, 60 bfloat16
-sweeps; vortex128, its mask and 20 bfloat16 sweeps; 60 float32 sweeps).
+(the whole step in one launch: 60 float32 sweeps at 128³; bench128's 60
+bfloat16 sweeps on float32 and on bfloat16 fields; plume64's K = 3 and 20
+float32 sweeps), K2 (bench128: 60 bfloat16 sweeps and the density), K3
+(bench128 unfused, 60 bfloat16 sweeps; vortex128, its mask and 20 bfloat16
+sweeps; 60 float32 sweeps), K14 (60 float32 sweeps at 128³) and K9 (20
+sweeps with scene_a's airfoil at 192² and scene_b's circle at 128², a
+smoothing and a fixed-rhs solve).
 
 Run from anywhere:  python3 tools/torch_kernels_ab.py ROOT_A ROOT_B [...]
 
 Each ROOT is the root of a checkout that holds ``fluidsim_tpu_torch/``.
 The checkouts run in the order A, B, ..., then the reverse (A, B, B, A for
 two), each in a fresh Python process that builds that checkout's kernels
-and times each kernel with CUDA events over 10 (K6, K12) or 50 (the others)
-calls (5 for the 512³ calls) after two warm-up calls, on inputs made from one
+and times each kernel with CUDA events over 10 (K6, K12), 200 (K9) or 50
+(the others) calls (5 for the 512³ calls) after two warm-up calls, on inputs made from one
 NumPy seed.  Prints the card's name and power limit, then one JSON line per
 process: the milliseconds a call by kernel.
 """
@@ -62,12 +66,19 @@ def child(root: str) -> None:
     )
     from fluidsim_tpu_torch.kernels.jacobi import jacobi_3d_kernel
     from fluidsim_tpu_torch.kernels.project import divergence_3d_plain
-    from fluidsim_tpu_torch.config import preset_bench_128, preset_vortex_128
+    from fluidsim_tpu_torch.config import (
+        preset_bench_128,
+        preset_scene_a,
+        preset_scene_b,
+        preset_vortex_128,
+    )
     from fluidsim_tpu_torch.kernels.resident import (
+        advect_project_3d_resident,
         full_step_3d,
         project_3d_resident,
         project_advect_density_3d,
     )
+    from fluidsim_tpu_torch.kernels.resident2d import lin_solve_2d_resident
     from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
     from fluidsim_tpu_torch.scene.sources import emitter_fold_operand
 
@@ -141,6 +152,26 @@ def child(root: str) -> None:
     out["K3 f32 solve 128^3"] = cuda_ms(lambda: project_3d_resident(vel, 60), 50)
     out["K3 vortex128"] = cuda_ms(lambda: project_3d_resident(
         vel, 20, obst=vmask, solve_dtype=bf16), 50)
+    vb, db = vel.to(torch.bfloat16), dens.to(torch.bfloat16)
+    out["K8 bench128"] = cuda_ms(lambda: full_step_3d(vel, dens, 60, 0.0008,
+                                                      solve_dtype=bf16), 50)
+    out["K8 bench128 bf16 fields"] = cuda_ms(lambda: full_step_3d(vb, db, 60, 0.0008,
+                                                                  solve_dtype=bf16), 50)
+    pvel, pdens = field(64, 3, scale=0.5), field(64).abs() * 20.0
+    out["K8 plume64 K=3"] = cuda_ms(lambda: full_step_3d(pvel, pdens, 20, 0.02, window=3), 50)
+    out["K14 128^3"] = cuda_ms(lambda: advect_project_3d_resident(vel, 60, 0.0008), 50)
+    for scene, preset in (("scene_a", preset_scene_a), ("scene_b", preset_scene_b)):
+        cfg = preset()
+        m = cfg.current_size
+        mask = torch.from_numpy(build_obstacle_mask(cfg)).to(dev)
+        x = torch.from_numpy(rng.standard_normal((m, m)).astype(np.float32) * 3.0).to(dev)
+        div = torch.from_numpy(rng.standard_normal((m, m)).astype(np.float32) * 1e-3).to(dev)
+        a = float(np.float32(2.5e-3 * (m - 2) ** 2))
+        c = float(np.float32(1.0) + np.float32(6.0) * np.float32(a))
+        out[f"K9 {scene} smoothing"] = cuda_ms(lambda: lin_solve_2d_resident(
+            1, x, x, a, c, mask, 20, smooth=True), 200)
+        out[f"K9 {scene} fixed-rhs"] = cuda_ms(lambda: lin_solve_2d_resident(
+            0, torch.zeros_like(div), div, 1.0, 6.0, mask, 20), 200)
     print(json.dumps({"root": root, "ms": out}), flush=True)
 
 
