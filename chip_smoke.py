@@ -232,7 +232,22 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      (strips, L2) bitwise its twin, timed in turns, beside the floor (a
      launch of 20 cluster barriers alone); bench128 with ``fuse_full_step``'s
      options and scene_a through ``Engine`` on each route (the counters
-     show it), steps/s and device ms a step in turns.
+     show it), steps/s and device ms a step in turns;
+ 19. K1, K2's density phase and K11 at windows K >= 2 on tiles widened by K
+     (``csrc/advect_window.cuh``), which phases 9b, 9d and 14 already ran:
+     every K >= 2 call of PERF.md's table (K1 on plume64 at K = 3, 4, 5 and
+     the 64³ gate at K = 2, F = 3 and 1; bench128's folds at K = 2, 4, 5;
+     vortex128's mask and three substeps, bf16 at K = 4, 5; K2, K2s, K2o and
+     bf16 K2's density phase; K11 on sharded512's middle slab, F = 3 and 1,
+     float32 and bfloat16, at K = 4, 5), each bitwise its twin on the window
+     route (``kernels/advect.advect_launches``), timed beside the twin and,
+     for K1 and K11, ``F.grid_sample`` on the same clamped positions (the
+     rows' ``library_ms``); NaN and inf at zero-weight taps and a NaN
+     velocity at 64³ (K = 2..5, K1 float32 and bfloat16, K11, K2), bitwise
+     but for NaN payloads; then plume64, the 64³ gate, their fused paths,
+     bench128 window 2 + ``fuse_emitter``, the K = 4 and 5 Engine paths and
+     sharded512 on 8 shards (rdma) at K = 4 and 5, the counters at zero just
+     before each: every substep on the window route.
 The line before last is a JSON object describing each kernel (with the
 least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -3141,6 +3156,9 @@ def main() -> None:
     if child.returncode != 0:
         fail(f"phase 18 failed (exit code {child.returncode})")
 
+    # -- 19. K1, K2's density phase and K11 at K >= 2 on windowed tiles ----------
+    phase_window_tiles(card, dev, counters_to_zero, counts, library, gcfg)
+
     report = []
     for key, name, source, replaces, launches, err, (bound_ms, bound_by) in entries:
         ms, plain_ms = times[key]
@@ -3519,7 +3537,9 @@ def phase_wide(card, dev, counters_to_zero, counts, entries, times):
         for key, label, what, source, launches, bnd in rows:
             run_len = (f"{WIDE_HALO_STEPS} steps" if key.startswith("K11")
                        else "a direct call" if key.startswith("K14") else steps)
-            entries.append((key, f"{label} (window K={k}, runtime-K body; {what}; launches "
+            body = ("runtime-K body" if key.startswith(("K8", "K14"))
+                    else "windowed tiles, advect_window.cuh")
+            entries.append((key, f"{label} (window K={k}, {body}; {what}; launches "
                                  f"in {run_len})",
                             f"fluidsim_tpu_torch/csrc/{source}",
                             replaces[source] if not key.startswith("K14")
@@ -3770,11 +3790,11 @@ def phase_tiled_solve(card, dev, counters_to_zero, counts):
     say(f"# phase 15: {time.perf_counter() - t_phase:.1f} s")
 
 
-def backtrace_grid(vel, dt: float, n: int, n_sub: int, zoff: int = 0):
+def backtrace_grid(vel, dt: float, n: int, n_sub: int, zoff: int = 0, window: int = 1):
     """The ``(1, nz, n, n, 3)`` sample positions of one substep's backtrace
-    (``frac`` of the K = 1 twins: clamped to [0.5, n - 1.5] and to a cell of
-    each axis' coordinate, z global), normalised for ``F.grid_sample`` with
-    ``align_corners=True``."""
+    (``frac`` of the twins: clamped to [0.5, n - 1.5] and to ``window``
+    cells of each axis' coordinate, z global), normalised for
+    ``F.grid_sample`` with ``align_corners=True``."""
     import torch
 
     from fluidsim_tpu_torch.kernels.advect import substep_dt0
@@ -3786,7 +3806,7 @@ def backtrace_grid(vel, dt: float, n: int, n_sub: int, zoff: int = 0):
     out = []
     for axis, coord in ((0, ar[None, None, :]), (1, ar[None, :, None]), (2, zs[:, None, None])):
         t = (coord - dt0 * vel[axis]).clamp(0.5, n - 1.5)
-        t = torch.minimum(torch.maximum(t, coord - 1.0), coord + 1.0)
+        t = torch.minimum(torch.maximum(t, coord - window), coord + window)
         if axis == 2:
             t = t - zoff
         out.append(2.0 * t / ((nz if axis == 2 else n) - 1) - 1.0)
@@ -3851,7 +3871,7 @@ def phase_advect_tiles(card, dev, counters_to_zero, library):
         launched = {k: advect_launches[k] - before[k] for k in before}
         ref = plain()
         torch.cuda.synchronize()
-        if launched != {"tiled": n_sub, "cell": 0}:
+        if launched != {"tiled": n_sub, "window": 0, "cell": 0}:
             fail(f"phase 16: {key} did not take the tiled route: {launched}")
         if not torch.equal(got, ref):
             fail(f"phase 16: {key} differs from its twin "
@@ -3939,7 +3959,7 @@ def phase_advect_tiles(card, dev, counters_to_zero, library):
         eng.step(steps)
         torch.cuda.synchronize()
         say(f"# {name}, {steps} steps: substep launches by route {dict(advect_launches)}")
-        if advect_launches != {"tiled": per_step * steps, "cell": 0}:
+        if advect_launches != {"tiled": per_step * steps, "window": 0, "cell": 0}:
             fail(f"phase 16: {name} did not take the tiled route for every K = 1 substep")
         check_state(eng.state, steps, cfg.current_size, f"{name} (phase 16)")
         del eng
@@ -3952,13 +3972,299 @@ def phase_advect_tiles(card, dev, counters_to_zero, library):
     torch.cuda.synchronize()
     say(f"# sharded512 on 8 shards (rdma), 1 step: substep launches by route "
         f"{dict(advect_launches)}")
-    if advect_launches != {"tiled": 8 * 2 * s_sub, "cell": 0}:
+    if advect_launches != {"tiled": 8 * 2 * s_sub, "window": 0, "cell": 0}:
         fail("phase 16: sharded512 on 8 shards did not take the tiled route for every K11 "
              "substep")
     check_state(st, 1, sn, "sharded512 on 8 shards (phase 16)")
     del st, start, step
     torch.cuda.empty_cache()
     say(f"# phase 16: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_window_tiles(card, dev, counters_to_zero, counts, library, gcfg):
+    """Phase 19: K1, K2's density phase and K11 at windows K >= 2 on tiles
+    widened by K (csrc/advect_window.cuh): every K >= 2 call of PERF.md's
+    table bitwise its twin on the window route by ``advect_launches``, timed
+    with CUDA events beside its twin (one call) and, for K1 and K11, beside
+    ``F.grid_sample`` (trilinear, ``align_corners=True``) on the same clamped
+    positions, the interpolation alone (the rows' ``library_ms``); NaN and inf
+    at zero-weight taps (inside the grid and read wrapped) and a NaN velocity
+    bitwise the twin on the full sum; then plume64, the 64³ gate and the
+    windowed fused paths, the K = 4 and 5 Engine paths and sharded512 on 8
+    shards at K = 4 and 5 through their entry points, the counters at zero
+    just before each: every substep on the window route, none tiled or a
+    cell a thread."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from fluidsim_tpu_torch.config import (
+        preset_bench_128,
+        preset_plume_64,
+        preset_sharded_512,
+        preset_vortex_128,
+    )
+    from fluidsim_tpu_torch.engine import Engine
+    from fluidsim_tpu_torch.kernels.advect import (
+        advect_launches,
+        advect_multi_3d_kernel,
+        advect_multi_3d_plain,
+    )
+    from fluidsim_tpu_torch.kernels.halo import advect_ext_kernel, advect_ext_plain, ext_halo
+    from fluidsim_tpu_torch.kernels.resident import (
+        project_advect_density_3d,
+        project_advect_density_3d_plain,
+    )
+    from fluidsim_tpu_torch.models.stable3d import sink_factor
+    from fluidsim_tpu_torch.ops.forces import buoyancy_force
+    from fluidsim_tpu_torch.parallel import make_mesh, shard_state, sharded_step_fn
+    from fluidsim_tpu_torch.scene.obstacles import build_obstacle_mask
+    from fluidsim_tpu_torch.scene.sources import emitter_fold_operand
+    from fluidsim_tpu_torch.state import zeros_state
+
+    t_phase = time.perf_counter()
+    say("# phase 19: K1, K2's density phase and K11 at K >= 2 on windowed tiles "
+        "(csrc/advect_window.cuh)")
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 19)
+    bf = torch.bfloat16
+    pcfg, bcfg, vcfg, hcfg = (preset_plume_64(), preset_bench_128(), preset_vortex_128(),
+                              preset_sharded_512())
+    pn, bn, vn, hn = (c.current_size for c in (pcfg, bcfg, vcfg, hcfg))
+    pdt, bdt, vdt, hdt, gdt = (c.effective_params()[0] for c in (pcfg, bcfg, vcfg, hcfg, gcfg))
+    v_sub, h_sub = vcfg.advect_substeps, hcfg.advect_substeps
+    vmask = torch.from_numpy(build_obstacle_mask(vcfg)).to(dev)
+    src = emitter_fold_operand(bcfg, torch.full((), bdt, device=dev))
+    kb = dict(solve_dtype=bcfg.solve_dtype, damp=sink_factor(bdt, bcfg.velocity_damping),
+              dens_damp=sink_factor(bdt, bcfg.density_dissipation))
+    kv = dict(solve_dtype=vcfg.solve_dtype, damp=sink_factor(vdt, vcfg.velocity_damping),
+              dens_damp=sink_factor(vdt, vcfg.density_dissipation), n_sub=v_sub, obst=vmask)
+
+    def reach(n, dt, cells, n_sub=1):
+        """A velocity whose backtrace reaches about ``cells`` cells a substep."""
+        return velocity_field(n, rng, dev, cells * n_sub / (2.0 * dt * (n - 2)))
+
+    def same(got, ref):
+        """Bitwise, NaN payloads aside: NaN in the same cells."""
+        got, ref = (got,) if torch.is_tensor(got) else got, (ref,) if torch.is_tensor(ref) \
+            else ref
+        for g, r in zip(got, ref):
+            if not torch.equal(g.isnan(), r.isnan()):
+                return False
+            if not torch.equal(torch.where(g.isnan(), 0.0, g), torch.where(r.isnan(), 0.0, r)):
+                return False
+        return True
+
+    def held(key, fn, plain, n_sub, sample=None, reps=20):
+        """Bitwise the twin, on the window route; timed beside the twin (the
+        one call) and (``sample``: grid_sample's input, positions and dtype)
+        the interpolation."""
+        before = dict(advect_launches)
+        got = fn()
+        launched = {k: advect_launches[k] - before[k] for k in before}
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = plain()
+        end.record()
+        end.synchronize()
+        if launched != {"tiled": 0, "window": n_sub, "cell": 0}:
+            fail(f"phase 19: {key} did not take the window route: {launched}")
+        if not same(got, ref):
+            g, r = (got, ref) if torch.is_tensor(got) else (got[-1], ref[-1])
+            fail(f"phase 19: {key} differs from its twin (max abs diff "
+                 f"{float((g.float() - r.float()).abs().nan_to_num().max())!r})")
+        del got, ref
+        ms = cuda_ms(fn, reps=reps, warmup=1)
+        line = f"{key}: window tiles {ms!r} ms, twin {start.elapsed_time(end)!r} ms (one call)"
+        if sample is not None:
+            inp, g = sample
+            lib = cuda_ms(lambda: [F.grid_sample(inp, g, mode="bilinear", padding_mode="border",
+                                                 align_corners=True) for _ in range(n_sub)],
+                          reps=reps, warmup=1)
+            library[key] = lib
+            line += f", F.grid_sample x{n_sub} (interpolation only) {lib!r} ms"
+        say(f"{line}; bitwise the twin [{card}]")
+
+    def sample_input(fields, vel, dt, n, n_sub, k, zoff=0, buoy=None):
+        if buoy is not None:
+            vel = buoyancy_force(vel, buoy[0], dt, *buoy[1:])
+        g = backtrace_grid(vel.float(), dt, n, n_sub, zoff, window=k).to(fields.dtype)
+        return fields[None].contiguous(), g
+
+    # 19a. Each K >= 2 row: plume64 (K = 3; 4, 5), the 64³ gate (K = 2),
+    # bench128's folds (K = 2; 4, 5), vortex128's mask and three substeps, bf16
+    # (4, 5), K2/K2s/K2o's density phase, K11 on sharded512's middle shard.
+    pvel, pdens = reach(pn, pdt, 3), density_field(pn, rng, dev)
+    for k, (fkey, dkey) in ((3, ("K1w3", "K1w3 density")), (2, ("K1w2", "K1w2 density")),
+                            (4, ("K1w4", "K1w4 density")), (5, ("K1w5", "K1w5 density"))):
+        dt = gdt if k == 2 else pdt
+        held(fkey, lambda: advect_multi_3d_kernel((1, 2, 3), pvel, pvel, dt, window=k),
+             lambda: advect_multi_3d_plain((1, 2, 3), pvel, pvel, dt, window=k), 1,
+             sample_input(pvel, pvel, dt, pn, 1, k))
+        held(dkey, lambda: advect_multi_3d_kernel((0,), pdens[None], pvel, dt, window=k),
+             lambda: advect_multi_3d_plain((0,), pdens[None], pvel, dt, window=k), 1,
+             sample_input(pdens[None], pvel, dt, pn, 1, k))
+    held("K2w3", lambda: project_advect_density_3d(pvel, pdens, pcfg.jacobi_iters, pdt,
+                                                   window=3),
+         lambda: project_advect_density_3d_plain(pvel, pdens, pcfg.jacobi_iters, pdt,
+                                                 window=3), 1)
+    held("K2w2", lambda: project_advect_density_3d(pvel, pdens, gcfg.jacobi_iters, gdt,
+                                                   window=2),
+         lambda: project_advect_density_3d_plain(pvel, pdens, gcfg.jacobi_iters, gdt,
+                                                 window=2), 1)
+    del pvel, pdens
+    for k in (2, 4, 5):
+        bvel, bdens = reach(bn, bdt, k + 2), density_field(bn, rng, dev)
+        buoy = (bdens, bcfg.buoyancy, bcfg.ambient_density, bcfg.gravity)
+        held(f"K1 srcw{k}",
+             lambda: advect_multi_3d_kernel((1, 2, 3), bvel, bvel, bdt, buoy=buoy, src=src,
+                                            window=k),
+             lambda: advect_multi_3d_plain((1, 2, 3), bvel, bvel, bdt, buoy=buoy, src=src,
+                                           window=k), 1,
+             sample_input(bvel, bvel, bdt, bn, 1, k, buoy=buoy))
+        held(f"K2sw{k}", lambda: project_advect_density_3d(bvel, bdens, bcfg.jacobi_iters, bdt,
+                                                           src=src, window=k, **kb),
+             lambda: project_advect_density_3d_plain(bvel, bdens, bcfg.jacobi_iters, bdt,
+                                                     src=src, window=k, **kb), 1)
+        if k == 2:
+            continue
+        held(f"K2w{k}", lambda: project_advect_density_3d(bvel, bdens, bcfg.jacobi_iters, bdt,
+                                                          window=k, **kb),
+             lambda: project_advect_density_3d_plain(bvel, bdens, bcfg.jacobi_iters, bdt,
+                                                     window=k, **kb), 1)
+        bvb, bdb = bvel.to(bf), bdens.to(bf)
+        held(f"K1 bf16 w{k}", lambda: advect_multi_3d_kernel((1, 2, 3), bvb, bvb, bdt, window=k),
+             lambda: advect_multi_3d_plain((1, 2, 3), bvb, bvb, bdt, window=k), 1,
+             sample_input(bvb, bvb, bdt, bn, 1, k))
+        held(f"K1 bf16 w{k} density",
+             lambda: advect_multi_3d_kernel((0,), bdb[None], bvb, bdt, window=k),
+             lambda: advect_multi_3d_plain((0,), bdb[None], bvb, bdt, window=k), 1,
+             sample_input(bdb[None], bvb, bdt, bn, 1, k))
+        held(f"K2 bf16 w{k}", lambda: project_advect_density_3d(bvb, bdb, bcfg.jacobi_iters, bdt,
+                                                                window=k, **kb),
+             lambda: project_advect_density_3d_plain(bvb, bdb, bcfg.jacobi_iters, bdt,
+                                                     window=k, **kb), 1)
+        del bvel, bdens, bvb, bdb, buoy
+        vvel, vdens = reach(vn, vdt, k + 1, v_sub), density_field(vn, rng, dev)
+        held(f"K1v w{k}",
+             lambda: advect_multi_3d_kernel((1, 2, 3), vvel, vvel, vdt, obst=vmask, window=k,
+                                            n_sub=v_sub),
+             lambda: advect_multi_3d_plain((1, 2, 3), vvel, vvel, vdt, obst=vmask, window=k,
+                                           n_sub=v_sub), v_sub,
+             sample_input(vvel, vvel, vdt, vn, v_sub, k))
+        held(f"K2ow{k}", lambda: project_advect_density_3d(vvel, vdens, vcfg.jacobi_iters, vdt,
+                                                           window=k, **kv),
+             lambda: project_advect_density_3d_plain(vvel, vdens, vcfg.jacobi_iters, vdt,
+                                                     window=k, **kv), v_sub)
+        del vvel, vdens
+        # K11 on the middle shard's slab of sharded512 on 8 shards (two
+        # substeps, a halo of 2K planes), float32 and bfloat16.
+        h, hlz = ext_halo(k, h_sub, False), hn // 8
+        zoff = 3 * hlz - h
+        hvel = reach(hn, hdt, k + 1, h_sub).narrow(1, zoff, hlz + 2 * h).contiguous()
+        hdens = density_field(hn, rng, dev)[None].narrow(1, zoff, hlz + 2 * h).contiguous()
+        torch.cuda.empty_cache()
+        for tag, dtype in (("", torch.float32), (" bf16", bf)):
+            ve, de = hvel.to(dtype), hdens.to(dtype)
+            held(f"K11{tag} w{k}",
+                 lambda: advect_ext_kernel((1, 2, 3), ve, ve, hn, hdt, zoff, k, h_sub),
+                 lambda: advect_ext_plain((1, 2, 3), ve, ve, hn, hdt, zoff, k, h_sub), h_sub,
+                 sample_input(ve, ve, hdt, hn, h_sub, k, zoff), reps=5)
+            held(f"K11{tag} w{k} density",
+                 lambda: advect_ext_kernel((0,), de, ve, hn, hdt, zoff, k, h_sub),
+                 lambda: advect_ext_plain((0,), de, ve, hn, hdt, zoff, k, h_sub), h_sub,
+                 sample_input(de, ve, hdt, hn, h_sub, k, zoff), reps=5)
+            del ve, de
+        del hvel, hdens
+        torch.cuda.empty_cache()
+    say(f"# phase 19a (each K >= 2 row): {time.perf_counter() - t_phase:.1f} s")
+
+    # 19b. NaN and inf at taps the clamp leaves at zero weight (the far
+    # walls, read wrapped past the opposite wall; K planes from a still cell)
+    # and a NaN backtrace, at 64³: the full sum, bitwise the twin.
+    n = pn
+    c = n // 2
+    for k in (2, 3, 4, 5):
+        vel, dens = reach(n, pdt, k + 1), density_field(n, rng, dev)
+        taps = [(c, c - 1, n - 1, float("inf")), (c + 1, n - 1, 2, float("-inf")),
+                (n - 1, 3, c, float("nan")), (c + k, c, c, float("nan"))]
+        f1, v1 = dens[None].clone(), vel.clone()
+        for z, y, x, val in taps:
+            f1[:, z, y, x] = val
+        v1[:, c, c, c] = 0.0
+        v1[0, c - 2, c + 1, c] = float("nan")
+        v3 = v1.clone()
+        for z, y, x, val in taps:
+            v3[:, z, y, x] = val
+        for tag, dtype in (("", torch.float32), (" bf16", bf)):
+            a1, b1, a3 = f1.to(dtype), v1.to(dtype), v3.to(dtype)
+            held(f"K1 non-finite F=3{tag} K={k}",
+                 lambda: advect_multi_3d_kernel((1, 2, 3), a3, a3, pdt, window=k, n_sub=2),
+                 lambda: advect_multi_3d_plain((1, 2, 3), a3, a3, pdt, window=k, n_sub=2), 2,
+                 reps=2)
+            held(f"K1 non-finite F=1{tag} K={k}",
+                 lambda: advect_multi_3d_kernel((0,), a1, b1, pdt, window=k, n_sub=2),
+                 lambda: advect_multi_3d_plain((0,), a1, b1, pdt, window=k, n_sub=2), 2, reps=2)
+            e1, ev = a1[:, 2:n - 2].contiguous(), b1[:, 2:n - 2].contiguous()
+            held(f"K11 non-finite{tag} K={k}",
+                 lambda: advect_ext_kernel((0,), e1, ev, n, pdt, 2, k, 2),
+                 lambda: advect_ext_plain((0,), e1, ev, n, pdt, 2, k, 2), 2, reps=2)
+        held(f"K2 non-finite K={k}",
+             lambda: project_advect_density_3d(vel, f1[0], pcfg.jacobi_iters, pdt, window=k),
+             lambda: project_advect_density_3d_plain(vel, f1[0], pcfg.jacobi_iters, pdt,
+                                                     window=k), 1, reps=2)
+    say(f"# phase 19b (non-finite taps): {time.perf_counter() - t_phase:.1f} s")
+
+    # 19c. The paths through their entry points, the counters at zero just
+    # before each: every substep on the window route.
+    fused_sub = dict(advection_scheme="substep", advect_substeps=1, fuse_project_advect=True)
+    paths = [("plume64", pcfg), ("the 64^3 gate", gcfg),
+             ("plume64 fused", pcfg.replace(**fused_sub)),
+             ("the 64^3 gate fused", gcfg.replace(**fused_sub)),
+             ("bench128 window 2 + fuse_emitter", bcfg.replace(advect_window=2,
+                                                                fuse_emitter=True))]
+    for k in (4, 5):
+        paths += [(f"plume64 K={k}", pcfg.replace(advect_window=k)),
+                  (f"bench128 K={k}", bcfg.replace(advect_window=k)),
+                  (f"bench128 fuse_emitter K={k}", bcfg.replace(advect_window=k,
+                                                                 fuse_emitter=True)),
+                  (f"vortex128 fuse_project_advect K={k}",
+                   vcfg.replace(advect_window=k, fuse_project_advect=True)),
+                  (f"bench128 bf16 K={k}", bcfg.replace(advect_window=k, dtype="bfloat16"))]
+    steps = 3
+    for name, cfg_ in paths:
+        eng = Engine(cfg_, device="cuda")
+        counters_to_zero()
+        eng.step(steps)
+        torch.cuda.synchronize()
+        calls = counts()
+        say(f"# {name}, {steps} steps: substep launches by route {dict(advect_launches)}, "
+            f"launches {calls}")
+        if (advect_launches["tiled"] or advect_launches["cell"]
+                or advect_launches["window"] < (calls["K1"] + calls["K2"])):
+            fail(f"phase 19: {name} did not take the window route for every K >= 2 substep")
+        check_state(eng.state, steps, cfg_.current_size, f"{name} (phase 19)")
+        del eng
+        torch.cuda.empty_cache()
+    mesh = make_mesh(["cuda"] * 8)
+    for k in (4, 5):
+        kcfg = hcfg.replace(advect_window=k)
+        step = sharded_step_fn(kcfg, mesh, halo="explicit", halo_block_iters=4,
+                               halo_backend="rdma")
+        start = shard_state(zeros_state(kcfg, dev), mesh)
+        counters_to_zero()
+        st = step(start)
+        torch.cuda.synchronize()
+        say(f"# sharded512 on 8 shards (rdma) K={k}, 1 step: substep launches by route "
+            f"{dict(advect_launches)}")
+        if advect_launches != {"tiled": 0, "window": 8 * 2 * h_sub, "cell": 0}:
+            fail(f"phase 19: sharded512 on 8 shards at K={k} did not take the window route "
+                 "for every K11 substep")
+        check_state(st, 1, hn, f"sharded512 on 8 shards K={k} (phase 19)")
+        del st, start, step
+        torch.cuda.empty_cache()
+    say(f"# phase 19: {time.perf_counter() - t_phase:.1f} s")
 
 
 def round_kernels(fn, reps: int = 5):

@@ -41,25 +41,25 @@
 // halves the bytes and leaves the operations.  The folded emitter adds a
 // distance, a square root and a division per density value inside the
 // ball's box (and three compares outside it) in place of a full-grid pass
-// over the density.  K > 1: (2K+1)^3 taps a field (343 for plume64's K = 3),
-// each a multiply and an add, plus (2K+1)^2 + (2K+1)^3 weight products:
-// about 2,500 operations a cell for F = 3 at K = 3, so the hat sum is bound
-// by operations at any size.
+// over the density.  K > 1: the hat sum has (2K+1)^3 taps a field (343 at
+// plume64's K = 3), but after the clamp only 8 carry weight: the backtrace,
+// six hats, 12 weight products and a multiply and an add a tap and field,
+// so a substep is bound by bytes, as at K = 1.
 //
 // What the design does about it.  K = 1 (advect_tiled.cuh): a block stages a
 // tile's planes in shared memory once, each value with the buoyancy and the
 // emitter already applied (advect_cell_k1 applied them at each of 27 taps),
 // marches along z loading each plane once and one plane ahead, and a thread
-// computes four cells of a column from six staged rows.  K > 1: one thread per
-// cell with x across threadIdx.x, so each tap row is one coalesced 128-byte
-// load per warp and the overlapping taps of a block hit in L1; the velocity
-// at the cell, its backtrace fractions and the per-axis hats and the weights
-// are computed once and shared by all fields; a solid cell skips the
-// interpolation.  Every tap of the hat sum is computed, zero weights too, so
-// the sum is the twin's operation for operation.  Keeping the substeps in
-// shared memory (the TPU kernel's halo of n_sub*(K+1) planes) and skipping
-// the taps that the clamp leaves at zero weight in the interior are the next
-// steps.
+// computes four cells of a column from six staged rows.  K > 1
+// (advect_window.cuh): the same march with the tile widened by K and a ring
+// of 2K + 2 planes, each plane's publishing barrier a vote on whether every
+// staged value is finite; a cell sums the 8 taps with weight where its 2K + 1
+// planes are finite and its displacement is not NaN (bitwise the hat sum:
+// advect.cuh), else every tap, from shared memory.  Where the ring does not
+// fit the card's shared memory (F = 3 above K = 6, F = 1 above K = 11 on an
+// H100) one thread computes a cell's whole hat sum from global memory.
+// Keeping the substeps in shared memory (the TPU kernel's halo of
+// n_sub*(K+1) planes) is the next step.
 #include <cuda_runtime.h>
 
 #include "advect.cuh"
@@ -77,10 +77,11 @@ extern "C" const char* fs_error_string(int err) {
 // fields; tmp0 and tmp1 (n_fields, n, n, n) float32 scratch (advect_substeps
 // says when each may be null); all contiguous on the current device.
 // dt0_sub = f32(dt0 / n_sub) with dt0 = f32(dt) * f32(n - 2); window >= 1
-// (n >= 2 * window + 1; 4 and more take the runtime-K body).  With has_buoy
-// the fields must be the velocity and there must be no mask; the folds take
-// float32 only.  `scale` multiplies the last substep's output in the storage
-// type.  Launches on `stream` and returns the first cudaError_t.
+// (n >= 2 * window + 1; 2 and more take advect_window.cuh's tiles, or the
+// runtime-K body where their ring does not fit).  With has_buoy the fields
+// must be the velocity and there must be no mask; the folds take float32
+// only.  `scale` multiplies the last substep's output in the storage type.
+// Launches on `stream` and returns the first cudaError_t.
 extern "C" int fs_advect_k1(const void* fields, const void* vel, const float* dens,
                             const unsigned char* mask, const float* emitter, int src_on,
                             void* out, float* tmp0, float* tmp1, int n, int n_fields, int b0,
@@ -104,18 +105,10 @@ extern "C" int fs_advect_k1(const void* fields, const void* vel, const float* de
   }
   const bool buoy = has_buoy != 0;
   float* o = static_cast<float*>(out);
-  switch (window) {
-    case 1:
-      return static_cast<int>(advect_substeps<1, float>(a, n_fields, n_sub, buoy, src, o, tmp0,
-                                                        tmp1, scale, s));
-    case 2:
-      return static_cast<int>(advect_substeps<2, float>(a, n_fields, n_sub, buoy, src, o, tmp0,
-                                                        tmp1, scale, s));
-    case 3:
-      return static_cast<int>(advect_substeps<3, float>(a, n_fields, n_sub, buoy, src, o, tmp0,
-                                                        tmp1, scale, s));
-    default:
-      return static_cast<int>(advect_substeps<kWinAny, float>(a, n_fields, n_sub, buoy, src, o,
-                                                              tmp0, tmp1, scale, s));
+  if (window == 1) {
+    return static_cast<int>(advect_substeps<1, float>(a, n_fields, n_sub, buoy, src, o, tmp0,
+                                                      tmp1, scale, s));
   }
+  return static_cast<int>(advect_substeps<kWinAny, float>(a, n_fields, n_sub, buoy, src, o,
+                                                          tmp0, tmp1, scale, s));
 }

@@ -8,8 +8,15 @@
 // any K >= 1 cells: K = 1, 2 and 3 are compile-time bodies, every K >= 4 one
 // body with a runtime K (kWinAny).  A launch of a K = 1 substep (K1, K2's
 // density phase, K11) runs advect_tiled.cuh's kernel, which stages each tap
-// once a tile and is bitwise advect_cell_k1; the whole-step kernels (K8,
-// K14) call advect_cell_k1 per cell.
+// once a tile and is bitwise advect_cell_k1; a launch at any K >= 2 runs
+// advect_window.cuh's, which stages a tile widened by K and sums only the
+// <= 8 taps the clamp leaves with weight where every tap of the window is
+// finite: every other hat is +0, and adding (+0) * g for a finite g never
+// changes the bits of a sum that starts at +0, so it is bitwise the
+// (2K+1)^3-term hat sum (else it takes that sum).  Above the K where its ring
+// fits, a launch runs one thread a cell with the runtime-K body.  The
+// whole-step kernels (K8, K14) call advect_cell_k1 and advect_cell_win(_rt)
+// per cell.
 //
 // Arithmetic follows the TPU kernel operation by operation (the build uses
 // -fmad=false, so nothing is contracted into an FMA):
@@ -415,8 +422,10 @@ __device__ __forceinline__ void advect_pair_role(const Substep& a, const Cell& k
 }  // namespace fsk
 
 // K = 1's launch: advect_tiled_kernel, on tiles with the taps staged in
-// shared memory (launch_tiled below takes it for every K = 1 substep).
+// shared memory (launch_tiled below takes it for every K = 1 substep); at
+// K >= 2 advect_window_kernel, where win_tiled lets its ring fit.
 #include "advect_tiled.cuh"
+#include "advect_window.cuh"
 
 namespace fsk {
 
@@ -424,8 +433,10 @@ namespace fsk {
 // kernel gets its own copy.
 namespace {
 
-template <int K, int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC, typename TF,
-          typename TV, typename TO>
+// One thread a cell, the runtime-K body: the route of a window whose ring
+// does not fit (advect_window.cuh's win_tiled).
+template <int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC, typename TF, typename TV,
+          typename TO>
 __global__ void __launch_bounds__(kThreads)
     advect_kernel(const TF* __restrict__ src, const TV* __restrict__ vel,
                   const float* __restrict__ dens, const uint8_t* __restrict__ mask,
@@ -433,20 +444,30 @@ __global__ void __launch_bounds__(kThreads)
                   int b0, int b1, int b2, float dt0, float scale, Buoyancy bp, int window) {
   Cell k;
   if (!cell_of_thread_slab(n, sl, k)) return;
-  advect_store<F, BUOY_VEL, BUOY_TAPS, MASK, SRC, K, TF, TV, TO>(
+  advect_store<F, BUOY_VEL, BUOY_TAPS, MASK, SRC, kWinAny, TF, TV, TO>(
       Substep{src, vel, dens, mask, emitter, dst, n, sl, b0, b1, b2, dt0, scale, bp, window},
       k);
 }
 
-// One substep's launch: K = 1 on tiles (advect_tiled.cuh), any other window
-// one thread a cell.
+// One substep's launch: K = 1 on tiles (advect_tiled.cuh); K = kWinAny, a
+// window of a.window >= 2 cells, on tiles widened by it (advect_window.cuh)
+// where win_tiled holds for the card's shared memory, else one thread a cell
+// with the runtime-K body (bitwise advect_cell_win at K = 2 and 3 too).
 template <int K, int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC, typename TF = float,
           typename TV = float, typename TO = float>
 cudaError_t launch(const Substep& a, cudaStream_t s) {
+  static_assert(K == 1 || K == kWinAny, "launches take K = 1 or the runtime window");
   if constexpr (K == 1) {
     return launch_tiled<F, BUOY_VEL, BUOY_TAPS, MASK, SRC, TF, TV, TO>(a, s);
   } else {
-    advect_kernel<K, F, BUOY_VEL, BUOY_TAPS, MASK, SRC, TF, TV, TO>
+    int optin = 0;
+    const cudaError_t err = win_smem_optin(optin);
+    if (err != cudaSuccess) return err;
+    if (win_tiled(a.window, F, optin)) {
+      return launch_window_tiled<F, BUOY_VEL, BUOY_TAPS, MASK, SRC, TF, TV, TO>(a, a.window,
+                                                                              optin, s);
+    }
+    advect_kernel<F, BUOY_VEL, BUOY_TAPS, MASK, SRC, TF, TV, TO>
         <<<cell_grid_slab(a.n, a.slab.nz), cell_block(), 0, s>>>(
             static_cast<const TF*>(a.src), static_cast<const TV*>(a.vel), a.dens, a.mask,
             a.emitter, static_cast<TO*>(a.dst), a.n, a.slab, a.b0, a.b1, a.b2, a.dt0, a.scale,
@@ -469,12 +490,11 @@ cudaError_t launch_role(const Substep& a, bool first, bool to_s, cudaStream_t s)
   }
 }
 
-// The variants the port runs, for one window K (kWinAny: a.window) and
-// storage type S: buoyancy
-// only in float32 velocity self-advection without a mask, with or without
-// the emitter on its density; the emitter on the field only for a float32
-// scalar without a mask (K2s's density phase); otherwise F = 1 or 3 with or
-// without a mask, in any role.
+// The variants the port runs, for K = 1 or kWinAny (a.window >= 2) and
+// storage type S: buoyancy only in float32 velocity self-advection without a
+// mask, with or without the emitter on its density; the emitter on the field
+// only for a float32 scalar without a mask (K2s's density phase); otherwise
+// F = 1 or 3 with or without a mask, in any role.
 template <int K, typename S>
 cudaError_t launch_window(const Substep& a, int n_fields, bool buoy_vel, bool buoy_taps,
                           int src, bool first, bool to_s, cudaStream_t s) {
@@ -508,11 +528,12 @@ cudaError_t launch_window(const Substep& a, int n_fields, bool buoy_vel, bool bu
 }
 
 // n_sub substeps of a.src (type S) through a.vel (type S) with a window of K
-// cells (kWinAny: a.window >= 4) on a.slab, one launch each, the last into
-// out (type S); the input is never written.  float32: the earlier substeps alternate back from out with
-// tmp0 (which may be null when n_sub == 1).  bfloat16: the earlier substeps
-// write float32 into tmp0 and tmp1 in turn (each like out in float32, null
-// when unused), and the last rounds into out.  With a mask, velocity codes
+// = 1 cell or (kWinAny) a.window >= 2 cells on a.slab, one launch each, the
+// last into out (type S); the input is never written.  float32: the earlier
+// substeps alternate back from out with tmp0 (which may be null when n_sub ==
+// 1).  bfloat16: the earlier substeps write float32 into tmp0 and tmp1 in
+// turn (each like out in float32, null when unused), and the last rounds into
+// out.  With a mask, velocity codes
 // get the obstacle mirror after every substep, as a second launch in place on
 // the float32 result (bfloat16: the last result is then rounded into out by
 // one more launch).  The buoyancy (and the emitter on its density) enters

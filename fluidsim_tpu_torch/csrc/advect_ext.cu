@@ -29,9 +29,10 @@
 // What the design does about it: K1's kernels, unchanged but for the slab
 // (boundary.cuh's Slab): at K = 1 the tiled kernel of advect_tiled.cuh (the
 // slab's planes staged once, taps past its ends read at wrapped planes), at
-// K > 1 one thread per cell; one launch per substep (and one per mirror),
-// float32 ping-pong through out and tmp0 so that self-advection never writes
-// the buffer it reads.
+// K > 1 the windowed tiles of advect_window.cuh (z wrapped modulo the slab)
+// where they fit, else one thread per cell; one launch per substep (and one
+// per mirror), float32 ping-pong through out and tmp0 so that self-advection
+// never writes the buffer it reads.
 //
 // bfloat16 slabs take K1's bfloat16 instantiations (advect_bf16.cu), which
 // carry the slab as every K1 body does: the first substep loads bfloat16,
@@ -52,8 +53,8 @@
 // rounding one (advect_substeps), null when unused; all contiguous on the
 // current device.  n is the global grid size, zoff the global z of slab
 // plane 0, b0..b2 the fields' set_bnd codes, dt0_sub = f32(dt0 / n_sub) with
-// dt0 = f32(dt) * f32(n - 2), window >= 1 (n and nz >= 2 * window + 1; 4 and
-// more take the runtime-K body).
+// dt0 = f32(dt) * f32(n - 2), window >= 1 (n and nz >= 2 * window + 1; 2 and
+// more take advect_window.cuh's tiles, or the runtime-K body).
 // Launches on `stream` and returns the first cudaError_t.
 extern "C" int fs_advect_ext(const void* fields, const void* vel, const unsigned char* mask,
                              void* out, float* tmp0, float* tmp1, int n, int nz, int zoff,
@@ -72,22 +73,10 @@ extern "C" int fs_advect_ext(const void* fields, const void* vel, const unsigned
                                                  1.0f, s));
   }
   float* const o = static_cast<float*>(out);
-  switch (window) {
-    case 1:
-      return static_cast<int>(
-          advect_substeps<1, float>(a, n_fields, n_sub, false, kSrcNone, o, tmp0, nullptr,
-                                    1.0f, s));
-    case 2:
-      return static_cast<int>(
-          advect_substeps<2, float>(a, n_fields, n_sub, false, kSrcNone, o, tmp0, nullptr,
-                                    1.0f, s));
-    case 3:
-      return static_cast<int>(
-          advect_substeps<3, float>(a, n_fields, n_sub, false, kSrcNone, o, tmp0, nullptr,
-                                    1.0f, s));
-    default:
-      return static_cast<int>(
-          advect_substeps<kWinAny, float>(a, n_fields, n_sub, false, kSrcNone, o, tmp0,
-                                          nullptr, 1.0f, s));
+  if (window == 1) {
+    return static_cast<int>(advect_substeps<1, float>(a, n_fields, n_sub, false, kSrcNone, o,
+                                                      tmp0, nullptr, 1.0f, s));
   }
+  return static_cast<int>(advect_substeps<kWinAny, float>(a, n_fields, n_sub, false, kSrcNone, o,
+                                                          tmp0, nullptr, 1.0f, s));
 }

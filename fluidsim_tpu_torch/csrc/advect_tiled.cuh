@@ -76,17 +76,18 @@ inline int advect_tiles_xy(int n) {
 
 // The runs along z of nz planes for tiles_xy tiles of a plane when the card
 // holds `capacity` blocks at once: of the counts with runs of at most
-// kAdvectMaxRun planes, the one that minimises waves x (run length + 3), the
-// 3 standing for a run's first planes, staged before it computes; the most
-// runs among equals.
-inline int advect_runs(int tiles_xy, int nz, int capacity) {
+// max_run planes, the one that minimises waves x (run length + lead), the
+// lead standing for a run's first planes, staged before it computes (3 at
+// K = 1; advect_window.cuh passes 2K + 1); the most runs among equals.
+inline int advect_runs(int tiles_xy, int nz, int capacity, int lead = 3,
+                       int max_run = kAdvectMaxRun) {
   int best = 1;
   long long best_cost = -1;
-  for (int runs = (nz + kAdvectMaxRun - 1) / kAdvectMaxRun; runs <= nz; ++runs) {
+  for (int runs = (nz + max_run - 1) / max_run; runs <= nz; ++runs) {
     const int len = (nz + runs - 1) / runs;
     if ((nz + len - 1) / len != runs) continue;  // the same runs as a longer count
     const long long waves = (static_cast<long long>(tiles_xy) * runs + capacity - 1) / capacity;
-    const long long cost = waves * (len + 3);
+    const long long cost = waves * (len + lead);
     if (best_cost < 0 || cost <= best_cost) {
       best = runs;
       best_cost = cost;

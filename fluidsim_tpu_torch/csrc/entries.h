@@ -29,8 +29,8 @@ namespace fsk {
 struct Substep;
 
 // K1 on bfloat16 fields and velocity (advect_bf16.cu): advect_substeps with
-// S = __nv_bfloat16 for any window >= 1 (4 and more: a.window, the runtime-K
-// body).  out is __nv_bfloat16.
+// S = __nv_bfloat16 for any window >= 1 (2 and more: a.window, the
+// windowed tiles or the runtime-K body).  out is __nv_bfloat16.
 cudaError_t advect_substeps_bf16(const Substep& a, int n_fields, int n_sub, int window,
                                  void* out, float* tmp0, float* tmp1, float scale,
                                  cudaStream_t s);

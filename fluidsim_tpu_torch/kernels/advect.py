@@ -9,8 +9,10 @@ PyTorch, used for CPU tensors and as the reference the kernel is checked
 against: for a window of K = 1 the two-tap form (``windowed_sum_k1``), for
 any K > 1 the ``(2K+1)³``-term hat sum (``windowed_sum``, the same sum as
 ``ops/advect.window_sum_3d``).  At K = 1 the kernel stages tiles of the
-fields in shared memory (``csrc/advect_tiled.cuh``); ``advect_launches``
-counts substep launches by route.
+fields in shared memory (``csrc/advect_tiled.cuh``), and at K >= 2 tiles
+widened by K where their ring fits the card's shared memory
+(``csrc/advect_window.cuh``, ``advect_route``); ``advect_launches`` counts
+substep launches by route.
 
 Fields are stored in float32 or bfloat16 (``fields`` and ``vel`` in one
 dtype); the backtrace, the weights and the substeps between the first read
@@ -24,6 +26,8 @@ kernel reads as ``uint8``, nonzero = solid).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -54,7 +58,9 @@ def check_window(window, n: int, nz: int = None) -> int:
     """The window K of a kernel's backtrace: any integer K >= 1 on a grid of
     ``n >= 2K+1`` cells (and a slab of ``nz >= 2K+1`` planes), since the taps
     K cells away are read at wrapped indices.  ``csrc/advect.cuh`` compiles
-    K = 1, 2 and 3 and one body for every K >= 4.  Raises ``ValueError``."""
+    K = 1, 2 and 3 and one body for every K >= 4 (K8 and K14 run them; K1,
+    K11 and K2's density phase launch K = 1 or the runtime window).  Raises
+    ``ValueError``."""
     if int(window) != window or window < 1:
         raise ValueError(f"window must be an integer >= 1, got {window}")
     window = int(window)
@@ -80,19 +86,61 @@ def storage_flag(dtype: torch.dtype) -> int:
 
 # Substep launches of the backtrace kernels by route, counted by the wrappers
 # that launch them (K1, K11 and K2's density phase): "tiled" at K = 1
-# (csrc/advect_tiled.cuh), one thread a cell ("cell") at any other window.
-advect_launches = {"tiled": 0, "cell": 0}
+# (csrc/advect_tiled.cuh), "window" at K >= 2 where the ring of
+# csrc/advect_window.cuh fits, one thread a cell ("cell") above that.
+advect_launches = {"tiled": 0, "window": 0, "cell": 0}
+
+# csrc/advect_window.cuh: a block's tile (one cell a thread), the float32
+# values a thread stages a plane for each field at most (its registers), and
+# the shared memory a block may opt in to on an NVIDIA H100, which the gate
+# takes where no card is asked.
+WIN_TILE = (32, 16)
+WIN_SHARE_MAX = {1: 5, 3: 3}
+H100_SMEM_OPTIN = 232_448
 
 
-def advect_route(window: int) -> str:
-    """The route of a substep with a window of ``window`` cells, as
-    ``csrc/advect.cuh``'s ``launch`` takes it."""
-    return "tiled" if window == 1 else "cell"
+def win_ring_bytes(window: int, n_fields: int) -> int:
+    """Shared memory of the windowed tiles' z ring: ``2K + 2`` slots of
+    ``n_fields`` float32 planes of the tile widened by K on each side."""
+    tx, ty = WIN_TILE
+    return 4 * (2 * window + 2) * n_fields * (tx + 2 * window) * (ty + 2 * window)
 
 
-def count_substeps(window: int, n_sub: int) -> None:
-    """Add a call's ``n_sub`` substep launches to ``advect_launches``."""
-    advect_launches[advect_route(window)] += n_sub
+def win_share(window: int) -> int:
+    """The values a thread stages of a plane of one field."""
+    tx, ty = WIN_TILE
+    return -(-((tx + 2 * window) * (ty + 2 * window)) // (tx * ty))
+
+
+def advect_route(window: int, n_fields: int, smem_optin: int = H100_SMEM_OPTIN) -> str:
+    """The route of a substep of ``n_fields`` fields with a window of
+    ``window`` cells, as ``csrc/advect.cuh``'s ``launch`` takes it on a card
+    whose blocks may opt in to ``smem_optin`` bytes of shared memory
+    (``win_tiled``): on an H100 the windowed tiles take F = 3 up to K = 6 and
+    F = 1 up to K = 11."""
+    if window == 1:
+        return "tiled"
+    fits = (win_share(window) <= WIN_SHARE_MAX[n_fields]
+            and win_ring_bytes(window, n_fields) <= smem_optin)
+    return "window" if fits else "cell"
+
+
+@functools.lru_cache(maxsize=None)
+def card_smem_optin(index: int) -> int:
+    """The shared memory a block may opt in to on card ``index``."""
+    lib = _build.load_library()
+    with torch.cuda.device(index):
+        optin = lib.fs_smem_optin()
+    if optin < 0:
+        _build.check(lib, -optin, "shared memory query")
+    return optin
+
+
+def count_substeps(window: int, n_fields: int, n_sub: int, device) -> None:
+    """Add a call's ``n_sub`` substep launches on ``device`` (a card) to
+    ``advect_launches``."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    advect_launches[advect_route(window, n_fields, card_smem_optin(index))] += n_sub
 
 
 def advect_multi_3d_plain(bs, fields, vel, dt: float, buoy=None, obst=None,
@@ -297,7 +345,7 @@ def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 
         )
     _build.check(lib, err, "advect kernel launch")
     advect_multi_3d_kernel.launches += 1
-    count_substeps(window, n_sub)
+    count_substeps(window, n_fields, n_sub, fields.device)
     return out
 
 

@@ -449,7 +449,7 @@ def advect_ext_kernel(bs, fields_ext, vel_ext, n: int, dt: float, z_offset: int,
         )
     _build.check(lib, err, "extended-slab advection kernel launch")
     advect_ext_kernel.launches += 1
-    count_substeps(window, n_sub)
+    count_substeps(window, n_fields, n_sub, fields_ext.device)
     return out
 
 

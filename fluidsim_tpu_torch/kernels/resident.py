@@ -53,6 +53,7 @@ from ..ops.boundary import set_bnd_3d
 from ..scene.sources import src_field_add
 from . import _build
 from .advect import (
+    H100_SMEM_OPTIN,
     STORAGE,
     _check_src,
     _check_substeps,
@@ -60,6 +61,7 @@ from .advect import (
     _ptr,
     _scratch,
     advect_multi_3d_plain,
+    card_smem_optin,
     check_window,
     count_substeps,
     storage_flag,
@@ -205,15 +207,14 @@ def _solve_scratch(n: int, sdt: torch.dtype, device, tiled: bool = False):
 
 
 # The tiled solve (csrc/solve_tiled.cuh): its kernel's limits, and an NVIDIA
-# H100's SM count and the shared memory a block may opt in to, which the gate
-# decides for where the tensors are not on a card (the CPU tests check the
-# card's tiling).
+# H100's SM count and (H100_SMEM_OPTIN) the shared memory a block may opt in
+# to, which the gate decides for where the tensors are not on a card (the
+# CPU tests check the card's tiling).
 TILE_THREADS = 512
 TILE_MAX_ROW = 32
 TILE_MAX_Z = 32
 TILE_FLAG_STRIDE = 32
 H100_SMS = 132
-H100_SMEM_OPTIN = 232_448
 
 # Launches of the projection's solve kernels by K2 and K3 (csrc/project.cuh):
 # "tiled" counts tiled solves, "sweep" the per-sweep kernel's launches (the
@@ -313,12 +314,7 @@ def _card_limits(index: int):
     """Card ``index``'s SM count and the shared memory a block may opt in
     to."""
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    lib = _build.load_library()
-    with torch.cuda.device(index):
-        optin = lib.fs_smem_optin()
-    if optin < 0:
-        _build.check(lib, -optin, "shared memory query")
-    return sms, optin
+    return sms, card_smem_optin(index)
 
 
 def solve_tiles(n: int, sdt: torch.dtype, device=None):
@@ -455,7 +451,7 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
     _build.check(lib, err, "fused projection kernel launch")
     project_advect_density_3d.launches += 1
     _count_solve(tiles, iters, blk)
-    count_substeps(window, n_sub)
+    count_substeps(window, 1, n_sub, vel.device)
     return vel_out, p, dens_out
 
 

@@ -55,18 +55,19 @@ ADVECT_TILE = (32, 16)
 ADVECT_MAX_RUN = 16
 
 
-def advect_runs(tiles_xy: int, nz: int, capacity: int) -> int:
+def advect_runs(tiles_xy: int, nz: int, capacity: int, lead: int = 3,
+                max_run: int = ADVECT_MAX_RUN) -> int:
     """The kernel's ``advect_runs``: the number of runs along
     z of ``nz`` planes for ``tiles_xy`` tiles a plane when the card holds
     ``capacity`` blocks at once: of the counts with runs of at most
-    ``ADVECT_MAX_RUN`` planes, the one that minimises waves × (run length +
-    3), the most runs among equals."""
+    ``max_run`` planes, the one that minimises waves × (run length +
+    ``lead``), the most runs among equals."""
     best, best_cost = 1, None
-    for runs in range(-(-nz // ADVECT_MAX_RUN), nz + 1):
+    for runs in range(-(-nz // max_run), nz + 1):
         length = -(-nz // runs)
         if -(-nz // length) != runs:
             continue
-        cost = -(-(tiles_xy * runs) // capacity) * (length + 3)
+        cost = -(-(tiles_xy * runs) // capacity) * (length + lead)
         if best_cost is None or cost <= best_cost:
             best, best_cost = runs, cost
     return best
@@ -113,13 +114,17 @@ def test_tile_constants_are_the_kernels():
     assert re.search(rf"kAdvectMaxRun = {ADVECT_MAX_RUN};", src)
     assert re.search(r"kStageX = kAdvectTileX \+ 2;", src)
     assert re.search(r"kStageY = kAdvectTileY \+ 2;", src)
-    # advect_runs' cost, as the Python mirror computes it.
-    assert "const long long cost = waves * (len + 3);" in src
+    # advect_runs' cost, as the Python mirror computes it, with K = 1's lead.
+    assert "const long long cost = waves * (len + lead);" in src
+    assert re.search(r"int advect_runs\(int tiles_xy, int nz, int capacity, int lead = 3,\s+"
+                     r"int max_run = kAdvectMaxRun\)", src)
 
 
-@pytest.mark.parametrize("window,route", [(1, "tiled"), (2, "cell"), (3, "cell"), (4, "cell")])
-def test_route_by_window(window, route):
-    assert advect_route(window) == route
+@pytest.mark.parametrize("window,n_fields,route", [
+    (1, 3, "tiled"), (2, 3, "window"), (3, 3, "window"), (4, 3, "window"), (6, 3, "window"),
+    (7, 3, "cell"), (1, 1, "tiled"), (5, 1, "window"), (11, 1, "window"), (12, 1, "cell")])
+def test_route_by_window(window, n_fields, route):
+    assert advect_route(window, n_fields) == route
 
 
 # -- the geometry -------------------------------------------------------------------
@@ -328,11 +333,14 @@ def tiled_substep(src, vel, n, zoff, bs, dt0, out_dtype, *, dens=None, bp=None,
 
 
 def tiled_substeps(bs, fields, vel, n, dt, zoff=0, n_sub=1, *, buoy=None, src=None,
-                   src_on=None, mask=None, scale=1.0, tile=ADVECT_TILE, run=None):
-    """advect_substeps at K = 1 around tiled_substep: the substeps between the
+                   src_on=None, mask=None, scale=1.0, tile=ADVECT_TILE, run=None,
+                   substep=None, **extra):
+    """advect_substeps around ``substep`` (tiled_substep, K = 1's launch,
+    unless given; ``extra`` goes to each launch): the substeps between the
     first read and the last write in float32, the mirror of the velocity
     codes after each substep with a mask, and (bfloat16, mirror) the one
     rounding after it."""
+    substep = tiled_substep if substep is None else substep
     storage = fields.dtype
     dt0 = substep_dt0(dt, n, n_sub)
     mirror = mask is not None and any(b in (1, 2, 3) for b in bs)
@@ -345,10 +353,10 @@ def tiled_substeps(bs, fields, vel, n, dt, zoff=0, n_sub=1, *, buoy=None, src=No
     for sub in range(n_sub):
         first, last = sub == 0, sub == n_sub - 1
         to_s = last and not mirror
-        cur = tiled_substep(cur, vel, n, zoff, bs, dt0, storage if to_s else torch.float32,
-                            dens=dens, bp=bp, buoy_taps=buoy is not None and first, e=src,
-                            src_on=src_on if (first or src_on == "density") else None,
-                            mask=mask, scale=scale if last else 1.0, tile=tile, run=run)
+        cur = substep(cur, vel, n, zoff, bs, dt0, storage if to_s else torch.float32,
+                      dens=dens, bp=bp, buoy_taps=buoy is not None and first, e=src,
+                      src_on=src_on if (first or src_on == "density") else None,
+                      mask=mask, scale=scale if last else 1.0, tile=tile, run=run, **extra)
         if mirror:
             cur = torch.stack([_mirror_ext(cur[c], mask, writes, 3 - b) if b in (1, 2, 3)
                                else cur[c] for c, b in enumerate(bs)])

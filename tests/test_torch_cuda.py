@@ -1404,9 +1404,10 @@ def advect_counts():
     return dict(kadvect.advect_launches)
 
 
-def ran_advect(before, tiled, cell):
+def ran_advect(before, tiled, cell, window=0):
     after = advect_counts()
-    assert {k: after[k] - before[k] for k in after} == {"tiled": tiled, "cell": cell}
+    assert {k: after[k] - before[k] for k in after} == {"tiled": tiled, "window": window,
+                                                        "cell": cell}
 
 
 # Ragged sizes (a tile's last columns, rows and planes partial; n = 3 and 5
@@ -1492,12 +1493,13 @@ def test_tiled_k11_matches_twin(cuda, n, lz, n_sub, masked, dtype):
 
 
 def test_advect_route_counter_by_window(cuda):
-    """K = 1 takes the tiled kernel, K = 2 the one-thread-a-cell kernel, in
-    K1, K11 and K2's density phase, a count a substep."""
+    """K = 1 takes the tiled kernel, K = 2 the windowed tiles, in K1, K11 and
+    K2's density phase, a count a substep; past the gate's edge (F = 3 above
+    K = 6, F = 1 above K = 11 in the H100's 227 KB) one thread a cell."""
     n = 32
     vel, dens = fields(n, 4400, cuda)
     vel = vel * 0.2
-    for window, route in ((1, (2, 0)), (2, (0, 2))):
+    for window, route in ((1, (2, 0, 0)), (2, (0, 0, 2))):
         before = advect_counts()
         advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, window=window, n_sub=2)
         ran_advect(before, *route)
@@ -1507,6 +1509,180 @@ def test_advect_route_counter_by_window(cuda):
         before = advect_counts()
         project_advect_density_3d(vel, dens, 4, DT, window=window, n_sub=2)
         ran_advect(before, *route)
+    for window, n_fields, route in ((6, 3, (0, 0, 1)), (7, 3, (0, 1, 0)), (11, 1, (0, 0, 1)),
+                                    (12, 1, (0, 1, 0))):
+        assert kadvect.advect_route(window, n_fields) == ("window" if route[2] else "cell")
+        bs, f = ((1, 2, 3), vel) if n_fields == 3 else ((0,), dens[None])
+        before = advect_counts()
+        got = advect_multi_3d_kernel(bs, f, vel, DT, window=window)
+        ran_advect(before, *route)
+        ref = advect_multi_3d_plain(bs, f, vel, DT, window=window)
+        assert_equal([got], [ref], f"K1 F={n_fields} K={window} at the gate's edge")
+
+
+# -- K1, K2's density phase and K11 at K >= 2 on windowed tiles
+# (csrc/advect_window.cuh) ----------------------------------------------------------
+
+
+def assert_equal_nan(got, ref, what):
+    """Bitwise but for NaN payloads: NaN in the same cells, equal elsewhere."""
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g.isnan(), r.isnan()), (what, "NaN cells differ")
+        g, r = torch.where(g.isnan(), 0.0, g), torch.where(r.isnan(), 0.0, r)
+        assert torch.equal(g, r), (what, float((g - r).abs().nan_to_num().max()))
+
+
+def reach(n, seed, device, cells, n_sub=1):
+    """Seeded fields whose velocity backtraces about ``cells`` cells a
+    substep."""
+    vel, dens = fields(n, seed, device)
+    return vel * (cells * n_sub / (5.0 * DT * (n - 2))), dens
+
+
+# Ragged sizes (a tile's last columns, rows and planes partial; a staged
+# region wider than the grid at 11) and the presets' 64³ and 128³.
+WIN_SIZES = [11, 37, 64, 130]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["F3", "F1", "F3-mask", "F1-mask"])
+@pytest.mark.parametrize("n_sub", [1, 3])
+@pytest.mark.parametrize("window", [2, 3, 4, 5])
+@pytest.mark.parametrize("n", WIN_SIZES)
+def test_window_tiles_k1_matches_twin(cuda, n, window, n_sub, case, dtype):
+    """Every unfolded K >= 2 instantiation on the windowed tiles: F = 3 and
+    1, with and without vortex128's mask, float32 and the bfloat16 roles."""
+    vel, dens = reach(n, 5000 + n + window, cuda, window + 1, n_sub)
+    vel, dens = vel.to(dtype), dens.to(dtype)
+    obst = vortex_mask(n, cuda) if case.endswith("mask") else None
+    bs, f = ((1, 2, 3), vel) if case.startswith("F3") else ((0,), dens[None])
+    before = advect_counts()
+    got = advect_multi_3d_kernel(bs, f, vel, DT, obst=obst, window=window, n_sub=n_sub)
+    ran_advect(before, 0, 0, n_sub)
+    ref = advect_multi_3d_plain(bs, f, vel, DT, obst=obst, window=window, n_sub=n_sub)
+    assert got.dtype == dtype
+    assert_equal([got], [ref], f"K1 K={window} {case} {dtype}")
+
+
+@pytest.mark.parametrize("src", [False, True], ids=["buoy", "buoy-src"])
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("window", [2, 3, 4, 5])
+@pytest.mark.parametrize("n", [11, 37, 130])
+def test_window_tiles_k1_buoyancy_matches_twin(cuda, n, window, n_sub, src):
+    """The buoyancy on the staged y component (and the emitter on its
+    density) in the first substep, at the cell in every substep."""
+    vel, dens = reach(n, 5100 + n + window, cuda, window + 1, n_sub)
+    buoy = (dens, 0.2, 0.1, 0.05)
+    e = emitter(n, cuda) if src else None
+    before = advect_counts()
+    got = advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, buoy=buoy, n_sub=n_sub, src=e,
+                                 window=window)
+    ran_advect(before, 0, 0, n_sub)
+    ref = advect_multi_3d_plain((1, 2, 3), vel, vel, DT, buoy=buoy, n_sub=n_sub, src=e,
+                                window=window)
+    assert_equal([got], [ref], f"K1 K={window} buoyancy src={src}")
+
+
+@pytest.mark.parametrize("case", ["K2", "K2s", "K2o", "K2 bf16"])
+@pytest.mark.parametrize("window", [2, 3, 4, 5])
+@pytest.mark.parametrize("n", [11, 37, 128])
+def test_window_tiles_density_phase_matches_twin(cuda, n, window, case):
+    """K2's density phase through K1's entry on the windowed tiles: the
+    emitter on the staged density (K2s), the mask and three substeps (K2o),
+    bfloat16 fields, and the damping as the last substep's scale."""
+    n_sub = 3 if case == "K2o" else 1
+    vel, dens = reach(n, 5200 + n + window, cuda, window + 1, n_sub)
+    if case == "K2 bf16":
+        vel, dens = vel.to(BF16), dens.to(BF16)
+    kw = {"K2": {}, "K2 bf16": {}, "K2s": {"src": emitter(n, cuda)},
+          "K2o": {"obst": vortex_mask(n, cuda), "n_sub": 3}}[case]
+    before = advect_counts()
+    got = project_advect_density_3d(vel, dens, 20, DT, solve_dtype="bfloat16", damp=DAMP,
+                                    dens_damp=DDAMP, window=window, **kw)
+    ran_advect(before, 0, 0, n_sub)
+    ref = project_advect_density_3d_plain(vel, dens, 20, DT, solve_dtype="bfloat16",
+                                          damp=DAMP, dens_damp=DDAMP, window=window, **kw)
+    assert_equal(got, ref, f"{case} K={window}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("window", [2, 3, 4, 5])
+@pytest.mark.parametrize("n,lz", [(37, 9), (130, 32)])
+def test_window_tiles_k11_matches_twin(cuda, n, lz, window, n_sub, masked, dtype):
+    """K11 at K >= 2 on each rank kind's slab (z wrapped modulo the slab, the
+    global walls inside slabs with zoff != 0), bitwise on every plane."""
+    vel, dens = reach(n, 5300 + n + window, cuda, window + 1, n_sub)
+    vel, dens = vel.to(dtype), dens.to(dtype)
+    obst = vortex_mask(n, cuda) if masked else None
+    h = ext_halo(window, n_sub, masked)
+    for rank, shard in RANKS.items():
+        v = ext_slab(vel, shard, lz, h)
+        m = None if obst is None else ext_slab(obst, shard, lz, h)
+        zoff = shard * lz - h
+        for bs, f in (((1, 2, 3), v), ((0,), ext_slab(dens[None], shard, lz, h))):
+            before = advect_counts()
+            got = advect_ext_kernel(bs, f, v, n, DT, zoff, window, n_sub, m)
+            ran_advect(before, 0, 0, n_sub)
+            ref = advect_ext_plain(bs, f, v, n, DT, zoff, window, n_sub, m)
+            assert_equal([got], [ref], f"K11 F={len(bs)} K={window} {rank}")
+
+
+def plant_taps(f, window):
+    """NaN and inf at taps the clamp leaves at zero weight for some cells:
+    on the far wall columns, rows and planes (read wrapped, past the
+    opposite wall) and beyond the window of a still cell (plant_velocity)."""
+    f = f.clone()
+    n = f.shape[-1]
+    c = n // 2
+    f[:, c, c - 1, n - 1] = float("inf")
+    f[:, c + 1, n - 1, 2] = float("-inf")
+    f[:, n - 1, 3, c] = float("nan")
+    f[:, c + window, c, c] = float("nan")
+    f[:, c, c - window, c + 1] = float("inf")
+    return f
+
+
+def plant_velocity(vel):
+    """A still cell (only its own tap has weight) and a NaN backtrace."""
+    vel = vel.clone()
+    c = vel.shape[-1] // 2
+    vel[:, c, c, c] = 0.0
+    vel[1, c - 3, c + 2, c] = float("nan")
+    return vel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("window", [2, 3, 4, 5])
+@pytest.mark.parametrize("n", [33, 64])
+def test_window_tiles_non_finite_match_twin(cuda, n, window, n_sub, dtype):
+    """Non-finite values at zero-weight taps, inside the grid and at wrapped
+    positions, and a NaN velocity: the full sum from the staged planes gives
+    the twin's NaN and inf cells and its values elsewhere (K1, K11, and K2's
+    density phase)."""
+    vel, dens = reach(n, 5400 + n + window, cuda, window + 1, n_sub)
+    vel, dens = vel.to(dtype), dens.to(dtype)
+    v3 = plant_velocity(plant_taps(vel, window))
+    v1, d1 = plant_velocity(vel), plant_taps(dens[None], window)
+    for bs, f, v in (((1, 2, 3), v3, v3), ((0,), d1, v1)):
+        before = advect_counts()
+        got = advect_multi_3d_kernel(bs, f, v, DT, window=window, n_sub=n_sub)
+        ran_advect(before, 0, 0, n_sub)
+        ref = advect_multi_3d_plain(bs, f, v, DT, window=window, n_sub=n_sub)
+        assert bool(ref.isnan().any()) and bool(torch.isfinite(ref).any())
+        assert_equal_nan([got], [ref], f"K1 F={len(bs)} K={window} non-finite")
+        fe, ve = f[:, 2:n - 2].contiguous(), v[:, 2:n - 2].contiguous()
+        before = advect_counts()
+        got = advect_ext_kernel(bs, fe, ve, n, DT, 2, window, n_sub)
+        ran_advect(before, 0, 0, n_sub)
+        ref = advect_ext_plain(bs, fe, ve, n, DT, 2, window, n_sub)
+        assert_equal_nan([got], [ref], f"K11 F={len(bs)} K={window} non-finite")
+    got = project_advect_density_3d(vel, d1[0], 4, DT, window=window, n_sub=n_sub)
+    ref = project_advect_density_3d_plain(vel, d1[0], 4, DT, window=window, n_sub=n_sub)
+    assert_equal_nan(got, ref, f"K2 K={window} non-finite")
 
 
 # -- the Jacobi round of K6, K10 and K12 (csrc/jacobi_pass.cuh) -------------------

@@ -14,9 +14,15 @@ float32 sweeps), K2 (bench128: 60 bfloat16 sweeps and the density), K3
 (bench128 unfused, 60 bfloat16 sweeps; vortex128, its mask and 20 bfloat16
 sweeps; 60 float32 sweeps), K14 (60 float32 sweeps at 128³) and K9 (20
 sweeps with scene_a's airfoil at 192² and scene_b's circle at 128², a
-smoothing and a fixed-rhs solve).
+smoothing and a fixed-rhs solve), and K1, K2's density phase and K11 at
+windows K >= 2 (plume64's K = 3, F = 3 and 1, and K = 4, 5, F = 3; the 64³
+gate's K = 2; bench128's K = 2 with the buoyancy and the emitter folded and
+K2s's K = 2 density phase; plume64's fused K2 with a K = 3 density phase;
+K11 at K = 4, 5 on shard 3's (F, 64 + 4K, 512, 512) slab of sharded512 on 8
+shards, two substeps, F = 3 and 1, float32 and bfloat16).
 
-Run from anywhere:  python3 tools/torch_kernels_ab.py ROOT_A ROOT_B [...]
+Run from anywhere:  python3 tools/torch_kernels_ab.py [--windowed] ROOT_A ROOT_B [...]
+(``--windowed``: the K >= 2 rows alone)
 
 Each ROOT is the root of a checkout that holds ``fluidsim_tpu_torch/``.
 The checkouts run in the order A, B, ..., then the reverse (A, B, B, A for
@@ -50,7 +56,28 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def child(root: str) -> None:
+def device_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds a call of ``fn()``: the kernels' time from
+    ``torch.profiler`` over ``reps`` calls after a warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            us = getattr(evt, "self_device_time_total", None)
+            total += evt.self_cuda_time_total if us is None else us
+    return total / 1e3 / reps
+
+
+def child(root: str, windowed_only: bool = False) -> None:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -93,6 +120,10 @@ def child(root: str) -> None:
         return torch.from_numpy(a).to(dev)
 
     out = {}
+    if windowed_only:
+        windowed(out, field, dev)
+        print(json.dumps({"root": root, "ms": out}), flush=True)
+        return
     for n in (256, 512):
         div = divergence_3d_plain(field(n, 3, scale=0.5))
         zero = torch.zeros_like(div)
@@ -160,6 +191,7 @@ def child(root: str) -> None:
     pvel, pdens = field(64, 3, scale=0.5), field(64).abs() * 20.0
     out["K8 plume64 K=3"] = cuda_ms(lambda: full_step_3d(pvel, pdens, 20, 0.02, window=3), 50)
     out["K14 128^3"] = cuda_ms(lambda: advect_project_3d_resident(vel, 60, 0.0008), 50)
+    windowed(out, field, dev)
     for scene, preset in (("scene_a", preset_scene_a), ("scene_b", preset_scene_b)):
         cfg = preset()
         m = cfg.current_size
@@ -175,21 +207,78 @@ def child(root: str) -> None:
     print(json.dumps({"root": root, "ms": out}), flush=True)
 
 
-def main(roots) -> None:
+def windowed(out, field, dev) -> None:
+    """The K >= 2 rows: K1 at 64³ (plume64, the gate) and 128³ (bench128's
+    folds), K2 and K2s with a windowed density phase, K11 on sharded512's
+    slabs; each by CUDA events and (" device") by the profiler's kernel
+    time, which the events exceed where the host's launches are the slower
+    (the 64³ rows)."""
+    import torch
+
+    from fluidsim_tpu_torch.config import preset_bench_128, preset_plume_64
+    from fluidsim_tpu_torch.kernels.advect import advect_multi_3d_kernel
+    from fluidsim_tpu_torch.kernels.halo import advect_ext_kernel
+    from fluidsim_tpu_torch.kernels.resident import project_advect_density_3d
+    from fluidsim_tpu_torch.scene.sources import emitter_fold_operand
+
+    def timed(key, fn, reps, warmup=2):
+        out[key] = cuda_ms(fn, reps, warmup)
+        out[key + " device"] = device_ms(fn, reps)
+
+    pdt = preset_plume_64().effective_params()[0]
+    pvel, pdens = field(64, 3, scale=2.0), field(64).abs() * 20.0
+    for k in (2, 3):
+        timed(f"K1 64^3 K={k} F=3", lambda: advect_multi_3d_kernel(
+            (1, 2, 3), pvel, pvel, pdt, window=k), 50)
+        timed(f"K1 64^3 K={k} F=1", lambda: advect_multi_3d_kernel(
+            (0,), pdens[None], pvel, pdt, window=k), 50)
+    for k in (4, 5):
+        timed(f"K1 64^3 K={k} F=3", lambda: advect_multi_3d_kernel(
+            (1, 2, 3), pvel, pvel, pdt, window=k), 20)
+    timed("K2 plume64 K=3 density phase", lambda: project_advect_density_3d(
+        pvel, pdens, 20, pdt, window=3), 50)
+    bdt = preset_bench_128().effective_params()[0]
+    bvel, bdens = field(128, 3, scale=40.0), field(128).abs() * 20.0
+    src = emitter_fold_operand(preset_bench_128(), torch.full((), bdt, device=dev))
+    timed("K1 bench128 K=2 buoyancy + src", lambda: advect_multi_3d_kernel(
+        (1, 2, 3), bvel, bvel, bdt, buoy=(bdens, 1.0, 0.0, 0.0), src=src, window=2), 20)
+    timed("K2s bench128 K=2", lambda: project_advect_density_3d(
+        bvel, bdens, 60, bdt, window=2, src=src, solve_dtype="bfloat16"), 20)
+    del pvel, pdens, bvel, bdens
+    svel, sdens = field(512, 3, scale=4.0), field(512).abs() * 20.0
+    for k in (4, 5):
+        # Shard 3 of 8: its 64 planes between 2K of each neighbour's.
+        h = 2 * k
+        ve = svel[:, 192 - h:256 + h].contiguous()
+        de = sdens[None, 192 - h:256 + h].contiguous()
+        for dtype, tag in ((torch.float32, ""), (torch.bfloat16, " bf16")):
+            v, d = ve.to(dtype), de.to(dtype)
+            timed(f"K11 K={k} F=3 slab{tag}", lambda: advect_ext_kernel(
+                (1, 2, 3), v, v, 512, 0.01, 192 - h, k, 2), 3, warmup=1)
+            timed(f"K11 K={k} F=1 slab{tag}", lambda: advect_ext_kernel(
+                (0,), d, v, 512, 0.01, 192 - h, k, 2), 3, warmup=1)
+        del ve, de, v, d
+    del svel, sdens
+    torch.cuda.empty_cache()
+
+
+def main(roots, rows: str) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed",
           flush=True)
     order = list(roots) + list(reversed(roots))
     for root in order:
-        subprocess.run([sys.executable, __file__, "--child", str(Path(root).resolve())],
+        subprocess.run([sys.executable, __file__, "--child", rows, str(Path(root).resolve())],
                        check=True)
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--child":
-        child(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--child":
+        child(sys.argv[3], sys.argv[2] == "windowed")
+    elif len(sys.argv) >= 4 and sys.argv[1] == "--windowed":
+        main(sys.argv[2:], "windowed")
     elif len(sys.argv) >= 3:
-        main(sys.argv[1:])
+        main(sys.argv[1:], "all")
     else:
         raise SystemExit(__doc__)
