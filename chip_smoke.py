@@ -64,7 +64,9 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      density gate (tests/test_oracle3d_parity.py's config) on the kernel path
      for 3 steps re-synced to tests/oracle3d.py (rtol 1e-4, atol
      2e-5·scale); step plume64 and vortex128 with ``double_project`` (K4,
-     and K4 with the mask) for 10 steps each, bitwise their twin paths;
+     and K4 with the mask) for 10 steps each, bitwise their twin paths, every
+     K4 solve on the tiles by ``k4_launches``, and time K4 on both inputs
+     beside its per-sweep route in turns;
  9c. the 2D reference-parity mode: hold K9 against its twin at 192² with
      scene_a's airfoil and at 128² with scene_b's circle (b = 0, 1, 2, both
      modes, 20 and 21 sweeps), bitwise; step scene_a at 192² through
@@ -111,15 +113,19 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      and 4 (bench128's bf16 solve without a mask; vortex128's with its
      mask), K2 with 2 and 4 (bench128's bf16 solve), K8 and K4 with 4 and
      K14 at K = 1 against their twins at 128³, bitwise (and K14 against the
-     launched K1 → K3); step bench128 with ``jacobi_sweep_block`` 2 and 4
+     launched K1 → K3), each K5 call on the tiles by its route counter (K5's
+     tile program, ``solve_launches``, ``full_step_launches``,
+     ``k4_launches``); step bench128 with ``jacobi_sweep_block`` 2 and 4
      (K1 + K2; unfused K1 ×2 + K3), with ``fuse_self_advect`` and 4 (K8)
      and vortex128 with 2 and 4 (K1 ×2 + K3 with the mask's coefficient
      volume) through ``Engine`` for 10 steps each: exactly those launches,
+     every solve on the tiles,
      bitwise the twin path, and one step from a seeded state within the
      bf16-solve class (3e-2·max) of the ``sweep_block = 1`` step; time each
-     kernel beside the same kernel at T = 1 (ms and µs a sweep) and its
-     twin, K14 beside K1 + K3, and bench128's steps/s and device ms a step
-     at T = 1, 2, 4 in turns;
+     K5 call on the tiles beside its per-stage route in turns and beside the
+     same kernel at T = 1 on the tiles (ms and µs a sweep) and its twin, K14
+     beside K1 + K3, and bench128's steps/s and device ms a step at T = 1,
+     2, 4 in turns;
  12. the explicit halo-exchange sharded step, sharded512 on 8 shards of the
      card: hold K10 against its twin on sharded512's slabs (72 planes at
      T = 4, 68 at T = 2; the first, a middle and the last shard; b = 0 and
@@ -164,7 +170,7 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      emitter at 128³, with vortex128's mask and three substeps, in bf16;
      K2, K2s, K2o, bf16 K2, K8 f32 and bf16, K14; K11 on sharded512's
      middle slab, f32 and bf16), timed beside the twin; the Engine paths
-     at K = 4 (10 steps) and 5 (5 steps): plume64, bench128 (plain,
+     at K = 4 (4 steps) and 5 (2 steps): plume64, bench128 (plain,
      ``fuse_emitter``, ``fuse_self_advect``, bf16, bf16 +
      ``fuse_self_advect``) and vortex128 fused, each with exactly its
      kernels and bitwise its twin path; sharded512 on 8 shards with
@@ -326,6 +332,29 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.synchronize()
     return start.elapsed_time(end) / reps
 
+
+
+def untiled(fn):
+    """fn() with no tiling found for any solve (``kernels.resident.
+    solve_tiles`` returning None): K5 in K2, K3 and K8 on its per-stage
+    route, K4 one launch a sweep, the routes the tile program replaced."""
+    from fluidsim_tpu_torch.kernels import resident as kres
+
+    found = kres.solve_tiles
+    kres.solve_tiles = lambda *args: None
+    try:
+        return fn()
+    finally:
+        kres.solve_tiles = found
+
+
+def in_turns(tiled, other, reps: int) -> tuple:
+    """CUDA-event ms of tiled() and of other() run through ``untiled``, in
+    turns (tiled, other, other, tiled): ([tiled ms], [other ms])."""
+    a = [cuda_ms(tiled, reps=reps)]
+    b = [untiled(lambda: cuda_ms(other, reps=reps)) for _ in range(2)]
+    a.append(cuda_ms(tiled, reps=reps))
+    return a, b
 
 def profile_ms(fn, reps: int, launches: dict = None) -> dict:
     """Device milliseconds per call of ``fn()``, by kernel name, from
@@ -505,6 +534,7 @@ def main() -> None:
         jacobi_3d_plain,
         jacobi_3d_resident,
         jacobi_3d_resident_plain,
+        k4_launches,
     )
     from fluidsim_tpu_torch.kernels.project import (
         divergence_3d_kernel,
@@ -579,6 +609,8 @@ def main() -> None:
             solve_launches[route] = 0
         for route in advect_launches:
             advect_launches[route] = 0
+        for route in k4_launches:
+            k4_launches[route] = 0
 
     def counts():
         return {k: fn.launches for k, fn in counters.items()}
@@ -1222,8 +1254,11 @@ def main() -> None:
         deng.step(10)
         torch.cuda.synchronize()
         dp_launches[what] = counts()
-        say(f"# {what}: 10 steps at {dcfg.current_size}^3, launches {dp_launches[what]}")
+        say(f"# {what}: 10 steps at {dcfg.current_size}^3, launches {dp_launches[what]}, "
+            f"K4 by route {dict(k4_launches)}")
         exactly(dp_launches[what], {"K1": 20, "K3": 10, "K4": 10}, what)
+        if dict(k4_launches) != {"tiled": 10, "sweep": 0}:
+            fail(f"{what}: K4 did not solve on the tiles every step: {dict(k4_launches)}")
         check_state(deng.state, 10, dcfg.current_size, what)
         dtwin = Engine(dcfg, device="cuda", kernels=PLAIN_TWINS)
         dtwin.step(10)
@@ -1854,6 +1889,22 @@ def main() -> None:
                                                  61), reps=20)
     say(f"K4 per sweep at {pn}^3: {(k4_many - k4_one) / 60 * 1e3!r} us (1 sweep {k4_one!r} "
         f"ms, 61 sweeps {k4_many!r} ms) [{card}]")
+    # K4 on the tiles beside the per-sweep route it replaced, in turns; that
+    # route held bitwise against the twin once, by its counter.
+    k4_turns = {}
+    for key, sweeps in (("K4", pcfg.jacobi_iters), ("K4 mask", vcfg.jacobi_iters)):
+        before = dict(k4_launches)
+        swept, ref = untiled(new_fns[key][0]), new_fns[key][1]()
+        torch.cuda.synchronize()
+        moved = {k: k4_launches[k] - before[k] for k in k4_launches}
+        if moved != {"tiled": 0, "sweep": sweeps}:
+            fail(f"{key} did not take the per-sweep route with no tiling: {moved}")
+        if not torch.equal(swept, ref):
+            fail(f"{key} on its per-sweep route disagrees with its twin")
+        del swept, ref
+        k4_turns[key] = in_turns(new_fns[key][0], new_fns[key][0], reps=50)
+        say(f"{key}: tiled {k4_turns[key][0]!r} ms, per-sweep route {k4_turns[key][1]!r} ms, "
+            f"in turns [{card}]")
 
     # The 2D mode: steps/s of both scenes and of scene_a's twin path, device
     # time a step by kernel and the host's share, and K9 a solve and a sweep
@@ -2325,10 +2376,29 @@ def main() -> None:
     def as_tuple(out):
         return out if isinstance(out, tuple) else (out,)
 
+    # Each case's route counter and its count for one call on the tiles
+    # (K5's tile program, csrc/solve_tiled.cuh: block_tile).
+    from fluidsim_tpu_torch.kernels.resident import full_step_launches
+
+    def k5_counter(key):
+        if " K8 " in key:
+            return full_step_launches, {"tiled": 1, "grid": 0}
+        if " K4 " in key:
+            return k4_launches, {"tiled": 1, "sweep": 0}
+        return solve_launches, {"tiled": 1, "sweep": 0}
+
     for key, (fn, plain, t, sweeps, _, _) in k5_cases.items():
         if composite_block(n, sweeps, t) != t:
             fail(f"{key}: the gate refuses T={t} at {n}^3 and {sweeps} sweeps")
-        got, ref, seq = as_tuple(fn(t)), as_tuple(plain(t)), as_tuple(fn(1))
+        counter, once = k5_counter(key)
+        before = dict(counter)
+        got = as_tuple(fn(t))
+        torch.cuda.synchronize()
+        moved = {k: counter[k] - before[k] for k in counter}
+        say(f"# {key}: route by counter {moved}")
+        if moved != once:
+            fail(f"{key} did not take the tiled route: {moved}")
+        ref, seq = as_tuple(plain(t)), as_tuple(fn(1))
         torch.cuda.synchronize()
         k5_err[key] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         same = all(torch.equal(g, r) for g, r in zip(got, ref))
@@ -2337,7 +2407,20 @@ def main() -> None:
             fail(f"{key} disagrees with its twin")
         if all(torch.equal(g, r) for g, r in zip(got, seq)):
             fail(f"{key} equals the sequential solve bitwise: the composite did not run")
-        del got, ref, seq
+        # The per-stage route the tile program replaced (no tiling found):
+        # its counter, and its result bitwise the twin's.
+        before = dict(counter)
+        staged = as_tuple(untiled(lambda: fn(t)))
+        torch.cuda.synchronize()
+        moved = {k: counter[k] - before[k] for k in counter}
+        per_stage = ({"tiled": 0, "grid": 1} if " K8 " in key
+                     else {"tiled": 0, "sweep": sweeps % t})
+        say(f"# {key} on the per-stage route: by counter {moved}")
+        if moved != per_stage:
+            fail(f"{key} did not take the per-stage route with no tiling: {moved}")
+        if not all(torch.equal(g, r) for g, r in zip(staged, ref)):
+            fail(f"{key} on its per-stage route disagrees with its twin")
+        del got, ref, seq, staged
     k14_got = advect_project_3d_resident(wvel, iters, dt)
     k14_twin = advect_project_3d_resident_plain(wvel, iters, dt)
     k14_comp = project_3d_resident(advect_multi_3d_kernel((1, 2, 3), wvel, wvel, dt), iters)
@@ -2370,13 +2453,20 @@ def main() -> None:
     for what, pcfg_k5, ran in k5_paths:
         keng = Engine(pcfg_k5, device="cuda")
         counters_to_zero()
+        step_routes = dict(full_step_launches)
         keng.step(10)
         torch.cuda.synchronize()
         got_launches = counts()
         k5_launches[what] = got_launches
-        say(f"# {what}: 10 steps, launches {got_launches}")
+        k8_routes = {k: full_step_launches[k] - step_routes[k] for k in step_routes}
+        say(f"# {what}: 10 steps, launches {got_launches}, solves by route "
+            f"{dict(solve_launches)}, K8 by route {k8_routes}")
         if got_launches != {k: ran.get(k, 0) for k in got_launches}:
             fail(f"{what} did not run exactly {ran}: {got_launches}")
+        tiled = (k8_routes == {"tiled": 10, "grid": 0} if "K8" in ran
+                 else dict(solve_launches) == {"tiled": 10, "sweep": 0})
+        if not tiled:
+            fail(f"{what} did not solve on the tiles every step")
         check_state(keng.state, 10, n, what)
         ktwin = Engine(pcfg_k5, device="cuda", kernels=PLAIN_TWINS)
         ktwin.step(10)
@@ -2418,11 +2508,14 @@ def main() -> None:
     # and its twin, K14 beside K1 + K3, and bench128's steps/s and device ms a
     # step at T = 1, 2, 4 in turns.
     for key, (fn, plain, t, sweeps, _, _) in k5_cases.items():
-        ms, ms1 = cuda_ms(lambda: fn(t), reps=20), cuda_ms(lambda: fn(1), reps=20)
+        # On the tiles, beside the per-stage route it replaced and the same
+        # call at T = 1 on the tiles, in turns.
+        tiled, stage = in_turns(lambda: fn(t), lambda: fn(t), reps=20)
+        ms, ms1 = min(tiled), cuda_ms(lambda: fn(1), reps=20)
         times[key] = (ms, cuda_ms(lambda: plain(t), reps=1, warmup=1))
-        say(f"{key}: kernel {ms!r} ms ({1e3 * ms / sweeps!r} us a sweep), the same kernel "
-            f"at T=1 {ms1!r} ms ({1e3 * ms1 / sweeps!r} us a sweep), twin "
-            f"{times[key][1]!r} ms [{card}]")
+        say(f"{key}: kernel on the tiles {tiled!r} ms ({1e3 * ms / sweeps!r} us a sweep), "
+            f"per-stage route {stage!r} ms, the same kernel at T=1 on the tiles {ms1!r} ms "
+            f"({1e3 * ms1 / sweeps!r} us a sweep), twin {times[key][1]!r} ms [{card}]")
     k14_ms = cuda_ms(lambda: advect_project_3d_resident(wvel, iters, dt), reps=20)
     k1k3_ms = cuda_ms(lambda: project_3d_resident(
         advect_multi_3d_kernel((1, 2, 3), wvel, wvel, dt), iters), reps=20)
@@ -3175,7 +3268,7 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-WIDE_STEPS = {4: 10, 5: 5}
+WIDE_STEPS = {4: 4, 5: 2}
 WIDE_HALO_STEPS = 2
 
 
@@ -3335,7 +3428,7 @@ def phase_wide(card, dev, counters_to_zero, counts, entries, times):
         torch.cuda.empty_cache()
     say(f"# phase 14a (kernels at K = 4, 5): {time.perf_counter() - t_phase:.1f} s")
 
-    # 14b. The paths through Engine at K = 4 (10 steps) and 5 (5 steps), the
+    # 14b. The paths through Engine at K = 4 (4 steps) and 5 (2 steps), the
     # counters at zero just before each: exactly their kernels, finite
     # fields, bitwise the twin path.
     def exact_path(cfg_, steps, ran, what):

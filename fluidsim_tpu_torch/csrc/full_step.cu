@@ -33,9 +33,12 @@
 //     velocity (read at L2), every sweep in shared memory, the tile's faces
 //     traded with its six neighbours through flags.  No grid barrier inside
 //     the solve: n_sub + 2 + (n_sub - 1) grid barriers a step.
-//   - grid-stride (full_step_kernel): where K5 blocks the sweeps
-//     (sweep_block >= 2) or no tiling fits (a float32 solve above 128^3, a
-//     bfloat16 one above 160^3): as many blocks of 256 threads as the card
+//     With K5's block (sweep_block >= 2, float32 fields) the tiles run
+//     K5's tile program (solve_tiled.cuh: block_tile) instead, each of its
+//     stages a pass on chip with a face trade, no grid barrier either.
+//   - grid-stride (full_step_kernel): where no tiling fits (a float32 solve
+//     above 128^3, a bfloat16 one above 160^3; K5's program's own budget):
+//     as many blocks of 256 threads as the card
 //     holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs),
 //     each phase a grid-stride loop over the cells, a grid barrier after
 //     every sweep (and every K5 stage).
@@ -84,19 +87,20 @@ cudaError_t advect_project_f32(const FullStepArgs& a, const SolveTiles* tiles, i
 
 // The number of blocks fs_full_step launches on the current device for the
 // solve type (bfloat16 when solve_bf16, else float32), the storage type
-// (bfloat16 when field_bf16), the window and the route: the tiled route
-// over gx * gy * gz tiles of an n^3 grid when gx > 0 (the tile count, once
-// the card is checked to hold them all at once), else the grid-stride
-// route (every block the card holds at once); or minus the cudaError_t that
+// (bfloat16 when field_bf16), the window, K5's block (1: sequential
+// sweeps) and the route: the tiled route over gx * gy * gz tiles of an n^3
+// grid when gx > 0 (the tile count, once the card is checked to hold them
+// all at once with the block's shared memory), else the grid-stride route
+// (every block the card holds at once); or minus the cudaError_t that
 // prevents the launch.
 extern "C" int fs_full_step_blocks(int solve_bf16, int field_bf16, int window, int n, int gx,
-                                   int gy, int gz) {
+                                   int gy, int gz, int block) {
   using namespace fsk;
   int blocks = 0;
   FullStepArgs none{};
   none.window = window;
   none.n = n;
-  const SolveBlock seq{1};
+  const SolveBlock seq{block};
   const SolveTiles tiling{gx, gy, gz, nullptr, nullptr};
   const SolveTiles* tiles = gx > 0 ? &tiling : nullptr;
   const cudaError_t err =
@@ -117,7 +121,8 @@ extern "C" int fs_full_step_blocks(int solve_bf16, int field_bf16, int window, i
 // (n >= 2 * window + 1); damp and dens_damp are values of the storage
 // type; blk is null (sequential sweeps) or K5's block and scratch (float32
 // fields; see block_valid); tiles is null (the grid-stride route) or the
-// tiled solve's tiling and scratch (the tiled route; not with blk).  All
+// tiled solve's tiling and scratch (the tiled route; with blk, K5's tile
+// program: float32 face slots, and rhs its scratch).  All
 // contiguous on the current device; n <= 1024.  Launches on `stream`
 // without synchronising and returns the first cudaError_t (a grid the card
 // cannot hold at once is cudaErrorCooperativeLaunchTooLarge).
@@ -129,8 +134,8 @@ extern "C" int fs_full_step(const void* vel, const void* dens, void* adv, void* 
                             const fsk::SolveTiles* tiles, void* stream) {
   using namespace fsk;
   if (n < 3 || n > 1024 || iters < 1 || n_sub < 1 || window < 1 || n < 2 * window + 1 ||
-      !block_valid(blk, n, iters, field_bf16) || (tiles != nullptr && blk != nullptr) ||
-      p_a == nullptr || (tiles == nullptr && (p_b == nullptr || rhs == nullptr)) ||
+      !block_valid(blk, n, iters, field_bf16, tiles != nullptr) || p_a == nullptr ||
+      (tiles == nullptr && (p_b == nullptr || rhs == nullptr)) ||
       (field_bf16 && ((n_sub > 1 && tmp0 == nullptr) || (n_sub > 2 && tmp1 == nullptr)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -37,8 +37,8 @@ struct FullStepArgs {
 // tiled route: the tiles; the grid-stride route: every block the card holds
 // at once), and with launch the kernel is launched on `s` as well.  tiles
 // is the tiled solve's tiling and scratch (the tiled route) or null (the
-// grid-stride route); blk is K5's block and scratch there (blk.block 1:
-// sequential sweeps).
+// grid-stride route); blk is K5's block and scratch (blk.block 1:
+// sequential sweeps), on either route.
 cudaError_t full_step_f32(const FullStepArgs& a, const SolveBlock& blk, const SolveTiles* tiles,
                           int solve_bf16, int window, bool launch, int* blocks, cudaStream_t s);
 cudaError_t full_step_bf16(const FullStepArgs& a, const SolveBlock& blk, const SolveTiles* tiles,
@@ -137,8 +137,8 @@ __device__ __forceinline__ void density_phase(const FullStepArgs& a, cg::grid_gr
 
 // The grid-stride route: every phase a grid-stride loop over the cells of
 // a grid as large as the card holds at once, the solve's sweeps (and K5's
-// stages) separated by grid barriers.  It serves K5 (blk.block >= 2) and
-// the grids the tiled solve cannot tile.
+// stages) separated by grid barriers.  It serves the grids no tiling fits
+// (for K5's block, block_shape's).
 template <typename T, typename S, int K, bool DENS>
 __global__ void __launch_bounds__(kThreads, kFullStepMinBlocks)
     full_step_kernel(const FullStepArgs a, const SolveBlock blk) {
@@ -209,19 +209,22 @@ __global__ void __launch_bounds__(kThreads, kFullStepMinBlocks)
 }
 
 // The tiled route: one block a tile of the tiled solve (solve_tiled.cuh),
-// one an SM, of kTileThreads threads (hx x my x as many as fit: more than
-// the tile's solve takes where the tile is small).  The advection phases
+// one an SM, of kTileThreads threads (BLOCK, K5's program: kBlockThreads;
+// hx x my x as many as fit: more than the tile's solve takes where the tile
+// is small).  The advection phases
 // and the gradient are grid-stride loops over every thread of the tiles'
 // blocks (walking a block's own tile instead ran slower on an H100);
 // between the self-advection and the gradient each block runs the tiled
 // solve of its tile (divergence of adv, every sweep in its shared memory,
-// the final iterate stored to t.p = pa), which synchronises a tile with its
-// face neighbours only: no grid barrier inside the solve.  Grid barriers:
-// one a self-advection substep, one after the solve, one before the density
-// and one between density substeps.
-template <typename T, typename S, int K, bool DENS>
-__global__ void __launch_bounds__(kTileThreads, 1)
-    full_step_tiled_kernel(const FullStepArgs a, const TiledArgs<T, S> t) {
+// the final iterate stored to t.p = pa; with K5's block, kb.blk.block >= 2,
+// K5's tile program block_tile on float32 fields), which synchronises a
+// tile with its face neighbours only: no grid barrier inside the solve.
+// Grid barriers: one a self-advection substep, one after the solve, one
+// before the density and one between density substeps.
+template <typename T, typename S, int K, bool DENS, bool BLOCK>
+__global__ void __launch_bounds__(BLOCK ? kBlockThreads : kTileThreads, 1)
+    full_step_tiled_kernel(const FullStepArgs a, const TiledArgs<T, S> t,
+                           const BlockTiledArgs<T, S> kb) {
   extern __shared__ __align__(16) unsigned char fs_tile_smem[];
   cg::grid_group grid = cg::this_grid();
   const int first = static_cast<int>(grid.thread_rank());
@@ -231,8 +234,14 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   //    before the divergence reads it).
   self_advect_phase<S, K>(a, grid, first, stride);
 
-  // 2-3. Divergence and every sweep of this block's tile, into pa.
-  solve_tile<T, S, false, true>(fs_tile_smem, t, blockIdx.x);
+  // 2-3. Divergence and every sweep of this block's tile, into pa (BLOCK:
+  //      K5's program, an instantiation of its own so that the sequential
+  //      one keeps its registers).
+  if constexpr (BLOCK) {
+    block_tile<T, S, false, true, false>(fs_tile_smem, kb, blockIdx.x);
+  } else {
+    solve_tile<T, S, false, true>(fs_tile_smem, t, blockIdx.x);
+  }
   grid.sync();
 
   // 4. Gradient, faces, damp.
@@ -272,29 +281,51 @@ cudaError_t full_step_run(const FullStepArgs& a, const SolveBlock& blk, bool lau
 // The tiled route's launch over the tiling `tiles` (every tile's block
 // resident at once, or cudaErrorCooperativeLaunchTooLarge): *blocks gets
 // the tile count, and with launch the kernel is launched on `s` as well.
-// cudaErrorInvalidValue for a tiling the tiled solve cannot take (see
-// tile_shape) or, with launch, without its flags and faces.
+// With K5's block (blk.block >= 2, float32 fields) the tiles run K5's tile
+// program, with its shared memory.  cudaErrorInvalidValue for a tiling the
+// tiled solve (tile_shape) or K5's program (block_shape) cannot take or,
+// with launch, without its flags and faces (K5: its rhs, x1 and shell
+// scratch).
 template <typename T, typename S, int K, bool DENS = true>
-cudaError_t full_step_tiled_run(const FullStepArgs& a, const SolveTiles& tiles, bool launch,
-                                int* blocks, cudaStream_t s) {
+cudaError_t full_step_tiled_run(const FullStepArgs& a, const SolveBlock& blk,
+                                const SolveTiles& tiles, bool launch, int* blocks,
+                                cudaStream_t s) {
   TileShape shape;
-  if (!tile_shape(a.n, tiles.gx, tiles.gy, tiles.gz, sizeof(T), &shape) ||
-      (launch && (tiles.flags == nullptr || tiles.faces == nullptr))) {
-    return cudaErrorInvalidValue;
+  size_t smem = 0;
+  int x_chip = 0;
+  const bool blocked = blk.block >= 2;
+  if (blocked) {
+    if (!(std::is_same<S, float>::value && DENS) ||
+        !block_shape(a.n, tiles.gx, tiles.gy, tiles.gz, sizeof(T), blk.block, false, &shape,
+                     &x_chip, &smem) ||
+        (launch && (a.rhs == nullptr || blk.x1 == nullptr ||
+                    (blk.block >= 3 && (blk.s0 == nullptr || blk.s1 == nullptr))))) {
+      return cudaErrorInvalidValue;
+    }
+  } else {
+    if (!tile_shape(a.n, tiles.gx, tiles.gy, tiles.gz, sizeof(T), &shape)) {
+      return cudaErrorInvalidValue;
+    }
+    smem = shape.smem;
   }
-  const void* kernel = (const void*)full_step_tiled_kernel<T, S, K, DENS>;
-  // The tile's block, grown along z to kTileThreads threads for the
-  // advection phases (the solve leaves threads lz >= split idle).
-  const dim3 block(shape.hx, shape.my, kTileThreads / (shape.hx * shape.my));
+  if (launch && (tiles.flags == nullptr || tiles.faces == nullptr)) return cudaErrorInvalidValue;
+  constexpr bool kBlocks = std::is_same<S, float>::value && DENS;  // K5 blocks float32 fields
+  const void* kernel = blocked ? (const void*)full_step_tiled_kernel<T, S, K, DENS, kBlocks>
+                               : (const void*)full_step_tiled_kernel<T, S, K, DENS, false>;
+  // The tile's block, grown along z to kTileThreads threads (K5's program:
+  // kBlockThreads) for the advection phases (the solve leaves threads
+  // lz >= split idle).
+  const int threads = blocked ? kBlockThreads : kTileThreads;
+  const dim3 block(shape.hx, shape.my, threads / (shape.hx * shape.my));
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(shape.smem));
+                                         static_cast<int>(smem));
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, static_cast<int>(block.x * block.y * block.z), shape.smem);
+        &per_sm, kernel, static_cast<int>(block.x * block.y * block.z), smem);
   }
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
@@ -306,20 +337,23 @@ cudaError_t full_step_tiled_run(const FullStepArgs& a, const SolveTiles& tiles, 
   TiledArgs<T, S> targs{static_cast<const S*>(a.adv), nullptr, static_cast<T*>(a.pa),
                         tiles.flags, static_cast<T*>(tiles.faces), a.n, a.iters,
                         tiles.gx, tiles.gy, tiles.gz, shape};
-  void* params[] = {&args, &targs};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(count), block, params, shape.smem, s);
+  BlockTiledArgs<T, S> kargs{static_cast<const S*>(a.adv), nullptr, static_cast<T*>(a.rhs),
+                             nullptr, static_cast<T*>(a.pa), tiles.flags,
+                             static_cast<float*>(tiles.faces), blk, a.n, a.iters, tiles.gx,
+                             tiles.gy, tiles.gz, 0, 1.0f, 1.0f / 6.0f, shape, x_chip};
+  void* params[] = {&args, &targs, &kargs};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(count), block, params, smem, s);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // One route for the solve type T: the tiled one where tiles is not null
-// (not with K5's block), else the grid-stride one.
+// (with K5's block too), else the grid-stride one.
 template <typename T, typename S, int K, bool DENS>
 cudaError_t full_step_route(const FullStepArgs& a, const SolveBlock& blk,
                             const SolveTiles* tiles, bool launch, int* blocks, cudaStream_t s) {
   if (tiles == nullptr) return full_step_run<T, S, K, DENS>(a, blk, launch, blocks, s);
-  if (blk.block >= 2) return cudaErrorInvalidValue;
-  return full_step_tiled_run<T, S, K, DENS>(a, *tiles, launch, blocks, s);
+  return full_step_tiled_run<T, S, K, DENS>(a, blk, *tiles, launch, blocks, s);
 }
 
 // full_step_route for the storage type S and the density phase DENS (false:

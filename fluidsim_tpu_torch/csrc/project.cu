@@ -7,7 +7,8 @@
 // Replaces: fluidsim_tpu/pallas/resident.py::_project_kernel (no mask) and
 // ::_project_obst_kernel (mask), entry project_3d_resident, body
 // _project_body, on float32 or bfloat16 fields; with blk (T >= 2, float32
-// fields) the solve is K5's (sweep_block.cuh).
+// fields) the solve is K5's (sweep_block.cuh), on the tiles where a tiling
+// is given (solve_tiled.cuh: block_tile).
 //
 // What bounds it on an H100: the sweeps, 20 of them in vortex128, 60 in
 // bench128 unfused.  Where kernels/resident.solve_tiles finds a tiling (up
@@ -38,8 +39,10 @@
 // n) scratch in the solve type (bfloat16 when solve_bf16, else float32).
 // damp is a value of the storage type.  blk is null (sequential sweeps) or
 // K5's block and scratch (sweep_block.cuh; float32 fields, T = 2 or n >= 4T,
-// iters >= T).  tiles is null (the per-sweep launches) or the tiled solve's
-// tiling and scratch (solve_tiled.cuh; not with blk).  All contiguous on the
+// iters >= T).  tiles is null (the per-sweep or per-stage launches) or the
+// tiled solve's tiling and scratch (solve_tiled.cuh; with blk, K5's tile
+// program: faces of float32 slots, rhs its scratch, blk's chain volumes
+// unused).  All contiguous on the
 // current device.  Launches every phase on `stream` without synchronising
 // and returns the first cudaError_t (cudaErrorInvalidValue for a tiling the
 // tiled solve cannot take).
@@ -48,8 +51,7 @@ extern "C" int fs_project(const void* vel, const unsigned char* mask, void* vel_
                           int field_bf16, float damp, const fsk::SolveBlock* blk,
                           const fsk::SolveTiles* tiles, void* stream) {
   using namespace fsk;
-  if (n < 3 || iters < 1 || !block_valid(blk, n, iters, field_bf16) ||
-      (tiles != nullptr && blk != nullptr)) {
+  if (n < 3 || iters < 1 || !block_valid(blk, n, iters, field_bf16, tiles != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

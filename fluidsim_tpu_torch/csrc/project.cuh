@@ -14,7 +14,8 @@
 // Counterpart of fluidsim_tpu/pallas/resident.py::_project_body with
 // _solve_loop; with a SolveBlock of T >= 2 (sweep_block.cuh, K5) the sweeps
 // run in blocks of T, on float32 fields only, as the TPU kernel's x1 lives
-// in its float32 pstag volume (the caller decides).  The velocity, the projected velocity and
+// in its float32 pstag volume (the caller decides): on the tiles K5's tile
+// program, else one launch a stage.  The velocity, the projected velocity and
 // the pressure are in the storage type S (float32 or bfloat16: the TPU
 // kernel's vbuf and pstag), the iterates and the rhs in the solve type T; the
 // gradient's result is rounded to S before the faces, the mirror computes in
@@ -23,7 +24,8 @@
 // and gradient kernels also serve K7 (project_slab.cu), with float32
 // buffers, no zero start (p0 null) and no pressure copy (p_out null).  With
 // a SolveTiles (solve_tiled.cuh) phases 1 and 2 are one persistent launch
-// that keeps the solve in shared memory; without one, one launch per phase
+// that keeps the solve (K5's blocks too) in shared memory; without one, one
+// launch per phase
 // and per sweep, the launch boundary being the grid-wide barrier between
 // sweeps.  Border cells recompute their interior cell (boundary.cuh), which
 // is bitwise the TPU kernel's face writes, including its deferred x faces,
@@ -134,8 +136,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Phases 1-3 on `stream`; mask (one byte per cell, nonzero = solid) may be
-// null.  With tiles (not with blk) phases 1 and 2 are the tiled solve's one
-// launch into pa.  Returns the first cudaError_t.
+// null.  With tiles phases 1 and 2 are one launch into pa: the tiled solve's
+// (sequential sweeps) or, with blk, K5's tile program (solve_tiled.cuh:
+// block_tile, which stores the rhs to rhs for its own use).  Returns the
+// first cudaError_t.
 template <typename T, typename S>
 cudaError_t project_phases(const S* vel, const uint8_t* mask, S* vel_out, S* p_out, T* pa,
                            T* pb, T* rhs, int n, int iters, float damp, const SolveBlock* blk,
@@ -146,14 +150,24 @@ cudaError_t project_phases(const S* vel, const uint8_t* mask, S* vel_out, S* p_o
   T* src = pa;
   T* dst = pb;
   int sweeps = iters;
-  if (tiles != nullptr) {
+  if (tiles != nullptr && blk != nullptr) {
+    // K5 blocks float32 fields only (block_valid).
+    if constexpr (std::is_same<S, float>::value) {
+      const BlockTiledArgs<T, S> args{vel, nullptr, rhs, mask, pa, nullptr, nullptr, *blk, n,
+                                      iters, 0, 0, 0, 0, 1.0f, inv6, TileShape{}, 0};
+      if ((err = block_tiled<T, S, false>(args, *tiles, s)) != cudaSuccess) return err;
+      sweeps = 0;
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  } else if (tiles != nullptr) {
     if ((err = solve_tiled<T, S>(vel, mask, pa, n, iters, *tiles, s)) != cudaSuccess) return err;
     sweeps = 0;
   } else {
     divergence_kernel<T, S><<<grid, block, 0, s>>>(vel, rhs, pa, n);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if (blk != nullptr && blk->block >= 2) {
+  if (tiles == nullptr && blk != nullptr && blk->block >= 2) {
     // K5 (sweep_block.cuh): iters / T blocks, then the sweeps left over.
     BlockPass<T> bp{nullptr, nullptr, rhs, mask, *blk, n};
     err = mask != nullptr ? block_precompute<T, true>(bp, s) : block_precompute<T, false>(bp, s);

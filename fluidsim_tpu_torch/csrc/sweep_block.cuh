@@ -1,10 +1,16 @@
 // K5: the sweep-blocked Jacobi solve, T = block >= 2 sweeps per pass, shared
 // by the projection's solve (project.cuh: K3 and, through K3's entry, K2),
 // K4's solve without a mask (jacobi_resident.cu) and K8's solve phase
-// (full_step.cuh).  Every stage below is a per-item device function: the
-// standalone launchers run one launch per stage (the launch boundary is the
-// barrier between stages), K8 runs the same functions in grid-stride loops
-// with grid.sync() between them.
+// (full_step.cuh).  Two routes, decided by the caller before the launch:
+// where kernels/resident.solve_tiles finds a tiling for the block, every
+// stage is a pass of the tile program on chip (solve_tiled.cuh:
+// block_tile, one persistent launch a solve, a face trade between stages);
+// elsewhere every stage below is a per-item device function, one launch a
+// stage in the standalone launchers (the launch boundary is the barrier
+// between stages) and a grid-stride loop between grid.sync()s in K8.  Both
+// routes compute a stage's value with the functions of "The arithmetic"
+// below, on operands they read from global memory (the per-stage route) or
+// from shared memory (the tiles).
 //
 // Replaces: fluidsim_tpu/pallas/resident.py::_solve_loop with block >= 2 and
 // its helpers _shell_exact_planes and _nbr_sum (the toroidal neighbour sum).
@@ -40,17 +46,64 @@
 // interior cell (boundary.cuh), which is bitwise the TPU kernel's z->y->x
 // face writes.  The iters % T sweeps left over run as sequential sweeps.
 //
-// What bounds it on an H100, and what the design does: each stage is a pass
-// over float32 scratch volumes (x1, two chain volumes) and the solve's
-// iterate, L2 resident at 128^3; a block of T sweeps takes 2 launches (T =
-// 2) or T + 1 (T >= 3), so the launch count per sweep does not fall.  This
-// is the simple, correct design; fusing the chain stages in shared memory
-// (T sweeps per pass over the iterate) is the step that would make it pay.
+// What bounds the per-stage route on an H100: each stage is a pass over
+// float32 scratch volumes (x1, two chain volumes) and the solve's iterate,
+// L2 resident at 128^3; a block of T sweeps takes 2 launches (T = 2) or
+// T + 1 (T >= 3).  The tile program keeps the chain on chip instead and
+// trades one-cell faces between stages (solve_tiled.cuh says what bounds
+// it); this route stays for the grids no tiling fits.
 #pragma once
 
 #include "boundary.cuh"
 
 namespace fsk {
+
+// --- The arithmetic ------------------------------------------------------
+//
+// Each stage's value from its operands, the one place both routes take it
+// from (the per-stage items below, the tile program in solve_tiled.cuh).
+
+// N from its six operands in the twin's add order.
+__device__ __forceinline__ float nbr6(float xp, float xm, float yp, float ym, float zp,
+                                      float zm) {
+  return ((xp + xm) + (yp + ym)) + (zp + zm);
+}
+
+// T = 2's x1 at a cell of coefficient c and rhs x0, nb = N(x0) (mask:
+// N(C*x0)).  (Plain functions of the mask: templates on it made nvcc 12.9's
+// front end abort at their calls in delta_item.)
+__device__ __forceinline__ float x1_delta_value(bool mask, float ic, float aicic, float a, float c,
+                                                float x0, float nb) {
+  return mask ? c * x0 + (a * c) * nb : ic * x0 + aicic * nb;
+}
+
+// T = 2's block value before the corrections: x1 + a2ic2*N(U) (mask:
+// x1 + (a2*C)*N(C*U)), nb the neighbour sum, cc the cell's coefficient.
+__device__ __forceinline__ float delta_value(bool mask, float x1, float a2, float a2ic2, float cc,
+                                             float nb) {
+  return mask ? x1 + (a2 * cc) * nb : x1 + a2ic2 * nb;
+}
+
+// The intermediate iterate's raw value (x0 + a*U)*C at a cell.
+__device__ __forceinline__ float raw_value(float a, float x0, float u, float c) {
+  return (x0 + a * u) * c;
+}
+
+// One face-rule correction of T = 2's block value v.
+template <typename T>
+__device__ __forceinline__ T corrected(T v, float mul, float raw_c, float raw_w) {
+  return st<T>(ld(v) + mul * (raw_c - raw_w));
+}
+
+// T >= 3's block value X + aT*(C*h) away from the shell, h = N(C*h_{T-2}).
+__device__ __forceinline__ float chain_value(float x, float aT, float cc, float h) {
+  return x + aT * (cc * h);
+}
+
+// A shell level's value at a plane cell: (x0 + a*nbr)*C.
+__device__ __forceinline__ float shell_value(float x0, float a, float nbr, float c) {
+  return (x0 + a * nbr) * c;
+}
 
 // The composite's constants (kernels/jacobi.py::block_constants, float32
 // values numpy computed) and its float32 scratch: x1 an (n, n, n) volume, w0
@@ -117,10 +170,10 @@ __device__ __forceinline__ void x1_delta_item(const BlockPass<T>& p, int i) {
     const float c = coef_at<MASK>(p.mask, i, b.ic);
     const float nb = torus_sum(
         t, [&](long long j) { return coef_at<MASK>(p.mask, j, b.ic) * ld(p.x0[j]); });
-    b.x1[i] = c * ld(p.x0[i]) + (b.a * c) * nb;
+    b.x1[i] = x1_delta_value(true, b.ic, b.aicic, b.a, c, ld(p.x0[i]), nb);
   } else {
     const float nb = torus_sum(t, [&](long long j) { return ld(p.x0[j]); });
-    b.x1[i] = b.ic * ld(p.x0[i]) + b.aicic * nb;
+    b.x1[i] = x1_delta_value(false, b.ic, b.aicic, b.a, b.ic, ld(p.x0[i]), nb);
   }
 }
 
@@ -179,15 +232,16 @@ __device__ __forceinline__ void delta_item(const BlockPass<T>& p, const float* U
   if (MASK) {
     const float nb =
         torus_sum(t, [&](long long j) { return coef_at<MASK>(p.mask, j, b.ic) * U[j]; });
-    out = b.x1[c] + (b.a2 * cc) * nb;
+    out = delta_value(true, b.x1[c], b.a2, b.a2ic2, cc, nb);
   } else {
-    out = b.x1[c] + b.a2ic2 * torus_sum(t, [&](long long j) { return U[j]; });
+    const float nb = torus_sum(t, [&](long long j) { return U[j]; });
+    out = delta_value(false, b.x1[c], b.a2, b.a2ic2, cc, nb);
   }
   T v = st<T>(out);
   const long long sn = n;
   const long long step[3] = {sn * sn, sn, 1};
   const int coord[3] = {k.cz, k.cy, k.cx};
-  const float raw_c = (ld(p.x0[c]) + b.a * U[c]) * cc;
+  const float raw_c = raw_value(b.a, ld(p.x0[c]), U[c], cc);
   const float mul = MASK ? b.a * cc : b.aic;
 #pragma unroll
   for (int axis = 0; axis < 3; ++axis) {
@@ -197,8 +251,8 @@ __device__ __forceinline__ void delta_item(const BlockPass<T>& p, const float* U
       const int w = side == 0 ? 0 : n - 1;
       if (coord[axis] != j) continue;
       const long long q = c + (w - j) * step[axis];
-      const float raw_w = (ld(p.x0[q]) + b.a * U[q]) * coef_at<MASK>(p.mask, q, b.ic);
-      v = st<T>(ld(v) + mul * (raw_c - raw_w));
+      const float raw_w = raw_value(b.a, ld(p.x0[q]), U[q], coef_at<MASK>(p.mask, q, b.ic));
+      v = corrected(v, mul, raw_c, raw_w);
     }
   }
   p.dst[k.idx] = v;
@@ -247,7 +301,7 @@ __device__ __forceinline__ void shell_item(const BlockPass<T>& p, int level, con
   const float nbr = (pair(2) + pair(1)) + pair(0);
   const long long g = plane_cell(n, axis, lo ? j : n - 1 - j, cu, cv);
   cur[(base + j) * nn + static_cast<long long>(u) * n + v] =
-      (ld(p.x0[g]) + p.b.a * nbr) * coef_at<MASK>(p.mask, g, p.b.ic);
+      shell_value(ld(p.x0[g]), p.b.a, nbr, coef_at<MASK>(p.mask, g, p.b.ic));
 }
 
 // T >= 3's last stage at cell k: the block's result at k's clamped interior
@@ -277,7 +331,7 @@ __device__ __forceinline__ void chain_final_item(const BlockPass<T>& p, const fl
   const Torus t = torus_of(n, k.cz, k.cy, k.cx);
   const float h =
       torus_sum(t, [&](long long j) { return coef_at<MASK>(p.mask, j, p.b.ic) * hin[j]; });
-  p.dst[k.idx] = st<T>(p.b.x1[k.c] + p.b.aT * (coef_at<MASK>(p.mask, k.c, p.b.ic) * h));
+  p.dst[k.idx] = st<T>(chain_value(p.b.x1[k.c], p.b.aT, coef_at<MASK>(p.mask, k.c, p.b.ic), h));
 }
 
 // The buffers of the chain's stage s (T >= 3): h_s goes to w[s % 2] and reads
@@ -354,14 +408,17 @@ __device__ __forceinline__ void block_stage_item(const BlockPass<T>& p, int s, l
 
 // Whether blk (null: sequential sweeps) is a block the kernels take for an
 // n^3 solve of `iters` sweeps: T >= 2 with iters >= T, T = 2 or n >= 4T,
-// float32 fields (field_bf16 = 0), and its scratch.
+// float32 fields (field_bf16 = 0), and its scratch (tiled: on the tile
+// program, which keeps the chain on chip and needs x1 and, for T >= 3, the
+// shell levels only).
 __host__ __forceinline__ bool block_valid(const SolveBlock* blk, int n, int iters,
-                                          int field_bf16) {
+                                          int field_bf16, bool tiled) {
   if (blk == nullptr) return true;
   const int tb = blk->block;
   if (tb < 2 || iters < tb || (tb > 2 && n < 4 * tb) || field_bf16) return false;
-  if (blk->x1 == nullptr || blk->w0 == nullptr) return false;
-  return tb == 2 || (blk->w1 != nullptr && blk->s0 != nullptr && blk->s1 != nullptr);
+  if (blk->x1 == nullptr || (!tiled && blk->w0 == nullptr)) return false;
+  return tb == 2 ||
+         ((tiled || blk->w1 != nullptr) && blk->s0 != nullptr && blk->s1 != nullptr);
 }
 
 // Internal linkage, as in boundary.cuh.

@@ -95,13 +95,13 @@ SIGNATURES = {
     # vel, adv, vel_out, p_out, p_a, p_b, rhs, n, iters, dt0_sub, n_sub,
     # window, tiles, stream
     "fs_advect_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _T, _P),
-    # solve_bf16, field_bf16, window, n, gx, gy, gz (returns the cooperative
-    # grid's block count, or -error)
-    "fs_full_step_blocks": (_I, _I, _I, _I, _I, _I, _I),
+    # solve_bf16, field_bf16, window, n, gx, gy, gz, block (returns the
+    # cooperative grid's block count, or -error)
+    "fs_full_step_blocks": (_I, _I, _I, _I, _I, _I, _I, _I),
     # x, x0, out, tmp, n, b, a, inv_c, iters, stream
     "fs_jacobi": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
-    # x, x0, mask, out, tmp, n, b, a, inv_c, iters, blk, stream
-    "fs_jacobi_resident": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _B, _P),
+    # x, x0, mask, out, tmp, n, b, a, inv_c, iters, blk, tiles, stream
+    "fs_jacobi_resident": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _B, _T, _P),
     # x, x0, mask, out, tmp, nz, n, b, a, inv_c, t_iters, wall_lo, wall_hi,
     # stream
     "fs_jacobi_ext": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _P),

@@ -18,13 +18,16 @@ K4 is the counterpart of ``fluidsim_tpu/pallas/resident.py``
 solve ``_solve_loop``): the same sweeps from a given start, the faces after
 each, and with an obstacle mask (``b = 0``) the solid cells held at their
 start value through the ``coef`` and ``frozen`` volumes.  The CUDA kernel is
-``csrc/jacobi_resident.cu``, one launch per sweep (per stage of a K5 block);
-``jacobi_3d_resident_plain`` is its twin.
+``csrc/jacobi_resident.cu``: one persistent launch of the tile program
+(``csrc/solve_tiled.cuh``) where ``k4_tiles`` finds a tiling, else one
+launch per sweep (per stage of a K5 block); ``k4_launches`` counts the
+routes; ``jacobi_3d_resident_plain`` is its twin.
 
 K5 is ``_solve_loop`` with ``block = T ≥ 2`` (the sweep-blocked solve), which
 runs inside K4 without a mask and inside the projections (K2, K3, K8):
 ``solve_loop_plain`` is its twin, operation for operation, and
-``csrc/sweep_block.cuh`` its CUDA kernels.  ``T = 2`` is the delta form
+``csrc/sweep_block.cuh`` its arithmetic, run by the tile program on chip
+where a tiling fits and one launch a stage elsewhere.  ``T = 2`` is the delta form
 ``x1 + (a·ic)²·N(N(p))`` with six plane corrections; ``T ≥ 3`` the hoisted
 chain ``X + a^T·(C·N)^T(p)`` with planes ``1..T−1`` of each wall recomputed
 by the sequential shell recurrence.  ``N`` is the toroidal neighbour sum of
@@ -165,21 +168,27 @@ def block_constants(a: float, inv_c: float, block: int):
     return tuple(float(v) for v in (aic, f(aic * ic), f(a32 * a32), f(aic * aic), pw))
 
 
-def solve_block_arg(n: int, block: int, a: float, inv_c: float, device):
+def solve_block_arg(n: int, block: int, a: float, inv_c: float, device,
+                    tiled: bool = False):
     """K5's ``SolveBlock`` for the C entries: None for ``block == 1``
     (sequential sweeps), else the block, its constants and fresh float32
-    scratch (``x1`` and the chain volumes, and for ``T ≥ 3`` the shell
-    levels), which the struct keeps alive as ``scratch``."""
+    scratch (``x1``, the chain volumes except on the tiles, which keep the
+    chain on chip, and for ``T ≥ 3`` the shell levels), which the struct
+    keeps alive as ``scratch``."""
     if block == 1:
         return None
 
     def buf(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
 
-    x1, w0 = buf(n, n, n), buf(n, n, n)
-    w1 = s0 = s1 = None
+    x1 = buf(n, n, n)
+    w0 = w1 = s0 = s1 = None
+    if not tiled:
+        w0 = buf(n, n, n)
     if block >= 3:
-        w1, s0, s1 = buf(n, n, n), buf(6 * 2 * block, n, n), buf(6 * 2 * block, n, n)
+        s0, s1 = buf(6 * 2 * block, n, n), buf(6 * 2 * block, n, n)
+        if not tiled:
+            w1 = buf(n, n, n)
     blk = _build.SolveBlock(block, a, inv_c, *block_constants(a, inv_c, block),
                             *(_ptr(v) for v in (x1, w0, w1, s0, s1)))
     blk.scratch = (x1, w0, w1, s0, s1)
@@ -369,6 +378,24 @@ def jacobi_3d_resident_plain(b: int, x, x0, a: float, c: float, iters: int,
                             coef=coef, frozen=frozen, block=sweep_block)
 
 
+# Launches of K4 (csrc/jacobi_resident.cu) by route: "tiled" counts tiled
+# solves, one launch each; "sweep" the per-sweep route's launches (a sweep
+# each, and the sweeps K5's per-stage route leaves over).
+k4_launches = {"tiled": 0, "sweep": 0}
+
+
+def k4_tiles(n: int, iters: int, sweep_block: int = 1, b: int = 0, masked: bool = False,
+             device=None):
+    """The tiling K4's ``n³`` solve of ``iters`` sweeps takes on ``device``
+    (``kernels/resident.solve_tiles`` for the float32 tile program of K4's
+    sweeps, or of K5's blocks where ``composite_block`` allows them), or
+    None, where one launch a sweep (a stage of K5's block) runs."""
+    from . import resident
+
+    block = composite_block(n, iters, sweep_block, b, masked)
+    return resident.solve_tiles(n, torch.float32, device, block, masked, True)
+
+
 def jacobi_3d_resident(b: int, x, x0, a: float, c: float, iters: int, obst=None,
                        sweep_block: int = 1):
     """Solve with the K4 kernel: ``iters`` Jacobi sweeps from ``x``, the
@@ -376,11 +403,12 @@ def jacobi_3d_resident(b: int, x, x0, a: float, c: float, iters: int, obst=None,
     the bool mask ``obst`` is given (``b == 0`` only), and without a mask in
     blocks of ``sweep_block`` (K5) where ``composite_block`` allows.
 
-    CUDA tensors launch ``csrc/jacobi_resident.cu``; CPU tensors run
+    CUDA tensors launch ``csrc/jacobi_resident.cu``: one persistent launch
+    on ``k4_tiles``'s tiling, else one a sweep; CPU tensors run
     ``jacobi_3d_resident_plain``.  Returns a new float32 ``(N, N, N)``
     tensor (bfloat16 inputs: solved in float32 with sequential sweeps, the
     result rounded back).  ``jacobi_3d_resident.launches`` counts calls
-    that launched the kernel."""
+    that launched the kernel, ``k4_launches`` the launches by route."""
     if x.dtype == torch.bfloat16:
         return jacobi_3d_resident(b, x.float(), x0.float(), a, c, iters, obst).to(x.dtype)
     if b not in (0, 1, 2, 3):
@@ -408,21 +436,30 @@ def jacobi_3d_resident(b: int, x, x0, a: float, c: float, iters: int, obst=None,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
 
+    from .resident import tiles_arg
+
     lib = _build.load_library()
     out = torch.empty_like(x)
-    tmp = torch.empty_like(x) if iters > 1 else None
+    masked = obst is not None
+    tiles = k4_tiles(n, iters, sweep_block, b, masked, x.device)
+    tmp = torch.empty_like(x) if tiles is None and iters > 1 else None
     a32, inv_c = solve_coefficients(a, c)
-    blk = solve_block_arg(n, composite_block(n, iters, sweep_block, b, obst is not None),
-                          a32, inv_c, x.device)
+    blk = solve_block_arg(n, composite_block(n, iters, sweep_block, b, masked), a32, inv_c,
+                          x.device, tiles is not None)
+    targ = None if tiles is None else tiles_arg(n, tiles, x.device, torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_jacobi_resident(
             x.data_ptr(), x0.data_ptr(), None if obst is None else obst.data_ptr(),
             out.data_ptr(), None if tmp is None else tmp.data_ptr(), n, int(b),
-            a32, inv_c, int(iters), blk, stream,
+            a32, inv_c, int(iters), blk, targ, stream,
         )
     _build.check(lib, err, "resident Jacobi kernel launch")
     jacobi_3d_resident.launches += 1
+    if tiles is not None:
+        k4_launches["tiled"] += 1
+    else:
+        k4_launches["sweep"] += iters if blk is None else iters % blk.block
     return out
 
 

@@ -17,9 +17,10 @@ is the TPU's scaffolding and is not copied).  The CUDA kernels are
 ``csrc/project_advect.cu``, ``csrc/project.cu`` and ``csrc/full_step.cu``,
 which share the projection's phases (``csrc/project.cuh``) and K1's
 backtrace (``csrc/advect.cuh``).  In K2 and K3 the divergence and every
-sweep of the solve are one persistent launch (``csrc/solve_tiled.cuh``)
-wherever ``solve_tiles`` finds a tiling of the grid, and one launch a sweep
-elsewhere; ``solve_launches`` counts which route ran.  K8 and K14 run the
+sweep of the solve are one persistent launch (``csrc/solve_tiled.cuh``;
+K5's blocks on its tile program) wherever ``solve_tiles`` finds a tiling of
+the grid, and one launch a sweep (a K5 stage) elsewhere; ``solve_launches``
+counts which route ran.  K8 and K14 run the
 same tiled solve inside their one launch there (``fused_step_route``), and
 a grid barrier a sweep elsewhere; ``full_step_launches`` and
 ``advect_project_launches`` count their routes.  The twins are
@@ -198,12 +199,17 @@ def _check_density(density, vel, n: int) -> None:
         raise ValueError("vel and density must be on one device")
 
 
-def _solve_scratch(n: int, sdt: torch.dtype, device, tiled: bool = False):
+def _solve_scratch(n: int, sdt: torch.dtype, device, tiled: bool = False,
+                   blocked: bool = False):
     """The two iterates and the rhs of the solve, in its storage dtype (the
-    tiled solve keeps the rhs and the other iterate on chip: None)."""
+    tiled solve keeps the rhs and the other iterate on chip: None; K5's
+    tile program keeps the other iterate on chip and stores the rhs)."""
+    def vol():
+        return torch.empty((n, n, n), dtype=sdt, device=device)
+
     if tiled:
-        return torch.empty((n, n, n), dtype=sdt, device=device), None, None
-    return tuple(torch.empty((n, n, n), dtype=sdt, device=device) for _ in range(3))
+        return vol(), None, vol() if blocked else None
+    return vol(), vol(), vol()
 
 
 # The tiled solve (csrc/solve_tiled.cuh): its kernel's limits, and an NVIDIA
@@ -211,14 +217,16 @@ def _solve_scratch(n: int, sdt: torch.dtype, device, tiled: bool = False):
 # to, which the gate decides for where the tensors are not on a card (the
 # CPU tests check the card's tiling).
 TILE_THREADS = 512
+BLOCK_THREADS = 256  # the tile program of K5 and K4: at most this many column pairs
 TILE_MAX_ROW = 32
 TILE_MAX_Z = 32
 TILE_FLAG_STRIDE = 32
 H100_SMS = 132
 
 # Launches of the projection's solve kernels by K2 and K3 (csrc/project.cuh):
-# "tiled" counts tiled solves, "sweep" the per-sweep kernel's launches (the
-# sweeps of the per-sweep route, and those K5 leaves over).
+# "tiled" counts tiled solves (the tiled solve's, or K5's tile program's),
+# "sweep" the per-sweep kernel's launches (the sweeps of the per-sweep
+# route, and those K5's per-stage route leaves over).
 solve_launches = {"tiled": 0, "sweep": 0}
 
 # Launches of K8 and of K14 (csrc/full_step.cuh) by route: "tiled" on the
@@ -267,6 +275,44 @@ def tile_smem(n: int, tiles, itemsize: int) -> int:
     return (2 + 2 * padded + 2 * hx * my * mz) * itemsize
 
 
+def _round16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def block_smem(n: int, tiles, itemsize: int, block: int, masked: bool = False) -> int:
+    """Bytes of shared memory a block of the tile program of K5 and K4 takes
+    (``block_layout`` in ``csrc/solve_tiled.cuh``): the iterate in the solve
+    dtype and a float32 chain buffer, each a padded copy of the largest tile
+    with 2 values of slack, rounded up to 16 bytes; for ``T = block ≥ 3`` a
+    second chain buffer (a float32 solve's iterate is that buffer); for
+    ``block`` 1 (K4's sequential sweeps) the rhs at the tile's cells; for K5
+    with a mask the solid bits of the padded tile."""
+    mx, my, mz = tile_extents(n, tiles)
+    hx = (mx + 1) // 2
+    cells = (2 * hx + 2) * (my + 2) * (mz + 2)
+    pb, wb = _round16((cells + 2) * itemsize), _round16((cells + 2) * 4)
+    total = pb + wb
+    if block >= 3 and itemsize != 4:
+        total += wb
+    if block == 1:
+        total += _round16(2 * hx * my * mz * itemsize)
+    if masked and block >= 2:
+        total += _round16(-(-cells // 32) * 4)
+    return total
+
+
+def shell_fits(n: int, tiles, block: int) -> bool:
+    """Whether the tiles at the walls hold ``T = block ≥ 3``'s shell: ``2T −
+    1`` planes or more along each axis (level 1 reads planes ``0..2T−1`` of a
+    wall, the last in the halo)."""
+    if block < 3:
+        return True
+    gx, gy, gz = tiles
+    depth = 2 * block - 1
+    return all(b[0][1] - b[0][0] >= depth and b[-1][1] - b[-1][0] >= depth
+               for b in (tile_bounds_x(n, gx), tile_bounds(n, gy), tile_bounds(n, gz)))
+
+
 def tile_face_values(n: int, tiles) -> int:
     """Values of the face buffer: two parities of six slots a tile, each as
     large as the largest face (its x rows ``2·hx`` long), rounded up to an
@@ -278,16 +324,23 @@ def tile_face_values(n: int, tiles) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def tiling(n: int, itemsize: int, sms: int, smem_optin: int):
+def tiling(n: int, itemsize: int, sms: int, smem_optin: int, block: int = 1,
+           masked: bool = False, general: bool = False):
     """The tiling ``(gx, gy, gz)`` of an ``n³`` solve of ``itemsize``-byte
     values on a card of ``sms`` SMs that lets a block opt in to
     ``smem_optin`` bytes of shared memory, or None: at most one tile an SM,
     every tile 3 to ``TILE_MAX_ROW`` cells along x and y and at most
     ``TILE_MAX_Z`` along z, at most ``TILE_THREADS`` column pairs, two x
-    tiles or more for an odd ``n``, both padded copies and the rhs within
-    ``smem_optin``.  Of those, the one with the least work on its largest
-    tile, then the fewest face cells, then the widest rows along x, then the
-    longest columns."""
+    tiles or more for an odd ``n``, and the block's shared memory within
+    ``smem_optin``: the tiled solve's two padded copies and rhs
+    (``tile_smem``) for the projection's sequential sweeps, or the tile
+    program's (``block_smem``) for K5's ``block ≥ 2`` (``masked``: with the
+    solid bits) and K4's sweeps (``general``), with at most
+    ``BLOCK_THREADS`` column pairs and ``shell_fits``'s wall tiles for
+    ``block ≥ 3``.  Of those, the one with the least work on its
+    largest tile, then the fewest face cells, then the widest rows along x,
+    then the longest columns."""
+    program = general or block >= 2
     best, best_key = None, None
     top = n // 3
     for gz in range(1, min(top, sms) + 1):
@@ -301,7 +354,11 @@ def tiling(n: int, itemsize: int, sms: int, smem_optin: int):
                 if (max(mx, my) > TILE_MAX_ROW or (mx + 1) // 2 * my > TILE_THREADS
                         or mz > TILE_MAX_Z):
                     continue
-                if tile_smem(n, (gx, gy, gz), itemsize) > smem_optin:
+                if program:
+                    if ((mx + 1) // 2 * my > BLOCK_THREADS or not shell_fits(n, (gx, gy, gz), block)
+                            or block_smem(n, (gx, gy, gz), itemsize, block, masked) > smem_optin):
+                        continue
+                elif tile_smem(n, (gx, gy, gz), itemsize) > smem_optin:
                     continue
                 key = (mx * my * mz, my * mz + mx * mz + mx * my, -mx, -mz)
                 if best_key is None or key < best_key:
@@ -317,31 +374,33 @@ def _card_limits(index: int):
     return sms, card_smem_optin(index)
 
 
-def solve_tiles(n: int, sdt: torch.dtype, device=None):
-    """The tiled solve's tiling of an ``n³`` projection solved in ``sdt`` on
-    ``device`` (``tiling`` with the card's SM count and shared memory; the
-    H100's where ``device`` is not a card), or None where the per-sweep
-    launches run.  The mask takes no shared memory (a bit a cell, in
-    registers), so the tiling does not depend on it."""
+def solve_tiles(n: int, sdt: torch.dtype, device=None, block: int = 1,
+                masked: bool = False, general: bool = False):
+    """The tiling of an ``n³`` solve in ``sdt`` on ``device`` (``tiling``
+    with the card's SM count and shared memory; the H100's where ``device``
+    is not a card), or None where one launch a sweep (a stage) runs: the
+    tiled solve's for the projection's sequential sweeps (the mask takes no
+    shared memory there: a bit a cell, in registers), the tile program's
+    for K5's ``block ≥ 2`` (with its solid bits when ``masked``) and for
+    K4's sweeps (``general``).  Callers pass the arguments by position."""
     limits = H100_SMS, H100_SMEM_OPTIN
     if device is not None and torch.device(device).type == "cuda":
         index = torch.device(device).index
         limits = _card_limits(torch.cuda.current_device() if index is None else index)
-    return tiling(n, sdt.itemsize, *limits)
+    return tiling(n, sdt.itemsize, *limits, block, masked, general)
 
 
 def projection_tiles(n: int, dtype: torch.dtype, iters: int, sweep_block: int,
-                     sdt: torch.dtype, device=None):
+                     sdt: torch.dtype, device=None, masked: bool = False):
     """The tiling the solve of a projection of an ``n³`` velocity of
-    ``dtype`` with ``iters`` sweeps takes on ``device`` (``solve_tiles``),
-    or None: where no tiling fits, or where K5 blocks the sweeps
-    (``projection_block``: ``sweep_block`` on float32 fields).  K2 and K3
-    solve on the tiles where it returns one, else one launch a sweep (or
-    K5); K8 and K14 take their tiled route there, else their grid-stride
-    route."""
-    if dtype == torch.float32 and composite_block(n, iters, sweep_block) != 1:
-        return None
-    return solve_tiles(n, sdt, device)
+    ``dtype`` with ``iters`` sweeps takes on ``device`` (``solve_tiles`` for
+    the block ``projection_block`` gives: K5's ``sweep_block`` on float32
+    fields), or None where none fits.  K2 and K3 solve on the tiles where
+    it returns one (the tiled solve, or K5's tile program), else one launch
+    a sweep (or a K5 stage); K8 and K14 take their tiled route there, else
+    their grid-stride route."""
+    block = composite_block(n, iters, sweep_block) if dtype == torch.float32 else 1
+    return solve_tiles(n, sdt, device, block, masked)
 
 
 def fused_step_route(n: int, iters: int, solve_dtype=None, dtype=torch.float32,
@@ -354,20 +413,29 @@ def fused_step_route(n: int, iters: int, solve_dtype=None, dtype=torch.float32,
     return "grid" if tiles is None else "tiled"
 
 
-def _solve_tiles_arg(vel, iters: int, sweep_block: int, sdt: torch.dtype):
-    """The tiled solve's ``SolveTiles`` for a projection of ``vel`` (None
-    where ``projection_tiles`` finds none), with its zeroed flags and its
-    face buffer, which the struct keeps alive as ``scratch``."""
-    n = vel.shape[-1]
-    tiles = projection_tiles(n, vel.dtype, iters, sweep_block, sdt, vel.device)
-    if tiles is None:
-        return None
+def tiles_arg(n: int, tiles, device, faces_dtype: torch.dtype):
+    """The ``SolveTiles`` of the tiling ``tiles`` of an ``n³`` solve, with
+    its zeroed flags and its face buffer of ``faces_dtype`` (the tile
+    program's: float32 slots whatever the solve dtype), which the struct
+    keeps alive as ``scratch``."""
     flags = torch.zeros(int(np.prod(tiles)) * TILE_FLAG_STRIDE, dtype=torch.int32,
-                        device=vel.device)
-    faces = torch.empty(tile_face_values(n, tiles), dtype=sdt, device=vel.device)
+                        device=device)
+    faces = torch.empty(tile_face_values(n, tiles), dtype=faces_dtype, device=device)
     arg = _build.SolveTiles(*tiles, flags.data_ptr(), faces.data_ptr())
     arg.scratch = (flags, faces)
     return arg
+
+
+def _solve_tiles_arg(vel, iters: int, sweep_block: int, sdt: torch.dtype,
+                     masked: bool = False):
+    """The ``SolveTiles`` for a projection of ``vel`` (None where
+    ``projection_tiles`` finds none)."""
+    n = vel.shape[-1]
+    tiles = projection_tiles(n, vel.dtype, iters, sweep_block, sdt, vel.device, masked)
+    if tiles is None:
+        return None
+    blocked = projection_block(vel, iters, sweep_block) >= 2
+    return tiles_arg(n, tiles, vel.device, torch.float32 if blocked else sdt)
 
 
 def _count_solve(tiles, iters: int, blk) -> None:
@@ -377,11 +445,11 @@ def _count_solve(tiles, iters: int, blk) -> None:
         solve_launches["sweep"] += iters if blk is None else iters % blk.block
 
 
-def _projection_block_arg(vel, iters: int, sweep_block: int):
+def _projection_block_arg(vel, iters: int, sweep_block: int, tiled: bool = False):
     """K5's ``SolveBlock`` for a projection of ``vel`` (None: sequential
-    sweeps)."""
+    sweeps; ``tiled``: for the tile program)."""
     return solve_block_arg(vel.shape[-1], projection_block(vel, iters, sweep_block),
-                           1.0, INV6, vel.device)
+                           1.0, INV6, vel.device, tiled)
 
 
 def _check_mask(obst, n: int, device) -> None:
@@ -434,9 +502,9 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
     p = torch.empty_like(density)
     dens_out = torch.empty_like(density)
     tmp0, tmp1 = _scratch(1, n, n_sub, False, vel.dtype, vel.device)
-    tiles = _solve_tiles_arg(vel, iters, sweep_block, sdt)
-    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device, tiles is not None)
-    blk = _projection_block_arg(vel, iters, sweep_block)
+    tiles = _solve_tiles_arg(vel, iters, sweep_block, sdt, obst is not None)
+    blk = _projection_block_arg(vel, iters, sweep_block, tiles is not None)
+    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device, tiles is not None, blk is not None)
     fdt = vel.dtype
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -483,9 +551,9 @@ def project_3d_resident(vel, iters: int, obst=None, solve_dtype=None,
     lib = _build.load_library()
     vel_out = torch.empty_like(vel)
     p = torch.empty((n, n, n), dtype=vel.dtype, device=vel.device)
-    tiles = _solve_tiles_arg(vel, iters, sweep_block, sdt)
-    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device, tiles is not None)
-    blk = _projection_block_arg(vel, iters, sweep_block)
+    tiles = _solve_tiles_arg(vel, iters, sweep_block, sdt, obst is not None)
+    blk = _projection_block_arg(vel, iters, sweep_block, tiles is not None)
+    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device, tiles is not None, blk is not None)
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_project(
@@ -555,8 +623,8 @@ def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
     tmp0, tmp1 = ((None, None) if fdt == torch.float32
                   else _scratch(3, n, n_sub, False, fdt, vel.device))
     tiles = _solve_tiles_arg(vel, iters, sweep_block, sdt)
-    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device, tiles is not None)
-    blk = _projection_block_arg(vel, iters, sweep_block)
+    blk = _projection_block_arg(vel, iters, sweep_block, tiles is not None)
+    p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device, tiles is not None, blk is not None)
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_full_step(
@@ -644,11 +712,14 @@ def full_step_blocks(solve_dtype=None, device=None, dtype=torch.float32,
     sdt = solve_torch_dtype(solve_dtype)
     tiles = None if n is None else projection_tiles(n, dtype, iters, sweep_block, sdt,
                                                     device)
+    block = 1
+    if n is not None and dtype == torch.float32:
+        block = composite_block(n, iters, sweep_block)
     lib = _build.load_library()
     with torch.cuda.device(device):
         blocks = lib.fs_full_step_blocks(
             int(sdt == torch.bfloat16), storage_flag(dtype), int(window),
-            0 if n is None else int(n), *(tiles or (0, 0, 0)))
+            0 if n is None else int(n), *(tiles or (0, 0, 0)), block)
     if blocks < 0:
         _build.check(lib, -blocks, "full-step grid")
     return blocks

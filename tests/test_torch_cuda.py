@@ -29,6 +29,7 @@ from fluidsim_tpu_torch.config import (
 )
 from fluidsim_tpu_torch.engine import Engine
 from fluidsim_tpu_torch.kernels import advect as kadvect
+from fluidsim_tpu_torch.kernels import jacobi as kjacobi
 from fluidsim_tpu_torch.kernels import project as kproject
 from fluidsim_tpu_torch.kernels import resident as kresident
 from fluidsim_tpu_torch.kernels import resident2d as kresident2d
@@ -346,15 +347,20 @@ def test_k8_matches_twin_and_k1_then_k2(cuda, n, solve_dtype, n_sub):
 
 def test_k8_grid_is_what_the_card_holds(cuda):
     """Each route's grid: the tiles at bench128 (the tiled route, one block
-    a tile, all resident at once), the occupancy grid where K5 blocks the
-    sweeps or no tiling fits, and with no size given."""
+    a tile, all resident at once; K5's block too), the occupancy grid where
+    no tiling fits, and with no size given."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for solve_dtype in (None, "bfloat16"):
         sdt = kresident.solve_torch_dtype(solve_dtype)
         tiles = kresident.solve_tiles(128, sdt, cuda)
         blocks = full_step_blocks(solve_dtype, cuda, n=128, iters=60)
         assert blocks == int(np.prod(tiles)) <= sms
-        for n, block in ((None, 1), (128, 4), (176, 1)):
+        assert kresident.fused_step_route(128, 60, solve_dtype, sweep_block=4,
+                                          device=cuda) == "tiled"
+        k5 = kresident.projection_tiles(128, torch.float32, 60, 4, sdt, cuda)
+        assert full_step_blocks(solve_dtype, cuda, n=128, iters=60,
+                                sweep_block=4) == int(np.prod(k5)) <= sms
+        for n, block in ((None, 1), (176, 1)):
             if n is not None:
                 assert kresident.fused_step_route(n, 60, solve_dtype, sweep_block=block,
                                                   device=cuda) == "grid"
@@ -855,15 +861,27 @@ def sweep_counters():
             "K3": project_3d_resident, "K8": full_step_3d}
 
 
+def stage_route(route, iters, block):
+    """The (tiled, sweep) counts of one K5 solve of ``iters`` sweeps in
+    blocks of ``block`` on ``route``: one tiled launch, or the per-stage
+    route with its ``iters % block`` sweeps left to the per-sweep kernel."""
+    return (1, 0) if route == "tiled" else (0, iters % block)
+
+
 @pytest.mark.parametrize("general", [False, True], ids=["poisson", "diffusion"])
 @pytest.mark.parametrize("block", [2, 3, 4])
 @pytest.mark.parametrize("n", [16, 32])
-def test_k5_in_k4_matches_twin(cuda, n, block, general):
-    """K4 without a mask in blocks of T, with sweeps left over (2T + 1)."""
+@pytest.mark.parametrize("route", ["tiled", "grid"])
+def test_k5_in_k4_matches_twin(cuda, monkeypatch, route, n, block, general):
+    """K4 without a mask in blocks of T, with sweeps left over (2T + 1), on
+    the tile program and on the per-stage route ("grid": no tiling)."""
+    force_route(monkeypatch, route)
     vel, _ = fields(n, 1700 + n + block, cuda)
     a, c = (0.13, 1.0 + 6 * 0.13) if general else (1.0, 6.0)
     for iters in (block, 2 * block + 1):
+        before = k4_counts()
         got = jacobi_3d_resident(0, vel[0], vel[1], a, c, iters, sweep_block=block)
+        ran_k4(before, *stage_route(route, iters, block))
         ref = jacobi_3d_resident_plain(0, vel[0], vel[1], a, c, iters, sweep_block=block)
         assert_equal((got,), (ref,), f"K4 T={block} iters={iters}")
     seq = jacobi_3d_resident(0, vel[0], vel[1], a, c, iters)
@@ -874,14 +892,19 @@ def test_k5_in_k4_matches_twin(cuda, n, block, general):
 @pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
 @pytest.mark.parametrize("block", [2, 3, 4])
 @pytest.mark.parametrize("n", [16, 32])
-def test_k5_in_k3_matches_twin(cuda, n, block, solve_dtype, masked):
+@pytest.mark.parametrize("route", ["tiled", "grid"])
+def test_k5_in_k3_matches_twin(cuda, monkeypatch, route, n, block, solve_dtype, masked):
     """K3 with T = 2, 3, 4, float32 and bfloat16 solves, with and without
-    the mask, at 60 sweeps and at 2T + 1 (sweeps left over)."""
+    the mask, at 60 sweeps and at 2T + 1 (sweeps left over), on the tile
+    program and on the per-stage route ("grid": no tiling)."""
+    force_route(monkeypatch, route)
     vel, _ = fields(n, 1800 + n + block, cuda)
     obst = vortex_mask(n, cuda) if masked else None
     for iters in (60, 2 * block + 1):
+        before = solve_counts()
         got = project_3d_resident(vel, iters, obst=obst, solve_dtype=solve_dtype,
                                   damp=DAMP, sweep_block=block)
+        ran_route(before, *stage_route(route, iters, block))
         ref = project_3d_resident_plain(vel, iters, obst=obst, solve_dtype=solve_dtype,
                                         damp=DAMP, sweep_block=block)
         assert_equal(got, ref, f"K3 T={block} iters={iters}")
@@ -891,16 +914,21 @@ def test_k5_in_k3_matches_twin(cuda, n, block, solve_dtype, masked):
 
 @pytest.mark.parametrize("block", [2, 4])
 @pytest.mark.parametrize("case", ["K2", "K2s", "K2o"])
-def test_k5_in_k2_matches_twin(cuda, case, block):
+@pytest.mark.parametrize("route", ["tiled", "grid"])
+def test_k5_in_k2_matches_twin(cuda, monkeypatch, route, case, block):
     """K2 with the bench128 preset's bfloat16 solve, K2s and K2o (vortex128's
-    mask, three substeps)."""
+    mask, three substeps), on the tile program and on the per-stage route
+    ("grid": no tiling)."""
+    force_route(monkeypatch, route)
     n = 32
     vel, dens = fields(n, 1900 + block, cuda)
     vel = vel * 0.3
     kw = {"K2": dict(solve_dtype="bfloat16"), "K2s": dict(src=emitter(n, cuda)),
           "K2o": dict(obst=vortex_mask(n, cuda), n_sub=3)}[case]
+    before = solve_counts()
     got = project_advect_density_3d(vel, dens, 60, DT, damp=DAMP, dens_damp=DDAMP,
                                     sweep_block=block, **kw)
+    ran_route(before, *stage_route(route, 60, block))
     ref = project_advect_density_3d_plain(vel, dens, 60, DT, damp=DAMP, dens_damp=DDAMP,
                                           sweep_block=block, **kw)
     assert_equal(got, ref, f"{case} T={block}")
@@ -910,12 +938,18 @@ def test_k5_in_k2_matches_twin(cuda, case, block):
 
 @pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
 @pytest.mark.parametrize("block", [2, 4])
-def test_k5_in_k8_matches_twin_and_k1_then_k2(cuda, block, solve_dtype):
+@pytest.mark.parametrize("route", ["tiled", "grid"])
+def test_k5_in_k8_matches_twin_and_k1_then_k2(cuda, monkeypatch, route, block, solve_dtype):
+    """K8 with K5's blocks on its tiled route (the tile program) and on its
+    grid-stride route (a grid barrier a stage)."""
+    force_route(monkeypatch, route)
     n = 32
     vel, dens = fields(n, 2000 + block, cuda)
     vel = vel * 0.3
+    before = dict(kresident.full_step_launches)
     got = full_step_3d(vel, dens, 60, DT, n_sub=2, solve_dtype=solve_dtype, damp=DAMP,
                        dens_damp=DDAMP, sweep_block=block)
+    assert route_of(kresident.full_step_launches, before) == [route]
     ref = full_step_3d_plain(vel, dens, 60, DT, n_sub=2, solve_dtype=solve_dtype,
                              damp=DAMP, dens_damp=DDAMP, sweep_block=block)
     assert_equal(got, ref, f"K8 T={block}")
@@ -1370,8 +1404,10 @@ def test_tiled_k2_is_k3_then_k1(cuda, solve_dtype):
 @pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
 def test_gate_refusal_takes_the_per_sweep_route(cuda, solve_dtype):
     """176³ needs more than a tile an SM: the per-sweep kernel runs, decided
-    before the launch, and the counts say so; K5 (sweep_block 2) keeps its
-    route and leaves iters % 2 sweeps to the per-sweep kernel."""
+    before the launch, and the counts say so; K5 (sweep_block 2) where its
+    tile program does not fit (144³ float32, 160³ bfloat16: the iterate and
+    the chain buffer over the opt-in) takes the per-stage route and leaves
+    iters % 2 sweeps to the per-sweep kernel."""
     n = 176
     sdt = kresident.solve_torch_dtype(solve_dtype)
     assert kresident.solve_tiles(n, sdt, cuda) is None
@@ -1380,7 +1416,9 @@ def test_gate_refusal_takes_the_per_sweep_route(cuda, solve_dtype):
     got = project_3d_resident(vel, 20, solve_dtype=solve_dtype)
     ran_route(before, 0, 20)
     assert_equal(got, project_3d_resident_plain(vel, 20, solve_dtype=solve_dtype), "K3 176")
-    vel, _ = fields(64, 1801, cuda)
+    n = 144 if solve_dtype is None else 160
+    assert kresident.projection_tiles(n, torch.float32, 21, 2, sdt, cuda) is None
+    vel, _ = fields(n, 1801, cuda)
     before = solve_counts()
     got = project_3d_resident(vel, 21, solve_dtype=solve_dtype, sweep_block=2)
     ran_route(before, 0, 1)
@@ -1867,7 +1905,8 @@ def test_k14_routes_match_twin_and_k1_then_k3(cuda, monkeypatch, route, n, n_sub
 
 def test_k8_tiled_route_at_bench128_is_one_launch(cuda):
     """bench128's fused step (bf16 solve, 60 sweeps) on the tiled route: one
-    launch, counted by route; sweep_block 4 takes the grid-stride one."""
+    launch, counted by route; sweep_block 4 takes it too (K5's tile
+    program)."""
     vel, dens = fields(128, 2500, cuda)
     vel = vel * 0.06
     before = dict(kresident.full_step_launches)
@@ -1875,7 +1914,7 @@ def test_k8_tiled_route_at_bench128_is_one_launch(cuda):
     full_step_3d(vel, dens, 60, DT, solve_dtype="bfloat16", damp=DAMP, dens_damp=DDAMP,
                  sweep_block=4)
     assert {k: v - before[k] for k, v in kresident.full_step_launches.items()} == \
-        {"tiled": 1, "grid": 1}
+        {"tiled": 2, "grid": 0}
 
 
 def k9_inputs(n, mask, seed, device):
@@ -1941,3 +1980,130 @@ def test_k9_floor_launches(cuda):
     torch.cuda.synchronize()
     with pytest.raises(RuntimeError, match="CUDA error"):
         kresident2d.cluster_barriers(20, 17, cuda)
+
+
+# -- K5 and K4 on the tiled solve's tiles (csrc/solve_tiled.cuh: block_tile) ----
+
+
+def k4_counts():
+    return dict(kjacobi.k4_launches)
+
+
+def ran_k4(before, tiled, sweeps):
+    after = k4_counts()
+    assert {k: after[k] - before[k] for k in after} == {"tiled": tiled, "sweep": sweeps}
+
+
+@pytest.mark.parametrize("block", [2, 3, 4])
+@pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("n", [32, 64, 128])
+def test_tiled_k5_in_k3_matches_twin(cuda, n, solve_dtype, masked, block):
+    """K5 in K3 on the tiles: one launch by the counter, bitwise its twin, at
+    2T + 1 sweeps (one left over) and 20."""
+    vel, _ = fields(n, 3000 + n + block, cuda)
+    obst = vortex_mask(n, cuda) if masked else None
+    for iters in (2 * block + 1, 20):
+        before = solve_counts()
+        got = project_3d_resident(vel, iters, obst=obst, solve_dtype=solve_dtype, damp=DAMP,
+                                  sweep_block=block)
+        ran_route(before, 1, 0)
+        ref = project_3d_resident_plain(vel, iters, obst=obst, solve_dtype=solve_dtype,
+                                        damp=DAMP, sweep_block=block)
+        assert_equal(got, ref, f"K5 T={block} in K3, {iters} sweeps")
+
+
+@pytest.mark.parametrize("block", [2, 3, 4])
+@pytest.mark.parametrize("n", [32, 128])
+@pytest.mark.parametrize("case", ["K2", "K2s", "K2o"])
+def test_tiled_k5_in_k2_matches_twin(cuda, case, n, block):
+    vel, dens = fields(n, 3100 + n + block, cuda)
+    vel = vel * 0.1
+    kw = {"K2": dict(solve_dtype="bfloat16"), "K2s": dict(src=emitter(n, cuda)),
+          "K2o": dict(obst=vortex_mask(n, cuda), n_sub=3, solve_dtype="bfloat16")}[case]
+    before = solve_counts()
+    got = project_advect_density_3d(vel, dens, 60, DT, damp=DAMP, dens_damp=DDAMP,
+                                    sweep_block=block, **kw)
+    ran_route(before, 1, 0)
+    ref = project_advect_density_3d_plain(vel, dens, 60, DT, damp=DAMP, dens_damp=DDAMP,
+                                          sweep_block=block, **kw)
+    assert_equal(got, ref, f"K5 T={block} in {case}")
+
+
+@pytest.mark.parametrize("block", [2, 3, 4])
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("n", [32, 128])
+def test_tiled_k5_in_k8_matches_twin_and_k1_then_k2(cuda, n, solve_dtype, block):
+    vel, dens = fields(n, 3200 + n + block, cuda)
+    vel = vel * 0.06
+    kw = dict(n_sub=2, solve_dtype=solve_dtype, damp=DAMP, dens_damp=DDAMP, sweep_block=block)
+    before = dict(kresident.full_step_launches)
+    got = full_step_3d(vel, dens, 60, DT, **kw)
+    assert route_of(kresident.full_step_launches, before) == ["tiled"]
+    assert_equal(got, full_step_3d_plain(vel, dens, 60, DT, **kw), f"K8 T={block}")
+    adv = advect_multi_3d_kernel((1, 2, 3), vel, vel, DT, n_sub=2)
+    assert_equal(got, project_advect_density_3d(adv, dens, 60, DT, **kw),
+                 f"K8 T={block} vs K1 -> K2")
+
+
+@pytest.mark.parametrize("block", [2, 3, 4])
+@pytest.mark.parametrize("n", [32, 64, 128])
+def test_tiled_k5_in_k4_matches_twin(cuda, n, block):
+    """K4 without a mask in blocks of T from a start whose faces break the
+    face rule, a != 1, with sweeps left over."""
+    vel, _ = fields(n, 3300 + n + block, cuda)
+    for iters in (2 * block + 1, 60):
+        before = k4_counts()
+        got = jacobi_3d_resident(0, vel[0], vel[1], 0.13, 1.78, iters, sweep_block=block)
+        ran_k4(before, 1, 0)
+        ref = jacobi_3d_resident_plain(0, vel[0], vel[1], 0.13, 1.78, iters, sweep_block=block)
+        assert_equal((got,), (ref,), f"K4 T={block}, {iters} sweeps")
+
+
+@pytest.mark.parametrize("iters", [20, 21])
+@pytest.mark.parametrize("case", ["b0", "b1", "b2", "b3", "b0-a1", "mask", "mask-diffusion"])
+@pytest.mark.parametrize("n", [32, 64, 128])
+def test_tiled_k4_matches_twin(cuda, n, case, iters):
+    """K4's sequential sweeps on the tiles: b = 0..3 with a != 1 from a start
+    whose faces break the face rule, a = 1, and the mask's frozen start with
+    a box of negative zeros."""
+    vel, _ = fields(n, 3400 + n + iters, cuda)
+    x, x0 = vel[0].clone(), vel[1].clone()
+    b = int(case[1]) if case.startswith("b") else 0
+    a, c = (1.0, 6.0) if case in ("b0-a1", "mask") else (0.13, 1.0 + 6 * 0.13)
+    obst = None
+    if case.startswith("mask"):
+        obst = vortex_mask(n, cuda)
+        x[2:7, 2:7, 2:7] = -0.0
+        x0[2:7, 2:7, 2:7] = -0.0
+    before = k4_counts()
+    got = jacobi_3d_resident(b, x, x0, a, c, iters, obst=obst)
+    ran_k4(before, 1, 0)
+    ref = jacobi_3d_resident_plain(b, x, x0, a, c, iters, obst=obst)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
+        (case, float((got - ref).abs().max()))
+
+
+def test_tiled_k4_per_sweep_route_where_no_tiling_fits(cuda):
+    """176³ takes one launch a sweep, counted as sweeps."""
+    vel, _ = fields(176, 3500, cuda)
+    before = k4_counts()
+    got = jacobi_3d_resident(0, vel[0], vel[1], 1.0, 6.0, 3)
+    ran_k4(before, 0, 3)
+    assert_equal((got,), (jacobi_3d_resident_plain(0, vel[0], vel[1], 1.0, 6.0, 3),), "K4 176")
+
+
+@pytest.mark.parametrize("block", [2, 4])
+def test_tiled_k5_repeats_bitwise(cuda, block):
+    """A race between a tile and its neighbours' slots or shell levels would
+    flip a bit now and then: 30 calls at 128³, each the first's."""
+    vel, dens = fields(128, 3600 + block, cuda)
+    vel = vel * 0.1
+    kw = dict(solve_dtype="bfloat16", damp=DAMP, dens_damp=DDAMP, sweep_block=block)
+    first = project_advect_density_3d(vel, dens, 60, DT, **kw)
+    torch.cuda.synchronize()
+    for call in range(30):
+        again = project_advect_density_3d(vel, dens, 60, DT, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again)), call

@@ -72,10 +72,15 @@ def test_tiled_kernel_barriers_are_the_kernels():
     on its face neighbours' flags only."""
     step = (CSRC / "full_step.cuh").read_text()
     tiled = function_body(step, "    full_step_tiled_kernel(")
-    assert "__launch_bounds__(kTileThreads, 1)\n    full_step_tiled_kernel(" in step
+    # One block an SM: the tiled solve's 512 threads, or K5's program's 256.
+    assert ("__launch_bounds__(BLOCK ? kBlockThreads : kTileThreads, 1)\n"
+            "    full_step_tiled_kernel(") in step
     assert tiled.count("grid.sync()") == 2
-    assert re.search(r"solve_tile<T, S, false, true>\(fs_tile_smem, t, blockIdx\.x\);\s*"
+    # The solve (the tiled solve's program, or K5's with its block) and then
+    # one barrier.
+    assert re.search(r"solve_tile<T, S, false, true>\(fs_tile_smem, t, blockIdx\.x\);\s*\}\s*"
                      r"grid\.sync\(\);", tiled)
+    assert "block_tile<T, S, false, true, false>(fs_tile_smem, kb, blockIdx.x);" in tiled
     advect = function_body(step, "__device__ __forceinline__ void self_advect_phase(")
     assert advect.count("grid.sync()") == 1
     density = function_body(step, "__device__ __forceinline__ void density_phase(")
@@ -87,6 +92,9 @@ def test_tiled_kernel_barriers_are_the_kernels():
     # threads write while others zero.
     assert "i < 2 + 2 * pvol; i += nthreads" in body
     assert "gridDim" not in body  # the slots are indexed by the tile count
+    program = function_body(solve, "__device__ __forceinline__ void block_tile(")
+    assert "grid.sync" not in program and "this_grid" not in program
+    assert "gridDim" not in program
     assert re.search(rf"kTileThreads = {TILE_THREADS};", solve)
 
 
@@ -100,9 +108,11 @@ def test_tiled_kernel_barriers_are_the_kernels():
     (163, 60, None, torch.float32, 1, "grid"),            # the L2 gate's f32 edge
     (176, 60, "bfloat16", torch.float32, 1, "grid"),      # more tiles than SMs
     (205, 60, "bfloat16", BF16, 1, "grid"),               # the L2 gate's bf16 edge
-    (128, 60, "bfloat16", torch.float32, 2, "grid"),      # K5 at T = 2
-    (128, 60, "bfloat16", torch.float32, 4, "grid"),      # K5 at T = 4
+    (128, 60, "bfloat16", torch.float32, 2, "tiled"),     # K5 at T = 2 on the tiles
+    (128, 60, "bfloat16", torch.float32, 4, "tiled"),     # K5 at T = 4 on the tiles
     (128, 60, "bfloat16", BF16, 4, "tiled"),              # K5 blocks float32 fields only
+    (144, 60, None, torch.float32, 2, "grid"),            # K5's f32 buffers over the opt-in
+    (160, 60, "bfloat16", torch.float32, 4, "grid"),      # K5's bf16 chain over the opt-in
 ])
 def test_route(n, iters, solve, dtype, block, route):
     assert fused_step_route(n, iters, solve, dtype, block) == route
