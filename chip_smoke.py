@@ -127,22 +127,30 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      beside K1 + K3, and bench128's steps/s and device ms a step at T = 1,
      2, 4 in turns;
  12. the explicit halo-exchange sharded step, sharded512 on 8 shards of the
-     card: hold K10 against its twin on sharded512's slabs (72 planes at
+     card (each shard's slabs its own: ``shard_state`` → ``ShardedState``,
+     compared after ``unshard_state``): hold K10 against its twin on
+     sharded512's slabs (72 planes at
      T = 4, 68 at T = 2; the first, a middle and the last shard; b = 0 and
      3) and on a 4-shard split of 128³ with vortex128's sphere, and K11
      (F = 3 self-advection and F = 1, two substeps) on sharded512's slabs,
      with vortex128's sphere and three substeps and at K = 2 on 4-shard
      splits of 128³, all bitwise; hold the 8-shard solve against K6 (rtol =
      atol = 2e-6) and the 8-shard advection against K1 (rtol 5e-4, atol
-     5e-5) on the whole 512³ volume; step sharded512 through
+     5e-5) on the whole 512³ volume; K7e's divergence and gradient against
+     their twins on the planes and halo planes of sharded512's first, a
+     middle and the last shard and of a 4-shard split of 128³, bitwise;
+     step sharded512 through
      ``sharded_step_fn(halo="explicit", halo_backend="pallas")`` at T = 4
      for ``HALO_STEPS`` steps and at T = 2 for ``HALO_T2_STEPS``, the
-     counters at zero just before each: exactly 8·iters/T K10 and 16 K11
-     launches a step and nothing else, finite fields, the mass grows, the
+     counters at zero just before each: exactly 8·iters/T K10, 16 K11, 8
+     K7e divergence and 8 K7e gradient launches a step and nothing else, no
+     op through ``parallel/halo.gathered`` (``gathered_ops`` zero, printed),
+     finite fields, the mass grows, the
      plume rises, the first ``HALO_TWIN_STEPS`` steps bitwise the twin path,
      the peak device memory reported; one step from a seeded state within
      1e-5·scale of the unsharded ``Engine``'s (K7 → K6 → K7); time K10 a
-     round and a solve, K11 a call, the halo copies of a step and the
+     round and a solve, K11 a call, K7e a call beside its twin and
+     ``conv3d`` on the same shard's one-plane extended slab, and the
      steps/s of T = 4, T = 2 and the unsharded ``Engine`` in turns; run
      ``python -m fluidsim_tpu_torch.cli bench --preset sharded512 --mesh 8
      --halo explicit ...`` as a subprocess and check its JSON line;
@@ -156,7 +164,9 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      solve bitwise the pallas solve and K6 on the whole 512³ volume; step
      sharded512 through ``sharded_step_fn(halo_backend="rdma")`` at T = 4
      for ``HALO_STEPS`` and T = 2 for ``HALO_T2_STEPS`` steps: exactly
-     8·iters/T K12, 24 K13 and 16 K11 launches a step and nothing else,
+     8·iters/T K12, 24 K13 (the solve's priming, two advections; K7e reads
+     the projection's halo planes in place), 16 K11 and 16 K7e launches a step
+     and nothing else, no gathered op,
      bitwise the ``"pallas"`` run after the same steps; sharded512 in
      bfloat16 on both backends for ``BF16_HALO_STEPS`` steps: exactly their
      kernels, bitwise each its twin path and each other, mass grows, the
@@ -384,6 +394,33 @@ def profile_ms(fn, reps: int, launches: dict = None) -> dict:
     return out
 
 
+def profile_parts(fn, reps: int) -> dict:
+    """Device milliseconds per call of ``fn()`` by part of the sharded step
+    (``utils/profiling.sharded_step_part`` of the whole kernel name), from
+    ``torch.profiler`` over ``reps`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fluidsim_tpu_torch.utils.profiling import sharded_step_part
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        part = sharded_step_part(evt.key)
+        out[part] = out.get(part, 0.0) + us / 1e3 / reps
+    return out
+
+
 def smooth(n, rng, dev, modes=6):
     """A float32 ``(n, n, n)`` tensor on ``dev``: a sum of plane waves of
     low wavenumber and unit amplitude, drawn from the NumPy generator
@@ -428,10 +465,19 @@ def bound(nbytes: float, nops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def as_global(state):
+    """``state`` as a global ``FluidState``: a sharded state unsharded."""
+    if hasattr(state, "slabs"):
+        from fluidsim_tpu_torch.parallel import unshard_state
+
+        return unshard_state(state)
+    return state
+
+
 def mass_and_com_y(state):
     import torch
 
-    d = state.density.double()
+    d = as_global(state).density.double()
     ys = torch.arange(d.shape[1], dtype=torch.float64, device=d.device)[None, :, None]
     m = d.sum()
     return float(m), float((d * ys).sum() / m)
@@ -440,6 +486,7 @@ def mass_and_com_y(state):
 def check_state(st, steps, n, what):
     import torch
 
+    st = as_global(st)
     if int(st.step) != steps or tuple(st.velocity.shape) != (3, n, n, n) \
             or tuple(st.density.shape) != (n, n, n):
         fail(f"{what}: unexpected state shape or step count")
@@ -539,7 +586,11 @@ def main() -> None:
     from fluidsim_tpu_torch.kernels.project import (
         divergence_3d_kernel,
         divergence_3d_plain,
+        divergence_ext_kernel,
+        divergence_ext_plain,
         gradient_3d_kernel,
+        gradient_ext_kernel,
+        gradient_ext_plain,
         project_3d_slab_kernel,
     )
     import fluidsim_tpu_torch.engine as engine_module
@@ -565,11 +616,12 @@ def main() -> None:
     from fluidsim_tpu_torch.models.step_kernels import PLAIN_TWINS
     from fluidsim_tpu_torch.ops.boundary import interior_mask, set_bnd_3d
     from fluidsim_tpu_torch.parallel import (
-        halo_exchange_z,
+        gathered_ops,
         jacobi_3d_sharded,
         make_mesh,
         shard_state,
         sharded_step_fn,
+        unshard_state,
     )
     from fluidsim_tpu_torch.parallel.halo import advect_multi_3d_sharded
     from fluidsim_tpu_torch.ops.forces import (
@@ -604,6 +656,7 @@ def main() -> None:
     def counters_to_zero():
         for fn in counters.values():
             fn.launches = 0
+        gathered_ops.clear()
         lin_solve_2d_resident.smooth_launches = 0
         for route in solve_launches:
             solve_launches[route] = 0
@@ -2608,6 +2661,8 @@ def main() -> None:
     say("# phase 12: the explicit halo-exchange sharded step (K10, K11) on 8 shards")
     counters["K10"] = jacobi_ext_kernel
     counters["K11"] = advect_ext_kernel
+    counters["K7e div"] = divergence_ext_kernel
+    counters["K7e grad"] = gradient_ext_kernel
     torch.cuda.empty_cache()
     hcfg = preset_sharded_512()
     hn = hcfg.current_size
@@ -2673,6 +2728,37 @@ def main() -> None:
         del got
     del k6_whole
 
+    # K7e on the planes and halo planes of sharded512's first, a middle and
+    # the last shard at 512³, and of a 4-shard split of 128³.
+    def shard_planes(v, shards, shard):
+        """Shard ``shard``'s planes of the global ``v`` (z on axis -3), and
+        the halo planes (below, above) of its last component, None past the
+        global ends."""
+        lz_ = v.shape[-1] // shards
+        last = v.reshape(-1, *v.shape[-3:])[-1]
+        return (v.narrow(-3, shard * lz_, lz_).contiguous(),
+                last[shard * lz_ - 1].contiguous() if shard > 0 else None,
+                last[(shard + 1) * lz_].contiguous() if shard < shards - 1 else None)
+
+    hp = smooth(hn, rng, dev)
+    for shards, vv, pp in ((8, hvel, hp),
+                           (4, velocity_field(vn, rng, dev, 12.0), smooth(vn, rng, dev))):
+        lz_ = vv.shape[-1] // shards
+        for shard in ((0, 3, 7) if shards == 8 else range(4)):
+            v, *vz_h = shard_planes(vv, shards, shard)
+            q, *p_h = shard_planes(pp, shards, shard)
+            w = walls(shard, shards, lz_, 0)
+            # The planes contiguous, and as the step passes them: a view of
+            # a wider slab (K11's kept planes), the components further apart.
+            wide = torch.zeros((3, lz_ + 4, vv.shape[-1], vv.shape[-1]), device=dev)
+            wide[:, 2:-2] = v
+            for vel_in in (v, wide[:, 2:-2]):
+                held("K7e div", divergence_ext_kernel(vel_in, *vz_h, *w),
+                     divergence_ext_plain(v, *vz_h, *w))
+                held("K7e grad", gradient_ext_kernel(vel_in, q, *p_h, *w),
+                     gradient_ext_plain(v, q, *p_h, *w))
+    del v, q, vz_h, p_h, hp, vv, pp, wide, vel_in
+
     # 12b. K11: F = 3 self-advection and F = 1 at window 1, two substeps, on
     # sharded512's slabs; vortex128's sphere with three substeps on a 4-shard
     # split of 128³ (a halo of 6 planes); K = 2 at 128³; then the 8-shard
@@ -2733,7 +2819,7 @@ def main() -> None:
         for i in range(1, steps):
             st = step(st)
             if i + 1 == HALO_TWIN_STEPS:
-                hat = {k: getattr(st, k).clone() for k in ("density", "velocity", "pressure")}
+                hat = {k: getattr(as_global(st), k) for k in ("density", "velocity", "pressure")}
         torch.cuda.synchronize()
         got_launches = counts()
         halo_launches[t] = got_launches
@@ -2744,9 +2830,13 @@ def main() -> None:
             f"{hmass_end!r}; y centre of mass {hcom1!r} -> {hcom_end!r}")
         say(f"sharded512 8 shards T={t} peak device memory: {peak - mem_before!r} bytes above "
             f"what earlier phases hold ({peak!r} in all) [{card}]")
-        want = {"K10": 8 * (h_iters // t) * steps, "K11": 8 * 2 * steps}
+        want = {"K10": 8 * (h_iters // t) * steps, "K11": 8 * 2 * steps,
+                "K7e div": 8 * steps, "K7e grad": 8 * steps}
         if got_launches != {k: want.get(k, 0) for k in got_launches}:
             fail(f"sharded512 on 8 shards (T={t}) did not run exactly {want}: {got_launches}")
+        say(f"# sharded512 8 shards T={t}: gathered ops {dict(gathered_ops)}")
+        if sum(gathered_ops.values()):
+            fail(f"sharded512 on 8 shards (T={t}) gathered a whole volume: {dict(gathered_ops)}")
         check_state(st, steps, hn, f"sharded512 8 shards T={t}")
         if not hmass_end > hmass1 > 0.0:
             fail(f"sharded512 8 shards T={t}: density mass does not grow")
@@ -2756,6 +2846,7 @@ def main() -> None:
         tw = hstart
         for _ in range(HALO_TWIN_STEPS):
             tw = twin_step(tw)
+        tw = as_global(tw)
         for name, got in hat.items():
             if not torch.equal(got, getattr(tw, name)):
                 fail(f"sharded512 8 shards T={t}: the kernel path differs from its twin path "
@@ -2764,8 +2855,8 @@ def main() -> None:
             f"{HALO_TWIN_STEPS} steps")
         del st, tw, hat, got
     # One step from a seeded state against the unsharded Engine (K7 -> K6 -> K7).
-    seeded = hstart.replace(density=hdens, velocity=hvel)
-    hone = halo_step(4)(seeded)
+    seeded = zeros_state(hcfg, dev).replace(density=hdens, velocity=hvel)
+    hone = unshard_state(halo_step(4)(shard_state(seeded, hmesh)))
     seng.state = seeded
     seng.step(1)
     for name in ("density", "velocity", "pressure"):
@@ -2778,8 +2869,8 @@ def main() -> None:
             fail(f"sharded512: the 8-shard step leaves 1e-5 of the unsharded step in {name}")
     del hone, seeded
 
-    # 12d. Times: K10 a round per shard and a solve, K11 a call, the halo
-    # copies of a step, and steps/s of the 8-shard path at T = 2 and 4 beside
+    # 12d. Times: K10 a round per shard and a solve, K11 a call, K7e a
+    # call, and steps/s of the 8-shard path at T = 2 and 4 beside
     # the unsharded Engine, in turns.
     for t in (4, 2):
         xe, x0e = ext_slab(hzero, 3, hlz, t), ext_slab(hdiv, 3, hlz, t)
@@ -2801,35 +2892,38 @@ def main() -> None:
         say(f"{key}: {times[key][0]!r} ms a call on one shard's slab {tuple(args[1].shape)}, "
             f"twin {times[key][1]!r} ms [{card}]")
 
-    def halo_copies():
-        """The exchanges and copies of one T = 4 step without the kernels:
-        the velocity's and the density's extended slabs and the results'
-        copies back (advection), the rhs's and the start's extended slabs,
-        three refreshes of 2T planes and the result's gather (solve)."""
-        for f in (hvel, hdens[None]):
-            exts = [torch.cat([b, x, a], 1) for x, (b, a) in
-                    zip(torch.chunk(f, 8, 1), halo_exchange_z(torch.chunk(f, 8, 1), hh, 1))]
-            out = torch.empty_like(f)
-            for r, e in enumerate(exts):
-                out[:, r * hlz:(r + 1) * hlz].copy_(e[:, hh:hh + hlz])
-        x0_exts, exts = ([torch.cat([b, x, a]) for x, (b, a) in
-                          zip(torch.chunk(f, 8), halo_exchange_z(torch.chunk(f, 8), 4))]
-                         for f in (hdiv, hzero))
-        for _ in range(h_iters // 4 - 1):
-            pairs = halo_exchange_z([e[4:4 + hlz] for e in exts], 4)
-            for e, (b, a) in zip(exts, pairs):
-                e[:4].copy_(b)
-                e[4 + hlz:].copy_(a)
-        return torch.cat([e[4:4 + hlz] for e in exts])
-
-    copies_ms = cuda_ms(halo_copies, reps=10)
-    say(f"sharded512 8 shards: halo exchanges and copies of a T=4 step {copies_ms!r} ms "
-        f"[{card}]")
+    # K7e on shard 3's planes and halo planes as the step passes them (the
+    # velocity K11's kept planes, a view of its (3, lz + 2h, n, n) result),
+    # and on contiguous planes; conv3d computes the divergence of the same
+    # shard from its one-plane extended slab (its interior cells), the
+    # library's yardstick.
+    v3c, *vz3 = shard_planes(hvel, 8, 3)
+    v3 = ext_slab(hvel, 3, hlz, hh)[:, hh:hh + hlz]
+    p3, *p3h = shard_planes(hdiv, 8, 3)
+    times["K7e div"] = (
+        cuda_ms(lambda: divergence_ext_kernel(v3, *vz3, NO_WALL, NO_WALL), reps=50),
+        cuda_ms(lambda: divergence_ext_plain(v3, *vz3, NO_WALL, NO_WALL), reps=5))
+    times["K7e grad"] = (
+        cuda_ms(lambda: gradient_ext_kernel(v3, p3, *p3h, NO_WALL, NO_WALL), reps=50),
+        cuda_ms(lambda: gradient_ext_plain(v3, p3, *p3h, NO_WALL, NO_WALL), reps=5))
+    contiguous_ms = {
+        "K7e div": cuda_ms(lambda: divergence_ext_kernel(v3c, *vz3, NO_WALL, NO_WALL), reps=50),
+        "K7e grad": cuda_ms(lambda: gradient_ext_kernel(v3c, p3, *p3h, NO_WALL, NO_WALL),
+                            reps=50)}
+    ve1 = ext_slab(hvel, 3, hlz, 1)
+    hdiv_w = div_weights(hn)
+    library["K7e div"] = cuda_ms(lambda: F.conv3d(ve1[None], hdiv_w), reps=20)
+    for key in ("K7e div", "K7e grad"):
+        say(f"{key}: {times[key][0]!r} ms a call on one shard's {tuple(v3.shape)} planes "
+            f"(components {v3.stride(0)} floats apart, as K11 leaves them) and halo planes, "
+            f"{contiguous_ms[key]!r} ms on contiguous planes, twin {times[key][1]!r} ms, "
+            f"conv3d {library.get(key)!r} ms on its {tuple(ve1.shape)} extended slab [{card}]")
+    del v3, v3c, vz3, p3, p3h, ve1
     hsteps = {"8 shards T=4": halo_step(4), "8 shards T=2": halo_step(2)}
     hstates = {k: hstart for k in hsteps}
     for k in hsteps:
         hstates[k] = hsteps[k](hstates[k])
-    seng.state = hstart
+    seng.state = zeros_state(hcfg, dev)
     halo_rounds = {k: [] for k in (*hsteps, "unsharded Engine")}
     for _ in range(3):
         for k, fn in hsteps.items():
@@ -2869,6 +2963,20 @@ def main() -> None:
 
     hplane = hn * hn
     hcells = (hn - 2) ** 2
+    entries += [
+        ("K7e div", f"K7e divergence_ext_kernel (one shard's (3, {hlz}, {hn}, {hn}) velocity "
+                    f"and two halo planes of its z component in, its ({hlz}, {hn}, {hn}) "
+                    f"planes out; sharded512 on 8 shards, the projection's divergence)",
+         "fluidsim_tpu_torch/csrc/project_slab.cu", "fluidsim_tpu/pallas/project.py:43",
+         halo_launches[4]["K7e div"], ext_err["K7e div"],
+         bound((2 * hlz + (hlz + 2) + hlz) * hplane * f32, hlz * hcells * DIV_OPS)),
+        ("K7e grad", f"K7e gradient_ext_kernel (one shard's (3, {hlz}, {hn}, {hn}) velocity, "
+                     f"its ({hlz}, {hn}, {hn}) pressure and two halo planes of it in, "
+                     f"(3, {hlz}, {hn}, {hn}) out; sharded512 on 8 shards)",
+         "fluidsim_tpu_torch/csrc/project_slab.cu", "fluidsim_tpu/pallas/project.py:85",
+         halo_launches[4]["K7e grad"], ext_err["K7e grad"],
+         bound((3 * hlz + (hlz + 2) + 3 * hlz) * hplane * f32, hlz * hcells * GRAD_OPS)),
+    ]
     entries += [
         (f"K10 T{t}", f"K10 jacobi_ext_kernel (T={t} sweeps a round on one shard's "
                       f"({hlz + 2 * t}, {hn}, {hn}) slab, b=0; sharded512 on 8 shards, "
@@ -3043,13 +3151,20 @@ def main() -> None:
         st, got = run_counted(backend_step(hcfg, t, "rdma"), hstart, steps,
                               f"sharded512 8 shards rdma T={t}")
         rdma_launches[t] = got
-        want = {"K12": 8 * (h_iters // t) * steps, "K13": 8 * 3 * steps, "K11": 8 * 2 * steps}
+        # K13: the solve's priming and the two advections' slabs (K7e reads
+        # the projection's halo planes in place).
+        want = {"K12": 8 * (h_iters // t) * steps, "K13": 8 * 3 * steps, "K11": 8 * 2 * steps,
+                "K7e div": 8 * steps, "K7e grad": 8 * steps}
         if got != {k: want.get(k, 0) for k in got}:
             fail(f"sharded512 rdma on 8 shards (T={t}) did not run exactly {want}: {got}")
+        say(f"# sharded512 8 shards rdma T={t}: gathered ops {dict(gathered_ops)}")
+        if sum(gathered_ops.values()):
+            fail(f"sharded512 rdma on 8 shards (T={t}) gathered a whole volume")
         pal = hstart
         pal_step = backend_step(hcfg, t, "pallas")
         for _ in range(steps):
             pal = pal_step(pal)
+        st, pal = as_global(st), as_global(pal)
         for name in ("density", "velocity", "pressure"):
             if not torch.equal(getattr(st, name), getattr(pal, name)):
                 fail(f"sharded512 8 shards T={t}: rdma differs from pallas after {steps} steps "
@@ -3059,21 +3174,24 @@ def main() -> None:
     bcfg = hcfg.replace(dtype="bfloat16")
     bstart = shard_state(zeros_state(bcfg, dev), hmesh)
     bf16_launches, bf16_states = {}, {}
-    for backend, ran in (("pallas", ("K10", "K11")), ("rdma", ("K12", "K13", "K11"))):
+    for backend, ran in (("pallas", ("K10", "K11", "K7e div", "K7e grad")),
+                         ("rdma", ("K12", "K13", "K11", "K7e div", "K7e grad"))):
         st, got = run_counted(backend_step(bcfg, 4, backend), bstart, BF16_HALO_STEPS,
                               f"sharded512 bf16 8 shards {backend} T=4")
         bf16_launches[backend] = got
         per_step = {"K10": 8 * (h_iters // 4), "K12": 8 * (h_iters // 4), "K13": 8 * 3,
-                    "K11": 8 * 2}
+                    "K11": 8 * 2, "K7e div": 8, "K7e grad": 8}
         want = {k: per_step[k] * BF16_HALO_STEPS for k in ran}
         if got != {k: want.get(k, 0) for k in got}:
             fail(f"sharded512 bf16 {backend} on 8 shards did not run exactly {want}: {got}")
+        st = as_global(st)
         if st.density.dtype != bf16 or st.velocity.dtype != bf16:
             fail(f"sharded512 bf16 {backend}: the fields left bfloat16")
         tw = bstart
         twin_step = backend_step(bcfg, 4, backend, PLAIN_TWINS)
         for _ in range(BF16_HALO_STEPS):
             tw = twin_step(tw)
+        tw = as_global(tw)
         for name in ("density", "velocity", "pressure"):
             if not torch.equal(getattr(st, name), getattr(tw, name)):
                 fail(f"sharded512 bf16 {backend}: the kernel path differs from its twin path "
@@ -3139,7 +3257,7 @@ def main() -> None:
             f"twin {times[key][1]!r} ms (float32 K11: {times[key.replace(' bf16', '')][0]!r}) "
             f"[{card}]")
     del ve, de, hvel_b, hdens_b
-    seng.state = hstart
+    seng.state = zeros_state(hcfg, dev)
     rsteps = {"rdma T=4": backend_step(hcfg, 4, "rdma"),
               "pallas T=4": backend_step(hcfg, 4, "pallas"),
               "rdma T=2": backend_step(hcfg, 2, "rdma"),
@@ -3169,6 +3287,12 @@ def main() -> None:
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
         say(f"# sharded512 {k}, device ms a step by kernel: "
             + "; ".join(f"{name} {t!r}" for name, t in top))
+        if k != "unsharded Engine":
+            parts = profile_parts(adv, reps=3)
+            say(f"sharded512 {k}, device ms a step by part: "
+                + "; ".join(f"{name} {t!r}" for name, t in sorted(parts.items(),
+                                                                  key=lambda kv: -kv[1]))
+                + f" [{card}]")
     del rstates, rsteps
 
     # 13d. The CLI's bench on 8 shards with the rdma backend, as a subprocess.
@@ -3490,21 +3614,23 @@ def phase_wide(card, dev, counters_to_zero, counts, entries, times):
             start = shard_state(zeros_state(kcfg, dev), hmesh)
             counters_to_zero()
             st = step(start)
-            first = {n_: getattr(st, n_).clone() for n_ in ("density", "velocity", "pressure")}
+            first = {n_: getattr(as_global(st), n_) for n_ in ("density", "velocity", "pressure")}
             for _ in range(1, WIDE_HALO_STEPS):
                 st = step(st)
             torch.cuda.synchronize()
             got = counts()
             sharded_launches[(k, dtype)] = got
             want = {"K12": 8 * (h_iters // 4) * WIDE_HALO_STEPS, "K13": 8 * 3 * WIDE_HALO_STEPS,
-                    "K11": 8 * 2 * WIDE_HALO_STEPS}
+                    "K11": 8 * 2 * WIDE_HALO_STEPS, "K7e div": 8 * WIDE_HALO_STEPS,
+                    "K7e grad": 8 * WIDE_HALO_STEPS}
             say(f"# {what}: {WIDE_HALO_STEPS} steps, launches {got}")
             if got != {key: want.get(key, 0) for key in got}:
                 fail(f"{what} did not run exactly {want}: {got}")
             check_state(st, WIDE_HALO_STEPS, hn, what)
             ueng = Engine(kcfg, device="cuda")
-            ueng.state = start
+            ueng.state = zeros_state(kcfg, dev)
             ueng.step(WIDE_HALO_STEPS)
+            st = as_global(st)
             for name in ("density", "velocity", "pressure"):
                 r = getattr(ueng.state, name).float()
                 e = float((getattr(st, name).float() - r).abs().max())
@@ -3516,8 +3642,9 @@ def phase_wide(card, dev, counters_to_zero, counts, entries, times):
                     fail(f"{what}: leaves the unsharded Engine's bound in {name}")
             del ueng
             if k == 4 and dtype == "float32":
-                tw = sharded_step_fn(kcfg, hmesh, halo="explicit", halo_block_iters=4,
-                                     halo_backend="rdma", kernels=PLAIN_TWINS)(start)
+                tw = as_global(sharded_step_fn(kcfg, hmesh, halo="explicit",
+                                               halo_block_iters=4, halo_backend="rdma",
+                                               kernels=PLAIN_TWINS)(start))
                 for name, got_ in first.items():
                     if not torch.equal(got_, getattr(tw, name)):
                         fail(f"{what}: the kernel path differs from its twin path after one "

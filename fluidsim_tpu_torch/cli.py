@@ -90,7 +90,8 @@ def _bench_sharded(args):
     """steps/sec of the slab-sharded step over an N-shard mesh (BASELINE
     config 5's measurement path: ``bench --preset sharded512 --mesh 8``).
     The mesh's N entries are the visible card (or ``--device cpu``)
-    repeated; every shard has its own slab buffers and launches."""
+    repeated; the state is a ``ShardedState`` (every shard owns its slabs)
+    and every shard has its own launches."""
     from .parallel.sharding import make_mesh, shard_state, sharded_step_fn
     from .scene.obstacles import build_obstacle_mask
     from .state import zeros_state

@@ -17,6 +17,15 @@ extern "C" int fs_project(const void* vel, const unsigned char* mask, void* vel_
                           int field_bf16, float damp, const fsk::SolveBlock* blk,
                           const fsk::SolveTiles* tiles, void* stream);
 
+// K7e (project_slab.cu): the divergence and the gradient on one shard's
+// planes, the z neighbours' halo planes read in place.
+extern "C" int fs_divergence_ext(const float* vel, long long cstride, const float* vz_lo,
+                                 const float* vz_hi, float* div, int n, int lz, int wall_lo,
+                                 int wall_hi, void* stream);
+extern "C" int fs_gradient_ext(const float* vel, long long cstride, const float* p,
+                               const float* p_lo, const float* p_hi, float* vel_out, int n,
+                               int lz, int wall_lo, int wall_hi, void* stream);
+
 extern "C" int fs_advect_k1(const void* fields, const void* vel, const float* dens,
                             const unsigned char* mask, const float* emitter, int src_on,
                             void* out, float* tmp0, float* tmp1, int n, int n_fields, int b0,

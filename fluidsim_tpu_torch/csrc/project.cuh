@@ -74,6 +74,18 @@ __device__ __forceinline__ void sweep_cell(const T* src, const T* rhs, const uin
   dst[k.idx] = st<T>((ld(rhs[c]) + ((xs + ys) + zs)) * coef);
 }
 
+// Phase 3's value of one velocity component v at a cell whose pressure
+// neighbours along that component's axis are p_hi and p_lo: the step (held
+// where solid), negated across the component's wall, rounded to S, then
+// * damp in S.  Shared with K7e (project_slab.cu).
+template <typename S>
+__device__ __forceinline__ S gradient_value(float v, float p_hi, float p_lo, float nf, bool solid,
+                                            bool negate, float damp) {
+  const float g = (0.5f * (p_hi - p_lo)) * nf;
+  const float u = solid ? v : v - g;
+  return st<S>(ld(st<S>(negate ? -u : u)) * damp);
+}
+
 // Phase 3 at cell k: the gradient step (held in solid cells) rounded to S,
 // the faces, the pressure's copy in S when p_out is not null, then * damp in
 // S (damp is a value of S).
@@ -89,10 +101,9 @@ __device__ __forceinline__ void gradient_cell(const S* vel, const T* p, const ui
   const bool negate[3] = {k.x != k.cx, k.y != k.cy, k.z != k.cz};
 #pragma unroll
   for (int comp = 0; comp < 3; ++comp) {
-    const float g = (0.5f * (ld(p[c + step[comp]]) - ld(p[c - step[comp]]))) * nf;
-    const float v = ld(vel[comp * vol + c]);
-    const float u = solid ? v : v - g;
-    vel_out[comp * vol + k.idx] = st<S>(ld(st<S>(negate[comp] ? -u : u)) * damp);
+    vel_out[comp * vol + k.idx] =
+        gradient_value<S>(ld(vel[comp * vol + c]), ld(p[c + step[comp]]), ld(p[c - step[comp]]),
+                          nf, solid, negate[comp], damp);
   }
 }
 

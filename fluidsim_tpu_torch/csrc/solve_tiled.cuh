@@ -171,6 +171,13 @@ __device__ __forceinline__ __nv_bfloat16 load_cg(const __nv_bfloat16* p) {
   return __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p)));
 }
 
+// Phase 1's value from the three central differences along x, y and z, in
+// float32: shared with K7e (project_slab.cu), whose z neighbours may lie in
+// a neighbour shard's plane.
+__device__ __forceinline__ float divergence_of(float dx, float dy, float dz, int n) {
+  return (-0.5f * ((dx + dy) + dz)) / float(n);
+}
+
 // Phase 1's value at interior cell i: -0.5*((dvx + dvy) + dvz) / n in
 // float32 (divergence_cell rounds it to the solve type).  FRESH: the
 // velocity was written earlier in the same launch by other blocks (K8, K14),
@@ -188,7 +195,7 @@ __device__ __forceinline__ float divergence_value(const S* vel, int n, long long
   const float dx = v(i + 1) - v(i - 1);
   const float dy = v(vol + i + sn) - v(vol + i - sn);
   const float dz = v(2 * vol + i + plane) - v(2 * vol + i - plane);
-  return (-0.5f * ((dx + dy) + dz)) / float(n);
+  return divergence_of(dx, dy, dz, n);
 }
 
 // Two neighbouring values along x (an aligned pair) as float32, and two

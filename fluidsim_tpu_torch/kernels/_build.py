@@ -123,6 +123,10 @@ SIGNATURES = {
     "fs_divergence": (_P, _P, _I, _P),
     # vel, p, vel_out, n, stream
     "fs_gradient": (_P, _P, _P, _I, _P),
+    # vel, cstride, vz_lo, vz_hi, div, n, lz, wall_lo, wall_hi, stream
+    "fs_divergence_ext": (_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _P),
+    # vel, cstride, p, p_lo, p_hi, vel_out, n, lz, wall_lo, wall_hi, stream
+    "fs_gradient_ext": (_P, ctypes.c_longlong, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -18,6 +18,14 @@ at any size: the slab kernels have none.
 The CUDA kernels are ``csrc/project_slab.cu`` (K7) and ``csrc/jacobi.cu``
 (K6).  The twins share the K3 twin's divergence and gradient.
 
+K7e is K7 on one shard of the sharded step (``parallel/step.py``): the same
+divergence and gradient on the shard's ``lz`` planes, the one plane of each
+neighbour that a stencil reads along z taken in place as a halo plane, the
+global z faces only where the shard holds a global wall
+(``kernels/halo.rank_walls`` at halo 0).  Its CUDA
+entries are ``fs_divergence_ext`` and ``fs_gradient_ext`` in
+``csrc/project_slab.cu``.
+
 The solve's route (``jacobi_3d_solve``) is that of the JAX
 ``jacobi_3d_pallas`` and ``project_3d(use_pallas=True)``: the resident K4
 where its float32 volumes fit (here the card's L2), else K6; with an
@@ -31,6 +39,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .advect import _check_volume
+from .halo import _check_wall, _mirror_ext, _nonborder_solid, slab_faces
 from .jacobi import (
     jacobi_3d_kernel,
     jacobi_3d_plain,
@@ -132,6 +141,165 @@ def gradient_3d_kernel(vel, p):
 
 
 gradient_3d_kernel.launches = 0
+
+
+# -- K7e -------------------------------------------------------------------
+
+
+def _with_halo(x, below, above):
+    """The ``(lz, n, n)`` field ``x`` between its halo planes ``below`` and
+    ``above`` (``(n, n)``; zeros where None)."""
+    below, above = (x.new_zeros(x.shape[1:]) if h is None else h for h in (below, above))
+    return torch.cat([below[None], x, above[None]])
+
+
+def divergence_ext_plain(vel, vz_below, vz_above, wall_lo: int, wall_hi: int):
+    """Plain PyTorch twin of K7e's divergence: ``divergence_interior`` on the
+    shard's ``(3, lz, n, n)`` velocity ``vel``, the z component's halo planes
+    ``vz_below`` and ``vz_above`` (``(n, n)``, None past a global wall)
+    around it, into the shard's ``(lz, n, n)`` planes with zero y and x
+    faces and a zero plane at each global z wall the shard holds (its planes
+    ``wall_lo``, ``wall_hi``): ``divergence_3d_plain`` restricted to the
+    shard."""
+    vz = _with_halo(vel[2], vz_below, vz_above)
+    vxy = F.pad(vel[:2], (0, 0, 0, 0, 1, 1))
+    div = F.pad(divergence_interior(torch.cat([vxy, vz[None]])), (1, 1, 1, 1))
+    for wall in (wall_lo, wall_hi):
+        if 0 <= wall < div.shape[0]:
+            div[wall] = 0.0
+    return div
+
+
+def gradient_slab(vel, p_ext, wall_lo: int, wall_hi: int, obst=None, z_offset: int = 0):
+    """``project_3d``'s gradient step and faces on the float32 slab ``vel``
+    ``(3, m, n, n)`` of an ``n³`` grid: ``v − 0.5·(p₊ − p₋)·N`` on the cells
+    with x and y in ``[1, n − 2]`` from ``p_ext`` ``(m + 2, n, n)`` (one
+    more plane each side), the global z faces at slab planes ``wall_lo`` and
+    ``wall_hi`` where the slab holds them (``slab_faces``, z → y → x), and
+    with the bool mask ``obst`` ``(m, n, n)`` (plane 0 at global z
+    ``z_offset``) no step in its solids and then the obstacle mirror, its
+    neighbours read wrapped.  Planes past a global wall and, with a mask, the
+    slab's first and last planes are margin the caller drops.  The
+    whole-volume arithmetic of ``ops/project.project_3d`` and
+    ``resident.project_gradient``."""
+    nf = float(vel.shape[-1])
+    grads = (
+        0.5 * (p_ext[1:-1, 1:-1, 2:] - p_ext[1:-1, 1:-1, :-2]) * nf,
+        0.5 * (p_ext[1:-1, 2:, 1:-1] - p_ext[1:-1, :-2, 1:-1]) * nf,
+        0.5 * (p_ext[2:, 1:-1, 1:-1] - p_ext[:-2, 1:-1, 1:-1]) * nf,
+    )
+    writes = None if obst is None else _nonborder_solid(obst, vel.shape[-1], z_offset)
+    out = []
+    for c, g in enumerate(grads):
+        if obst is not None:
+            g = torch.where(obst[:, 1:-1, 1:-1], 0.0, g)
+        comp = vel[c].clone()
+        comp[:, 1:-1, 1:-1] = comp[:, 1:-1, 1:-1] - g
+        comp = slab_faces(c + 1, comp, wall_lo, wall_hi)
+        if obst is not None:
+            comp = _mirror_ext(comp, obst, writes, 2 - c)
+        out.append(comp)
+    return torch.stack(out)
+
+
+def gradient_ext_plain(vel, p, p_below, p_above, wall_lo: int, wall_hi: int):
+    """Plain PyTorch twin of K7e's gradient: ``gradient_slab`` on the
+    shard's ``(3, lz, n, n)`` velocity with its ``(lz, n, n)`` pressure
+    between the pressure's halo planes ``p_below`` and ``p_above`` (``(n,
+    n)``, None past a global wall), the walls at the shard's planes
+    ``wall_lo`` and ``wall_hi``: ``project_gradient`` restricted to the
+    shard."""
+    return gradient_slab(vel, _with_halo(p, p_below, p_above), wall_lo, wall_hi)
+
+
+def _ext_inputs(vel, p, halo, wall_lo, wall_hi):
+    """``(n, lz, wall_lo, wall_hi)`` of a K7e call on the shard's velocity
+    ``vel`` (each component's planes contiguous, any stride between
+    components) and pressure ``p``, with the halo planes ``halo`` ``(below,
+    above)``, checked: a plane on each side without a global wall."""
+    if vel.dim() != 4 or vel.shape[0] != 3:
+        raise ValueError(f"expected a (3, lz, n, n) slab, got {tuple(vel.shape)}")
+    n, lz = vel.shape[-1], vel.shape[1]
+    if n < 3 or lz < 2:
+        raise ValueError(f"expected n >= 3 and lz >= 2, got n={n}, lz={lz}")
+    # Each component's planes contiguous; the components' stride is free
+    # (K11's kept planes are a view of its extended result).
+    _check_volume("vel[0]", vel[0], (lz, n, n))
+    if vel.shape[-2] != n or vel.stride(0) < lz * n * n:
+        raise ValueError(f"vel: expected (3, lz, n, n) with lz·n² floats or more between "
+                         f"components, got shape {tuple(vel.shape)}, strides {vel.stride()}")
+    if p is not None:
+        _check_volume("p", p, (lz, n, n))
+    wall_lo = _check_wall("wall_lo", wall_lo, 0, 0)
+    wall_hi = _check_wall("wall_hi", wall_hi, lz - 1, lz - 1)
+    for side, plane, wall in (("below", halo[0], wall_lo), ("above", halo[1], wall_hi)):
+        if (plane is None) != (wall >= 0):
+            raise ValueError(f"the halo plane {side}: expected one exactly where the shard "
+                             f"holds no global wall on that side")
+        if plane is not None:
+            _check_volume(f"the halo plane {side}", plane, (n, n))
+    if any(t is not None and t.device != vel.device for t in (p, *halo)):
+        raise ValueError("the slab and its halo planes must be on one device")
+    if vel.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {vel.device}")
+    return n, lz, wall_lo, wall_hi
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def divergence_ext_kernel(vel, vz_below, vz_above, wall_lo: int, wall_hi: int):
+    """K7e's divergence of the shard's float32 ``(3, lz, n, n)`` velocity
+    ``vel`` (each component's planes contiguous, the components' stride
+    free) into its ``(lz, n, n)`` planes, the z component's halo planes
+    ``vz_below`` and ``vz_above`` (``(n, n)``, read in place; None exactly
+    where the shard holds that global wall), the global z walls at the
+    shard's planes ``wall_lo`` (0 or ``NO_WALL``) and ``wall_hi`` (lz − 1 or
+    ``NO_WALL``): CUDA tensors launch ``fs_divergence_ext``
+    (``csrc/project_slab.cu``), CPU tensors run ``divergence_ext_plain``.
+    ``divergence_ext_kernel.launches`` counts launches."""
+    n, lz, wall_lo, wall_hi = _ext_inputs(vel, None, (vz_below, vz_above), wall_lo, wall_hi)
+    if vel.device.type == "cpu":
+        return divergence_ext_plain(vel, vz_below, vz_above, wall_lo, wall_hi)
+    lib = _build.load_library()
+    div = torch.empty((lz, n, n), dtype=torch.float32, device=vel.device)
+    with torch.cuda.device(vel.device):
+        err = lib.fs_divergence_ext(vel.data_ptr(), vel.stride(0), _ptr(vz_below),
+                                    _ptr(vz_above), div.data_ptr(), n, lz, wall_lo, wall_hi,
+                                    torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "extended-slab divergence kernel launch")
+    divergence_ext_kernel.launches += 1
+    return div
+
+
+divergence_ext_kernel.launches = 0
+
+
+def gradient_ext_kernel(vel, p, p_below, p_above, wall_lo: int, wall_hi: int):
+    """K7e's gradient step and velocity faces on the shard's float32 ``(3,
+    lz, n, n)`` velocity ``vel`` (laid out as ``divergence_ext_kernel``'s)
+    from its ``(lz, n, n)`` pressure ``p`` and
+    the pressure's halo planes ``p_below`` and ``p_above`` (as
+    ``divergence_ext_kernel``'s, with its walls), into a ``(3, lz, n, n)``
+    velocity: CUDA tensors launch ``fs_gradient_ext``
+    (``csrc/project_slab.cu``), CPU tensors run ``gradient_ext_plain``.
+    ``gradient_ext_kernel.launches`` counts launches."""
+    n, lz, wall_lo, wall_hi = _ext_inputs(vel, p, (p_below, p_above), wall_lo, wall_hi)
+    if vel.device.type == "cpu":
+        return gradient_ext_plain(vel, p, p_below, p_above, wall_lo, wall_hi)
+    lib = _build.load_library()
+    out = torch.empty((3, lz, n, n), dtype=torch.float32, device=vel.device)
+    with torch.cuda.device(vel.device):
+        err = lib.fs_gradient_ext(vel.data_ptr(), vel.stride(0), p.data_ptr(), _ptr(p_below),
+                                  _ptr(p_above), out.data_ptr(), n, lz, wall_lo, wall_hi,
+                                  torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "extended-slab gradient kernel launch")
+    gradient_ext_kernel.launches += 1
+    return out
+
+
+gradient_ext_kernel.launches = 0
 
 
 # -- the routes --------------------------------------------------------------

@@ -21,6 +21,10 @@ from ..kernels.halo import (
     jacobi_ext_rdma_plain,
 )
 from ..kernels.project import (
+    divergence_ext_kernel,
+    divergence_ext_plain,
+    gradient_ext_kernel,
+    gradient_ext_plain,
     jacobi_3d_solve,
     jacobi_3d_solve_plain,
     project_3d_kernel,
@@ -50,7 +54,9 @@ class StepKernels(NamedTuple):
     vel_ext, n, dt, z_offset, window, n_sub, obst_ext)`` (K11), and the
     ``"rdma"`` backend's calls over all shards ``jacobi_ext_rdma(xps,
     x0_exts, a, c, t_iters, b, obst_exts)`` (K12) and
-    ``halo_exchange_rdma(arrays_by_shard, depth)`` (K13)."""
+    ``halo_exchange_rdma(arrays_by_shard, depth)`` (K13), and the
+    projection's per-shard ``divergence_ext(vel_ext, wall_lo, wall_hi)`` and
+    ``gradient_ext(vel_ext, p_ext, wall_lo, wall_hi)`` (K7e)."""
 
     advect: Callable
     project_advect: Callable
@@ -62,13 +68,17 @@ class StepKernels(NamedTuple):
     advect_ext: Callable
     jacobi_ext_rdma: Callable
     halo_exchange_rdma: Callable
+    divergence_ext: Callable
+    gradient_ext: Callable
 
 
 HAND_KERNELS = StepKernels(advect_multi_3d_kernel, project_advect_density_3d,
                            project_3d_kernel, full_step_3d, jacobi_3d_solve,
                            lin_solve_2d_resident, jacobi_ext_kernel, advect_ext_kernel,
-                           jacobi_ext_rdma, halo_exchange_rdma)
+                           jacobi_ext_rdma, halo_exchange_rdma, divergence_ext_kernel,
+                           gradient_ext_kernel)
 PLAIN_TWINS = StepKernels(advect_multi_3d_plain, project_advect_density_3d_plain,
                           project_3d_plain, full_step_3d_plain, jacobi_3d_solve_plain,
                           lin_solve_2d_resident_plain, jacobi_ext_plain, advect_ext_plain,
-                          jacobi_ext_rdma_plain, halo_exchange_rdma_plain)
+                          jacobi_ext_rdma_plain, halo_exchange_rdma_plain,
+                          divergence_ext_plain, gradient_ext_plain)

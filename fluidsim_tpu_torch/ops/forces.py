@@ -136,6 +136,28 @@ def vorticity_confinement_3d(vel: torch.Tensor, dt: float,
                              eps: float) -> torch.Tensor:
     """Fedkiw-style vorticity confinement: v += dt·ε·(N̂ × ω) with
     ω = ∇×v and N = ∇|ω| (central differences, zero-padded borders)."""
+    return _confinement(vel, dt, eps)
+
+
+def vorticity_confinement_slab(vel_ext: torch.Tensor, dt: float, eps: float,
+                               z0: int, n: int) -> torch.Tensor:
+    """``vorticity_confinement_3d`` on a shard: ``vel_ext`` ``(3, lz + 4, n,
+    n)`` is the shard's velocity between two planes of each neighbour (zeros
+    past the global ends), the shard's plane 0 at global z ``z0``; returns
+    the shard's ``(3, lz, n, n)`` planes, each the whole-grid value.
+
+    The whole grid zero-pads each derivative at its walls: past a global
+    wall both ``v`` and ``|ω|`` read as zero.  The zero halo gives the first;
+    ``|ω|`` on the halo planes past a global wall is zeroed for the second,
+    not taken from the zero-padded velocity."""
+    zg = torch.arange(vel_ext.shape[1], device=vel_ext.device) + (z0 - 2)
+    inside = ((zg >= 0) & (zg < n))[:, None, None]
+    return _confinement(vel_ext, dt, eps, inside)[:, 2:-2]
+
+
+def _confinement(vel, dt, eps, inside=None):
+    """The confinement step on ``vel``, ``|ω|`` zeroed on the planes where
+    ``inside`` is False."""
 
     def ddx(f, axis):
         return 0.5 * (_shift_arr(f, 1, axis) - _shift_arr(f, -1, axis))
@@ -148,6 +170,8 @@ def vorticity_confinement_3d(vel: torch.Tensor, dt: float,
     wy = ddx(vx, 0) - ddx(vz, 2)
     wz = ddx(vy, 2) - ddx(vx, 1)
     wmag = torch.sqrt(wx * wx + wy * wy + wz * wz)
+    if inside is not None:
+        wmag = torch.where(inside, wmag, 0.0)
 
     nx = ddx(wmag, 2)
     ny = ddx(wmag, 1)
@@ -184,6 +208,34 @@ def enforce_obstacle_boundaries_3d(vel: torch.Tensor, obst: torch.Tensor,
     fluid neighbours (one masked pass per direction)."""
     interior = interior_mask(obst.shape, obst.device)
     obst_int = obst & interior
+    return _obstacle_drag(vel, interior, obst, obst_int,
+                          lambda delta, axis: _shift_no_wrap(obst_int, delta, axis),
+                          cell_size, viscosity)
+
+
+def enforce_obstacle_boundaries_slab(vel: torch.Tensor, obst_ext: torch.Tensor,
+                                     cell_size: float, viscosity: float, z0: int,
+                                     n: int) -> torch.Tensor:
+    """``enforce_obstacle_boundaries_3d`` on a shard: ``vel`` ``(3, lz, n,
+    n)`` is the shard's velocity, plane 0 at global z ``z0``, and
+    ``obst_ext`` ``(lz + 2, n, n)`` its mask between one plane of each
+    neighbour's (False past the global ends).  The interior is the global
+    grid's: z faces only on the first and last shard."""
+    dev = obst_ext.device
+    zg = torch.arange(obst_ext.shape[0], device=dev) + (z0 - 1)
+    inner = (torch.arange(n, device=dev) >= 1) & (torch.arange(n, device=dev) <= n - 2)
+    interior_ext = (((zg >= 1) & (zg <= n - 2))[:, None, None]
+                    & inner[None, :, None] & inner[None, None, :])
+    obst_int_ext = obst_ext & interior_ext
+    return _obstacle_drag(vel, interior_ext[1:-1], obst_ext[1:-1], obst_int_ext[1:-1],
+                          lambda delta, axis: _shift_no_wrap(obst_int_ext, delta, axis)[1:-1],
+                          cell_size, viscosity)
+
+
+def _obstacle_drag(vel, interior, obst, obst_int, shifted_solid, cell_size, viscosity):
+    """Zero ``vel`` in the interior solids ``obst_int``, then the six drag
+    passes; ``shifted_solid(delta, axis)`` is ``obst_int`` read ``delta``
+    cells along ``axis``, False past the grid."""
     vel = torch.where(obst_int[None], 0.0, vel)
 
     sdt = vel.dtype
@@ -198,8 +250,7 @@ def enforce_obstacle_boundaries_3d(vel: torch.Tensor, obst: torch.Tensor,
 
     for axis in (2, 1, 0):
         for delta in (-1, 1):
-            obst_nbr = _shift_no_wrap(obst_int, delta, axis)
-            mask = interior & (~obst) & obst_nbr
+            mask = interior & (~obst) & shifted_solid(delta, axis)
             u = torch.sqrt(torch.sum(vel * vel, dim=0))
             re = (u * length) / visc
             factor = lo + span * (1.0 - torch.exp(-re * hundredth))
@@ -260,24 +311,28 @@ def perlin_3d(x, y, z):
     return 0.5 * (lerp(nxy0, nxy1, w) + 1.0)
 
 
-def apply_turbulent_noise_3d(vel, noise_scale: float = 0.1, frequency: float = 0.05):
+def apply_turbulent_noise_3d(vel, noise_scale: float = 0.1, frequency: float = 0.05,
+                             z0: int = 0, n: int = None):
     """3D generalization of FluidSim.cs:675-701: perturb each velocity
     component on the interior by ``(perlin − 0.5)·noise_scale·|v|``, the
     noise sampled at the cell coordinates times ``frequency`` (permuted per
     component).  The coordinates are built in the velocity's dtype, as in
     the JAX package (in bfloat16 they round above 256).  The perturbed
     velocity is float32 there; it is rounded back to the velocity's dtype
-    here, so the state keeps its storage dtype."""
-    n = vel.shape[-1]
+    here, so the state keeps its storage dtype.  On a shard ``vel`` is the
+    z-slab of the ``n³`` grid whose plane 0 is global plane ``z0``: each
+    cell gets the whole-grid value."""
+    n = vel.shape[-1] if n is None else n
+    nz = vel.shape[1]
     sdt = vel.dtype
     ar = torch.arange(n, dtype=sdt, device=vel.device)
-    kk, jj, ii = torch.meshgrid(ar, ar, ar, indexing="ij")
+    kk, jj, ii = torch.meshgrid(ar[z0:z0 + nz], ar, ar, indexing="ij")
     speed = torch.sqrt(torch.sum(vel * vel, dim=0))
     strength = storage_scalar(noise_scale, sdt) * speed
     f = storage_scalar(frequency, sdt)
     nx = perlin_3d(ii * f, jj * f, kk * f) - 0.5
     ny = perlin_3d(jj * f, kk * f, ii * f) - 0.5
-    nz = perlin_3d(kk * f, ii * f, jj * f) - 0.5
-    interior = interior_mask(speed.shape, vel.device)
-    delta = torch.stack([nx, ny, nz]) * strength[None]
+    nz_ = perlin_3d(kk * f, ii * f, jj * f) - 0.5
+    interior = interior_mask((n, n, n), vel.device)[z0:z0 + nz]
+    delta = torch.stack([nx, ny, nz_]) * strength[None]
     return torch.where(interior[None], vel + delta, vel).to(sdt)

@@ -114,13 +114,18 @@ def jacobi_3d(b: int, x, x0, a: float, c: float, obst, iters: int):
     return x.to(in_dtype)
 
 
-def diffuse_3d(b: int, x0, diff: float, dt: float, obst, cfg):
-    """3D diffusion: ``cfg.jacobi_iters`` sweeps of ``jacobi_3d`` from ``x0``
-    with ``a = dt·diff·(N−2)²`` and ``c = 1 + 6a`` (float32, the JAX
-    package's order)."""
-    n = x0.shape[-1]
+def diffusion_coefficients(n: int, diff: float, dt: float):
+    """``(a, c)`` of the 3D diffusion solve on an ``n³`` grid: ``a =
+    dt·diff·(N−2)²`` and ``c = 1 + 6a`` (float32, the JAX package's
+    order)."""
     a = float(
         np.float32(dt) * np.float32(diff) * np.float32(n - 2) * np.float32(n - 2)
     )
-    c = float(np.float32(1.0) + np.float32(6.0) * np.float32(a))
+    return a, float(np.float32(1.0) + np.float32(6.0) * np.float32(a))
+
+
+def diffuse_3d(b: int, x0, diff: float, dt: float, obst, cfg):
+    """3D diffusion: ``cfg.jacobi_iters`` sweeps of ``jacobi_3d`` from ``x0``
+    with ``diffusion_coefficients``."""
+    a, c = diffusion_coefficients(x0.shape[-1], diff, dt)
     return jacobi_3d(b, x0, x0, a, c, obst, cfg.jacobi_iters)

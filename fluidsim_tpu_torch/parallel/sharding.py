@@ -3,33 +3,41 @@
 
 The scaling axis of the product (BASELINE config 5: 512³ across eight chips)
 is a slab decomposition: the ``[z, y, x]`` grid is cut along z (axis 0 of a
-field, axis 1 of the velocity) into the shards of a 1-D mesh.  Two paths, as
-in the JAX package:
+field, axis 1 of the velocity) into the shards of a 1-D mesh.  A sharded
+state (``ShardedState``, from ``shard_state``) holds one slab ``FluidState``
+per shard on the shard's device, each owning its storage: its ``lz`` planes
+of the density, the velocity and the pressure, and its mask with one plane
+of each neighbour's.  ``unshard_state`` gives the global state back, the
+pair standing where the JAX package's ``device_put`` and global arrays do.
 
-* ``halo="auto"``: the unsharded step.  The JAX package jits the unchanged
-  solver with sharded inputs and lets XLA's partitioner insert the halo
-  collectives, which gives the unsharded values; the port runs that step.
+Every op of the step runs on the slabs (``parallel/step.py``), halos
+exchanged only where a stencil reads across a shard's edge, the global
+volume never assembled (but for the ops ``parallel/halo.gathered``
+counts).  Two strategies, as in the JAX package:
+
+* ``halo="auto"``: the JAX package's auto-partitioned program, the plain
+  step per shard with one-plane exchanges a sweep, which equals the
+  unsharded step;
 * ``halo="explicit"``: the pressure solve and the advection run per shard
   with explicit halo exchanges (``parallel/halo.py``): K10 and K11 on each
   shard's extended slab, or on the ``"rdma"`` backend K12 and K11, every
-  exchange a kernel's (K12's rounds, K13's extended arrays).
+  exchange a kernel's (K12's rounds, K13's extended arrays); the
+  projection's divergence and gradient are K7e on each shard's extended
+  slab.
 
 A mesh here is a list of devices, one per shard, which may repeat:
 ``make_mesh(["cuda"] * 8)`` is eight shards on one card, each with its own
-slab buffers and kernel launches, the programs a multi-card mesh runs.  In
-this port every entry of a mesh must be the same device: the global state
-lives there and the parts of the step that the JAX package leaves to XLA's
-partitioner (the emitter, buoyancy, the projection's divergence and
-gradient, the sinks) run on it as whole-tensor ops, which the partitioner's
-values equal.  A mesh over distinct cards needs those ops partitioned and
-K12 and K13 given peer pointers to the neighbours' buffers and a
-cross-device event a round: the multi-card slice.  ``mesh_device`` raises
-for such a mesh.
+slab buffers and kernel launches, the programs a multi-card mesh runs.
+Every entry of a mesh must still be the same device (``mesh_device``): a
+mesh over distinct cards needs K12 and K13 given peer pointers to the
+neighbours' buffers, a cross-device event a round and a stream per device,
+the multi-card slice.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -38,7 +46,7 @@ from ..models.step_kernels import HAND_KERNELS, StepKernels
 from ..state import FluidState
 
 MULTI_CARD = ("the multi-card slice (distinct devices per shard: peer pointers into "
-              "K12/K13, a cross-device event a round, the partitioned whole-volume ops)")
+              "K12/K13, a cross-device event a round, a stream per device)")
 
 
 class Mesh:
@@ -102,53 +110,125 @@ def state_sharding(mesh: Mesh, axis_name: str = "z") -> FluidState:
     return FluidState(density=0, velocity=1, pressure=0, obstacles=0, step=None, time=None)
 
 
-def shard_state(state: FluidState, mesh: Mesh, axis_name: str = "z") -> FluidState:
-    """Place an (unsharded) state onto the mesh: the z extent must split
-    into the mesh's shards; every leaf goes to the mesh's device."""
-    device = mesh_device(mesh)
+@dataclasses.dataclass(frozen=True)
+class SlabState(FluidState):
+    """One shard's part of a sharded state: ``density`` and ``pressure``
+    ``(lz, N, N)``, ``velocity`` ``(3, lz, N, N)``, ``obstacles`` ``(lz + 2,
+    N, N)`` (the shard's mask between one plane of each neighbour's, False
+    past the global ends), ``step`` and ``time`` (every shard's the same),
+    all on the shard's device; ``rank`` and ``z0``, the global z of plane
+    0."""
+
+    rank: int = 0
+    z0: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedState:
+    """A state on a mesh: one ``SlabState`` per shard, in rank order."""
+
+    slabs: Tuple[SlabState, ...]
+
+    @property
+    def step(self) -> torch.Tensor:
+        return self.slabs[0].step
+
+    @property
+    def time(self) -> torch.Tensor:
+        return self.slabs[0].time
+
+    def replace(self, **kw) -> "ShardedState":
+        return dataclasses.replace(self, **kw)
+
+
+def _own(x: torch.Tensor, device) -> torch.Tensor:
+    """A contiguous copy of ``x`` on ``device`` with storage of its own."""
+    return torch.empty(x.shape, dtype=x.dtype, device=device).copy_(x)
+
+
+def shard_state(state: FluidState, mesh: Mesh, axis_name: str = "z") -> ShardedState:
+    """Place an (unsharded) state onto the mesh: the z extent must split into
+    the mesh's shards; shard r's slab, copied onto ``mesh.devices[r]``, holds
+    planes ``[r·lz, (r+1)·lz)`` and its mask one plane of each neighbour's
+    (the mask is static: this is its one exchange)."""
+    mesh_device(mesh)
     k = mesh.shape[axis_name]
     n = state.density.shape[0]
     if n % k:
         raise ValueError(f"z extent {n} not divisible by {k} shards")
-    return state.replace(**{f: getattr(state, f).to(device) for f in
-                            ("density", "velocity", "pressure", "obstacles", "step", "time")})
+    lz = n // k
+    mask = torch.nn.functional.pad(state.obstacles.to(torch.bool), (0, 0, 0, 0, 1, 1))
+    slabs = []
+    for r, dev in enumerate(mesh.devices):
+        z0 = r * lz
+        slabs.append(SlabState(
+            density=_own(state.density[z0:z0 + lz], dev),
+            velocity=_own(state.velocity[:, z0:z0 + lz], dev),
+            pressure=_own(state.pressure[z0:z0 + lz], dev),
+            obstacles=_own(mask[z0:z0 + lz + 2], dev),
+            step=_own(state.step, dev),
+            time=_own(state.time, dev),
+            rank=r,
+            z0=z0,
+        ))
+    return ShardedState(tuple(slabs))
+
+
+def unshard_state(sharded: ShardedState) -> FluidState:
+    """The global ``FluidState`` of a sharded state, on the first shard's
+    device (for checkpoints, renders and tests)."""
+    slabs = sharded.slabs
+    dev = slabs[0].density.device
+    return FluidState(
+        density=torch.cat([s.density.to(dev) for s in slabs]),
+        velocity=torch.cat([s.velocity.to(dev) for s in slabs], dim=1),
+        pressure=torch.cat([s.pressure.to(dev) for s in slabs]),
+        obstacles=torch.cat([s.obstacles[1:-1].to(dev) for s in slabs]),
+        step=slabs[0].step,
+        time=slabs[0].time,
+    )
 
 
 def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z", n_substeps: int = 1,
                     with_source: bool = True, halo: str = "auto", halo_block_iters: int = 1,
                     halo_backend: str = "auto", kernels: StepKernels = HAND_KERNELS):
-    """The full 3D step for a slab-sharded state on ``mesh``, as a function
-    ``state -> state`` running ``n_substeps`` steps.
+    """The full 3D step for a ``ShardedState`` on ``mesh``, as a function
+    ``ShardedState -> ShardedState`` running ``n_substeps`` steps.
 
     ``halo`` selects the strategy for the stencils:
 
-    * ``"auto"``: the unsharded step (``models.stable3d.simulate_step_3d``).
-      On a one-device mesh, which every mesh of this port is, that is what
-      the JAX package's auto-partitioned program computes.
+    * ``"auto"``: the plain step per shard (``parallel/step.py``), the
+      solve's exchanges one plane a sweep, the advection on halo-extended
+      slabs: what the JAX package's auto-partitioned program computes, the
+      unsharded step's values.
     * ``"explicit"``: the pressure solve routes through
-      ``parallel.halo.jacobi_3d_sharded`` (T-deep halos every T =
+      ``parallel.halo.jacobi_shards`` (T-deep halos every T =
       ``halo_block_iters`` sweeps; ``halo_backend`` ``"pallas"`` runs K10 per
       shard, ``"xla"`` the plain sweeps, ``"auto"`` K10 on a CUDA mesh at
-      T >= 2), and the advection through
-      ``parallel.halo.advect_multi_3d_sharded`` (K11 per shard) where the
-      scheme is semi-Lagrangian or substep, the window is K >= 1 cells and
-      the halo fits a shard, unless ``halo_backend="xla"`` (or ``"auto"`` off the
-      card).  Obstacle scenes run both, the mask's halo riding the
+      T >= 2), and the advection through ``parallel.halo.advect_shards``
+      (K11 per shard) where the scheme is semi-Lagrangian or substep, the
+      window is K >= 1 cells and the halo fits a shard, unless
+      ``halo_backend="xla"`` (or ``"auto"`` off the card); where the kernels
+      run, the projection's divergence and gradient are K7e per shard
+      without a mask.  Obstacle scenes run both, the mask's halo riding the
       exchanges.  ``halo_backend="rdma"`` does every exchange in kernels:
-      the solve's rounds in K12, its priming and each advection's slabs in
-      K13 (bitwise the ``"pallas"`` step).  Fields may be float32 or
-      bfloat16 (``cfg.dtype``): K11 takes either, the solve is float32.
+      the solve's rounds in K12, its priming, each advection's slabs and
+      the projection's one-plane halos in K13 (bitwise the ``"pallas"``
+      step).  Fields may be float32 or bfloat16 (``cfg.dtype``): K11 takes
+      either, the solve and the projection are float32.
 
-    ``kernels`` supplies K10 to K13 (``jacobi_ext``, ``advect_ext``,
-    ``jacobi_ext_rdma``, ``halo_exchange_rdma``) and, on
-    a one-shard mesh, the single-card kernels; ``PLAIN_TWINS`` runs the same
-    path on the twins.  On a mesh of more than one shard the single-card
-    kernels never run (``kernel_backend="pallas"`` raises), as in the JAX
-    package.  The emitter is applied by ``apply_custom_source`` each step."""
+    ``kernels`` supplies K7e and K10 to K13 (``divergence_ext``,
+    ``gradient_ext``, ``jacobi_ext``, ``advect_ext``, ``jacobi_ext_rdma``,
+    ``halo_exchange_rdma``) and, on a one-shard mesh, the single-card
+    kernels; ``PLAIN_TWINS`` runs the same path on the twins.  On a one-shard
+    mesh the slab is the whole volume and the step is
+    ``models.stable3d.simulate_step_3d`` (with the explicit hooks on the
+    global wrappers for ``halo="explicit"``).  On a mesh of more than one
+    shard the single-card kernels never run (``kernel_backend="pallas"``
+    raises), as in the JAX package.  The emitter is applied by
+    ``apply_custom_source`` each step, per shard."""
     from ..kernels.halo import ext_halo
-    from ..kernels.project import resident_route
-    from ..models.stable3d import simulate_step_3d
-    from ..scene.sources import apply_custom_source
+    from .step import ShardStep
 
     if cfg.ndim != 3:
         raise ValueError("sharded_step_fn is for the 3D engine")
@@ -163,34 +243,18 @@ def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z", n_substeps
         raise ValueError(f"halo_backend must be auto/xla/pallas/rdma, got {halo_backend!r}")
     device = mesh_device(mesh)
     k = mesh.shape[axis_name]
-    jacobi_fn = advect_fn = None
-    if halo == "explicit":
-        from .halo import advect_multi_3d_sharded, jacobi_3d_sharded
-
-        if cfg.pressure_solver == "fft":
-            raise ValueError(
-                "halo='explicit' replaces the Jacobi pressure solve and cannot be "
-                "combined with pressure_solver='fft'")
-        transport = "rdma" if halo_backend == "rdma" else "ppermute"
-
-        def jacobi_fn(p, div, iters, obst=None):
-            return jacobi_3d_sharded(p, div, 1.0, 6.0, iters, mesh, axis_name, b=0,
-                                     block_iters=halo_block_iters, backend=halo_backend,
-                                     obst=obst, kernels=kernels)
-
-        n = cfg.current_size
-        n_sub = cfg.advect_substeps if cfg.advection_scheme == "substep" else 1
-        h = ext_halo(cfg.advect_window, n_sub, bool(cfg.enable_obstacle))
-        feasible = (cfg.advection_scheme in ("semi_lagrangian", "substep")
-                    and cfg.advect_window >= 1 and h <= n // k)
-        if (halo_backend != "xla" and feasible
-                and (device.type == "cuda" or halo_backend in ("pallas", "rdma"))):
-
-            def advect_fn(bs, fields, velocity, d_t, obst=None):
-                return advect_multi_3d_sharded(bs, fields, velocity, float(d_t), mesh,
-                                               axis_name, window=cfg.advect_window,
-                                               n_sub=n_sub, transport=transport, obst=obst,
-                                               kernels=kernels)
+    if halo == "explicit" and cfg.pressure_solver == "fft":
+        raise ValueError(
+            "halo='explicit' replaces the Jacobi pressure solve and cannot be "
+            "combined with pressure_solver='fft'")
+    n = cfg.current_size
+    n_sub = cfg.advect_substeps if cfg.advection_scheme == "substep" else 1
+    h = ext_halo(cfg.advect_window, n_sub, bool(cfg.enable_obstacle))
+    # K11 per shard: a scheme it implements, a window and a halo that fits.
+    advect_kernel = (halo == "explicit" and halo_backend != "xla"
+                     and cfg.advection_scheme in ("semi_lagrangian", "substep")
+                     and cfg.advect_window >= 1 and h <= n // k
+                     and (device.type == "cuda" or halo_backend in ("pallas", "rdma")))
 
     # On a mesh of more than one shard the single-card kernels would run on
     # the whole volume, not per shard: as in the JAX package, they are off
@@ -202,25 +266,74 @@ def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z", n_substeps
                 "multi-shard mesh; use halo='explicit', halo_backend='pallas' for "
                 "per-shard kernels")
         cfg = cfg.replace(kernel_backend="xla")
-    resident = resident_route(cfg.current_size, cfg.solve_dtype, device)
-    dt = cfg.effective_params()[0]
 
-    def one(state: FluidState) -> FluidState:
-        if with_source and cfg.enable_custom_source:
-            t = state.time + dt
-            density, velocity = apply_custom_source(state.density, state.velocity, cfg, t)
-            state = state.replace(density=density, velocity=velocity)
-        return simulate_step_3d(state, cfg, kernels, resident, jacobi_fn=jacobi_fn,
-                                advect_fn=advect_fn)
+    if k > 1:
+        one = ShardStep(cfg, mesh, with_source, halo, halo_block_iters, halo_backend,
+                        advect_kernel, kernels)
+    else:
+        one = _one_shard_step(cfg, mesh, with_source, halo, halo_block_iters, halo_backend,
+                              advect_kernel, kernels)
 
-    def step(state: FluidState) -> FluidState:
-        if state.density.device != device:
-            raise ValueError(f"the state is on {state.density.device}, the mesh on {device}: "
+    def step(state: ShardedState) -> ShardedState:
+        if len(state.slabs) != k:
+            raise ValueError(f"the state has {len(state.slabs)} slabs, the mesh {k} shards: "
                              "place it with shard_state")
-        if state.density.shape[0] % k:
-            raise ValueError(f"z extent {state.density.shape[0]} not divisible by {k} shards")
+        for r, (s, dev) in enumerate(zip(state.slabs, mesh.devices)):
+            if s.density.device != dev:
+                raise ValueError(f"slab {r} is on {s.density.device}, its shard on {dev}: "
+                                 "place the state with shard_state")
         for _ in range(n_substeps):
             state = one(state)
         return state
 
     return step
+
+
+def _one_shard_step(cfg, mesh, with_source, halo, halo_block_iters, halo_backend,
+                    advect_kernel, kernels):
+    """The step on a one-shard mesh: ``simulate_step_3d`` on the slab, the
+    whole volume (with the single-card kernels; for ``halo="explicit"`` with
+    its hooks on ``jacobi_3d_sharded`` and ``advect_multi_3d_sharded``)."""
+    from ..kernels.project import resident_route
+    from ..models.stable3d import simulate_step_3d
+    from ..scene.sources import apply_custom_source
+
+    device = mesh.devices[0]
+    dt = cfg.effective_params()[0]
+    jacobi_fn = advect_fn = None
+    if halo == "explicit":
+        from .halo import advect_multi_3d_sharded, jacobi_3d_sharded
+
+        transport = "rdma" if halo_backend == "rdma" else "ppermute"
+        n_sub = cfg.advect_substeps if cfg.advection_scheme == "substep" else 1
+
+        def jacobi_fn(p, div, iters, obst=None):
+            return jacobi_3d_sharded(p, div, 1.0, 6.0, iters, mesh, b=0,
+                                     block_iters=halo_block_iters, backend=halo_backend,
+                                     obst=obst, kernels=kernels)
+
+        if advect_kernel:
+            def advect_fn(bs, fields, velocity, d_t, obst=None):
+                return advect_multi_3d_sharded(bs, fields, velocity, float(d_t), mesh,
+                                               window=cfg.advect_window, n_sub=n_sub,
+                                               transport=transport, obst=obst,
+                                               kernels=kernels)
+
+    resident = resident_route(cfg.current_size, cfg.solve_dtype, device)
+
+    def one(state: ShardedState) -> ShardedState:
+        slab = state.slabs[0]
+        glob = FluidState(density=slab.density, velocity=slab.velocity,
+                          pressure=slab.pressure, obstacles=slab.obstacles[1:-1],
+                          step=slab.step, time=slab.time)
+        if with_source and cfg.enable_custom_source:
+            density, velocity = apply_custom_source(glob.density, glob.velocity, cfg,
+                                                    glob.time + dt)
+            glob = glob.replace(density=density, velocity=velocity)
+        out = simulate_step_3d(glob, cfg, kernels, resident, jacobi_fn=jacobi_fn,
+                               advect_fn=advect_fn)
+        return state.replace(slabs=(slab.replace(
+            density=out.density, velocity=out.velocity, pressure=out.pressure,
+            step=out.step, time=out.time),))
+
+    return one

@@ -68,18 +68,20 @@ def _spec_params(spec: SourceSpec, ndim: int) -> SourceParams:
     )
 
 
-def _cell_centers(shape, device):
-    """Per-axis float32 coordinate grids in (x, y[, z]) order."""
-    ranges = [torch.arange(s, dtype=torch.float32, device=device)
-              for s in shape]
+def _cell_centers(shape, device, z0: int = 0):
+    """Per-axis float32 coordinate grids in (x, y[, z]) order; the first
+    (slowest) axis starts at ``z0`` (a shard's global z origin)."""
+    ranges = [torch.arange(o, o + s, dtype=torch.float32, device=device)
+              for o, s in zip((z0,) + (0,) * (len(shape) - 1), shape)]
     return tuple(reversed(torch.meshgrid(*ranges, indexing="ij")))
 
 
 def _apply_one(density, vel, cfg: SimConfig, t, params: SourceParams, *,
-               emits_velocity: bool, pulsing: bool, pulse_rate: float):
+               emits_velocity: bool, pulsing: bool, pulse_rate: float, z0: int = 0):
     """One emitter, resolution-scaled, in the JAX package's float32 op order:
     ``dist = sqrt((dx² + dy²) + dz²)``, ``falloff = 1 − dist/r`` inside the
-    ball, ``density += strength·falloff``."""
+    ball, ``density += strength·falloff``.  ``density`` may be the z-slab of
+    the grid whose plane 0 is global plane ``z0``."""
     nf = np.float32(cfg.current_size)
     res_mult = np.float32(cfg.resolution_multiplier)
     radius_cells = float(np.float32(params.radius) * res_mult)
@@ -89,7 +91,7 @@ def _apply_one(density, vel, cfg: SimConfig, t, params: SourceParams, *,
     else:
         eff_strength = float(base * np.float32(1.0) * res_mult)
 
-    coords = _cell_centers(density.shape, density.device)
+    coords = _cell_centers(density.shape, density.device, z0)
     d2 = None
     for i, c in enumerate(coords):
         d = c - float(np.float32(params.position[i]) * nf)
@@ -188,12 +190,14 @@ def src_field_add(vals, src, z0: int = 0, y0: int = 0, x0: int = 0):
 
 
 def apply_custom_source(density, vel, cfg: SimConfig, t,
-                        params: SourceParams = None):
+                        params: SourceParams = None, z0: int = 0):
     """One frame of all continuous emitters; no-op config ⇒ identity.
 
     ``t`` (a 0-d float32 tensor) is the elapsed time used for pulsing; with
     ``cfg.pulse_clock == "wall"`` and ``params`` given, ``params.pulse_t`` is
-    used instead.  Returns (density, vel)."""
+    used instead.  On a shard (3D) ``density`` and ``vel`` are its z-slab,
+    plane 0 at global z ``z0``: each cell gets the whole-grid add.  Returns
+    (density, vel)."""
     if cfg.pulse_clock == "wall" and params is not None:
         t = torch.tensor(params.pulse_t, dtype=torch.float32,
                          device=density.device)
@@ -204,6 +208,7 @@ def apply_custom_source(density, vel, cfg: SimConfig, t,
             emits_velocity=cfg.source_emits_velocity,
             pulsing=cfg.source_pulsing,
             pulse_rate=cfg.source_pulse_rate,
+            z0=z0,
         )
     for spec in cfg.extra_sources:
         density, vel = _apply_one(
@@ -211,6 +216,7 @@ def apply_custom_source(density, vel, cfg: SimConfig, t,
             emits_velocity=spec.emits_velocity,
             pulsing=spec.pulsing,
             pulse_rate=spec.pulse_rate,
+            z0=z0,
         )
     return density, vel
 

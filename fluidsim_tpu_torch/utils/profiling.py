@@ -7,6 +7,9 @@
   CPU it is the wall clock.
 * ``trace_profile``: a context manager around ``torch.profiler`` (CPU and,
   where a card is present, CUDA activity) that writes a Chrome trace.
+* ``sharded_step_part``: the part of the sharded step that a kernel's device
+  time belongs to (``SHARDED_STEP_PARTS``), which ``chip_smoke.py`` and
+  ``tools/torch_steps_ab.py`` report the step's time by.
 """
 
 from __future__ import annotations
@@ -88,3 +91,19 @@ def trace_profile(logdir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+# Parts of the sharded step's device time by kernel name: the first part one
+# of whose keys the name holds (in any case); every other kernel is a plain op.
+SHARDED_STEP_PARTS = (("K10/K12", ("jacobi_round",)), ("K11", ("advect",)),
+                      ("K13", ("exchange_kernel",)),
+                      ("K7e", ("divergence_ext", "gradient_ext")),
+                      ("cat", ("CatArrayBatchedCopy",)), ("copies", ("copy", "Memcpy")))
+
+
+def sharded_step_part(kernel: str) -> str:
+    """The part of ``SHARDED_STEP_PARTS`` that the kernel named ``kernel``
+    (as ``torch.profiler`` names it) belongs to, else ``"plain ops"``."""
+    name = kernel.lower()
+    return next((part for part, keys in SHARDED_STEP_PARTS
+                 if any(k.lower() in name for k in keys)), "plain ops")

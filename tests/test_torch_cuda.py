@@ -46,7 +46,11 @@ from fluidsim_tpu_torch.kernels.jacobi import (
 from fluidsim_tpu_torch.kernels.project import (
     divergence_3d_kernel,
     divergence_3d_plain,
+    divergence_ext_kernel,
+    divergence_ext_plain,
     gradient_3d_kernel,
+    gradient_ext_kernel,
+    gradient_ext_plain,
     project_3d_slab_kernel,
 )
 from fluidsim_tpu_torch.kernels.resident import (
@@ -91,7 +95,14 @@ from fluidsim_tpu_torch.kernels.halo import (
     jacobi_ext_rdma,
     jacobi_ext_rdma_plain,
 )
-from fluidsim_tpu_torch.parallel import jacobi_3d_sharded, make_mesh, shard_state, sharded_step_fn
+from fluidsim_tpu_torch.parallel import (
+    gathered_ops,
+    jacobi_3d_sharded,
+    make_mesh,
+    shard_state,
+    sharded_step_fn,
+    unshard_state,
+)
 from fluidsim_tpu_torch.parallel.halo import advect_multi_3d_sharded
 from fluidsim_tpu_torch.state import zeros_state
 
@@ -1110,6 +1121,7 @@ def test_sharded_step_kernel_path_matches_twin_path(cuda, name, t):
     added = {k: fn.launches - before[k] for k, fn in counters.items()}
     want = {"K10": 3 * 4 * cfg.jacobi_iters // t, "K11": 3 * 4 * 2}
     assert added == {k: want.get(k, 0) for k in added}
+    a, b = unshard_state(a), unshard_state(b)
     for field in ("density", "velocity", "pressure"):
         assert torch.equal(getattr(a, field), getattr(b, field)), field
     assert float(a.density.sum()) > 0.0
@@ -1252,7 +1264,10 @@ RDMA_COUNTERS = dict(K10=jacobi_ext_kernel, K11=advect_ext_kernel, K12=jacobi_ex
 def test_rdma_step_matches_pallas_step_and_twin_path(cuda, name, t, dtype):
     """sharded512 and vortex128 at 64³ on 4 shards with halo_backend="rdma":
     exactly iters/T K12, three K13 (the solve's priming and the two
-    advections' slabs) and two K11 launches a shard and a step and no K10;
+    advections' slabs; six with vortex128's mask, whose gradient takes the
+    velocity's and the pressure's halos for the obstacle mirror, and its
+    confinement, whose velocity takes a two-plane halo) and two K11
+    launches a shard and a step and no K10;
     bitwise the "pallas" step and the rdma path on the twins after 3 steps;
     the "pallas" bf16 step bitwise its twin path too."""
     preset = {"sharded512": preset_sharded_512, "vortex128": preset_vortex_128}[name]
@@ -1271,17 +1286,94 @@ def test_rdma_step_matches_pallas_step_and_twin_path(cuda, name, t, dtype):
     for _ in range(3):
         a = rdma(a)
     added = {k: fn.launches - before[k] for k, fn in counters.items()}
-    want = {"K12": 3 * 4 * cfg.jacobi_iters // t, "K13": 3 * 4 * 3, "K11": 3 * 4 * 2}
+    k13 = 3 + 2 * cfg.enable_obstacle + (cfg.vorticity_confinement != 0.0)
+    want = {"K12": 3 * 4 * cfg.jacobi_iters // t, "K13": 3 * 4 * k13, "K11": 3 * 4 * 2}
     assert added == {k: want.get(k, 0) for k in added}
     p = tr = tp = start
     for _ in range(3):
         p, tr, tp = pallas(p), twins["rdma"](tr), twins["pallas"](tp)
+    a, p, tr, tp, start = (unshard_state(x) for x in (a, p, tr, tp, start))
     for field in ("density", "velocity", "pressure"):
         got = getattr(a, field)
         assert got.dtype == getattr(start, field).dtype
         for what, ref in (("pallas", p), ("twin path", tr), ("pallas twin path", tp)):
             assert torch.equal(got, getattr(ref, field)), (field, what)
     assert float(a.density.float().sum()) > 0.0
+
+
+def shard_planes(v, shards, shard):
+    """Shard ``shard``'s planes of the global ``(..., n, n, n)`` field ``v``,
+    the halo planes ``(below, above)`` of its last component (None past the
+    global ends), and its walls."""
+    lz = v.shape[-3] // shards
+    own = v.narrow(-3, shard * lz, lz).contiguous()
+    last = v.reshape(-1, *v.shape[-3:])[-1]
+    halo = (last[shard * lz - 1].contiguous() if shard > 0 else None,
+            last[(shard + 1) * lz].contiguous() if shard < shards - 1 else None)
+    return own, halo, (0 if shard == 0 else NO_WALL, lz - 1 if shard == shards - 1 else NO_WALL)
+
+
+@pytest.mark.parametrize("n,shards,shard", [(512, 8, 0), (512, 8, 3), (512, 8, 7),
+                                            (128, 4, 0), (128, 4, 1), (128, 4, 2),
+                                            (128, 4, 3)])
+def test_k7e_matches_twin(cuda, n, shards, shard):
+    """K7e's divergence and gradient bitwise their twins on sharded512's
+    first, a middle and the last slab at 512³ and on every shard of a
+    4-shard split of 128³, the velocity contiguous and a view with a wider
+    component stride; each launch counted once."""
+    g = torch.Generator(device=cuda).manual_seed(3300 + n + shard)
+    vel = torch.randn((3, n, n, n), device=cuda, generator=g)
+    p = torch.randn((n, n, n), device=cuda, generator=g)
+    v, vz_halo, walls = shard_planes(vel, shards, shard)
+    q, p_halo, _ = shard_planes(p, shards, shard)
+    # The velocity as contiguous planes and as the step passes it: K11's kept
+    # planes, a view of a wider slab.
+    wide = torch.zeros((3, n // shards + 4, n, n), device=cuda)
+    wide[:, 2:-2] = v
+    before = divergence_ext_kernel.launches, gradient_ext_kernel.launches
+    for vel_in in (v, wide[:, 2:-2]):
+        assert_equal([divergence_ext_kernel(vel_in, *vz_halo, *walls),
+                      gradient_ext_kernel(vel_in, q, *p_halo, *walls)],
+                     [divergence_ext_plain(v, *vz_halo, *walls),
+                      gradient_ext_plain(v, q, *p_halo, *walls)],
+                     f"K7e {n} shard {shard}")
+    assert (divergence_ext_kernel.launches, gradient_ext_kernel.launches) == (
+        before[0] + 2, before[1] + 2)
+    with pytest.raises(ValueError, match="wall_lo"):
+        divergence_ext_kernel(v, *vz_halo, 2, NO_WALL)
+    with pytest.raises(TypeError):
+        gradient_ext_kernel(v.double(), q.double(), *p_halo, *walls)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "rdma"])
+def test_8_shard_step_launches_per_shard(cuda, backend):
+    """sharded512 (at 128³) on 8 shards at T = 4: each step launches, per
+    shard, iters/T K10 (pallas) or K12 (rdma) rounds, two K11, one K7e
+    divergence and one K7e gradient, and on rdma three K13; no single-card
+    kernel; no op gathers a whole volume; bitwise the twin path after 2
+    steps."""
+    cfg = preset_sharded_512().replace(size=128)
+    mesh = make_mesh(["cuda"] * 8)
+    start = shard_state(zeros_state(cfg, cuda), mesh)
+    kw = dict(halo="explicit", halo_block_iters=4, halo_backend=backend)
+    counters = dict(sweep_counters(), **RDMA_COUNTERS, K7d=divergence_ext_kernel,
+                    K7g=gradient_ext_kernel)
+    before = {k: fn.launches for k, fn in counters.items()}
+    gathered_ops.clear()
+    step = sharded_step_fn(cfg, mesh, **kw)
+    a = step(step(start))
+    added = {k: fn.launches - before[k] for k, fn in counters.items()}
+    rounds = 2 * 8 * cfg.jacobi_iters // 4
+    want = {"K11": 2 * 8 * 2, "K7d": 2 * 8, "K7g": 2 * 8}
+    want.update({"K12": rounds, "K13": 2 * 8 * 3} if backend == "rdma" else {"K10": rounds})
+    assert added == {k: want.get(k, 0) for k in added}
+    assert sum(gathered_ops.values()) == 0
+    assert all(s.density.device == d for s, d in zip(a.slabs, mesh.devices))
+    twin = sharded_step_fn(cfg, mesh, kernels=PLAIN_TWINS, **kw)
+    b = twin(twin(start))
+    a, b = unshard_state(a), unshard_state(b)
+    for field in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(a, field), getattr(b, field)), field
 
 
 def test_rdma_wrappers_raise_for_cuda_tensors_they_cannot_take(cuda):

@@ -48,6 +48,7 @@ from fluidsim_tpu_torch.parallel import (
     shard_state,
     sharded_step_fn,
     state_sharding,
+    unshard_state,
 )
 from fluidsim_tpu_torch.scene.sources import apply_custom_source
 
@@ -98,12 +99,14 @@ def run_jax(cfg, steps, **kw):
 
 
 def run_port(cfg, steps, shards=SHARDS, **kw):
+    """``steps`` sharded steps from ``start(cfg)``; the global state
+    (``unshard_state``)."""
     mesh = make_mesh(["cpu"] * shards)
     state = shard_state(state_from_numpy(start(cfg), "cpu"), mesh)
     step = sharded_step_fn(cfg, mesh, **kw)
     for _ in range(steps):
         state = step(state)
-    return state
+    return unshard_state(state)
 
 
 def assert_close(got, ref, what=""):
@@ -176,14 +179,16 @@ def test_auto_halo_is_the_unsharded_step():
 
 
 def test_per_shard_calls(monkeypatch):
-    """With K10 and K11 per shard, a step makes iters/T K10 calls and two K11
-    calls (self-advection and density) per shard, and no single-card kernel
-    call; ``halo_backend="xla"`` makes neither."""
+    """With K10 and K11 per shard, a step makes iters/T K10 calls, two K11
+    calls (self-advection and density) and one K7e divergence and gradient
+    per shard, and no single-card kernel call; ``halo_backend="xla"`` makes
+    none of them."""
     _, cfg = configs()
     rec = Recorder()
     run_port(cfg, 1, halo="explicit", halo_block_iters=2, halo_backend="pallas",
              kernels=rec.kernels)
-    assert sorted(rec.calls) == sorted(["jacobi_ext"] * SHARDS * 2 + ["advect_ext"] * SHARDS * 2)
+    assert sorted(rec.calls) == sorted(["jacobi_ext"] * SHARDS * 2 + ["advect_ext"] * SHARDS * 2
+                                       + ["divergence_ext", "gradient_ext"] * SHARDS)
     rec.calls.clear()
     run_port(cfg, 1, halo="explicit", halo_backend="xla", kernels=rec.kernels)
     assert rec.calls == []
@@ -193,13 +198,15 @@ def test_per_shard_calls_on_the_rdma_backend():
     """``halo_backend="rdma"`` makes one K13 call (every shard's priming of
     the solve) and iters/T K12 calls (every shard's round) a solve, one K13
     call (every shard's slabs) before each of the two K11 calls a shard,
-    and no K10 call."""
+    one K7e divergence and gradient a shard (which read their neighbours'
+    halo planes in place, with no K13 call), and no K10 call."""
     _, cfg = configs()
     rec = Recorder()
     run_port(cfg, 1, halo="explicit", halo_block_iters=2, halo_backend="rdma",
              kernels=rec.kernels)
     assert sorted(rec.calls) == sorted(["halo_exchange_rdma"] * 3 + ["jacobi_ext_rdma"] * 2
-                                       + ["advect_ext"] * SHARDS * 2)
+                                       + ["advect_ext"] * SHARDS * 2
+                                       + ["divergence_ext", "gradient_ext"] * SHARDS)
 
 
 @pytest.mark.parametrize("change", [dict(advection_scheme="maccormack", advect_window=2),

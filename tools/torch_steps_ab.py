@@ -5,9 +5,16 @@ vortex128, multi256 and sharded512 paths (sharded512 unsharded through
 rdma backend at T = 4) for two or more checkouts, alternated on one CUDA
 card.
 
-Run from anywhere:  python3 tools/torch_steps_ab.py ROOT_A ROOT_B [...]
+Run from anywhere:  python3 tools/torch_steps_ab.py [--paths P1,P2] ROOT_A ROOT_B [...]
 
-Each ROOT is the root of a checkout that holds ``fluidsim_tpu_torch/``.
+Each ROOT is the root of a checkout that holds ``fluidsim_tpu_torch/``;
+``--paths`` keeps the named paths only (e.g. ``"sharded512 8 shards rdma"``).
+The 8-shard path steps the checkout's own state type (a global state from
+``shard_state`` in older checkouts, a ``ShardedState`` of one slab a shard
+since the shards own their slabs) and also reports its device time by part
+(``fluidsim_tpu_torch/utils/profiling.SHARDED_STEP_PARTS`` of this
+checkout: K10/K12, K11, K13, K7e, ``torch.cat``, other copies, and the plain
+ops, every other kernel) and its peak device memory over the timed chunks.
 The checkouts run in the order A, B, ..., then the reverse (A, B, B, A for
 two), each in a fresh Python process that builds that checkout's kernels,
 steps each path after its warm-up steps, and times five chunks of steps
@@ -52,9 +59,15 @@ class Sharded:
         for _ in range(n):
             self.state = self._step(self.state)
 
+    def finite(self) -> bool:
+        slabs = getattr(self.state, "slabs", None)
+        parts = [self.state.density] if slabs is None else [s.density for s in slabs]
+        return all(bool(p.isfinite().all()) for p in parts)
+
 
 def device_ms_per_step(eng, steps: int) -> dict:
-    """Device milliseconds per step of ``eng``, by kernel name."""
+    """Device milliseconds per step of ``eng``, by short kernel name and by
+    the profiler's whole key."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -63,15 +76,17 @@ def device_ms_per_step(eng, steps: int) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.step(steps)
         torch.cuda.synchronize()
-    out = {}
+    out, by_key = {}, {}
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA:
+            ms = evt.self_device_time_total / 1e3 / steps
             name = evt.key.replace("(anonymous namespace)::", "").split("(")[0][:60]
-            out[name] = out.get(name, 0.0) + evt.self_device_time_total / 1e3 / steps
-    return out
+            out[name] = out.get(name, 0.0) + ms
+            by_key[evt.key] = by_key.get(evt.key, 0.0) + ms
+    return out, by_key
 
 
-def child(root: str) -> None:
+def child(root: str, names) -> None:
     sys.path.insert(0, root)
     import torch
 
@@ -83,9 +98,13 @@ def child(root: str) -> None:
         raise SystemExit(f"imported {fluidsim_tpu_torch.__file__}, not from {root}")
     out = {"root": root}
     for name, preset, steps, warmup, sharded in PATHS:
+        if names and name not in names:
+            continue
         cfg = getattr(config, preset)()
         eng = Sharded(cfg) if sharded else Engine(cfg, device="cuda")
         eng.step(warmup)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         rates = []
@@ -96,13 +115,18 @@ def child(root: str) -> None:
             end.record()
             end.synchronize()
             rates.append(steps * 1e3 / start.elapsed_time(end))
-        if not bool(torch.isfinite(eng.state.density).all()):
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        finite = eng.finite() if sharded else bool(torch.isfinite(eng.state.density).all())
+        if not finite:
             raise SystemExit(f"{name}: non-finite density")
-        by_kernel = device_ms_per_step(eng, warmup)
+        by_kernel, by_key = device_ms_per_step(eng, warmup)
         out[name] = {"steps_per_s_median": statistics.median(rates), "chunks": rates,
                      "device_ms_per_step": sum(by_kernel.values()),
                      "top_kernels_ms": dict(sorted(by_kernel.items(),
                                                    key=lambda kv: -kv[1])[:5])}
+        if sharded:
+            out[name]["device_ms_by_key"] = by_key
+            out[name]["peak_gb"] = peak
         del eng
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
@@ -110,9 +134,13 @@ def child(root: str) -> None:
 
 def main() -> None:
     if len(sys.argv) >= 3 and sys.argv[1] == "--child":
-        child(sys.argv[2])
+        child(sys.argv[2], sys.argv[3].split(",") if len(sys.argv) > 3 else [])
         return
-    roots = [str(Path(r).resolve()) for r in sys.argv[1:]]
+    args = sys.argv[1:]
+    paths = ""
+    if args[:1] == ["--paths"]:
+        paths, args = args[1], args[2:]
+    roots = [str(Path(r).resolve()) for r in args]
     if not roots:
         raise SystemExit(__doc__)
     smi = subprocess.run(
@@ -120,9 +148,28 @@ def main() -> None:
         capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: none",
           flush=True)
+    # The parts are this checkout's, whichever checkout a child measured.
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from fluidsim_tpu_torch.utils.profiling import sharded_step_part
+
     for root in roots + roots[::-1]:
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--child", root],
-                              cwd=root, timeout=900)
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--child", root]
+                              + ([paths] if paths else []), cwd=root, timeout=900,
+                              stdout=subprocess.PIPE, text=True)
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                out = json.loads(line)
+                for path in out.values():
+                    by_key = path.pop("device_ms_by_key", None) if isinstance(path, dict) \
+                        else None
+                    if by_key is not None:
+                        parts = {}
+                        for key, ms in by_key.items():
+                            part = sharded_step_part(key)
+                            parts[part] = parts.get(part, 0.0) + ms
+                        path["device_ms_by_part"] = parts
+                line = json.dumps(out)
+            print(line, flush=True)
         if proc.returncode != 0:
             raise SystemExit(f"{root}: exit code {proc.returncode}")
 
