@@ -2956,7 +2956,8 @@ def main() -> None:
     bench_line = json.loads(cli.stdout.strip().splitlines()[-1])
     say(f"cli bench --preset sharded512 --mesh 8 --halo explicit --halo-block-iters 4: "
         f"{json.dumps(bench_line)} [{card}]")
-    if bench_line.get("mesh") != 8 or bench_line.get("devices") != 1 \
+    if bench_line.get("mesh") != 8 \
+            or bench_line.get("devices") != min(8, torch.cuda.device_count()) \
             or not bench_line.get("steps_per_sec", 0) > 0:
         fail(f"the CLI's bench line is not the 8-shard run's: {bench_line}")
     del ve, de, hvel, hdens, hdiv, hzero, hx0, hstart
@@ -3307,6 +3308,7 @@ def main() -> None:
     say(f"cli bench --preset sharded512 --mesh 8 --halo explicit --halo-block-iters 4 "
         f"--halo-backend rdma: {json.dumps(bench_line)} [{card}]")
     if bench_line.get("mesh") != 8 or bench_line.get("halo_backend") != "rdma" \
+            or bench_line.get("devices") != min(8, torch.cuda.device_count()) \
             or not bench_line.get("steps_per_sec", 0) > 0:
         fail(f"the CLI's rdma bench line is not the 8-shard run's: {bench_line}")
     del hvel, hdens, hdiv, hzero, hx0, hstart, bstart
@@ -3352,6 +3354,9 @@ def main() -> None:
                h_sub * (hlz + 2 * hh) * hcells * (FRAC_OPS + RELU_OPS + COMB_OPS))),
     ]
 
+    # -- 13e. the mesh's streams and cards ------------------------------------------
+    phase_streams(card, dev, counters_to_zero, counts)
+
     # -- 14. K1's body at K >= 4 and the host entry points ----------------------
     phase_wide(card, dev, counters_to_zero, counts, entries, times)
     phase_entry_points(card, counters_to_zero, counts)
@@ -3394,6 +3399,174 @@ def main() -> None:
 
 WIDE_STEPS = {4: 4, 5: 2}
 WIDE_HALO_STEPS = 2
+# Cycles that hold a shard's stream back before each of its ops (~1 ms on an
+# H100's clock).
+HOLD_CYCLES = 2_000_000
+SHARD_ENTRIES = {"K10": "fs_jacobi_ext", "K11": "fs_advect_ext", "K12": "fs_jacobi_ext_rdma",
+                 "K13": "fs_halo_exchange", "K7e div": "fs_divergence_ext",
+                 "K7e grad": "fs_gradient_ext"}
+
+
+def phase_streams(card, dev, counters_to_zero, counts):
+    """Phase 13e: the mesh's streams and cards (``parallel/streams.
+    ShardOrder``).  The kernel library's runtime sees the device PyTorch
+    makes current on every card (``fs_current_device``).  sharded512 at 512³
+    on 8 shards of the card, each on its own stream: one step from a seeded
+    state on both backends at T = 4, bitwise the unsharded ``Engine`` step,
+    and again with shard 3 held back by a sleep of ``HOLD_CYCLES`` before
+    each of its ops; one step a backend with every launch of K10–K13 and
+    K7e counted by the stream it was given (each shard's share on its own
+    stream, none elsewhere).  Where more than one card is visible, the
+    8-shard mesh over 2 and 4 cards (``cli.mesh_devices``) two steps bitwise
+    the one-card mesh, steps/s beside each card's name and power limit."""
+    import collections
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from fluidsim_tpu_torch.cli import mesh_devices
+    from fluidsim_tpu_torch.config import preset_sharded_512
+    from fluidsim_tpu_torch.engine import Engine
+    from fluidsim_tpu_torch.kernels import _build
+    from fluidsim_tpu_torch.parallel import make_mesh, shard_state, sharded_step_fn, unshard_state
+    from fluidsim_tpu_torch.parallel.streams import ShardOrder
+    from fluidsim_tpu_torch.state import zeros_state
+
+    t_phase = time.perf_counter()
+    say("# phase 13e: the mesh's streams: 8 shards on 8 streams of the card, a shard held "
+        "back, launches by stream, the cards")
+    lib = _build.load_library()
+    n_cards = torch.cuda.device_count()
+    for d in range(n_cards):
+        with torch.cuda.device(d):
+            seen = lib.fs_current_device()
+        if seen != d:
+            fail(f"the kernel library sees device {seen} where PyTorch made cuda:{d} current")
+    say(f"# fs_current_device: the library's runtime sees each of {n_cards} card(s) as PyTorch "
+        f"makes it current")
+
+    cfg = preset_sharded_512()
+    n = cfg.current_size
+    rng = np.random.default_rng(SEED + 13)
+    torch.cuda.empty_cache()
+    seeded = zeros_state(cfg, dev).replace(density=density_field(n, rng, dev),
+                                           velocity=velocity_field(n, rng, dev, 0.5))
+    eng = Engine(cfg, device="cuda")
+    eng.state = seeded
+    eng.step(1)
+    ref = {f: getattr(eng.state, f) for f in ("density", "velocity", "pressure")}
+    del eng
+    mesh = make_mesh(["cuda"] * 8)
+    if len({s.cuda_stream for s in mesh.streams}) != 8:
+        fail("the 8-shard mesh did not get a stream a shard")
+
+    def step_fn(m, backend):
+        return sharded_step_fn(cfg, m, halo="explicit", halo_block_iters=4,
+                               halo_backend=backend)
+
+    orig_on = ShardOrder.on
+
+    @contextlib.contextmanager
+    def held_on(order, r, count=True):
+        with orig_on(order, r, count):
+            if count and r == 3 and order.cuda:
+                torch.cuda._sleep(HOLD_CYCLES)
+            yield
+
+    for backend in ("pallas", "rdma"):
+        for held in (False, True):
+            ShardOrder.on = held_on if held else orig_on
+            try:
+                t0 = time.perf_counter()
+                got = unshard_state(step_fn(mesh, backend)(shard_state(seeded, mesh)))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                ShardOrder.on = orig_on
+            same = all(torch.equal(getattr(got, f), r) for f, r in ref.items())
+            what = "shard 3 held back" if held else "no shard held back"
+            say(f"# sharded512 8 streams {backend} T=4, {what}: one seeded step bitwise the "
+                f"unsharded Engine step: {same} ({ms:.1f} ms with the shard/unshard copies)")
+            if not same:
+                fail(f"sharded512 on 8 streams ({backend}, {what}) differs from the unsharded "
+                     "Engine step")
+            del got
+
+    # Every launch of the shards' kernels by the stream it was given.
+    by_stream = collections.Counter()
+    saved = {name: getattr(lib, name) for name in SHARD_ENTRIES.values()}
+
+    def counted(name):
+        fn = saved[name]
+
+        def launch(*args):
+            by_stream[(name, args[-1])] += 1
+            return fn(*args)
+        return launch
+
+    shard_of = {s.cuda_stream: r for r, s in enumerate(mesh.streams)}
+    rounds = cfg.jacobi_iters // 4
+    for backend in ("pallas", "rdma"):
+        by_stream.clear()
+        for name in saved:
+            setattr(lib, name, counted(name))
+        try:
+            st = shard_state(seeded, mesh)
+            counters_to_zero()
+            st = step_fn(mesh, backend)(st)
+            torch.cuda.synchronize()
+            launches = counts()
+        finally:
+            for name, fn in saved.items():
+                setattr(lib, name, fn)
+        per_shard = {"K11": 2, "K7e div": 1, "K7e grad": 1}
+        per_shard.update({"K12": rounds, "K13": 3} if backend == "rdma" else {"K10": rounds})
+        table = {key: [by_stream[(entry, s.cuda_stream)] for s in mesh.streams]
+                 for key, entry in SHARD_ENTRIES.items() if key in per_shard}
+        say(f"# sharded512 8 streams {backend} T=4, one step, launches by shard stream "
+            f"(shards 0-7): {table}; counters {launches}")
+        stray = {k: v for k, v in by_stream.items() if k[1] not in shard_of}
+        if stray or any(table[k] != [per_shard[k]] * 8 for k in per_shard):
+            fail(f"sharded512 8 streams {backend}: launches not one share a shard stream: "
+                 f"{table}, elsewhere {stray}")
+        if launches != {k: 8 * per_shard.get(k, 0) for k in launches}:
+            fail(f"sharded512 8 streams {backend}: counters {launches}")
+        del st
+
+    if n_cards < 2:
+        say(f"# multi-card: {n_cards} CUDA device visible, not run")
+    else:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout.strip().splitlines()
+        one = {}
+        for backend in ("pallas", "rdma"):
+            step = step_fn(mesh, backend)
+            one[backend] = unshard_state(step(step(shard_state(seeded, mesh))))
+        for cards in (c for c in (2, 4) if c <= n_cards):
+            over = make_mesh([torch.device("cuda", i) for i in mesh_devices(8, cards)])
+            for backend in ("pallas", "rdma"):
+                step = step_fn(over, backend)
+                st = step(step(shard_state(seeded, over)))
+                got = unshard_state(st)
+                for f in ("density", "velocity", "pressure"):
+                    if not torch.equal(getattr(got, f), getattr(one[backend], f)):
+                        fail(f"sharded512 over {cards} cards ({backend}) differs from the "
+                             f"one-card mesh in {f}")
+
+                def adv(step=step):
+                    nonlocal st
+                    st = step(st)
+                ms = cuda_ms(adv, reps=5, warmup=1)
+                say(f"sharded512 8 shards over {cards} cards {backend} T=4: bitwise the "
+                    f"one-card mesh after 2 steps; steps/s {1e3 / ms!r} "
+                    f"[{'; '.join(smi[:cards])}]")
+                del st, got
+        del one
+    del seeded, ref
+    torch.cuda.empty_cache()
+    say(f"# phase 13e: {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_wide(card, dev, counters_to_zero, counts, entries, times):

@@ -19,11 +19,14 @@ back (edit it first to change a field such as ``advect_window``); ``serve``
 runs the live viewer in the browser.  ``run``, ``render``, ``serve`` and
 ``bench`` step on the card unless ``--device cpu`` asks for the CPU; without
 a card they print an error and exit non-zero.  With ``--mesh N`` ``bench``
-benches the slab-sharded step over an N-shard mesh on the visible card
-(``parallel.sharding``; a mesh over distinct cards is not ported):
-``--halo-backend pallas`` runs K10 and K11 per shard with ``torch.cat``
-exchanges, ``rdma`` K12 and K11 with every exchange in a kernel (K12,
-K13); either takes ``--dtype bfloat16`` fields.
+benches the slab-sharded step over an N-shard mesh (``parallel.sharding``)
+on D = min(N, visible cards) cards, shard r on card ⌊r·D/N⌋
+(``mesh_devices``; N must be a multiple of D, else it prints an error and
+exits 1): D = 1 is N shards on one card, D = N one shard a card.  Each
+shard runs on a stream of its own.  ``--halo-backend pallas`` runs K10 and
+K11 per shard with ``torch.cat`` exchanges, ``rdma`` K12 and K11 with every
+exchange in a kernel (K12, K13); either takes ``--dtype bfloat16`` fields.
+The JSON line's ``devices`` counts the distinct cards.
 """
 
 from __future__ import annotations
@@ -86,19 +89,41 @@ def _sync(state) -> None:
     int(state.step)
 
 
+def mesh_devices(n_shards: int, n_cards: int) -> list:
+    """The card of each of ``n_shards`` shards over D = min(N, ``n_cards``)
+    cards: shard r on card ⌊r·D/N⌋, so each card holds N/D neighbouring
+    shards.  Raises ``ValueError`` unless N is a multiple of D."""
+    d = min(n_shards, n_cards)
+    if d < 1 or n_shards % d:
+        raise ValueError(f"{n_shards} shards do not split evenly over {d} cards "
+                         f"({n_cards} visible): pass a --mesh that is a multiple of {d}")
+    return [r * d // n_shards for r in range(n_shards)]
+
+
 def _bench_sharded(args):
     """steps/sec of the slab-sharded step over an N-shard mesh (BASELINE
     config 5's measurement path: ``bench --preset sharded512 --mesh 8``).
-    The mesh's N entries are the visible card (or ``--device cpu``)
-    repeated; the state is a ``ShardedState`` (every shard owns its slabs)
-    and every shard has its own launches."""
+    The mesh's N shards lie on the visible cards as ``mesh_devices`` maps
+    them (or on ``--device cpu``); the state is a ``ShardedState`` (every
+    shard owns its slabs) and every shard has its own launches on its own
+    stream."""
+    import torch
+
     from .parallel.sharding import make_mesh, shard_state, sharded_step_fn
     from .scene.obstacles import build_obstacle_mask
     from .state import zeros_state
     from .utils.profiling import StepTimer
 
     cfg = _build_cfg(args)
-    mesh = make_mesh([args.device] * args.mesh)
+    if args.device == "cuda":
+        try:
+            cards = mesh_devices(args.mesh, torch.cuda.device_count())
+        except ValueError as err:
+            print(json.dumps({"error": str(err)}))
+            return 1
+        mesh = make_mesh([torch.device("cuda", i) for i in cards])
+    else:
+        mesh = make_mesh([args.device] * args.mesh)
     device = mesh.devices[0]
     obst = build_obstacle_mask(cfg) if cfg.enable_obstacle else None
     state = shard_state(zeros_state(cfg, device, obstacles=obst), mesh)

@@ -384,21 +384,24 @@ template <int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC, typename TF,
           typename TO>
 cudaError_t launch_tiled(const Substep& a, cudaStream_t s) {
   const auto kernel = advect_tiled_kernel<F, BUOY_VEL, BUOY_TAPS, MASK, SRC, TF, TV, TO>;
-  // The blocks of this instantiation the card holds at once (its SMs times
-  // the blocks an SM fits), read once a device.
-  static int device = -1, capacity = 0;
+  // The blocks of this instantiation a card holds at once (its SMs times
+  // the blocks an SM fits), read once for each device (0: not read yet), so
+  // a mesh whose shards switch cards every launch reads it once a card.
+  constexpr int kCachedDevices = 32;
+  static int cached[kCachedDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev != device) {
+  int capacity = dev < kCachedDevices ? cached[dev] : 0;
+  if (capacity == 0) {
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kAdvectThreads, 0);
     if (err != cudaSuccess) return err;
     if (sms * per_sm < 1) return cudaErrorInvalidConfiguration;
-    device = dev;
     capacity = sms * per_sm;
+    if (dev < kCachedDevices) cached[dev] = capacity;
   }
   const int runs = advect_runs(advect_tiles_xy(a.n), a.slab.nz, capacity);
   const int run = (a.slab.nz + runs - 1) / runs;

@@ -340,17 +340,23 @@ __global__ void __launch_bounds__(kWinThreads, 2)
   }
 }
 
+// Launch attributes are cached for each device index below this (bit d of a
+// mask, entry d of an array), so a mesh whose shards switch cards every
+// launch reads or sets each once a card; a higher index reads them anew.
+constexpr int kWinCachedDevices = 32;
+
 // The shared memory a block may opt in to on the current device, read once
-// a device.
+// for each device (0: not read yet).
 inline cudaError_t win_smem_optin(int& optin) {
-  static int device = -1, value = 0;
+  static int cached[kWinCachedDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev != device) {
+  int value = dev < kWinCachedDevices ? cached[dev] : 0;
+  if (value == 0) {
     err = cudaDeviceGetAttribute(&value, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return err;
-    device = dev;
+    if (dev < kWinCachedDevices) cached[dev] = value;
   }
   optin = value;
   return cudaSuccess;
@@ -362,21 +368,24 @@ template <int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC, typename TF,
 cudaError_t launch_window_tiled(const Substep& a, int k, int optin, cudaStream_t s) {
   const auto kernel = advect_window_kernel<F, BUOY_VEL, BUOY_TAPS, MASK, SRC, TF, TV, TO>;
   const int bytes = static_cast<int>(win_ring_bytes(k, F));
-  // The blocks the card holds at once with this k's ring (its SMs times the
-  // blocks an SM fits), read once a device and k.
+  // The shared-memory attribute, set once a device (bit d of `set`), and
+  // the blocks the card holds at once with this k's ring (its SMs times the
+  // blocks an SM fits), read once a device and k (0: not read yet).
   constexpr int kMaxK = 16;
-  static int device = -1;
-  static int capacity[kMaxK];
+  static unsigned set = 0;
+  static int cached[kWinCachedDevices][kMaxK];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (k >= kMaxK) return cudaErrorInvalidValue;
-  if (dev != device) {
+  const bool cache = dev < kWinCachedDevices;
+  if (!cache || !((set >> dev) & 1u)) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return err;
-    for (int i = 0; i < kMaxK; ++i) capacity[i] = 0;
-    device = dev;
+    if (cache) set |= 1u << dev;
   }
+  int uncached[kMaxK] = {};
+  int* const capacity = cache ? cached[dev] : uncached;
   if (capacity[k] == 0) {
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

@@ -1,7 +1,8 @@
 // Entry points that one source calls in another: K2 (project_advect.cu) runs
 // K3's projection (project.cu) and then K1's density advection (advect.cu),
-// and K1 hands bfloat16 storage to advect_bf16.cu.  All are linked into the
-// one library; see each definition for the arguments.
+// and K1 hands bfloat16 storage to advect_bf16.cu; peer.cu's entries are
+// declared here too, so their definitions are checked against them.  All are
+// linked into the one library; see each definition for the arguments.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,6 +26,14 @@ extern "C" int fs_divergence_ext(const float* vel, long long cstride, const floa
 extern "C" int fs_gradient_ext(const float* vel, long long cstride, const float* p,
                                const float* p_lo, const float* p_hi, float* vel_out, int n,
                                int lz, int wall_lo, int wall_hi, void* stream);
+
+// The mesh's plumbing (peer.cu): peer access from one card to another, the
+// device this library's runtime sees as current, and a copy of rows of bytes
+// that may cross cards, on a stream.
+extern "C" int fs_enable_peer(int device, int peer);
+extern "C" int fs_current_device();
+extern "C" int fs_copy_rows(void* dst, long long dpitch, const void* src, long long spitch,
+                            long long width, int height, void* stream);
 
 extern "C" int fs_advect_k1(const void* fields, const void* vel, const float* dens,
                             const unsigned char* mask, const float* emitter, int src_on,

@@ -5,15 +5,17 @@
 // planes a shard moves: its lz local planes into the middle of its own
 // output, its bottom and top h planes into the neighbours' outputs, and
 // zeros into its own halo at a global end.  Every plane has one writer, so
-// the shards' launches need no order among themselves; on one card they run
-// in stream order, and the next kernel that reads an output comes after all
-// of them.
+// the shards' launches need no order among themselves: each runs on its own
+// shard's stream and card, and the next kernel that reads a shard's outputs
+// comes after its stream waited on both neighbours' launches
+// (parallel/streams.ShardOrder).
 //
 // Replaces: fluidsim_tpu/pallas/halo_kernel.py::_halo_exchange_kernel (entry
 // halo_exchange_rdma), where the edge slabs travel between chips as remote
 // DMAs behind an entry barrier.  Here a "remote" store is a store into the
-// neighbour shard's buffer through its device pointer: the barrier becomes
-// stream order.  The TPU kernel's VMEM comm buffers and its VMEM budget check
+// neighbour shard's buffer through its device pointer (a peer pointer where
+// the neighbour is on another card): the barrier becomes the events between
+// the shards' streams.  The TPU kernel's VMEM comm buffers and its VMEM budget check
 // (exchange_comm_bytes) have no counterpart: the planes move HBM to HBM.
 // The bool mask moves as its bytes (one a cell), where the JAX package sends
 // int8 in the solve and one float32 channel in the advection: the values are
@@ -33,7 +35,9 @@
 // arrays[0 .. n_arrays) (n_arrays <= 4): one shard's arrays of one call, each
 // with its source planes, its own output and its neighbours' (see
 // fsk::HaloArray); lz the local planes, h <= lz the halo depth, n the plane's
-// side.  All pointers on the current device; outputs distinct from sources.
+// side.  Sources and the shard's own outputs on the current device, the
+// neighbours' outputs on theirs (peer access on); outputs distinct from
+// sources.
 // Launches on `stream` and returns the first cudaError_t.
 extern "C" int fs_halo_exchange(const fsk::HaloArray* arrays, int n_arrays, int lz, int h,
                                 int n, void* stream) {

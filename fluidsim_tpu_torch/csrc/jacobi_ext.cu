@@ -100,9 +100,12 @@ extern "C" int fs_jacobi_ext(const float* x, const float* x0, const unsigned cha
 // Replaces: fluidsim_tpu/pallas/halo_kernel.py::_rdma_jacobi_kernel (entry
 // jacobi_ext_rdma): its n_win window programs are K10's round here, its
 // epilogue program (read back the edges, the entry barrier, the remote
-// copies, the landing or zeroing of the halos) the last level's stores.  On
-// one card a remote copy is a store through the neighbour shard's out
-// pointer and the barrier is stream order; no launch waits on a flag.
+// copies, the landing or zeroing of the halos) the last level's stores.  A
+// remote copy is a store through the neighbour shard's out pointer (a peer
+// pointer where the neighbour is on another card) and the barrier is the
+// events between the shards' streams (parallel/streams.ShardOrder): a
+// shard's next round waits on both neighbours' rounds; no launch waits on a
+// flag.
 //
 // The neighbours write into this shard's out while it may still be sweeping,
 // so its stores keep off their planes: the last pass stores only

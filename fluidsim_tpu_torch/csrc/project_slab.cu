@@ -162,8 +162,10 @@ extern "C" int fs_gradient(const float* vel, const float* p, float* vel_out, int
 // K7e's divergence: vel (3, lz, n, n), its components cstride >= lz n^2
 // floats apart, and the z component's halo planes vz_lo, vz_hi (n, n) in,
 // div (lz, n, n) out; float32 on the current device, contiguous but for
-// cstride; the global z walls at the shard's planes wall_lo (0 or <= -2) and
-// wall_hi (lz - 1 or <= -2), a halo plane null where its side has the wall.
+// cstride, but for a halo plane, which may lie on a neighbour shard's card
+// (read through its peer pointer once the mesh turned peer access on); the
+// global z walls at the shard's planes wall_lo (0 or <= -2) and wall_hi
+// (lz - 1 or <= -2), a halo plane null where its side has the wall.
 // Launches on `stream` and returns the launch's cudaError_t.
 extern "C" int fs_divergence_ext(const float* vel, long long cstride, const float* vz_lo,
                                  const float* vz_hi, float* div, int n, int lz, int wall_lo,

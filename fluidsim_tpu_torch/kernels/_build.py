@@ -69,7 +69,8 @@ class HaloArray(ctypes.Structure):
                 ("src_cstride", ctypes.c_longlong), ("channels", _I), ("elem", _I)]
 
 # C entry points: name -> argument types (each returns an int: a cudaError_t,
-# or for fs_full_step_blocks a block count, for fs_smem_optin bytes).
+# or for fs_full_step_blocks a block count, for fs_smem_optin bytes, for
+# fs_current_device a device index).
 SIGNATURES = {
     # fields, vel, dens, mask, emitter, src_on, out, tmp0, tmp1, n, n_fields,
     # b0, b1, b2, dt0_sub, n_sub, window, has_buoy, buoy_dt, buoyancy,
@@ -127,6 +128,12 @@ SIGNATURES = {
     "fs_divergence_ext": (_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _P),
     # vel, cstride, p, p_lo, p_hi, vel_out, n, lz, wall_lo, wall_hi, stream
     "fs_gradient_ext": (_P, ctypes.c_longlong, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # device, peer (csrc/peer.cu: the mesh's peer access)
+    "fs_enable_peer": (_I, _I),
+    # (returns the current device as the library's runtime sees it, or -error)
+    "fs_current_device": (),
+    # dst, dpitch, src, spitch, width, height, stream (bytes; rows)
+    "fs_copy_rows": (_P, ctypes.c_longlong, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _P),
 }
 
 

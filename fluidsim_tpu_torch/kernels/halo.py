@@ -5,9 +5,13 @@ Counterpart of ``fluidsim_tpu/pallas/halo_kernel.py``.  K10 and K11 run on
 one shard's halo-extended z-slab: its ``lz`` planes between the neighbours'
 edge planes (``parallel/halo.py`` exchanges them).  K12 and K13 are the
 ``"rdma"`` backend, where the exchange is a kernel's own work: each takes
-every shard of the mesh, launches once per shard and stores into the
-neighbour shards' buffers through their device pointers (the TPU kernels'
-remote DMAs; on one card the entry barrier is stream order).
+every shard of the mesh, launches once per shard on the shard's own stream
+and card and stores into the neighbour shards' buffers through their device
+pointers, peer pointers where a neighbour is on another card (the TPU
+kernels' remote DMAs).  The TPU kernels' entry barrier is the shards'
+events (``parallel/streams.ShardOrder``): a call returns each shard's
+outputs complete on its own stream, its stream having waited on both
+neighbours' launches, which stored into them.
 
 * K10, ``jacobi_ext_kernel`` (``jacobi_ext_pallas`` → ``_ext_jacobi_kernel``):
   ``t_iters`` Jacobi sweeps ``(x0 + a·nbr)·coef`` on the ``(nz, n, n)`` slab,
@@ -210,29 +214,86 @@ def jacobi_ext_rdma_plain(xps, x0_exts, a: float, c: float, t_iters: int, b: int
     the result is each shard's complete next extended slab: its sweep
     results in planes ``[T, T + lz)``, the lower neighbour's planes
     ``[lz, lz + T)`` below them and the upper neighbour's ``[T, 2T)`` above
-    (zeros past the global ends)."""
-    k, T = len(xps), int(t_iters)
-    lz = xps[0].shape[0] - 2 * T
-    kept = [jacobi_ext_plain(xps[r], x0_exts[r], a, c, T, *rank_walls(r, k, T, lz), b,
-                             None if obst_exts is None else obst_exts[r])[T:T + lz]
-            for r in range(k)]
-    zeros = torch.zeros_like(kept[0][:T])
-    return [torch.cat([kept[r - 1][lz - T:] if r > 0 else zeros, kept[r],
-                       kept[r + 1][:T] if r < k - 1 else zeros]) for r in range(k)]
+    (zeros past the global ends).  Each shard's share runs as the kernel's
+    does (``_shards_round``), its edge planes stored into the neighbours'
+    outputs."""
+    T = int(t_iters)
+    return _shards_round(xps, lambda r, outs: _k12_share_plain(
+        r, outs, xps, x0_exts, a, c, T, b, obst_exts))
+
+
+def _k12_share_plain(r, outs, xps, x0_exts, a, c, T, b, obst_exts):
+    """Shard ``r``'s share of a K12 round on the twins: its kept planes into
+    its output (zeros in its halo at a global end) and its edge planes into
+    the neighbours' outputs."""
+    k = len(xps)
+    lz = xps[r].shape[0] - 2 * T
+    kept = jacobi_ext_plain(xps[r], x0_exts[r], a, c, T, *rank_walls(r, k, T, lz), b,
+                            None if obst_exts is None else obst_exts[r])[T:T + lz]
+    outs[r][T:T + lz] = kept
+    if r == 0:
+        outs[r][:T] = 0.0
+    else:
+        outs[r - 1][T + lz:] = kept[:T]
+    if r == k - 1:
+        outs[r][T + lz:] = 0.0
+    else:
+        outs[r + 1][:T] = kept[lz - T:]
+
+
+def _shards_round(firsts, share, outputs=None):
+    """One call over all shards: an output like each ``firsts[r]`` (or
+    ``outputs(r)``), allocated on shard r's stream; ``share(r, outs)`` on
+    shard r's stream for each shard, which may store into the neighbours'
+    outputs (held for r's stream); then each shard's stream waits on both
+    neighbours', so every output is complete on its own shard's stream when
+    the call returns.
+
+    Before its share, shard r waits on both neighbours' work up to their
+    outputs' allocation: the caching allocator may hand a neighbour a block
+    that the neighbour's stream still reads or writes as an earlier
+    temporary, which is safe on that stream alone, not for r's stores."""
+    from ..parallel.streams import order_of
+
+    order = order_of(firsts)
+    k = len(firsts)
+    make = outputs or (lambda r: torch.empty_like(firsts[r]))
+    with order.scope():
+        outs = []
+        for r in range(k):
+            with order.on(r, count=False):
+                outs.append(make(r))
+        marks = order.marks()
+        for r in range(k):
+            with order.on(r):
+                order.wait(r, marks, r - 1, r + 1)
+                for s in (r - 1, r + 1):
+                    if 0 <= s < k:
+                        for out in (outs[s] if isinstance(outs[s], list) else [outs[s]]):
+                            order.hold(out, r)
+                share(r, outs)
+        marks = order.marks()
+        for r in range(k):
+            order.wait(r, marks, r - 1, r + 1)
+    return outs
 
 
 def jacobi_ext_rdma(xps, x0_exts, a: float, c: float, t_iters: int, b: int = 0,
                     obst_exts=None):
     """K12: one round of the sharded solve on every shard, ``t_iters`` (T)
     sweeps of each float32 extended slab of ``xps`` (``(lz + 2T, n, n)``, in
-    rank order) with rhs ``x0_exts`` and the rank's global z walls, then the
-    exchange: each shard's fresh edge planes go into its neighbours' halos.
-    Returns each shard's complete next extended slab (see
-    ``jacobi_ext_rdma_plain``), new tensors, so rounds chain with no other
-    exchange.  The bool masks ``obst_exts`` make the coefficient 0 in solids.
+    rank order, each shard's on its own device) with rhs ``x0_exts`` and the
+    rank's global z walls, then the exchange: each shard's fresh edge planes
+    go into its neighbours' halos.  Returns each shard's complete next
+    extended slab (see ``jacobi_ext_rdma_plain``), new tensors, so rounds
+    chain with no other exchange.  The bool masks ``obst_exts`` make the
+    coefficient 0 in solids.
 
     CUDA tensors launch ``fs_jacobi_ext_rdma`` (``csrc/jacobi_ext.cu``) once
-    per shard; CPU tensors run ``jacobi_ext_rdma_plain``.
+    per shard, on the shard's stream, the pushes stored through the
+    neighbours' output pointers (peer pointers across cards); CPU tensors
+    run ``jacobi_ext_rdma_plain``.  Each shard's output is complete on its
+    stream when the call returns (``_shards_round``).
     ``jacobi_ext_rdma.launches`` counts the launches."""
     if b not in (0, 1, 2, 3):
         raise ValueError(f"boundary code must be 0..3, got {b}")
@@ -250,38 +311,36 @@ def jacobi_ext_rdma(xps, x0_exts, a: float, c: float, t_iters: int, b: int = 0,
         check_offsets(nz, n)
     _check_shards("xps", xps, (nz, n, n))
     _check_shards("x0_exts", x0_exts, (nz, n, n))
-    tensors = list(x0_exts) + list(xps)
     if obst_exts is not None:
         _check_shards("obst_exts", obst_exts, (nz, n, n), torch.bool)
-        tensors += list(obst_exts)
+    for r in range(k):
+        own = [x0_exts[r]] + ([] if obst_exts is None else [obst_exts[r]])
+        if any(t.device != xps[r].device for t in own):
+            raise ValueError(f"shard {r}'s tensors must be on one device")
     device = xps[0].device
-    if any(t.device != device for t in tensors):
-        raise ValueError("all tensors must be on one device")
-
     if device.type == "cpu":
         return jacobi_ext_rdma_plain(xps, x0_exts, a, c, T, b, obst_exts)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
 
     lib = _build.load_library()
-    outs = [torch.empty_like(x) for x in xps]
-    # Stream order keeps one shard's scratch from the next's.
-    tmp = torch.empty_like(xps[0]) if T > ROUND_MAX_SWEEPS else None
-    spare = torch.empty_like(xps[0]) if T > 2 * ROUND_MAX_SWEEPS else None
     a32, inv_c = solve_coefficients(a, c)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for r in range(k):
-            err = lib.fs_jacobi_ext_rdma(
-                xps[r].data_ptr(), x0_exts[r].data_ptr(),
-                None if obst_exts is None else obst_exts[r].data_ptr(), outs[r].data_ptr(),
-                _ptr(tmp), _ptr(spare), outs[r - 1].data_ptr() if r > 0 else None,
-                outs[r + 1].data_ptr() if r < k - 1 else None, nz, n, int(b), a32, inv_c, T,
-                *rank_walls(r, k, T, lz), stream,
-            )
-            _build.check(lib, err, "sharded Jacobi round kernel launch")
-            jacobi_ext_rdma.launches += 1
-    return outs
+
+    def share(r, outs):
+        # Each shard's scratch of its own: the shards' rounds run at once.
+        tmp = torch.empty_like(xps[r]) if T > ROUND_MAX_SWEEPS else None
+        spare = torch.empty_like(xps[r]) if T > 2 * ROUND_MAX_SWEEPS else None
+        err = lib.fs_jacobi_ext_rdma(
+            xps[r].data_ptr(), x0_exts[r].data_ptr(),
+            None if obst_exts is None else obst_exts[r].data_ptr(), outs[r].data_ptr(),
+            _ptr(tmp), _ptr(spare), outs[r - 1].data_ptr() if r > 0 else None,
+            outs[r + 1].data_ptr() if r < k - 1 else None, nz, n, int(b), a32, inv_c, T,
+            *rank_walls(r, k, T, lz), torch.cuda.current_stream().cuda_stream,
+        )
+        _build.check(lib, err, "sharded Jacobi round kernel launch")
+        jacobi_ext_rdma.launches += 1
+
+    return _shards_round(xps, share)
 
 
 jacobi_ext_rdma.launches = 0
@@ -487,38 +546,60 @@ def halo_exchange_rdma_plain(arrays_by_shard, depth: int):
     ``(C_j, lz + 2·depth, n, n)`` extended arrays: the lower neighbour's last
     ``depth`` planes, the local planes, the upper neighbour's first
     ``depth`` planes, zeros past the global ends (``halo_exchange_z``
-    followed by ``cat``)."""
-    lz, _, h = _exchange_geometry(arrays_by_shard, depth)
+    followed by ``cat``).  Each shard's share runs as the kernel's does
+    (``_shards_round``), its edge planes stored into the neighbours'
+    outputs."""
+    lz, n, h = _exchange_geometry(arrays_by_shard, depth)
+    return _shards_round([arrays[0] for arrays in arrays_by_shard],
+                         lambda r, outs: _k13_share_plain(r, outs, arrays_by_shard, lz, h),
+                         _exchange_outputs(arrays_by_shard, lz, h, n))
+
+
+def _exchange_outputs(arrays_by_shard, lz: int, h: int, n: int):
+    """Shard r's extended arrays of a K13 call, allocated (``outputs(r)`` of
+    ``_shards_round``)."""
+    return lambda r: [x.new_empty((x.shape[0], lz + 2 * h, n, n))
+                      for x in arrays_by_shard[r]]
+
+
+def _k13_share_plain(r, outs, arrays_by_shard, lz, h):
+    """Shard ``r``'s share of a K13 call on the twins: its planes into its
+    outputs (zeros in their halos at a global end) and its edge planes into
+    the neighbours' outputs."""
     k = len(arrays_by_shard)
-    out = []
-    for r, arrays in enumerate(arrays_by_shard):
-        exts = []
-        for j, x in enumerate(arrays):
-            zeros = torch.zeros_like(x[:, :h])
-            below = arrays_by_shard[r - 1][j][:, lz - h:] if r > 0 else zeros
-            above = arrays_by_shard[r + 1][j][:, :h] if r < k - 1 else zeros
-            exts.append(torch.cat([below, x, above], dim=1))
-        out.append(exts)
-    return out
+    for j, x in enumerate(arrays_by_shard[r]):
+        outs[r][j][:, h:h + lz] = x
+        if r == 0:
+            outs[r][j][:, :h] = 0
+        else:
+            outs[r - 1][j][:, h + lz:] = x[:, :h]
+        if r == k - 1:
+            outs[r][j][:, h + lz:] = 0
+        else:
+            outs[r + 1][j][:, :h] = x[:, lz - h:]
 
 
 def halo_exchange_rdma(arrays_by_shard, depth: int):
     """K13: halo-extend every shard's arrays in one call (each
     ``(C_j, lz, n, n)`` of a 4-, 2- or 1-byte dtype, every channel's planes
     contiguous; the channel stride is free, so a shard's view of a global
-    ``(C, N, n, n)`` tensor needs no copy).  Returns for each shard its
-    extended arrays, as ``halo_exchange_rdma_plain``.
+    ``(C, N, n, n)`` tensor needs no copy; each shard's arrays on its own
+    device).  Returns for each shard its extended arrays, as
+    ``halo_exchange_rdma_plain``.
 
-    CUDA tensors launch ``csrc/halo_exchange.cu`` once per shard, every
-    array of the shard in that launch (at most ``kMaxArrays`` of
-    ``csrc/halo_copy.cuh``: the launch raises past it); CPU tensors run the
-    twin.
+    CUDA tensors launch ``csrc/halo_exchange.cu`` once per shard, on the
+    shard's stream, every array of the shard in that launch (at most
+    ``kMaxArrays`` of ``csrc/halo_copy.cuh``: the launch raises past it),
+    the edge planes stored through the neighbours' output pointers (peer
+    pointers across cards); CPU tensors run the twin.  Each shard's outputs
+    are complete on its stream when the call returns.
     ``halo_exchange_rdma.launches`` counts the launches."""
     lz, n, h = _exchange_geometry(arrays_by_shard, depth)
     n_arrays = len(arrays_by_shard[0])
+    for r, arrays in enumerate(arrays_by_shard):
+        if any(x.device != arrays[0].device for x in arrays):
+            raise ValueError(f"shard {r}'s tensors must be on one device")
     device = arrays_by_shard[0][0].device
-    if any(x.device != device for arrays in arrays_by_shard for x in arrays):
-        raise ValueError("all tensors must be on one device")
     if device.type == "cpu":
         return halo_exchange_rdma_plain(arrays_by_shard, depth)
     if device.type != "cuda":
@@ -533,21 +614,22 @@ def halo_exchange_rdma(arrays_by_shard, depth: int):
 
     lib = _build.load_library()
     k = len(arrays_by_shard)
-    outs = [[x.new_empty((x.shape[0], lz + 2 * h, n, n)) for x in arrays]
-            for arrays in arrays_by_shard]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for r, arrays in enumerate(arrays_by_shard):
-            desc = (_build.HaloArray * n_arrays)(*(
-                _build.HaloArray(x.data_ptr(), outs[r][j].data_ptr(),
-                                 outs[r - 1][j].data_ptr() if r > 0 else None,
-                                 outs[r + 1][j].data_ptr() if r < k - 1 else None,
-                                 x.stride(0), x.shape[0], x.element_size())
-                for j, x in enumerate(arrays)))
-            err = lib.fs_halo_exchange(desc, n_arrays, lz, h, n, stream)
-            _build.check(lib, err, "halo exchange kernel launch")
-            halo_exchange_rdma.launches += 1
-    return outs
+
+    def share(r, outs):
+        arrays = arrays_by_shard[r]
+        desc = (_build.HaloArray * n_arrays)(*(
+            _build.HaloArray(x.data_ptr(), outs[r][j].data_ptr(),
+                             outs[r - 1][j].data_ptr() if r > 0 else None,
+                             outs[r + 1][j].data_ptr() if r < k - 1 else None,
+                             x.stride(0), x.shape[0], x.element_size())
+            for j, x in enumerate(arrays)))
+        err = lib.fs_halo_exchange(desc, n_arrays, lz, h, n,
+                                   torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, err, "halo exchange kernel launch")
+        halo_exchange_rdma.launches += 1
+
+    return _shards_round([arrays[0] for arrays in arrays_by_shard], share,
+                         _exchange_outputs(arrays_by_shard, lz, h, n))
 
 
 halo_exchange_rdma.launches = 0

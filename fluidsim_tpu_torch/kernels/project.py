@@ -20,7 +20,8 @@ The CUDA kernels are ``csrc/project_slab.cu`` (K7) and ``csrc/jacobi.cu``
 
 K7e is K7 on one shard of the sharded step (``parallel/step.py``): the same
 divergence and gradient on the shard's ``lz`` planes, the one plane of each
-neighbour that a stencil reads along z taken in place as a halo plane, the
+neighbour that a stencil reads along z taken in place as a halo plane (on
+the neighbour's card, through a peer pointer, on a mesh over cards), the
 global z faces only where the shard holds a global wall
 (``kernels/halo.rank_walls`` at halo 0).  Its CUDA
 entries are ``fs_divergence_ext`` and ``fs_gradient_ext`` in
@@ -238,8 +239,14 @@ def _ext_inputs(vel, p, halo, wall_lo, wall_hi):
                              f"holds no global wall on that side")
         if plane is not None:
             _check_volume(f"the halo plane {side}", plane, (n, n))
-    if any(t is not None and t.device != vel.device for t in (p, *halo)):
-        raise ValueError("the slab and its halo planes must be on one device")
+    if p is not None and p.device != vel.device:
+        raise ValueError("the slab's velocity and pressure must be on one device")
+    # A CUDA shard's kernels read a halo plane on a neighbour's card through
+    # its peer pointer (the mesh turned peer access on).
+    if any(t is not None and t.device != vel.device
+           and not (t.device.type == vel.device.type == "cuda") for t in halo):
+        raise ValueError("the slab and its halo planes must be on one device (or, on "
+                         "CUDA, on cards of one mesh)")
     if vel.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {vel.device}")
     return n, lz, wall_lo, wall_hi
@@ -258,7 +265,9 @@ def divergence_ext_kernel(vel, vz_below, vz_above, wall_lo: int, wall_hi: int):
     shard's planes ``wall_lo`` (0 or ``NO_WALL``) and ``wall_hi`` (lz − 1 or
     ``NO_WALL``): CUDA tensors launch ``fs_divergence_ext``
     (``csrc/project_slab.cu``), CPU tensors run ``divergence_ext_plain``.
-    ``divergence_ext_kernel.launches`` counts launches."""
+    ``divergence_ext_kernel.launches`` counts launches.  On CUDA a halo plane
+    may lie on a neighbour shard's card (``reads_peers``): the kernel reads
+    it through its peer pointer, on the current stream of ``vel``'s card."""
     n, lz, wall_lo, wall_hi = _ext_inputs(vel, None, (vz_below, vz_above), wall_lo, wall_hi)
     if vel.device.type == "cpu":
         return divergence_ext_plain(vel, vz_below, vz_above, wall_lo, wall_hi)
@@ -274,6 +283,7 @@ def divergence_ext_kernel(vel, vz_below, vz_above, wall_lo: int, wall_hi: int):
 
 
 divergence_ext_kernel.launches = 0
+divergence_ext_kernel.reads_peers = True
 
 
 def gradient_ext_kernel(vel, p, p_below, p_above, wall_lo: int, wall_hi: int):
@@ -284,7 +294,8 @@ def gradient_ext_kernel(vel, p, p_below, p_above, wall_lo: int, wall_hi: int):
     ``divergence_ext_kernel``'s, with its walls), into a ``(3, lz, n, n)``
     velocity: CUDA tensors launch ``fs_gradient_ext``
     (``csrc/project_slab.cu``), CPU tensors run ``gradient_ext_plain``.
-    ``gradient_ext_kernel.launches`` counts launches."""
+    ``gradient_ext_kernel.launches`` counts launches.  Its halo planes may
+    lie on a neighbour's card, as ``divergence_ext_kernel``'s."""
     n, lz, wall_lo, wall_hi = _ext_inputs(vel, p, (p_below, p_above), wall_lo, wall_hi)
     if vel.device.type == "cpu":
         return gradient_ext_plain(vel, p, p_below, p_above, wall_lo, wall_hi)
@@ -300,6 +311,7 @@ def gradient_ext_kernel(vel, p, p_below, p_above, wall_lo: int, wall_hi: int):
 
 
 gradient_ext_kernel.launches = 0
+gradient_ext_kernel.reads_peers = True
 
 
 # -- the routes --------------------------------------------------------------

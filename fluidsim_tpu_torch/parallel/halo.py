@@ -18,14 +18,19 @@ each shard's halo-extended slab from them:
 Each shard owns its halo-extended slab buffer and its own kernel launches:
 K10 (``kernels/halo.jacobi_ext_kernel``) runs the T sweeps of a round, K11
 (``kernels/halo.advect_ext_kernel``) the whole substepped advection.  Where
-the JAX package's shards run together under ``shard_map``, the port's run
-one after another from the host, each round's exchange after every shard's
-round.  An exchange is a copy onto the shard's device: a ``torch.cat`` of
-the slabs (``"pallas"``/``"ppermute"``), or on the ``"rdma"`` backend a
-kernel's stores into the neighbour shards' buffers, K13
+the JAX package's shards run together under ``shard_map``, the port's are
+issued one after another from the host onto each shard's own stream
+(``parallel/streams.ShardOrder``), where they run concurrently; a shard
+reads what another wrote only after its stream has waited on the writer's
+mark, taken before the reading phase began.  An exchange is a copy on the
+reading shard's stream: a ``torch.cat`` of the slabs
+(``"pallas"``/``"ppermute"``; across cards, each neighbour's planes copied
+first with ``ShardOrder.fetch``), or on the ``"rdma"`` backend a kernel's
+stores into the neighbour shards' buffers, K13
 (``kernels/halo.halo_exchange_rdma``) for the extended arrays and K12
 (``kernels/halo.jacobi_ext_rdma``) for a round's sweeps and its exchange
-together.
+together.  Every function here returns each shard's results complete on
+the shard's own stream.
 
 ``jacobi_shards`` and ``advect_shards`` take and return the shards' slabs
 (the sharded step's own); ``jacobi_3d_sharded`` and
@@ -48,7 +53,8 @@ import torch
 from ..kernels.halo import _mirror_ext, _nonborder_solid, ext_halo, rank_walls, slab_faces
 from ..models.step_kernels import HAND_KERNELS, StepKernels
 from ..ops.advect import advect_substep_3d, window_sum_3d
-from .sharding import Mesh, mesh_device
+from .sharding import Mesh
+from .streams import order_for, order_of
 
 # Calls of ``gathered`` by op name: the ops that still assemble a whole
 # volume inside a sharded step.
@@ -61,10 +67,11 @@ def halo_exchange_z(x_locals: Sequence[torch.Tensor], depth: int = 1,
     slabs, in rank order): ``below`` holds the last ``depth`` z-planes of the
     shard below (zeros at the global bottom), ``above`` the first ``depth``
     planes of the shard above (zeros at the global top), each on its
-    shard's device.  ``axis`` is the position of the sharded z axis (0 for a
-    plain ``(lz, N, N)`` field, 1 for channel-stacked ``(C, lz, N, N)``
-    fields, whose channels are exchanged together).  The slabs are views of
-    the neighbours' planes where the devices agree.
+    shard's device and ready on its stream.  ``axis`` is the position of
+    the sharded z axis (0 for a plain ``(lz, N, N)`` field, 1 for
+    channel-stacked ``(C, lz, N, N)`` fields, whose channels are exchanged
+    together).  The slabs are views of the neighbours' planes where the
+    devices agree.
 
     ``depth`` must not exceed the local slab depth: a shard owns only ``lz``
     planes."""
@@ -72,65 +79,95 @@ def halo_exchange_z(x_locals: Sequence[torch.Tensor], depth: int = 1,
     if depth > lz:
         raise ValueError(f"halo depth={depth} exceeds the local slab depth {lz}")
     k = len(x_locals)
+    order = order_of(x_locals)
     out = []
-    for r, x in enumerate(x_locals):
-        if r > 0:
-            below = x_locals[r - 1].narrow(axis, lz - depth, depth).to(x.device)
-        else:
-            below = torch.zeros_like(x.narrow(axis, 0, depth))
-        if r < k - 1:
-            above = x_locals[r + 1].narrow(axis, 0, depth).to(x.device)
-        else:
-            above = torch.zeros_like(x.narrow(axis, 0, depth))
-        out.append((below, above))
+    with order.scope():
+        marks = order.marks()
+        for r, x in enumerate(x_locals):
+            with order.on(r):
+                order.wait(r, marks, r - 1, r + 1)
+                if r > 0:
+                    below = order.fetch(x_locals[r - 1].narrow(axis, lz - depth, depth), r)
+                else:
+                    below = torch.zeros_like(x.narrow(axis, 0, depth))
+                if r < k - 1:
+                    above = order.fetch(x_locals[r + 1].narrow(axis, 0, depth), r)
+                else:
+                    above = torch.zeros_like(x.narrow(axis, 0, depth))
+            out.append((below, above))
     return out
 
 
-def neighbour_planes(xs: Sequence[torch.Tensor]) -> List[Tuple]:
+def neighbour_planes(xs: Sequence[torch.Tensor], in_place: bool = True) -> List[Tuple]:
     """The one-plane halos of the shards' ``(lz, N, N)`` slabs ``xs`` that
-    K7e reads in place: ``(below, above)`` for each shard, the last plane of
-    the shard below and the first of the shard above, None past the global
-    ends.  Each is a view of the neighbour's storage, copied onto the
-    shard's device only where that differs: no slab is assembled."""
+    K7e reads: ``(below, above)`` for each shard, the last plane of the
+    shard below and the first of the shard above, None past the global
+    ends, each shard's stream having waited on its neighbours' marks.  With
+    ``in_place`` each is a view of the neighbour's storage, on the
+    neighbour's device (K7e's kernels read it through a peer pointer across
+    cards); else it is on the shard's device (a copy only where that
+    differs, for the plain twins).  No slab is assembled."""
     k = len(xs)
-    return [(xs[r - 1][-1].to(x.device) if r > 0 else None,
-             xs[r + 1][0].to(x.device) if r < k - 1 else None) for r, x in enumerate(xs)]
+    order = order_of(xs)
+    out = []
+    with order.scope():
+        marks = order.marks()
+        for r in range(k):
+            order.wait(r, marks, r - 1, r + 1)
+            planes = (xs[r - 1][-1] if r > 0 else None, xs[r + 1][0] if r < k - 1 else None)
+            if in_place:
+                for plane in planes:
+                    order.hold(plane, r)
+                out.append(planes)
+            else:
+                with order.on(r):
+                    out.append(tuple(None if p is None else order.fetch(p, r) for p in planes))
+    return out
 
 
 def _split(x, mesh: Mesh, axis_name: str, axis: int = 0) -> List[torch.Tensor]:
-    """The shards' local slabs of the global ``x``: views, ``lz`` planes each
-    along ``axis``."""
+    """The shards' local slabs of the global ``x``: ``lz`` planes each along
+    ``axis``, on the shards' devices (views where ``x`` is already there),
+    moved on the caller's streams, which the shards' scope waits on."""
     k = mesh.shape[axis_name]
     if x.shape[axis] % k:
         raise ValueError(f"z extent {x.shape[axis]} not divisible by {k} shards")
-    return list(torch.chunk(x, k, dim=axis))
+    return [c.to(d) for c, d in zip(torch.chunk(x, k, dim=axis), mesh.devices)]
+
+
+def _join(xs: Sequence[torch.Tensor], device, axis: int = 0) -> torch.Tensor:
+    """The shards' slabs joined along ``axis`` on ``device`` (after the
+    shards' scope: on the caller's streams)."""
+    return torch.cat([x.to(device) for x in xs], dim=axis)
 
 
 def extend(xs: Sequence[torch.Tensor], depth: int, axis: int = 0) -> List[torch.Tensor]:
     """Each shard's slab of ``xs`` between ``depth`` planes of the shards
     below and above it along ``axis`` (from as many shards as ``depth``
     spans; zeros past the global ends), a fresh buffer on the shard's
-    device."""
+    device, built on its stream after it waited on every shard it reads."""
     lz = xs[0].shape[axis]
-    if depth <= lz:
-        return [torch.cat([below, x, above], dim=axis)
-                for x, (below, above) in zip(xs, halo_exchange_z(xs, depth, axis))]
     k = len(xs)
+    order = order_of(xs)
     out = []
-    for r, x in enumerate(xs):
-        parts, z, hi = [], r * lz - depth, (r + 1) * lz + depth
-        while z < hi:
-            s = z // lz
-            if 0 <= s < k:
-                end = min(hi, (s + 1) * lz)
-                parts.append(xs[s].narrow(axis, z - s * lz, end - z).to(x.device))
-            else:
-                end = min(hi, 0) if s < 0 else hi
-                shape = list(x.shape)
-                shape[axis] = end - z
-                parts.append(x.new_zeros(shape))
-            z = end
-        out.append(torch.cat(parts, dim=axis))
+    with order.scope():
+        marks = order.marks()
+        for r, x in enumerate(xs):
+            with order.on(r):
+                parts, z, hi = [], r * lz - depth, (r + 1) * lz + depth
+                while z < hi:
+                    s = z // lz
+                    if 0 <= s < k:
+                        end = min(hi, (s + 1) * lz)
+                        order.wait(r, marks, s)
+                        parts.append(order.fetch(xs[s].narrow(axis, z - s * lz, end - z), r))
+                    else:
+                        end = min(hi, 0) if s < 0 else hi
+                        shape = list(x.shape)
+                        shape[axis] = end - z
+                        parts.append(x.new_zeros(shape))
+                    z = end
+                out.append(torch.cat(parts, dim=axis))
     return out
 
 
@@ -208,13 +245,12 @@ def jacobi_3d_sharded(x, x0, a: float, c: float, iters: int, mesh: Mesh,
             "jacobi_3d_sharded: obst requires b == 0 (the scalar set_bnd "
             "contract; velocity components need the obstacle mirror, which this "
             "solver does not implement)")
-    device = mesh_device(mesh)
-    for name, t in (("x", x), ("x0", x0)) + ((("obst", obst),) if obst is not None else ()):
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, the mesh on {device}")
+    for name, t in (("x0", x0),) + ((("obst", obst),) if obst is not None else ()):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     masks = None if obst is None else _split(obst.to(torch.bool), mesh, axis_name)
-    return torch.cat(jacobi_shards(_split(x, mesh, axis_name), _split(x0, mesh, axis_name),
-                                   a, c, iters, b, block_iters, backend, masks, kernels))
+    return _join(jacobi_shards(_split(x, mesh, axis_name), _split(x0, mesh, axis_name),
+                               a, c, iters, b, block_iters, backend, masks, kernels), x.device)
 
 
 def jacobi_shards(xs, x0s, a: float, c: float, iters: int, b: int = 0,
@@ -255,7 +291,7 @@ def jacobi_shards(xs, x0s, a: float, c: float, iters: int, b: int = 0,
     if mirrored and (backend != "xla" or T != 1):
         raise ValueError("the obstacle mirror of a velocity component (b != 0 with a mask) "
                          "runs the plain sweeps only: backend='xla', block_iters=1")
-    k, lz = len(xs), xs[0].shape[0]
+    lz = xs[0].shape[0]
     if T > lz:
         raise ValueError(f"block_iters={T} exceeds the local slab depth {lz}")
     if backend in ("pallas", "rdma") and T < 2:
@@ -266,45 +302,64 @@ def jacobi_shards(xs, x0s, a: float, c: float, iters: int, b: int = 0,
         _shard_devices(name, ts, [x.device for x in xs])
     use_kernel = backend == "pallas" or (backend == "auto" and T >= 2
                                          and xs[0].device.type == "cuda")
-    masks = None if obsts is None else [m.to(torch.bool) for m in obsts]
+    order = order_of(xs)
+    with order.scope():
+        masks = None if obsts is None else order.each(lambda r: obsts[r].to(torch.bool))
+        if backend == "rdma":
+            return _jacobi_rdma(order, xs, x0s, a, c, iters, b, T, masks, kernels)
+        if mirrored:
+            return _sweeps_mirrored(order, b, xs, x0s, a, c, iters, masks)
+        return _jacobi_rounds(order, xs, x0s, a, c, iters, b, T, masks, use_kernel, kernels)
 
-    if backend == "rdma":
-        return _jacobi_rdma(xs, x0s, a, c, iters, b, T, masks, kernels)
-    if mirrored:
-        return _sweeps_mirrored(b, xs, x0s, a, c, iters, masks)
+
+def _jacobi_rounds(order, xs, x0s, a, c, iters, b, T, masks, use_kernel, kernels):
+    """``jacobi_shards`` on the plain sweeps or K10: ``iters / T`` rounds on
+    each shard's T-deep extended slab, the halos exchanged between rounds."""
+    k, lz = len(xs), xs[0].shape[0]
     x0_ext = extend(x0s, T)
     obst_ext = None if masks is None else extend(masks, T)
     mask = (lambda r: None) if obst_ext is None else (lambda r: obst_ext[r])
     rounds = iters // T
 
     if not use_kernel:
-        c_ts = [torch.tensor(c, dtype=torch.float32, device=x.device) for x in xs]
+        c_ts = order.each(lambda r: torch.tensor(c, dtype=torch.float32,
+                                                        device=xs[r].device))
         locals_ = list(xs)
         for _ in range(rounds):
             exts = extend(locals_, T)
             for r in range(k):
-                for _ in range(T):
-                    exts[r] = _ext_sweep(b, exts[r], x0_ext[r], a, c_ts[r], r, k, T, lz,
-                                         mask(r))
+                with order.on(r):
+                    for _ in range(T):
+                        exts[r] = _ext_sweep(b, exts[r], x0_ext[r], a, c_ts[r], r, k, T, lz,
+                                             mask(r))
             locals_ = [e[T:T + lz] for e in exts]
         return locals_
 
     kernel = kernels.jacobi_ext
-    exts = extend([_ext_faces(b, x_r, r, k, 0, lz) for r, x_r in enumerate(xs)], T)
+    exts = extend(order.each(lambda r: _ext_faces(b, xs[r], r, k, 0, lz)), T)
     for rnd in range(rounds):
-        exts = [kernel(exts[r], x0_ext[r], a, c, T, *rank_walls(r, k, T, lz), b, mask(r))
-                for r in range(k)]
+        exts = order.each(lambda r: kernel(exts[r], x0_ext[r], a, c, T,
+                                                  *rank_walls(r, k, T, lz), b, mask(r)))
         if rnd + 1 < rounds:
-            # Only the 2T halo planes are refreshed; the exchange reads the
-            # shards' valid planes, which no shard's refresh writes.
-            pairs = halo_exchange_z([e[T:T + lz] for e in exts], T)
-            for e, (below, above) in zip(exts, pairs):
-                e[:T].copy_(below)
-                e[T + lz:].copy_(above)
+            # Only the 2T halo planes are refreshed, each on its shard's
+            # stream after the neighbours' rounds; the refresh reads the
+            # neighbours' valid planes, which no shard's refresh writes.
+            marks = order.marks()
+            for r, e in enumerate(exts):
+                with order.on(r):
+                    order.wait(r, marks, r - 1, r + 1)
+                    if r > 0:
+                        e[:T].copy_(order.fetch(exts[r - 1][lz:lz + T], r))
+                    else:
+                        e[:T].zero_()
+                    if r < k - 1:
+                        e[T + lz:].copy_(order.fetch(exts[r + 1][T:2 * T], r))
+                    else:
+                        e[T + lz:].zero_()
     return [e[T:T + lz] for e in exts]
 
 
-def _sweeps_mirrored(b, xs, x0s, a, c, iters, masks):
+def _sweeps_mirrored(order, b, xs, x0s, a, c, iters, masks):
     """The plain sweeps with the obstacle mirror of velocity code ``b``
     (``ops/linsolve.jacobi_3d``'s ``set_bnd_3d(b, ·, obst)``) on each shard:
     a two-plane exchange a sweep, the update and the faces on the extended
@@ -313,28 +368,31 @@ def _sweeps_mirrored(b, xs, x0s, a, c, iters, masks):
     k, lz, n = len(xs), xs[0].shape[0], xs[0].shape[-1]
     x0_ext = extend(x0s, 2)
     m_ext = extend(masks, 2)
-    writes = [_nonborder_solid(m, n, r * lz - 2) for r, m in enumerate(m_ext)]
-    c_ts = [torch.tensor(c, dtype=torch.float32, device=x.device) for x in xs]
+    writes = order.each(lambda r: _nonborder_solid(m_ext[r], n, r * lz - 2))
+    c_ts = order.each(lambda r: torch.tensor(c, dtype=torch.float32,
+                                                    device=xs[r].device))
     for _ in range(iters):
         exts = extend(xs, 2)
-        xs = [_mirror_ext(_ext_sweep(b, exts[r], x0_ext[r], a, c_ts[r], r, k, 2, lz, m_ext[r]),
-                          m_ext[r], writes[r], 3 - b)[2:2 + lz] for r in range(k)]
+        xs = order.each(lambda r: _mirror_ext(
+            _ext_sweep(b, exts[r], x0_ext[r], a, c_ts[r], r, k, 2, lz, m_ext[r]),
+            m_ext[r], writes[r], 3 - b)[2:2 + lz])
     return xs
 
 
-def _jacobi_rdma(xs, x0s, a, c, iters, b, T, masks, kernels):
+def _jacobi_rdma(order, xs, x0s, a, c, iters, b, T, masks, kernels):
     """The ``"rdma"`` backend of ``jacobi_shards`` (JAX
     ``parallel/halo.py:390-424``): the input's faces normalised per shard,
     one exchange that primes x, x0 and the mask together, ``iters / T``
     rounds of K12, the local planes."""
     k, lz = len(xs), xs[0].shape[0]
-    prime = []
-    for r, x_r in enumerate(xs):
-        arrays = [_ext_faces(b, x_r, r, k, 0, lz)[None], x0s[r][None]]
+
+    def prime(r):
+        arrays = [_ext_faces(b, xs[r], r, k, 0, lz)[None], x0s[r][None]]
         if masks is not None:
             arrays.append(masks[r][None])
-        prime.append(arrays)
-    exts = kernels.halo_exchange_rdma(prime, T)
+        return arrays
+
+    exts = kernels.halo_exchange_rdma(order.each(prime), T)
     xps = [e[0][0] for e in exts]
     x0_exts = [e[1][0] for e in exts]
     obst_exts = None if masks is None else [e[2][0] for e in exts]
@@ -350,19 +408,18 @@ def advect_multi_3d_sharded(bs, fields, vel, dt: float, mesh: Mesh, axis_name: s
     and per-shard K11 on global tensors: ``fields`` ``(F, N, N, N)`` (F = 1
     or 3) and ``vel`` ``(3, N, N, N)`` of one dtype, float32 or bfloat16, and
     the bool mask ``obst``; the result is the global advected ``(F, N, N,
-    N)``, equal to ``ops.advect.advect_substep_3d`` through K1 on the whole
-    grid: ``advect_shards`` on the split tensors, joined.  Self-advection is
-    ``fields is vel`` with ``bs == (1, 2, 3)``."""
-    device = mesh_device(mesh)
-    for name, t in (("fields", fields), ("vel", vel)) + (
-            (("obst", obst),) if obst is not None else ()):
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, the mesh on {device}")
+    N)`` on ``fields``' device, equal to ``ops.advect.advect_substep_3d``
+    through K1 on the whole grid: ``advect_shards`` on the tensors split
+    onto the shards' devices, joined.  Self-advection is ``fields is vel``
+    with ``bs == (1, 2, 3)``."""
+    for name, t in (("vel", vel),) + ((("obst", obst),) if obst is not None else ()):
+        if t.device != fields.device:
+            raise ValueError(f"{name} is on {t.device}, fields on {fields.device}")
     vs = _split(vel, mesh, axis_name, 1)
     fs = vs if fields is vel else _split(fields, mesh, axis_name, 1)
     masks = None if obst is None else _split(obst.to(torch.bool), mesh, axis_name)
-    return torch.cat(advect_shards(bs, fs, vs, dt, fields.shape[-1], window, n_sub, transport,
-                                   masks, kernels), dim=1)
+    return _join(advect_shards(bs, fs, vs, dt, fields.shape[-1], window, n_sub, transport,
+                               masks, kernels), fields.device, 1)
 
 
 def advect_shards(bs, fields, vel, dt: float, n: int, window: int = 1, n_sub: int = 1,
@@ -397,34 +454,38 @@ def advect_shards(bs, fields, vel, dt: float, n: int, window: int = 1, n_sub: in
     for name, ts in (("vel", vel),) + ((("obsts", obsts),) if has_obst else ()):
         _shard_devices(name, ts, devices)
     self_adv = fields is vel and tuple(bs) == (1, 2, 3) and fields[0].shape[0] == 3
-    masks = None if not has_obst else [m.to(torch.bool) for m in obsts]
+    order = order_of(fields)
+    with order.scope():
+        masks = None if not has_obst else order.each(lambda r: obsts[r].to(torch.bool))
 
-    def exchanged(xs, axis):
-        """Each shard's extended slab, built when its turn comes (so one
-        shard's buffers live at a time): the exchange hands out views."""
-        pairs = halo_exchange_z(xs, h, axis)
-        return lambda r: torch.cat([pairs[r][0], xs[r], pairs[r][1]], dim=axis)
+        def exchanged(xs, axis):
+            """Each shard's extended slab, built on its stream when its turn
+            comes: the exchange hands out views."""
+            pairs = halo_exchange_z(xs, h, axis)
+            return lambda r: torch.cat([pairs[r][0], xs[r], pairs[r][1]], dim=axis)
 
-    if transport == "rdma":
-        arrays = [[v] if self_adv else [f, v] for f, v in zip(fields, vel)]
-        if has_obst:
-            for arrays_r, m in zip(arrays, masks):
-                arrays_r.append(m[None])
-        exts = kernels.halo_exchange_rdma(arrays, h)
-        v_ext = (lambda r: exts[r][0]) if self_adv else (lambda r: exts[r][1])
-        f_ext = None if self_adv else (lambda r: exts[r][0])
-        m_ext = None if not has_obst else (lambda r: exts[r][-1][0])
-    else:
-        v_ext = exchanged(vel, 1)
-        f_ext = None if self_adv else exchanged(fields, 1)
-        m_ext = None if not has_obst else exchanged(masks, 0)
-    out = []
-    for r in range(k):
-        v = v_ext(r)
-        res = kernels.advect_ext(tuple(bs), v if self_adv else f_ext(r), v, n, dt, r * lz - h,
-                                 window, n_sub, None if m_ext is None else m_ext(r))
-        out.append(res[:, h:h + lz])
-    return out
+        if transport == "rdma":
+            arrays = [[v] if self_adv else [f, v] for f, v in zip(fields, vel)]
+            if has_obst:
+                for arrays_r, m in zip(arrays, masks):
+                    arrays_r.append(m[None])
+            exts = kernels.halo_exchange_rdma(arrays, h)
+            v_ext = (lambda r: exts[r][0]) if self_adv else (lambda r: exts[r][1])
+            f_ext = None if self_adv else (lambda r: exts[r][0])
+            m_ext = None if not has_obst else (lambda r: exts[r][-1][0])
+        else:
+            v_ext = exchanged(vel, 1)
+            f_ext = None if self_adv else exchanged(fields, 1)
+            m_ext = None if not has_obst else exchanged(masks, 0)
+
+        def one(r):
+            v = v_ext(r)
+            res = kernels.advect_ext(tuple(bs), v if self_adv else f_ext(r), v, n, dt,
+                                     r * lz - h, window, n_sub,
+                                     None if m_ext is None else m_ext(r))
+            return res[:, h:h + lz]
+
+        return order.each(one)
 
 
 def _contract_slab(b: int, val, obst_ext, n: int, z_offset: int, writes):
@@ -470,23 +531,27 @@ def advect_shards_plain(bs, fields, vel, dt: float, n: int, scheme: str, window:
     k, lz = len(fields), fields[0].shape[1]
     masked = obsts is not None
     h = ext_halo(window, n_sub if scheme == "substep" else 1, masked)
-    v_ext = extend(vel, h, 1)
-    f_ext = v_ext if fields is vel else extend(fields, h, 1)
-    m_ext = [None] * k if not masked else extend([m.to(torch.bool) for m in obsts], h)
-    out = []
-    for r in range(k):
-        z_off = r * lz - h
+    order = order_of(fields)
+    with order.scope():
+        v_ext = extend(vel, h, 1)
+        f_ext = v_ext if fields is vel else extend(fields, h, 1)
+        m_ext = [None] * k if not masked else extend(
+            order.each(lambda r: obsts[r].to(torch.bool)), h)
 
-        def one(b_, f_, v_, d_, m=m_ext[r], z_off=z_off):
-            return advect_slab(b_, f_, v_, d_, n, z_off, m, window)
+        def shard(r):
+            z_off = r * lz - h
 
-        if scheme == "substep":
-            res = advect_substep_3d(bs, f_ext[r], v_ext[r], dt, None, window, n_sub,
-                                    advect_fn=one)
-        else:
-            res = one(bs, f_ext[r], v_ext[r], dt)
-        out.append(res[:, h:h + lz])
-    return out
+            def one(b_, f_, v_, d_):
+                return advect_slab(b_, f_, v_, d_, n, z_off, m_ext[r], window)
+
+            if scheme == "substep":
+                res = advect_substep_3d(bs, f_ext[r], v_ext[r], dt, None, window, n_sub,
+                                        advect_fn=one)
+            else:
+                res = one(bs, f_ext[r], v_ext[r], dt)
+            return res[:, h:h + lz]
+
+        return order.each(shard)
 
 
 def gathered(name: str, fn, shards, axes, out_axes, devices) -> List[Tuple[torch.Tensor, ...]]:
@@ -495,18 +560,33 @@ def gathered(name: str, fn, shards, axes, out_axes, devices) -> List[Tuple[torch
     holds for each argument of ``fn`` the shards' slabs (or None, passed
     through), ``axes`` each argument's z axis; ``fn`` returns a tuple of
     global tensors whose z axes are ``out_axes``.  The op runs once on each
-    distinct device of ``devices`` (the mesh's), on the inputs gathered
-    there; each shard's planes are copied out, so no shard keeps a view of
-    the whole volume.  Counted in ``gathered_ops[name]``."""
+    distinct device of ``devices`` (the mesh's), on the stream of the first
+    shard there, after it waited on every shard, on the inputs gathered
+    there; each shard's planes are copied out on its own stream, so no
+    shard keeps a view of the whole volume.  Counted in
+    ``gathered_ops[name]``."""
     gathered_ops[name] += 1
     k = len(devices)
-    results = {}
-    out = []
+    order = order_for(devices)
+    first = {}
     for r, dev in enumerate(devices):
-        if dev not in results:
-            args = [None if part is None else torch.cat([x.to(dev) for x in part], dim=ax)
-                    for part, ax in zip(shards, axes)]
-            results[dev] = fn(*args)
-        out.append(tuple(o.narrow(ax, r * (o.shape[ax] // k), o.shape[ax] // k).clone()
-                         for o, ax in zip(results[dev], out_axes)))
+        first.setdefault(dev, r)
+    results = {}
+    with order.scope():
+        marks = order.marks()
+        for dev, r0 in first.items():
+            with order.on(r0):
+                order.wait(r0, marks, *range(k))
+                args = [None if part is None else
+                        torch.cat([order.fetch(x, r0) for x in part], dim=ax)
+                        for part, ax in zip(shards, axes)]
+                results[dev] = fn(*args)
+        marks = order.marks()
+        out = []
+        for r, dev in enumerate(devices):
+            with order.on(r):
+                order.wait(r, marks, first[dev])
+                out.append(tuple(order.fetch(o, r).narrow(ax, r * (o.shape[ax] // k),
+                                                          o.shape[ax] // k).clone()
+                                 for o, ax in zip(results[dev], out_axes)))
     return out

@@ -25,13 +25,18 @@ counts).  Two strategies, as in the JAX package:
   projection's divergence and gradient are K7e on each shard's extended
   slab.
 
-A mesh here is a list of devices, one per shard, which may repeat:
-``make_mesh(["cuda"] * 8)`` is eight shards on one card, each with its own
-slab buffers and kernel launches, the programs a multi-card mesh runs.
-Every entry of a mesh must still be the same device (``mesh_device``): a
-mesh over distinct cards needs K12 and K13 given peer pointers to the
-neighbours' buffers, a cross-device event a round and a stream per device,
-the multi-card slice.
+A mesh here is a list of devices, one per shard in rank order, which may
+repeat and may name distinct cards: ``make_mesh(["cuda"] * 8)`` is eight
+shards on one card, ``["cuda:0"] * 4 + ["cuda:1"] * 4`` eight over two cards
+(``cli.mesh_devices`` maps N shards onto the visible cards so).  Each shard
+owns its slab buffers, its kernel launches and, on CUDA, a stream of its own
+on its card (eight shards on one card get eight streams); events between
+the shards' streams (``parallel/streams.ShardOrder``) order every read or
+store across shards.  Neighbouring shards on distinct cards reach each
+other's buffers through peer pointers (K12 and K13 store their halo planes
+into the neighbours' buffers, K7e reads the neighbours' edge planes in
+place): ``make_mesh`` turns peer access on, and raises for a pair of cards
+that cannot reach each other.
 """
 
 from __future__ import annotations
@@ -44,15 +49,15 @@ import torch
 from ..config import SimConfig
 from ..models.step_kernels import HAND_KERNELS, StepKernels
 from ..state import FluidState
-
-MULTI_CARD = ("the multi-card slice (distinct devices per shard: peer pointers into "
-              "K12/K13, a cross-device event a round, a stream per device)")
+from .streams import order_for
 
 
 class Mesh:
     """A 1-D mesh of shards: ``devices`` (one ``torch.device`` per shard, in
-    rank order), ``axis_names`` and ``shape`` (``{axis_name: shards}``), read
-    as the JAX ``Mesh``'s are."""
+    rank order, all of one type), ``axis_names`` and ``shape``
+    (``{axis_name: shards}``), read as the JAX ``Mesh``'s are; ``order``,
+    the shards' ``parallel/streams.ShardOrder``, and ``streams``, its
+    ``torch.cuda.Stream`` a shard on CUDA (None on the CPU)."""
 
     def __init__(self, devices: Sequence, axis_names=("z",)):
         if len(devices) < 1:
@@ -60,6 +65,8 @@ class Mesh:
         self.devices = tuple(_device(d) for d in devices)
         self.axis_names = tuple(axis_names)
         self.shape = {self.axis_names[0]: len(self.devices)}
+        self.order = order_for(self.devices)
+        self.streams = self.order.streams
 
     def __repr__(self) -> str:
         return f"Mesh({[str(d) for d in self.devices]}, {self.axis_names})"
@@ -75,38 +82,27 @@ def _device(d) -> torch.device:
     return d
 
 
-def mesh_device(mesh: Mesh) -> torch.device:
-    """The one device every entry of ``mesh`` names; raises for a mesh over
-    distinct devices."""
-    devices = set(mesh.devices)
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"a mesh over distinct devices ({sorted(str(d) for d in devices)}) is not "
-            f"ported: every entry of a mesh must be one device until {MULTI_CARD}")
-    return mesh.devices[0]
-
-
 def make_mesh(devices: Optional[Sequence] = None, axis_name: str = "z") -> Mesh:
     """1-D mesh for slab decomposition.  ``devices`` defaults to every
     visible CUDA device (raises without one: there is no CPU default).
-    Entries may repeat: ``make_mesh(["cuda"] * 8)`` is eight shards on one
-    card, ``make_mesh(["cpu"] * 4)`` four on the CPU.  Every entry must be
-    the same device (``mesh_device``)."""
+    Entries may repeat and may name distinct cards, in rank order:
+    ``make_mesh(["cuda"] * 8)`` is eight shards on one card,
+    ``make_mesh([f"cuda:{i}" for i in range(8)])`` one a card,
+    ``make_mesh(["cpu"] * 4)`` four on the CPU.  A mesh that mixes device
+    types raises; so does one where two neighbouring cards cannot reach each
+    other's memory (peer access is turned on for every such pair)."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: name the mesh's devices, "
                                "e.g. make_mesh(['cpu'] * 4)")
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    mesh = Mesh(devices, (axis_name,))
-    mesh_device(mesh)
-    return mesh
+    return Mesh(devices, (axis_name,))
 
 
 def state_sharding(mesh: Mesh, axis_name: str = "z") -> FluidState:
     """For each ``FluidState`` leaf, the axis it is split along z: 0 for the
     ``[z, y, x]`` fields and the mask, 1 for the ``(3, z, y, x)`` velocity,
     None for the scalars."""
-    mesh_device(mesh)
     return FluidState(density=0, velocity=1, pressure=0, obstacles=0, step=None, time=None)
 
 
@@ -150,8 +146,8 @@ def shard_state(state: FluidState, mesh: Mesh, axis_name: str = "z") -> ShardedS
     """Place an (unsharded) state onto the mesh: the z extent must split into
     the mesh's shards; shard r's slab, copied onto ``mesh.devices[r]``, holds
     planes ``[r·lz, (r+1)·lz)`` and its mask one plane of each neighbour's
-    (the mask is static: this is its one exchange)."""
-    mesh_device(mesh)
+    (the mask is static: this is its one exchange).  The copies run on the
+    caller's current streams, which a step's shards wait on."""
     k = mesh.shape[axis_name]
     n = state.density.shape[0]
     if n % k:
@@ -175,8 +171,10 @@ def shard_state(state: FluidState, mesh: Mesh, axis_name: str = "z") -> ShardedS
 
 
 def unshard_state(sharded: ShardedState) -> FluidState:
-    """The global ``FluidState`` of a sharded state, on the first shard's
-    device (for checkpoints, renders and tests)."""
+    """The global ``FluidState`` of a sharded state, gathered onto the first
+    shard's device (``mesh.devices[0]``; for checkpoints, renders and tests),
+    on the caller's current streams, which a step's exit orders after its
+    shards."""
     slabs = sharded.slabs
     dev = slabs[0].density.device
     return FluidState(
@@ -241,7 +239,7 @@ def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z", n_substeps
             "communication-avoiding schedule")
     if halo_backend not in ("auto", "xla", "pallas", "rdma"):
         raise ValueError(f"halo_backend must be auto/xla/pallas/rdma, got {halo_backend!r}")
-    device = mesh_device(mesh)
+    device = mesh.devices[0]
     k = mesh.shape[axis_name]
     if halo == "explicit" and cfg.pressure_solver == "fft":
         raise ValueError(
@@ -282,8 +280,9 @@ def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z", n_substeps
             if s.density.device != dev:
                 raise ValueError(f"slab {r} is on {s.density.device}, its shard on {dev}: "
                                  "place the state with shard_state")
-        for _ in range(n_substeps):
-            state = one(state)
+        with mesh.order.scope():
+            for _ in range(n_substeps):
+                state = one(state)
         return state
 
     return step
@@ -322,6 +321,10 @@ def _one_shard_step(cfg, mesh, with_source, halo, halo_block_iters, halo_backend
     resident = resident_route(cfg.current_size, cfg.solve_dtype, device)
 
     def one(state: ShardedState) -> ShardedState:
+        with mesh.order.on(0):
+            return on_the_shard(state)
+
+    def on_the_shard(state: ShardedState) -> ShardedState:
         slab = state.slabs[0]
         glob = FluidState(density=slab.density, velocity=slab.velocity,
                           pressure=slab.pressure, obstacles=slab.obstacles[1:-1],

@@ -32,6 +32,12 @@ gather of window 0 (its backtrace has no bound) and the FFT projection run
 through ``parallel/halo.gathered``, the one route that assembles a whole
 volume, counted in ``gathered_ops``.
 
+Every op of a shard runs on the shard's own stream and card
+(``parallel/streams.ShardOrder``, the mesh's ``order``): the pointwise ops
+under ``order.each``, the stencils through ``parallel/halo.py``, whose
+cross-shard reads wait on the writers' marks.  The shards' ops run
+concurrently, in the order of ``simulate_step_3d`` on each shard.
+
 Every op is bitwise the whole-volume op on the shard's planes, so the step
 is bitwise the unsharded composition with the same solve and advection.
 """
@@ -76,6 +82,7 @@ class ShardStep:
                  backend: str, advect_kernel: bool, kernels: StepKernels):
         self.cfg = cfg
         self.devices = mesh.devices
+        self.order = mesh.order
         self.k = len(mesh.devices)
         self.n = cfg.current_size
         self.lz = self.n // self.k
@@ -102,18 +109,18 @@ class ShardStep:
 
     def vorticity(self, vel, z0s, dt: float):
         ext = self._exchange(vel, 2, 1)
-        return [vorticity_confinement_slab(v, dt, self.cfg.vorticity_confinement, z0, self.n)
-                for v, z0 in zip(ext, z0s)]
+        return self.order.each(lambda r: vorticity_confinement_slab(
+            ext[r], dt, self.cfg.vorticity_confinement, z0s[r], self.n))
 
     def diffuse(self, b: int, xs, diff: float, dt: float, masks):
         """``ops/linsolve.diffuse_3d`` per shard: the plain sweeps (a division
         by ``c``) one plane a sweep, in float32, rounded back."""
         a, c = diffusion_coefficients(self.n, diff, dt)
         in_dtype = xs[0].dtype
-        xf = [x.to(torch.float32) for x in xs]
+        xf = self.order.each(lambda r: xs[r].to(torch.float32))
         out = jacobi_shards(xf, xf, a, c, self.cfg.jacobi_iters, b=b, backend="xla",
                             obsts=None if masks is None else [m[1:-1] for m in masks])
-        return [x.to(in_dtype) for x in out]
+        return self.order.each(lambda r: out[r].to(in_dtype))
 
     def project(self, vel, masks, pre: bool = False):
         """The projection per shard: the divergence with the z component's
@@ -127,11 +134,14 @@ class ShardStep:
         k7e = self.use_kernels and masks is None and not pre
         # K7e takes K11's kept planes as they are, a view with a component
         # stride of its own.
-        velf = [v.to(torch.float32) for v in vel]
+        velf = self.order.each(lambda r: vel[r].to(torch.float32))
         divergence = self.kernels.divergence_ext if k7e else divergence_ext_plain
-        div = [divergence(v, lo, hi, *w) for v, (lo, hi), w in
-               zip(velf, neighbour_planes([v[2] for v in velf]), self.walls)]
-        zeros = [torch.zeros_like(d) for d in div]
+        # The kernels read a neighbour's plane in place, across cards too; the
+        # twins take it on the shard's card.
+        in_place = getattr(divergence, "reads_peers", False)
+        vz = neighbour_planes([v[2] for v in velf], in_place)
+        div = self.order.each(lambda r: divergence(velf[r], *vz[r], *self.walls[r]))
+        zeros = self.order.each(lambda r: torch.zeros_like(div[r]))
         local_masks = None if masks is None else [m[1:-1] for m in masks]
         if self.explicit and not pre:
             p = jacobi_shards(zeros, div, 1.0, 6.0, cfg.jacobi_iters, 0, self.block_iters,
@@ -141,17 +151,18 @@ class ShardStep:
                               obsts=local_masks)
         if masks is None:
             gradient = self.kernels.gradient_ext if k7e else gradient_ext_plain
-            out = [gradient(v, q, lo, hi, *w)
-                   for v, q, (lo, hi), w in zip(velf, p, neighbour_planes(p), self.walls)]
+            ph = neighbour_planes(p, getattr(gradient, "reads_peers", False))
+            out = self.order.each(lambda r: gradient(velf[r], p[r], *ph[r], *self.walls[r]))
         else:
             # The mirror along z reads the neighbours' post-face planes: the
             # step and the faces on one plane more each side.
             vel_ext = self._exchange(velf, 1, 1)
             p_ext = self._exchange(p, 2, 0)
-            out = [gradient_slab(v, q, lo, hi, m, r * self.lz - 1)[:, 1:-1]
-                   for r, (v, q, m, (lo, hi)) in enumerate(zip(vel_ext, p_ext, masks,
-                                                                self.ext_walls))]
-        return [v.to(in_dtype) for v in out], [q.to(in_dtype) for q in p]
+            out = self.order.each(lambda r: gradient_slab(
+                vel_ext[r], p_ext[r], *self.ext_walls[r], masks[r],
+                r * self.lz - 1)[:, 1:-1])
+        return (self.order.each(lambda r: out[r].to(in_dtype)),
+                self.order.each(lambda r: p[r].to(in_dtype)))
 
     def project_fft(self, vel):
         res = gathered("fft", lambda v: project_3d_fft(v), [vel], (1,), (1, 0), self.devices)
@@ -189,6 +200,10 @@ class ShardStep:
     # -- the step ------------------------------------------------------------
 
     def __call__(self, state):
+        with self.order.scope():
+            return self._step(state)
+
+    def _step(self, state):
         cfg = self.cfg
         dt, diff, visc = cfg.effective_params()
         slabs = state.slabs
@@ -196,20 +211,21 @@ class ShardStep:
         dens = [s.density for s in slabs]
         vel = [s.velocity for s in slabs]
         masks = [s.obstacles for s in slabs] if cfg.enable_obstacle else None
+        each = self.order.each
 
         if self.with_source and cfg.enable_custom_source:
-            pairs = [apply_custom_source(d, v, cfg, s.time + dt, z0=s.z0)
-                     for d, v, s in zip(dens, vel, slabs)]
+            pairs = each(lambda r: apply_custom_source(dens[r], vel[r], cfg, slabs[r].time + dt,
+                                                       z0=z0s[r]))
             dens, vel = [p[0] for p in pairs], [p[1] for p in pairs]
         if cfg.buoyancy != 0.0 or cfg.gravity != 0.0:
-            vel = [buoyancy_force(v, d, dt, cfg.buoyancy, cfg.ambient_density, cfg.gravity)
-                   for v, d in zip(vel, dens)]
+            vel = each(lambda r: buoyancy_force(vel[r], dens[r], dt, cfg.buoyancy,
+                                                cfg.ambient_density, cfg.gravity))
         if cfg.vorticity_confinement != 0.0:
             vel = self.vorticity(vel, z0s, dt)
         if visc > 0.0:
             comps = [self.diffuse(c + 1, [v[c] for v in vel], visc, dt, masks)
                      for c in range(3)]
-            vel = [torch.stack([comps[c][r] for c in range(3)]) for r in range(self.k)]
+            vel = each(lambda r: torch.stack([comps[c][r] for c in range(3)]))
         if cfg.double_project:
             vel, _ = self.project(vel, masks, pre=True)
 
@@ -223,21 +239,20 @@ class ShardStep:
 
         if cfg.velocity_damping != 0.0:
             damp = sink_factor(dt, cfg.velocity_damping)
-            vel = [scale_in(v, damp) for v in vel]
+            vel = each(lambda r: scale_in(vel[r], damp))
         if diff > 0.0:
             dens = self.diffuse(0, dens, diff, dt, masks)
         dens = [d[0] for d in self.advect((0,), [d[None] for d in dens], vel, dt, masks)]
         if cfg.density_dissipation != 0.0:
             ddamp = sink_factor(dt, cfg.density_dissipation)
-            dens = [scale_in(d, ddamp) for d in dens]
+            dens = each(lambda r: scale_in(dens[r], ddamp))
 
         if cfg.apply_turbulent_noise:
-            vel = [apply_turbulent_noise_3d(v, z0=z0, n=self.n) for v, z0 in zip(vel, z0s)]
+            vel = each(lambda r: apply_turbulent_noise_3d(vel[r], z0=z0s[r], n=self.n))
         if cfg.enable_obstacle:
-            vel = [enforce_obstacle_boundaries_slab(v, m, cfg.cell_size, cfg.viscosity, z0,
-                                                    self.n)
-                   for v, m, z0 in zip(vel, masks, z0s)]
+            vel = each(lambda r: enforce_obstacle_boundaries_slab(
+                vel[r], masks[r], cfg.cell_size, cfg.viscosity, z0s[r], self.n))
 
-        return state.replace(slabs=tuple(
-            s.replace(density=d, velocity=v, pressure=p, step=s.step + 1, time=s.time + dt)
-            for s, d, v, p in zip(slabs, dens, vel, pressure)))
+        return state.replace(slabs=tuple(each(lambda r: slabs[r].replace(
+            density=dens[r], velocity=vel[r], pressure=pressure[r], step=slabs[r].step + 1,
+            time=slabs[r].time + dt))))

@@ -3,7 +3,10 @@
 unfused ones), the 2D mode's kernel path (K9) against its twin path and
 the CPU, the sweep-blocked solve (K5) in K2, K3, K4 and K8 and K14, the
 sharded step's kernels (K10, K11, and the "rdma" backend's K12 and K13)
-and its paths, and the plain ops that divide on the card against the CPU.
+and its paths, the mesh's streams (8 shards on 8 streams of one card
+bitwise the unsharded step, with a shard held back, and a test that sees a
+missing wait) and cards (2 and 4 where visible), and the plain ops that
+divide on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one.  The module
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -12,6 +15,9 @@ installed:  python -m pytest tests/test_torch_cuda.py -q -m cuda
 The kernels are built with -fmad=false and do the twins' float32 operations
 in the twins' order, so they are held to bitwise equality.
 """
+
+import collections
+import contextlib
 
 import numpy as np
 import pytest
@@ -28,6 +34,7 @@ from fluidsim_tpu_torch.config import (
     preset_vortex_128,
 )
 from fluidsim_tpu_torch.engine import Engine
+from fluidsim_tpu_torch.kernels import _build
 from fluidsim_tpu_torch.kernels import advect as kadvect
 from fluidsim_tpu_torch.kernels import jacobi as kjacobi
 from fluidsim_tpu_torch.kernels import project as kproject
@@ -104,6 +111,7 @@ from fluidsim_tpu_torch.parallel import (
     unshard_state,
 )
 from fluidsim_tpu_torch.parallel.halo import advect_multi_3d_sharded
+from fluidsim_tpu_torch.parallel.streams import ShardOrder
 from fluidsim_tpu_torch.state import zeros_state
 
 pytestmark = pytest.mark.cuda
@@ -2199,3 +2207,153 @@ def test_tiled_k5_repeats_bitwise(cuda, block):
         again = project_advect_density_3d(vel, dens, 60, DT, **kw)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(first, again)), call
+
+
+# -- the mesh over streams and cards (parallel/streams.ShardOrder) -------------------
+
+def seeded_sharded(cuda, dtype, seed, n=128):
+    """sharded512 cut to n³ and a seeded state in its dtype."""
+    cfg = preset_sharded_512().replace(size=n, dtype=dtype)
+    vel, dens = fields(n, seed, cuda)
+    st = zeros_state(cfg, cuda)
+    return cfg, st.replace(density=dens.to(st.density.dtype),
+                           velocity=(vel * 0.3).to(st.velocity.dtype))
+
+
+def held_back(monkeypatch, shard=3, cycles=2_000_000):
+    """Shard ``shard``'s stream sleeps ~1 ms of cycles before each of its ops
+    (every launch among them), so its neighbours run ahead of it."""
+    orig = ShardOrder.on
+
+    @contextlib.contextmanager
+    def on(order, r, count=True):
+        with orig(order, r, count):
+            if count and r == shard and order.cuda:
+                torch.cuda._sleep(cycles)
+            yield
+
+    monkeypatch.setattr(ShardOrder, "on", on)
+
+
+def explicit_step(cfg, mesh, backend, t=4):
+    return sharded_step_fn(cfg, mesh, halo="explicit", halo_block_iters=t, halo_backend=backend)
+
+
+@pytest.mark.parametrize("held", [False, True], ids=["ordered", "held"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("backend", ["pallas", "rdma"])
+def test_8_streams_step_is_the_unsharded_engine_step(cuda, monkeypatch, backend, t, dtype,
+                                                     held):
+    """sharded512 at 128³ on 8 shards of one card, each on its own stream: one
+    step from a seeded state bitwise the unsharded ``Engine`` step (on the
+    slab route K7 → K6 → K7 that 512³ takes), also with shard 3 held back by
+    a sleep before each of its ops."""
+    cfg, start = seeded_sharded(cuda, dtype, 3700 + t)
+    monkeypatch.setattr(kproject, "resident_fits", lambda *a: False)
+    eng = Engine(cfg, device="cuda")
+    eng.state = start
+    eng.step(1)
+    mesh = make_mesh(["cuda"] * 8)
+    assert len({s.cuda_stream for s in mesh.streams}) == 8
+    if held:
+        held_back(monkeypatch)
+    got = unshard_state(explicit_step(cfg, mesh, backend, t)(shard_state(start, mesh)))
+    for f in ("density", "velocity", "pressure"):
+        assert torch.equal(getattr(got, f), getattr(eng.state, f)), f
+
+
+@pytest.mark.parametrize("backend", ["pallas", "rdma"])
+def test_the_held_back_step_shows_a_missing_wait(cuda, monkeypatch, backend):
+    """With shard 3 held back and the waits between the shards' streams
+    patched away, the step differs from the ordered step: the held-back test
+    can see a race."""
+    cfg, start = seeded_sharded(cuda, "float32", 3710)
+    mesh = make_mesh(["cuda"] * 8)
+    ref = unshard_state(explicit_step(cfg, mesh, backend)(shard_state(start, mesh)))
+    held_back(monkeypatch)
+    monkeypatch.setattr(ShardOrder, "_wait", lambda *a: None)
+    got = unshard_state(explicit_step(cfg, mesh, backend)(shard_state(start, mesh)))
+    torch.cuda.synchronize()
+    assert not all(torch.equal(getattr(got, f), getattr(ref, f))
+                   for f in ("density", "velocity", "pressure"))
+
+
+def stream_launches(monkeypatch, names):
+    """Launches of the library's entries ``names`` by the stream they were
+    given (each entry's last argument)."""
+    lib = _build.load_library()
+    counts = collections.Counter()
+    for name in names:
+        def counted(*args, fn=getattr(lib, name), name=name):
+            counts[(name, args[-1])] += 1
+            return fn(*args)
+        monkeypatch.setattr(lib, name, counted)
+    return counts
+
+
+SHARD_ENTRIES = ("fs_jacobi_ext", "fs_jacobi_ext_rdma", "fs_halo_exchange", "fs_advect_ext",
+                 "fs_divergence_ext", "fs_gradient_ext")
+
+
+@pytest.mark.parametrize("backend", ["pallas", "rdma"])
+def test_each_shard_launches_on_its_own_stream(cuda, monkeypatch, backend):
+    """One 8-shard step at 128³: every launch of K10–K13 and K7e goes on its
+    shard's stream, each stream its share (iters/T rounds, two K11, one K7e
+    of each kind, three K13 on rdma), none on another stream."""
+    cfg, start = seeded_sharded(cuda, "float32", 3720)
+    mesh = make_mesh(["cuda"] * 8)
+    counts = stream_launches(monkeypatch, SHARD_ENTRIES)
+    explicit_step(cfg, mesh, backend)(shard_state(start, mesh))
+    torch.cuda.synchronize()
+    rounds = cfg.jacobi_iters // 4
+    per_shard = {"fs_advect_ext": 2, "fs_divergence_ext": 1, "fs_gradient_ext": 1}
+    per_shard.update({"fs_jacobi_ext_rdma": rounds, "fs_halo_exchange": 3}
+                     if backend == "rdma" else {"fs_jacobi_ext": rounds})
+    want = collections.Counter({(name, s.cuda_stream): n for name, n in per_shard.items()
+                                for s in mesh.streams})
+    assert counts == want
+
+
+def test_copy_rows_and_the_libraries_current_device(cuda):
+    """The library's runtime sees the device PyTorch makes current, on every
+    card; ``fs_copy_rows`` moves a strided view's rows bitwise."""
+    lib = _build.load_library()
+    for d in range(torch.cuda.device_count()):
+        with torch.cuda.device(d):
+            assert lib.fs_current_device() == d
+    src = torch.arange(3 * 10 * 16 * 16, dtype=torch.float32, device=cuda).reshape(3, 10, 16, 16)
+    view = src[:, 2:6]
+    out = torch.empty(view.shape, device=cuda)
+    width = 4 * 16 * 16 * 4
+    err = lib.fs_copy_rows(out.data_ptr(), width, view.data_ptr(), view.stride(0) * 4, width,
+                           3, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0 and torch.equal(out, view)
+
+
+@pytest.mark.parametrize("cards", [2, 4])
+def test_8_shards_over_cards_are_the_one_card_mesh(cuda, cards):
+    """The 8-shard mesh over 2 and 4 cards (``cli.mesh_devices``): peer access
+    on between neighbouring cards, and two steps on both backends bitwise the
+    one-card mesh's."""
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"fewer than {cards} CUDA devices")
+    from fluidsim_tpu_torch.cli import mesh_devices
+    from fluidsim_tpu_torch.parallel import streams
+
+    cfg, start = seeded_sharded(cuda, "float32", 3730)
+    one = make_mesh(["cuda:0"] * 8)
+    over = make_mesh([torch.device("cuda", i) for i in mesh_devices(8, cards)])
+    assert len(set(over.devices)) == cards
+    for d in range(cards - 1):
+        a, b = torch.device("cuda", d), torch.device("cuda", d + 1)
+        assert (a, b) in streams._peers and (b, a) in streams._peers
+    for backend in ("pallas", "rdma"):
+        got = {}
+        for name, mesh in (("one", one), ("over", over)):
+            step = explicit_step(cfg, mesh, backend)
+            got[name] = unshard_state(step(step(shard_state(start, mesh))))
+        for f in ("density", "velocity", "pressure"):
+            assert got["over"].density.device == torch.device("cuda", 0)
+            assert torch.equal(getattr(got["over"], f), getattr(got["one"], f)), (backend, f)

@@ -303,11 +303,12 @@ def test_gates_and_errors():
 
 
 def test_mesh_layout():
-    """Entries may repeat one device; distinct devices need the multi-card
-    slice; a leaf's split axis is z."""
+    """Entries may repeat one device; a mesh that mixes device types is
+    refused; a leaf's split axis is z."""
     mesh = make_mesh(["cpu"] * 8)
     assert mesh.shape["z"] == 8 and mesh.devices == (torch.device("cpu"),) * 8
-    with pytest.raises(NotImplementedError, match="distinct devices"):
+    assert mesh.streams == (None,) * 8
+    with pytest.raises(ValueError, match="mixes device types"):
         make_mesh(["cpu", "meta"])
     sh = state_sharding(mesh)
     assert (sh.density, sh.velocity, sh.pressure, sh.obstacles) == (0, 1, 0, 0)

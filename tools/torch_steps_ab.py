@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Steps/s and device time a step of the PyTorch port's bench128,
 vortex128, multi256 and sharded512 paths (sharded512 unsharded through
-``Engine`` and on 8 shards of the card through ``sharded_step_fn`` with the
-rdma backend at T = 4) for two or more checkouts, alternated on one CUDA
-card.
+``Engine``, on 8 shards of one card through ``sharded_step_fn`` with the
+rdma backend at T = 4, and, where more than one card is visible, the same
+8 shards over every visible card, ``cli.mesh_devices``'s layout) for two or
+more checkouts, alternated on the same cards.
 
 Run from anywhere:  python3 tools/torch_steps_ab.py [--paths P1,P2] ROOT_A ROOT_B [...]
 
@@ -14,7 +15,9 @@ The 8-shard path steps the checkout's own state type (a global state from
 since the shards own their slabs) and also reports its device time by part
 (``fluidsim_tpu_torch/utils/profiling.SHARDED_STEP_PARTS`` of this
 checkout: K10/K12, K11, K13, K7e, ``torch.cat``, other copies, and the plain
-ops, every other kernel) and its peak device memory over the timed chunks.
+ops, every other kernel; summed over the cards and over the shards'
+streams, which overlap) and the peak device memory of each card over the
+timed chunks.
 The checkouts run in the order A, B, ..., then the reverse (A, B, B, A for
 two), each in a fresh Python process that builds that checkout's kernels,
 steps each path after its warm-up steps, and times five chunks of steps
@@ -33,27 +36,35 @@ import subprocess
 import sys
 from pathlib import Path
 
-# (path, preset, steps a chunk, warm-up and profiled steps, on 8 shards)
-PATHS = (("bench128", "preset_bench_128", 200, 20, False),
-         ("vortex128", "preset_vortex_128", 50, 20, False),
-         ("multi256", "preset_multi_emitter_256", 20, 10, False),
-         ("sharded512", "preset_sharded_512", 5, 5, False),
-         ("sharded512 8 shards rdma", "preset_sharded_512", 5, 5, True))
+# (path, preset, steps a chunk, warm-up and profiled steps, cards for 8
+# shards: None unsharded, 1 one card, 0 every visible card)
+PATHS = (("bench128", "preset_bench_128", 200, 20, None),
+         ("vortex128", "preset_vortex_128", 50, 20, None),
+         ("multi256", "preset_multi_emitter_256", 20, 10, None),
+         ("sharded512", "preset_sharded_512", 5, 5, None),
+         ("sharded512 8 shards rdma", "preset_sharded_512", 5, 5, 1),
+         ("sharded512 8 shards rdma over the cards", "preset_sharded_512", 5, 5, 0))
 CHUNKS = 5
 
 
 class Sharded:
-    """sharded512's step on 8 shards of the card (the rdma backend, T = 4)
-    with ``Engine``'s ``step`` and ``state``."""
+    """sharded512's step on 8 shards (the rdma backend, T = 4) of one card
+    (``cards=1``) or of every visible card (``cards=0``, shard r on card
+    ⌊r·D/8⌋), with ``Engine``'s ``step`` and ``state``."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, cards: int = 1):
+        import torch
+
         from fluidsim_tpu_torch.parallel import make_mesh, shard_state, sharded_step_fn
         from fluidsim_tpu_torch.state import zeros_state
 
-        mesh = make_mesh(["cuda"] * 8)
+        d = cards or min(8, torch.cuda.device_count())
+        mesh = make_mesh(["cuda"] * 8 if d == 1 else
+                         [torch.device("cuda", r * d // 8) for r in range(8)])
         self._step = sharded_step_fn(cfg, mesh, halo="explicit", halo_block_iters=4,
                                      halo_backend="rdma")
         self.state = shard_state(zeros_state(cfg, "cuda"), mesh)
+        self.devices = mesh.devices
 
     def step(self, n: int = 1) -> None:
         for _ in range(n):
@@ -97,14 +108,20 @@ def child(root: str, names) -> None:
     if Path(fluidsim_tpu_torch.__file__).resolve().parent.parent != Path(root):
         raise SystemExit(f"imported {fluidsim_tpu_torch.__file__}, not from {root}")
     out = {"root": root}
-    for name, preset, steps, warmup, sharded in PATHS:
+    n_cards = torch.cuda.device_count()
+    for name, preset, steps, warmup, cards in PATHS:
         if names and name not in names:
             continue
+        if cards == 0 and n_cards < 2:
+            out[name] = f"not run: {n_cards} CUDA device visible"
+            continue
+        sharded = cards is not None
         cfg = getattr(config, preset)()
-        eng = Sharded(cfg) if sharded else Engine(cfg, device="cuda")
+        eng = Sharded(cfg, cards) if sharded else Engine(cfg, device="cuda")
         eng.step(warmup)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        for d in range(n_cards):
+            torch.cuda.synchronize(d)
+            torch.cuda.reset_peak_memory_stats(d)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         rates = []
@@ -115,7 +132,9 @@ def child(root: str, names) -> None:
             end.record()
             end.synchronize()
             rates.append(steps * 1e3 / start.elapsed_time(end))
-        peak = torch.cuda.max_memory_allocated() / 1e9
+        for d in range(n_cards):
+            torch.cuda.synchronize(d)
+        peak = [torch.cuda.max_memory_allocated(d) / 1e9 for d in range(n_cards)]
         finite = eng.finite() if sharded else bool(torch.isfinite(eng.state.density).all())
         if not finite:
             raise SystemExit(f"{name}: non-finite density")
@@ -126,7 +145,8 @@ def child(root: str, names) -> None:
                                                    key=lambda kv: -kv[1])[:5])}
         if sharded:
             out[name]["device_ms_by_key"] = by_key
-            out[name]["peak_gb"] = peak
+            out[name]["peak_gb"] = peak[0] if cards == 1 else peak
+            out[name]["cards"] = len(set(eng.devices))
         del eng
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
