@@ -264,6 +264,20 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      bench128 window 2 + ``fuse_emitter``, the K = 4 and 5 Engine paths and
      sharded512 on 8 shards (rdma) at K = 4 and 5, the counters at zero just
      before each: every substep on the window route.
+ 20. no whole volume on any shard, run right after the build in a process of
+     its own (``--phase-20``; its whole-volume FFT reference takes about
+     65 GB of the card): from one
+     seeded sharded512 state at 512³ on 8 shards of the card, 3 steps of
+     MacCormack at ``advect_window=1`` (``halo="explicit"``, rdma, T = 4:
+     K11 for its forward and backward advections, K13, K12, K7e) bitwise the
+     unsharded ``Engine``'s 3 steps (K1 for both advections), and 3 steps of
+     the FFT projection on ``halo="auto"`` (z-pencils by all-to-all) within
+     1e-5·max|ref| per field of the unsharded ``Engine`` on the same plain
+     ops, the class of two float32 FFT routes (each reference run, kept and
+     freed before the mesh is built); ``gathered_ops`` empty and exact launches on both; steps/s
+     and peak memory beside the card's name and power limit; a sharded
+     checkpoint of the 8-shard MacCormack state written and read back on 8
+     shards, on 4 and unsharded, bitwise.
 The line before last is a JSON object describing each kernel (with the
 least time the card could take for its work, ``bound_ms``); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -667,6 +681,15 @@ def main() -> None:
 
     def counts():
         return {k: fn.launches for k, fn in counters.items()}
+
+    # -- 20. MacCormack and the FFT projection per shard, the sharded checkpoint --
+    # First, in a process of its own: its whole-volume FFT reference at 512³
+    # takes about 65 GB of the card, more than is left beside what the later
+    # phases of this process hold.
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase-20"],
+                           cwd=ROOT, timeout=900)
+    if child.returncode != 0:
+        fail(f"phase 20 failed (exit code {child.returncode})")
 
     # -- 3. each kernel against its twin at 128³ -------------------------
     cfg = preset_bench_128()
@@ -5052,6 +5075,224 @@ def phase_step_and_2d_tiles(card, dev):
     say(f"# phase 18: {time.perf_counter() - t_phase:.1f} s")
 
 
+PARTITIONED_STEPS = 3
+PARTITIONED_TIMED = 5
+
+
+def phase_partitioned(card, dev, counters_to_zero, counts):
+    """Phase 20: no whole volume on any shard.  sharded512 at 512³ on 8
+    shards of the card from one seeded state, two options that gathered a
+    whole volume onto each shard before:
+
+    * MacCormack at ``advect_window=1`` on ``halo="explicit"``, rdma, T = 4
+      (``parallel/halo.advect_maccormack_shards``: K11 for the forward and
+      the backward advection, the velocity exchanged once by K13, the
+      forward field once more), ``PARTITIONED_STEPS`` steps bitwise the
+      unsharded ``Engine`` (K1 for both advections, the slab projection);
+      exactly 4 K11 launches a shard and a step;
+    * the FFT projection on ``halo="auto"`` (``ops/fft_poisson.
+      project_3d_fft_shards``: the x and y transforms per shard, z-pencils
+      by all-to-all), ``PARTITIONED_STEPS`` steps within 1e-5·max|ref| per
+      field of the unsharded ``Engine`` on the same plain ops
+      (``kernel_backend="xla"``, as the sharded step runs them): the class
+      of two float32 FFT routes (tests/test_torch_options.py), since the
+      split transforms round apart from cuFFT's 3D ones by about the
+      route's own float32 error (``tools/torch_fft_shards_accuracy.py``);
+      the deviation against rtol 1e-5, atol 1e-6·max is printed too; no
+      kernel launches.
+
+    Each reference runs first and is freed, but for its fields, before the
+    mesh's state is built, so the whole-volume FFT never sits beside the
+    mesh.  Both: ``gathered_ops`` empty; steps/s over ``PARTITIONED_TIMED``
+    more steps by CUDA events; ``torch.cuda.max_memory_allocated`` over the
+    checked steps.  Then the 8-shard MacCormack state goes through
+    ``save_checkpoint_sharded`` and back with ``load_checkpoint_sharded`` on
+    8 shards, on 4 and unsharded, bitwise."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fluidsim_tpu_torch.config import preset_sharded_512
+    from fluidsim_tpu_torch.engine import Engine
+    from fluidsim_tpu_torch.io.checkpoint import (
+        load_checkpoint_sharded,
+        save_checkpoint_sharded,
+    )
+    from fluidsim_tpu_torch.parallel import (
+        gathered_ops,
+        make_mesh,
+        shard_state,
+        sharded_step_fn,
+        unshard_state,
+    )
+    from fluidsim_tpu_torch.state import zeros_state
+
+    t_phase = time.perf_counter()
+    say("# phase 20: MacCormack and the FFT projection per shard, the sharded checkpoint "
+        "(sharded512 at 512^3, 8 shards of the card)")
+    fields = ("density", "velocity", "pressure")
+    base = preset_sharded_512()
+    n = base.current_size
+    steps = PARTITIONED_STEPS
+    rng = np.random.default_rng(SEED + 20)
+    seeded = zeros_state(base, dev).replace(density=density_field(n, rng, dev),
+                                            velocity=velocity_field(n, rng, dev, 0.5))
+    mesh = make_mesh(["cuda"] * 8)
+    cases = (
+        ("maccormack", base.replace(advection_scheme="maccormack", advect_window=1),
+         dict(halo="explicit", halo_block_iters=4, halo_backend="rdma"), "auto"),
+        ("fft", base.replace(pressure_solver="fft"), dict(halo="auto"), "xla"),
+    )
+    kept = None
+    for name, cfg, kw, ref_backend in cases:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg.replace(kernel_backend=ref_backend), device="cuda")
+        eng.state = seeded
+        eng.step(steps)
+        ref = {f: getattr(eng.state, f).clone() for f in fields}
+        torch.cuda.synchronize()
+        ref_peak = torch.cuda.max_memory_allocated()
+        del eng
+        torch.cuda.empty_cache()
+        say(f"# {name}: the unsharded Engine ({ref_backend} kernel backend) ran {steps} steps "
+            f"before the mesh was built, peak {ref_peak!r} bytes")
+
+        step = sharded_step_fn(cfg, mesh, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st = shard_state(seeded, mesh)
+        counters_to_zero()
+        for _ in range(steps):
+            st = step(st)
+        torch.cuda.synchronize()
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        gathered = dict(gathered_ops)
+        say(f"# {name} on 8 shards: {steps} steps, launches {launches}, gathered {gathered}")
+        if gathered:
+            fail(f"phase 20: {name} on 8 shards gathered a whole volume: {gathered}")
+        want = ({"K11": 8 * 4 * steps, "K12": 8 * (cfg.jacobi_iters // 4) * steps,
+                 "K13": 8 * 5 * steps, "K7e div": 8 * steps, "K7e grad": 8 * steps}
+                if name == "maccormack" else {})
+        if launches != {k: want.get(k, 0) for k in launches}:
+            fail(f"phase 20: {name} on 8 shards did not launch exactly {want}: {launches}")
+        check_state(st, steps, n, f"{name} on 8 shards (phase 20)")
+        got = unshard_state(st)
+        off = []
+        for f in fields:
+            g, r = getattr(got, f), ref[f]
+            scale = float(r.abs().max())
+            if name == "maccormack":
+                err, ok = float((g - r).abs().max()), torch.equal(g, r)
+                say(f"# maccormack on 8 shards vs the unsharded Engine after {steps} steps, "
+                    f"{f}: bitwise {ok} (max abs diff {err!r})")
+            else:
+                # Two float32 FFT routes differ by the transforms' rounding:
+                # the FFT class (tests/test_torch_options.py), 1e-5 x max.
+                err, ok = worst(g, r, 0.0, 1e-5 * scale)
+                _, step_class = worst(g, r, 1e-5, 1e-6 * scale)
+                say(f"# fft on 8 shards vs the unsharded Engine after {steps} steps, {f}: max "
+                    f"abs diff {err!r}, {err / max(scale, 1e-30)!r} of max |ref| {scale!r} "
+                    f"(bound 1e-5 x max: {ok}; within rtol 1e-5, atol 1e-6 x max: "
+                    f"{step_class})")
+            if not ok:
+                off.append(f)
+        if off:
+            fail(f"phase 20: {name} on 8 shards differs from the unsharded Engine in {off}")
+        del got, ref
+
+        def adv():
+            nonlocal st
+            st = step(st)
+        ms = cuda_ms(adv, reps=PARTITIONED_TIMED, warmup=0)
+        say(f"sharded512 {name} 8 shards ({', '.join(f'{k}={v}' for k, v in kw.items())}): "
+            f"steps/s {1e3 / ms!r}, peak device memory {peak!r} bytes over the checked steps "
+            f"(unsharded Engine {ref_peak!r}) [{card}]")
+        if name == "maccormack":
+            kept = st
+        del st, step
+
+    # The sharded checkpoint of the 8-shard MacCormack state.
+    work = ROOT / "_scratch" / "chip_smoke_sharded_ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    path = str(work / "sharded512")
+    t0 = time.perf_counter()
+    save_checkpoint_sharded(path, kept, cases[0][1])
+    t_save = time.perf_counter() - t0
+    files = sorted(p.name for p in Path(path).iterdir())
+    if len(files) != 4 * 8 + 3:
+        fail(f"phase 20: the sharded checkpoint holds {len(files)} files, not 4 a slab + 3")
+    for shards in (8, 4, None):
+        t0 = time.perf_counter()
+        back, back_cfg = load_checkpoint_sharded(
+            path, None if shards is None else make_mesh(["cuda"] * shards), device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        if back_cfg != cases[0][1]:
+            fail("phase 20: the sharded checkpoint's config differs")
+        if shards == 8:
+            same = all(torch.equal(getattr(a, f), getattr(b, f))
+                       for a, b in zip(back.slabs, kept.slabs)
+                       for f in fields + ("obstacles", "step", "time"))
+        else:
+            ref = unshard_state(kept)
+            glob = back if shards is None else unshard_state(back)
+            same = all(torch.equal(getattr(glob, f), getattr(ref, f))
+                       for f in fields + ("obstacles", "step", "time"))
+            del ref, glob
+        say(f"# sharded checkpoint, 8 shards -> {shards or 'unsharded'}: bitwise {same} "
+            f"(written in {t_save:.1f} s, {len(files)} files; read in {t_load:.1f} s)")
+        if not same:
+            fail(f"phase 20: the sharded checkpoint read on {shards} shards is not bitwise")
+        del back
+    shutil.rmtree(work, ignore_errors=True)
+    del kept, seeded
+    torch.cuda.empty_cache()
+    say(f"# phase 20: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_20_main() -> None:
+    """``python3 chip_smoke.py --phase-20``: phase 20 alone, on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: the port's smoke run needs the card")
+    sys.path.insert(0, str(ROOT))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown card"
+    say(card)
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    from fluidsim_tpu_torch.kernels import _build
+    from fluidsim_tpu_torch.kernels.halo import (
+        advect_ext_kernel,
+        halo_exchange_rdma,
+        jacobi_ext_rdma,
+    )
+    from fluidsim_tpu_torch.kernels.project import divergence_ext_kernel, gradient_ext_kernel
+    from fluidsim_tpu_torch.parallel import gathered_ops
+
+    t0 = time.perf_counter()
+    _build.load_library()
+    say(f"# build: {time.perf_counter() - t0:.2f} s")
+    counters = {"K11": advect_ext_kernel, "K12": jacobi_ext_rdma, "K13": halo_exchange_rdma,
+                "K7e div": divergence_ext_kernel, "K7e grad": gradient_ext_kernel}
+
+    def counters_to_zero():
+        for fn in counters.values():
+            fn.launches = 0
+        gathered_ops.clear()
+
+    phase_partitioned(card, dev, counters_to_zero,
+                      lambda: {k: fn.launches for k, fn in counters.items()})
+
+
 def phase_18_main() -> None:
     """``python3 chip_smoke.py --phase-18``: phase 18 alone, on the card."""
     import torch
@@ -5071,5 +5312,7 @@ def phase_18_main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--phase-18"]:
         phase_18_main()
+    elif sys.argv[1:] == ["--phase-20"]:
+        phase_20_main()
     else:
         main()

@@ -11,7 +11,9 @@ which is taken as it is (this module does not import ``ml_dtypes``, which a
 machine without JAX may lack).  Float32 arrays whose values are all
 bfloat16 values are taken too when ``dtype="bfloat16"`` is asked for (the
 conversion is then exact), and ``state_to_numpy`` returns bfloat16 fields
-that way, as float32 arrays.
+that way, as float32 arrays.  ``to_bits`` and ``from_bits`` carry a tensor
+as the raw pattern of its storage (bfloat16 as ``uint16``), which
+``io/checkpoint.save_checkpoint_sharded`` writes.
 """
 
 from __future__ import annotations
@@ -78,3 +80,28 @@ def state_to_numpy(state: FluidState) -> Dict[str, np.ndarray]:
             t = t.float()
         out[f.name] = t.numpy()
     return out
+
+
+def to_bits(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host as a NumPy array of its storage: bfloat16 as the
+    ``uint16`` bit patterns, any other dtype as it is."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def from_bits(a: np.ndarray, dtype: str) -> torch.Tensor:
+    """The tensor ``to_bits`` gave ``a`` for, on the host: ``dtype`` is its
+    name (``"bfloat16"`` reads ``uint16`` patterns back)."""
+    a = np.asarray(a)
+    if not a.flags.c_contiguous:
+        a = a.copy()
+    if dtype == "bfloat16":
+        if a.dtype != np.uint16:
+            raise ValueError(f"bfloat16 bits are stored as uint16, got {a.dtype}")
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    t = torch.from_numpy(a)
+    if str(t.dtype).replace("torch.", "") != dtype:
+        raise ValueError(f"expected {dtype}, got {a.dtype}")
+    return t

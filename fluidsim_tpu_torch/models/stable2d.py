@@ -80,3 +80,16 @@ def simulate_step_2d(state: FluidState, cfg: SimConfig,
         time=state.time + dt,
     )
 
+
+def make_step_2d(cfg: SimConfig, n_substeps: int = 1,
+                 kernels: StepKernels = HAND_KERNELS):
+    """An ``n_substeps``-step advance (a Python loop of ``simulate_step_2d``;
+    the JAX package's ``make_step_2d`` rolls the same steps with
+    ``lax.scan``)."""
+
+    def step(state: FluidState) -> FluidState:
+        for _ in range(n_substeps):
+            state = simulate_step_2d(state, cfg, kernels)
+        return state
+
+    return step

@@ -330,3 +330,13 @@ def make_step_3d(cfg: SimConfig, n_substeps: int = 1,
         return state
 
     return step
+
+
+def make_step(cfg: SimConfig, n_substeps: int = 1, kernels: StepKernels = HAND_KERNELS):
+    """The step factory of ``cfg``'s dimension: ``make_step_3d`` or
+    ``models.stable2d.make_step_2d`` (the JAX package's ``make_step``)."""
+    if cfg.ndim == 3:
+        return make_step_3d(cfg, n_substeps, kernels)
+    from .stable2d import make_step_2d
+
+    return make_step_2d(cfg, n_substeps, kernels)

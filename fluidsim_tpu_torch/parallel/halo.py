@@ -36,10 +36,11 @@ the shard's own stream.
 (the sharded step's own); ``jacobi_3d_sharded`` and
 ``advect_multi_3d_sharded`` are their forms on global tensors (split, per
 shard, joined), which the JAX package's functions take.
-``advect_shards_plain`` is the plain advection per shard.  ``gathered`` is
-the one route that assembles a whole volume: an op that no halo bounds runs
-on the all-gathered inputs and each shard keeps its planes, counted in
-``gathered_ops``.
+``advect_shards_plain`` is the plain advection per shard, and
+``advect_maccormack_shards`` MacCormack on either.  ``gathered`` is the one
+route that assembles a whole volume: an op that no halo bounds (window 0's
+exact gather) runs on the all-gathered inputs and each shard keeps its
+planes, counted in ``gathered_ops``.
 """
 
 from __future__ import annotations
@@ -422,6 +423,30 @@ def advect_multi_3d_sharded(bs, fields, vel, dt: float, mesh: Mesh, axis_name: s
                                masks, kernels), fields.device, 1)
 
 
+def _advection_slabs(fields, vel, masks, h: int, transport: str, kernels: StepKernels):
+    """Each shard's ``h``-plane extended fields, velocity and mask (None
+    for each without ``masks``) for one advection: one K13 call
+    (``kernels.halo_exchange_rdma``) carrying all three on ``"rdma"``, else
+    ``extend`` (for ``"ppermute"`` and the plain advection).
+    Self-advection (``fields is vel``) shares the velocity's slabs."""
+    k = len(fields)
+    self_adv = fields is vel
+    if transport == "rdma":
+        arrays = [[v] if self_adv else [f, v] for f, v in zip(fields, vel)]
+        if masks is not None:
+            for arrays_r, m in zip(arrays, masks):
+                arrays_r.append(m[None])
+        exts = kernels.halo_exchange_rdma(arrays, h)
+        v_ext = [e[0] if self_adv else e[1] for e in exts]
+        f_ext = v_ext if self_adv else [e[0] for e in exts]
+        m_ext = [None] * k if masks is None else [e[-1][0] for e in exts]
+    else:
+        v_ext = extend(vel, h, 1)
+        f_ext = v_ext if self_adv else extend(fields, h, 1)
+        m_ext = [None] * k if masks is None else extend(masks, h)
+    return f_ext, v_ext, m_ext
+
+
 def advect_shards(bs, fields, vel, dt: float, n: int, window: int = 1, n_sub: int = 1,
                   transport: str = "ppermute", obsts=None,
                   kernels: StepKernels = HAND_KERNELS) -> List[torch.Tensor]:
@@ -436,15 +461,15 @@ def advect_shards(bs, fields, vel, dt: float, n: int, window: int = 1, n_sub: in
     ``window·n_sub``-plane halo covers every sample (``n_sub·(window+1)``
     with the masks, whose mirror reads one plane further each substep): one
     exchange of the fields, the velocity and the mask a call.
-    Self-advection (``fields is vel``, ``bs == (1, 2, 3)``) shares one
-    exchange.  ``transport="ppermute"`` builds each shard's extended slabs
-    with ``torch.cat`` when its turn comes; ``"rdma"`` builds every shard's
-    in one K13 call (``kernels.halo_exchange_rdma``) that carries the fields,
-    the velocity and the mask, as in the JAX package: the same slabs, so the
+    Self-advection (``fields is vel``) shares one exchange.
+    ``transport="ppermute"`` builds each shard's extended slabs with
+    ``torch.cat`` (``extend``); ``"rdma"`` builds every shard's in one K13
+    call (``kernels.halo_exchange_rdma``) that carries the fields, the
+    velocity and the mask, as in the JAX package: the same slabs, so the
     same result bitwise."""
     if transport not in ("ppermute", "rdma"):
         raise ValueError(f"transport must be ppermute/rdma, got {transport!r}")
-    k, lz = len(fields), fields[0].shape[1]
+    lz = fields[0].shape[1]
     has_obst = obsts is not None
     h = ext_halo(window, n_sub, has_obst)
     if h > lz:
@@ -453,39 +478,13 @@ def advect_shards(bs, fields, vel, dt: float, n: int, window: int = 1, n_sub: in
     devices = [f.device for f in fields]
     for name, ts in (("vel", vel),) + ((("obsts", obsts),) if has_obst else ()):
         _shard_devices(name, ts, devices)
-    self_adv = fields is vel and tuple(bs) == (1, 2, 3) and fields[0].shape[0] == 3
     order = order_of(fields)
     with order.scope():
         masks = None if not has_obst else order.each(lambda r: obsts[r].to(torch.bool))
-
-        def exchanged(xs, axis):
-            """Each shard's extended slab, built on its stream when its turn
-            comes: the exchange hands out views."""
-            pairs = halo_exchange_z(xs, h, axis)
-            return lambda r: torch.cat([pairs[r][0], xs[r], pairs[r][1]], dim=axis)
-
-        if transport == "rdma":
-            arrays = [[v] if self_adv else [f, v] for f, v in zip(fields, vel)]
-            if has_obst:
-                for arrays_r, m in zip(arrays, masks):
-                    arrays_r.append(m[None])
-            exts = kernels.halo_exchange_rdma(arrays, h)
-            v_ext = (lambda r: exts[r][0]) if self_adv else (lambda r: exts[r][1])
-            f_ext = None if self_adv else (lambda r: exts[r][0])
-            m_ext = None if not has_obst else (lambda r: exts[r][-1][0])
-        else:
-            v_ext = exchanged(vel, 1)
-            f_ext = None if self_adv else exchanged(fields, 1)
-            m_ext = None if not has_obst else exchanged(masks, 0)
-
-        def one(r):
-            v = v_ext(r)
-            res = kernels.advect_ext(tuple(bs), v if self_adv else f_ext(r), v, n, dt,
-                                     r * lz - h, window, n_sub,
-                                     None if m_ext is None else m_ext(r))
-            return res[:, h:h + lz]
-
-        return order.each(one)
+        f_ext, v_ext, m_ext = _advection_slabs(fields, vel, masks, h, transport, kernels)
+        return order.each(lambda r: kernels.advect_ext(
+            tuple(bs), f_ext[r], v_ext[r], n, dt, r * lz - h, window, n_sub,
+            m_ext[r])[:, h:h + lz])
 
 
 def _contract_slab(b: int, val, obst_ext, n: int, z_offset: int, writes):
@@ -528,15 +527,13 @@ def advect_shards_plain(bs, fields, vel, dt: float, n: int, scheme: str, window:
     the scheme erodes (``ext_halo``; from several shards where it is deeper
     than a slab), each shard's planes kept.  Arguments as
     ``advect_shards``'s; bitwise the whole-grid functions."""
-    k, lz = len(fields), fields[0].shape[1]
+    lz = fields[0].shape[1]
     masked = obsts is not None
     h = ext_halo(window, n_sub if scheme == "substep" else 1, masked)
     order = order_of(fields)
     with order.scope():
-        v_ext = extend(vel, h, 1)
-        f_ext = v_ext if fields is vel else extend(fields, h, 1)
-        m_ext = [None] * k if not masked else extend(
-            order.each(lambda r: obsts[r].to(torch.bool)), h)
+        masks = None if not masked else order.each(lambda r: obsts[r].to(torch.bool))
+        f_ext, v_ext, m_ext = _advection_slabs(fields, vel, masks, h, "plain", None)
 
         def shard(r):
             z_off = r * lz - h
@@ -552,6 +549,89 @@ def advect_shards_plain(bs, fields, vel, dt: float, n: int, scheme: str, window:
             return res[:, h:h + lz]
 
         return order.each(shard)
+
+
+def advect_maccormack_shards(bs, fields, vel, dt: float, n: int, window: int, obsts=None,
+                             transport: str = "plain",
+                             kernels: StepKernels = HAND_KERNELS) -> List[torch.Tensor]:
+    """``ops/advect.advect_maccormack_3d`` at a window of K >= 1 on the
+    shards' slabs (arguments as ``advect_shards``'s, ``obsts`` the shards'
+    ``(lz, n, n)`` masks); returns each shard's ``(F, lz, n, n)`` planes.
+
+    The velocity (with the fields and the mask) is exchanged once, at the
+    depth one advection erodes (``ext_halo(window, 1, masked)``); the forward
+    advection runs on each shard's extended slab, its result is exchanged at
+    that depth, and the backward advection of it runs through the extended
+    velocity negated (exact), so the velocity is not exchanged again.
+    ``transport`` ``"ppermute"`` or ``"rdma"`` runs both advections in K11
+    (``kernels.advect_ext``; ``"rdma"`` exchanges in K13), as the
+    whole-grid op runs them in K1; ``"plain"`` runs ``advect_slab``, as
+    ``advect_multi_3d``.  The limiter reads the forward field's one plane
+    past each shard edge from its exchange: a kept cell (global z in
+    ``[1, n−2]``) reads only planes ``[0, n−1]``, so where the whole-grid
+    op's ``torch.roll`` wraps across a global wall, the shard reads zeros
+    at a plane the output contract discards.  The contract then runs per
+    shard; with a mask, on the limited field extended by one plane (the
+    obstacle mirror of vz reads its neighbours along z).  Bitwise the
+    whole-grid op (on K1 for the kernel transports)."""
+    if transport not in ("plain", "ppermute", "rdma"):
+        raise ValueError(f"transport must be plain/ppermute/rdma, got {transport!r}")
+    lz = fields[0].shape[1]
+    masked = obsts is not None
+    h = ext_halo(window, 1, masked)
+    if transport != "plain" and h > lz:
+        raise ValueError(f"advect halo {h} exceeds local slab depth {lz}")
+    order = order_of(fields)
+    with order.scope():
+        masks = None if not masked else order.each(lambda r: obsts[r].to(torch.bool))
+        f_ext, v_ext, m_ext = _advection_slabs(fields, vel, masks, h, transport, kernels)
+
+        def advect(r, f_e, v_e):
+            if transport == "plain":
+                res = advect_slab(bs, f_e, v_e, dt, n, r * lz - h, m_ext[r], window)
+            else:
+                res = kernels.advect_ext(tuple(bs), f_e, v_e, n, dt, r * lz - h, window, 1,
+                                         m_ext[r])
+            return res[:, h:h + lz]
+
+        forward = order.each(lambda r: advect(r, f_ext[r], v_ext[r]))
+        fwd_ext = _advection_slabs(forward, forward, None, h, transport, kernels)[0]
+        backward = order.each(lambda r: advect(r, fwd_ext[r], -v_ext[r]))
+
+        def limit(r):
+            fwd, fe = forward[r], fwd_ext[r]
+            corrected = fwd + 0.5 * (fields[r] - backward[r])
+            lo = hi = fwd
+            # The whole-grid op's shifts in its order: z (the exchanged
+            # planes), y, x; roll by s reads the plane at -s.
+            for axis in (1, 2, 3):
+                for s in (-1, 1):
+                    if axis == 1:
+                        shifted = fe[:, h + 1:h + 1 + lz] if s < 0 else fe[:, h - 1:h - 1 + lz]
+                    else:
+                        shifted = torch.roll(fwd, s, axis)
+                    lo = torch.minimum(lo, shifted)
+                    hi = torch.maximum(hi, shifted)
+            return torch.clamp(corrected, lo, hi)
+
+        limited = order.each(limit)
+        if masked and 3 in tuple(bs):
+            lim_ext = exchange(limited, 1, 1, "rdma" if transport == "rdma" else "pallas",
+                               kernels)
+
+            def contract(r):
+                m1 = m_ext[r][h - 1:h + lz + 1]
+                writes = _nonborder_solid(m1, n, r * lz - 1)
+                return torch.stack([_contract_slab(b, lim_ext[r][c], m1, n, r * lz - 1, writes)
+                                    for c, b in enumerate(bs)])[:, 1:-1]
+        else:
+            def contract(r):
+                m = None if not masked else m_ext[r][h:h + lz]
+                writes = None if not masked else _nonborder_solid(m, n, r * lz)
+                return torch.stack([_contract_slab(b, limited[r][c], m, n, r * lz, writes)
+                                    for c, b in enumerate(bs)])
+
+        return order.each(contract)
 
 
 def gathered(name: str, fn, shards, axes, out_axes, devices) -> List[Tuple[torch.Tensor, ...]]:

@@ -12,8 +12,11 @@ pair standing where the JAX package's ``device_put`` and global arrays do.
 
 Every op of the step runs on the slabs (``parallel/step.py``), halos
 exchanged only where a stencil reads across a shard's edge, the global
-volume never assembled (but for the ops ``parallel/halo.gathered``
-counts).  Two strategies, as in the JAX package:
+volume never assembled (but for window 0's exact gather, which
+``parallel/halo.gathered`` counts: its backtrace has no bound).  The FFT
+projection transposes z-slabs to z-pencils and back by all-to-alls
+(``ops/fft_poisson.project_3d_fft_shards``).  Two strategies, as in the
+JAX package:
 
 * ``halo="auto"``: the JAX package's auto-partitioned program, the plain
   step per shard with one-plane exchanges a sweep, which equals the
@@ -204,8 +207,9 @@ def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z", n_substeps
       ``halo_block_iters`` sweeps; ``halo_backend`` ``"pallas"`` runs K10 per
       shard, ``"xla"`` the plain sweeps, ``"auto"`` K10 on a CUDA mesh at
       T >= 2), and the advection through ``parallel.halo.advect_shards``
-      (K11 per shard) where the scheme is semi-Lagrangian or substep, the
-      window is K >= 1 cells and the halo fits a shard, unless
+      (K11 per shard; MacCormack's forward and backward advections
+      through ``parallel.halo.advect_maccormack_shards``) where the window
+      is K >= 1 cells and the halo fits a shard, unless
       ``halo_backend="xla"`` (or ``"auto"`` off the card); where the kernels
       run, the projection's divergence and gradient are K7e per shard
       without a mask.  Obstacle scenes run both, the mask's halo riding the
@@ -248,9 +252,9 @@ def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z", n_substeps
     n = cfg.current_size
     n_sub = cfg.advect_substeps if cfg.advection_scheme == "substep" else 1
     h = ext_halo(cfg.advect_window, n_sub, bool(cfg.enable_obstacle))
-    # K11 per shard: a scheme it implements, a window and a halo that fits.
+    # K11 per shard: a window and a halo that fits (MacCormack runs it for
+    # its forward and backward advections).
     advect_kernel = (halo == "explicit" and halo_backend != "xla"
-                     and cfg.advection_scheme in ("semi_lagrangian", "substep")
                      and cfg.advect_window >= 1 and h <= n // k
                      and (device.type == "cuda" or halo_backend in ("pallas", "rdma")))
 
@@ -311,7 +315,8 @@ def _one_shard_step(cfg, mesh, with_source, halo, halo_block_iters, halo_backend
                                      block_iters=halo_block_iters, backend=halo_backend,
                                      obst=obst, kernels=kernels)
 
-        if advect_kernel:
+        # MacCormack on one shard is the whole-volume step's, on K1.
+        if advect_kernel and cfg.advection_scheme != "maccormack":
             def advect_fn(bs, fields, velocity, d_t, obst=None):
                 return advect_multi_3d_sharded(bs, fields, velocity, float(d_t), mesh,
                                                window=cfg.advect_window, n_sub=n_sub,

@@ -20,17 +20,21 @@ does on a shard what the whole-volume op does on the shard's planes:
 * the pressure solve is ``parallel/halo.jacobi_shards`` (the explicit
   path's backend, or the plain sweeps at one plane a sweep), and the
   advection K11 per shard (``advect_shards``) or the plain advection on
-  halo-extended slabs (``advect_shards_plain``).
+  halo-extended slabs (``advect_shards_plain``); MacCormack composes
+  either per shard (``advect_maccormack_shards``: one exchange of the
+  velocity, one of the forward field, which the limiter reads too);
+* the FFT projection (``pressure_solver="fft"``) is
+  ``ops/fft_poisson.project_3d_fft_shards``: the x and y transforms on each
+  shard's planes, z-pencils by an all-to-all.
 
 Where the kernels run (``halo="explicit"`` off the ``"xla"`` backend), the
 projection's divergence and gradient are K7e on each shard's planes and
 halo planes without a mask; with one they are the plain per-shard forms (K7 has no mask
 in the JAX package either).  The pre-projection and the diffusion are the
-plain forms, as the JAX package's step leaves them to XLA.  MacCormack's
-limiter (its ``torch.roll`` wraps across the global z walls), the exact
-gather of window 0 (its backtrace has no bound) and the FFT projection run
-through ``parallel/halo.gathered``, the one route that assembles a whole
-volume, counted in ``gathered_ops``.
+plain forms, as the JAX package's step leaves them to XLA.  The exact
+gather of window 0 (its backtrace has no bound, so no fixed halo covers
+it) runs through ``parallel/halo.gathered``, the one route that assembles
+a whole volume, counted in ``gathered_ops``.
 
 Every op of a shard runs on the shard's own stream and card
 (``parallel/streams.ShardOrder``, the mesh's ``order``): the pointwise ops
@@ -38,8 +42,11 @@ under ``order.each``, the stencils through ``parallel/halo.py``, whose
 cross-shard reads wait on the writers' marks.  The shards' ops run
 concurrently, in the order of ``simulate_step_3d`` on each shard.
 
-Every op is bitwise the whole-volume op on the shard's planes, so the step
-is bitwise the unsharded composition with the same solve and advection.
+Every op but the FFT projection is bitwise the whole-volume op on the
+shard's planes, so the step is bitwise the unsharded composition with the
+same solve and advection; the FFT projection's split transforms round
+differently from the whole-volume ones (by about the float32 error of
+either).
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ from ..kernels.project import divergence_ext_plain, gradient_ext_plain, gradient
 from ..models.stable3d import sink_factor
 from ..models.step_kernels import StepKernels
 from ..ops.advect import advect_maccormack_3d, advect_multi_3d, advect_substep_3d
-from ..ops.fft_poisson import project_3d_fft
+from ..ops.fft_poisson import project_3d_fft_shards
 from ..ops.forces import (
     apply_turbulent_noise_3d,
     buoyancy_force,
@@ -63,6 +70,7 @@ from ..ops.forces import (
 from ..ops.linsolve import diffusion_coefficients
 from ..scene.sources import apply_custom_source
 from .halo import (
+    advect_maccormack_shards,
     advect_shards,
     advect_shards_plain,
     exchange,
@@ -165,36 +173,39 @@ class ShardStep:
                 self.order.each(lambda r: p[r].to(in_dtype)))
 
     def project_fft(self, vel):
-        res = gathered("fft", lambda v: project_3d_fft(v), [vel], (1,), (1, 0), self.devices)
+        res = project_3d_fft_shards(vel, self.order)
         return [r[0] for r in res], [r[1] for r in res]
 
     def advect(self, bs, fields, vel, dt: float, masks):
         """Every advection of the step: K11 per shard, the plain advection on
-        halo-extended slabs, or (MacCormack, window 0) ``gathered``."""
+        halo-extended slabs, MacCormack per shard on either, or (window 0)
+        ``gathered``."""
         cfg = self.cfg
         win = cfg.advect_window
         local_masks = None if masks is None else [m[1:-1] for m in masks]
         n_sub = cfg.advect_substeps if cfg.advection_scheme == "substep" else 1
+        transport = "rdma" if self.backend == "rdma" else "ppermute"
+        if win >= 1 and cfg.advection_scheme == "maccormack":
+            return advect_maccormack_shards(bs, fields, vel, dt, self.n, win, local_masks,
+                                            transport if self.advect_kernel else "plain",
+                                            self.kernels)
         if self.advect_kernel:
-            transport = "rdma" if self.backend == "rdma" else "ppermute"
             return advect_shards(bs, fields, vel, dt, self.n, win, n_sub, transport,
                                  local_masks, self.kernels)
-        if cfg.advection_scheme != "maccormack" and win >= 1:
+        if win >= 1:
             return advect_shards_plain(bs, fields, vel, dt, self.n, cfg.advection_scheme, win,
                                        n_sub, local_masks)
-        if cfg.advection_scheme == "maccormack":
-            name = "maccormack"
 
-            def op(f, v, m):
+        # Window 0, the exact gather: its backtrace has no bound, so no fixed
+        # halo covers it.
+        def op(f, v, m):
+            if cfg.advection_scheme == "maccormack":
                 return (advect_maccormack_3d(bs, f, v, dt, m, win),)
-        else:
-            name = "window0"
+            if cfg.advection_scheme == "substep":
+                return (advect_substep_3d(bs, f, v, dt, m, win, n_sub=n_sub),)
+            return (advect_multi_3d(bs, f, v, dt, m, win),)
 
-            def op(f, v, m):
-                if cfg.advection_scheme == "substep":
-                    return (advect_substep_3d(bs, f, v, dt, m, win, n_sub=n_sub),)
-                return (advect_multi_3d(bs, f, v, dt, m, win),)
-        res = gathered(name, op, [fields, vel, local_masks], (1, 1, 0), (1,), self.devices)
+        res = gathered("window0", op, [fields, vel, local_masks], (1, 1, 0), (1,), self.devices)
         return [r[0] for r in res]
 
     # -- the step ------------------------------------------------------------

@@ -496,20 +496,27 @@ def test_step_is_the_unsplit_composition(name, halo, t, backend, dtype):
                                                advect_window=0), "window0"),
                                          (dict(pressure_solver="fft"), "fft")])
 def test_gathered_route_counts_its_ops(change, name):
-    """MacCormack, the exact gather of window 0 and the FFT projection take
-    ``gathered``, once per call (two advections a step; one projection),
-    and stay bitwise the global composition."""
+    """Only the exact gather of window 0 takes ``gathered``, once per call
+    (two advections a step), bitwise the global composition; MacCormack
+    (per shard, bitwise) and the FFT projection (z-pencils, within rtol
+    1e-5, atol 1e-6·max per field) gather nothing."""
     cfg = preset("sharded_512", **change)
     gathered_ops.clear()
     got = run_sharded(cfg, 1, halo="auto")
-    assert dict(gathered_ops) == {name: 1 if name == "fft" else 2}
+    assert dict(gathered_ops) == ({"window0": 2} if name == "window0" else {})
     ref = parent_step(cfg, "auto", 1, "auto")(start(cfg))
     for f in FIELDS:
-        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+        g, r = getattr(got, f), getattr(ref, f)
+        if name == "fft":
+            np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-5,
+                                       atol=1e-6 * float(r.abs().max()), err_msg=f)
+        else:
+            assert torch.equal(g, r), f
 
 
 def test_maccormack_gathered_matches_the_whole_grid():
-    """``gathered``'s MacCormack advection, with a mask, on every shard."""
+    """The sharded step's MacCormack advection, with a mask, on every shard:
+    per shard (nothing gathered), bitwise the whole-grid op."""
     cfg = preset("vortex_128", advection_scheme="maccormack", advect_window=2)
     obst = torch.as_tensor(np.asarray(build_obstacle_mask(cfg)))
     vel = rand(3, N, N, N, seed=11)
@@ -517,7 +524,7 @@ def test_maccormack_gathered_matches_the_whole_grid():
                      PLAIN_TWINS)
     gathered_ops.clear()
     got = step.advect((1, 2, 3), split(vel, 1), split(vel, 1), 0.03, ext1(obst))
-    assert dict(gathered_ops) == {"maccormack": 1}
+    assert dict(gathered_ops) == {}
     assert torch.equal(torch.cat(got, 1), advect_maccormack_3d((1, 2, 3), vel, vel, 0.03,
                                                                obst, 2))
 

@@ -3,8 +3,10 @@
 vortex128, multi256 and sharded512 paths (sharded512 unsharded through
 ``Engine``, on 8 shards of one card through ``sharded_step_fn`` with the
 rdma backend at T = 4, and, where more than one card is visible, the same
-8 shards over every visible card, ``cli.mesh_devices``'s layout) for two or
-more checkouts, alternated on the same cards.
+8 shards over every visible card, ``cli.mesh_devices``'s layout; on 8
+shards of one card also with MacCormack at window 1, rdma at T = 4, and
+with the FFT projection on ``halo="auto"``) for two or more checkouts,
+alternated on the same cards.
 
 Run from anywhere:  python3 tools/torch_steps_ab.py [--paths P1,P2] ROOT_A ROOT_B [...]
 
@@ -37,22 +39,28 @@ import sys
 from pathlib import Path
 
 # (path, preset, steps a chunk, warm-up and profiled steps, cards for 8
-# shards: None unsharded, 1 one card, 0 every visible card)
+# shards: None unsharded, 1 one card, 0 every visible card; the config's
+# changes and the sharded step's options, where not rdma at T = 4)
 PATHS = (("bench128", "preset_bench_128", 200, 20, None),
          ("vortex128", "preset_vortex_128", 50, 20, None),
          ("multi256", "preset_multi_emitter_256", 20, 10, None),
          ("sharded512", "preset_sharded_512", 5, 5, None),
          ("sharded512 8 shards rdma", "preset_sharded_512", 5, 5, 1),
-         ("sharded512 8 shards rdma over the cards", "preset_sharded_512", 5, 5, 0))
+         ("sharded512 8 shards rdma over the cards", "preset_sharded_512", 5, 5, 0),
+         ("sharded512 8 shards maccormack", "preset_sharded_512", 3, 2, 1,
+          dict(advection_scheme="maccormack", advect_window=1)),
+         ("sharded512 8 shards fft", "preset_sharded_512", 2, 2, 1,
+          dict(pressure_solver="fft"), dict(halo="auto")))
+RDMA_T4 = dict(halo="explicit", halo_block_iters=4, halo_backend="rdma")
 CHUNKS = 5
 
 
 class Sharded:
-    """sharded512's step on 8 shards (the rdma backend, T = 4) of one card
-    (``cards=1``) or of every visible card (``cards=0``, shard r on card
-    ⌊r·D/8⌋), with ``Engine``'s ``step`` and ``state``."""
+    """sharded512's step on 8 shards (by default the rdma backend, T = 4) of
+    one card (``cards=1``) or of every visible card (``cards=0``, shard r on
+    card ⌊r·D/8⌋), with ``Engine``'s ``step`` and ``state``."""
 
-    def __init__(self, cfg, cards: int = 1):
+    def __init__(self, cfg, cards: int = 1, options=None):
         import torch
 
         from fluidsim_tpu_torch.parallel import make_mesh, shard_state, sharded_step_fn
@@ -61,8 +69,7 @@ class Sharded:
         d = cards or min(8, torch.cuda.device_count())
         mesh = make_mesh(["cuda"] * 8 if d == 1 else
                          [torch.device("cuda", r * d // 8) for r in range(8)])
-        self._step = sharded_step_fn(cfg, mesh, halo="explicit", halo_block_iters=4,
-                                     halo_backend="rdma")
+        self._step = sharded_step_fn(cfg, mesh, **(options or RDMA_T4))
         self.state = shard_state(zeros_state(cfg, "cuda"), mesh)
         self.devices = mesh.devices
 
@@ -109,15 +116,16 @@ def child(root: str, names) -> None:
         raise SystemExit(f"imported {fluidsim_tpu_torch.__file__}, not from {root}")
     out = {"root": root}
     n_cards = torch.cuda.device_count()
-    for name, preset, steps, warmup, cards in PATHS:
+    for name, preset, steps, warmup, cards, *options in PATHS:
         if names and name not in names:
             continue
         if cards == 0 and n_cards < 2:
             out[name] = f"not run: {n_cards} CUDA device visible"
             continue
         sharded = cards is not None
-        cfg = getattr(config, preset)()
-        eng = Sharded(cfg, cards) if sharded else Engine(cfg, device="cuda")
+        cfg = getattr(config, preset)().replace(**(options[0] if options else {}))
+        eng = (Sharded(cfg, cards, options[1] if len(options) > 1 else None) if sharded
+               else Engine(cfg, device="cuda"))
         eng.step(warmup)
         for d in range(n_cards):
             torch.cuda.synchronize(d)
