@@ -248,7 +248,18 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      (strips, L2) bitwise its twin, timed in turns, beside the floor (a
      launch of 20 cluster barriers alone); bench128 with ``fuse_full_step``'s
      options and scene_a through ``Engine`` on each route (the counters
-     show it), steps/s and device ms a step in turns;
+     show it), steps/s and device ms a step in turns; K8 (float32 and
+     bfloat16 fields, both solve dtypes) and K14 at windows K = 2..5 at
+     128³ on both routes bitwise their twins with every cell of every
+     substep on the <= 8-tap sum (``resident.tap_routes``), and with a NaN
+     velocity or an inf density at 64³ bitwise but for NaN payloads, the
+     substeps that read them on the full sum and the next launch on finite
+     fields on the 8 taps again; K8 and K14 at K = 1..5 timed beside K1 →
+     K2 (K1 → K3) on bench128's shape; K13's three calls of a sharded512
+     step on 8 shards of the card by the union of a call's kernel intervals
+     in a profiler trace (where shares overlap, summed durations overstate
+     the card's time), beside the same arrays by ``torch.cat`` on the same
+     streams;
  19. K1, K2's density phase and K11 at windows K >= 2 on tiles widened by K
      (``csrc/advect_window.cuh``), which phases 9b, 9d and 14 already ran:
      every K >= 2 call of PERF.md's table (K1 on plume64 at K = 3, 4, 5 and
@@ -279,8 +290,9 @@ Phases, each of which ends the run with a non-zero exit code on failure:
      checkpoint of the 8-shard MacCormack state written and read back on 8
      shards, on 4 and unsharded, bitwise.
 The line before last is a JSON object describing each kernel (with the
-least time the card could take for its work, ``bound_ms``); the last line
-is ``{"ok": true, "device": {...}}``.
+least time the card could take for its work, ``bound_ms``), after a line
+with the script's wall time; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -300,7 +312,7 @@ SHARDED_STEPS = 15
 SHARDED_TWIN_STEPS = 3
 HALO_STEPS = 20
 HALO_T2_STEPS = 10
-HALO_TWIN_STEPS = 10
+HALO_TWIN_STEPS = 4
 BF16_HALO_STEPS = 10
 PLUME_STEPS = 100
 BF16_STEPS = 100
@@ -406,6 +418,38 @@ def profile_ms(fn, reps: int, launches: dict = None) -> dict:
         if launches is not None:
             launches[name] = launches.get(name, 0.0) + evt.count / reps
     return out
+
+
+def union_ms(fn, key: str, reps: int, launches: int):
+    """Milliseconds a call of ``fn()`` keeps the card on the kernels whose
+    name holds ``key``: the union of their device intervals in a
+    ``torch.profiler`` trace of ``reps`` calls, over ``reps`` (calls that
+    do not overlap one another; kernels of one call on several streams may);
+    and their summed durations over it.  None where the trace does not hold
+    the call's ``launches`` kernels of that name for every call (a profile
+    late in a process loses events, and a union of some is too short)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and key in e.name)
+    if len(spans) != launches * reps:
+        return None
+    total, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            total, end = total + (b - a), b
+        elif b > end:
+            total, end = total + (b - end), b
+    summed = sum(b - a for a, b in spans)
+    return total / 1e3 / reps, summed / total
 
 
 def profile_parts(fn, reps: int) -> dict:
@@ -530,6 +574,7 @@ def near_twin(at10, twin_state, what):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     # -- 1. the card ---------------------------------------------------
     try:
         import numpy as np
@@ -683,6 +728,7 @@ def main() -> None:
         return {k: fn.launches for k, fn in counters.items()}
 
     # -- 20. MacCormack and the FFT projection per shard, the sharded checkpoint --
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 20")
     # First, in a process of its own: its whole-volume FFT reference at 512³
     # takes about 65 GB of the card, more than is left beside what the later
     # phases of this process hold.
@@ -692,6 +738,7 @@ def main() -> None:
         fail(f"phase 20 failed (exit code {child.returncode})")
 
     # -- 3. each kernel against its twin at 128³ -------------------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 3")
     cfg = preset_bench_128()
     n = cfg.current_size
     vol = n ** 3
@@ -925,6 +972,7 @@ def main() -> None:
     del got, ref
 
     # -- 4. bench128 through Engine ------------------------------------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 4")
     # Count the engine's full-grid emitter passes (the folded paths run none).
     emitter_passes = [0]
 
@@ -968,6 +1016,7 @@ def main() -> None:
     near_twin(at10, twin.state, "bench128")
 
     # -- 5. bench128 with the projection unfused (K3 without a mask) ---------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 5")
     ucfg = cfg.replace(fuse_project_advect=False)
     ueng = Engine(ucfg, device="cuda")
     counters_to_zero()
@@ -985,6 +1034,7 @@ def main() -> None:
             fail(f"the unfused bench128 step differs from the fused one in {name}")
 
     # -- 6. vortex128 through Engine -----------------------------------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 6")
     veng = Engine(vcfg, device="cuda")
     counters_to_zero()
     veng.step(1)
@@ -1022,6 +1072,7 @@ def main() -> None:
     near_twin(vat10, vtwin.state, "vortex128")
 
     # -- 7. the fused variants through Engine ------------------------------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 7")
     def run_fused(fcfg, steps, what):
         """``steps`` steps of ``fcfg`` with the counters at zero before;
         returns the engine, the launches, the state after 10 steps and the
@@ -1085,6 +1136,7 @@ def main() -> None:
     engine_module.apply_custom_source = apply_custom_source
 
     # -- 8. multi256 through Engine -------------------------------------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 8")
     slab_kernels = ("K1", "K6", "K7 div", "K7 grad")
     meng = Engine(mcfg, device="cuda")
     counters_to_zero()
@@ -1119,6 +1171,7 @@ def main() -> None:
             fail(f"multi256: the kernel path differs from the twin path in {name}")
 
     # -- 9. sharded512 on one card --------------------------------------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 9")
     sn = scfg.current_size
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1191,6 +1244,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 9b. plume64, smoke32, the 64³ gate and double_project -------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 9b")
     # K1 with a window of K = 2 and 3, and K4 with and without the mask,
     # against their twins at 64³ and 128³ on seeded fields.  At plume64's dt
     # a backtrace reaches up to about 3 cells, so K = 2 clamps.
@@ -1345,6 +1399,7 @@ def main() -> None:
         del dtwin
 
     # -- 9c. the 2D reference-parity mode: scene_a and scene_b (K9) ----------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 9c")
     # K9 against its twin on seeded fields: scene_a's airfoil at 192² and
     # scene_b's circle at 128², b = 0, 1, 2 in both modes, 20 and 21 sweeps.
     acfg, bcfg = preset_scene_a(), preset_scene_b()
@@ -1502,6 +1557,7 @@ def main() -> None:
     exactly(gate2d_launches, {"K9": 32}, "the 2D oracle gate")
 
     # -- 9d. bfloat16 fields and the windowed fused kernels ----------------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 9d")
     # Each bf16 kernel against its twin at 128³ on bench128's and vortex128's
     # seeded fields rounded to bfloat16, bitwise.
     bf = torch.bfloat16
@@ -1800,6 +1856,7 @@ def main() -> None:
                   *((what, e, 20) for what, e in option_engines.items()))
 
     # -- 10. timing ------------------------------------------------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 10")
     say(f"# timing on {card}")
     step_ms = cuda_ms(lambda: eng.step(1), reps=200, warmup=20)
     twin_ms = cuda_ms(lambda: twin.step(1), reps=10, warmup=2)
@@ -2402,6 +2459,7 @@ def main() -> None:
                + ball * EMIT_OPS)),
     ]
     # -- 11. K5 (the sweep-blocked solve) in K2, K3, K4 and K8, and K14 ---------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 11")
     say("# phase 11: K5 (jacobi_sweep_block) in K2, K3, K4 and K8, and K14")
     counters["K14"] = advect_project_3d_resident
     k5_err = {}
@@ -2681,6 +2739,7 @@ def main() -> None:
     ]
 
     # -- 12. the explicit halo-exchange sharded step: K10 and K11 ------------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 12")
     say("# phase 12: the explicit halo-exchange sharded step (K10, K11) on 8 shards")
     counters["K10"] = jacobi_ext_kernel
     counters["K11"] = advect_ext_kernel
@@ -3026,6 +3085,7 @@ def main() -> None:
     ]
 
     # -- 13. the "rdma" backend (K12, K13) and bfloat16 fields (K11) -------------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 13")
     say("# phase 13: the rdma backend (K12, K13) and K11 on bfloat16 slabs, 8 shards")
     counters["K12"] = jacobi_ext_rdma
     counters["K13"] = halo_exchange_rdma
@@ -3378,22 +3438,28 @@ def main() -> None:
     ]
 
     # -- 13e. the mesh's streams and cards ------------------------------------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 13e")
     phase_streams(card, dev, counters_to_zero, counts)
 
     # -- 14. K1's body at K >= 4 and the host entry points ----------------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 14")
     phase_wide(card, dev, counters_to_zero, counts, entries, times)
     phase_entry_points(card, counters_to_zero, counts)
 
     # -- 15. the tiled solve of K2 and K3 ----------------------------------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 15")
     phase_tiled_solve(card, dev, counters_to_zero, counts)
 
     # -- 16. K1 and K11 at K = 1 on tiles -----------------------------------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 16")
     phase_advect_tiles(card, dev, counters_to_zero, library)
 
     # -- 17. the Jacobi round of K6, K10 and K12 ----------------------------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 17")
     phase_jacobi_round(card, dev, counters_to_zero, counts)
 
     # -- 18. K8 and K14 on the tiled solve, K9 on strips --------------------------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 18")
     # In a process of its own: late in this one torch.profiler records no
     # device events.
     child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase-18"],
@@ -3402,6 +3468,7 @@ def main() -> None:
         fail(f"phase 18 failed (exit code {child.returncode})")
 
     # -- 19. K1, K2's density phase and K11 at K >= 2 on windowed tiles ----------
+    say(f"# {time.perf_counter() - t_start:.1f} s into the run: phase 19")
     phase_window_tiles(card, dev, counters_to_zero, counts, library, gcfg)
 
     report = []
@@ -3414,6 +3481,7 @@ def main() -> None:
                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "library_ms": library.get(key)})
+    say(f"# chip_smoke.py wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4883,6 +4951,8 @@ def phase_step_and_2d_tiles(card, dev):
     t_phase = time.perf_counter()
     _build.load_library()
     say("# phase 18: K8 and K14 on the tiled solve, K9 on strips in distributed shared memory")
+    # First: a profile late in a process can lose the card's events.
+    phase_k13_union(card)
     rng = np.random.default_rng(SEED + 18)
     bf = torch.bfloat16
     bcfg, pcfg = preset_bench_128(), preset_plume_64()
@@ -4969,6 +5039,8 @@ def phase_step_and_2d_tiles(card, dev):
             f"at one, {comp} {dev_ms[('composed', it)]!r} and {dev_ms[('composed', 1)]!r}"
             f"{' (not measured: the profile lost events)' if short else ''}; "
             f"bitwise the twin and the composition on both routes [{card}]")
+
+    phase_fused_window(card, dev, on_route, rng)
 
     # K9: scene_a's viscous diffusion (b = 1, smoothing) and pressure solve
     # (b = 0, fixed rhs) at 192², scene_b's at 128², on both routes.
@@ -5073,6 +5145,189 @@ def phase_step_and_2d_tiles(card, dev):
             + (" (the profiler recorded no device events)" if not any(
                 sum(v) for v in device.values()) else "") + f" [{card}]")
     say(f"# phase 18: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_k13_union(card):
+    """Phase 18, K13's yardstick on 8 streams, where its shares overlap one
+    another and summed durations overstate the card's time: the union of a
+    call's kernel intervals in a ``torch.profiler`` trace (this process's
+    profiler records the card's events) for each of K13's three calls of a
+    sharded512 step (8 shards of the card, seeded fields), beside the union
+    of the same extended arrays by ``torch.cat`` on the same streams after
+    the same waits, and the call's bytes over each."""
+    import torch
+
+    from fluidsim_tpu_torch.config import preset_sharded_512
+    from fluidsim_tpu_torch.kernels.halo import halo_exchange_rdma
+    from fluidsim_tpu_torch.parallel.streams import order_of
+
+    n = preset_sharded_512().current_size
+    lz = n // 8
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    x, x0, dens = (torch.randn((n, n, n), device="cuda", generator=g) for _ in range(3))
+    vel = torch.randn((3, n, n, n), device="cuda", generator=g)
+    calls = {"K13 prime": ([[a[None], b[None]] for a, b in zip(torch.chunk(x, 8),
+                                                                torch.chunk(x0, 8))], 4),
+             "K13 self": ([[v] for v in torch.chunk(vel, 8, 1)], 2),
+             "K13 density": ([[d, v] for d, v in zip(torch.chunk(dens[None], 8, 1),
+                                                     torch.chunk(vel, 8, 1))], 2)}
+
+    def cat_streams(by_shard, h, zeros):
+        order = order_of([a[0] for a in by_shard])
+        with order.scope():
+            marks = order.marks()
+            for r in range(8):
+                order.wait(r, marks, r - 1, r + 1)
+            for r in range(8):
+                with order.on(r):
+                    [torch.cat([by_shard[r - 1][j][:, -h:] if r > 0 else zeros[j], a,
+                                by_shard[r + 1][j][:, :h] if r < 7 else zeros[j]], 1)
+                     for j, a in enumerate(by_shard[r])]
+
+    for key, (by_shard, h) in calls.items():
+        zeros = [torch.zeros_like(a[:, :h]) for a in by_shard[0]]
+        call_bytes = 8 * sum(a.shape[0] * (2 * lz + 2 * h) * n * n * a.element_size()
+                             for a in by_shard[0])
+        unions = {name: union_ms(fn, kernel, reps=10, launches=launches)
+                  for name, fn, kernel, launches in (
+                      ("K13", lambda: halo_exchange_rdma(by_shard, h), "exchange_kernel", 8),
+                      ("torch.cat", lambda: cat_streams(by_shard, h, zeros),
+                       "CatArrayBatchedCopy", 8 * len(by_shard[0])))}
+        say(f"{key} on 8 streams, the union of a call's kernels: " + "; ".join(
+            f"{name} not measured (the profile lost events)" if u is None else
+            f"{name} {u[0]!r} ms ({call_bytes / (u[0] * 1e-3) / 1e12:.3f} TB/s; summed "
+            f"durations {u[1]:.2f}x the union)" for name, u in unions.items())
+            + f"; bound {call_bytes / HBM_BYTES_PER_S * 1e3!r} ms [{card}]")
+    del x, x0, dens, vel, calls
+    torch.cuda.empty_cache()
+
+
+def phase_fused_window(card, dev, on_route, rng):
+    """Phase 18, K8 and K14 at windows K = 2..5 (csrc/full_step.cuh's vote
+    and the <= 8-tap sum): at 128³ K8 on float32 and bfloat16 fields with
+    either solve dtype and K14, on both routes, bitwise the twin, every cell
+    of every substep on the 8 taps (``resident.tap_routes``); at 64³ a NaN
+    velocity and an inf density (K8, float32 and bfloat16 fields; K14 the
+    NaN) bitwise the twin but for NaN payloads, with the substeps whose
+    source held them on the full sum, and the launch after each on finite
+    fields all on the 8 taps again; then K8 on bench128's shape (60
+    bfloat16 sweeps) and K14 (60 float32 sweeps) timed beside K1 → K2 (K1 →
+    K3) on the same inputs, and K8 at K = 1 beside them."""
+    import torch
+
+    from fluidsim_tpu_torch.config import preset_bench_128
+    from fluidsim_tpu_torch.kernels import resident as kres
+    from fluidsim_tpu_torch.kernels.advect import advect_multi_3d_kernel
+    from fluidsim_tpu_torch.models.stable3d import sink_factor
+
+    bcfg = preset_bench_128()
+    n, dt = bcfg.current_size, bcfg.effective_params()[0]
+    damp = dict(damp=sink_factor(dt, bcfg.velocity_damping),
+                dens_damp=sink_factor(dt, bcfg.density_dissipation))
+    bf = torch.bfloat16
+    k8, k8p, k14, k14p = (kres.full_step_3d, kres.full_step_3d_plain,
+                          kres.advect_project_3d_resident, kres.advect_project_3d_resident_plain)
+
+    def same(got, ref):
+        torch.cuda.synchronize()
+        return all(torch.equal(g.isnan(), r.isnan()) and torch.equal(
+            torch.where(g.isnan(), 0.0, g), torch.where(r.isnan(), 0.0, r))
+            for g, r in zip(got, ref))
+
+    def taps(fn):
+        torch.cuda.synchronize()
+        return kres.tap_routes(fn.votes)
+
+    def fields(size, k, n_sub=1):
+        return (velocity_field(size, rng, dev, (k + 1) * n_sub / (2.0 * dt * (size - 2))),
+                density_field(size, rng, dev))
+
+    t0 = time.perf_counter()
+    held = 0
+    for k in (2, 3, 4, 5):
+        vel, dens = fields(n, k)
+        for route in ("tiled", "grid"):
+            on_route(route)
+            for dtype in (torch.float32, bf):
+                v, d = vel.to(dtype), dens.to(dtype)
+                for solve in ("bfloat16", None):
+                    kw = dict(window=k, solve_dtype=solve, **damp)
+                    got = k8(v, d, 60, dt, **kw)
+                    counts = taps(k8)
+                    if not same(got, k8p(v, d, 60, dt, **kw)) or counts != {
+                            "eight": 2 * n ** 3, "full": 0}:
+                        fail(f"phase 18: K8 K={k} {dtype} fields, {solve or 'float32'} solve, "
+                             f"{route} route: not its twin or not on the 8 taps ({counts})")
+                    held += 1
+            got = k14(vel, 60, dt, window=k)
+            counts = taps(k14)
+            if not same(got, k14p(vel, 60, dt, window=k)) or counts != {"eight": n ** 3,
+                                                                       "full": 0}:
+                fail(f"phase 18: K14 K={k} {route} route: not its twin or not on the 8 taps "
+                     f"({counts})")
+            held += 1
+        on_route("tiled")
+    say(f"# K8 and K14 at K = 2..5 on the 8 taps: {held} launches (f32 and bf16 fields, both "
+        f"solve dtypes, both routes) bitwise their twins, every cell of every substep on the "
+        f"8 taps ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # Non-finite fields at 64³ (two substeps), then the same launch on
+    # finite ones: no vote outlives its launch.
+    m, n_sub = 64, 2
+    c = m // 2
+    for k in (2, 3, 4, 5):
+        vel, dens = fields(m, k, n_sub)
+        for dtype in (torch.float32, bf):
+            for where in ("tap", "source"):
+                v, d = vel.to(dtype).clone(), dens.to(dtype).clone()
+                if where == "tap":
+                    d[c, c - 1, c] = float("inf")
+                else:
+                    v[1, c, c, c] = float("nan")
+                kw = dict(window=k, n_sub=n_sub, solve_dtype="bfloat16", **damp)
+                got = k8(v, d, 4, dt, **kw)
+                counts = taps(k8)
+                ref = k8p(v, d, 4, dt, **kw)
+                full = 2 * m ** 3 if where == "tap" else 3 * m ** 3
+                if not same(got, ref) or counts["full"] < full:
+                    fail(f"phase 18: K8 K={k} {dtype} with a non-finite {where}: not its "
+                         f"twin, or too few cells on the full sum ({counts})")
+                got = k8(vel.to(dtype), dens.to(dtype), 4, dt, **kw)
+                if not same(got, k8p(vel.to(dtype), dens.to(dtype), 4, dt, **kw)) or taps(
+                        k8) != {"eight": 2 * n_sub * m ** 3, "full": 0}:
+                    fail(f"phase 18: K8 K={k} after a non-finite {where}: a vote outlived "
+                         f"its launch")
+        v = vel.clone()
+        v[1, c, c, c] = float("nan")
+        got = k14(v, 60, dt, window=k, n_sub=n_sub)
+        if not same(got, k14p(v, 60, dt, window=k, n_sub=n_sub)) or taps(k14) != {
+                "eight": 0, "full": n_sub * m ** 3}:
+            fail(f"phase 18: K14 K={k} with a NaN velocity: not its twin or not on the "
+                 f"full sum")
+    say(f"# K8 and K14 at K = 2..5 with NaN and inf: bitwise their twins (but NaN "
+        f"payloads), the substeps that read them on the full sum [{card}]")
+
+    # Times: K8 on bench128's shape beside K1 -> K2, K14 beside K1 -> K3,
+    # and one call of each twin.
+    def k1(v, k):
+        return advect_multi_3d_kernel((1, 2, 3), v, v, dt, window=k)
+
+    for k in (1, 2, 3, 4, 5):
+        vel, dens = fields(n, k)
+        row = {}
+        for dtype, tag in ((torch.float32, "f32"), (bf, "bf16")):
+            v, d = vel.to(dtype), dens.to(dtype)
+            kw = dict(window=k, solve_dtype="bfloat16", **damp)
+            row[f"K8 {tag}"] = cuda_ms(lambda: k8(v, d, 60, dt, **kw), reps=FUSED_REPS)
+            row[f"K1 -> K2 {tag}"] = cuda_ms(lambda: kres.project_advect_density_3d(
+                k1(v, k), d, 60, dt, **kw), reps=FUSED_REPS)
+            row[f"K8 {tag} twin"] = cuda_ms(lambda: k8p(v, d, 60, dt, **kw), reps=1, warmup=0)
+        row["K14"] = cuda_ms(lambda: k14(vel, 60, dt, window=k), reps=FUSED_REPS)
+        row["K1 -> K3"] = cuda_ms(lambda: kres.project_3d_resident(k1(vel, k), 60),
+                                  reps=FUSED_REPS)
+        row["K14 twin"] = cuda_ms(lambda: k14p(vel, 60, dt, window=k), reps=1, warmup=0)
+        say(f"K = {k} at 128^3 (60 sweeps), ms by CUDA events: " + ", ".join(
+            f"{key} {ms!r}" for key, ms in row.items()) + f" [{card}]")
 
 
 PARTITIONED_STEPS = 3

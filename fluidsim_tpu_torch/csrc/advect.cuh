@@ -15,8 +15,9 @@
 // changes the bits of a sum that starts at +0, so it is bitwise the
 // (2K+1)^3-term hat sum (else it takes that sum).  Above the K where its ring
 // fits, a launch runs one thread a cell with the runtime-K body.  The
-// whole-step kernels (K8, K14) call advect_cell_k1 and advect_cell_win(_rt)
-// per cell.
+// whole-step kernels (K8, K14) call advect_cell_k1 per cell at K = 1; at
+// K >= 2 the same <= 8-tap sum (eight_taps, advect_cell_eight) where their
+// vote finds the substep's whole source finite, else advect_cell_win(_rt).
 //
 // Arithmetic follows the TPU kernel operation by operation (the build uses
 // -fmad=false, so nothing is contracted into an FMA):
@@ -113,6 +114,46 @@ __device__ __forceinline__ float hat(float f, int d) {
 
 __device__ __forceinline__ float comb(float gm, float g0, float gp, float wp, float wm) {
   return (g0 + wp * (gp - g0)) + wm * (gm - g0);
+}
+
+// The <= 8 taps of a window of k >= 2 cells that the clamp leaves with
+// weight (advect_window.cuh says why their sum is bitwise the hat sum where
+// every tap of the window is finite and no displacement is NaN): on each
+// axis the taps at d = min(floor(f), k - 1) and d + 1, and their weights in
+// the hat sum's order (dz, then dy, then dx ascending; ((hz * hy) * hx)).
+// The windowed tiles (advect_window.cuh) and the whole-step kernels
+// (full_step.cuh) both take them from here.
+struct EightTaps {
+  int ix, iy, iz;
+  float w[8];
+};
+
+__device__ __forceinline__ EightTaps eight_taps(float fx, float fy, float fz, int k) {
+  EightTaps t;
+  t.ix = min(int(floorf(fx)), k - 1);
+  t.iy = min(int(floorf(fy)), k - 1);
+  t.iz = min(int(floorf(fz)), k - 1);
+  const float hx0 = hat(fx, t.ix), hx1 = hat(fx, t.ix + 1);
+  const float hy0 = hat(fy, t.iy), hy1 = hat(fy, t.iy + 1);
+  const float hz0 = hat(fz, t.iz), hz1 = hat(fz, t.iz + 1);
+  t.w[0] = (hz0 * hy0) * hx0;
+  t.w[1] = (hz0 * hy0) * hx1;
+  t.w[2] = (hz0 * hy1) * hx0;
+  t.w[3] = (hz0 * hy1) * hx1;
+  t.w[4] = (hz1 * hy0) * hx0;
+  t.w[5] = (hz1 * hy0) * hx1;
+  t.w[6] = (hz1 * hy1) * hx0;
+  t.w[7] = (hz1 * hy1) * hx1;
+  return t;
+}
+
+// The sum of the 8 taps g (g[i] the tap of weight w[i]) from +0, in the hat
+// sum's order.
+__device__ __forceinline__ float eight_tap_sum(const float (&w)[8], const float (&g)[8]) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc = acc + w[i] * g[i];
+  return acc;
 }
 
 // Where a folded emitter's add goes: nowhere, onto the buoyancy's density
@@ -317,6 +358,38 @@ __device__ __forceinline__ void advect_cell_win_rt(const TF* fields, const TV* v
   for (int c = 0; c < F; ++c) out[c] = acc[c];
 }
 
+// The whole-step kernels' cell at a window of k >= 2 cells where the caller
+// knows every value of `fields` finite (full_step.cuh's vote): the <= 8
+// taps with weight (eight_taps), read from the fields in place; no folds,
+// the whole n^3 grid.  Returns false and computes nothing where a
+// displacement is NaN (the caller takes the full sum).  No tap needs the
+// wrap: after the clamp t = coord + f lies in [0.5, n - 1.5] (a clip to
+// coord -+ k that moves t lands on coord -+ k, which the other clamp leaves
+// inside), and f = t - coord is exact, so coord + d >= floor(t) >= 0 and
+// coord + d + 1 <= n - 1.
+template <int F, typename TF, typename TV>
+__device__ __forceinline__ bool advect_cell_eight(const TF* fields, const TV* vel, int n,
+                                                  float dt0, int k, int z, int y, int x,
+                                                  float (&out)[F]) {
+  const long long sn = n, plane = sn * sn, vol = plane * sn;
+  const long long c0 = (z * sn + y) * sn + x;
+  const float hi = float(n) - 1.5f;
+  const float fx = frac_win(float(x), ld(vel[c0]), dt0, hi, k);
+  const float fy = frac_win(float(y), ld(vel[vol + c0]), dt0, hi, k);
+  const float fz = frac_win(float(z), ld(vel[2 * vol + c0]), dt0, hi, k);
+  if (!(fx == fx && fy == fy && fz == fz)) return false;  // a NaN displacement
+  const EightTaps t = eight_taps(fx, fy, fz, k);
+  const long long a = c0 + (t.iz * sn + t.iy) * sn + t.ix, b = a + plane;
+#pragma unroll
+  for (int c = 0; c < F; ++c) {
+    const TF* f = fields + c * vol;
+    const float g[8] = {ld(f[a]),      ld(f[a + 1]),      ld(f[a + sn]), ld(f[a + sn + 1]),
+                        ld(f[b]),      ld(f[b + 1]),      ld(f[b + sn]), ld(f[b + sn + 1])};
+    out[c] = eight_tap_sum(t.w, g);
+  }
+  return true;
+}
+
 // One substep's operands.  src (F, nz, n, n) is read and dst written, each in
 // the type its launch names; vel is the storage type's; dens is the
 // buoyancy's density, mask one byte per cell (nonzero = solid) and emitter
@@ -364,16 +437,22 @@ __device__ __forceinline__ void advect_values(const Substep& a, const Cell& k, f
   }
 }
 
+// advect_put returns whether every value it stored is finite (the
+// whole-step kernels' vote on what a substep leaves for the next).
 template <int F, typename TO>
-__device__ __forceinline__ void advect_put(const Substep& a, const Cell& k, const float (&v)[F]) {
+__device__ __forceinline__ bool advect_put(const Substep& a, const Cell& k, const float (&v)[F]) {
   const long long vol = static_cast<long long>(a.n) * a.n * a.slab.nz;
   const int bs[3] = {a.b0, a.b1, a.b2};
   TO* dst = static_cast<TO*>(a.dst);
+  bool finite = true;
 #pragma unroll
   for (int c = 0; c < F; ++c) {
     const float u = face_negates(bs[c], k.z, k.y, k.x, k.cz, k.cy, k.cx) ? -v[c] : v[c];
-    dst[c * vol + k.idx] = st<TO>(ld(st<TO>(u)) * a.scale);
+    const TO o = st<TO>(ld(st<TO>(u)) * a.scale);
+    dst[c * vol + k.idx] = o;
+    finite = finite && fabsf(ld(o)) <= 3.40282347e38f;  // not inf, not NaN
   }
+  return finite;
 }
 
 template <int F, bool BUOY_VEL, bool BUOY_TAPS, bool MASK, int SRC, int K, typename TF,

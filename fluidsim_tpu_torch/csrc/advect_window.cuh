@@ -47,7 +47,8 @@
 // leaves its bits as they are.  So where every tap of a cell's window is
 // finite, the 8 taps at d = min(floor(f), K - 1) and d + 1 on each axis,
 // summed in the hat sum's own order (dz, then dy, then dx ascending; weight
-// ((hz * hy) * hx)), are bitwise the (2K+1)^3-term sum.  A cell takes that
+// ((hz * hy) * hx)), are bitwise the (2K+1)^3-term sum (advect.cuh's
+// eight_taps and eight_tap_sum, which K8 and K14 share).  A cell takes that
 // sum when the bits of its 2K + 1 planes are all set and none of fx, fy, fz
 // is NaN (a NaN displacement makes every weight NaN, and floor gives no
 // index); otherwise it takes the full sum, in advect_cell_win's order, from
@@ -234,33 +235,19 @@ __global__ void __launch_bounds__(kWinThreads, 2)
     const unsigned need = full & ~(1u << slot_of(cu + k + 1));
     const float* at = ring + ly * pitch + lx;  // the cell's tap in a slot's field
     if (fx == fx && fy == fy && fz == fz && (bits & need) == need) {  // no NaN
-      const int ix = min(int(floorf(fx)), k - 1), iy = min(int(floorf(fy)), k - 1);
-      const int iz = min(int(floorf(fz)), k - 1);
-      const float hx0 = hat(fx, ix), hx1 = hat(fx, ix + 1);
-      const float hy0 = hat(fy, iy), hy1 = hat(fy, iy + 1);
-      const float hz0 = hat(fz, iz), hz1 = hat(fz, iz + 1);
-      int sa = s0 + iz + k;
+      const EightTaps t = eight_taps(fx, fy, fz, k);
+      int sa = s0 + t.iz + k;
       sa -= sa >= slots ? slots : 0;
       const int sb = sa + 1 == slots ? 0 : sa + 1;
-      const float w[8] = {(hz0 * hy0) * hx0, (hz0 * hy0) * hx1, (hz0 * hy1) * hx0,
-                          (hz0 * hy1) * hx1, (hz1 * hy0) * hx0, (hz1 * hy0) * hx1,
-                          (hz1 * hy1) * hx0, (hz1 * hy1) * hx1};
-      const float* pa = at + sa * slot_size + iy * pitch + ix;
-      const float* pb = at + sb * slot_size + iy * pitch + ix;
+      const float* pa = at + sa * slot_size + t.iy * pitch + t.ix;
+      const float* pb = at + sb * slot_size + t.iy * pitch + t.ix;
 #pragma unroll
       for (int c = 0; c < F; ++c) {
         const float* a = pa + c * field_size;
         const float* b = pb + c * field_size;
-        float acc = 0.0f;
-        acc = acc + w[0] * a[0];
-        acc = acc + w[1] * a[1];
-        acc = acc + w[2] * a[pitch];
-        acc = acc + w[3] * a[pitch + 1];
-        acc = acc + w[4] * b[0];
-        acc = acc + w[5] * b[1];
-        acc = acc + w[6] * b[pitch];
-        acc = acc + w[7] * b[pitch + 1];
-        v[c] = acc;
+        const float g[8] = {a[0], a[1], a[pitch], a[pitch + 1],
+                            b[0], b[1], b[pitch], b[pitch + 1]};
+        v[c] = eight_tap_sum(t.w, g);
       }
       return;
     }

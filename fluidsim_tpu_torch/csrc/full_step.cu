@@ -32,7 +32,8 @@
 //     program of the block's tile: the divergence of the self-advected
 //     velocity (read at L2), every sweep in shared memory, the tile's faces
 //     traded with its six neighbours through flags.  No grid barrier inside
-//     the solve: n_sub + 2 + (n_sub - 1) grid barriers a step.
+//     the solve: n_sub + 2 + (n_sub - 1) grid barriers a step (K >= 2:
+//     one more, after the vote on the inputs).
 //     With K5's block (sweep_block >= 2, float32 fields) the tiles run
 //     K5's tile program (solve_tiled.cuh: block_tile) instead, each of its
 //     stages a pass on chip with a face trade, no grid barrier either.
@@ -59,7 +60,16 @@
 // over the whole grid's cells, and every block runs its tile's solve); the
 // buffers that a phase writes and a later phase reads are plain pointers,
 // so no read goes through the read-only cache.  The self-advected velocity
-// lives in `adv`.  On float32 fields vel_out serves as the other buffer of
+// lives in `adv`.
+//
+// At a window K >= 2 the advection phases sum only the <= 8 taps the clamp
+// leaves with weight (advect.cuh's advect_cell_eight, the windowed tiles'
+// sum, advect_window.cuh) where a whole-field vote inside the launch finds
+// the substep's source finite, and the full (2K+1)^3 hat sum elsewhere
+// (full_step.cuh: the vote): 8 taps a cell where the per-cell body read 729
+// at K = 4 and 1331 at K = 5, each a gather at L2.
+//
+// On float32 fields vel_out serves as the other buffer of
 // the self-advection's substeps and adv's first volume as the density's, so
 // the scratch is one velocity volume; on bfloat16 fields the substeps
 // before the last are float32 (as the TPU kernel keeps them in VMEM) in two
@@ -123,7 +133,9 @@ extern "C" int fs_full_step_blocks(int solve_bf16, int field_bf16, int window, i
 // fields; see block_valid); tiles is null (the grid-stride route) or the
 // tiled solve's tiling and scratch (the tiled route; with blk, K5's tile
 // program: float32 face slots, and rhs its scratch).  All
-// contiguous on the current device; n <= 1024.  Launches on `stream`
+// contiguous on the current device; n <= 1024.  votes is kVoteInts ints of
+// scratch for window >= 2 (full_step.cuh's vote; unread at window 1, may be
+// null there).  Launches on `stream`
 // without synchronising and returns the first cudaError_t (a grid the card
 // cannot hold at once is cudaErrorCooperativeLaunchTooLarge).
 extern "C" int fs_full_step(const void* vel, const void* dens, void* adv, void* vel_out,
@@ -131,7 +143,7 @@ extern "C" int fs_full_step(const void* vel, const void* dens, void* adv, void* 
                             void* p_b, void* rhs, int n, int iters, int solve_bf16,
                             int field_bf16, float dt0_sub, int n_sub, int window, float damp,
                             float dens_damp, const fsk::SolveBlock* blk,
-                            const fsk::SolveTiles* tiles, void* stream) {
+                            const fsk::SolveTiles* tiles, int* votes, void* stream) {
   using namespace fsk;
   if (n < 3 || n > 1024 || iters < 1 || n_sub < 1 || window < 1 || n < 2 * window + 1 ||
       !block_valid(blk, n, iters, field_bf16, tiles != nullptr) || p_a == nullptr ||
@@ -140,7 +152,7 @@ extern "C" int fs_full_step(const void* vel, const void* dens, void* adv, void* 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const FullStepArgs a{vel, dens, adv, vel_out, p_out, dens_out, p_a, p_b, rhs, tmp0, tmp1,
-                       n, iters, n_sub, dt0_sub, damp, dens_damp, window};
+                       n, iters, n_sub, dt0_sub, damp, dens_damp, window, votes};
   const SolveBlock block = blk != nullptr ? *blk : SolveBlock{1};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int blocks = 0;
@@ -154,20 +166,20 @@ extern "C" int fs_full_step(const void* vel, const void* dens, void* adv, void* 
 // (n, n, n) solve scratch (the tiled route: p_a only); all float32,
 // contiguous on the current device, n <= 1024.  dt0_sub = f32(dt0 / n_sub)
 // with dt0 = f32(dt) * f32(n - 2); window >= 1 (n >= 2 * window + 1); tiles
-// as fs_full_step's.  Self-advects vel (b = 1, 2, 3) in n_sub substeps and
-// projects the result with `iters` sequential sweeps, in one cooperative
-// launch on `stream`; returns the first cudaError_t.
+// and votes as fs_full_step's.  Self-advects vel (b = 1, 2, 3) in n_sub
+// substeps and projects the result with `iters` sequential sweeps, in one
+// cooperative launch on `stream`; returns the first cudaError_t.
 extern "C" int fs_advect_project(const float* vel, float* adv, float* vel_out, float* p_out,
                                  float* p_a, float* p_b, float* rhs, int n, int iters,
                                  float dt0_sub, int n_sub, int window,
-                                 const fsk::SolveTiles* tiles, void* stream) {
+                                 const fsk::SolveTiles* tiles, int* votes, void* stream) {
   using namespace fsk;
   if (n < 3 || n > 1024 || iters < 1 || n_sub < 1 || window < 1 || n < 2 * window + 1 ||
       p_a == nullptr || (tiles == nullptr && (p_b == nullptr || rhs == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const FullStepArgs a{vel, nullptr, adv, vel_out, p_out, nullptr, p_a, p_b, rhs, nullptr,
-                       nullptr, n, iters, n_sub, dt0_sub, 1.0f, 1.0f, window};
+                       nullptr, n, iters, n_sub, dt0_sub, 1.0f, 1.0f, window, votes};
   int blocks = 0;
   return static_cast<int>(
       advect_project_f32(a, tiles, window, true, &blocks, static_cast<cudaStream_t>(stream)));

@@ -29,7 +29,35 @@ struct FullStepArgs {
   int n, iters, n_sub;
   float dt0_sub, damp, dens_damp;
   int window;
+  int* votes;  // K >= 2: kVoteInts ints of scratch (the vote below); else unread
 };
+
+// The vote of the advection phases at a window K >= 2.  A cell of a substep
+// takes the <= 8-tap sum (advect.cuh's advect_cell_eight) where every value
+// of the substep's source is finite and its displacement is not NaN, else
+// the full (2K+1)^3 sum, so that a field with a non-finite value stays
+// bitwise the twin (advect_window.cuh says why the two sums agree on finite
+// windows).  The sources are voted on whole: the inputs in one pass before
+// the first substep (vote_inputs: a.vel, and a.dens for the density phase),
+// and each substep's result by the threads that store it (advect_put's
+// return).  A block ANDs its threads' votes (__syncthreads_and) into a slot
+// of its own; after the grid barrier that ends the phase every block ANDs
+// all blocks' slots (votes_hold).  Slots: kVoteVel, kVoteDens, then the
+// substeps' results by parity (kVoteSubstep + (sub & 1)): substep s writes
+// its parity's slots while s + 1 reads the other's, and a barrier lies
+// between a slot's readers and its next writer.  Every slot read in a launch
+// was written earlier in it, so nothing is reset, nothing carries over from
+// another launch, and the host reads nothing.  votes: [0] the grid's block
+// count, then kVoteCounts unsigned ints a block (the cells the advection
+// phases summed by 8 taps and by the full sum, for the route counts,
+// kernels/resident.tap_routes), then kVoteSets slots a block.
+constexpr int kVoteMaxBlocks = 2048;
+constexpr int kVoteCounts = 2;
+constexpr int kVoteSets = 4;
+constexpr int kVoteInts = 1 + (kVoteCounts + kVoteSets) * kVoteMaxBlocks;
+constexpr int kVoteVel = 0;
+constexpr int kVoteDens = 1;
+constexpr int kVoteSubstep = 2;
 
 // K8 on float32 fields (full_step.cu) and on bfloat16 fields
 // (full_step_bf16.cu), for a bfloat16 solve when solve_bf16 and a window of
@@ -73,6 +101,152 @@ __device__ __forceinline__ void* substep_buf(int sub, int n_sub, const void* in,
   return sub % 2 == 0 ? tmp0 : tmp1;
 }
 
+__device__ __forceinline__ int block_thread() {
+  return static_cast<int>(threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z));
+}
+
+__device__ __forceinline__ bool finite_value(float v) {
+  return fabsf(v) <= 3.40282347e38f;  // not inf, not NaN
+}
+
+__device__ __forceinline__ int* vote_slots(int* votes) {
+  return votes + 1 + kVoteCounts * kVoteMaxBlocks;
+}
+
+// This block's vote into slot `set`: every thread's `finite` (a block
+// barrier).
+__device__ __forceinline__ void vote(int* votes, int set, bool finite) {
+  const int all = __syncthreads_and(finite);
+  if (block_thread() == 0) vote_slots(votes)[set * gridDim.x + blockIdx.x] = all;
+}
+
+// Whether every block's vote in slot `set`, stored before the last grid
+// barrier, holds (a block barrier).  __ldcg reads the slots at L2.
+__device__ __forceinline__ bool votes_hold(int* votes, int set) {
+  const int* slot = vote_slots(votes) + set * gridDim.x;
+  const int threads = static_cast<int>(blockDim.x * blockDim.y * blockDim.z);
+  bool all = true;
+  for (int b = block_thread(); b < static_cast<int>(gridDim.x); b += threads) {
+    all = all && __ldcg(slot + b) != 0;
+  }
+  return __syncthreads_and(all) != 0;
+}
+
+// This block's count of cells by sum ([eight, full], both phases'): zeroed
+// by its thread 0 before the self-advection's first barrier (count_start),
+// added to by every thread at each phase's end (count_add).
+__device__ __forceinline__ unsigned* block_count(int* votes) {
+  return reinterpret_cast<unsigned*>(votes + 1 + kVoteCounts * blockIdx.x);
+}
+
+__device__ __forceinline__ void count_start(int* votes) {
+  if (block_thread() == 0) {
+    unsigned* c = block_count(votes);
+    c[0] = 0u;
+    c[1] = 0u;
+  }
+}
+
+__device__ __forceinline__ void count_add(int* votes, const unsigned (&cells)[2]) {
+  unsigned* c = block_count(votes);
+  if (cells[0] != 0u) atomicAdd(c, cells[0]);
+  if (cells[1] != 0u) atomicAdd(c + 1, cells[1]);
+}
+
+// The vote on the inputs (K >= 2): a.vel and, with the density phase,
+// a.dens, over the grid's threads in one pass; then a grid barrier.
+template <typename S, bool DENS>
+__device__ __forceinline__ void vote_inputs(const FullStepArgs& a, cg::grid_group& grid,
+                                            int first, int stride) {
+  const long long vol = static_cast<long long>(a.n) * a.n * a.n;
+  const S* vel = static_cast<const S*>(a.vel);
+  bool finite = true;
+  for (long long i = first; i < 3 * vol; i += stride) {
+    finite = finite_value(ld(vel[i])) && finite;
+  }
+  vote(a.votes, kVoteVel, finite);
+  if constexpr (DENS) {
+    const S* dens = static_cast<const S*>(a.dens);
+    finite = true;
+    for (long long i = first; i < vol; i += stride) finite = finite_value(ld(dens[i])) && finite;
+    vote(a.votes, kVoteDens, finite);
+  }
+  if (blockIdx.x == 0 && block_thread() == 0) a.votes[0] = static_cast<int>(gridDim.x);
+  grid.sync();
+}
+
+// One cell of a substep at a window K >= 2 by the vote: the <= 8-tap sum
+// where `eight` (the substep's whole source finite) and the displacement
+// is not NaN, else advect_values' full sum; counted (when `count`) in
+// cells[0] or cells[1].
+template <int F, int K, typename TF, typename TV>
+__device__ __forceinline__ void values_voted(const Substep& a, const Cell& k, bool eight,
+                                             float (&v)[F], unsigned (&cells)[2], bool count) {
+  const int kw = K == kWinAny ? a.window : K;
+  if (eight && advect_cell_eight<F>(static_cast<const TF*>(a.src), static_cast<const TV*>(a.vel),
+                                    a.n, a.dt0, kw, k.cz, k.cy, k.cx, v)) {
+    cells[0] += count ? 1u : 0u;
+    return;
+  }
+  advect_values<F, false, false, false, kSrcNone, K, TF, TV>(a, k, v);
+  cells[1] += count ? 1u : 0u;
+}
+
+// advect_pair by the vote; returns whether every value stored is finite.
+template <int F, int K, typename TF, typename TV, typename TO>
+__device__ __forceinline__ bool pair_voted(const Substep& a, const Cell& k0, const Cell& k1,
+                                           bool two, bool eight, unsigned (&cells)[2]) {
+  float v0[F], v1[F];
+  values_voted<F, K, TF, TV>(a, k0, eight, v0, cells, true);
+  values_voted<F, K, TF, TV>(a, k1, eight, v1, cells, two);
+  const bool finite = advect_put<F, TO>(a, k0, v0);
+  return two ? advect_put<F, TO>(a, k1, v1) && finite : finite;
+}
+
+// pair_voted in the substep's role, as advect_pair_role.
+template <int F, int K, typename S>
+__device__ __forceinline__ bool advect_pair_voted(const Substep& a, const Cell& k0,
+                                                  const Cell& k1, bool two, bool first,
+                                                  bool to_s, bool eight, unsigned (&cells)[2]) {
+  if constexpr (std::is_same<S, float>::value) {
+    return pair_voted<F, K, float, float, float>(a, k0, k1, two, eight, cells);
+  } else if (first) {
+    return to_s ? pair_voted<F, K, S, S, S>(a, k0, k1, two, eight, cells)
+                : pair_voted<F, K, S, S, float>(a, k0, k1, two, eight, cells);
+  } else {
+    return to_s ? pair_voted<F, K, float, S, S>(a, k0, k1, two, eight, cells)
+                : pair_voted<F, K, float, S, float>(a, k0, k1, two, eight, cells);
+  }
+}
+
+// One advection substep over the grid's threads (two cells a loop trip):
+// at K = 1 advect_pair_role's two-tap form; at K >= 2 by the vote, reading
+// slot `reads` and (unless the substep is the last) voting on what it
+// stores into slot `writes`.
+template <int F, int K, typename S>
+__device__ __forceinline__ void substep_cells(const FullStepArgs& a, const Substep& s,
+                                              int first, int stride, bool sub0, bool last,
+                                              int reads, int writes, unsigned (&cells)[2]) {
+  const int n = a.n, vol = n * n * n;
+  if constexpr (K == 1) {
+    for (int i = first; i < vol; i += 2 * stride) {
+      const bool two = i + stride < vol;
+      advect_pair_role<F, K, false, S>(s, cell_at(n, i), cell_at(n, two ? i + stride : i), two,
+                                       sub0, last);
+    }
+  } else {
+    const bool eight = votes_hold(a.votes, reads);
+    bool finite = true;
+    for (int i = first; i < vol; i += 2 * stride) {
+      const bool two = i + stride < vol;
+      const bool stored = advect_pair_voted<F, K, S>(
+          s, cell_at(n, i), cell_at(n, two ? i + stride : i), two, sub0, last, eight, cells);
+      finite = stored && finite;
+    }
+    if (!last) vote(a.votes, writes, finite);
+  }
+}
+
 // Phase 1 over the grid's threads (first, stride; two cells a loop trip,
 // advect_pair): the self-advection, the last substep writing adv.
 // float32: the earlier ones alternate back from it through vel_out;
@@ -82,20 +256,21 @@ template <typename S, int K>
 __device__ __forceinline__ void self_advect_phase(const FullStepArgs& a, cg::grid_group& grid,
                                                   int first, int stride) {
   constexpr bool wide = std::is_same<S, float>::value;
-  const int n = a.n, vol = n * n * n;
+  const int n = a.n;
+  unsigned cells[2] = {0u, 0u};
+  if (K != 1) count_start(a.votes);
   for (int sub = 0; sub < a.n_sub; ++sub) {
     const bool last = sub == a.n_sub - 1;
     const Substep s{substep_buf<wide>(sub - 1, a.n_sub, a.vel, a.adv, a.vel_out, a.tmp0, a.tmp1),
                     a.vel, nullptr, nullptr, nullptr,
                     substep_buf<wide>(sub, a.n_sub, a.vel, a.adv, a.vel_out, a.tmp0, a.tmp1),
                     n, Slab{n, 0}, 1, 2, 3, a.dt0_sub, 1.0f, Buoyancy{}, a.window};
-    for (int i = first; i < vol; i += 2 * stride) {
-      const bool two = i + stride < vol;
-      advect_pair_role<3, K, false, S>(s, cell_at(n, i), cell_at(n, two ? i + stride : i), two,
-                                       sub == 0, last);
-    }
+    substep_cells<3, K, S>(a, s, first, stride, sub == 0, last,
+                           sub == 0 ? kVoteVel : kVoteSubstep + ((sub - 1) & 1),
+                           kVoteSubstep + (sub & 1), cells);
     grid.sync();
   }
+  if (K != 1) count_add(a.votes, cells);
 }
 
 // Phase 4: the gradient from the final iterate p, the faces and damp.
@@ -118,7 +293,8 @@ template <typename S, int K>
 __device__ __forceinline__ void density_phase(const FullStepArgs& a, cg::grid_group& grid,
                                               int first, int stride) {
   constexpr bool wide = std::is_same<S, float>::value;
-  const int n = a.n, vol = n * n * n;
+  const int n = a.n;
+  unsigned cells[2] = {0u, 0u};
   for (int sub = 0; sub < a.n_sub; ++sub) {
     const bool last = sub == a.n_sub - 1;
     const Substep d{
@@ -126,13 +302,12 @@ __device__ __forceinline__ void density_phase(const FullStepArgs& a, cg::grid_gr
         a.vel_out, nullptr, nullptr, nullptr,
         substep_buf<wide>(sub, a.n_sub, a.dens, a.dens_out, a.adv, a.tmp0, a.tmp1),
         n, Slab{n, 0}, 0, 0, 0, a.dt0_sub, last ? a.dens_damp : 1.0f, Buoyancy{}, a.window};
-    for (int i = first; i < vol; i += 2 * stride) {
-      const bool two = i + stride < vol;
-      advect_pair_role<1, K, false, S>(d, cell_at(n, i), cell_at(n, two ? i + stride : i), two,
-                                       sub == 0, last);
-    }
+    substep_cells<1, K, S>(a, d, first, stride, sub == 0, last,
+                           sub == 0 ? kVoteDens : kVoteSubstep + ((sub - 1) & 1),
+                           kVoteSubstep + (sub & 1), cells);
     if (!last) grid.sync();
   }
+  if (K != 1) count_add(a.votes, cells);
 }
 
 // The grid-stride route: every phase a grid-stride loop over the cells of
@@ -148,7 +323,8 @@ __global__ void __launch_bounds__(kThreads, kFullStepMinBlocks)
   const int first = static_cast<int>(grid.thread_rank());
   const int stride = static_cast<int>(grid.size());
 
-  // 1. Self-advection into adv.
+  // 1. Self-advection into adv (K >= 2: after the vote on the inputs).
+  if constexpr (K != 1) vote_inputs<S, DENS>(a, grid, first, stride);
   self_advect_phase<S, K>(a, grid, first, stride);
 
   // 2. Divergence and the zero start.
@@ -219,8 +395,9 @@ __global__ void __launch_bounds__(kThreads, kFullStepMinBlocks)
 // the final iterate stored to t.p = pa; with K5's block, kb.blk.block >= 2,
 // K5's tile program block_tile on float32 fields), which synchronises a
 // tile with its face neighbours only: no grid barrier inside the solve.
-// Grid barriers: one a self-advection substep, one after the solve, one
-// before the density and one between density substeps.
+// Grid barriers: at K >= 2 one after the vote on the inputs, then one a
+// self-advection substep, one after the solve, one before the density and
+// one between density substeps.
 template <typename T, typename S, int K, bool DENS, bool BLOCK>
 __global__ void __launch_bounds__(BLOCK ? kBlockThreads : kTileThreads, 1)
     full_step_tiled_kernel(const FullStepArgs a, const TiledArgs<T, S> t,
@@ -231,7 +408,9 @@ __global__ void __launch_bounds__(BLOCK ? kBlockThreads : kTileThreads, 1)
   const int stride = static_cast<int>(grid.size());
 
   // 1. Self-advection into adv (a barrier after each substep orders adv
-  //    before the divergence reads it).
+  //    before the divergence reads it; K >= 2: after the vote on the
+  //    inputs).
+  if constexpr (K != 1) vote_inputs<S, DENS>(a, grid, first, stride);
   self_advect_phase<S, K>(a, grid, first, stride);
 
   // 2-3. Divergence and every sweep of this block's tile, into pa (BLOCK:
@@ -269,6 +448,7 @@ cudaError_t full_step_run(const FullStepArgs& a, const SolveBlock& blk, bool lau
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   *blocks = per_sm * sms;
   if (!launch) return cudaSuccess;
+  if (K != 1 && (a.votes == nullptr || *blocks > kVoteMaxBlocks)) return cudaErrorInvalidValue;
   FullStepArgs args = a;
   SolveBlock block = blk;
   void* params[] = {&args, &block};
@@ -333,6 +513,7 @@ cudaError_t full_step_tiled_run(const FullStepArgs& a, const SolveBlock& blk,
   if (per_sm * sms < count) return cudaErrorCooperativeLaunchTooLarge;
   *blocks = count;
   if (!launch) return cudaSuccess;
+  if (K != 1 && (a.votes == nullptr || count > kVoteMaxBlocks)) return cudaErrorInvalidValue;
   FullStepArgs args = a;
   TiledArgs<T, S> targs{static_cast<const S*>(a.adv), nullptr, static_cast<T*>(a.pa),
                         tiles.flags, static_cast<T*>(tiles.faces), a.n, a.iters,

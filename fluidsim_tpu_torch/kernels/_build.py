@@ -90,12 +90,12 @@ SIGNATURES = {
     "fs_smem_optin": (),
     # vel, dens, adv, vel_out, p_out, dens_out, tmp0, tmp1, p_a, p_b, rhs, n,
     # iters, solve_bf16, field_bf16, dt0_sub, n_sub, window, damp, dens_damp,
-    # blk, tiles, stream
+    # blk, tiles, votes, stream
     "fs_full_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                     _F, _I, _I, _F, _F, _B, _T, _P),
+                     _F, _I, _I, _F, _F, _B, _T, _P, _P),
     # vel, adv, vel_out, p_out, p_a, p_b, rhs, n, iters, dt0_sub, n_sub,
-    # window, tiles, stream
-    "fs_advect_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _T, _P),
+    # window, tiles, votes, stream
+    "fs_advect_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _T, _P, _P),
     # solve_bf16, field_bf16, window, n, gx, gy, gz, block (returns the
     # cooperative grid's block count, or -error)
     "fs_full_step_blocks": (_I, _I, _I, _I, _I, _I, _I, _I),

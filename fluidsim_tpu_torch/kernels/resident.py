@@ -234,6 +234,36 @@ solve_launches = {"tiled": 0, "sweep": 0}
 full_step_launches = {"tiled": 0, "grid": 0}
 advect_project_launches = {"tiled": 0, "grid": 0}
 
+# K8's and K14's vote at a window K >= 2 (csrc/full_step.cuh): the scratch
+# of a launch, its header (the grid's block count), a block's cells by
+# route, a block's vote slots.
+VOTE_MAX_BLOCKS = 2048
+VOTE_COUNTS = 2
+VOTE_SETS = 4
+VOTE_INTS = 1 + (VOTE_COUNTS + VOTE_SETS) * VOTE_MAX_BLOCKS
+
+
+def _votes(window: int, device):
+    """The vote scratch of a K8 or K14 launch at ``window`` (None at K =
+    1, whose phases do not vote); the kernel writes every int it reads."""
+    if window == 1:
+        return None
+    return torch.empty(VOTE_INTS, dtype=torch.int32, device=device)
+
+
+def tap_routes(votes) -> dict:
+    """The cells a K8 or K14 launch at a window K >= 2 summed by route, read
+    from its vote scratch (``full_step_3d.votes``,
+    ``advect_project_3d_resident.votes``: the last launch's) once the launch
+    has run: ``"eight"`` the cells that took the <= 8-tap sum, ``"full"``
+    those that took the (2K+1)³ sum (a substep whose source held a
+    non-finite value, or a NaN displacement), over every substep of both
+    advection phases.  Each of the grid's cells counts once a substep."""
+    v = votes.cpu().to(torch.int64)
+    blocks = int(v[0])
+    counts = (v[1:1 + VOTE_COUNTS * blocks] & 0xFFFFFFFF).view(blocks, VOTE_COUNTS)
+    return {"eight": int(counts[:, 0].sum()), "full": int(counts[:, 1].sum())}
+
 
 def tile_bounds(n: int, g: int):
     """The ``[lo, hi)`` extents of ``g`` tiles along y or z of ``n`` cells,
@@ -600,7 +630,10 @@ def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
     launch, and raise if the launch fails (there is no fallback to K1 + K2
     or to the other route); CPU tensors run ``full_step_3d_plain``.
     Returns ``(vel', p, density')``.  ``full_step_3d.launches`` counts
-    launches, ``full_step_launches`` them by route."""
+    launches, ``full_step_launches`` them by route; at a window K >= 2
+    ``full_step_3d.votes`` keeps the launch's vote scratch, from which
+    ``tap_routes`` reads the cells it summed by 8 taps and by the full
+    window."""
     n_sub = _check_substeps(n_sub)
     n, sdt = _checked_projection(vel, iters, solve_dtype, sweep_block)
     window = check_window(window, n)
@@ -625,6 +658,7 @@ def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
     tiles = _solve_tiles_arg(vel, iters, sweep_block, sdt)
     blk = _projection_block_arg(vel, iters, sweep_block, tiles is not None)
     p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device, tiles is not None, blk is not None)
+    votes = _votes(window, vel.device)
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_full_step(
@@ -633,15 +667,18 @@ def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
             _ptr(tmp1), p_a.data_ptr(), _ptr(p_b), _ptr(rhs), n,
             int(iters), int(sdt == torch.bfloat16), storage_flag(fdt),
             substep_dt0(dt, n, n_sub), n_sub, int(window),
-            storage_scalar(damp, fdt), storage_scalar(dens_damp, fdt), blk, tiles, stream,
+            storage_scalar(damp, fdt), storage_scalar(dens_damp, fdt), blk, tiles,
+            _ptr(votes), stream,
         )
     _build.check(lib, err, "full-step kernel launch")
     full_step_3d.launches += 1
+    full_step_3d.votes = votes
     full_step_launches["grid" if tiles is None else "tiled"] += 1
     return vel_out, p, dens_out
 
 
 full_step_3d.launches = 0
+full_step_3d.votes = None
 
 
 def advect_project_3d_resident_plain(vel, iters: int, dt: float, *, window: int = 1,
@@ -664,7 +701,9 @@ def advect_project_3d_resident(vel, iters: int, dt: float, *, window: int = 1,
     K8's routes (``fused_step_route``); CPU tensors run
     ``advect_project_3d_resident_plain``.  Returns ``(vel', p)``.
     ``advect_project_3d_resident.launches`` counts launches,
-    ``advect_project_launches`` them by route."""
+    ``advect_project_launches`` them by route, and at K >= 2
+    ``advect_project_3d_resident.votes`` keeps the scratch ``tap_routes``
+    reads."""
     n_sub = _check_substeps(n_sub)
     n, sdt = _checked_projection(vel, iters, None)
     window = check_window(window, n)
@@ -683,20 +722,23 @@ def advect_project_3d_resident(vel, iters: int, dt: float, *, window: int = 1,
     p = torch.empty((n, n, n), dtype=vel.dtype, device=vel.device)
     tiles = _solve_tiles_arg(vel, iters, 1, sdt)
     p_a, p_b, rhs = _solve_scratch(n, sdt, vel.device, tiles is not None)
+    votes = _votes(window, vel.device)
     with torch.cuda.device(vel.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fs_advect_project(
             vel.data_ptr(), adv.data_ptr(), vel_out.data_ptr(), p.data_ptr(),
             p_a.data_ptr(), _ptr(p_b), _ptr(rhs), n, int(iters),
-            substep_dt0(dt, n, n_sub), n_sub, int(window), tiles, stream,
+            substep_dt0(dt, n, n_sub), n_sub, int(window), tiles, _ptr(votes), stream,
         )
     _build.check(lib, err, "advect + project kernel launch")
     advect_project_3d_resident.launches += 1
+    advect_project_3d_resident.votes = votes
     advect_project_launches["grid" if tiles is None else "tiled"] += 1
     return vel_out, p
 
 
 advect_project_3d_resident.launches = 0
+advect_project_3d_resident.votes = None
 
 
 def full_step_blocks(solve_dtype=None, device=None, dtype=torch.float32,

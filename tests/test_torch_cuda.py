@@ -1,7 +1,9 @@
 """fluidsim_tpu_torch's CUDA kernels against their plain twins, on a card
 (and K8 against K1 followed by K2, and the fused step paths against the
 unfused ones), the 2D mode's kernel path (K9) against its twin path and
-the CPU, the sweep-blocked solve (K5) in K2, K3, K4 and K8 and K14, the
+the CPU, the sweep-blocked solve (K5) in K2, K3, K4 and K8 and K14, K8 and K14 at
+windows K >= 2 on the <= 8-tap sum (finite and non-finite fields, the cells
+counted by sum), the
 sharded step's kernels (K10, K11, and the "rdma" backend's K12 and K13)
 and its paths, the mesh's streams (8 shards on 8 streams of one card
 bitwise the unsharded step, with a shard held back, and a test that sees a
@@ -2357,3 +2359,156 @@ def test_8_shards_over_cards_are_the_one_card_mesh(cuda, cards):
         for f in ("density", "velocity", "pressure"):
             assert got["over"].density.device == torch.device("cuda", 0)
             assert torch.equal(getattr(got["over"], f), getattr(got["one"], f)), (backend, f)
+
+
+# -- K8 and K14 at windows K >= 2: the vote and the <= 8-tap sum -------------------
+
+
+def tap_counts(fn):
+    """The cells ``fn``'s last launch summed by 8 taps and by the full
+    window (``kernels/resident.tap_routes``)."""
+    torch.cuda.synchronize()
+    return kresident.tap_routes(fn.votes)
+
+
+def plant(vel, dens, where):
+    """``"tap"``: inf in the density at a cell some cells' windows hold at
+    zero weight; ``"source"``: a NaN velocity, in the self-advection's
+    source, which the projection carries into the density phase's velocity
+    (a NaN displacement there; the intermediate the density's substep 1
+    reads is then not finite either); None: nothing."""
+    vel, dens = vel.clone(), dens.clone()
+    c = vel.shape[-1] // 2
+    if where == "tap":
+        dens[c, c - 1, c] = float("inf")
+    elif where == "source":
+        vel[1, c, c, c] = float("nan")
+    return vel, dens
+
+
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("solve_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", [2, 3, 4, 5])
+@pytest.mark.parametrize("n", [37, 128])
+@pytest.mark.parametrize("route", ["tiled", "grid"])
+def test_k8_eight_taps_match_twin(cuda, monkeypatch, route, n, window, dtype, solve_dtype,
+                                  n_sub):
+    """K8 at K >= 2 on finite fields: every cell of every substep on the 8
+    taps (the route counts), bitwise the twin's (2K+1)³ sums."""
+    force_route(monkeypatch, route)
+    vel, dens = reach(n, 6000 + n + window, cuda, window + 1, n_sub)
+    vel, dens = vel.to(dtype), dens.to(dtype)
+    kw = dict(window=window, n_sub=n_sub, solve_dtype=solve_dtype, damp=DAMP, dens_damp=DDAMP)
+    before = dict(kresident.full_step_launches)
+    got = full_step_3d(vel, dens, 20, DT, **kw)
+    assert route_of(kresident.full_step_launches, before) == [route]
+    assert tap_counts(full_step_3d) == {"eight": 2 * n_sub * n ** 3, "full": 0}
+    assert_equal(got, full_step_3d_plain(vel, dens, 20, DT, **kw), f"K8 K={window} {route}")
+
+
+@pytest.mark.parametrize("where", ["tap", "source"])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", [2, 3, 4, 5])
+@pytest.mark.parametrize("route", ["tiled", "grid"])
+def test_k8_non_finite_fields_match_twin(cuda, monkeypatch, route, window, dtype, where):
+    """A non-finite value in a substep's source fails its vote: that
+    substep's cells take the full sum (the route counts), and K8 is the
+    twin, NaN and inf included."""
+    force_route(monkeypatch, route)
+    n, n_sub = 64, 2
+    vel, dens = reach(n, 6100 + window, cuda, window + 1, n_sub)
+    vel, dens = plant(vel.to(dtype), dens.to(dtype), where)
+    kw = dict(window=window, n_sub=n_sub, solve_dtype="bfloat16", damp=DAMP, dens_damp=DDAMP)
+    got = full_step_3d(vel, dens, 4, DT, **kw)
+    counts = tap_counts(full_step_3d)
+    ref = full_step_3d_plain(vel, dens, 4, DT, **kw)
+    assert bool(ref[2].isnan().any()) and bool(torch.isfinite(ref[2]).any())
+    assert_equal_nan(got, ref, f"K8 K={window} {where} {route}")
+    assert sum(counts.values()) == 2 * n_sub * n ** 3
+    if where == "tap":  # the self-advection on 8 taps, the density's full
+        assert counts == {"eight": 2 * n ** 3, "full": 2 * n ** 3}
+    else:  # the density's substep 0 on 8 taps but at its NaN displacements
+        assert 0 < counts["eight"] < n ** 3
+
+
+@pytest.mark.parametrize("order", [("tap", None), (None, "tap"), ("source", None),
+                                   (None, "source")])
+def test_k8_votes_do_not_outlive_a_launch(cuda, order):
+    """Two launches in a row, non-finite then finite and the reverse: each
+    the twin, each launch's counts its own (no vote carries over)."""
+    n, window, n_sub = 64, 4, 2
+    vel, dens = reach(n, 6200, cuda, window + 1, n_sub)
+    kw = dict(window=window, n_sub=n_sub, solve_dtype="bfloat16", damp=DAMP, dens_damp=DDAMP)
+    for where in order:
+        v, d = plant(vel, dens, where)
+        got = full_step_3d(v, d, 4, DT, **kw)
+        counts = tap_counts(full_step_3d)
+        assert_equal_nan(got, full_step_3d_plain(v, d, 4, DT, **kw), f"K8 {where}")
+        if where is None:
+            assert counts == {"eight": 2 * n_sub * n ** 3, "full": 0}
+        else:
+            assert counts["full"] >= n ** 3
+
+
+@pytest.mark.parametrize("where", [None, "source"])
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("window", [2, 3, 4, 5])
+@pytest.mark.parametrize("route", ["tiled", "grid"])
+def test_k14_eight_taps_match_twin(cuda, monkeypatch, route, window, n_sub, where):
+    force_route(monkeypatch, route)
+    n = 64
+    vel, dens = reach(n, 6300 + window, cuda, window + 1, n_sub)
+    vel, _ = plant(vel, dens, where)
+    before = dict(kresident.advect_project_launches)
+    got = advect_project_3d_resident(vel, 60, DT, window=window, n_sub=n_sub)
+    assert route_of(kresident.advect_project_launches, before) == [route]
+    counts = tap_counts(advect_project_3d_resident)
+    assert_equal_nan(got, advect_project_3d_resident_plain(vel, 60, DT, window=window,
+                                                           n_sub=n_sub), f"K14 K={window}")
+    cells = n_sub * n ** 3
+    assert counts == ({"eight": cells, "full": 0} if where is None
+                      else {"eight": 0, "full": cells})
+
+
+# -- K13 on any layout of the shards' streams --------------------------------------
+
+
+@pytest.mark.parametrize("streams", ["shards", "one"])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("shards", [3, 5])
+def test_k13_matches_twin_on_any_stream_layout(cuda, shards, depth, streams):
+    """Float32 channels as views of a global tensor on 72² planes, bfloat16
+    and the bool mask (16-byte moves), and a 7² bool mask (49 bytes: the
+    byte path), on shard counts that do not divide a power of two, each call
+    bitwise its twin: on the shards' streams, where the shares run at once,
+    and with every share on one stream (``tools/torch_k13_priming.py``'s
+    layout for a share alone)."""
+    n, lz = 72, 4
+    vel, dens = fields(n, 3100 + shards + depth, cuda)
+    vel, dens = vel[:, :shards * lz], dens[:shards * lz]
+    calls = ([vel, dens[None].to(BF16), vel[:1] > 0.0],
+             [(dens[None, :, :7, :7] > 3.0).contiguous()])
+    for arrays in calls:
+        by_shard = [[torch.chunk(a, shards, 1)[r] for a in arrays] for r in range(shards)]
+        order = ShardOrder([torch.device("cuda", torch.cuda.current_device())] * shards)
+        if streams == "one":
+            order.streams = (torch.cuda.current_stream(),) * shards
+        with mock_order(order):
+            got = halo_exchange_rdma(by_shard, depth)
+        ref = halo_exchange_rdma_plain(by_shard, depth)
+        for r in range(shards):
+            assert_equal(got[r], ref[r], f"K13 {len(arrays)} arrays, shard {r}, {streams}")
+
+
+@contextlib.contextmanager
+def mock_order(order):
+    """``order_of`` giving ``order`` (its streams) for K13's call."""
+    from fluidsim_tpu_torch.parallel import streams as pstreams
+
+    saved = pstreams.order_of
+    pstreams.order_of = lambda xs: order
+    try:
+        yield
+    finally:
+        pstreams.order_of = saved

@@ -150,6 +150,22 @@ def test_explicit_step_with_obstacle_and_window3_matches_jax(name, t, window):
         np.testing.assert_array_equal(got["rdma"][field], got["pallas"][field], err_msg=field)
 
 
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_substeps_match_jax(backend):
+    """``sharded_step_fn(..., n_substeps=2)``: two steps a call (the JAX
+    package's ``lax.scan``, the port's loop), one call against the JAX
+    one's, and bitwise two calls of one step on the port."""
+    j_cfg, t_cfg = configs()
+    kw = dict(halo="explicit", halo_block_iters=2 if backend == "pallas" else 1,
+              halo_backend=backend)
+    ref = run_jax(j_cfg, 1, n_substeps=2, pallas_interpret=True, **kw)
+    got = run_port(t_cfg, 1, n_substeps=2, **kw)
+    assert_close(state_to_numpy(got), ref)
+    steps = run_port(t_cfg, 2, **kw)
+    for field in ("density", "velocity", "pressure", "time", "step"):
+        assert torch.equal(getattr(got, field), getattr(steps, field)), field
+
+
 def test_rdma_step_matches_jax():
     """sharded512 cut to 32³ with ``halo_backend="rdma"`` (K12 rounds, K13
     exchanges) against the JAX ``"rdma"`` step in interpret mode, and

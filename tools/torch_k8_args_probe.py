@@ -191,6 +191,7 @@ def locate(lib) -> list:
     each, one substep too few or too many)."""
     import torch
     from fluidsim_tpu_torch.kernels import advect as kadv
+    from fluidsim_tpu_torch.kernels.resident import VOTE_INTS
 
     dev, n, dt, iters = torch.device("cuda"), 32, 0.1, 12
     vel, dens = fields(n, 1032, dev)
@@ -218,16 +219,17 @@ def locate(lib) -> list:
             e = lambda *s: torch.empty(*s, device=dev)
             adv, vel_out, p, pa, pb, rhs = e(3, n, n, n), e(3, n, n, n), e(n, n, n), \
                 e(n, n, n), e(n, n, n), e(n, n, n)
+            votes = torch.empty(VOTE_INTS, dtype=torch.int32, device=dev)
             err = lib.fs_advect_project(vel.data_ptr(), adv.data_ptr(), vel_out.data_ptr(),
                                         p.data_ptr(), pa.data_ptr(), pb.data_ptr(),
                                         rhs.data_ptr(), n, iters, d_sub, n_sub, window, None,
-                                        stream)
+                                        votes.data_ptr(), stream)
             adv8, vel8, dens8 = e(3, n, n, n), e(3, n, n, n), e(n, n, n)
             err8 = lib.fs_full_step(vel.data_ptr(), dens.data_ptr(), adv8.data_ptr(),
                                     vel8.data_ptr(), e(n, n, n).data_ptr(), dens8.data_ptr(),
                                     None, None, pa.data_ptr(), pb.data_ptr(), rhs.data_ptr(),
                                     n, iters, 0, 0, d_sub, n_sub, window, 1.0, 1.0, None,
-                                    None, stream)
+                                    None, votes.data_ptr(), stream)
             torch.cuda.synchronize()
             row = {"window": window, "n_sub": n_sub, "err": [err, err8]}
             for name, h in hyp.items():

@@ -21,8 +21,12 @@ K2s's K = 2 density phase; plume64's fused K2 with a K = 3 density phase;
 K11 at K = 4, 5 on shard 3's (F, 64 + 4K, 512, 512) slab of sharded512 on 8
 shards, two substeps, F = 3 and 1, float32 and bfloat16).
 
-Run from anywhere:  python3 tools/torch_kernels_ab.py [--windowed] ROOT_A ROOT_B [...]
-(``--windowed``: the K >= 2 rows alone)
+Run from anywhere:  python3 tools/torch_kernels_ab.py [--windowed | --fused-window] ROOT_A ROOT_B [...]
+(``--windowed``: the K >= 2 rows alone; ``--fused-window``: K8 and K14 at
+every window K = 1..5 alone: K8 on bench128's shape with 60 bfloat16
+sweeps, float32 and bfloat16 fields, K14 with 60 float32 sweeps, K8 on
+plume64's shape at K = 3, each beside K1 → K2 (K1 → K3) on the same inputs,
+by CUDA events and by the profiler's kernel time)
 
 Each ROOT is the root of a checkout that holds ``fluidsim_tpu_torch/``.
 The checkouts run in the order A, B, ..., then the reverse (A, B, B, A for
@@ -77,7 +81,49 @@ def device_ms(fn, reps: int = 20) -> float:
     return total / 1e3 / reps
 
 
-def child(root: str, windowed_only: bool = False) -> None:
+def fused_window(out, field, dev) -> None:
+    """K8 and K14 at windows K = 1..5 beside the launches they fuse."""
+    import torch
+
+    from fluidsim_tpu_torch.config import preset_bench_128, preset_plume_64
+    from fluidsim_tpu_torch.kernels.advect import advect_multi_3d_kernel
+    from fluidsim_tpu_torch.kernels.resident import (
+        advect_project_3d_resident,
+        full_step_3d,
+        project_3d_resident,
+        project_advect_density_3d,
+    )
+
+    def timed(key, fn, reps):
+        out[key] = cuda_ms(fn, reps)
+        out[key + " device"] = device_ms(fn, min(reps, 10))
+
+    def k1(vel, dt, k):
+        return advect_multi_3d_kernel((1, 2, 3), vel, vel, dt, window=k)
+
+    bdt = preset_bench_128().effective_params()[0]
+    bvel, bdens = field(128, 3, scale=40.0), field(128).abs() * 20.0
+    bf16 = "bfloat16"
+    for k in (1, 2, 3, 4, 5):
+        reps = 20 if k < 4 else 5
+        for dtype, tag in ((torch.float32, ""), (torch.bfloat16, " bf16 fields")):
+            v, d = bvel.to(dtype), bdens.to(dtype)
+            timed(f"K8 bench128 K={k}{tag}", lambda: full_step_3d(
+                v, d, 60, bdt, window=k, solve_dtype=bf16), reps)
+            timed(f"K1 -> K2 bench128 K={k}{tag}", lambda: project_advect_density_3d(
+                k1(v, bdt, k), d, 60, bdt, window=k, solve_dtype=bf16), reps)
+        timed(f"K14 128^3 K={k}", lambda: advect_project_3d_resident(
+            bvel, 60, bdt, window=k), reps)
+        timed(f"K1 -> K3 128^3 K={k}", lambda: project_3d_resident(k1(bvel, bdt, k), 60), reps)
+    pdt = preset_plume_64().effective_params()[0]
+    pvel, pdens = field(64, 3, scale=2.0), field(64).abs() * 20.0
+    timed("K8 plume64 K=3", lambda: full_step_3d(pvel, pdens, 20, pdt, window=3), 50)
+    timed("K1 -> K2 plume64 K=3", lambda: project_advect_density_3d(
+        k1(pvel, pdt, 3), pdens, 20, pdt, window=3), 50)
+    torch.cuda.empty_cache()
+
+
+def child(root: str, windowed_only: bool = False, fused_only: bool = False) -> None:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -120,6 +166,10 @@ def child(root: str, windowed_only: bool = False) -> None:
         return torch.from_numpy(a).to(dev)
 
     out = {}
+    if fused_only:
+        fused_window(out, field, dev)
+        print(json.dumps({"root": root, "ms": out}), flush=True)
+        return
     if windowed_only:
         windowed(out, field, dev)
         print(json.dumps({"root": root, "ms": out}), flush=True)
@@ -275,9 +325,11 @@ def main(roots, rows: str) -> None:
 
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--child":
-        child(sys.argv[3], sys.argv[2] == "windowed")
+        child(sys.argv[3], sys.argv[2] == "windowed", sys.argv[2] == "fused-window")
     elif len(sys.argv) >= 4 and sys.argv[1] == "--windowed":
         main(sys.argv[2:], "windowed")
+    elif len(sys.argv) >= 4 and sys.argv[1] == "--fused-window":
+        main(sys.argv[2:], "fused-window")
     elif len(sys.argv) >= 3:
         main(sys.argv[1:], "all")
     else:
