@@ -37,6 +37,7 @@ from .scene.sources import (
     source_params,
 )
 from .state import FluidState, zeros_state
+from .utils.profiling import span
 
 
 class Engine:
@@ -129,14 +130,16 @@ class Engine:
     def _one_step(self, state: FluidState) -> FluidState:
         t = state.time + self.cfg.effective_params()[0]
         if self._folds:
-            src = emitter_fold_operand(self.cfg, t, params=self._src_params,
-                                       values=self._fold_values)
+            with span("engine.source"):
+                src = emitter_fold_operand(self.cfg, t, params=self._src_params,
+                                           values=self._fold_values)
             return simulate_step_3d(state, self.cfg, self.kernels, self._resident,
                                     src=src)
-        density, velocity = apply_custom_source(
-            state.density, state.velocity, self.cfg, t, params=self._src_params
-        )
-        state = state.replace(density=density, velocity=velocity)
+        with span("engine.source"):
+            density, velocity = apply_custom_source(
+                state.density, state.velocity, self.cfg, t, params=self._src_params
+            )
+            state = state.replace(density=density, velocity=velocity)
         if self.cfg.ndim == 2:
             return simulate_step_2d(state, self.cfg, self.kernels)
         return simulate_step_3d(state, self.cfg, self.kernels, self._resident)
@@ -144,6 +147,10 @@ class Engine:
     def step(self, n: int = 1, substeps_per_dispatch: int = 1) -> FluidState:
         """Advance ``n`` steps (no-op while paused, FluidSim.cs:392).  The NaN
         guard checks once every ``substeps_per_dispatch`` steps."""
+        with span("engine.step"):
+            return self._step(n, substeps_per_dispatch)
+
+    def _step(self, n: int, substeps_per_dispatch: int) -> FluidState:
         now = self._clock()
         delta = (now - self._wall_prev) if self._wall_prev is not None else 0.0
         # Unity clamps a frame's deltaTime to its maximum allowed timestep.
@@ -160,7 +167,8 @@ class Engine:
         for size in [substeps_per_dispatch] * dispatches + [1] * rem:
             for _ in range(size):
                 self.state = self._one_step(self.state)
-            self._after_dispatch(size)
+            with span("engine.after"):
+                self._after_dispatch(size)
         return self.state
 
     def _after_dispatch(self, n_steps: int) -> None:

@@ -36,6 +36,7 @@ from ..ops.advect import _mask_and_bnd_3d, window_sum_3d
 from ..ops.boundary import set_bnd_3d
 from ..ops.forces import buoyancy_force
 from ..scene.sources import src_field_add
+from ..utils.profiling import spanned
 from . import _build
 
 
@@ -274,6 +275,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+@spanned("kernel.K1")
 def advect_multi_3d_kernel(bs, fields, vel, dt: float, obst=None, window: int = 1,
                            n_sub: int = 1, buoy=None, src=None):
     """Advect ``fields`` (F = 1 or 3) through ``vel`` with the K1 kernel for

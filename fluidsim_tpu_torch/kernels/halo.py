@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.advect import window_sum_3d
+from ..utils.profiling import span, spanned
 from . import _build
 from .advect import (
     STORAGE,
@@ -146,6 +147,7 @@ def jacobi_ext_plain(xp, x0_ext, a: float, c: float, t_iters: int, wall_lo: int,
     return slab_faces(b, v, wall_lo, wall_hi)
 
 
+@spanned("kernel.K10")
 def jacobi_ext_kernel(xp, x0_ext, a: float, c: float, t_iters: int, wall_lo: int,
                       wall_hi: int, b: int = 0, obst_ext=None):
     """K10: ``t_iters`` Jacobi sweeps on the float32 halo-extended slab ``xp``
@@ -328,17 +330,18 @@ def jacobi_ext_rdma(xps, x0_exts, a: float, c: float, t_iters: int, b: int = 0,
 
     def share(r, outs):
         # Each shard's scratch of its own: the shards' rounds run at once.
-        tmp = torch.empty_like(xps[r]) if T > ROUND_MAX_SWEEPS else None
-        spare = torch.empty_like(xps[r]) if T > 2 * ROUND_MAX_SWEEPS else None
-        err = lib.fs_jacobi_ext_rdma(
-            xps[r].data_ptr(), x0_exts[r].data_ptr(),
-            None if obst_exts is None else obst_exts[r].data_ptr(), outs[r].data_ptr(),
-            _ptr(tmp), _ptr(spare), outs[r - 1].data_ptr() if r > 0 else None,
-            outs[r + 1].data_ptr() if r < k - 1 else None, nz, n, int(b), a32, inv_c, T,
-            *rank_walls(r, k, T, lz), torch.cuda.current_stream().cuda_stream,
-        )
-        _build.check(lib, err, "sharded Jacobi round kernel launch")
-        jacobi_ext_rdma.launches += 1
+        with span("kernel.K12"):
+            tmp = torch.empty_like(xps[r]) if T > ROUND_MAX_SWEEPS else None
+            spare = torch.empty_like(xps[r]) if T > 2 * ROUND_MAX_SWEEPS else None
+            err = lib.fs_jacobi_ext_rdma(
+                xps[r].data_ptr(), x0_exts[r].data_ptr(),
+                None if obst_exts is None else obst_exts[r].data_ptr(), outs[r].data_ptr(),
+                _ptr(tmp), _ptr(spare), outs[r - 1].data_ptr() if r > 0 else None,
+                outs[r + 1].data_ptr() if r < k - 1 else None, nz, n, int(b), a32, inv_c, T,
+                *rank_walls(r, k, T, lz), torch.cuda.current_stream().cuda_stream,
+            )
+            _build.check(lib, err, "sharded Jacobi round kernel launch")
+            jacobi_ext_rdma.launches += 1
 
     return _shards_round(xps, share)
 
@@ -449,6 +452,7 @@ def advect_ext_plain(bs, fields_ext, vel_ext, n: int, dt: float, z_offset: int,
     return fields
 
 
+@spanned("kernel.K11")
 def advect_ext_kernel(bs, fields_ext, vel_ext, n: int, dt: float, z_offset: int,
                       window: int = 1, n_sub: int = 1, obst_ext=None):
     """K11: advect the float32 or bfloat16 ``(F, nz, n, n)`` halo-extended slab
@@ -616,17 +620,18 @@ def halo_exchange_rdma(arrays_by_shard, depth: int):
     k = len(arrays_by_shard)
 
     def share(r, outs):
-        arrays = arrays_by_shard[r]
-        desc = (_build.HaloArray * n_arrays)(*(
-            _build.HaloArray(x.data_ptr(), outs[r][j].data_ptr(),
-                             outs[r - 1][j].data_ptr() if r > 0 else None,
-                             outs[r + 1][j].data_ptr() if r < k - 1 else None,
-                             x.stride(0), x.shape[0], x.element_size())
-            for j, x in enumerate(arrays)))
-        err = lib.fs_halo_exchange(desc, n_arrays, lz, h, n,
-                                   torch.cuda.current_stream().cuda_stream)
-        _build.check(lib, err, "halo exchange kernel launch")
-        halo_exchange_rdma.launches += 1
+        with span("kernel.K13"):
+            arrays = arrays_by_shard[r]
+            desc = (_build.HaloArray * n_arrays)(*(
+                _build.HaloArray(x.data_ptr(), outs[r][j].data_ptr(),
+                                 outs[r - 1][j].data_ptr() if r > 0 else None,
+                                 outs[r + 1][j].data_ptr() if r < k - 1 else None,
+                                 x.stride(0), x.shape[0], x.element_size())
+                for j, x in enumerate(arrays)))
+            err = lib.fs_halo_exchange(desc, n_arrays, lz, h, n,
+                                       torch.cuda.current_stream().cuda_stream)
+            _build.check(lib, err, "halo exchange kernel launch")
+            halo_exchange_rdma.launches += 1
 
     return _shards_round([arrays[0] for arrays in arrays_by_shard], share,
                          _exchange_outputs(arrays_by_shard, lz, h, n))

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 
 from ..ops.boundary import apply_faces_3d, set_bnd_3d
 from ..ops.linsolve import _nbr_sum_3d
+from ..utils.profiling import spanned
 from . import _build
 from .advect import _check_volume, _ptr
 
@@ -87,6 +88,7 @@ def jacobi_3d_plain(b: int, x, x0, a: float, c: float, iters: int):
     return x
 
 
+@spanned("kernel.K6")
 def jacobi_3d_kernel(b: int, x, x0, a: float, c: float, iters: int):
     """Solve with the K6 kernel: ``iters`` Jacobi sweeps, then the
     ``set_bnd_3d(b)`` faces.
@@ -396,6 +398,7 @@ def k4_tiles(n: int, iters: int, sweep_block: int = 1, b: int = 0, masked: bool 
     return resident.solve_tiles(n, torch.float32, device, block, masked, True)
 
 
+@spanned("kernel.K4")
 def jacobi_3d_resident(b: int, x, x0, a: float, c: float, iters: int, obst=None,
                        sweep_block: int = 1):
     """Solve with the K4 kernel: ``iters`` Jacobi sweeps from ``x``, the

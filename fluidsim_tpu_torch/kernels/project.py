@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import spanned
 from . import _build
 from .advect import _check_volume
 from .halo import _check_wall, _mirror_ext, _nonborder_solid, slab_faces
@@ -102,6 +103,7 @@ def _slab_inputs(vel, p=None) -> int:
     return n
 
 
+@spanned("kernel.K7")
 def divergence_3d_kernel(vel):
     """K7's divergence of the float32 ``(3, N, N, N)`` ``vel``: CUDA tensors
     launch ``csrc/project_slab.cu``, CPU tensors run ``divergence_3d_plain``.
@@ -122,6 +124,7 @@ def divergence_3d_kernel(vel):
 divergence_3d_kernel.launches = 0
 
 
+@spanned("kernel.K7")
 def gradient_3d_kernel(vel, p):
     """K7's gradient step and velocity faces, ``v − 0.5·(p₊ − p₋)·N`` on the
     interior cells, then each component's ``set_bnd`` faces: CUDA tensors
@@ -256,6 +259,7 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
+@spanned("kernel.K7e")
 def divergence_ext_kernel(vel, vz_below, vz_above, wall_lo: int, wall_hi: int):
     """K7e's divergence of the shard's float32 ``(3, lz, n, n)`` velocity
     ``vel`` (each component's planes contiguous, the components' stride
@@ -286,6 +290,7 @@ divergence_ext_kernel.launches = 0
 divergence_ext_kernel.reads_peers = True
 
 
+@spanned("kernel.K7e")
 def gradient_ext_kernel(vel, p, p_below, p_above, wall_lo: int, wall_hi: int):
     """K7e's gradient step and velocity faces on the shard's float32 ``(3,
     lz, n, n)`` velocity ``vel`` (laid out as ``divergence_ext_kernel``'s)

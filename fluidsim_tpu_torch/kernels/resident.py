@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from ..dtypes import scale_in, storage_scalar
 from ..ops.boundary import set_bnd_3d
 from ..scene.sources import src_field_add
+from ..utils.profiling import spanned
 from . import _build
 from .advect import (
     H100_SMEM_OPTIN,
@@ -488,6 +489,7 @@ def _check_mask(obst, n: int, device) -> None:
         raise ValueError("vel and obst must be on one device")
 
 
+@spanned("kernel.K2")
 def project_advect_density_3d(vel, density, iters: int, dt: float, *,
                               window: int = 1, n_sub: int = 1, obst=None,
                               src=None, solve_dtype=None, damp: float = 1.0,
@@ -556,6 +558,7 @@ def project_advect_density_3d(vel, density, iters: int, dt: float, *,
 project_advect_density_3d.launches = 0
 
 
+@spanned("kernel.K3")
 def project_3d_resident(vel, iters: int, obst=None, solve_dtype=None,
                         damp: float = 1.0, sweep_block: int = 1):
     """Project ``vel`` with ``iters`` Jacobi sweeps with the K3 kernel, with
@@ -615,6 +618,7 @@ def full_step_3d_plain(vel, density, iters: int, dt: float, *, window: int = 1,
         sweep_block=sweep_block)
 
 
+@spanned("kernel.K8")
 def full_step_3d(vel, density, iters: int, dt: float, *, window: int = 1,
                  n_sub: int = 1, solve_dtype=None, damp: float = 1.0,
                  dens_damp: float = 1.0, sweep_block: int = 1):

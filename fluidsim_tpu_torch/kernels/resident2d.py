@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..ops.linsolve import sweeps_2d
+from ..utils.profiling import spanned
 from . import _build
 from .advect import _check_volume
 
@@ -96,6 +97,7 @@ def lin_solve_2d_resident_plain(b: int, x, x0, a: float, c: float, obst,
     return sweeps_2d(b, x, x0, _f32(a), _f32(c), obst, iters, smooth)
 
 
+@spanned("kernel.K9")
 def lin_solve_2d_resident(b: int, x, x0, a: float, c: float, obst,
                           iters: int, smooth: bool = False,
                           blocks: int = CLUSTER_BLOCKS):

@@ -62,6 +62,7 @@ from ..ops.linsolve import diffuse_3d
 from ..ops.project import project_3d
 from ..scene.sources import emitter_foldable
 from ..state import FluidState
+from ..utils.profiling import span
 from .step_kernels import HAND_KERNELS, StepKernels
 
 
@@ -207,14 +208,15 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
 
     has_force = cfg.buoyancy != 0.0 or cfg.gravity != 0.0
     fold_buoy = fold_buoyancy(cfg, use_kernels, advect_fn)
-    if has_force and not fold_buoy:
-        vel = buoyancy_force(vel, density, dt, cfg.buoyancy,
-                             cfg.ambient_density, cfg.gravity)
-    if cfg.vorticity_confinement != 0.0:
-        vel = vorticity_confinement_3d(vel, dt, cfg.vorticity_confinement)
-    if visc > 0.0:
-        vel = torch.stack([diffuse_3d(c + 1, vel[c], visc, dt, obst, cfg)
-                           for c in range(3)])
+    with span("phase.forces", device):
+        if has_force and not fold_buoy:
+            vel = buoyancy_force(vel, density, dt, cfg.buoyancy,
+                                 cfg.ambient_density, cfg.gravity)
+        if cfg.vorticity_confinement != 0.0:
+            vel = vorticity_confinement_3d(vel, dt, cfg.vorticity_confinement)
+        if visc > 0.0:
+            vel = torch.stack([diffuse_3d(c + 1, vel[c], visc, dt, obst, cfg)
+                               for c in range(3)])
     if cfg.double_project:
         solve = None
         if use_kernels:
@@ -225,7 +227,8 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
             def solve(p, div, iters, mask):
                 return kernels.jacobi(0, p, div, 1.0, 6.0, iters, obst=mask,
                                       resident=fits)
-        vel, _ = project_3d(vel, obst, cfg.jacobi_iters, jacobi_fn=solve)
+        with span("phase.project", device):
+            vel, _ = project_3d(vel, obst, cfg.jacobi_iters, jacobi_fn=solve)
     damp = sink_factor(dt, cfg.velocity_damping) if cfg.velocity_damping else 1.0
     ddamp = (sink_factor(dt, cfg.density_dissipation)
              if cfg.density_dissipation else 1.0)
@@ -261,55 +264,66 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
 
     fused = fuses_projection(cfg, use_kernels, resident, jacobi_fn, advect_fn)
     if fused:
-        # Density diffusion touches no velocity, so it runs before the fused
-        # kernel (as in the JAX package).
-        dens_in = (diffuse_3d(0, density, diff, dt, obst, cfg)
-                   if diff > 0.0 else density)
+        dens_in = density
+        if diff > 0.0:
+            # Density diffusion touches no velocity, so it runs before the
+            # fused kernel (as in the JAX package).
+            with span("phase.advect_density", device):
+                dens_in = diffuse_3d(0, density, diff, dt, obst, cfg)
     if fused and cfg.fuse_self_advect and obst is None:
-        vel, pressure, density = kernels.full_step(
-            vel, dens_in, cfg.jacobi_iters, dt, window=win,
-            n_sub=cfg.advect_substeps, solve_dtype=cfg.solve_dtype, damp=damp,
-            dens_damp=ddamp, sweep_block=cfg.jacobi_sweep_block,
-        )
+        with span("phase.project", device):
+            vel, pressure, density = kernels.full_step(
+                vel, dens_in, cfg.jacobi_iters, dt, window=win,
+                n_sub=cfg.advect_substeps, solve_dtype=cfg.solve_dtype, damp=damp,
+                dens_damp=ddamp, sweep_block=cfg.jacobi_sweep_block,
+            )
     else:
         buoy = ((density, cfg.buoyancy, cfg.ambient_density, cfg.gravity)
                 if fold_buoy else None)
-        vel = advect((1, 2, 3), vel, vel, buoy)
-        if fused:
-            vel, pressure, density = kernels.project_advect(
-                vel, dens_in, cfg.jacobi_iters, dt, window=win, obst=obst,
-                n_sub=cfg.advect_substeps, src=src,
-                solve_dtype=cfg.solve_dtype, damp=damp, dens_damp=ddamp,
-                sweep_block=cfg.jacobi_sweep_block,
-            )
-        elif jacobi_fn is not None:
-            vel, pressure = project_3d(vel, obst, cfg.jacobi_iters, jacobi_fn=jacobi_fn)
-        elif cfg.pressure_solver == "fft":
-            if cfg.enable_obstacle:
-                raise ValueError("pressure_solver='fft' requires no obstacles")
-            vel, pressure = project_3d_fft(vel)
-        elif use_kernels:
-            vel, pressure = kernels.project(vel, cfg.jacobi_iters, obst=obst,
-                                            solve_dtype=cfg.solve_dtype,
-                                            resident=resident,
-                                            sweep_block=cfg.jacobi_sweep_block)
-        else:
-            vel, pressure = project_3d(vel, obst, cfg.jacobi_iters)
+        with span("phase.advect_velocity", device):
+            vel = advect((1, 2, 3), vel, vel, buoy)
+        with span("phase.project", device):
+            if fused:
+                vel, pressure, density = kernels.project_advect(
+                    vel, dens_in, cfg.jacobi_iters, dt, window=win, obst=obst,
+                    n_sub=cfg.advect_substeps, src=src,
+                    solve_dtype=cfg.solve_dtype, damp=damp, dens_damp=ddamp,
+                    sweep_block=cfg.jacobi_sweep_block,
+                )
+            elif jacobi_fn is not None:
+                vel, pressure = project_3d(vel, obst, cfg.jacobi_iters,
+                                           jacobi_fn=jacobi_fn)
+            elif cfg.pressure_solver == "fft":
+                if cfg.enable_obstacle:
+                    raise ValueError("pressure_solver='fft' requires no obstacles")
+                vel, pressure = project_3d_fft(vel)
+            elif use_kernels:
+                vel, pressure = kernels.project(vel, cfg.jacobi_iters, obst=obst,
+                                                solve_dtype=cfg.solve_dtype,
+                                                resident=resident,
+                                                sweep_block=cfg.jacobi_sweep_block)
+            else:
+                vel, pressure = project_3d(vel, obst, cfg.jacobi_iters)
 
     if not fused:
         if cfg.velocity_damping != 0.0:
-            vel = scale_in(vel, damp)
-        if diff > 0.0:
-            density = diffuse_3d(0, density, diff, dt, obst, cfg)
-        density = advect((0,), density[None], vel)[0]
+            with span("phase.sinks", device):
+                vel = scale_in(vel, damp)
+        with span("phase.advect_density", device):
+            if diff > 0.0:
+                density = diffuse_3d(0, density, diff, dt, obst, cfg)
+            density = advect((0,), density[None], vel)[0]
         if cfg.density_dissipation != 0.0:
-            density = scale_in(density, ddamp)
+            with span("phase.sinks", device):
+                density = scale_in(density, ddamp)
 
     if cfg.apply_turbulent_noise:
-        vel = apply_turbulent_noise_3d(vel)
+        with span("phase.forces", device):
+            vel = apply_turbulent_noise_3d(vel)
     if cfg.enable_obstacle:
-        vel = enforce_obstacle_boundaries_3d(vel, state.obstacles,
-                                             cfg.cell_size, cfg.viscosity)
+        with span("phase.obstacles", device):
+            vel = enforce_obstacle_boundaries_3d(vel, state.obstacles,
+                                                 cfg.cell_size, cfg.viscosity)
 
     return state.replace(
         density=density,

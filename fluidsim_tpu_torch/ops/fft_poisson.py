@@ -30,6 +30,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
+
 
 def _mirror(f, parities):
     """Extend to 2N per axis: ``[f, ±reverse(f)]`` with the given parity
@@ -220,6 +222,7 @@ def project_3d_fft_shards(vels, order=None):
         return order.each(gradient)
 
 
+@spanned("halo.exchange")
 def _z_halos(xs, order, sign: float):
     """Each shard's ``(lz, N, N)`` slab of ``xs`` between the last plane of
     the shard below and the first of the shard above, past a global wall
@@ -236,6 +239,7 @@ def _z_halos(xs, order, sign: float):
     return out
 
 
+@spanned("halo.exchange")
 def _all_to_all(order, blocks, axis: int):
     """``blocks[s][r]`` is shard s's block for shard r: each shard r gets
     ``blocks[·][r]`` joined along ``axis`` in rank order, in a buffer of its

@@ -54,6 +54,7 @@ import torch
 from ..kernels.halo import _mirror_ext, _nonborder_solid, ext_halo, rank_walls, slab_faces
 from ..models.step_kernels import HAND_KERNELS, StepKernels
 from ..ops.advect import advect_substep_3d, window_sum_3d
+from ..utils.profiling import span, spanned
 from .sharding import Mesh
 from .streams import order_for, order_of
 
@@ -62,6 +63,7 @@ from .streams import order_for, order_of
 gathered_ops: collections.Counter = collections.Counter()
 
 
+@spanned("halo.exchange")
 def halo_exchange_z(x_locals: Sequence[torch.Tensor], depth: int = 1,
                     axis: int = 0) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """``(below, above)`` for each shard of ``x_locals`` (the shards' local
@@ -99,6 +101,7 @@ def halo_exchange_z(x_locals: Sequence[torch.Tensor], depth: int = 1,
     return out
 
 
+@spanned("halo.exchange")
 def neighbour_planes(xs: Sequence[torch.Tensor], in_place: bool = True) -> List[Tuple]:
     """The one-plane halos of the shards' ``(lz, N, N)`` slabs ``xs`` that
     K7e reads: ``(below, above)`` for each shard, the last plane of the
@@ -142,6 +145,7 @@ def _join(xs: Sequence[torch.Tensor], device, axis: int = 0) -> torch.Tensor:
     return torch.cat([x.to(device) for x in xs], dim=axis)
 
 
+@spanned("halo.exchange")
 def extend(xs: Sequence[torch.Tensor], depth: int, axis: int = 0) -> List[torch.Tensor]:
     """Each shard's slab of ``xs`` between ``depth`` planes of the shards
     below and above it along ``axis`` (from as many shards as ``depth``
@@ -172,6 +176,7 @@ def extend(xs: Sequence[torch.Tensor], depth: int, axis: int = 0) -> List[torch.
     return out
 
 
+@spanned("halo.exchange")
 def exchange(xs: Sequence[torch.Tensor], depth: int = 1, axis: int = 0,
              backend: str = "pallas", kernels: StepKernels = HAND_KERNELS) -> List[torch.Tensor]:
     """The halo exchange of the sharded step's stencils outside the solve,
@@ -345,18 +350,19 @@ def _jacobi_rounds(order, xs, x0s, a, c, iters, b, T, masks, use_kernel, kernels
             # Only the 2T halo planes are refreshed, each on its shard's
             # stream after the neighbours' rounds; the refresh reads the
             # neighbours' valid planes, which no shard's refresh writes.
-            marks = order.marks()
-            for r, e in enumerate(exts):
-                with order.on(r):
-                    order.wait(r, marks, r - 1, r + 1)
-                    if r > 0:
-                        e[:T].copy_(order.fetch(exts[r - 1][lz:lz + T], r))
-                    else:
-                        e[:T].zero_()
-                    if r < k - 1:
-                        e[T + lz:].copy_(order.fetch(exts[r + 1][T:2 * T], r))
-                    else:
-                        e[T + lz:].zero_()
+            with span("halo.exchange"):
+                marks = order.marks()
+                for r, e in enumerate(exts):
+                    with order.on(r):
+                        order.wait(r, marks, r - 1, r + 1)
+                        if r > 0:
+                            e[:T].copy_(order.fetch(exts[r - 1][lz:lz + T], r))
+                        else:
+                            e[:T].zero_()
+                        if r < k - 1:
+                            e[T + lz:].copy_(order.fetch(exts[r + 1][T:2 * T], r))
+                        else:
+                            e[T + lz:].zero_()
     return [e[T:T + lz] for e in exts]
 
 
@@ -393,7 +399,10 @@ def _jacobi_rdma(order, xs, x0s, a, c, iters, b, T, masks, kernels):
             arrays.append(masks[r][None])
         return arrays
 
-    exts = kernels.halo_exchange_rdma(order.each(prime), T)
+    arrays = order.each(prime)
+    with span("halo.exchange"):
+        exts = kernels.halo_exchange_rdma(arrays, T)
+    del arrays  # the faces' copies: freed before the rounds
     xps = [e[0][0] for e in exts]
     x0_exts = [e[1][0] for e in exts]
     obst_exts = None if masks is None else [e[2][0] for e in exts]
@@ -423,6 +432,7 @@ def advect_multi_3d_sharded(bs, fields, vel, dt: float, mesh: Mesh, axis_name: s
                                masks, kernels), fields.device, 1)
 
 
+@spanned("halo.exchange")
 def _advection_slabs(fields, vel, masks, h: int, transport: str, kernels: StepKernels):
     """Each shard's ``h``-plane extended fields, velocity and mask (None
     for each without ``masks``) for one advection: one K13 call

@@ -69,6 +69,7 @@ from ..ops.forces import (
 )
 from ..ops.linsolve import diffusion_coefficients
 from ..scene.sources import apply_custom_source
+from ..utils.profiling import span
 from .halo import (
     advect_maccormack_shards,
     advect_shards,
@@ -109,6 +110,8 @@ class ShardStep:
         # extended slab.
         self.walls = [rank_walls(r, self.k, 0, self.lz) for r in range(self.k)]
         self.ext_walls = [rank_walls(r, self.k, 1, self.lz) for r in range(self.k)]
+        # The cards whose memory a phase's span reads at its end.
+        self.cards = tuple(dict.fromkeys(d for d in mesh.devices if d.type == "cuda"))
 
     def _exchange(self, xs, depth, axis):
         return exchange(xs, depth, axis, self.exchange_backend, self.kernels)
@@ -211,7 +214,7 @@ class ShardStep:
     # -- the step ------------------------------------------------------------
 
     def __call__(self, state):
-        with self.order.scope():
+        with span("shard.step"), self.order.scope():
             return self._step(state)
 
     def _step(self, state):
@@ -223,46 +226,57 @@ class ShardStep:
         vel = [s.velocity for s in slabs]
         masks = [s.obstacles for s in slabs] if cfg.enable_obstacle else None
         each = self.order.each
+        cards = self.cards
 
         if self.with_source and cfg.enable_custom_source:
-            pairs = each(lambda r: apply_custom_source(dens[r], vel[r], cfg, slabs[r].time + dt,
-                                                       z0=z0s[r]))
-            dens, vel = [p[0] for p in pairs], [p[1] for p in pairs]
-        if cfg.buoyancy != 0.0 or cfg.gravity != 0.0:
-            vel = each(lambda r: buoyancy_force(vel[r], dens[r], dt, cfg.buoyancy,
-                                                cfg.ambient_density, cfg.gravity))
-        if cfg.vorticity_confinement != 0.0:
-            vel = self.vorticity(vel, z0s, dt)
-        if visc > 0.0:
-            comps = [self.diffuse(c + 1, [v[c] for v in vel], visc, dt, masks)
-                     for c in range(3)]
-            vel = each(lambda r: torch.stack([comps[c][r] for c in range(3)]))
+            with span("phase.source", cards):
+                pairs = each(lambda r: apply_custom_source(dens[r], vel[r], cfg,
+                                                           slabs[r].time + dt, z0=z0s[r]))
+                dens, vel = [p[0] for p in pairs], [p[1] for p in pairs]
+        with span("phase.forces", cards):
+            if cfg.buoyancy != 0.0 or cfg.gravity != 0.0:
+                vel = each(lambda r: buoyancy_force(vel[r], dens[r], dt, cfg.buoyancy,
+                                                    cfg.ambient_density, cfg.gravity))
+            if cfg.vorticity_confinement != 0.0:
+                vel = self.vorticity(vel, z0s, dt)
+            if visc > 0.0:
+                comps = [self.diffuse(c + 1, [v[c] for v in vel], visc, dt, masks)
+                         for c in range(3)]
+                vel = each(lambda r: torch.stack([comps[c][r] for c in range(3)]))
         if cfg.double_project:
-            vel, _ = self.project(vel, masks, pre=True)
+            with span("phase.project", cards):
+                vel, _ = self.project(vel, masks, pre=True)
 
-        vel = self.advect((1, 2, 3), vel, vel, dt, masks)
-        if cfg.pressure_solver == "fft":
-            if cfg.enable_obstacle:
-                raise ValueError("pressure_solver='fft' requires no obstacles")
-            vel, pressure = self.project_fft(vel)
-        else:
-            vel, pressure = self.project(vel, masks)
+        with span("phase.advect_velocity", cards):
+            vel = self.advect((1, 2, 3), vel, vel, dt, masks)
+        with span("phase.project", cards):
+            if cfg.pressure_solver == "fft":
+                if cfg.enable_obstacle:
+                    raise ValueError("pressure_solver='fft' requires no obstacles")
+                vel, pressure = self.project_fft(vel)
+            else:
+                vel, pressure = self.project(vel, masks)
 
         if cfg.velocity_damping != 0.0:
-            damp = sink_factor(dt, cfg.velocity_damping)
-            vel = each(lambda r: scale_in(vel[r], damp))
-        if diff > 0.0:
-            dens = self.diffuse(0, dens, diff, dt, masks)
-        dens = [d[0] for d in self.advect((0,), [d[None] for d in dens], vel, dt, masks)]
+            with span("phase.sinks", cards):
+                damp = sink_factor(dt, cfg.velocity_damping)
+                vel = each(lambda r: scale_in(vel[r], damp))
+        with span("phase.advect_density", cards):
+            if diff > 0.0:
+                dens = self.diffuse(0, dens, diff, dt, masks)
+            dens = [d[0] for d in self.advect((0,), [d[None] for d in dens], vel, dt, masks)]
         if cfg.density_dissipation != 0.0:
-            ddamp = sink_factor(dt, cfg.density_dissipation)
-            dens = each(lambda r: scale_in(dens[r], ddamp))
+            with span("phase.sinks", cards):
+                ddamp = sink_factor(dt, cfg.density_dissipation)
+                dens = each(lambda r: scale_in(dens[r], ddamp))
 
         if cfg.apply_turbulent_noise:
-            vel = each(lambda r: apply_turbulent_noise_3d(vel[r], z0=z0s[r], n=self.n))
+            with span("phase.forces", cards):
+                vel = each(lambda r: apply_turbulent_noise_3d(vel[r], z0=z0s[r], n=self.n))
         if cfg.enable_obstacle:
-            vel = each(lambda r: enforce_obstacle_boundaries_slab(
-                vel[r], masks[r], cfg.cell_size, cfg.viscosity, z0s[r], self.n))
+            with span("phase.obstacles", cards):
+                vel = each(lambda r: enforce_obstacle_boundaries_slab(
+                    vel[r], masks[r], cfg.cell_size, cfg.viscosity, z0s[r], self.n))
 
         return state.replace(slabs=tuple(each(lambda r: slabs[r].replace(
             density=dens[r], velocity=vel[r], pressure=pressure[r], step=slabs[r].step + 1,

@@ -47,6 +47,8 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.profiling import span
+
 
 class Mark(NamedTuple):
     """Shard ``shard``'s stream after its first ``ops`` ops: the CUDA event
@@ -121,25 +123,28 @@ class ShardOrder:
 
     def marks(self) -> Tuple[Mark, ...]:
         """A mark of every shard covering all its ops so far."""
-        for s, mark in enumerate(self._marks):
-            if mark.ops != self._ops[s]:
-                self._marks[s] = self._record(s)
-        return tuple(self._marks)
+        with span("order.sync"):
+            for s, mark in enumerate(self._marks):
+                if mark.ops != self._ops[s]:
+                    self._marks[s] = self._record(s)
+            return tuple(self._marks)
 
     def wait(self, r: int, marks: Sequence[Mark], *shards: int) -> None:
         """Shard ``r``'s stream waits on the marks of ``shards`` (its own,
         ranks past the mesh's ends, and a mark it already waited on are
         skipped)."""
-        for s in shards:
-            if s != r and 0 <= s < len(marks) and self._waited.get((r, s)) is not marks[s]:
-                self._wait(r, marks[s])
-                self._waited[(r, s)] = marks[s]
+        with span("order.sync"):
+            for s in shards:
+                if s != r and 0 <= s < len(marks) and self._waited.get((r, s)) is not marks[s]:
+                    self._wait(r, marks[s])
+                    self._waited[(r, s)] = marks[s]
 
     def hold(self, x: Optional[torch.Tensor], r: int) -> None:
         """Keep ``x``'s memory from reuse until shard ``r``'s stream has passed
         this point (``Tensor.record_stream``)."""
         if x is not None and self.cuda:
-            x.record_stream(self.streams[r])
+            with span("order.sync"):
+                x.record_stream(self.streams[r])
 
     def fetch(self, x: torch.Tensor, r: int) -> torch.Tensor:
         """``x`` on shard ``r``'s device, for ``r``'s op (inside ``on(r)``, after
@@ -147,6 +152,10 @@ class ShardOrder:
         itself where the devices agree, else a contiguous copy made on
         ``r``'s stream (its rows: every index of its first axis holds
         contiguous elements)."""
+        with span("order.sync"):
+            return self._fetch(x, r)
+
+    def _fetch(self, x: torch.Tensor, r: int) -> torch.Tensor:
         dev = self.devices[r]
         self.hold(x, r)
         if x.device == dev:
@@ -185,19 +194,21 @@ class ShardOrder:
             return
         self._depth = 1
         if self.cuda:
-            for d, stream in zip(self.devices, self.streams):
-                stream.wait_stream(torch.cuda.current_stream(d))
+            with span("order.sync"):
+                for d, stream in zip(self.devices, self.streams):
+                    stream.wait_stream(torch.cuda.current_stream(d))
         try:
             yield self
         finally:
             self._depth = 0
-            marks = self.marks()
-            if self.cuda:
-                for d in dict.fromkeys(self.devices):
-                    caller = torch.cuda.current_stream(d)
-                    for mark in marks:
-                        if mark.event is not None:
-                            caller.wait_event(mark.event)
+            with span("order.sync"):
+                marks = self.marks()
+                if self.cuda:
+                    for d in dict.fromkeys(self.devices):
+                        caller = torch.cuda.current_stream(d)
+                        for mark in marks:
+                            if mark.event is not None:
+                                caller.wait_event(mark.event)
 
 
 _orders: Dict[Tuple[torch.device, ...], ShardOrder] = {}

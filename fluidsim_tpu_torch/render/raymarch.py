@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from ..config import SimConfig
+from ..utils.profiling import spanned
 
 
 def raymarch_density(density: torch.Tensor, obstacles=None, *, axis: int = 0,
@@ -45,6 +46,7 @@ def raymarch_density(density: torch.Tensor, obstacles=None, *, axis: int = 0,
     return acc + torch.exp(cum[-1])[..., None] * bg
 
 
+@spanned("render.frame")
 def render_frame_3d(state, cfg: SimConfig, *, axis: int = 0,
                     absorption: Optional[float] = None) -> torch.Tensor:
     """Render one frame of a 3D state. Returns (N, N, 3)."""

@@ -9,6 +9,7 @@ at ``advect_window`` 4 resumed from its checkpoint, bitwise a continuous
 run; ``render`` (3D, and 2D with streamlines, ``--html``); and the refusal
 to step without a card unless ``--device cpu`` is given."""
 
+import collections
 import json
 import sqlite3
 
@@ -77,6 +78,19 @@ def test_bench_engine_on_the_cpu(capsys):
                  "--substeps", "1"]) == 0
     res = last_json(capsys)
     assert res["grid"] == [32, 32, 32] and res["count"] == 2 and res["p50_ms"] > 0
+
+
+def test_bench_profile_writes_the_programs_spans(capsys, tmp_path):
+    """``bench --profile DIR`` writes a Chrome trace in which the program's
+    spans (``tracing()`` is on inside it) sit beside the operations."""
+    out = tmp_path / "prof"
+    assert main(["bench", "--device", "cpu", "--preset", "smoke32", "--steps", "2",
+                 "--substeps", "1", "--profile", str(out)]) == 0
+    assert last_json(capsys)["profile"] == str(out)
+    events = json.loads((out / "trace.json").read_text())["traceEvents"]
+    names = collections.Counter(e.get("name") for e in events)
+    assert names["engine.step"] == 2
+    assert names["phase.project"] == 2 and names["engine.source"] == 2
 
 
 def test_save_config_like_jax(tmp_path, capsys):

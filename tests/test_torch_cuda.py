@@ -7,8 +7,9 @@ counted by sum), the
 sharded step's kernels (K10, K11, and the "rdma" backend's K12 and K13)
 and its paths, the mesh's streams (8 shards on 8 streams of one card
 bitwise the unsharded step, with a shard held back, and a test that sees a
-missing wait) and cards (2 and 4 where visible), and the plain ops that
-divide on the card against the CPU.
+missing wait) and cards (2 and 4 where visible), the plain ops that
+divide on the card against the CPU, and the program's ``kernel.*`` spans
+against the launch counters.
 
 Every test here needs a CUDA device and skips without one.  The module
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -2512,3 +2513,69 @@ def mock_order(order):
         yield
     finally:
         pstreams.order_of = saved
+
+
+# -- the program's kernel spans against the launch counters ------------------------
+
+# The launch counters behind each ``kernel.*`` span.
+SPAN_COUNTERS = {
+    "K1": (advect_multi_3d_kernel,), "K2": (project_advect_density_3d,),
+    "K3": (project_3d_resident,), "K4": (jacobi_3d_resident,), "K6": (jacobi_3d_kernel,),
+    "K7": (divergence_3d_kernel, gradient_3d_kernel),
+    "K7e": (divergence_ext_kernel, gradient_ext_kernel), "K8": (full_step_3d,),
+    "K9": (lin_solve_2d_resident,), "K10": (jacobi_ext_kernel,), "K11": (advect_ext_kernel,),
+    "K12": (jacobi_ext_rdma,), "K13": (halo_exchange_rdma,),
+}
+
+
+def span_path(path, device, monkeypatch):
+    """A step of ``path`` as a function, and the kernels it must launch."""
+    if path in ("mesh rdma", "mesh pallas"):
+        cfg = preset_sharded_512().replace(size=128)
+        mesh = make_mesh([device] * 8)
+        step = sharded_step_fn(cfg, mesh, halo="explicit", halo_block_iters=4,
+                               halo_backend=path.split()[1])
+        state = [shard_state(zeros_state(cfg, device), mesh)]
+
+        def run():
+            state[0] = step(state[0])
+
+        want = {"K7e", "K11"} | ({"K12", "K13"} if path == "mesh rdma" else {"K10"})
+        return run, want
+    if path == "slab":
+        monkeypatch.setattr(kproject, "resident_fits", lambda *a: False)
+    cfg, want = {
+        "bench128": (CFG, {"K1", "K2"}),
+        "fused": (CFG.replace(fuse_project_advect=True, fuse_self_advect=True), {"K8"}),
+        "vortex128": (preset_vortex_128(), {"K1", "K3"}),
+        "slab": (preset_sharded_512().replace(size=64), {"K1", "K6", "K7"}),
+        "double_project": (preset_plume_64().replace(double_project=True), {"K1", "K4"}),
+        "scene_a": (preset_scene_a().replace(resolution_multiplier=1.0), {"K9"}),
+    }[path]
+    eng = Engine(cfg, device)
+    return (lambda: eng.step(2, substeps_per_dispatch=2)), want
+
+
+@pytest.mark.parametrize("path", ["bench128", "fused", "vortex128", "slab", "double_project",
+                                  "scene_a", "mesh rdma", "mesh pallas"])
+def test_each_kernel_span_opens_once_a_counted_launch(cuda, monkeypatch, path):
+    """Under ``tracing()`` every ``kernel.K*`` span opens once for each launch
+    its wrappers' counters count (K12 and K13 once a shard), on each path;
+    the model step's phases read the allocator's memory."""
+    from fluidsim_tpu_torch.utils.profiling import tracing
+
+    run, want = span_path(path, cuda, monkeypatch)
+    run()
+    torch.cuda.synchronize()
+    before = {k: sum(fn.launches for fn in fns) for k, fns in SPAN_COUNTERS.items()}
+    with tracing() as rec:
+        run()
+    torch.cuda.synchronize()
+    added = {k: sum(fn.launches for fn in fns) - before[k] for k, fns in SPAN_COUNTERS.items()}
+    spans = collections.Counter(s.name.split(".", 1)[1] for s in rec.spans
+                                if s.name.startswith("kernel."))
+    assert {k: spans.get(k, 0) for k in added} == added
+    assert set(spans) <= set(SPAN_COUNTERS)
+    assert want <= {k for k, v in added.items() if v}, added
+    if path != "scene_a":
+        assert rec.peak is not None and rec.peak[1].startswith("phase.")
